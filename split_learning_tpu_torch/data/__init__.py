@@ -1,0 +1,6 @@
+from split_learning_tpu_torch.data.datasets import (
+    Dataset, DatasetStore, LocalStore, Split, batches, epoch_steps,
+    load_dataset, load_mnist_idx, synthetic)
+
+__all__ = ["Dataset", "DatasetStore", "LocalStore", "Split", "batches",
+           "epoch_steps", "load_dataset", "load_mnist_idx", "synthetic"]
