@@ -26,26 +26,47 @@ Params = Dict[str, torch.Tensor]
 _TRUNC_STD = 0.87962566103423978
 
 
-def flax_like_init(module: nn.Module, generator: torch.Generator) -> Params:
-    """Fresh float32 parameters with flax's default distributions.
+def _draw(module: nn.Module, name: str, shape, generator: torch.Generator
+          ) -> torch.Tensor:
+    """One leaf of ``module`` (parameter ``name``) with flax's default."""
+    t = torch.empty(shape, dtype=torch.float32)
+    if isinstance(module, nn.LayerNorm):
+        return t.fill_(1.0 if name == "weight" else 0.0)
+    if isinstance(module, nn.Embedding):
+        # default_embed_init: variance_scaling(1, "fan_in", "normal",
+        # out_axis=0), whose fan_in for a [vocab, dim] table is dim
+        return t.normal_(0.0, math.sqrt(1.0 / shape[1]), generator=generator)
+    if name == "bias":
+        return t.zero_()
+    if isinstance(module, (nn.Linear, nn.Conv2d)):
+        fan_in = math.prod(shape[1:])
+        std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+        return nn.init.trunc_normal_(t, mean=0.0, std=std, a=-2.0 * std,
+                                     b=2.0 * std, generator=generator)
+    # a raw parameter (the transformer's positional table):
+    # initializers.normal(0.02)
+    return t.normal_(0.0, 0.02, generator=generator)
 
-    Weights: lecun_normal (truncated normal, variance 1 / fan_in, where
-    fan_in is the weight's size over its output dimension). Biases:
-    zeros. Drawn on the CPU from ``generator`` in ``named_parameters``
-    order. The bits cannot match JAX's PRNG; parity tests carry JAX
-    parameters across instead (:mod:`split_learning_tpu_torch.interop`).
+
+def flax_like_init(module: nn.Module, generator: torch.Generator) -> Params:
+    """Fresh parameters with flax's default distributions.
+
+    Dense and conv weights: lecun_normal (truncated normal, variance
+    1 / fan_in, where fan_in is the weight's size over its output
+    dimension); biases zero. LayerNorm: scale 1, bias 0. Embedding
+    tables: normal with variance 1 / dim. A raw parameter (the
+    transformer's ``pos`` table): normal(0.02). Drawn on the CPU from
+    ``generator`` in ``named_parameters`` order, in float32, then cast to
+    the parameter's own dtype (float32 but for ``pos`` in a bf16 plan,
+    which flax creates in the plan dtype). The bits cannot match JAX's
+    PRNG; parity tests carry JAX parameters across instead
+    (:mod:`split_learning_tpu_torch.interop`).
     """
     params: Params = {}
-    for name, p in module.named_parameters():
-        t = torch.empty(p.shape, dtype=torch.float32)
-        if name.endswith("bias"):
-            t.zero_()
-        else:
-            fan_in = math.prod(p.shape[1:])
-            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-            nn.init.trunc_normal_(t, mean=0.0, std=std, a=-2.0 * std,
-                                  b=2.0 * std, generator=generator)
-        params[name] = t
+    for prefix, mod in module.named_modules():
+        for name, p in mod.named_parameters(recurse=False):
+            key = f"{prefix}.{name}" if prefix else name
+            params[key] = _draw(mod, name, p.shape, generator).to(p.dtype)
     return params
 
 
@@ -62,8 +83,12 @@ class Stage:
         return {k: v.to(sample.device)
                 for k, v in flax_like_init(self.module, generator).items()}
 
-    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        return torch.func.functional_call(self.module, params, (x,))
+    def apply(self, params: Params, x: torch.Tensor, **kw):
+        """Run the module with ``params``. Keyword arguments pass through
+        to its ``forward``, as ``from_flax`` passes them to
+        ``module.apply``: the transformer stages take their KV-cache
+        modes this way (``cache_len=``/``decode_cache=``/``pos=``)."""
+        return torch.func.functional_call(self.module, params, (x,), kw)
 
 
 def stage_backward(stage: Stage, params: Params, x: torch.Tensor,

@@ -1,6 +1,7 @@
 from split_learning_tpu_torch.data.datasets import (
     Dataset, DatasetStore, LocalStore, Split, batches, epoch_steps,
-    load_dataset, load_mnist_idx, synthetic)
+    load_dataset, load_mnist_idx, synthetic, synthetic_lm, synthetic_tokens)
 
 __all__ = ["Dataset", "DatasetStore", "LocalStore", "Split", "batches",
-           "epoch_steps", "load_dataset", "load_mnist_idx", "synthetic"]
+           "epoch_steps", "load_dataset", "load_mnist_idx", "synthetic",
+           "synthetic_lm", "synthetic_tokens"]

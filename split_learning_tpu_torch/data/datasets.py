@@ -3,14 +3,16 @@
 A numpy copy of the parts the fused trainer uses, so that the port never
 imports the JAX package: the :class:`Split`/:class:`Dataset` records,
 the cache store protocol with its local backend, the MNIST IDX readers,
-the seeded synthetic generator, the cache-first :func:`load_dataset`,
-and the seeded batcher. The same seeds give the same bytes as the JAX
+the seeded synthetic generators (images, class-conditional tokens and
+the causal-LM Markov chains), the cache-first :func:`load_dataset`, and
+the seeded batcher. The same seeds give the same bytes as the JAX
 package, and the cache keys are the same, so both packages share a
-cache directory. Arrays are NHWC float32, normalised like the reference.
+cache directory. Images are NHWC float32, normalised like the reference;
+token inputs are ``[N, T] int32``.
 
 Not ported yet: the S3 store, the downloader and device prefetch
-(ROADMAP item 13), and the CIFAR-10 and token datasets, which serve the
-other model families (ROADMAP item 20).
+(ROADMAP item 13), and CIFAR-10, which serves the ResNet and ViT
+families (ROADMAP item 20).
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ MNIST_MEAN, MNIST_STD = 0.1307, 0.3081
 
 @dataclasses.dataclass
 class Split:
-    x: np.ndarray  # [N, H, W, C] float32, normalized
-    y: np.ndarray  # [N] int64
+    x: np.ndarray  # [N, H, W, C] float32, normalized; or [N, T] int32 ids
+    y: np.ndarray  # [N] int64; [N, T] for the causal LM
 
     def __len__(self) -> int:
         return len(self.y)
@@ -185,25 +187,88 @@ def synthetic(name: str, n_train: int = 4096, n_test: int = 512,
                    name=name, num_classes=num_classes, synthetic=True)
 
 
+def _categorical_rows(rs: np.random.RandomState, rows: int, cols: int,
+                      sharpness: float) -> np.ndarray:
+    """[rows, cols] row-stochastic matrix from sharpened random logits."""
+    logits = sharpness * rs.randn(rows, cols)
+    probs = np.exp(logits - logits.max(axis=1, keepdims=True))
+    return probs / probs.sum(axis=1, keepdims=True)
+
+
+_TOKEN_SEQ_LEN = 64   # the token generators' default sequence length
+
+
+def synthetic_tokens(name: str = "tokens", n_train: int = 4096,
+                     n_test: int = 512, num_classes: int = 10,
+                     vocab: int = 256, seq_len: int = _TOKEN_SEQ_LEN,
+                     seed: int = 0) -> Dataset:
+    """Class-conditional token sequences for the transformer classifier:
+    class k draws its tokens from a k-specific categorical distribution.
+    ``x`` is ``[N, T] int32``, ``y`` ``[N] int64``."""
+    rs = np.random.RandomState(seed)
+    probs = _categorical_rows(rs, num_classes, vocab, sharpness=2.0)
+
+    def make(n: int, rs: np.random.RandomState) -> Split:
+        y = rs.randint(0, num_classes, (n,)).astype(np.int64)
+        x = np.stack([rs.choice(vocab, size=seq_len, p=probs[k])
+                      for k in y]).astype(np.int32)
+        return Split(x, y)
+
+    return Dataset(train=make(n_train, rs), test=make(n_test, rs),
+                   name=name, num_classes=num_classes, synthetic=True)
+
+
+def synthetic_lm(name: str = "lm", n_train: int = 4096, n_test: int = 512,
+                 vocab: int = 256, seq_len: int = _TOKEN_SEQ_LEN,
+                 seed: int = 0) -> Dataset:
+    """First-order Markov chains for the causal LM: a fixed random
+    transition matrix generates sequences and ``y`` is ``x`` shifted by
+    one. ``x`` is ``[N, T] int32``, ``y`` ``[N, T] int64``."""
+    rs = np.random.RandomState(seed)
+    cdf = np.cumsum(_categorical_rows(rs, vocab, vocab, sharpness=4.0),
+                    axis=1)
+
+    def make(n: int, rs: np.random.RandomState) -> Split:
+        chain = np.zeros((n, seq_len + 1), np.int64)
+        chain[:, 0] = rs.randint(0, vocab, n)
+        for t in range(1, seq_len + 1):
+            u = rs.rand(n, 1)
+            chain[:, t] = np.argmax(cdf[chain[:, t - 1]] > u, axis=1)
+        return Split(chain[:, :seq_len].astype(np.int32), chain[:, 1:])
+
+    return Dataset(train=make(n_train, rs), test=make(n_test, rs),
+                   name=name, num_classes=vocab, synthetic=True)
+
+
 # --------------------------------------------------------------------- #
 # the cache-first load path
 
 def load_dataset(name: str, data_dir: str,
                  store: Optional[DatasetStore] = None,
-                 allow_synthetic: bool = True) -> Dataset:
+                 allow_synthetic: bool = True,
+                 seq_len: Optional[int] = None) -> Dataset:
     """Probe the store; on a hit fetch the prepared blob; on a miss build
     from raw files (or synthesize) and put the blob for next time.
-    Real and synthetic data use distinct cache keys."""
-    if name in ("cifar10", "tokens", "lm"):
+    Real and synthetic data use distinct cache keys, and so does a token
+    dataset at a ``seq_len`` other than the default 64."""
+    if seq_len is not None and name not in ("tokens", "lm"):
+        raise ValueError(
+            f"seq_len applies to the token datasets only (got {name!r})")
+    if seq_len is not None and seq_len <= 0:
+        raise ValueError(f"seq_len must be positive (got {seq_len})")
+    if name == "cifar10":
         raise NotImplementedError(
-            f"dataset {name!r} serves model families the port has not "
+            "dataset 'cifar10' serves model families the port has not "
             "reached yet (ROADMAP item 20)")
-    if name not in ("mnist", "synthetic"):
+    if name not in ("mnist", "synthetic", "tokens", "lm"):
         raise ValueError(f"Unknown dataset: {name!r}")
+    if seq_len == _TOKEN_SEQ_LEN:
+        seq_len = None   # the default length is the bare dataset
     if store is None:
         store = LocalStore(os.path.join(data_dir, "cache"))
-    real_key = f"datasets/{name}.npz"
-    synth_key = f"datasets/{name}-synthetic.npz"
+    tkey = "" if seq_len is None else f"-t{seq_len}"
+    real_key = f"datasets/{name}{tkey}.npz"
+    synth_key = f"datasets/{name}-synthetic{tkey}.npz"
 
     if store.exists(real_key):
         return _from_blob(name, store.fetch(real_key))
@@ -217,7 +282,13 @@ def load_dataset(name: str, data_dir: str,
             "fallback disabled")
     if store.exists(synth_key):
         return _from_blob(name, store.fetch(synth_key))
-    ds = synthetic("mnist")
+    tkw = {} if seq_len is None else {"seq_len": seq_len}
+    if name == "tokens":
+        ds = synthetic_tokens(**tkw)
+    elif name == "lm":
+        ds = synthetic_lm(**tkw)
+    else:
+        ds = synthetic("mnist")
     store.put(synth_key, _to_blob(ds))
     return ds
 

@@ -1,19 +1,27 @@
 """Parameter interop between the JAX package's flax trees and the port.
 
 A JAX plan's parameters are one flax tree per stage,
-``{"params": {layer: {"kernel": ..., "bias": ...}}}``, NHWC-minded: conv
-kernels HWIO, dense kernels ``[in, out]``. The port keeps one
-``{name: tensor}`` dict per stage with PyTorch's layouts: conv weights
-OIHW, linear weights ``[out, in]``. The mapping:
+``{"params": {...}}``, nested by module path (``block0/mha/q/kernel``,
+``trunk/block1/ln2/scale``, ``head/lm_head/kernel``; the CNN's
+``conv1/kernel``), NHWC-minded: conv kernels HWIO, dense kernels
+``[in, out]``. The port keeps one ``{name: tensor}`` dict per stage
+whose names are the same paths joined by dots, with PyTorch's layouts.
+The mapping of the leaf:
 
-- conv kernel HWIO -> ``<layer>.weight`` OIHW (``transpose(3, 2, 0, 1)``);
-- dense kernel -> ``<layer>.weight``, transposed;
-- bias -> ``<layer>.bias`` as is.
+- conv ``kernel`` HWIO -> ``weight`` OIHW (``transpose(3, 2, 0, 1)``);
+- dense ``kernel`` ``[in, out]`` -> ``weight`` ``[out, in]``;
+- ``bias`` -> ``bias`` as is;
+- LayerNorm ``scale`` -> ``weight`` as is;
+- ``embedding`` ``[vocab, dim]`` -> ``weight`` as is, not transposed (the
+  layers named in :data:`models.transformer.EMBED_LAYERS`);
+- the transformer's raw ``pos`` table stays ``pos``.
 
-The CNN's stage B flattens in NHWC order in both packages, so the dense
-kernel needs no row remap. Both directions only transpose, so a round
-trip is bit-exact. This covers every CNN plan (split, u_split, chain3).
-Arrays cross as numpy, so neither side imports the other framework.
+Both directions only transpose, so a round trip is bit-exact. Arrays
+cross as numpy, so neither side imports the other framework. Each leaf
+keeps its dtype on the port's side; a bfloat16 leaf (``pos`` in a bf16
+tree) reaches numpy as an ``ml_dtypes`` array, which the port does not
+import, so it is read as float32 (exact) and cast back to
+``torch.bfloat16``, and it goes back to JAX as float32.
 """
 
 from __future__ import annotations
@@ -24,6 +32,9 @@ import numpy as np
 import torch
 
 from split_learning_tpu_torch.core.stage import Params
+from split_learning_tpu_torch.models.transformer import EMBED_LAYERS
+
+_RAW_LEAVES = ("pos",)
 
 
 def _kernel_to_weight(k: np.ndarray) -> np.ndarray:
@@ -42,36 +53,66 @@ def _weight_to_kernel(w: np.ndarray) -> np.ndarray:
     raise ValueError(f"unsupported weight rank {w.ndim}")
 
 
+def _leaf_to_torch(value: Any, transform=None) -> torch.Tensor:
+    arr = np.asarray(value)
+    bf16 = arr.dtype.name == "bfloat16"
+    arr = arr.astype(np.float32)   # a copy: the tensor owns its memory
+    if transform is not None:
+        arr = transform(arr)
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    return t.to(torch.bfloat16) if bf16 else t
+
+
+def _walk(tree: Mapping[str, Any], prefix: Tuple[str, ...], out: Params
+          ) -> None:
+    for key, value in tree.items():
+        path = prefix + (key,)
+        if isinstance(value, Mapping):
+            _walk(value, path, out)
+            continue
+        name = ".".join(prefix)
+        if key == "kernel":
+            out[f"{name}.weight"] = _leaf_to_torch(value, _kernel_to_weight)
+        elif key in ("bias", "scale", "embedding"):
+            kind = "bias" if key == "bias" else "weight"
+            out[f"{name}.{kind}"] = _leaf_to_torch(value)
+        elif key in _RAW_LEAVES:
+            out[".".join(path)] = _leaf_to_torch(value)
+        else:
+            raise ValueError(f"unexpected flax leaf {'/'.join(path)}")
+
+
 def stage_from_jax(tree: Mapping[str, Any]) -> Params:
     """One stage's flax tree -> the port's ``{name: tensor}`` dict."""
     out: Params = {}
-    for layer, leaves in tree["params"].items():
-        for leaf, value in leaves.items():
-            arr = np.asarray(value, dtype=np.float32)
-            if leaf == "kernel":
-                out[f"{layer}.weight"] = torch.from_numpy(
-                    np.ascontiguousarray(_kernel_to_weight(arr)))
-            elif leaf == "bias":
-                out[f"{layer}.bias"] = torch.from_numpy(arr.copy())
-            else:
-                raise ValueError(f"unexpected flax leaf {layer}/{leaf}")
+    _walk(tree["params"], (), out)
     return out
 
 
-def stage_to_jax(params: Params) -> Dict[str, Dict[str, Dict[str, np.ndarray]]]:
-    """One stage's ``{name: tensor}`` dict -> a flax tree of numpy arrays."""
-    layers: Dict[str, Dict[str, np.ndarray]] = {}
+def stage_to_jax(params: Params) -> Dict[str, Dict[str, Any]]:
+    """One stage's ``{name: tensor}`` dict -> a flax tree of numpy arrays
+    (bfloat16 leaves as float32)."""
+    root: Dict[str, Any] = {}
     for name, t in params.items():
-        layer, _, kind = name.rpartition(".")
-        arr = t.detach().cpu().numpy()
-        if kind == "weight":
-            layers.setdefault(layer, {})["kernel"] = np.ascontiguousarray(
-                _weight_to_kernel(arr))
-        elif kind == "bias":
-            layers.setdefault(layer, {})["bias"] = arr.copy()
-        else:
+        *path, kind = name.split(".")
+        arr = t.detach().cpu()
+        arr = (arr.float() if arr.dtype == torch.bfloat16 else arr
+               ).numpy().copy()
+        if kind in ("bias",) + _RAW_LEAVES:
+            leaf = kind
+        elif kind != "weight":
             raise ValueError(f"unexpected parameter name {name!r}")
-    return {"params": layers}
+        elif arr.ndim == 1:
+            leaf = "scale"
+        elif arr.ndim == 2 and path and path[-1] in EMBED_LAYERS:
+            leaf = "embedding"
+        else:
+            leaf, arr = "kernel", np.ascontiguousarray(_weight_to_kernel(arr))
+        node = root
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+    return {"params": root}
 
 
 def params_from_jax(flax_params: Sequence[Mapping[str, Any]]

@@ -38,7 +38,8 @@ def _config_from_args(args):
 def cmd_train(args) -> int:
     from split_learning_tpu_torch.data import batches, load_dataset
     from split_learning_tpu_torch.models import get_plan
-    from split_learning_tpu_torch.runtime.fused import FusedSplitTrainer
+    from split_learning_tpu_torch.runtime.fused import (
+        FusedSplitTrainer, check_supported)
     from split_learning_tpu_torch.tracking import make_logger
     from split_learning_tpu_torch.utils.device import resolve_device
 
@@ -46,6 +47,7 @@ def cmd_train(args) -> int:
     try:
         cfg = _config_from_args(args)
         plan = get_plan(model=cfg.model, mode=cfg.mode, dtype=cfg.dtype)
+        check_supported(cfg)
     except (ValueError, NotImplementedError) as e:
         print(f"[error] {e}", file=sys.stderr)
         return 2
@@ -54,13 +56,9 @@ def cmd_train(args) -> int:
         print(f"[data] using synthetic {ds.name} "
               f"({len(ds.train)} train examples)", file=sys.stderr)
     sample = ds.train.x[:cfg.batch_size]
-    try:
-        trainer = FusedSplitTrainer(
-            plan, cfg, torch.Generator().manual_seed(cfg.seed), sample,
-            device=args.device)
-    except NotImplementedError as e:
-        print(f"[error] {e}", file=sys.stderr)
-        return 2
+    trainer = FusedSplitTrainer(
+        plan, cfg, torch.Generator().manual_seed(cfg.seed), sample,
+        device=args.device)
     logger = make_logger(cfg)
 
     budget = {"n": args.steps if args.steps else None, "epoch": 0}
@@ -112,8 +110,9 @@ def main(argv: Optional[list] = None) -> int:
     pt.add_argument("--mode", choices=["split", "federated", "u_split"],
                     default=None)
     pt.add_argument("--model", default=None,
-                    help="split_cnn | split_cnn_chain3 (other families "
-                         "are not ported yet)")
+                    help="split_cnn | split_cnn_chain3 (the transformer "
+                         "families serve but do not train yet; the others "
+                         "are not ported)")
     pt.add_argument("--dataset", default=None, help="mnist | synthetic")
     pt.add_argument("--data-dir", dest="data_dir", default=None)
     pt.add_argument("--batch-size", dest="batch_size", type=int,

@@ -2,7 +2,8 @@ from split_learning_tpu_torch.models.cnn import (
     CNNHeadC, CNNPartA, CNNPartB, CNNTrunkB, chain3_cnn_plan, split_cnn_plan,
     u_split_cnn_plan)
 from split_learning_tpu_torch.models.factory import get_model, get_plan
+from split_learning_tpu_torch.models.transformer import transformer_plan
 
 __all__ = ["CNNHeadC", "CNNPartA", "CNNPartB", "CNNTrunkB",
            "chain3_cnn_plan", "get_model", "get_plan", "split_cnn_plan",
-           "u_split_cnn_plan"]
+           "transformer_plan", "u_split_cnn_plan"]

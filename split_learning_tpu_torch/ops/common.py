@@ -4,6 +4,8 @@ Counterpart of ``split_learning_tpu/ops/common.py``. The TPU tile
 constants and the interpret-mode switch have no use here; in their
 place:
 
+- :data:`NEG_BIG`, the additive-mask value of the softmax-family
+  kernels, copied from the JAX package.
 - :data:`LAUNCHES`, the launch-count registry. Each kernel wrapper adds
   one to its name where it launches its kernel, and nowhere else, so a
   run can show that its main path went through the kernels.
@@ -32,9 +34,15 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 
+# additive-mask value for softmax-family kernels: large enough to zero out
+# after exp, small enough that (x - NEG_BIG) never overflows; masked entries
+# must still be re-zeroed after any exp rebase
+NEG_BIG = -1e30
+
 # sm_90a: Hopper with its architecture-specific instructions. --fmad=false
 # keeps a*b+c as two roundings, so the SGD kernel is bit-identical to its
-# plain PyTorch version (which rounds lr*g before the subtraction).
+# plain PyTorch version (which rounds lr*g before the subtraction); the
+# flash-attention kernel writes its multiply-adds as explicit fmaf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 

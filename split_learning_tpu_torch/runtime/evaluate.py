@@ -2,19 +2,22 @@
 
 Accuracy and mean CE of a plan's full composition, with the JAX
 package's accounting: fixed order, the partial tail batch kept, every
-label element counted once, perplexity exp(mean CE) nulled on overflow.
-Runs on the device the parameters lie on, with plain PyTorch ops.
+label element counted once (B for classifiers, B*T for the causal LM),
+perplexity exp(mean CE) nulled on overflow. Runs on the device the
+parameters lie on; the plan's own kernels (flash attention) run there
+too. Floating inputs are cast to float32; integer token ids pass as
+they are, as JAX's ``evaluate`` passes ``x``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from split_learning_tpu_torch.core.losses import cross_entropy
-from split_learning_tpu_torch.core.stage import Params, SplitPlan
+from split_learning_tpu_torch.core.stage import Params, SplitPlan, Stage
 from split_learning_tpu_torch.data.datasets import Split, batches
 
 
@@ -50,10 +53,36 @@ def evaluate(plan: SplitPlan, params: Sequence[Params], split: Split,
 
     @torch.no_grad()
     def score(x, y):
-        x = torch.as_tensor(x).to(device, torch.float32)
+        x = torch.as_tensor(x).to(device)
+        if x.is_floating_point():
+            x = x.float()
         y = torch.as_tensor(y).to(device, torch.int64)
         logits = plan.apply(params, x)
         return (cross_entropy(logits, y).item(),
                 (logits.argmax(dim=-1) == y).sum().item())
 
     return _accumulate_metrics(split, batch_size, score)
+
+
+def split_client_stages(plan: SplitPlan, client_params: Sequence[Params]
+                        ) -> Tuple[List[Stage], List[Params], List[Stage],
+                                   List[Params]]:
+    """Partition the client-owned stages (and their params) around the
+    server stage: ``(pre_stages, pre_params, post_stages, post_params)``,
+    the ownership rule that split-party evaluation and decoding share.
+    Raises ``ValueError`` on a params/ownership mismatch or a plan with
+    no server stage."""
+    client_idx = plan.stages_of("client")
+    if len(client_params) != len(client_idx):
+        raise ValueError(
+            f"expected params for {len(client_idx)} client-owned stages, "
+            f"got {len(client_params)}")
+    server_idx = plan.stages_of("server")
+    if not server_idx:
+        raise ValueError("plan has no server-owned stage to call remotely")
+    first_server = min(server_idx)
+    client_params = list(client_params)
+    pre_stages = [plan.stages[i] for i in client_idx if i < first_server]
+    post_stages = [plan.stages[i] for i in client_idx if i > first_server]
+    return (pre_stages, client_params[:len(pre_stages)],
+            post_stages, client_params[len(pre_stages):])

@@ -34,6 +34,11 @@ from split_learning_tpu_torch.utils.device import DeviceLike, resolve_device
 def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for every value the port cannot run."""
     unsupported = [
+        (cfg.model in ("transformer", "transformer_lm"),
+         f"training model {cfg.model!r} (the flash-attention backward K6 "
+         "and transformer training come in the next slice, ROADMAP §2 K6; "
+         "the port serves these plans: runtime/generate.py, "
+         "runtime/evaluate.py)"),
         (cfg.transport != "fused",
          f"transport {cfg.transport!r} (the two-party path is ROADMAP "
          "items 8-12)"),
