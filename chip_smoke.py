@@ -46,12 +46,39 @@ beside this script. Phases, any failure ending the run with a traceback:
 8. times at the prefill shape (B 8, T 1024, H 2, D 128, causal, bf16 and
    float32): kernel, plain, ``F.scaled_dot_product_attention`` and the
    bound; prefill ms, KV-decode and re-forward tokens/s, and a
-   ``torch.profiler`` window over one KV generate.
+   ``torch.profiler`` window over one KV generate;
+9. the flash-attention backward (K6: its delta, dK/dV and dQ launches)
+   against its plain version over T in {1, 63, 64, 65, 1000, 1024}, D
+   in {16, 64, 128, 256}, B*H in {1, 16}, non-causal, causal and
+   causal+strict, float32 and bfloat16, without and with an LSE
+   cotangent, plus strided views: every gradient within ``FA_BWD_TOL``
+   of the largest plain entry (float32 2e-5: the tile loop's summation
+   order against one dense sum per product; bf16 8e-3: two bf16 ulps,
+   both sides rounding float32 sums), strict row 0 dQ = 0; autograd
+   through ``flash_attention_with_lse`` against autograd of dense
+   attention, and two runs giving bit-identical dQ, dK, dV;
+10. the training path at full width: ``FusedSplitTrainer`` on ``cuda``
+   with the split causal LM (float32, d_model 256, 2 heads, vocab 256,
+   depths 1 + 2, max_len 2048, attn="flash"), ``synthetic_lm`` at
+   seq_len 1024, batch 64, 30 steps of SGD at lr 0.1, momentum 0.9.
+   Launch counts reset before and read after: per step exactly 3 K5
+   and 3 of each K6 launch, one K1 pair and ceil(54 leaves / 24) = 3 K2
+   launches. The loss must fall; a float32 CPU twin on the first 2 rows
+   of the first 3 batches agrees with the card on the same rows within
+   ``TWIN_TOL``; the CLI trains ``transformer_lm`` (flash) for 5 steps
+   at a small size, and the classifier ``transformer`` at T 256, batch
+   64, for 5 steps at full width, each with exact launch counts;
+11. times at the training shape (B 64, T 1024, H 2, D 128, causal,
+   float32 and bf16): each K6 launch, the whole backward, its plain
+   version and the backward of ``F.scaled_dot_product_attention``
+   (``torch.autograd.grad`` on a retained graph), beside the bound; the
+   step's median ms over steps 6-30, tokens/s, and a
+   ``torch.profiler`` window of 10 steps.
 
 Output, last lines: one JSON object with a record per kernel, one JSON
 object with the main path's step time, one with the serving path's
-times, the ``nvidia-smi`` name and power limit, and
-``{"ok": true, "device": {...}}``.
+times, one with the LM training path's, the ``nvidia-smi`` name and
+power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -93,6 +120,14 @@ LM = dict(model="transformer_lm", mode="split", vocab=256, d_model=256,
           attn="flash")
 SERVE_B, SERVE_P, SERVE_NEW, REFWD_NEW, TWIN_B, TWIN_NEW = 8, 1024, 256, 16, 2, 32
 N_BLOCKS = LM["client_depth"] + LM["server_depth"]
+# flash backward grid (T, B*H and masks as the forward's) and tolerance,
+# times the largest entry of the plain version's gradient (at least 1)
+FA_BWD_D = (16, 64, 128, 256)
+FA_BWD_TOL = {"float32": 2e-5, "bfloat16": 8e-3}
+# the training path: the serving LM's widths in float32
+TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR, TRAIN_MU = 64, 1024, 30, 0.1, 0.9
+LM_LEAVES, SGD_TABLE = 54, 24
+TWIN_ROWS, TWIN_STEPS, TWIN_TOL = 2, 3, 1e-4
 
 
 def check(cond: bool, what: str) -> None:
@@ -201,7 +236,11 @@ def main() -> int:
     from split_learning_tpu_torch.ops.sgd import (
         NAME as SGD, sgd_step_cuda, sgd_step_plain)
     from split_learning_tpu_torch.ops.flash_attention import (
-        NAME as FA, flash_attention_with_lse_plain, flash_fwd_cuda)
+        BWD_DELTA, BWD_DKV, BWD_DQ, BWD_NAMES, NAME as FA,
+        flash_attention_bwd_plain, flash_attention_with_lse,
+        flash_attention_with_lse_plain, flash_bwd_cuda, flash_bwd_delta_cuda,
+        flash_bwd_delta_plain, flash_bwd_dkv_cuda, flash_bwd_dkv_plain,
+        flash_bwd_dq_cuda, flash_bwd_dq_plain, flash_fwd_cuda)
     from split_learning_tpu_torch.runtime import (
         FusedSplitTrainer, evaluate, greedy_generate, sample_generate)
     from split_learning_tpu_torch.utils import (
@@ -257,23 +296,31 @@ def main() -> int:
           f"{ce_err[BWD]:.3g})", flush=True)
 
     # ---- 3. SGD kernel vs plain ------------------------------------- #
-    for mu in (0.0, 0.9):
-        p_k = [torch.randn(s, device=dev, generator=gen)
-               for s in CNN_LEAF_SHAPES]
-        p_p = [t.clone() for t in p_k]
-        m_k = [torch.zeros_like(t) for t in p_k] if mu else None
-        m_p = [torch.zeros_like(t) for t in p_k] if mu else None
-        for _ in range(5):
-            grads = [torch.randn(s, device=dev, generator=gen)
-                     for s in CNN_LEAF_SHAPES]
-            sgd_step_cuda(p_k, grads, m_k, LR, mu)
-            torch.cuda.synchronize()
-            sgd_step_plain(p_p, grads, m_p, LR, mu)
-        for a, b in zip(p_k + (m_k or []), p_p + (m_p or [])):
-            check(torch.equal(a, b), f"SGD mu={mu}: not bit-identical "
-                  f"(max abs {(a - b).abs().max().item()})")
-    print("[k2] SGD bit-identical to its plain version (mu 0 and 0.9, "
-          "5 steps, 6 CNN leaves)", flush=True)
+    lm_shapes = [tuple(t.shape) for st in get_plan(dtype="float32", **LM).init(
+        torch.Generator().manual_seed(0), torch.zeros(1)) for t in st.values()]
+    check(len(lm_shapes) == LM_LEAVES, f"LM leaves: {len(lm_shapes)}")
+    for shapes in (CNN_LEAF_SHAPES, lm_shapes):
+        for mu in (0.0, 0.9):
+            p_k = [torch.randn(s, device=dev, generator=gen) for s in shapes]
+            p_p = [t.clone() for t in p_k]
+            m_k = [torch.zeros_like(t) for t in p_k] if mu else None
+            m_p = [torch.zeros_like(t) for t in p_k] if mu else None
+            for _ in range(5):
+                grads = [torch.randn(s, device=dev, generator=gen)
+                         for s in shapes]
+                LAUNCHES.reset()
+                sgd_step_cuda(p_k, grads, m_k, LR, mu)
+                torch.cuda.synchronize()
+                check(LAUNCHES.snapshot().get(SGD) == math.ceil(
+                    len(shapes) / SGD_TABLE), f"SGD launches for "
+                    f"{len(shapes)} leaves: {LAUNCHES.snapshot()}")
+                sgd_step_plain(p_p, grads, m_p, LR, mu)
+            for a, b in zip(p_k + (m_k or []), p_p + (m_p or [])):
+                check(torch.equal(a, b), f"SGD mu={mu}: not bit-identical "
+                      f"(max abs {(a - b).abs().max().item()})")
+    print(f"[k2] SGD bit-identical to its plain version (mu 0 and 0.9, "
+          f"5 steps; the CNN's 6 leaves in one launch, the LM's "
+          f"{LM_LEAVES} in {math.ceil(LM_LEAVES / SGD_TABLE)})", flush=True)
 
     # ---- 4. the main path ------------------------------------------- #
     ds = synthetic("mnist", n_train=BATCH * STEPS, n_test=512, seed=0)
@@ -608,9 +655,274 @@ def main() -> int:
             plan_lm, params_lm, prompt, SERVE_NEW, device="cuda"), 1,
             per="generate")))
 
+    # ---- 9. flash backward kernels vs plain ------------------------- #
+    bwd_err = {dt: {n: 0.0 for n in BWD_NAMES}
+               for dt in ("float32", "bfloat16")}
+    n_bwd = 0
+
+    def bwd_check(q, k, v, do, g_lse, causal, strict, what):
+        """Each K6 launch against its plain part, on the same inputs."""
+        name = str(q.dtype).replace("torch.", "")
+        tol = FA_BWD_TOL[name]
+        o, lse = flash_fwd_cuda(q, k, v, causal, strict)
+        delta = flash_bwd_delta_cuda(o, do, g_lse)
+        dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, strict)
+        dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, strict)
+        torch.cuda.synchronize()
+        parts = {
+            BWD_DELTA: ((delta,), (flash_bwd_delta_plain(o, do, g_lse),)),
+            BWD_DKV: ((dk, dv), flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                    causal, strict)),
+            BWD_DQ: ((dq,), (flash_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                causal, strict),))}
+        for launch, (got, want) in parts.items():
+            for a, b in zip(got, want):
+                err = (a.float() - b.float()).abs().max().item()
+                scale = max(1.0, b.float().abs().max().item())
+                check(a.dtype == b.dtype and err <= tol * scale,
+                      f"{launch} {what} {name}: err {err} (scale {scale})")
+                bwd_err[name][launch] = max(bwd_err[name][launch], err)
+        # the composite launcher is the kernels above, in order
+        whole = flash_bwd_cuda(q, k, v, o, lse, do, g_lse, causal, strict)
+        check(all(torch.equal(a, b) for a, b in zip(whole, (dq, dk, dv))),
+              f"flash_bwd_cuda {what} {name}: differs from its launches")
+        if strict:
+            check(bool((dq[:, 0] == 0).all()),
+                  f"K6 {what} {name}: strict row 0 has dq != 0")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for t in FA_T:
+            for d in FA_BWD_D:
+                for b, h in FA_BH:
+                    q, k, v, do = (torch.randn(b, t, h, d, device=dev,
+                                               generator=gen).to(dtype)
+                                   for _ in range(4))
+                    g_lse = torch.randn(b, t, h, device=dev, generator=gen)
+                    for causal, strict in FA_MASKS:
+                        for gl in (None, g_lse):
+                            bwd_check(q, k, v, do, gl, causal, strict,
+                                      f"B{b} T{t} H{h} D{d} causal={causal} "
+                                      f"strict={strict} g_lse={gl is not None}")
+                            n_bwd += 1
+        # q, k, v and dO as strided views of one packed tensor
+        packed = torch.randn(2, 100, 4, 3, 40, device=dev,
+                             generator=gen).to(dtype)
+        bwd_check(*packed.unbind(2), None, True, False, "strided views")
+        n_bwd += 1
+
+    # autograd through the kernels against autograd of dense attention
+    aq, ak, av, aw = (torch.randn(2, 300, 2, 128, device=dev, generator=gen)
+                      for _ in range(4))
+    aw_lse = torch.randn(2, 300, 2, device=dev, generator=gen)
+
+    def dense_with_lse(q, k, v):
+        s_ = torch.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[3] ** -0.5
+        keep = torch.ones(s_.shape[-1], s_.shape[-1], dtype=torch.bool,
+                          device=dev).tril()
+        s_ = s_.masked_fill(~keep, NEG_BIG)
+        o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s_, dim=-1), v)
+        return o, torch.logsumexp(s_, dim=-1).permute(0, 2, 1)
+
+    def attn_grads(fn):
+        leaves = [x.clone().requires_grad_(True) for x in (aq, ak, av)]
+        o, lse = fn(*leaves)
+        return torch.autograd.grad((o * aw).sum() + (lse * aw_lse).sum(),
+                                   leaves)
+
+    LAUNCHES.reset()
+    g_flash = attn_grads(lambda *a: flash_attention_with_lse(*a, causal=True))
+    torch.cuda.synchronize()
+    check(LAUNCHES.snapshot() == {FA: 1, **{n: 1 for n in BWD_NAMES}},
+          f"autograd launches {LAUNCHES.snapshot()}")
+    g_dense = attn_grads(dense_with_lse)
+    autograd_err = max((a - b).abs().max().item() / max(
+        1.0, b.abs().max().item()) for a, b in zip(g_flash, g_dense))
+    check(autograd_err <= FA_BWD_TOL["float32"],
+          f"autograd through flash vs dense: rel err {autograd_err}")
+    g_again = attn_grads(lambda *a: flash_attention_with_lse(*a,
+                                                             causal=True))
+    check(all(torch.equal(a, b) for a, b in zip(g_flash, g_again)),
+          "two runs of the flash backward differ")
+    print(f"[k6] flash backward matches its plain version on {n_bwd} cases "
+          f"(max abs err f32 {bwd_err['float32']}, bf16 "
+          f"{bwd_err['bfloat16']}); autograd vs dense rel err "
+          f"{autograd_err:.3g}; two runs bit-identical", flush=True)
+
+    # ---- 10. the training path at full width ------------------------ #
+    plan_tr = get_plan(dtype="float32", **LM)
+    lm_train = synthetic_lm(n_train=TRAIN_B * TRAIN_STEPS, n_test=TRAIN_B,
+                            vocab=LM["vocab"], seq_len=TRAIN_T, seed=0)
+    tr_data = list(batches(lm_train.train, TRAIN_B, seed=0,
+                           drop_remainder=True))
+    check(len(tr_data) == TRAIN_STEPS, "LM batch count")
+    cfg_tr = Config(transport="fused", model="transformer_lm", attn="flash",
+                    batch_size=TRAIN_B, lr=TRAIN_LR, momentum=TRAIN_MU)
+    trainer_lm = FusedSplitTrainer(plan_tr, cfg_tr,
+                                   torch.Generator().manual_seed(0),
+                                   tr_data[0][0], device="cuda")
+    tr_init = tuple({k: v.detach().cpu().clone() for k, v in st.items()}
+                    for st in trainer_lm.params)
+    check(sum(len(st) for st in tr_init) == LM_LEAVES, "LM leaf count")
+
+    LAUNCHES.reset()
+    tr_losses, tr_ms = [], []
+    for x, y in tr_data:
+        t = time.perf_counter()
+        tr_losses.append(trainer_lm.train_step(x, y))  # float(): syncs
+        tr_ms.append((time.perf_counter() - t) * 1e3)
+    tr_counts = LAUNCHES.snapshot()
+    want_counts = {FA: N_BLOCKS * TRAIN_STEPS,
+                   **{n: N_BLOCKS * TRAIN_STEPS for n in BWD_NAMES},
+                   FWD: TRAIN_STEPS, BWD: TRAIN_STEPS,
+                   SGD: math.ceil(LM_LEAVES / SGD_TABLE) * TRAIN_STEPS}
+    print(f"[train] {TRAIN_STEPS} steps, launches {tr_counts}, losses "
+          f"{tr_losses[0]:.4f} -> {tr_losses[-1]:.4f}", flush=True)
+    check(tr_counts == want_counts,
+          f"training launches {tr_counts}, want {want_counts}")
+    check(all(math.isfinite(v) for v in tr_losses), "finite LM losses")
+    check(statistics.mean(tr_losses[-5:]) < statistics.mean(tr_losses[:5]),
+          f"LM loss did not fall: {tr_losses}")
+    for st in trainer_lm.params:
+        for k, v in st.items():
+            check(bool(torch.isfinite(v).all()), f"finite LM param {k}")
+
+    cfg_twin = cfg_tr.replace(batch_size=TWIN_ROWS)
+    rows = [(x[:TWIN_ROWS], y[:TWIN_ROWS]) for x, y in tr_data[:TWIN_STEPS]]
+    twin_card = FusedSplitTrainer(plan_tr, cfg_twin, tr_init, rows[0][0],
+                                  device="cuda")
+    twin_cpu = FusedSplitTrainer(plan_tr, cfg_twin, tr_init, rows[0][0],
+                                 device="cpu")
+    card_rows = [twin_card.train_step(x, y) for x, y in rows]
+    cpu_rows = [twin_cpu.train_step(x, y) for x, y in rows]
+    twin_lm_diff = max(abs(a - b) for a, b in zip(card_rows, cpu_rows))
+    check(twin_lm_diff <= TWIN_TOL,
+          f"LM CPU twin: {cpu_rows} vs card {card_rows}")
+    print(f"[train] CPU twin on {TWIN_ROWS} rows x {TWIN_STEPS} steps agrees "
+          f"(max diff {twin_lm_diff:.3g})", flush=True)
+
+    cli_runs = {}
+    for model, dataset, size in (
+            ("transformer_lm", "lm", ["--seq-len", "128", "--d-model", "64",
+                                      "--batch-size", "8"]),
+            ("transformer", "tokens", ["--seq-len", "256", "--d-model",
+                                       str(LM["d_model"]), "--batch-size",
+                                       str(TRAIN_B)])):
+        LAUNCHES.reset()
+        rc = launch_run.main([
+            "train", "--model", model, "--dataset", dataset, "--attn",
+            "flash", "--num-heads", "2", "--steps", "5", "--lr", "0.1",
+            "--tracking", "noop", "--data-dir",
+            os.path.join(REPO, "build", "chip_smoke_data"), *size])
+        cli_runs[model] = LAUNCHES.snapshot()
+        check(rc == 0, f"launch.run.main {model} returned {rc}")
+        check(cli_runs[model] == {FA: 15, **{n: 15 for n in BWD_NAMES},
+                                  FWD: 5, BWD: 5, SGD: 15},
+              f"CLI {model} launches {cli_runs[model]}")
+    print(f"[train] CLI trained transformer_lm and transformer 5 steps each "
+          f"(launches {cli_runs})", flush=True)
+
+    # ---- 11. times ---------------------------------------------------- #
+    head_dim = LM["d_model"] // LM["num_heads"]
+    shape = (TRAIN_B, TRAIN_T, LM["num_heads"], head_dim)
+    n_rows, n_el = math.prod(shape[:3]), math.prod(shape)
+    bh = shape[0] * shape[2]
+    pairs = TRAIN_T * (TRAIN_T + 1) // 2 * bh   # live causal (row, col)
+    # products of T x T x D per kernel: dK/dV 4 (S, dP, dV, dK), dQ 3
+    # (S, dP, dQ); the least work for the whole backward is 5
+    work = {BWD_DELTA: 2 * n_el, BWD_DKV: 8 * pairs * head_dim,
+            BWD_DQ: 6 * pairs * head_dim, "whole": 10 * pairs * head_dim}
+    k6_rec = {n: {} for n in BWD_NAMES}
+    k6_whole = {}
+    for dtype, peak in ((torch.float32, fp32), (torch.bfloat16, bf16_peak)):
+        name = str(dtype).replace("torch.", "")
+        e = torch.tensor([], dtype=dtype).element_size()
+        q, k, v, do = (torch.randn(shape, device=dev, generator=gen).to(dtype)
+                       for _ in range(4))
+        o, lse = flash_fwd_cuda(q, k, v, True)
+        delta = flash_bwd_delta_cuda(o, do)
+        nbytes = {BWD_DELTA: 2 * n_el * e + 4 * n_rows,
+                  BWD_DKV: 6 * n_el * e + 8 * n_rows,
+                  BWD_DQ: 5 * n_el * e + 8 * n_rows,
+                  "whole": 8 * n_el * e + 4 * n_rows}
+        launch = {BWD_DELTA: lambda: flash_bwd_delta_cuda(o, do),
+                  BWD_DKV: lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                      True),
+                  BWD_DQ: lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                                    True)}
+        plain = {BWD_DELTA: lambda: flash_bwd_delta_plain(o, do),
+                 BWD_DKV: lambda: flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                      True),
+                 BWD_DQ: lambda: flash_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                    True)}
+        for n in BWD_NAMES:
+            b_ms, b_by = bound(nbytes[n], work[n], bw, peak)
+            k6_rec[n][name] = dict(
+                ms=device_ms(torch, launch[n], reps=20),
+                plain_ms=device_ms(torch, plain[n], reps=10),
+                bytes=nbytes[n], flops=work[n], bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=bwd_err[name][n])
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        do_t = do.transpose(1, 2)
+        b_ms, b_by = bound(nbytes["whole"], work["whole"], bw, peak)
+        k6_whole[name] = dict(
+            shape=list(shape), dtype=name, causal=True,
+            ms=device_ms(torch, lambda: flash_bwd_cuda(q, k, v, o, lse, do,
+                                                       None, True), reps=20),
+            plain_ms=device_ms(torch, lambda: flash_attention_bwd_plain(
+                q, k, v, o, lse, do, None, True), reps=10),
+            library_ms=device_ms(torch, lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), do_t, retain_graph=True), reps=20),
+            library_call="torch.autograd.grad of "
+                         "F.scaled_dot_product_attention(is_causal=True)",
+            bytes=nbytes["whole"], flops=work["whole"], bound_ms=b_ms,
+            bound_by=b_by)
+        del q, k, v, do, o, lse, delta, qt, kt, vt, lib_out, do_t
+    replaces = {BWD_DELTA: "split_learning_tpu/ops/flash_attention.py:693",
+                BWD_DKV: "split_learning_tpu/ops/flash_attention.py:542",
+                BWD_DQ: "split_learning_tpu/ops/flash_attention.py:503"}
+    for n in BWD_NAMES:
+        records.append(dict(
+            name=n, route="cuda",
+            source="split_learning_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces=replaces[n],
+            also_replaces="split_learning_tpu/ops/flash_attention.py:443",
+            jax_counterpart="split_learning_tpu/ops/flash_attention.py"
+                            ":_make_flash.vjp_bwd",
+            launches=tr_counts[n], launches_per_step=N_BLOCKS,
+            library_ms=None,
+            library_note="no one PyTorch call computes this launch alone; "
+                         "the whole backward's library time is in "
+                         "train_lm.k6",
+            shape=list(shape), dtype="float32", causal=True,
+            **k6_rec[n]["float32"], bfloat16=k6_rec[n]["bfloat16"]))
+    launch_of = {"fused_cross_entropy_fwd": FWD,
+                 "fused_cross_entropy_bwd": BWD, "fused_sgd_step": SGD}
+    for rec in records:
+        rec["launches_train_lm"] = tr_counts[launch_of.get(rec["name"],
+                                                           rec["name"])]
+
+    steady_tr = tr_ms[5:]
+    train_lm = dict(train_lm=dict(
+        model="transformer_lm", mode="split", dtype="float32",
+        d_model=LM["d_model"], num_heads=LM["num_heads"], vocab=LM["vocab"],
+        blocks=N_BLOCKS, attn="flash", batch=TRAIN_B, seq_len=TRAIN_T,
+        steps=TRAIN_STEPS, lr=TRAIN_LR, momentum=TRAIN_MU, device=kind,
+        step_ms_median=statistics.median(steady_tr),
+        step_ms_min=min(steady_tr), step_ms_max=max(steady_tr),
+        tokens_per_s=TRAIN_B * TRAIN_T / statistics.median(steady_tr) * 1e3,
+        step_ms_first=tr_ms[0], loss_first=tr_losses[0],
+        loss_last=tr_losses[-1], launches=tr_counts,
+        twin_rows=TWIN_ROWS, twin_steps=TWIN_STEPS,
+        twin_max_abs_diff=twin_lm_diff, cli_launches=cli_runs,
+        k6=k6_whole, k6_autograd_rel_err=autograd_err,
+        profile=profile_steps(torch, trainer_lm, tr_data[:10])))
+
     print(json.dumps({"kernels": records}))
     print(json.dumps(step))
     print(json.dumps(serving))
+    print(json.dumps(train_lm))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,11 +4,19 @@ The ``train`` subcommand on the fused transport, on the GPU by default:
 
   python -m split_learning_tpu_torch.launch.run train \
       --mode split --dataset synthetic --steps 20
+  python -m split_learning_tpu_torch.launch.run train \
+      --model transformer_lm --dataset lm --seq-len 256 --attn flash \
+      --d-model 256 --num-heads 2 --steps 20
 
 Config resolution is the JAX package's: CLI flags > environment
 (``LEARNING_MODE``, ``SLT_*``) > defaults. ``--device cpu`` is the only
 way onto the CPU, where the kernels' plain versions run. The JAX
 ``--kernels`` flag does not exist here: the device picks the kernel.
+The transformer families take the JAX size flags (``--d-model``,
+``--num-heads``, ``--client-depth``, ``--server-depth``), ``--seq-len``
+for the token datasets and ``--attn``, with the JAX command's checks:
+``transformer_lm`` needs ``--dataset lm``, ``transformer`` needs
+``--dataset tokens``, and an image model refuses token data (rc 2).
 The two-party transports, ``serve``, ``eval`` and checkpoints are not
 ported yet (ROADMAP.md).
 """
@@ -18,7 +26,7 @@ from __future__ import annotations
 import argparse
 import sys
 import time
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -28,11 +36,45 @@ def _config_from_args(args):
     overrides = {}
     for field in ("mode", "model", "dataset", "batch_size", "epochs", "lr",
                   "momentum", "microbatches", "seed", "data_dir",
-                  "tracking", "transport"):
+                  "tracking", "transport", "attn"):
         val = getattr(args, field, None)
         if val is not None:
             overrides[field] = val
     return Config.from_env(**overrides)
+
+
+_ATTENTION_FAMILIES = ("transformer", "transformer_lm")
+_TOKEN_SETS = ("tokens", "lm")
+
+
+def _pairing_error(cfg) -> Optional[str]:
+    """The JAX command's model/dataset pairing check: a mismatch would
+    surface deep in the loss as a shape error."""
+    if cfg.model == "transformer_lm" and cfg.dataset != "lm":
+        return (f"model 'transformer_lm' needs per-token targets: "
+                f"--dataset lm (got {cfg.dataset!r})")
+    if cfg.model == "transformer" and cfg.dataset != "tokens":
+        return (f"model 'transformer' (sequence classifier) needs "
+                f"--dataset tokens (got {cfg.dataset!r})")
+    if cfg.model not in _ATTENTION_FAMILIES and cfg.dataset in _TOKEN_SETS:
+        return (f"dataset {cfg.dataset!r} is token-shaped; model "
+                f"{cfg.model!r} consumes images (mnist | synthetic)")
+    return None
+
+
+def _plan_kw(args, cfg) -> Dict[str, Any]:
+    """Plan-builder kwargs from the size flags. As in JAX
+    (``_plan_size_kw``), ``max_len`` is derived: a ``--seq-len`` above
+    the 2048 default table extends it. ``attn`` goes to the attention
+    families only."""
+    kw = {name: getattr(args, name) for name in (
+        "d_model", "num_heads", "client_depth", "server_depth")
+        if getattr(args, name) is not None}
+    if cfg.model in _ATTENTION_FAMILIES:
+        kw["attn"] = cfg.attn
+        if args.seq_len and args.seq_len > 2048:
+            kw["max_len"] = args.seq_len
+    return kw
 
 
 def cmd_train(args) -> int:
@@ -46,12 +88,25 @@ def cmd_train(args) -> int:
     resolve_device(args.device)  # no GPU for "cuda": raise before any work
     try:
         cfg = _config_from_args(args)
-        plan = get_plan(model=cfg.model, mode=cfg.mode, dtype=cfg.dtype)
+        err = _pairing_error(cfg)
+        if err is None and args.seq_len is not None:
+            if args.seq_len <= 0:
+                err = f"--seq-len must be positive (got {args.seq_len})"
+            elif cfg.dataset not in _TOKEN_SETS:
+                err = (f"--seq-len applies to the token datasets (got "
+                       f"--dataset {cfg.dataset!r})")
+        if err is not None:
+            raise ValueError(err)
+        plan = get_plan(model=cfg.model, mode=cfg.mode, dtype=cfg.dtype,
+                        **_plan_kw(args, cfg))
         check_supported(cfg)
     except (ValueError, NotImplementedError) as e:
         print(f"[error] {e}", file=sys.stderr)
         return 2
-    ds = load_dataset(cfg.dataset, cfg.data_dir)
+    if cfg.model not in _ATTENTION_FAMILIES and cfg.attn != "full":
+        print(f"[warn] --attn {cfg.attn!r} ignored: model {cfg.model!r} has "
+              "no attention (transformer families only)", file=sys.stderr)
+    ds = load_dataset(cfg.dataset, cfg.data_dir, seq_len=args.seq_len)
     if ds.synthetic:
         print(f"[data] using synthetic {ds.name} "
               f"({len(ds.train)} train examples)", file=sys.stderr)
@@ -110,10 +165,11 @@ def main(argv: Optional[list] = None) -> int:
     pt.add_argument("--mode", choices=["split", "federated", "u_split"],
                     default=None)
     pt.add_argument("--model", default=None,
-                    help="split_cnn | split_cnn_chain3 (the transformer "
-                         "families serve but do not train yet; the others "
-                         "are not ported)")
-    pt.add_argument("--dataset", default=None, help="mnist | synthetic")
+                    help="split_cnn | split_cnn_chain3 | transformer | "
+                         "transformer_lm (the others are not ported)")
+    pt.add_argument("--dataset", default=None,
+                    help="mnist | synthetic | tokens (transformer) | lm "
+                         "(transformer_lm)")
     pt.add_argument("--data-dir", dest="data_dir", default=None)
     pt.add_argument("--batch-size", dest="batch_size", type=int,
                     default=None)
@@ -130,6 +186,23 @@ def main(argv: Optional[list] = None) -> int:
     pt.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda (default; raises without a GPU) or cpu "
                          "(the kernels' plain versions)")
+    # size overrides for the transformer families (the fixed reference
+    # CNN rejects them)
+    pt.add_argument("--d-model", dest="d_model", type=int, default=None)
+    pt.add_argument("--num-heads", dest="num_heads", type=int, default=None)
+    pt.add_argument("--client-depth", dest="client_depth", type=int,
+                    default=None, help="blocks in the client stage")
+    pt.add_argument("--server-depth", dest="server_depth", type=int,
+                    default=None, help="blocks in the server stage")
+    pt.add_argument("--seq-len", dest="seq_len", type=int, default=None,
+                    help="sequence length of the synthetic token/lm "
+                         "datasets (default 64; cached per length)")
+    pt.add_argument("--attn", choices=["full", "flash", "auto", "ring",
+                                       "ring_flash", "ulysses"],
+                    default=None,
+                    help="transformer attention: full (dense) or flash "
+                         "(the hand-written kernels on the card); auto "
+                         "and the sequence-parallel forms are not ported")
     pt.add_argument("--eval", action="store_true",
                     help="report test-split accuracy after training")
     pt.set_defaults(fn=cmd_train)

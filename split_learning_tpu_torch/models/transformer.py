@@ -28,7 +28,7 @@ Where flax and PyTorch defaults differ, the port follows flax:
   returns bf16; the raw ``pos`` table is itself created in bf16.
 
 Attention: ``"full"`` is the dense :func:`ops.ring_attention.full_attention`
-and ``"flash"`` the hand-written kernel K5
+and ``"flash"`` the hand-written kernels, K5 forward and K6 backward
 (:func:`ops.flash_attention.flash_attention`). ``"auto"`` waits for the
 crossover measured on the H100, and ``"ring"``, ``"ring_flash"`` and
 ``"ulysses"`` for context parallelism (ROADMAP item 21); they raise.

@@ -6,10 +6,11 @@ Counterpart of ``split_learning_tpu/ops/cross_entropy.py``
 kernels live in ``csrc/cross_entropy.cu``, whose header gives the design.
 
 :func:`fused_cross_entropy` is a drop-in for
-:func:`split_learning_tpu_torch.core.losses.cross_entropy` (mean over
-rows, integer labels). On a CUDA tensor it runs
-:class:`CrossEntropyFunction`, whose forward and backward each launch
-the kernels; on a CPU tensor it returns the plain ``cross_entropy``.
+:func:`split_learning_tpu_torch.core.losses.cross_entropy` (the class
+axis last, the mean over every label element, integer labels). On a
+CUDA tensor it runs :class:`CrossEntropyFunction` over the logits
+flattened to ``[N, C]`` rows, whose forward and backward each launch the
+kernels; on a CPU tensor it returns the plain ``cross_entropy``.
 The function's own forward and backward also accept CPU tensors, where
 they run :func:`ce_forward_plain` and :func:`ce_backward_plain`, the
 plain PyTorch versions of the kernels' math.
@@ -159,10 +160,17 @@ class CrossEntropyFunction(torch.autograd.Function):
 
 def fused_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                         ) -> torch.Tensor:
-    """Mean softmax CE with integer labels.
+    """Mean softmax CE with integer labels: logits ``[..., C]``, labels
+    ``[...]``, the mean over every label element, as optax's (the causal
+    LM's ``[B, T, V]`` logits average over all B*T tokens).
 
-    CUDA tensors go through the kernels (:class:`CrossEntropyFunction`);
-    CPU tensors through the plain :func:`core.losses.cross_entropy`."""
+    CUDA tensors go through the kernels (:class:`CrossEntropyFunction`)
+    with the leading axes flattened to rows; CPU tensors through the
+    plain :func:`core.losses.cross_entropy`."""
+    if logits.dim() < 1 or labels.shape != logits.shape[:-1]:
+        raise ValueError(f"expected logits [..., C] and labels [...]; got "
+                         f"{tuple(logits.shape)} and {tuple(labels.shape)}")
     if _on_cuda(logits):
-        return CrossEntropyFunction.apply(logits, labels)
+        return CrossEntropyFunction.apply(
+            logits.reshape(-1, logits.shape[-1]), labels.reshape(-1))
     return cross_entropy(logits, labels)

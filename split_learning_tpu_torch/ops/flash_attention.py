@@ -1,9 +1,13 @@
-"""Flash attention forward: the CUDA kernel and its wrappers.
+"""Flash attention: the CUDA kernels (forward K5, backward K6) and their
+wrappers.
 
 Counterpart of ``split_learning_tpu/ops/flash_attention.py``
 (``flash_attention`` and ``flash_attention_with_lse``, whose Pallas
-forward kernel is ``_fwd_kernel``). The kernel lives in
-``csrc/flash_attention.cu``, whose header gives the design.
+kernels are ``_fwd_kernel`` and, behind ``_make_flash``'s custom VJP,
+``_onepass_bwd_kernel`` or ``_dq_kernel`` + ``_dkv_kernel``). The
+kernels live in ``csrc/flash_attention.cu`` (forward) and
+``csrc/flash_attention_bwd.cu`` (backward), whose headers give the
+designs.
 
 Both public functions keep the JAX layout and signatures: q, k, v are
 ``[B, T, H, D]`` (float32 or bfloat16, 1 <= D <= 256); ``o`` comes back
@@ -12,19 +16,20 @@ float32. ``causal`` masks col > row; ``strict`` (with ``causal`` only)
 masks the diagonal too, so row 0 has no key: ``o = 0``,
 ``lse = NEG_BIG``.
 
-On a CUDA tensor they launch the kernel or raise; on a CPU tensor they
-run :func:`flash_attention_with_lse_plain`, a dense masked softmax in
-float32 that is also the card's yardstick of correctness. The kernel
-has no backward yet (K6): a CUDA input that requires grad while grad
-mode is on raises ``NotImplementedError``. The plain version is
-differentiable by autograd as it is.
+Both are differentiable in every output through
+:class:`FlashAttentionFunction`, which saves q, k, v, o and the LSE, as
+JAX's ``vjp_fwd`` does. On CUDA tensors its forward launches K5 and its
+backward K6, or they raise; on CPU tensors they run
+:func:`flash_attention_with_lse_plain` and
+:func:`flash_attention_bwd_plain`, dense float32 versions of the same
+math that are also the card's yardstick of correctness.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,18 +37,39 @@ from split_learning_tpu_torch.ops.common import (
     LAUNCHES, NEG_BIG, check_launch, current_stream_handle, load_kernels)
 
 NAME = "flash_attention_fwd"
+# the backward's three launches, in order (csrc/flash_attention_bwd.cu)
+BWD_DELTA = "flash_attention_bwd_delta"
+BWD_DKV = "flash_attention_bwd_dkv"
+BWD_DQ = "flash_attention_bwd_dq"
+BWD_NAMES = (BWD_DELTA, BWD_DKV, BWD_DQ)
 MAX_HEAD_DIM = 256
 _DTYPES = (torch.float32, torch.bfloat16)
 _p = ctypes.c_void_p
 _i = ctypes.c_int
+_f = ctypes.c_float
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = load_kernels()["flash_attention"]
     lib.slt_flash_fwd.argtypes = [_p, _p, _p, _p, _p, _i, _i, _i, _i,
-                                  ctypes.c_float, _p, _i, _i, _i, _p]
+                                  _f, _p, _i, _i, _i, _p]
     lib.slt_flash_fwd.restype = _i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = load_kernels()["flash_attention_bwd"]
+    lib.slt_flash_bwd_delta.argtypes = [_p, _p, _p, _p, _i, _i, _i, _i, _p,
+                                        _i, _p]
+    lib.slt_flash_bwd_dkv.argtypes = [_p, _p, _p, _p, _p, _p, _p, _p, _i,
+                                      _i, _i, _i, _f, _p, _i, _i, _i, _p]
+    lib.slt_flash_bwd_dq.argtypes = [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
+                                     _i, _f, _p, _i, _i, _i, _p]
+    for fn in (lib.slt_flash_bwd_delta, lib.slt_flash_bwd_dkv,
+               lib.slt_flash_bwd_dq):
+        fn.restype = _i
     return lib
 
 
@@ -67,6 +93,16 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # --------------------------------------------------------------------- #
 # plain version (the kernel's math in PyTorch; CPU path and yardstick)
 
+def _live(t: int, causal: bool, strict: bool,
+          device: torch.device) -> torch.Tensor:
+    """``[T, T]`` mask of the (query row, key col) pairs that attend."""
+    rows = torch.arange(t, device=device)[:, None]
+    cols = torch.arange(t, device=device)[None, :]
+    if not causal:
+        return torch.ones(t, t, dtype=torch.bool, device=device)
+    return rows > cols if strict else rows >= cols
+
+
 def flash_attention_with_lse_plain(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor, causal: bool = False,
                                    strict: bool = False
@@ -74,11 +110,7 @@ def flash_attention_with_lse_plain(q: torch.Tensor, k: torch.Tensor,
     """Dense masked softmax attention in float32: ``(o, lse)``."""
     t, d = q.shape[1], q.shape[3]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * d ** -0.5
-    rows = torch.arange(t, device=q.device)[:, None]
-    cols = torch.arange(t, device=q.device)[None, :]
-    ok = torch.ones(t, t, dtype=torch.bool, device=q.device)
-    if causal:
-        ok = rows > cols if strict else rows >= cols
+    ok = _live(t, causal, strict, q.device)
     s = s.masked_fill(~ok, NEG_BIG)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(ok, torch.exp(s - m), 0.0)
@@ -97,33 +129,108 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention_with_lse_plain(q, k, v, causal)[0]
 
 
+def flash_bwd_delta_plain(o: torch.Tensor, do: torch.Tensor,
+                          g_lse: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """``delta = rowsum(dO * O) - g_lse``, ``[B, T, H]`` float32, as the
+    delta kernel; ``g_lse`` None is zero."""
+    delta = (do.float() * o.float()).sum(dim=-1)
+    return delta if g_lse is None else delta - g_lse.float()
+
+
+def _probs_and_dscores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       do: torch.Tensor, lse: torch.Tensor,
+                       delta: torch.Tensor, causal: bool, strict: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """P (recomputed from the LSE) and dS = P (dP - delta), both
+    ``[B, H, T, T]`` float32; masked entries are 0 after the exp."""
+    t, d = q.shape[1], q.shape[3]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * d ** -0.5
+    ok = _live(t, causal, strict, q.device)
+    row = lambda x: x.float().permute(0, 2, 1)[..., None]   # [B, H, T, 1]
+    p = torch.where(ok, torch.exp(s - row(lse)), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, p * (dp - row(delta))
+
+
+def flash_bwd_dkv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, lse: torch.Tensor,
+                        delta: torch.Tensor, causal: bool = False,
+                        strict: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dk, dv)`` in the input dtype, as the dK/dV kernel."""
+    p, ds = _probs_and_dscores(q, k, v, do, lse, delta, causal, strict)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * q.shape[3] ** -0.5
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dq_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       do: torch.Tensor, lse: torch.Tensor,
+                       delta: torch.Tensor, causal: bool = False,
+                       strict: bool = False) -> torch.Tensor:
+    """``dq`` in the input dtype, as the dQ kernel."""
+    _, ds = _probs_and_dscores(q, k, v, do, lse, delta, causal, strict)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * q.shape[3] ** -0.5
+    return dq.to(q.dtype)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor,
+                              g_lse: Optional[torch.Tensor] = None,
+                              causal: bool = False, strict: bool = False
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_attention_with_lse` for the
+    cotangents ``do`` (of ``o``) and ``g_lse`` (of the LSE; None is
+    zero), in float32 with JAX's ``vjp_bwd`` math: P recomputed from the
+    LSE, ``delta = rowsum(dO * O) - g_lse``, ``dS = P (dP - delta)``,
+    ``dQ = scale dS K``, ``dK = scale dS^T Q``, ``dV = P^T dO``; results
+    in the input dtype."""
+    do = do.to(q.dtype)   # JAX: g.astype(in_dtype)
+    delta = flash_bwd_delta_plain(o, do, g_lse)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, strict)
+    dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, strict)
+    return dq, dk, dv
+
+
 # --------------------------------------------------------------------- #
-# kernel launch
+# kernel launches
+
+def _check_on_card(ref: torch.Tensor, /,
+                   **tensors: Optional[torch.Tensor]) -> None:
+    """Raise unless each given tensor is a CUDA tensor on ``ref``'s
+    device."""
+    for name, x in tensors.items():
+        if x is not None and (not x.is_cuda or x.device != ref.device):
+            raise ValueError(f"{name} must be a CUDA tensor on {ref.device} "
+                             f"(got {x.device})")
+
+
+def _strides(*xs: torch.Tensor) -> ctypes.Array:
+    """The (batch, time, head) strides of each ``[B, T, H, ...]`` tensor,
+    as the kernels' ``int64`` table."""
+    return (ctypes.c_int64 * (3 * len(xs)))(
+        *(s for x in xs for s in x.stride()[:3]))
+
 
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = False, strict: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel: ``(o, lse)``."""
     _check_inputs(q, k, v, causal, strict)
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_cuda or x.device != q.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {q.device} "
-                             f"(got {x.device})")
+    _check_on_card(q, q=q, k=k, v=v)
+    for x in (q, k, v):
         if x.dtype != q.dtype or x.dtype not in _DTYPES:
             raise TypeError(f"q, k, v must share one dtype of {_DTYPES}; "
                             f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError(
-            "flash attention has no backward kernel on the card yet (K6, "
-            "ROADMAP §2: it comes with transformer training); run the "
-            "forward under torch.no_grad()")
     # the kernel walks D with unit stride and everything else by stride
     q, k, v = (x if x.stride(3) == 1 else x.contiguous() for x in (q, k, v))
     b, t, h, d = q.shape
     o = torch.empty((b, t, h, d), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, t, h), device=q.device, dtype=torch.float32)
-    strides = (ctypes.c_int64 * 9)(*(s for x in (q, k, v)
-                                     for s in x.stride()[:3]))
+    strides = _strides(q, k, v)
     rc = _lib().slt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b, t, h, d, d ** -0.5,
@@ -134,8 +241,113 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+def flash_bwd_delta_cuda(o: torch.Tensor, do: torch.Tensor,
+                         g_lse: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Launch the delta kernel: ``rowsum(dO * O) - g_lse``, ``[B, T, H]``
+    float32 (``do`` in ``o``'s dtype; ``g_lse`` None is zero)."""
+    _check_on_card(o, o=o, do=do, g_lse=g_lse)
+    b, t, h, d = o.shape
+    if o.dtype not in _DTYPES or do.dtype != o.dtype:
+        raise TypeError(f"o and do must share one dtype of {_DTYPES}; got "
+                        f"{o.dtype}, {do.dtype}")
+    if do.shape != o.shape or (g_lse is not None and
+                               g_lse.shape != (b, t, h)):
+        raise ValueError("do must be [B, T, H, D] like o, g_lse [B, T, H]")
+    o, do = (x if x.stride(3) == 1 else x.contiguous() for x in (o, do))
+    g_lse = None if g_lse is None else g_lse.float().contiguous()
+    delta = torch.empty((b, t, h), device=o.device, dtype=torch.float32)
+    strides = _strides(o, do)
+    rc = _bwd_lib().slt_flash_bwd_delta(
+        o.data_ptr(), do.data_ptr(),
+        None if g_lse is None else g_lse.data_ptr(), delta.data_ptr(),
+        b, t, h, d, ctypes.cast(strides, ctypes.c_void_p),
+        int(o.dtype == torch.bfloat16), current_stream_handle(o.device))
+    check_launch(rc, BWD_DELTA)
+    LAUNCHES.add(BWD_DELTA)
+    return delta
+
+
+def _bwd_operands(q, k, v, do, lse, delta, causal, strict):
+    """Check the dK/dV and dQ kernels' operands; q, k, v, dO with unit
+    stride along D, LSE and delta contiguous float32."""
+    _check_inputs(q, k, v, causal, strict)
+    _check_on_card(q, q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+    b, t, h, _ = q.shape
+    if q.dtype not in _DTYPES or any(x.dtype != q.dtype for x in (k, v, do)):
+        raise TypeError(f"q, k, v, do must share one dtype of {_DTYPES}; "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}, {do.dtype}")
+    if do.shape != q.shape or lse.shape != (b, t, h) \
+            or delta.shape != (b, t, h):
+        raise ValueError("do must be [B, T, H, D] like q, lse and delta "
+                         "[B, T, H]")
+    q, k, v, do = (x if x.stride(3) == 1 else x.contiguous()
+                   for x in (q, k, v, do))
+    return q, k, v, do, lse.float().contiguous(), delta.float().contiguous()
+
+
+def _bwd_call(fn, name: str, q, k, v, do, lse, delta, outs, causal,
+              strict) -> None:
+    b, t, h, d = q.shape
+    strides = _strides(q, k, v, do)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in outs),
+            b, t, h, d, d ** -0.5, ctypes.cast(strides, ctypes.c_void_p),
+            int(causal), int(strict), int(q.dtype == torch.bfloat16),
+            current_stream_handle(q.device))
+    check_launch(rc, name)
+    LAUNCHES.add(name)
+
+
+def flash_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       do: torch.Tensor, lse: torch.Tensor,
+                       delta: torch.Tensor, causal: bool = False,
+                       strict: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dK/dV kernel: ``(dk, dv)`` in the input dtype."""
+    q, k, v, do, lse, delta = _bwd_operands(q, k, v, do, lse, delta, causal,
+                                            strict)
+    dk, dv = (torch.empty(q.shape, device=q.device, dtype=q.dtype)
+              for _ in range(2))
+    _bwd_call(_bwd_lib().slt_flash_bwd_dkv, BWD_DKV, q, k, v, do, lse, delta,
+              (dk, dv), causal, strict)
+    return dk, dv
+
+
+def flash_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, lse: torch.Tensor,
+                      delta: torch.Tensor, causal: bool = False,
+                      strict: bool = False) -> torch.Tensor:
+    """Launch the dQ kernel: ``dq`` in the input dtype."""
+    q, k, v, do, lse, delta = _bwd_operands(q, k, v, do, lse, delta, causal,
+                                            strict)
+    dq = torch.empty(q.shape, device=q.device, dtype=q.dtype)
+    _bwd_call(_bwd_lib().slt_flash_bwd_dq, BWD_DQ, q, k, v, do, lse, delta,
+              (dq,), causal, strict)
+    return dq
+
+
+def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                   g_lse: Optional[torch.Tensor] = None,
+                   causal: bool = False, strict: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernels (delta, dK/dV, dQ): ``(dq, dk, dv)``
+    in the input dtype. ``o`` and ``lse`` are the forward's outputs,
+    ``do`` and ``g_lse`` their cotangents (``g_lse`` None is zero)."""
+    _check_inputs(q, k, v, causal, strict)
+    _check_on_card(q, o=o)
+    if o.shape != q.shape or o.dtype != q.dtype:
+        raise ValueError("o must match q in shape and dtype")
+    do = do.to(q.dtype)   # JAX: g.astype(in_dtype)
+    delta = flash_bwd_delta_cuda(o, do, g_lse)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, strict)
+    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, strict)
+    return dq, dk, dv
+
+
 # --------------------------------------------------------------------- #
-# public entry points (the JAX package's signatures)
+# autograd and the public entry points (the JAX package's signatures)
 
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.is_cuda:
@@ -145,24 +357,54 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return False
 
 
+class FlashAttentionFunction(torch.autograd.Function):
+    """``(o, lse)`` with a hand-written forward (K5) and backward (K6).
+
+    Saves q, k, v, o and the LSE, as JAX's ``vjp_fwd``; the backward
+    recomputes P from them. An output that gets no cotangent adds
+    nothing: ``g_lse`` is None when only ``o`` is used."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, strict: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if _on_cuda(q):
+            o, lse = flash_fwd_cuda(q, k, v, causal, strict)
+        else:
+            _check_inputs(q, k, v, causal, strict)
+            o, lse = flash_attention_with_lse_plain(q, k, v, causal, strict)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.strict = causal, strict
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do: Optional[torch.Tensor],
+                 g_lse: Optional[torch.Tensor]):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        bwd = flash_bwd_cuda if _on_cuda(q) else flash_attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, o, lse, do, g_lse, ctx.causal, ctx.strict)
+        return dq, dk, dv, None, None
+
+
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, causal: bool = False,
                              strict: bool = False
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``[B, T, H, D] -> ([B, T, H, D], [B, T, H] float32)``.
+    """``[B, T, H, D] -> ([B, T, H, D], [B, T, H] float32)``, both
+    differentiable.
 
     ``strict`` masks the diagonal too (row > col) and requires
     ``causal``; a fully masked row comes back as ``o = 0``,
     ``lse = NEG_BIG``."""
-    if _on_cuda(q):
-        return flash_fwd_cuda(q, k, v, causal, strict)
-    _check_inputs(q, k, v, causal, strict)
-    return flash_attention_with_lse_plain(q, k, v, causal, strict)
+    return FlashAttentionFunction.apply(q, k, v, causal, strict)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> torch.Tensor:
     """Blockwise attention, ``[B, T, H, D] -> [B, T, H, D]``: a drop-in
     for :func:`split_learning_tpu_torch.ops.ring_attention.full_attention`
-    with the hand-written kernel on the card."""
+    with the hand-written kernels on the card."""
     return flash_attention_with_lse(q, k, v, causal)[0]

@@ -4,8 +4,16 @@ The whole split step runs in one process on one device: client stage
 forward, the cut tensor handed on as a tensor, server stage forward, the
 fused cross-entropy, backward, and one fused SGD update over both
 halves. On CUDA every step launches the cross-entropy kernels (forward
-and backward, once per microbatch) and the SGD kernel once; on the CPU
-the same step runs their plain versions.
+and backward, once per microbatch), the SGD kernel once per table of
+24 leaves, and, for a transformer plan with ``attn="flash"``, the
+flash-attention forward (K5) and backward (K6) once per block and
+microbatch; on the CPU the same step runs their plain versions.
+
+The model families are the CNN plans and the two transformer families
+(``transformer``: ``[B, T]`` token ids to ``[B, classes]``;
+``transformer_lm``: ``[B, T]`` to ``[B, T, vocab]``, labels ``[B, T]``,
+the loss a mean over all B*T tokens). Token ids reach the plan as the
+integers they are; floating inputs are cast to float32.
 
 Where the JAX trainer compiles one XLA program per step (and a
 ``lax.scan`` per epoch), this one runs eagerly: ``train_epoch`` is a
@@ -34,11 +42,6 @@ from split_learning_tpu_torch.utils.device import DeviceLike, resolve_device
 def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for every value the port cannot run."""
     unsupported = [
-        (cfg.model in ("transformer", "transformer_lm"),
-         f"training model {cfg.model!r} (the flash-attention backward K6 "
-         "and transformer training come in the next slice, ROADMAP §2 K6; "
-         "the port serves these plans: runtime/generate.py, "
-         "runtime/evaluate.py)"),
         (cfg.transport != "fused",
          f"transport {cfg.transport!r} (the two-party path is ROADMAP "
          "items 8-12)"),
@@ -90,7 +93,11 @@ class FusedSplitTrainer:
 
     # ----------------------------------------------------------------- #
     def _to_device(self, x, y) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = torch.as_tensor(x).to(self.device, torch.float32)
+        """Floating inputs as float32, token ids as they are (JAX's
+        ``train_step`` passes ``x`` unchanged); labels as int64."""
+        x = torch.as_tensor(x).to(self.device)
+        if x.is_floating_point():
+            x = x.float()
         y = torch.as_tensor(y).to(self.device, torch.int64)
         return x, y
 

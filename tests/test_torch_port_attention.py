@@ -112,13 +112,24 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_cuda_wrapper_raises_for_grad_requiring_input(cuda_device):
+def test_cuda_wrapper_launches_k6_for_grad_requiring_input(cuda_device):
+    """A CUDA input that requires grad runs the kernels both ways (K5,
+    then K6) and never the plain backward: its gradient matches the
+    CPU's plain one."""
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.ops.flash_attention import BWD_NAMES, NAME
     q = torch.randn(1, 8, 2, 16, device=cuda_device, requires_grad=True)
     k = torch.randn(1, 8, 2, 16, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="K6"):
-        flash_attention(q, k, k, causal=True)
-    with torch.no_grad():
-        o = flash_attention(q, k, k, causal=True)
+    LAUNCHES.reset()
+    o = flash_attention(q, k, k, causal=True)
+    (g,) = torch.autograd.grad(o.sum(), q)
     torch.cuda.synchronize()
-    want = flash_attention(q.detach().cpu(), k.cpu(), k.cpu(), causal=True)
-    np.testing.assert_allclose(o.cpu().numpy(), want.numpy(), atol=TOL)
+    assert LAUNCHES.snapshot() == {NAME: 1, **{n: 1 for n in BWD_NAMES}}
+    qc = q.detach().cpu().requires_grad_(True)
+    (want,) = torch.autograd.grad(
+        flash_attention(qc, k.cpu(), k.cpu(), causal=True).sum(), qc)
+    np.testing.assert_allclose(o.detach().cpu().numpy(),
+                               flash_attention(qc, k.cpu(), k.cpu(),
+                                               causal=True).detach().numpy(),
+                               atol=TOL)
+    np.testing.assert_allclose(g.cpu().numpy(), want.numpy(), atol=TOL)
