@@ -11,7 +11,8 @@ beside this script. Phases, any failure ending the run with a traceback:
 1. device and build: the card's name and power limit, then the kernels
    built from ``split_learning_tpu_torch/csrc`` (build seconds printed);
 2. fused cross-entropy (forward, backward) against its plain version over
-   N x C shapes, float32 and bfloat16 logits;
+   N x C shapes, float32 and bfloat16 logits, and the LM training path's
+   [65536, 256] logits;
 3. multi-tensor SGD against its plain version on the split CNN's six
    leaves, without and with momentum, over five steps: bit-identical;
 4. the main path: ``FusedSplitTrainer`` on ``cuda`` with the full-width
@@ -28,9 +29,10 @@ beside this script. Phases, any failure ending the run with a traceback:
 6. flash attention (forward) against its plain version over T in {1, 63,
    64, 65, 1000, 1024}, D in {16, 64, 128}, B*H in {1, 16}, non-causal,
    causal and causal+strict, float32 and bfloat16, plus strided q/k/v
-   views: O and LSE within 2e-5 (float32) and within 3e-2 / 1e-3
-   (bfloat16: two bf16 ulps at |o| near 2), row 0 of a strict mask
-   o = 0 and lse = NEG_BIG;
+   views and the training shape (B 64, T 1024, H 2, D 128, causal): O
+   and LSE within 2e-5 (float32) and within 3e-2 / 1e-3 (bfloat16: two
+   bf16 ulps at |o| near 2), row 0 of a strict mask o = 0 and
+   lse = NEG_BIG;
 7. the serving path at full width: the split causal LM (bf16, d_model
    256, 2 heads, vocab 256, depths 1 + 2, max_len 2048, attn="flash")
    from a seeded init. Launch counts reset before and read after each
@@ -51,7 +53,8 @@ beside this script. Phases, any failure ending the run with a traceback:
    against its plain version over T in {1, 63, 64, 65, 1000, 1024}, D
    in {16, 64, 128, 256}, B*H in {1, 16}, non-causal, causal and
    causal+strict, float32 and bfloat16, without and with an LSE
-   cotangent, plus strided views: every gradient within ``FA_BWD_TOL``
+   cotangent, plus strided views and the training shape (B 64, T 1024,
+   H 2, D 128, causal): every gradient within ``FA_BWD_TOL``
    of the largest plain entry (float32 2e-5: the tile loop's summation
    order against one dense sum per product; bf16 8e-3: two bf16 ulps,
    both sides rounding float32 sums), strict row 0 dQ = 0; autograd
@@ -64,14 +67,19 @@ beside this script. Phases, any failure ending the run with a traceback:
    Launch counts reset before and read after: per step exactly 3 K5
    and 3 of each K6 launch, one K1 pair and ceil(54 leaves / 24) = 3 K2
    launches. The loss must fall; a float32 CPU twin on the first 2 rows
-   of the first 3 batches agrees with the card on the same rows within
-   ``TWIN_TOL``; the CLI trains ``transformer_lm`` (flash) for 5 steps
+   of the first 3 batches agrees with the card on the same rows: losses
+   within ``TWIN_TOL``, each leaf's summed update within
+   ``TWIN_UPDATE_TOL`` of its largest entry (or of a floor, for leaves
+   whose exact gradient is zero), and the same twin with the
+   plain backward's dQ planted as zero must fail that bound; the CLI
+   trains ``transformer_lm`` (flash) for 5 steps
    at a small size, and the classifier ``transformer`` at T 256, batch
    64, for 5 steps at full width, each with exact launch counts;
 11. times at the training shape (B 64, T 1024, H 2, D 128, causal,
    float32 and bf16): each K6 launch, the whole backward, its plain
-   version and the backward of ``F.scaled_dot_product_attention``
-   (``torch.autograd.grad`` on a retained graph), beside the bound; the
+   version, ``torch.linalg.vecdot`` for the delta launch and the backward
+   of ``F.scaled_dot_product_attention`` (``torch.autograd.grad`` on a
+   retained graph) for the whole, beside the bound; the
    step's median ms over steps 6-30, tokens/s, and a
    ``torch.profiler`` window of 10 steps.
 
@@ -107,6 +115,7 @@ _CARD_PEAKS = (
 BATCH, STEPS, LR = 64, 30, 0.01
 CE_SHAPES_N = (1, 32, 64, 1000, 4096)
 CE_SHAPES_C = (10, 256, 1000)
+CE_GRAD_RTOL = 1e-5
 CNN_LEAF_SHAPES = ((32, 1, 3, 3), (32,), (64, 32, 3, 3), (64,), (10, 9216),
                    (10,))
 # flash attention: shapes held to the plain version, and the serving path
@@ -127,7 +136,16 @@ FA_BWD_TOL = {"float32": 2e-5, "bfloat16": 8e-3}
 # the training path: the serving LM's widths in float32
 TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR, TRAIN_MU = 64, 1024, 30, 0.1, 0.9
 LM_LEAVES, SGD_TABLE = 54, 24
+TRAIN_SHAPE = (TRAIN_B, TRAIN_T, LM["num_heads"],
+               LM["d_model"] // LM["num_heads"])   # attention's [B, T, H, D]
 TWIN_ROWS, TWIN_STEPS, TWIN_TOL = 2, 3, 1e-4
+# the twin's summed parameter updates, per leaf, relative to its largest
+# entry: float32 GEMMs and reductions summed in another order on the card.
+# A leaf whose updates are all below TWIN_UPDATE_FLOOR of the model's
+# largest is held to that instead: the key projections' bias has a zero
+# gradient in exact arithmetic (softmax ignores a per-row shift of the
+# scores), so both sides move it by rounding noise alone
+TWIN_UPDATE_TOL, TWIN_UPDATE_FLOOR = 1e-3, 1e-3
 
 
 def check(cond: bool, what: str) -> None:
@@ -235,6 +253,7 @@ def main() -> int:
         ce_forward_plain)
     from split_learning_tpu_torch.ops.sgd import (
         NAME as SGD, sgd_step_cuda, sgd_step_plain)
+    import split_learning_tpu_torch.ops.flash_attention as fa_mod
     from split_learning_tpu_torch.ops.flash_attention import (
         BWD_DELTA, BWD_DKV, BWD_DQ, BWD_NAMES, NAME as FA,
         flash_attention_bwd_plain, flash_attention_with_lse,
@@ -272,6 +291,8 @@ def main() -> int:
     ce_err = {FWD: 0.0, BWD: 0.0}
     cases = [(n, c, torch.float32) for n in CE_SHAPES_N for c in CE_SHAPES_C]
     cases.append((64, 10, torch.bfloat16))
+    # the LM training path's logits, [B*T, V]
+    cases.append((TRAIN_B * TRAIN_T, LM["vocab"], torch.float32))
     for n, c, dtype in cases:
         x, y = ce_inputs(n, c, dtype)
         loss_k, lse_k = ce_forward_cuda(x, y)
@@ -285,7 +306,11 @@ def main() -> int:
         gk, gp = grad_k.float(), grad_p.float()
         err = (gk - gp).abs().max().item()
         if dtype == torch.float32:
-            check(err <= 1e-6, f"CE grad N={n} C={c}: abs {err}")
+            # entries are at most 1/N: hold them to the largest one too
+            # (float32 rounding of the exp and of the row LSE)
+            scale = gp.abs().max().item()
+            check(err <= 1e-6 and err <= CE_GRAD_RTOL * scale,
+                  f"CE grad N={n} C={c}: abs {err} (largest {scale})")
             ce_err[FWD] = max(ce_err[FWD], abs(loss_k.item() - loss_p.item()))
             ce_err[BWD] = max(ce_err[BWD], err)
         else:
@@ -455,9 +480,10 @@ def main() -> int:
 
     # ---- 6. flash attention kernel vs plain ------------------------- #
     fa_err = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
+    fa_err_train = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
     n_cases = 0
 
-    def fa_check(q, k, v, causal, strict, what):
+    def fa_check(q, k, v, causal, strict, what, errs=fa_err):
         o_k, lse_k = flash_fwd_cuda(q, k, v, causal, strict)
         torch.cuda.synchronize()
         o_p, lse_p = flash_attention_with_lse_plain(q, k, v, causal, strict)
@@ -471,8 +497,8 @@ def main() -> int:
             check(bool((o_k[:, 0] == 0).all()) and
                   bool((lse_k[:, 0] == NEG_BIG).all()),
                   f"flash {what} {name}: strict row 0 not (0, NEG_BIG)")
-        fa_err[name][0] = max(fa_err[name][0], e_o)
-        fa_err[name][1] = max(fa_err[name][1], e_l)
+        errs[name][0] = max(errs[name][0], e_o)
+        errs[name][1] = max(errs[name][1], e_l)
 
     for dtype in (torch.float32, torch.bfloat16):
         for t in FA_T:
@@ -491,10 +517,17 @@ def main() -> int:
                              generator=gen).to(dtype)
         fa_check(*packed.unbind(2), True, False, "strided views")
         n_cases += 1
+        # the LM training path's shape
+        q, k, v = (torch.randn(TRAIN_SHAPE, device=dev, generator=gen).to(
+            dtype) for _ in range(3))
+        fa_check(q, k, v, True, False, f"training shape {TRAIN_SHAPE}",
+                 fa_err_train)
+        n_cases += 1
     print(f"[k5] flash attention matches its plain version on {n_cases} "
           f"cases (max abs err O/LSE: f32 {fa_err['float32'][0]:.3g}/"
           f"{fa_err['float32'][1]:.3g}, bf16 {fa_err['bfloat16'][0]:.3g}/"
-          f"{fa_err['bfloat16'][1]:.3g})", flush=True)
+          f"{fa_err['bfloat16'][1]:.3g}; at the training shape "
+          f"{fa_err_train})", flush=True)
 
     # ---- 7. the serving path at full width -------------------------- #
     plan_lm = get_plan(dtype="bfloat16", **LM)
@@ -610,7 +643,8 @@ def main() -> int:
             library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True)),
             bytes=nbytes, flops=flops, bound_ms=b_ms, bound_by=b_by,
-            max_abs_err=fa_err[name][0], max_abs_err_lse=fa_err[name][1])
+            max_abs_err=fa_err[name][0], max_abs_err_lse=fa_err[name][1],
+            train_shape_max_abs_err=fa_err_train[name])
     records.append(dict(
         name="flash_attention_fwd", route="cuda",
         source="split_learning_tpu_torch/csrc/flash_attention.cu",
@@ -656,11 +690,12 @@ def main() -> int:
             per="generate")))
 
     # ---- 9. flash backward kernels vs plain ------------------------- #
-    bwd_err = {dt: {n: 0.0 for n in BWD_NAMES}
-               for dt in ("float32", "bfloat16")}
+    bwd_err, bwd_err_train = ({dt: {n: 0.0 for n in BWD_NAMES}
+                               for dt in ("float32", "bfloat16")}
+                              for _ in range(2))
     n_bwd = 0
 
-    def bwd_check(q, k, v, do, g_lse, causal, strict, what):
+    def bwd_check(q, k, v, do, g_lse, causal, strict, what, errs=bwd_err):
         """Each K6 launch against its plain part, on the same inputs."""
         name = str(q.dtype).replace("torch.", "")
         tol = FA_BWD_TOL[name]
@@ -681,7 +716,7 @@ def main() -> int:
                 scale = max(1.0, b.float().abs().max().item())
                 check(a.dtype == b.dtype and err <= tol * scale,
                       f"{launch} {what} {name}: err {err} (scale {scale})")
-                bwd_err[name][launch] = max(bwd_err[name][launch], err)
+                errs[name][launch] = max(errs[name][launch], err)
         # the composite launcher is the kernels above, in order
         whole = flash_bwd_cuda(q, k, v, o, lse, do, g_lse, causal, strict)
         check(all(torch.equal(a, b) for a, b in zip(whole, (dq, dk, dv))),
@@ -709,6 +744,14 @@ def main() -> int:
                              generator=gen).to(dtype)
         bwd_check(*packed.unbind(2), None, True, False, "strided views")
         n_bwd += 1
+        # the LM training path's shape: causal, no LSE cotangent
+        q, k, v, do = (torch.randn(TRAIN_SHAPE, device=dev,
+                                   generator=gen).to(dtype)
+                       for _ in range(4))
+        bwd_check(q, k, v, do, None, True, False,
+                  f"training shape {TRAIN_SHAPE}", bwd_err_train)
+        n_bwd += 1
+        del q, k, v, do
 
     # autograd through the kernels against autograd of dense attention
     aq, ak, av, aw = (torch.randn(2, 300, 2, 128, device=dev, generator=gen)
@@ -745,7 +788,8 @@ def main() -> int:
           "two runs of the flash backward differ")
     print(f"[k6] flash backward matches its plain version on {n_bwd} cases "
           f"(max abs err f32 {bwd_err['float32']}, bf16 "
-          f"{bwd_err['bfloat16']}); autograd vs dense rel err "
+          f"{bwd_err['bfloat16']}; at the training shape {bwd_err_train}); "
+          f"autograd vs dense rel err "
           f"{autograd_err:.3g}; two runs bit-identical", flush=True)
 
     # ---- 10. the training path at full width ------------------------ #
@@ -797,8 +841,53 @@ def main() -> int:
     twin_lm_diff = max(abs(a - b) for a, b in zip(card_rows, cpu_rows))
     check(twin_lm_diff <= TWIN_TOL,
           f"LM CPU twin: {cpu_rows} vs card {card_rows}")
+
+    def update_err(params, ref):
+        """Worst leaf's max abs difference of the summed update (final
+        minus initial parameters) from ``ref``'s, over the larger of
+        ``ref``'s largest update entry in that leaf and TWIN_UPDATE_FLOOR
+        of the largest in any leaf: ``(error, leaf)``."""
+        diffs, tops = {}, {}
+        for i, (st, st_ref, st0) in enumerate(zip(params, ref, tr_init)):
+            for key, p0 in st0.items():
+                u_ref = st_ref[key].detach().cpu() - p0
+                tops[i, key] = u_ref.abs().max().item()
+                diffs[i, key] = (st[key].detach().cpu() - p0
+                                 - u_ref).abs().max().item()
+        floor = TWIN_UPDATE_FLOOR * max(tops.values())
+        rel = {leaf: diffs[leaf] / max(tops[leaf], floor) for leaf in tops}
+        leaf = max(rel, key=rel.get)
+        return rel[leaf], f"stage {leaf[0]} {leaf[1]}"
+
+    twin_update, twin_leaf = update_err(twin_card.params, twin_cpu.params)
+    check(twin_update <= TWIN_UPDATE_TOL,
+          f"LM CPU twin: parameter updates differ by {twin_update} in "
+          f"{twin_leaf}")
+    # the check must see a broken backward: the CPU twin again, with the
+    # plain backward's dQ planted as zero
+    planted = fa_mod.flash_attention_bwd_plain
+
+    def zero_dq(*args):
+        dq, dk, dv = planted(*args)
+        return torch.zeros_like(dq), dk, dv
+
+    fa_mod.flash_attention_bwd_plain = zero_dq
+    try:
+        twin_bad = FusedSplitTrainer(plan_tr, cfg_twin, tr_init, rows[0][0],
+                                     device="cpu")
+        bad_rows = [twin_bad.train_step(x, y) for x, y in rows]
+    finally:
+        fa_mod.flash_attention_bwd_plain = planted
+    bad_update, bad_leaf = update_err(twin_bad.params, twin_cpu.params)
+    bad_loss = max(abs(a - b) for a, b in zip(bad_rows, cpu_rows))
+    check(bad_update > TWIN_UPDATE_TOL,
+          f"a zero dQ moved the updates by only {bad_update}")
     print(f"[train] CPU twin on {TWIN_ROWS} rows x {TWIN_STEPS} steps agrees "
-          f"(max diff {twin_lm_diff:.3g})", flush=True)
+          f"(losses within {twin_lm_diff:.3g}; updates within "
+          f"{twin_update:.3g}, worst in {twin_leaf}, tolerance "
+          f"{TWIN_UPDATE_TOL}); a planted zero dQ moves the updates by "
+          f"{bad_update:.3g} (in {bad_leaf}) and the losses by "
+          f"{bad_loss:.3g}", flush=True)
 
     cli_runs = {}
     for model, dataset, size in (
@@ -822,8 +911,8 @@ def main() -> int:
           f"(launches {cli_runs})", flush=True)
 
     # ---- 11. times ---------------------------------------------------- #
-    head_dim = LM["d_model"] // LM["num_heads"]
-    shape = (TRAIN_B, TRAIN_T, LM["num_heads"], head_dim)
+    shape = TRAIN_SHAPE
+    head_dim = shape[3]
     n_rows, n_el = math.prod(shape[:3]), math.prod(shape)
     bh = shape[0] * shape[2]
     pairs = TRAIN_T * (TRAIN_T + 1) // 2 * bh   # live causal (row, col)
@@ -860,7 +949,12 @@ def main() -> int:
                 ms=device_ms(torch, launch[n], reps=20),
                 plain_ms=device_ms(torch, plain[n], reps=10),
                 bytes=nbytes[n], flops=work[n], bound_ms=b_ms, bound_by=b_by,
-                max_abs_err=bwd_err[name][n])
+                max_abs_err=bwd_err_train[name][n],
+                max_abs_err_grid=bwd_err[name][n])
+        # delta with no LSE cotangent, as on the training path, is one
+        # library call (its output in the input dtype)
+        k6_rec[BWD_DELTA][name]["library_ms"] = device_ms(
+            torch, lambda: torch.linalg.vecdot(o, do, dim=-1), reps=20)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                       for x in (q, k, v))
         lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
@@ -878,10 +972,19 @@ def main() -> int:
                          "F.scaled_dot_product_attention(is_causal=True)",
             bytes=nbytes["whole"], flops=work["whole"], bound_ms=b_ms,
             bound_by=b_by)
+        # no library call computes dK, dV or dQ alone: the SDPA backward,
+        # which computes all three, stands on the dK/dV record
+        k6_rec[BWD_DKV][name]["library_ms"] = k6_whole[name]["library_ms"]
+        k6_rec[BWD_DQ][name]["library_ms"] = None
         del q, k, v, do, o, lse, delta, qt, kt, vt, lib_out, do_t
     replaces = {BWD_DELTA: "split_learning_tpu/ops/flash_attention.py:693",
                 BWD_DKV: "split_learning_tpu/ops/flash_attention.py:542",
                 BWD_DQ: "split_learning_tpu/ops/flash_attention.py:503"}
+    library_call = {
+        BWD_DELTA: "torch.linalg.vecdot(o, do, dim=-1)",
+        BWD_DKV: "torch.autograd.grad of F.scaled_dot_product_attention("
+                 "is_causal=True): the whole backward, all three launches",
+        BWD_DQ: None}
     for n in BWD_NAMES:
         records.append(dict(
             name=n, route="cuda",
@@ -891,12 +994,12 @@ def main() -> int:
             jax_counterpart="split_learning_tpu/ops/flash_attention.py"
                             ":_make_flash.vjp_bwd",
             launches=tr_counts[n], launches_per_step=N_BLOCKS,
-            library_ms=None,
-            library_note="no one PyTorch call computes this launch alone; "
-                         "the whole backward's library time is in "
-                         "train_lm.k6",
+            library_call=library_call[n],
             shape=list(shape), dtype="float32", causal=True,
             **k6_rec[n]["float32"], bfloat16=k6_rec[n]["bfloat16"]))
+    records[-1]["library_note"] = (
+        "no one PyTorch call computes dQ alone; the SDPA backward, which "
+        "computes dQ, dK and dV, is the dK/dV record's library_ms")
     launch_of = {"fused_cross_entropy_fwd": FWD,
                  "fused_cross_entropy_bwd": BWD, "fused_sgd_step": SGD}
     for rec in records:
@@ -915,7 +1018,10 @@ def main() -> int:
         step_ms_first=tr_ms[0], loss_first=tr_losses[0],
         loss_last=tr_losses[-1], launches=tr_counts,
         twin_rows=TWIN_ROWS, twin_steps=TWIN_STEPS,
-        twin_max_abs_diff=twin_lm_diff, cli_launches=cli_runs,
+        twin_max_abs_diff=twin_lm_diff, twin_update_rel_err=twin_update,
+        twin_update_worst_leaf=twin_leaf,
+        planted_zero_dq_update_rel_err=bad_update,
+        planted_zero_dq_loss_diff=bad_loss, cli_launches=cli_runs,
         k6=k6_whole, k6_autograd_rel_err=autograd_err,
         profile=profile_steps(torch, trainer_lm, tr_data[:10])))
 

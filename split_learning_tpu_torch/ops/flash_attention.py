@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -153,16 +153,30 @@ def _probs_and_dscores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return p, p * (dp - row(delta))
 
 
+def _grads_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 causal: bool, strict: bool, dq: bool = True,
+                 dkv: bool = True) -> Tuple[Optional[torch.Tensor], ...]:
+    """``(dq, dk, dv)`` in the input dtype from one P and dS (five T x T
+    x D products for all three); None where not asked for."""
+    p, ds = _probs_and_dscores(q, k, v, do, lse, delta, causal, strict)
+    scale = q.shape[3] ** -0.5
+    dq_ = (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+           ).to(q.dtype) if dq else None
+    dk = (torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+          ).to(k.dtype) if dkv else None
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float()).to(v.dtype) \
+        if dkv else None
+    return dq_, dk, dv
+
+
 def flash_bwd_dkv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, lse: torch.Tensor,
                         delta: torch.Tensor, causal: bool = False,
                         strict: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dk, dv)`` in the input dtype, as the dK/dV kernel."""
-    p, ds = _probs_and_dscores(q, k, v, do, lse, delta, causal, strict)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * q.shape[3] ** -0.5
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
-    return dk.to(k.dtype), dv.to(v.dtype)
+    return _grads_plain(q, k, v, do, lse, delta, causal, strict, dq=False)[1:]
 
 
 def flash_bwd_dq_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -170,9 +184,7 @@ def flash_bwd_dq_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        delta: torch.Tensor, causal: bool = False,
                        strict: bool = False) -> torch.Tensor:
     """``dq`` in the input dtype, as the dQ kernel."""
-    _, ds = _probs_and_dscores(q, k, v, do, lse, delta, causal, strict)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * q.shape[3] ** -0.5
-    return dq.to(q.dtype)
+    return _grads_plain(q, k, v, do, lse, delta, causal, strict, dkv=False)[0]
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -190,9 +202,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     in the input dtype."""
     do = do.to(q.dtype)   # JAX: g.astype(in_dtype)
     delta = flash_bwd_delta_plain(o, do, g_lse)
-    dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, strict)
-    dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, strict)
-    return dq, dk, dv
+    return _grads_plain(q, k, v, do, lse, delta, causal, strict)
 
 
 # --------------------------------------------------------------------- #
@@ -241,21 +251,35 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-def flash_bwd_delta_cuda(o: torch.Tensor, do: torch.Tensor,
-                         g_lse: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
-    """Launch the delta kernel: ``rowsum(dO * O) - g_lse``, ``[B, T, H]``
-    float32 (``do`` in ``o``'s dtype; ``g_lse`` None is zero)."""
-    _check_on_card(o, o=o, do=do, g_lse=g_lse)
+def _bwd_operands(mats: Dict[str, torch.Tensor],
+                  rows: Dict[str, Optional[torch.Tensor]]
+                  ) -> Tuple[List[torch.Tensor], List[Optional[torch.Tensor]]]:
+    """Check the backward kernels' operands: ``mats`` (q, k, v, o, dO) of
+    one ``[B, T, H, D]`` shape and one dtype, ``rows`` (lse, delta,
+    g_lse; None skipped) ``[B, T, H]``, all on the first one's card.
+    Returns them in order, ``mats`` with unit stride along D and ``rows``
+    contiguous float32."""
+    ref = next(iter(mats.values()))
+    _check_on_card(ref, **mats, **rows)
+    if ref.dtype not in _DTYPES or any(x.dtype != ref.dtype
+                                       for x in mats.values()):
+        raise TypeError(f"{', '.join(mats)} must share one dtype of "
+                        f"{_DTYPES}; got "
+                        f"{', '.join(str(x.dtype) for x in mats.values())}")
+    if ref.dim() != 4 or any(x.shape != ref.shape for x in mats.values()) \
+            or any(x is not None and x.shape != ref.shape[:3]
+                   for x in rows.values()):
+        raise ValueError(f"{', '.join(mats)} must be one [B, T, H, D] shape "
+                         f"and {', '.join(rows)} [B, T, H]")
+    return ([x if x.stride(3) == 1 else x.contiguous()
+             for x in mats.values()],
+            [None if x is None else x.float().contiguous()
+             for x in rows.values()])
+
+
+def _launch_delta(o: torch.Tensor, do: torch.Tensor,
+                  g_lse: Optional[torch.Tensor]) -> torch.Tensor:
     b, t, h, d = o.shape
-    if o.dtype not in _DTYPES or do.dtype != o.dtype:
-        raise TypeError(f"o and do must share one dtype of {_DTYPES}; got "
-                        f"{o.dtype}, {do.dtype}")
-    if do.shape != o.shape or (g_lse is not None and
-                               g_lse.shape != (b, t, h)):
-        raise ValueError("do must be [B, T, H, D] like o, g_lse [B, T, H]")
-    o, do = (x if x.stride(3) == 1 else x.contiguous() for x in (o, do))
-    g_lse = None if g_lse is None else g_lse.float().contiguous()
     delta = torch.empty((b, t, h), device=o.device, dtype=torch.float32)
     strides = _strides(o, do)
     rc = _bwd_lib().slt_flash_bwd_delta(
@@ -268,26 +292,14 @@ def flash_bwd_delta_cuda(o: torch.Tensor, do: torch.Tensor,
     return delta
 
 
-def _bwd_operands(q, k, v, do, lse, delta, causal, strict):
-    """Check the dK/dV and dQ kernels' operands; q, k, v, dO with unit
-    stride along D, LSE and delta contiguous float32."""
-    _check_inputs(q, k, v, causal, strict)
-    _check_on_card(q, q=q, k=k, v=v, do=do, lse=lse, delta=delta)
-    b, t, h, _ = q.shape
-    if q.dtype not in _DTYPES or any(x.dtype != q.dtype for x in (k, v, do)):
-        raise TypeError(f"q, k, v, do must share one dtype of {_DTYPES}; "
-                        f"got {q.dtype}, {k.dtype}, {v.dtype}, {do.dtype}")
-    if do.shape != q.shape or lse.shape != (b, t, h) \
-            or delta.shape != (b, t, h):
-        raise ValueError("do must be [B, T, H, D] like q, lse and delta "
-                         "[B, T, H]")
-    q, k, v, do = (x if x.stride(3) == 1 else x.contiguous()
-                   for x in (q, k, v, do))
-    return q, k, v, do, lse.float().contiguous(), delta.float().contiguous()
-
-
-def _bwd_call(fn, name: str, q, k, v, do, lse, delta, outs, causal,
-              strict) -> None:
+def _launch_grads(name: str, q, k, v, do, lse, delta, causal,
+                  strict) -> Tuple[torch.Tensor, ...]:
+    """Launch the dK/dV (``BWD_DKV``) or dQ (``BWD_DQ``) kernel on
+    checked operands: its outputs, in the input dtype."""
+    fn = (_bwd_lib().slt_flash_bwd_dkv if name == BWD_DKV
+          else _bwd_lib().slt_flash_bwd_dq)
+    outs = tuple(torch.empty(q.shape, device=q.device, dtype=q.dtype)
+                 for _ in range(2 if name == BWD_DKV else 1))
     b, t, h, d = q.shape
     strides = _strides(q, k, v, do)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -297,6 +309,16 @@ def _bwd_call(fn, name: str, q, k, v, do, lse, delta, outs, causal,
             current_stream_handle(q.device))
     check_launch(rc, name)
     LAUNCHES.add(name)
+    return outs
+
+
+def flash_bwd_delta_cuda(o: torch.Tensor, do: torch.Tensor,
+                         g_lse: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Launch the delta kernel: ``rowsum(dO * O) - g_lse``, ``[B, T, H]``
+    float32 (``do`` in ``o``'s dtype; ``g_lse`` None is zero)."""
+    (o, do), (g_lse,) = _bwd_operands(dict(o=o, do=do), dict(g_lse=g_lse))
+    return _launch_delta(o, do, g_lse)
 
 
 def flash_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -305,13 +327,10 @@ def flash_bwd_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        strict: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dK/dV kernel: ``(dk, dv)`` in the input dtype."""
-    q, k, v, do, lse, delta = _bwd_operands(q, k, v, do, lse, delta, causal,
-                                            strict)
-    dk, dv = (torch.empty(q.shape, device=q.device, dtype=q.dtype)
-              for _ in range(2))
-    _bwd_call(_bwd_lib().slt_flash_bwd_dkv, BWD_DKV, q, k, v, do, lse, delta,
-              (dk, dv), causal, strict)
-    return dk, dv
+    _check_inputs(q, k, v, causal, strict)
+    (q, k, v, do), (lse, delta) = _bwd_operands(
+        dict(q=q, k=k, v=v, do=do), dict(lse=lse, delta=delta))
+    return _launch_grads(BWD_DKV, q, k, v, do, lse, delta, causal, strict)
 
 
 def flash_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -319,12 +338,10 @@ def flash_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       delta: torch.Tensor, causal: bool = False,
                       strict: bool = False) -> torch.Tensor:
     """Launch the dQ kernel: ``dq`` in the input dtype."""
-    q, k, v, do, lse, delta = _bwd_operands(q, k, v, do, lse, delta, causal,
-                                            strict)
-    dq = torch.empty(q.shape, device=q.device, dtype=q.dtype)
-    _bwd_call(_bwd_lib().slt_flash_bwd_dq, BWD_DQ, q, k, v, do, lse, delta,
-              (dq,), causal, strict)
-    return dq
+    _check_inputs(q, k, v, causal, strict)
+    (q, k, v, do), (lse, delta) = _bwd_operands(
+        dict(q=q, k=k, v=v, do=do), dict(lse=lse, delta=delta))
+    return _launch_grads(BWD_DQ, q, k, v, do, lse, delta, causal, strict)[0]
 
 
 def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -334,15 +351,15 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernels (delta, dK/dV, dQ): ``(dq, dk, dv)``
     in the input dtype. ``o`` and ``lse`` are the forward's outputs,
-    ``do`` and ``g_lse`` their cotangents (``g_lse`` None is zero)."""
+    ``do`` and ``g_lse`` their cotangents (``g_lse`` None is zero). The
+    operands are checked once, for all three launches."""
     _check_inputs(q, k, v, causal, strict)
-    _check_on_card(q, o=o)
-    if o.shape != q.shape or o.dtype != q.dtype:
-        raise ValueError("o must match q in shape and dtype")
     do = do.to(q.dtype)   # JAX: g.astype(in_dtype)
-    delta = flash_bwd_delta_cuda(o, do, g_lse)
-    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, strict)
-    dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, strict)
+    (q, k, v, o, do), (lse, g_lse) = _bwd_operands(
+        dict(q=q, k=k, v=v, o=o, do=do), dict(lse=lse, g_lse=g_lse))
+    delta = _launch_delta(o, do, g_lse)
+    dk, dv = _launch_grads(BWD_DKV, q, k, v, do, lse, delta, causal, strict)
+    (dq,) = _launch_grads(BWD_DQ, q, k, v, do, lse, delta, causal, strict)
     return dq, dk, dv
 
 

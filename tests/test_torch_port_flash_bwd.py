@@ -28,7 +28,8 @@ from split_learning_tpu_torch.ops.common import NEG_BIG
 from split_learning_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd_plain, flash_attention_with_lse,
     flash_attention_with_lse_plain, flash_bwd_cuda, flash_bwd_delta_cuda,
-    flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
+    flash_bwd_delta_plain, flash_bwd_dkv_cuda, flash_bwd_dkv_plain,
+    flash_bwd_dq_cuda, flash_bwd_dq_plain, flash_fwd_cuda)
 
 # the JAX ops package re-exports the function flash_attention, which
 # shadows the submodule of that name
@@ -149,6 +150,21 @@ def test_bf16_backward_tracks_jax():
         assert g.dtype == torch.bfloat16
         np.testing.assert_allclose(g.float().numpy(), w, atol=3e-2,
                                    rtol=3e-2)
+
+
+@pytest.mark.parametrize("causal,strict", MASKS,
+                         ids=["full", "causal", "strict"])
+def test_plain_launch_parts_compose_to_the_whole(causal, strict):
+    """The plain parts the card holds each K6 launch to (delta, dK/dV,
+    dQ) give the whole plain backward bit for bit."""
+    q, k, v, do, g_lse = (torch.from_numpy(x) for x in _inputs(33, seed=4))
+    o, lse = flash_attention_with_lse_plain(q, k, v, causal, strict)
+    delta = flash_bwd_delta_plain(o, do, g_lse)
+    parts = (flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, strict),
+             *flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, strict))
+    whole = flash_attention_bwd_plain(q, k, v, o, lse, do, g_lse, causal,
+                                      strict)
+    assert all(torch.equal(a, b) for a, b in zip(parts, whole))
 
 
 def test_kernel_launchers_refuse_cpu_tensors():
