@@ -82,11 +82,40 @@ beside this script. Phases, any failure ending the run with a traceback:
    retained graph) for the whole, beside the bound; the
    step's median ms over steps 6-30, tokens/s, and a
    ``torch.profiler`` window of 10 steps.
+12. the wire kernels against their plain versions: K3's amax (two
+   kernels, one launch call), quantize and dequantize and K4's magnitude
+   fold, over sizes 1, 127, 129, 4099, the CNN cut (1,384,448) and the
+   LM cut ([64, 1024, 256], 16,777,216), random, all-equal, all-zero and
+   exact-half inputs, float32 and bf16: stats, q, x', x_eff, m and the
+   non-finite flag bit-equal; the codec's frames from the card byte-equal
+   to the host codec's on the same values (numpy for float32, the CPU
+   tensor path for bf16, which the CPU tests hold to JAX's), the
+   residuals bit-equal; one NaN or infinity refused by both codecs;
+13. the two-party path at full width: ``SplitClientTrainer`` over
+   ``LocalTransport(ServerRuntime)`` on ``cuda``, the split CNN at batch
+   64, 30 steps in each of ``none``, ``int8`` and ``topk8`` (density
+   0.1). Launch counts reset before and read after each: per step
+   exactly 1 K1f, 1 K1b and 2 K2 (client and server), plus for int8 2 of
+   each K3 launch (amax, quantize, dequantize) and for topk8 2 K4 and 2
+   of K3's amax and quantize. At steps 1-3 of int8 and topk8 each
+   direction's cut tensor and EF residual are copied to the host and
+   encoded there: the frames must be byte-equal to the card's, with an
+   exact-half probe tensor beside them. The same check with K3's
+   quantize rebuilt with ``roundf`` in place of ``rintf`` (swapped in as
+   phase 10 plants its zero dQ) must fail. A CPU twin of the ``none``
+   run agrees on 5 losses within 1e-4;
+14. times at both cut sizes, float32: each wire kernel, its plain
+   version, the library call (``torch.amax(x.abs())``,
+   ``torch.quantize_per_tensor``, ``torch.dequantize``, ``torch.abs``,
+   and ``torch.topk`` for the selection) and the bound; the two-party
+   step's median ms (steps 6-30), wire bytes per step and a profiler
+   window of 10 steps per mode.
 
 Output, last lines: one JSON object with a record per kernel, one JSON
 object with the main path's step time, one with the serving path's
-times, one with the LM training path's, the ``nvidia-smi`` name and
-power limit, and ``{"ok": true, "device": {...}}``.
+times, one with the LM training path's, one with the two-party path's,
+the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -146,6 +175,13 @@ TWIN_ROWS, TWIN_STEPS, TWIN_TOL = 2, 3, 1e-4
 # gradient in exact arithmetic (softmax ignores a per-row shift of the
 # scores), so both sides move it by rounding noise alone
 TWIN_UPDATE_TOL, TWIN_UPDATE_FLOOR = 1e-3, 1e-3
+# the two-party path: the cut tensors the wire kernels see, and the modes
+CNN_CUT = (BATCH, 26, 26, 32)
+LM_CUT = (TRAIN_B, TRAIN_T, LM["d_model"])
+WIRE_SIZES = (1, 127, 129, 4099, math.prod(CNN_CUT), math.prod(LM_CUT))
+WIRE_INPUTS = ("random", "ties", "zeros", "halves")
+WIRE_MODES, DENSITY, EF_DECAY = ("none", "int8", "topk8"), 0.1, 0.5
+FRAME_TWIN_STEPS, WIRE_TWIN_STEPS, PROFILE_STEPS = 3, 5, 10
 
 
 def check(cond: bool, what: str) -> None:
@@ -234,6 +270,346 @@ def host_ms(torch, fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
+def start_planted_build():
+    """Start building K3's quantize source with ``roundf`` in place of
+    ``rintf`` (a planted fault for the frame twin) into
+    ``build/torch_kernels/planted/``: one ``nvcc``, started beside the
+    real build. Returns the process and the library's path."""
+    import subprocess
+
+    from split_learning_tpu_torch.ops import common
+    src = (common.CSRC_DIR / "quantize.cu").read_text()
+    check(src.count("rintf(") == 1, "quantize.cu: expected one rintf call")
+    out_dir = common.BUILD_DIR / "planted"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    planted = out_dir / "quantize_roundf.cu"
+    planted.write_text(src.replace("rintf(", "roundf("))
+    lib = out_dir / "quantize_roundf.so"
+    proc = subprocess.Popen(
+        [common._nvcc(), *common.NVCC_FLAGS, "-I", str(common.CSRC_DIR),
+         "-o", str(lib), str(planted)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, lib
+
+
+def wire_input(torch, dev, gen, n, kind, dtype):
+    """A flat test tensor of ``n`` values on the card."""
+    if kind == "random":
+        x = 3.0 * torch.randn(n, device=dev, generator=gen)
+    elif kind == "ties":
+        x = torch.full((n,), 0.7, device=dev)
+    elif kind == "zeros":
+        x = torch.zeros(n, device=dev)
+    else:
+        # exact halves k + 0.5 at scale 1 (amax 127): rint and roundf differ
+        x = (torch.arange(n, device=dev) % 254).float() - 126.5
+        x[n // 2] = 127.0
+    return x.to(dtype)
+
+
+def wire_kernel_checks(torch, dev, gen):
+    """Phase 12: K3 and K4 against their plain versions on the card, and
+    the codec's card frames against the host codec's."""
+    from split_learning_tpu_torch.ops import quantize as qmod
+    from split_learning_tpu_torch.ops import topk as kmod
+    from split_learning_tpu_torch.transport import codec
+    errs = {qmod.AMAX: 0.0, qmod.QUANT: 0.0, qmod.DEQUANT: 0.0,
+            kmod.NAME: 0.0}
+    n_cases = frames = 0
+
+    def same(a, b, name, what):
+        """Bit-equal, on the host; records the max abs difference (0)."""
+        a, b = a.cpu(), b.cpu()
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"{name} {what}: not bit-equal ({a.dtype}/{b.dtype}, max abs "
+              f"{(a.double() - b.double()).abs().max().item()})")
+        if a.numel():
+            errs[name] = max(errs[name],
+                             (a.double() - b.double()).abs().max().item())
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in WIRE_SIZES:
+            for kind in WIRE_INPUTS:
+                what = f"n={n} {kind} {dtype}"
+                x = wire_input(torch, dev, gen, n, kind, dtype)
+                res = 0.5 * torch.randn(n, device=dev, generator=gen)
+                stats = qmod.amax_cuda(x)
+                same(stats, qmod.amax_plain(x), qmod.AMAX, what)
+                n_out = qmod.tile_rows(n) * qmod.LANE
+                for size in (n, n_out):
+                    q = qmod.quantize_cuda(x, stats, size)
+                    same(q, qmod.quantize_plain(x, stats, size), qmod.QUANT,
+                         what)
+                scale = stats[1].item()
+                same(qmod.dequantize_cuda(q, scale),
+                     qmod.dequantize_plain(q, scale), qmod.DEQUANT, what)
+                for r in (None, res):
+                    for a, b in zip(kmod.fold_magnitudes_cuda(x, r, EF_DECAY),
+                                    kmod.fold_magnitudes_plain(x, r,
+                                                               EF_DECAY)):
+                        same(a, b, kmod.NAME, what)
+                torch.cuda.synchronize()
+                # the same values through the host codec: numpy for
+                # float32, the CPU tensor path for bf16
+                host = (x.cpu().numpy() if dtype == torch.float32
+                        else x.cpu())
+                res_h = res.cpu().numpy()
+                check(codec.encode(codec.q8_compress(x))
+                      == codec.encode(codec.q8_compress(host)),
+                      f"q8 frame {what}")
+                d_k, r_k = codec.topk8_compress(x, DENSITY, res, EF_DECAY)
+                d_h, r_h = codec.topk8_compress(host, DENSITY, res_h,
+                                                EF_DECAY)
+                check(codec.encode(d_k) == codec.encode(d_h),
+                      f"topk8 frame {what}")
+                check(np.array_equal(r_k.cpu().numpy(), np.asarray(r_h)),
+                      f"topk8 residual {what}")
+                frames += 2
+                n_cases += 1
+        for bad in (float("nan"), float("inf")):
+            x = wire_input(torch, dev, gen, math.prod(CNN_CUT), "random",
+                           dtype)
+            x[12345] = bad
+            check(not math.isfinite(qmod.amax_cuda(x)[0].item())
+                  and kmod.fold_magnitudes_cuda(x)[2].item() == 1,
+                  f"non-finite {bad} {dtype}: not flagged")
+            for encode in (codec.q8_compress,
+                           lambda t: codec.topk8_compress(t, DENSITY)):
+                try:
+                    encode(x)
+                except codec.CodecError:
+                    continue
+                raise RuntimeError(f"chip_smoke check failed: the codec "
+                                   f"took a {bad} on the card ({dtype})")
+    return errs, n_cases, frames
+
+
+class FrameTwin:
+    """Phase 13's twin: for the first ``FRAME_TWIN_STEPS`` packs of each
+    direction of a compressed ``LocalTransport``, copy the card's cut
+    tensor and EF residual to the host, encode them with the host codec,
+    and count frames (and residuals) that differ from the card's."""
+
+    def __init__(self, transport, server, codec, mode):
+        self.codec, self.mode = codec, mode
+        self.frames = self.mismatched = 0
+        self._seen = {"up": 0, "down": 0}
+        transport._pack_up = self._wrap(
+            transport._pack_up, "up", lambda: transport._ef, 0)
+        transport._pack_down = self._wrap(
+            transport._pack_down, "down", lambda: server.wire_ef, 1)
+
+    def _wrap(self, pack, direction, ef_of, role):
+        codec = self.codec
+
+        def twin_pack(arr, key):
+            if self._seen[direction] >= FRAME_TWIN_STEPS:
+                return pack(arr, key)
+            self._seen[direction] += 1
+            x_host = arr.detach().cpu().numpy()
+            prev = ef_of().residual(key)
+            prev = None if prev is None else prev.detach().cpu().numpy()
+            packed = pack(arr, key)
+            if self.mode == "int8":
+                host, ok = codec.q8_compress(x_host), True
+            else:
+                host, res_h = codec.topk8_compress(
+                    x_host, DENSITY, residual=prev,
+                    decay=codec.ef_decay_for(key[role]))
+                ok = np.array_equal(
+                    ef_of().residual(key).detach().cpu().numpy(), res_h)
+            self.frames += 1
+            self.mismatched += int(
+                not ok or codec.encode(packed) != codec.encode(host))
+            return packed
+        return twin_pack
+
+    def probe(self, torch, dev):
+        """An exact-half tensor through the card's and the host's q8."""
+        x = wire_input(torch, dev, None, math.prod(CNN_CUT), "halves",
+                       torch.float32)
+        self.frames += 1
+        self.mismatched += int(
+            self.codec.encode(self.codec.q8_compress(x))
+            != self.codec.encode(self.codec.q8_compress(x.cpu().numpy())))
+
+
+def two_party_stack(torch, mode, device, init_seed=0):
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.runtime import (
+        ServerRuntime, SplitClientTrainer)
+    from split_learning_tpu_torch.transport import LocalTransport
+    from split_learning_tpu_torch.utils import Config
+    cfg = Config(transport="local", batch_size=BATCH, lr=LR)
+    server = ServerRuntime(get_plan(), cfg,
+                           torch.Generator().manual_seed(init_seed),
+                           device=device)
+    transport = LocalTransport(server, compress=mode, density=DENSITY)
+    client = SplitClientTrainer(get_plan(), cfg,
+                                torch.Generator().manual_seed(init_seed),
+                                transport, device=device)
+    return client, transport, server
+
+
+def two_party_runs(torch, dev, data, planted):
+    """Phase 13: the two-party CNN in each mode, with exact launch
+    counts, the frame twin, the planted fault and a CPU twin."""
+    from split_learning_tpu_torch.ops import quantize as qmod
+    from split_learning_tpu_torch.ops import topk as kmod
+    from split_learning_tpu_torch.ops.common import LAUNCHES, NVCC_FLAGS
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    from split_learning_tpu_torch.transport import codec
+    import ctypes
+
+    base = {FWD: 1, BWD: 1, SGD: 2}
+    per_step = {"none": base,
+                "int8": {**base, qmod.AMAX: 2, qmod.QUANT: 2,
+                         qmod.DEQUANT: 2},
+                "topk8": {**base, kmod.NAME: 2, qmod.AMAX: 2,
+                          qmod.QUANT: 2}}
+    modes, twins, totals = {}, {}, {}
+    for mode in WIRE_MODES:
+        client, transport, server = two_party_stack(torch, mode, "cuda")
+        twin = (FrameTwin(transport, server, codec, mode)
+                if mode != "none" else None)
+        LAUNCHES.reset()
+        losses, step_ms = [], []
+        for i, (x, y) in enumerate(data):
+            t = time.perf_counter()
+            losses.append(client.train_step(x, y, i))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        counts = LAUNCHES.snapshot()
+        want = {k: v * STEPS for k, v in per_step[mode].items()}
+        print(f"[two-party] {mode}: {STEPS} steps, launches {counts}, "
+              f"losses {losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+        check(counts == want, f"two-party {mode} launches {counts}, "
+                              f"want {want}")
+        check(all(math.isfinite(v) for v in losses), f"{mode}: finite")
+        check(statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
+              f"two-party {mode}: loss did not fall: {losses}")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        if twin is not None:
+            twin.probe(torch, dev)
+            check(twin.frames == 2 * FRAME_TWIN_STEPS + 1
+                  and twin.mismatched == 0,
+                  f"{mode} frame twin: {twin.mismatched} of {twin.frames} "
+                  "frames differ from the host codec's")
+            twins[mode] = {"frames": twin.frames,
+                           "mismatched": twin.mismatched}
+        stats = transport.stats.summary()
+
+        def more_steps(client=client):
+            for i, (x, y) in enumerate(data[:PROFILE_STEPS]):
+                client.train_step(x, y, STEPS + i)
+            torch.cuda.synchronize()
+        steady = step_ms[5:]
+        modes[mode] = dict(
+            step_ms_median=statistics.median(steady),
+            step_ms_min=min(steady), step_ms_max=max(steady),
+            step_ms_first=step_ms[0], steps_per_s=1e3 / statistics.median(
+                steady),
+            wire_bytes_up_per_step=stats["bytes_sent"] / STEPS,
+            wire_bytes_down_per_step=stats["bytes_received"] / STEPS,
+            compression_ratio=stats.get("compression_ratio"),
+            loss_first=losses[0], loss_last=losses[-1],
+            launches=counts, launches_per_step=per_step[mode],
+            profile=profile_window(torch, more_steps, PROFILE_STEPS))
+        if mode == "none":
+            none_losses = losses
+
+    # the planted fault: K3's quantize with roundf must fail the twin
+    proc, lib_path = planted
+    _, err = proc.communicate()
+    check(proc.returncode == 0, f"planted build failed: {err[-2000:]}")
+    real_lib = qmod._lib
+    planted_lib = qmod.bind(ctypes.CDLL(str(lib_path)))
+    qmod._lib = lambda: planted_lib
+    try:
+        client, transport, server = two_party_stack(torch, "int8", "cuda")
+        bad = FrameTwin(transport, server, codec, "int8")
+        for i, (x, y) in enumerate(data[:FRAME_TWIN_STEPS]):
+            client.train_step(x, y, i)
+        bad.probe(torch, dev)
+    finally:
+        qmod._lib = real_lib
+    check(bad.mismatched > 0, f"a planted roundf K3 passed the frame twin "
+                              f"({bad.frames} frames)")
+    print(f"[two-party] frame twin: {twins}; a planted roundf K3 changes "
+          f"{bad.mismatched} of {bad.frames} frames (built with "
+          f"{' '.join(NVCC_FLAGS[:2])})", flush=True)
+
+    twin_client = two_party_stack(torch, "none", "cpu")[0]
+    twin_losses = [twin_client.train_step(x, y, i)
+                   for i, (x, y) in enumerate(data[:WIRE_TWIN_STEPS])]
+    twin_diff = max(abs(a - b) for a, b in zip(twin_losses, none_losses))
+    check(twin_diff <= 1e-4, f"two-party CPU twin: {twin_losses} vs "
+                             f"{none_losses[:WIRE_TWIN_STEPS]}")
+    print(f"[two-party] CPU twin of none within {twin_diff:.3g} over "
+          f"{WIRE_TWIN_STEPS} steps", flush=True)
+    return dict(modes=modes, frame_twin=twins,
+                planted_roundf=dict(frames=bad.frames,
+                                    mismatched=bad.mismatched),
+                cpu_twin_steps=WIRE_TWIN_STEPS,
+                cpu_twin_max_abs_diff=twin_diff), totals
+
+
+def wire_times(torch, dev, gen, bw, fp32):
+    """Phase 14: each wire kernel, its plain version, the library call
+    and the bound, at both cut sizes (float32)."""
+    from split_learning_tpu_torch.ops import quantize as qmod
+    from split_learning_tpu_torch.ops import topk as kmod
+    out = {name: {} for name in (qmod.AMAX, qmod.QUANT, qmod.DEQUANT,
+                                 kmod.NAME)}
+    selection = {}
+    for label, shape in (("cnn_cut", CNN_CUT), ("lm_cut", LM_CUT)):
+        n = math.prod(shape)
+        x = 3.0 * torch.randn(n, device=dev, generator=gen)
+        res = 0.5 * torch.randn(n, device=dev, generator=gen)
+        stats = qmod.amax_cuda(x)
+        scale = stats[1].item()
+        q = qmod.quantize_cuda(x, stats, n)
+        qx = torch.quantize_per_tensor(x, scale, 0, torch.qint8)
+        k = math.ceil(DENSITY * n)
+        m = kmod.fold_magnitudes_cuda(x, res, EF_DECAY)[1]
+        # (kernel, plain, library, bytes moved: inputs once, outputs once)
+        cases = {
+            qmod.AMAX: (lambda: qmod.amax_cuda(x),
+                        lambda: qmod.amax_plain(x),
+                        lambda: torch.amax(x.abs()), 4 * n + 8),
+            qmod.QUANT: (lambda: qmod.quantize_cuda(x, stats, n),
+                         lambda: qmod.quantize_plain(x, stats, n),
+                         lambda: torch.quantize_per_tensor(
+                             x, scale, 0, torch.qint8), 5 * n + 8),
+            qmod.DEQUANT: (lambda: qmod.dequantize_cuda(q, scale),
+                           lambda: qmod.dequantize_plain(q, scale),
+                           lambda: torch.dequantize(qx), 5 * n),
+            kmod.NAME: (lambda: kmod.fold_magnitudes_cuda(x, res, EF_DECAY),
+                        lambda: kmod.fold_magnitudes_plain(x, res, EF_DECAY),
+                        lambda: torch.abs(x), 16 * n + 4),
+        }
+        for name, (kern, plain, lib, nbytes) in cases.items():
+            b_ms, b_by = bound(nbytes, 2 * n, bw, fp32)
+            out[name][label] = dict(
+                n=n, ms=device_ms(torch, kern), plain_ms=device_ms(
+                    torch, plain), library_ms=device_ms(torch, lib),
+                bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
+        # the selection after K4 (PyTorch ops, as lax.top_k in JAX) and
+        # the library's top-k over the same magnitudes
+        selection[label] = dict(
+            k=k, select_topk_ms=host_ms(torch, lambda: kmod.select_topk(m, k),
+                                        reps=10),
+            torch_topk_ms=device_ms(torch, lambda: torch.topk(m, k),
+                                    reps=20))
+        print(f"[wire] times at the {label} ({n} values): "
+              + ", ".join(f"{name} {out[name][label]['ms']:.4f} ms "
+                          f"(bound {out[name][label]['bound_ms']:.4f})"
+                          for name in out), flush=True)
+    return out, selection
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -275,6 +651,7 @@ def main() -> int:
           f"{bw / 1e12} TB/s, {fp32 / 1e12} TFLOP/s f32, "
           f"{bf16_peak / 1e12} TFLOP/s bf16", flush=True)
     t0 = time.perf_counter()
+    planted_build = start_planted_build()   # phase 13's planted fault
     load_kernels()
     print(f"[build] kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1025,10 +1402,56 @@ def main() -> int:
         k6=k6_whole, k6_autograd_rel_err=autograd_err,
         profile=profile_steps(torch, trainer_lm, tr_data[:10])))
 
+    # ---- 12. wire kernels vs plain ----------------------------------- #
+    from split_learning_tpu_torch.ops import quantize as qmod
+    from split_learning_tpu_torch.ops import topk as kmod
+    wire_err, wire_cases, wire_frames = wire_kernel_checks(torch, dev, gen)
+    print(f"[k3/k4] wire kernels bit-equal to their plain versions on "
+          f"{wire_cases} cases, {wire_frames} card frames byte-equal to the "
+          f"host codec's; NaN and inf refused", flush=True)
+
+    # ---- 13. the two-party path at full width ---------------------- #
+    two_party, tp_counts = two_party_runs(torch, dev, data, planted_build)
+
+    # ---- 14. times ---------------------------------------------------- #
+    wire_rec, selection = wire_times(torch, dev, gen, bw, fp32)
+    wire_meta = {
+        qmod.AMAX: ("quantize.cu", "split_learning_tpu/ops/quantize.py:56",
+                    "torch.amax(x.abs())"),
+        qmod.QUANT: ("quantize.cu", "split_learning_tpu/ops/quantize.py:60",
+                     "torch.quantize_per_tensor(x, scale, 0, torch.qint8)"),
+        qmod.DEQUANT: ("quantize.cu",
+                       "split_learning_tpu/ops/quantize.py:65",
+                       "torch.dequantize(qint8 tensor)"),
+        kmod.NAME: ("topk.cu", "split_learning_tpu/ops/topk.py:35",
+                    "torch.abs(x)")}
+    for rec in records:
+        rec["launches_two_party"] = tp_counts.get(
+            launch_of.get(rec["name"], rec["name"]), 0)
+    for name, (src, replaces, lib_call) in wire_meta.items():
+        records.append(dict(
+            name=name, route="cuda",
+            source=f"split_learning_tpu_torch/csrc/{src}",
+            replaces=replaces,
+            launches=tp_counts.get(name, 0),
+            launches_per_step={mode: rec["launches_per_step"].get(name, 0)
+                               for mode, rec in two_party["modes"].items()},
+            max_abs_err=wire_err[name], library_call=lib_call,
+            shape=list(CNN_CUT), dtype="float32",
+            **wire_rec[name]["cnn_cut"], lm_cut=wire_rec[name]["lm_cut"]))
+    records[-4]["also_replaces"] = records[-3]["also_replaces"] = (
+        "split_learning_tpu/ops/quantize.py:44 (the fused one-block form)")
+    records[-1]["selection"] = selection
+    two_party_line = dict(two_party=dict(
+        model="split_cnn", mode="split", transport="local", batch=BATCH,
+        steps=STEPS, density=DENSITY, device=kind, kernel_cases=wire_cases,
+        kernel_frames=wire_frames, **two_party))
+
     print(json.dumps({"kernels": records}))
     print(json.dumps(step))
     print(json.dumps(serving))
     print(json.dumps(train_lm))
+    print(json.dumps(two_party_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

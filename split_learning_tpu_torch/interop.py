@@ -16,6 +16,11 @@ The mapping of the leaf:
   layers named in :data:`models.transformer.EMBED_LAYERS`);
 - the transformer's raw ``pos`` table stays ``pos``.
 
+The parties of the two-party path (``runtime/server.py``,
+``runtime/client.py``) take :func:`params_from_jax` of the whole plan's
+JAX init and each keep their own stage, as the JAX parties keep theirs
+from one PRNG key, so a mixed pair starts from identical parameters.
+
 Both directions only transpose, so a round trip is bit-exact. Arrays
 cross as numpy, so neither side imports the other framework. Each leaf
 keeps its dtype on the port's side; a bfloat16 leaf (``pos`` in a bf16

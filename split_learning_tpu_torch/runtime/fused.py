@@ -34,31 +34,22 @@ import torch
 from split_learning_tpu_torch.core.stage import Params, SplitPlan
 from split_learning_tpu_torch.ops.cross_entropy import fused_cross_entropy
 from split_learning_tpu_torch.runtime.state import (
-    TrainState, leaves_of, make_state, make_tx)
+    TrainState, check_config, init_params, leaves_of, make_state, make_tx)
 from split_learning_tpu_torch.utils.config import Config
 from split_learning_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for every value the port cannot run."""
-    unsupported = [
-        (cfg.transport != "fused",
-         f"transport {cfg.transport!r} (the two-party path is ROADMAP "
-         "items 8-12)"),
-        (cfg.num_clients > 1,
-         "num_clients > 1 (data-parallel mesh: ROADMAP item 18)"),
-        (cfg.model_parallel > 1,
-         "model_parallel > 1 (tensor parallelism: ROADMAP item 18)"),
-        (cfg.seq_parallel > 1,
-         "seq_parallel > 1 (context parallelism: ROADMAP item 21)"),
-        (cfg.remat, "remat (ROADMAP item 16)"),
-        (cfg.dtype != "float32",
-         f"dtype {cfg.dtype!r} (mixed precision: ROADMAP item 14)"),
-    ]
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(f"not ported yet: {what}")
-    make_tx(cfg)  # optimizer, schedule, weight decay and clipping checks
+    """Raise ``NotImplementedError`` for every value the fused trainer
+    cannot run: a transport other than ``fused`` (the two-party path is
+    ``SplitClientTrainer`` over ``LocalTransport``), and
+    :func:`~split_learning_tpu_torch.runtime.state.check_config`."""
+    if cfg.transport != "fused":
+        raise NotImplementedError(
+            f"not ported yet: transport {cfg.transport!r} in the fused "
+            "trainer (the two-party path, ROADMAP items 8-12, is "
+            "SplitClientTrainer over LocalTransport)")
+    check_config(cfg)
 
 
 class FusedSplitTrainer:
@@ -67,7 +58,8 @@ class FusedSplitTrainer:
     ``init`` is a ``torch.Generator`` (fresh flax-style init, drawn on the
     CPU) or per-stage parameter dicts to start from, e.g. carried over
     from the JAX package with :mod:`split_learning_tpu_torch.interop`.
-    ``device`` defaults to ``"cuda"`` and raises without a GPU."""
+    ``sample_input`` keeps the JAX signature; a flax-style init needs no
+    sample. ``device`` defaults to ``"cuda"`` and raises without a GPU."""
 
     def __init__(self, plan: SplitPlan, cfg: Config,
                  init: Union[torch.Generator, Sequence[Params]],
@@ -78,18 +70,8 @@ class FusedSplitTrainer:
         self.plan = plan
         self.cfg = cfg
         self._tx = make_tx(cfg)
-        if isinstance(init, torch.Generator):
-            params = plan.init(init, torch.as_tensor(np.asarray(sample_input)))
-        else:
-            params = tuple(init)
-            if len(params) != plan.num_stages:
-                raise ValueError(f"expected {plan.num_stages} per-stage "
-                                 f"param dicts, got {len(params)}")
-        params = tuple(
-            {k: torch.as_tensor(v).detach().to(self.device, torch.float32)
-             .clone().requires_grad_(True) for k, v in stage.items()}
-            for stage in params)
-        self.state: TrainState = make_state(params, self._tx)
+        self.state: TrainState = make_state(
+            init_params(plan, init, self.device), self._tx)
 
     # ----------------------------------------------------------------- #
     def _to_device(self, x, y) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -5,20 +5,24 @@ The JAX state is an immutable pytree threaded through pure steps. Here
 the parameters and the momentum trace **in place** (under
 ``torch.no_grad``) through the fused SGD kernel.
 
-Only what the fused trainer runs is ported: constant-lr SGD with
-optional momentum, with optax.trace semantics and a zero-initialised
-trace (m <- mu*m + g; p <- p - lr*m). Schedules, coupled L2, adam/adamw
-and clipping raise ``NotImplementedError`` naming the ROADMAP item.
+Only what the trainers run is ported: constant-lr SGD with optional
+momentum, with optax.trace semantics and a zero-initialised trace
+(m <- mu*m + g; p <- p - lr*m). Schedules, coupled L2, adam/adamw and
+clipping raise ``NotImplementedError`` naming the ROADMAP item.
+
+Beside it, what every trainer and party shares: :func:`check_config`,
+the Config values the port cannot run yet, and :func:`init_params`, a
+party's own stages from a seed or from given per-stage dicts.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from split_learning_tpu_torch.core.stage import Params
+from split_learning_tpu_torch.core.stage import Params, SplitPlan
 from split_learning_tpu_torch.ops.sgd import fused_sgd_step, init_trace
 
 OPTIMIZER_ITEM = "ROADMAP item 10"
@@ -90,3 +94,51 @@ def make_tx(cfg) -> SGD:
 def make_state(params: Sequence[Params], tx: SGD) -> TrainState:
     params = tuple(params)
     return TrainState(params=params, trace=tx.init(leaves_of(params)))
+
+
+def check_config(cfg) -> None:
+    """Raise ``NotImplementedError`` for every Config value (other than
+    the transport, which each trainer checks) the port cannot run."""
+    unsupported = [
+        (cfg.num_clients > 1,
+         "num_clients > 1 (data-parallel mesh: ROADMAP item 18)"),
+        (cfg.model_parallel > 1,
+         "model_parallel > 1 (tensor parallelism: ROADMAP item 18)"),
+        (cfg.seq_parallel > 1,
+         "seq_parallel > 1 (context parallelism: ROADMAP item 21)"),
+        (cfg.remat, "remat (ROADMAP item 16)"),
+        (cfg.dtype != "float32",
+         f"dtype {cfg.dtype!r} (mixed precision: ROADMAP item 14)"),
+    ]
+    for bad, what in unsupported:
+        if bad:
+            raise NotImplementedError(f"not ported yet: {what}")
+    make_tx(cfg)  # optimizer, schedule, weight decay and clipping checks
+
+
+def init_params(plan: SplitPlan,
+                init: Union[torch.Generator, Sequence[Params]],
+                device: torch.device,
+                stages: Optional[Sequence[int]] = None
+                ) -> Tuple[Params, ...]:
+    """The parameters of ``stages`` (default: all), as float32 leaves on
+    ``device`` that require grad.
+
+    ``init`` is a ``torch.Generator``, from which the whole plan is drawn
+    on the CPU (so each party, keeping only its own stages, starts where
+    a one-process run from the same seed would, as the JAX parties do
+    from one PRNG key), or per-stage dicts for every stage of the plan,
+    e.g. the JAX init carried over with
+    :func:`split_learning_tpu_torch.interop.params_from_jax`."""
+    if isinstance(init, torch.Generator):
+        params = plan.init(init, torch.zeros(1))
+    else:
+        params = tuple(init)
+        if len(params) != plan.num_stages:
+            raise ValueError(f"expected {plan.num_stages} per-stage param "
+                             f"dicts, got {len(params)}")
+    keep = range(plan.num_stages) if stages is None else stages
+    return tuple(
+        {k: torch.as_tensor(v).detach().to(device, torch.float32).clone()
+         .requires_grad_(True) for k, v in params[i].items()}
+        for i in keep)

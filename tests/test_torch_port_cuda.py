@@ -228,3 +228,117 @@ def test_lm_training_on_the_card(dev):
                                    FWD: 2, BWD: 2, SGD: 6}
     want = [cpu.train_step(x, y) for x, y in batches]
     assert max(abs(a - b) for a, b in zip(losses, want)) <= 1e-4
+
+
+# --------------------------------------------------------------------- #
+# the two-party slice: K3, K4, the wire codec and the trainer on the card
+
+WIRE_SIZES = (1, 127, 129, 4099, 64 * 26 * 26 * 32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", WIRE_SIZES)
+def test_wire_kernels_match_plain(dev, n, dtype):
+    """K3's amax, quantize and dequantize and K4's fold: bit-equal to
+    their plain versions, one launch each."""
+    from split_learning_tpu_torch.ops import quantize as qmod
+    from split_learning_tpu_torch.ops import topk as kmod
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = (3.0 * torch.randn(n, device=dev, generator=g)).to(dtype)
+    res = torch.randn(n, device=dev, generator=g)
+    LAUNCHES.reset()
+    stats = qmod.amax_cuda(x)
+    q = qmod.quantize_cuda(x, stats, qmod.tile_rows(n) * qmod.LANE)
+    deq = qmod.dequantize_cuda(q, stats[1].item())
+    fold = kmod.fold_magnitudes_cuda(x, res, 0.5)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {qmod.AMAX: 1, qmod.QUANT: 1,
+                                   qmod.DEQUANT: 1, kmod.NAME: 1}
+    assert torch.equal(stats, qmod.amax_plain(x))
+    assert torch.equal(q, qmod.quantize_plain(x, stats, q.numel()))
+    assert torch.equal(deq, qmod.dequantize_plain(q, stats[1].item()))
+    for a, b in zip(fold, kmod.fold_magnitudes_plain(x, res, 0.5)):
+        assert torch.equal(a, b)
+
+
+def test_wire_kernels_round_half_to_even_and_flag_non_finite(dev):
+    from split_learning_tpu_torch.ops import quantize as qmod
+    from split_learning_tpu_torch.ops import topk as kmod
+    from split_learning_tpu_torch.transport import codec
+    x = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5], device=dev)
+    q, scale = qmod.quantize_int8(x)
+    assert scale.item() == 1.0
+    assert q.reshape(-1)[:6].tolist() == [127, 0, 2, 2, 0, -2]
+    y = torch.randn(1000, device=dev)
+    y[17] = float("nan")
+    assert kmod.fold_magnitudes_cuda(y)[2].item() == 1
+    with pytest.raises(codec.CodecError):
+        codec.q8_compress(y)
+    with pytest.raises(codec.CodecError):
+        codec.topk8_compress(y, 0.1)
+
+
+@pytest.mark.parametrize("density", [0.1, 0.01])
+def test_card_frames_equal_host_frames(dev, density):
+    """The codec on a CUDA tensor gives the numpy path's frames (q8, and
+    three topk8 EF steps at decay 0.5), and the same residuals."""
+    from split_learning_tpu_torch.transport import codec
+    ef_card, ef_host = codec.TopK8EF(), codec.TopK8EF()
+    for step in range(3):
+        x = np.random.RandomState(step).randn(64, 26, 26, 32).astype(
+            np.float32)
+        xd = torch.from_numpy(x).to(dev)
+        assert codec.encode(codec.q8_compress(xd)) == codec.encode(
+            codec.q8_compress(x))
+        assert codec.encode(ef_card.compress("k", xd, density, 0.5)) == \
+            codec.encode(ef_host.compress("k", x, density, 0.5))
+        np.testing.assert_array_equal(ef_card.residual("k").cpu().numpy(),
+                                      ef_host.residual("k"))
+        out = codec.decompress_tree(codec.decode(codec.encode(
+            codec.q8_compress(x))), dev)
+        assert out.is_cuda
+        np.testing.assert_array_equal(
+            out.cpu().numpy(), codec.q8_decompress(codec.q8_compress(x)))
+
+
+@pytest.mark.parametrize("compress", ["none", "int8", "topk8"])
+def test_two_party_training_on_the_card(dev, compress):
+    """Two steps of the split CNN through LocalTransport(ServerRuntime) on
+    the card: exact launch counts, the gradient back on the card, losses
+    within 1e-4 of a CPU twin (1e-3 with int8 and topk8)."""
+    from split_learning_tpu_torch.data import batches, synthetic
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops import quantize as qmod
+    from split_learning_tpu_torch.ops import topk as kmod
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    from split_learning_tpu_torch.runtime import (
+        ServerRuntime, SplitClientTrainer)
+    from split_learning_tpu_torch.transport import LocalTransport
+    from split_learning_tpu_torch.utils.config import Config
+    data = list(batches(synthetic("mnist", n_train=64, n_test=8).train, 32,
+                        seed=0))
+    losses = {}
+    for where in ("cuda", "cpu"):
+        server = ServerRuntime(get_plan(), Config(batch_size=32),
+                               torch.Generator().manual_seed(0),
+                               device=where)
+        client = SplitClientTrainer(
+            get_plan(), Config(batch_size=32),
+            torch.Generator().manual_seed(0),
+            LocalTransport(server, compress=compress), device=where)
+        LAUNCHES.reset()
+        losses[where] = [client.train_step(x, y, i)
+                         for i, (x, y) in enumerate(data)]
+        torch.cuda.synchronize()
+        if where == "cuda":
+            per_step = {FWD: 1, BWD: 1, SGD: 2}
+            if compress == "int8":
+                per_step.update({qmod.AMAX: 2, qmod.QUANT: 2,
+                                 qmod.DEQUANT: 2})
+            if compress == "topk8":
+                per_step.update({kmod.NAME: 2, qmod.AMAX: 2, qmod.QUANT: 2})
+            assert LAUNCHES.snapshot() == {k: 2 * v
+                                           for k, v in per_step.items()}
+    tol = 1e-4 if compress == "none" else 1e-3
+    assert max(abs(a - b) for a, b in zip(*losses.values())) <= tol

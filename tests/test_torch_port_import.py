@@ -6,8 +6,10 @@
   imports jax into every test worker.
 - No port file names ``jax``, ``flax``, ``optax``, ``split_learning_tpu``
   or ``scripts`` in an import statement.
-- Asking for CUDA on a machine without a GPU raises: the trainer, the
-  CLI and the kernel build never fall back to the CPU.
+- The two-party slice's modules (transport, obs, runtime.server,
+  runtime.client, ops.quantize, ops.topk) import with jax blocked.
+- Asking for CUDA on a machine without a GPU raises: the trainers, the
+  server, the CLI and the kernel build never fall back to the CPU.
 """
 
 import ast
@@ -77,6 +79,37 @@ def test_no_forbidden_imports(path):
                 f"{name}")
 
 
+TWO_PARTY_MODULES = (
+    "split_learning_tpu_torch.transport", "split_learning_tpu_torch.obs",
+    "split_learning_tpu_torch.runtime.server",
+    "split_learning_tpu_torch.runtime.client",
+    "split_learning_tpu_torch.ops.quantize",
+    "split_learning_tpu_torch.ops.topk")
+
+
+def test_two_party_modules_import_without_jax():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'flax', 'optax', 'ml_dtypes'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for mod in {TWO_PARTY_MODULES!r}:\n"
+        "    importlib.import_module(mod)\n"
+        "from split_learning_tpu_torch.transport import codec\n"
+        "import numpy as np\n"
+        "d = codec.q8_compress(np.ones((2, 3), np.float32))\n"
+        "assert codec.decompress_tree(codec.decode(codec.encode(d))).shape"
+        " == (2, 3)\n"
+        "leaked = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] == 'split_learning_tpu')\n"
+        "assert not leaked, leaked\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
+
+
 @pytest.fixture()
 def no_gpu():
     if torch.cuda.is_available():
@@ -112,3 +145,19 @@ def test_kernel_build_raises_without_nvcc(no_gpu, monkeypatch):
                         common.BUILD_DIR.with_name("torch_kernels_absent"))
     with pytest.raises(RuntimeError, match="nvcc"):
         common.load_kernels()
+
+
+def test_two_party_entry_points_raise_without_gpu(no_gpu):
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.runtime import (
+        ServerRuntime, SplitClientTrainer)
+    from split_learning_tpu_torch.transport import LocalTransport
+    from split_learning_tpu_torch.utils.config import Config
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServerRuntime(get_plan(), Config(), torch.Generator().manual_seed(0))
+    server = ServerRuntime(get_plan(), Config(),
+                           torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        SplitClientTrainer(get_plan(), Config(),
+                           torch.Generator().manual_seed(0),
+                           LocalTransport(server))
