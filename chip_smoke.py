@@ -27,12 +27,17 @@ beside this script. Phases, any failure ending the run with a traceback:
    median step time, and a ``torch.profiler`` window of 20 more steps
    giving the device's idle share and its time by kernel;
 6. flash attention (forward) against its plain version over T in {1, 63,
-   64, 65, 1000, 1024}, D in {16, 64, 128}, B*H in {1, 16}, non-causal,
-   causal and causal+strict, float32 and bfloat16, plus strided q/k/v
-   views and the training shape (B 64, T 1024, H 2, D 128, causal): O
-   and LSE within 2e-5 (float32) and within 3e-2 / 1e-3 (bfloat16: two
-   bf16 ulps at |o| near 2), row 0 of a strict mask o = 0 and
-   lse = NEG_BIG;
+   64, 65, 1000, 1024, 2048}, D in {16, 24, 64, 100, 128, 256} (24 and
+   100 are padded to the next tile width; 100 in bf16 has rows that are
+   not 16-byte aligned and takes the kernel's scalar loads), B*H in {1,
+   16}, non-causal, causal and causal+strict, float32 and bfloat16, plus
+   strided q/k/v views (D 40 aligned, D 50 not, in either dtype) and the
+   training shape (B 64, T 1024, H 2, D 128, causal): O and LSE within
+   2e-5 (float32: the 3xTF32 products and the tile loop's order against
+   one dense float32 softmax) and within 1.6e-2 / 1e-3 (bfloat16: the
+   plain version rounds P to bf16 where the kernel does, so what is left
+   is two bf16 ulps of an |o| below 2), row 0 of a strict mask o = 0
+   and lse = NEG_BIG;
 7. the serving path at full width: the split causal LM (bf16, d_model
    256, 2 heads, vocab 256, depths 1 + 2, max_len 2048, attn="flash")
    from a seeded init. Launch counts reset before and read after each
@@ -45,19 +50,22 @@ beside this script. Phases, any failure ending the run with a traceback:
    batch). A float32 CPU twin from the same parameters: prefill logits
    within 1e-4, and each of 32 greedy tokens of the card within 1e-4 of
    the CPU row's max logit;
-8. times at the prefill shape (B 8, T 1024, H 2, D 128, causal, bf16 and
-   float32): kernel, plain, ``F.scaled_dot_product_attention`` and the
-   bound; prefill ms, KV-decode and re-forward tokens/s, and a
-   ``torch.profiler`` window over one KV generate;
+8. times at the prefill shape (B 8, T 1024, H 2, D 128, causal) and at
+   the training shape (B 64), bf16 and float32: kernel, plain,
+   ``F.scaled_dot_product_attention`` and the bound (operations over the
+   bf16 tensor-core peak, or for float32 inputs over the TF32 peak / 3,
+   the three products of the 3xTF32 split); prefill ms, KV-decode and
+   re-forward tokens/s, and a ``torch.profiler`` window over one KV
+   generate;
 9. the flash-attention backward (K6: its delta, dK/dV and dQ launches)
-   against its plain version over T in {1, 63, 64, 65, 1000, 1024}, D
-   in {16, 64, 128, 256}, B*H in {1, 16}, non-causal, causal and
-   causal+strict, float32 and bfloat16, without and with an LSE
-   cotangent, plus strided views and the training shape (B 64, T 1024,
-   H 2, D 128, causal): every gradient within ``FA_BWD_TOL``
-   of the largest plain entry (float32 2e-5: the tile loop's summation
-   order against one dense sum per product; bf16 8e-3: two bf16 ulps,
-   both sides rounding float32 sums), strict row 0 dQ = 0; autograd
+   against its plain version over the forward's T, D, B*H and masks,
+   float32 and bfloat16, without and with an LSE cotangent, plus the
+   strided views and the training shape (B 64, T 1024, H 2, D 128,
+   causal): every gradient within ``FA_BWD_TOL`` of the largest plain
+   entry (float32 2e-5: the 3xTF32 products and the tile loop's
+   summation order against one dense float32 sum per product; bf16
+   8e-3: two bf16 ulps of that entry, both sides rounding P and dS to
+   bf16 and then float32 sums), strict row 0 dQ = 0; autograd
    through ``flash_attention_with_lse`` against autograd of dense
    attention, and two runs giving bit-identical dQ, dK, dV;
 10. the training path at full width: ``FusedSplitTrainer`` on ``cuda``
@@ -76,8 +84,8 @@ beside this script. Phases, any failure ending the run with a traceback:
    at a small size, and the classifier ``transformer`` at T 256, batch
    64, for 5 steps at full width, each with exact launch counts;
 11. times at the training shape (B 64, T 1024, H 2, D 128, causal,
-   float32 and bf16): each K6 launch, the whole backward, its plain
-   version, ``torch.linalg.vecdot`` for the delta launch and the backward
+   float32 and bf16; bounds as in phase 8): each K6 launch, the whole
+   backward, its plain version, ``torch.linalg.vecdot`` for the delta launch and the backward
    of ``F.scaled_dot_product_attention`` (``torch.autograd.grad`` on a
    retained graph) for the whole, beside the bound; the
    step's median ms over steps 6-30, tokens/s, and a
@@ -131,14 +139,14 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# (memory bytes/s, float32 FLOP/s outside the tensor cores, bf16 dense
-# tensor-core FLOP/s) by the nvidia-smi name; NVIDIA data sheets, dense
-# rates without sparsity at the full power limit
+# (memory bytes/s, float32 FLOP/s outside the tensor cores, bf16 and TF32
+# dense tensor-core FLOP/s) by the nvidia-smi name; NVIDIA data sheets,
+# dense rates without sparsity at the full power limit
 _CARD_PEAKS = (
-    ("H100 80GB HBM3", 3.35e12, 67e12, 989e12),   # H100 SXM
-    ("H100 NVL", 3.9e12, 60e12, 835e12),
-    ("H100 PCIe", 2.0e12, 51e12, 756e12),
-    ("H200", 4.8e12, 67e12, 989e12),
+    ("H100 80GB HBM3", 3.35e12, 67e12, 989e12, 495e12),   # H100 SXM
+    ("H100 NVL", 3.9e12, 60e12, 835e12, 417e12),
+    ("H100 PCIe", 2.0e12, 51e12, 756e12, 378e12),
+    ("H200", 4.8e12, 67e12, 989e12, 495e12),
 )
 
 BATCH, STEPS, LR = 64, 30, 0.01
@@ -148,19 +156,19 @@ CE_GRAD_RTOL = 1e-5
 CNN_LEAF_SHAPES = ((32, 1, 3, 3), (32,), (64, 32, 3, 3), (64,), (10, 9216),
                    (10,))
 # flash attention: shapes held to the plain version, and the serving path
-FA_T = (1, 63, 64, 65, 1000, 1024)
-FA_D = (16, 64, 128)
+FA_T = (1, 63, 64, 65, 1000, 1024, 2048)
+FA_D = (16, 24, 64, 100, 128, 256)
 FA_BH = ((1, 1), (8, 2))
 FA_MASKS = ((False, False), (True, False), (True, True))
-FA_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (3e-2, 1e-3)}  # (O, LSE)
+FA_STRIDED_D = (40, 50)   # packed views: 16-byte aligned rows, and not
+FA_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1.6e-2, 1e-3)}  # (O, LSE)
 LM = dict(model="transformer_lm", mode="split", vocab=256, d_model=256,
           num_heads=2, client_depth=1, server_depth=2, max_len=2048,
           attn="flash")
 SERVE_B, SERVE_P, SERVE_NEW, REFWD_NEW, TWIN_B, TWIN_NEW = 8, 1024, 256, 16, 2, 32
 N_BLOCKS = LM["client_depth"] + LM["server_depth"]
-# flash backward grid (T, B*H and masks as the forward's) and tolerance,
-# times the largest entry of the plain version's gradient (at least 1)
-FA_BWD_D = (16, 64, 128, 256)
+# flash backward: the forward's grid, and the tolerance times the largest
+# entry of the plain version's gradient (at least 1)
 FA_BWD_TOL = {"float32": 2e-5, "bfloat16": 8e-3}
 # the training path: the serving LM's widths in float32
 TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR, TRAIN_MU = 64, 1024, 30, 0.1, 0.9
@@ -190,11 +198,12 @@ def check(cond: bool, what: str) -> None:
 
 
 def card_peaks(name: str):
-    for key, bw, fp32, bf16 in _CARD_PEAKS:
+    for key, bw, fp32, bf16, tf32 in _CARD_PEAKS:
         if key in name:
-            return bw, fp32, bf16, key
-    _, bw, fp32, bf16 = _CARD_PEAKS[0]
-    return bw, fp32, bf16, f"H100 SXM (assumed; {name!r} is not in the table)"
+            return bw, fp32, bf16, tf32, key
+    _, bw, fp32, bf16, tf32 = _CARD_PEAKS[0]
+    return (bw, fp32, bf16, tf32,
+            f"H100 SXM (assumed; {name!r} is not in the table)")
 
 
 def bound(nbytes: float, ops: float, bw: float, fp32: float):
@@ -645,11 +654,15 @@ def main() -> int:
     dev = resolve_device("cuda")
     smi = gpu_name_and_power_limit().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    bw, fp32, bf16_peak, peak_key = card_peaks(kind)
+    bw, fp32, bf16_peak, tf32_peak, peak_key = card_peaks(kind)
+    # the flash kernels' roof by input dtype: bf16 operands, or float32
+    # inputs as three TF32 products each (the 3xTF32 split)
+    flash_peak = {"bfloat16": bf16_peak, "float32": tf32_peak / 3}
     print(f"[device] {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | peaks of {peak_key}: "
           f"{bw / 1e12} TB/s, {fp32 / 1e12} TFLOP/s f32, "
-          f"{bf16_peak / 1e12} TFLOP/s bf16", flush=True)
+          f"{bf16_peak / 1e12} TFLOP/s bf16, {tf32_peak / 1e12} TFLOP/s "
+          f"TF32 ({tf32_peak / 3e12} as 3xTF32)", flush=True)
     t0 = time.perf_counter()
     planted_build = start_planted_build()   # phase 13's planted fault
     load_kernels()
@@ -890,10 +903,11 @@ def main() -> int:
                                  f"strict={strict}")
                         n_cases += 1
         # q, k, v as strided views of one packed [B, T, 3, H, D] tensor
-        packed = torch.randn(2, 100, 3, 3, 40, device=dev,
-                             generator=gen).to(dtype)
-        fa_check(*packed.unbind(2), True, False, "strided views")
-        n_cases += 1
+        for d in FA_STRIDED_D:
+            packed = torch.randn(2, 100, 3, 3, d, device=dev,
+                                 generator=gen).to(dtype)
+            fa_check(*packed.unbind(2), True, False, f"strided views D{d}")
+            n_cases += 1
         # the LM training path's shape
         q, k, v = (torch.randn(TRAIN_SHAPE, device=dev, generator=gen).to(
             dtype) for _ in range(3))
@@ -1000,28 +1014,39 @@ def main() -> int:
           "row max", flush=True)
 
     # ---- 8. times ---------------------------------------------------- #
-    fa_rec = {}
-    for dtype, peak in ((torch.bfloat16, bf16_peak), (torch.float32, fp32)):
-        shape = (SERVE_B, SERVE_P, LM["num_heads"],
-                 LM["d_model"] // LM["num_heads"])
-        q, k, v = (torch.randn(shape, device=dev, generator=gen).to(dtype)
-                   for _ in range(3))
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        n = math.prod(shape)
-        nbytes = 4 * n * q.element_size() + n // shape[3] * 4
-        flops = 2 * shape[0] * shape[2] * shape[1] ** 2 * shape[3]
-        b_ms, b_by = bound(nbytes, flops, bw, peak)
-        name = str(dtype).replace("torch.", "")
-        fa_rec[name] = dict(
-            shape=list(shape), dtype=name, causal=True,
-            ms=device_ms(torch, lambda: flash_fwd_cuda(q, k, v, True)),
-            plain_ms=device_ms(torch, lambda: flash_attention_with_lse_plain(
-                q, k, v, True), reps=20),
-            library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True)),
-            bytes=nbytes, flops=flops, bound_ms=b_ms, bound_by=b_by,
-            max_abs_err=fa_err[name][0], max_abs_err_lse=fa_err[name][1],
-            train_shape_max_abs_err=fa_err_train[name])
+    prefill_shape = (SERVE_B, SERVE_P, LM["num_heads"],
+                     LM["d_model"] // LM["num_heads"])
+    fa_rec = {"prefill": {}, "train": {}}
+    for label, shape in (("prefill", prefill_shape), ("train", TRAIN_SHAPE)):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            q, k, v = (torch.randn(shape, device=dev, generator=gen).to(dtype)
+                       for _ in range(3))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            n = math.prod(shape)
+            nbytes = 4 * n * q.element_size() + n // shape[3] * 4
+            flops = 2 * shape[0] * shape[2] * shape[1] ** 2 * shape[3]
+            b_ms, b_by = bound(nbytes, flops, bw, flash_peak[name])
+            fa_rec[label][name] = dict(
+                shape=list(shape), dtype=name, causal=True,
+                ms=device_ms(torch, lambda: flash_fwd_cuda(q, k, v, True)),
+                plain_ms=device_ms(
+                    torch, lambda: flash_attention_with_lse_plain(
+                        q, k, v, True), reps=10),
+                library_ms=device_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True)),
+                bytes=nbytes, flops=flops, bound_ms=b_ms, bound_by=b_by,
+                bound_peak_flops=flash_peak[name])
+            del q, k, v, qt, kt, vt
+    for name, rec in fa_rec["prefill"].items():
+        rec.update(max_abs_err=fa_err[name][0],
+                   max_abs_err_lse=fa_err[name][1],
+                   train_shape_max_abs_err=fa_err_train[name])
+    print("[k5] ms kernel / bound / library: " + "; ".join(
+        f"{label} {name} {r['ms']:.4f} / {r['bound_ms']:.4f} / "
+        f"{r['library_ms']:.4f}" for label, recs in fa_rec.items()
+        for name, r in recs.items()), flush=True)
     records.append(dict(
         name="flash_attention_fwd", route="cuda",
         source="split_learning_tpu_torch/csrc/flash_attention.cu",
@@ -1033,7 +1058,8 @@ def main() -> int:
         launches_evaluate=serve_counts["evaluate"],
         library_call="torch.nn.functional.scaled_dot_product_attention("
                      "is_causal=True)",
-        **fa_rec["bfloat16"], float32=fa_rec["float32"]))
+        **fa_rec["prefill"]["bfloat16"],
+        float32=fa_rec["prefill"]["float32"], train_shape=fa_rec["train"]))
 
     def prefill():
         x = torch.from_numpy(prompt).to(dev)
@@ -1104,7 +1130,7 @@ def main() -> int:
 
     for dtype in (torch.float32, torch.bfloat16):
         for t in FA_T:
-            for d in FA_BWD_D:
+            for d in FA_D:
                 for b, h in FA_BH:
                     q, k, v, do = (torch.randn(b, t, h, d, device=dev,
                                                generator=gen).to(dtype)
@@ -1117,10 +1143,12 @@ def main() -> int:
                                       f"strict={strict} g_lse={gl is not None}")
                             n_bwd += 1
         # q, k, v and dO as strided views of one packed tensor
-        packed = torch.randn(2, 100, 4, 3, 40, device=dev,
-                             generator=gen).to(dtype)
-        bwd_check(*packed.unbind(2), None, True, False, "strided views")
-        n_bwd += 1
+        for d in FA_STRIDED_D:
+            packed = torch.randn(2, 100, 4, 3, d, device=dev,
+                                 generator=gen).to(dtype)
+            bwd_check(*packed.unbind(2), None, True, False,
+                      f"strided views D{d}")
+            n_bwd += 1
         # the LM training path's shape: causal, no LSE cotangent
         q, k, v, do = (torch.randn(TRAIN_SHAPE, device=dev,
                                    generator=gen).to(dtype)
@@ -1299,8 +1327,12 @@ def main() -> int:
             BWD_DQ: 6 * pairs * head_dim, "whole": 10 * pairs * head_dim}
     k6_rec = {n: {} for n in BWD_NAMES}
     k6_whole = {}
-    for dtype, peak in ((torch.float32, fp32), (torch.bfloat16, bf16_peak)):
+    for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
+        # the delta launch is a float32 row sum on the CUDA cores; the
+        # products run on the tensor cores
+        peak = {n: flash_peak[name] for n in (BWD_DKV, BWD_DQ, "whole")}
+        peak[BWD_DELTA] = fp32
         e = torch.tensor([], dtype=dtype).element_size()
         q, k, v, do = (torch.randn(shape, device=dev, generator=gen).to(dtype)
                        for _ in range(4))
@@ -1321,11 +1353,12 @@ def main() -> int:
                  BWD_DQ: lambda: flash_bwd_dq_plain(q, k, v, do, lse, delta,
                                                     True)}
         for n in BWD_NAMES:
-            b_ms, b_by = bound(nbytes[n], work[n], bw, peak)
+            b_ms, b_by = bound(nbytes[n], work[n], bw, peak[n])
             k6_rec[n][name] = dict(
                 ms=device_ms(torch, launch[n], reps=20),
                 plain_ms=device_ms(torch, plain[n], reps=10),
                 bytes=nbytes[n], flops=work[n], bound_ms=b_ms, bound_by=b_by,
+                bound_peak_flops=peak[n],
                 max_abs_err=bwd_err_train[name][n],
                 max_abs_err_grid=bwd_err[name][n])
         # delta with no LSE cotangent, as on the training path, is one
@@ -1336,7 +1369,7 @@ def main() -> int:
                       for x in (q, k, v))
         lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         do_t = do.transpose(1, 2)
-        b_ms, b_by = bound(nbytes["whole"], work["whole"], bw, peak)
+        b_ms, b_by = bound(nbytes["whole"], work["whole"], bw, peak["whole"])
         k6_whole[name] = dict(
             shape=list(shape), dtype=name, causal=True,
             ms=device_ms(torch, lambda: flash_bwd_cuda(q, k, v, o, lse, do,
@@ -1348,7 +1381,7 @@ def main() -> int:
             library_call="torch.autograd.grad of "
                          "F.scaled_dot_product_attention(is_causal=True)",
             bytes=nbytes["whole"], flops=work["whole"], bound_ms=b_ms,
-            bound_by=b_by)
+            bound_by=b_by, bound_peak_flops=peak["whole"])
         # no library call computes dK, dV or dQ alone: the SDPA backward,
         # which computes all three, stands on the dK/dV record
         k6_rec[BWD_DKV][name]["library_ms"] = k6_whole[name]["library_ms"]

@@ -1,5 +1,5 @@
 // Flash-attention forward (online softmax, O and the row log-sum-exp) for
-// Hopper (sm_90a).
+// Hopper (sm_90a), on the tensor cores.
 //
 // Replaces the Pallas kernel of split_learning_tpu/ops/flash_attention.py:
 //   _fwd_kernel (:391, pallas_call at :657), reached through
@@ -8,35 +8,40 @@
 // What bounds it on this card: operations. Per (batch, head) the work is
 // 4*T*T*D FLOPs (half of it under the causal mask) against 4*T*D values
 // moved, so at the serving path's prefill (B 8, T 1024, H 2, D 128) it does
-// about 500 operations per byte, above the H100's ridge in float32 and in
-// bf16. This first version computes in float32 on the CUDA cores (67
-// TFLOP/s peak); wgmma with bf16 operands, TMA loads and warp
-// specialisation are later work.
+// about 500 operations per byte, above the H100's ridge in bf16 (295) and
+// in float32. The roof is the tensor cores': 989 TFLOP/s with bf16
+// operands; for float32 inputs 495 TFLOP/s of TF32 over the three products
+// of the error-compensated split, 165 TFLOP/s. What the kernel reaches is
+// about a fifth of that roof: with eight warps an SM the time goes to the
+// latency of dependent mma.sync and shared-memory loads, not to their rate
+// (PERF.md has the numbers).
 //
-// Design, against the TPU version:
-// - The TPU kernel runs a sequential (bh, q block, k block) grid and carries
-//   m, l and the accumulator in VMEM scratch from one k step to the next.
-//   Blocks on this card run in parallel and in no order, so one thread
-//   block owns one (64-row query tile, b*h) pair and loops over the key
-//   tiles itself, with m, l and the accumulator in registers.
-// - Q (once) and each K and V tile are staged in shared memory as float32
-//   (bf16 is converted on load), rows padded by one float so that the
-//   column walks hit 32 different banks. K and V of a tile share one buffer:
-//   V is loaded after the scores are done with K. At D = 128 a block takes
-//   81 KB, so two blocks fit on an SM.
-// - 256 threads as a 16 x 16 grid: thread (ty, tx) owns query rows
-//   ty + 16i (i < 4), score columns tx + 16j (j < 4) and output columns
-//   tx + 16j (j < D/16). The 16 threads of a row group are 16 lanes of one
-//   warp, so row max and row sum are four shuffles.
-// - Causal: the key loop stops at the query tile's diagonal tile (the TPU
-//   kernel's pl.when(kb_i <= qb_i) skip), and the elementwise mask is built
-//   only on the diagonal tile and the ragged last tile. Tiles are issued
-//   heaviest first so that the causal tail does not idle the card.
+// Design (the tile machinery is csrc/flash_tiles.cuh):
+// - One block of 128 threads per PAIR of 64-row query tiles and b*h: tile
+//   n-1-i, then tile i. Under the causal mask tile j walks j+1 key tiles, so
+//   every block walks n+1 of them and no block is left with the long rows
+//   while the card drains (an odd middle tile is walked alone). The TPU
+//   kernel's sequential (bh, q block, k block) grid with VMEM scratch
+//   becomes a loop inside the block; m, l and the output accumulator stay in
+//   registers.
+// - Each of the four warps owns 16 query rows. Q is loaded once per tile. K
+//   and V tiles (64 keys; 32 for float32 at D >= 128) stream through
+//   separate buffers, two stages each: after the barrier that publishes tile
+//   i, the cp.async copy of tile i+1 is issued and runs while tile i
+//   multiplies. One barrier per tile.
+// - S = Q K^T: mma.sync with A (Q) and B (K, as stored) from shared memory
+//   by ldmatrix (bf16) or split float32 loads (3xTF32). S stays in the
+//   accumulator registers, the online softmax runs on them (ex2.approx, quad
+//   shuffles), and P goes to O += P V as the A operand from those same
+//   registers, rounded to bf16 for bf16 inputs as the TPU kernel does
+//   (:424); V is read by ldmatrix.trans. O and the LSE are written once.
+// - Shared memory per block, tiles in the input dtype with 16-byte row
+//   pads: bf16 D=128 85 KB (2 blocks an SM), D=256 165 KB (1); float32
+//   D=128 99 KB (2 blocks), D=256 195 KB (1); D<=64 at most 85 KB. 165
+//   (bf16) and 224 (float32) registers a thread at D=128, so an SM holds
+//   eight warps, two per scheduler.
 // - Q, K and V are read through their [B, T, H, D] strides, so the
 //   [B, T, H, D] -> [B*H, T, D] transposes of the JAX wrapper cost no copy.
-// - Products are written as __fmaf_rn: the library builds with
-//   --fmad=false (the SGD kernel's rounding), which would otherwise split
-//   every multiply-add in two.
 //
 // Math, as _scores / _fwd_kernel: s = (q . k) * D^-0.5 in float32; masked
 // entries are NEG_BIG before the max and 0 after the exp (ragged tail
@@ -44,199 +49,123 @@
 // float32; o = acc / l in the input dtype; lse = m + log l in float32. A row
 // with no unmasked key (l == 0) gives o = 0 and lse = NEG_BIG.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_tiles.cuh"
 
 namespace {
 
-constexpr int kTile = 64;                // query rows per block = keys per tile
-constexpr int kThreads = 256;            // 16 x 16
-constexpr int kPer = kTile / 16;         // rows (and score columns) per thread
-constexpr int kPStride = kTile + 1;      // padded row of the P tile
-constexpr float kNegBig = -1e30f;        // ops/common.py NEG_BIG
-constexpr unsigned kFull = 0xffffffffu;
+using namespace slt_flash;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+// How many accumulator chains a warp keeps in flight (see warp_mma_nt_run in
+// flash_tiles.cuh), tuned at D = 128 on the H100: column tiles of S side by
+// side, column tiles of O side by side, and, for float32, depth steps of P V
+// chained from zero before the round-to-nearest add.
+constexpr int kScoreGroup = 4;
+constexpr int kOutGroup = 8;
+constexpr int kOutAtOnce = 4;
 
-// Reductions over the 16 lanes of a row group (they differ in bits 0-3).
-__device__ __forceinline__ float group_max(float v) {
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-__device__ __forceinline__ float group_sum(float v) {
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// Rows [t0, t0 + 64) of one head's [T, D] view (row stride s_t, column
-// stride 1) into dst[64][kD + 1] as float32; rows >= T and columns >= d are
-// zero, so they add nothing to a dot product.
+// keys per streamed tile
 template <typename T, int kD>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int64_t s_t, int t0, int t_len,
-                                          int d) {
-  for (int e = threadIdx.x; e < kTile * kD; e += kThreads) {
-    const int r = e / kD;
-    const int c = e - r * kD;
-    const int t = t0 + r;
-    float v = 0.f;
-    if (t < t_len && c < d) v = to_f32(src[static_cast<int64_t>(t) * s_t + c]);
-    dst[r * (kD + 1) + c] = v;
-  }
+__host__ __device__ constexpr int fwd_keys() {
+  return (sizeof(T) == 4 && kD >= 128) ? 32 : 64;
 }
 
 template <typename T, int kD>
-__global__ void __launch_bounds__(kThreads, kD <= 128 ? 2 : 1)
+constexpr size_t fwd_smem_bytes() {
+  return static_cast<size_t>(kRowsPerBlock + 4 * fwd_keys<T, kD>()) *
+         row_stride<T, kD>() * sizeof(T);
+}
+
+template <typename T, int kD>
+__global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int n_heads, int t_len, int d,
-                 float scale, int64_t q_sb, int64_t q_st, int64_t q_sh,
-                 int64_t k_sb, int64_t k_st, int64_t k_sh, int64_t v_sb,
-                 int64_t v_st, int64_t v_sh, int causal, int strict) {
-  constexpr int kStride = kD + 1;
-  constexpr int kDPer = kD / 16;         // output columns per thread
-  extern __shared__ float smem[];
-  float* q_s = smem;                     // [64][kStride]
-  float* kv_s = q_s + kTile * kStride;   // [64][kStride]: K, then V
-  float* p_s = kv_s + kTile * kStride;   // [64][kPStride]
+                 float scale, Strides sq, Strides sk, Strides sv, int causal,
+                 int strict, int aligned) {
+  constexpr int kBM = kRowsPerBlock;
+  constexpr int kBN = fwd_keys<T, kD>();
+  constexpr int kStride = row_stride<T, kD>();
+  constexpr int kSNT = kBN / 8;   // 8-column tiles of S
+  constexpr int kONT = kD / 8;    // 8-column tiles of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);   // [64][kStride]
+  T* k_s = q_s + kBM * kStride;              // [2][kBN][kStride]
+  T* v_s = k_s + 2 * kBN * kStride;          // [2][kBN][kStride]
 
   const int bh = blockIdx.x;
   const int b = bh / n_heads;
   const int h = bh - b * n_heads;
-  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
-  const int q0 = qt * kTile;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_qt = (t_len + kBM - 1) / kBM;
+  const int n_kt_all = (t_len + kBN - 1) / kBN;
+  const float c2 = scale * kLog2e;
 
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
-  load_tile<T, kD>(q_s, qb, q_st, q0, t_len, d);
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
 
-  float m[kPer], l[kPer], acc[kPer][kDPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    m[i] = kNegBig;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kDPer; ++j) acc[i][j] = 0.f;
-  }
+  const int heavy = n_qt - 1 - blockIdx.y;
+  for (int half = 0; half < 2; ++half) {
+    const int qt = half == 0 ? heavy : static_cast<int>(blockIdx.y);
+    if (half == 1 && qt >= heavy) break;   // the odd middle tile: once
+    const int q0 = qt * kBM;
+    const int n_kt =
+        causal ? min(n_kt_all, (q0 + kBM + kBN - 1) / kBN) : n_kt_all;
 
-  const int n_kt_all = (t_len + kTile - 1) / kTile;
-  const int n_kt = causal ? min(n_kt_all, qt + 1) : n_kt_all;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the last tile's P.V reads of kv_s are done
-    load_tile<T, kD>(kv_s, kb, k_st, k0, t_len, d);
-    __syncthreads();
+    __syncthreads();   // the first tile's reads of shared memory are done
+    load_tile<T, kD, kBM, kThreads>(q_s, qb, sq.t, q0, t_len, d, aligned);
+    load_tile<T, kD, kBN, kThreads>(k_s, kb, sk.t, 0, t_len, d, aligned);
+    load_tile<T, kD, kBN, kThreads>(v_s, vb, sv.t, 0, t_len, d, aligned);
+    cp_async_commit();
 
-    float s[kPer][kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < d; ++c) {
-      float qv[kPer], kv[kPer];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) qv[i] = q_s[(ty + 16 * i) * kStride + c];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) kv[j] = kv_s[(tx + 16 * j) * kStride + c];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i)
-#pragma unroll
-        for (int j = 0; j < kPer; ++j) s[i][j] = __fmaf_rn(qv[i], kv[j], s[i][j]);
-    }
+    float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};
+    float acc[kONT][4];
+    zero_acc(acc);
+    const int row0 = q0 + 16 * warp + (lane >> 2);
 
-    // scale, mask (diagonal and ragged tiles only), online softmax
-    const bool masked_tile = (k0 + kTile > t_len) || (causal && kt == qt);
-    unsigned ok_bits = 0xffffu;  // bit i * kPer + j: entry (i, j) is live
-    if (masked_tile) {
-      ok_bits = 0;
-#pragma unroll
-      for (int i = 0; i < kPer; ++i)
-#pragma unroll
-        for (int j = 0; j < kPer; ++j) {
-          const int row = q0 + ty + 16 * i;
-          const int col = k0 + tx + 16 * j;
-          bool ok = col < t_len;
-          if (causal) ok = ok && (strict ? row > col : row >= col);
-          if (ok) ok_bits |= 1u << (i * kPer + j);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      float mx = kNegBig;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const bool ok = (ok_bits >> (i * kPer + j)) & 1u;
-        s[i][j] = ok ? s[i][j] * scale : kNegBig;
-        mx = fmaxf(mx, s[i][j]);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int k0 = kt * kBN;
+      const int stage = kt & 1;
+      cp_async_wait_all();
+      __syncthreads();   // tile kt has landed; tile kt-1 is read by no one
+      if (kt + 1 < n_kt) {
+        const int next = (stage ^ 1) * kBN * kStride;
+        load_tile<T, kD, kBN, kThreads>(k_s + next, kb, sk.t, k0 + kBN, t_len,
+                                        d, aligned);
+        load_tile<T, kD, kBN, kThreads>(v_s + next, vb, sv.t, k0 + kBN, t_len,
+                                        d, aligned);
+        cp_async_commit();
       }
-      const float m_new = fmaxf(m[i], group_max(mx));
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const bool ok = (ok_bits >> (i * kPer + j)) & 1u;
-        // rebase, then re-mask: exp(NEG_BIG - NEG_BIG) would be 1
-        const float p = ok ? expf(s[i][j] - m_new) : 0.f;
-        p_s[(ty + 16 * i) * kPStride + tx + 16 * j] = p;
-        rs += p;
-      }
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + group_sum(rs);
-#pragma unroll
-      for (int j = 0; j < kDPer; ++j) acc[i][j] *= corr;
-      m[i] = m_new;
+      // a warp whose 16 rows all lie before the tile's first key has
+      // nothing live in it: m, l and acc stay as they are
+      if (causal && k0 > q0 + 16 * warp + 15) continue;
+      float s[kSNT][4];
+      warp_mma_nt1<T, kSNT, kD, kScoreGroup>(
+          s, q_s, 16 * warp, k_s + stage * kBN * kStride, kStride, lane);
+      // masks only on the ragged last tile and on tiles the diagonal crosses
+      const bool masked = (k0 + kBN > t_len) || (causal && k0 + kBN > q0);
+      float corr[2];
+      softmax_step<kSNT>(s, m, l, corr, c2, masked, row0,
+                         k0 + 2 * (lane & 3), t_len, causal, strict);
+      warp_mma_acc_t<T, kONT, kSNT, true, kOutAtOnce, kOutGroup>(
+          acc, s, corr, v_s + stage * kBN * kStride, 0, kStride, lane);
     }
-    __syncthreads();  // P is written; every read of K is done
-    load_tile<T, kD>(kv_s, vb, v_st, k0, t_len, d);
-    __syncthreads();
 
-    const int n_c = min(kTile, t_len - k0);
-#pragma unroll 4
-    for (int c = 0; c < n_c; ++c) {
-      float pv[kPer];
+    float inv[2];
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) pv[i] = p_s[(ty + 16 * i) * kPStride + c];
-#pragma unroll
-      for (int j = 0; j < kDPer; ++j) {
-        const float vv = kv_s[c * kStride + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) acc[i][j] = __fmaf_rn(pv[i], vv, acc[i][j]);
-      }
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(kFull, l[r], 1);
+      l[r] += __shfl_xor_sync(kFull, l[r], 2);
+      const bool live = l[r] > 0.f;
+      inv[r] = live ? 1.f / l[r] : 0.f;
+      const int row = row0 + 8 * r;
+      if ((lane & 3) == 0 && row < t_len)
+        lse[(static_cast<int64_t>(b) * t_len + row) * n_heads + h] =
+            live ? (m[r] + log2f(l[r])) * kLn2 : kNegBig;
     }
+    store_acc<T, kONT>(o, acc, inv, b, h, n_heads, t_len, d, row0, 0, lane);
   }
-
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= t_len) continue;
-    const bool live = l[i] > 0.f;
-    const float l_safe = live ? l[i] : 1.f;
-    const int64_t at = (static_cast<int64_t>(b) * t_len + row) * n_heads + h;
-    T* orow = o + at * d;
-#pragma unroll
-    for (int j = 0; j < kDPer; ++j) {
-      const int c = tx + 16 * j;
-      if (c < d) store(orow + c, acc[i][j] / l_safe);
-    }
-    if (tx == 0) lse[at] = live ? m[i] + logf(l_safe) : kNegBig;
-  }
-}
-
-template <int kD>
-constexpr size_t smem_bytes() {
-  return (2 * kTile * (kD + 1) + kTile * kPStride) * sizeof(float);
 }
 
 template <typename T, int kD>
@@ -244,18 +173,23 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int b, int t, int h, int d, float scale, const int64_t* st,
            int causal, int strict, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<T, kD>;
-  constexpr size_t smem = smem_bytes<kD>();
+  constexpr size_t smem = fwd_smem_bytes<T, kD>();
   // above 48 KB the launch is refused unless the kernel opts in
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(b * h, (t + kTile - 1) / kTile);
+  const Strides sq = strides_at(st, 0), sk = strides_at(st, 1),
+                sv = strides_at(st, 2);
+  const int aligned = view_aligned(q, sq, sizeof(T)) &&
+                      view_aligned(k, sk, sizeof(T)) &&
+                      view_aligned(v, sv, sizeof(T));
+  const int n_qt = (t + kRowsPerBlock - 1) / kRowsPerBlock;
+  const dim3 grid(b * h, (n_qt + 1) / 2);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, h, t, d,
-      scale, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], causal, strict);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, h, t, d, scale, sq,
+      sk, sv, causal, strict, aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -270,8 +204,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
     return launch<T, 64>(q, k, v, o, lse, b, t, h, d, scale, st, causal, strict,
                          stream);
   if (d <= 128)
-    return launch<T, 128>(q, k, v, o, lse, b, t, h, d, scale, st, causal, strict,
-                          stream);
+    return launch<T, 128>(q, k, v, o, lse, b, t, h, d, scale, st, causal,
+                          strict, stream);
   return launch<T, 256>(q, k, v, o, lse, b, t, h, d, scale, st, causal, strict,
                         stream);
 }
@@ -291,7 +225,7 @@ int slt_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   const int64_t* strides, int causal, int strict, int is_bf16,
                   cudaStream_t stream) {
   if (b < 1 || t < 1 || h < 1 || d < 1 || d > 256 ||
-      (t + kTile - 1) / kTile > 65535)
+      (t + kRowsPerBlock - 1) / kRowsPerBlock > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16)
     return dispatch<__nv_bfloat16>(q, k, v, o, lse, b, t, h, d, scale,

@@ -1,5 +1,5 @@
 // Flash-attention backward (dQ, dK, dV from Q, K, V, O, the row log-sum-exp,
-// dO and the LSE cotangent) for Hopper (sm_90a).
+// dO and the LSE cotangent) for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces the Pallas kernels of split_learning_tpu/ops/flash_attention.py
 // reached from _make_flash.vjp_bwd (:693): the one-pass _onepass_bwd_kernel
@@ -12,123 +12,88 @@
 // is 10*T*T*D FLOPs (five T x T x D products: S, dP, dV, dK, dQ; half of it
 // under the causal mask) against about 9*T*D values moved. At the training
 // path's shape (B 64, T 1024, H 2, D 128, causal) that is about 1,100
-// operations per byte, above the H100's ridge in float32 and in bf16. This
-// first version computes in float32 on the CUDA cores (67 TFLOP/s peak);
-// wgmma with bf16 operands, TMA loads and an atomic-dQ single pass are later
-// work.
+// operations per byte, above the H100's ridge. The roof is the tensor
+// cores': 989 TFLOP/s with bf16 operands; for float32 inputs 495 TFLOP/s of
+// TF32 over the three products of the error-compensated split, 165 TFLOP/s.
+// What the kernels reach is about a fifth of that roof: with some 250
+// registers a thread an SM holds eight warps, two per scheduler, and the time
+// goes to the latency of dependent mma.sync and shared-memory loads, not to
+// their rate (PERF.md has the numbers).
 //
-// Design, against the TPU version: three launches per call, no atomics, so
-// every gradient is bit-reproducible from run to run.
+// Design (the tile machinery is csrc/flash_tiles.cuh): three launches per
+// call and no atomics, so every gradient is bit-reproducible from run to
+// run; the trainers' twins lean on that. The split form does 14 units of
+// T*T*D (S and dP are formed in both passes) where a single pass with an
+// atomic dQ does 10; with every product on the tensor cores those four
+// extra units cost less than the lost determinism would.
 // - Delta pass: delta[b, t, h] = sum_d dO * O - g_lse in float32, one warp
 //   per row (vjp_bwd's delta, :700-708: the LSE cotangent folds in with a
-//   minus sign because d lse / d s = P).
-// - dK/dV: one block per (64-key tile, b*h), the TPU's (bh, k block) grid
-//   with its q loop inside the block (the one-pass kernel's fori_loop), from
-//   the causal start (q tile = k tile) to the end. K and V stay in shared
-//   memory; each q tile brings Q, dO, its LSE and delta rows. Per tile:
-//   S^T = K Q^T, P^T = exp(S^T * scale - lse) masked to 0, dP^T = V dO^T,
-//   dV += P^T dO, dS^T = P^T (dP^T - delta), dK += dS^T Q. At the end
-//   dK * scale and dV are written in the input dtype.
-// - dQ: one block per (64-query tile, b*h), looping over key tiles up to the
-//   diagonal as the forward does: dP = dO V^T, S = Q K^T, dS as above,
-//   dQ += dS K; then dQ * scale.
-//   This is the split form's 14*T*T*D of work against the one-pass form's 10;
-//   in exchange dQ needs no cross-block sum.
-// - Thread layout, 256 threads as 16 x 16 as in the forward. In dK/dV thread
-//   (ty, tx) owns key rows ty + 16i and query columns tx + 16j of the score
-//   tile (so S^T, P^T and dS^T stay in its registers), and output columns
-//   tx + 16j of dK and dV. The two reductions over queries (P^T dO, dS^T Q)
-//   go through the P^T / dS^T tile in shared memory, read along its rows.
-//   In dQ the roles of queries and keys swap.
-// - Shared memory: tiles staged as float32 (bf16 is converted on load), rows
-//   padded by one float so that column walks hit 32 banks. At D = 128 the
-//   dK/dV block holds K, V, Q, dO and the 64 x 64 P tile, 146 KB; at
-//   D = 256 Q and dO share one buffer (Q is loaded again for dS^T Q), 210 KB;
-//   dQ holds Q, dO and one buffer that takes V and then K, 114 KB at
-//   D = 128, 210 KB at D = 256. All of them opt in above 48 KB.
+//   minus sign because d lse / d s = P). Float32 on the CUDA cores; it moves
+//   bytes and is not a product.
+// - dK/dV: one block per (key tile, b*h), the TPU's (bh, k block) grid with
+//   its q loop inside the block, from the causal start to the end; key tile
+//   0, the heaviest, is issued first. A block is four warps and 64 keys
+//   (eight warps and 128 keys for float32 at D = 128, the training path:
+//   every warp splits the streamed tile's operands for itself, so the tile
+//   it streams should be long, and eight warps share one tile's shared
+//   memory and copies). K and V stay in shared memory in the input dtype,
+//   each warp owning 16 keys. Q and dO tiles with their LSE and delta rows
+//   stream through a two-stage cp.async ring (32 queries a tile; 64 for bf16
+//   at D <= 64; 16 for float32 at D = 256). Per tile, all on mma.sync: S^T =
+//   K Q^T and dP^T = V dO^T in one depth loop (A and B from shared memory, B
+//   as stored; side by side so that eight accumulator chains are in flight);
+//   P^T = exp2(S^T c - lse) and dS^T = P^T (dP^T - delta) in the accumulator
+//   registers; dV += P^T dO and dK += dS^T Q with A from those registers in
+//   the operand type (rounded to bf16 for bf16 inputs, as :480, :487, :567,
+//   :574) and B by ldmatrix.trans. At the end dK * scale and dV are written
+//   in the input dtype. At D = 256 a block accumulates 128 of the output
+//   columns (gridDim.z = 2), which keeps dK and dV at 128 registers a
+//   thread.
+// - dQ: one block per (query tile of 64 rows, or 128 for float32 at D = 128,
+//   and b*h), heaviest tile first, Q and dO resident, K and V tiles streaming
+//   (64 keys; 32 for bf16 at D = 256 and for float32; 16 for float32 at D =
+//   256): S = Q K^T and dP = dO V^T in one depth loop, dS as above, dQ +=
+//   dS K (:490, :528); then dQ * scale.
+// - Shared memory per block (tiles in the input dtype, 16-byte row pads) and
+//   blocks per SM. bf16 D=128: dK/dV 68 KB, dQ 102 KB, two blocks each (about
+//   245 registers a thread allow no third). float32 D=128: 198 KB, one block
+//   of eight warps, 255 registers in dK/dV (two 16 x 128 accumulators; 60
+//   bytes spilled), about 240 in dQ. D=256: bf16 132 KB, float32 195 KB, one
+//   block. D<=64: at most 68 KB.
 // - Q, K, V, O and dO are read through their [B, T, H, D] strides (dO from
 //   autograd may be a non-contiguous view); outputs are contiguous.
 // - Masks, as _scores: ragged tail (row or col >= T), causal row >= col,
-//   strict row > col. Masked entries are zero after the exp, never
-//   exp(s - NEG_BIG); a row with lse = NEG_BIG has no unmasked entry, so it
-//   gets dQ = 0 and adds nothing to dK, dV.
-// - Products are written as __fmaf_rn: the library builds with --fmad=false.
+//   strict row > col, built only on ragged tiles and tiles the diagonal
+//   crosses. Masked entries are zero after the exp, never exp(s - NEG_BIG);
+//   a row with lse = NEG_BIG has no unmasked entry, so it gets dQ = 0 and
+//   adds nothing to dK, dV.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_tiles.cuh"
 
 namespace {
 
-constexpr int kTile = 64;          // rows per tile, queries and keys alike
-constexpr int kThreads = 256;      // 16 x 16
-constexpr int kPer = kTile / 16;   // score rows (and columns) per thread
-constexpr int kPStride = kTile + 1;
-constexpr unsigned kFull = 0xffffffffu;
+using namespace slt_flash;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-struct Strides {   // (batch, time, head) strides in elements
-  int64_t b, t, h;
-};
-
-// Rows [t0, t0 + 64) of one head's [T, D] view (row stride s_t, column
-// stride 1) into dst[64][kD + 1] as float32; rows >= T and columns >= d are
-// zero, so they add nothing to a product.
-template <typename T, int kD>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int64_t s_t, int t0, int t_len,
-                                          int d) {
-  for (int e = threadIdx.x; e < kTile * kD; e += kThreads) {
-    const int r = e / kD;
-    const int c = e - r * kD;
-    const int t = t0 + r;
-    float v = 0.f;
-    if (t < t_len && c < d) v = to_f32(src[static_cast<int64_t>(t) * s_t + c]);
-    dst[r * (kD + 1) + c] = v;
-  }
-}
-
-// LSE and delta of rows [t0, t0 + 64) of head (b, h); 0 past the end (those
-// rows are masked).
-__device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
-                                          const float* __restrict__ lse,
-                                          const float* __restrict__ delta,
-                                          int b, int h, int n_heads, int t0,
-                                          int t_len) {
-  if (threadIdx.x < kTile) {
-    const int row = t0 + threadIdx.x;
-    const int64_t at = (static_cast<int64_t>(b) * t_len + row) * n_heads + h;
-    lse_s[threadIdx.x] = row < t_len ? lse[at] : 0.f;
-    delta_s[threadIdx.x] = row < t_len ? delta[at] : 0.f;
-  }
-}
-
-__device__ __forceinline__ bool live(int row, int col, int t_len, int causal,
-                                     int strict) {
-  bool ok = row < t_len && col < t_len;
-  if (causal) ok = ok && (strict ? row > col : row >= col);
-  return ok;
-}
+constexpr int kDeltaThreads = 256;
+// How many accumulator chains a warp keeps in flight (see warp_mma_nt_run in
+// flash_tiles.cuh), tuned at D = 128 on the H100: column tiles of S and of dP
+// side by side (so twice as many chains), column tiles of an output side by
+// side, and, for float32, depth steps of an output's product chained from
+// zero before the round-to-nearest add.
+constexpr int kScoreGroup = 4;
+constexpr int kOutGroup = 8;
+constexpr int kOutAtOnce = 4;
 
 // ---------------------------------------------------------------- delta --
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDeltaThreads)
 flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                        const float* __restrict__ g_lse,
                        float* __restrict__ delta, int64_t n_rows, int t_len,
                        int n_heads, int d, Strides so, Strides sd) {
   const int64_t row =
-      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+      (static_cast<int64_t>(blockIdx.x) * kDeltaThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= n_rows) return;   // the whole warp leaves together
   const int h = static_cast<int>(row % n_heads);
@@ -147,329 +112,261 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 
 // ----------------------------------------------------------------- dK/dV --
 
-// above D = 128, Q and dO share one buffer in the dK/dV kernel
-__host__ __device__ constexpr bool reload_q(int d_max) { return d_max > 128; }
+// warps of a dK/dV or dQ block, each owning 16 rows of the resident tile;
+// eight for float32 at D = 128 (see the header)
+template <typename T, int kD>
+__host__ __device__ constexpr int bwd_warps() {
+  return (sizeof(T) == 4 && kD == 128) ? 8 : 4;
+}
 
-template <int kD>
-constexpr size_t dkv_smem_bytes() {
-  return ((reload_q(kD) ? 3 : 4) * kTile * (kD + 1) + kTile * kPStride +
-          2 * kTile) * sizeof(float);
+// queries per streamed tile of the dK/dV kernel
+template <typename T, int kD>
+__host__ __device__ constexpr int dkv_queries() {
+  return sizeof(T) == 4 ? (kD > 128 ? 16 : 32) : (kD <= 64 ? 64 : 32);
+}
+// output columns one dK/dV block accumulates
+__host__ __device__ constexpr int dkv_cols(int d_max) {
+  return d_max < 128 ? d_max : 128;
+}
+
+// keys per streamed tile of the dQ kernel
+template <typename T, int kD>
+__host__ __device__ constexpr int dq_keys() {
+  return sizeof(T) == 4 ? (kD > 128 ? 16 : 32) : (kD <= 128 ? 64 : 32);
+}
+
+// a resident pair of tiles (16 rows a warp), a two-stage ring of pairs of
+// kStream-row tiles, and the ring's LSE and delta rows
+template <typename T, int kD, int kStream>
+constexpr size_t bwd_smem_bytes() {
+  return static_cast<size_t>(2 * kRowsPerWarp * bwd_warps<T, kD>() +
+                             4 * kStream) *
+             row_stride<T, kD>() * sizeof(T) +
+         4 * kStream * sizeof(float);
 }
 
 template <typename T, int kD>
-__global__ void __launch_bounds__(kThreads, kD <= 64 ? 2 : 1)
+__global__ void __launch_bounds__(32 * bwd_warps<T, kD>())
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int n_heads, int t_len, int d,
                      float scale, Strides sq, Strides sk, Strides sv,
-                     Strides sd, int causal, int strict) {
-  constexpr int kStride = kD + 1;
-  constexpr int kDPer = kD / 16;          // output columns per thread
-  constexpr bool kReload = reload_q(kD);
-  extern __shared__ float smem[];
-  float* k_s = smem;                                 // [64][kStride]
-  float* v_s = k_s + kTile * kStride;                // [64][kStride]
-  float* q_s = v_s + kTile * kStride;                // [64][kStride]
-  float* do_s = kReload ? q_s : q_s + kTile * kStride;
-  float* p_s = do_s + kTile * kStride;               // [64 keys][kPStride]
-  float* lse_s = p_s + kTile * kPStride;             // [64]
-  float* delta_s = lse_s + kTile;                    // [64]
+                     Strides sd, int causal, int strict, int aligned) {
+  constexpr int kBlock = 32 * bwd_warps<T, kD>();          // threads
+  constexpr int kBK = kRowsPerWarp * bwd_warps<T, kD>();   // keys per block
+  constexpr int kBQ = dkv_queries<T, kD>();   // queries per streamed tile
+  constexpr int kStride = row_stride<T, kD>();
+  constexpr int kSNT = kBQ / 8;               // 8-column tiles of S^T
+  constexpr int kONT = dkv_cols(kD) / 8;      // 8-column tiles of dK, dV
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* k_s = reinterpret_cast<T*>(smem_raw);    // [rows][kStride]
+  T* v_s = k_s + kBK * kStride;               // [rows][kStride]
+  T* q_s = v_s + kBK * kStride;               // [2][kBQ][kStride]
+  T* do_s = q_s + 2 * kBQ * kStride;          // [2][kBQ][kStride]
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kBQ * kStride);
+  float* delta_s = lse_s + 2 * kBQ;           // both [2][kBQ]
 
   const int bh = blockIdx.x;
   const int b = bh / n_heads;
   const int h = bh - b * n_heads;
-  const int kt = blockIdx.y;          // causal: key tile 0 has the most work
-  const int k0 = kt * kTile;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  const int k0 = blockIdx.y * kBK;   // causal: key tile 0 has the most work
+  const int c0 = blockIdx.z * dkv_cols(kD);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float c2 = scale * kLog2e;
 
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
   const T* dob = dout + b * sd.b + h * sd.h;
-  load_tile<T, kD>(k_s, kb, sk.t, k0, t_len, d);
-  load_tile<T, kD>(v_s, vb, sv.t, k0, t_len, d);
 
-  float dk_acc[kPer][kDPer], dv_acc[kPer][kDPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i)
-#pragma unroll
-    for (int j = 0; j < kDPer; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+  const int n_qt = (t_len + kBQ - 1) / kBQ;
+  const int qt_first = causal ? k0 / kBQ : 0;
 
-  const int n_qt = (t_len + kTile - 1) / kTile;
-  for (int qt = causal ? kt : 0; qt < n_qt; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();   // the last tile's reads of q_s, do_s and p_s are done
-    load_tile<T, kD>(q_s, qb, sq.t, q0, t_len, d);
-    if (!kReload) load_tile<T, kD>(do_s, dob, sd.t, q0, t_len, d);
-    load_rows(lse_s, delta_s, lse, delta, b, h, n_heads, q0, t_len);
-    __syncthreads();
+  auto load_stream = [&](int qt, int stage) {
+    const int q0 = qt * kBQ;
+    load_tile<T, kD, kBQ, kBlock>(q_s + stage * kBQ * kStride, qb, sq.t, q0,
+                                  t_len, d, aligned);
+    load_tile<T, kD, kBQ, kBlock>(do_s + stage * kBQ * kStride, dob, sd.t, q0,
+                                  t_len, d, aligned);
+    load_rows<kBQ, kBlock>(lse_s + stage * kBQ, lse, b, h, n_heads, q0,
+                           t_len);
+    load_rows<kBQ, kBlock>(delta_s + stage * kBQ, delta, b, h, n_heads, q0,
+                           t_len);
+  };
 
-    // P^T: keys ty + 16i against queries tx + 16j, masked to 0 after the exp
-    float p[kPer][kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) p[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < d; ++c) {
-      float kv[kPer], qv[kPer];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) kv[i] = k_s[(ty + 16 * i) * kStride + c];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) qv[j] = q_s[(tx + 16 * j) * kStride + c];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i)
-#pragma unroll
-        for (int j = 0; j < kPer; ++j) p[i][j] = __fmaf_rn(kv[i], qv[j], p[i][j]);
+  load_tile<T, kD, kBK, kBlock>(k_s, kb, sk.t, k0, t_len, d, aligned);
+  load_tile<T, kD, kBK, kBlock>(v_s, vb, sv.t, k0, t_len, d, aligned);
+  load_stream(qt_first, 0);
+  cp_async_commit();
+
+  const float by_one[2] = {1.f, 1.f};
+  float dk_acc[kONT][4], dv_acc[kONT][4];
+  zero_acc(dk_acc);
+  zero_acc(dv_acc);
+  const int key0 = k0 + 16 * warp + (lane >> 2);
+
+  for (int qt = qt_first; qt < n_qt; ++qt) {
+    const int q0 = qt * kBQ;
+    const int stage = (qt - qt_first) & 1;
+    cp_async_wait_all();
+    __syncthreads();   // tile qt has landed; tile qt-1 is read by no one
+    if (qt + 1 < n_qt) {
+      load_stream(qt + 1, stage ^ 1);
+      cp_async_commit();
     }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int key = k0 + ty + 16 * i;
-        const int row = q0 + tx + 16 * j;
-        p[i][j] = live(row, key, t_len, causal, strict)
-                      ? expf(p[i][j] * scale - lse_s[tx + 16 * j])
-                      : 0.f;
-      }
+    // a warp whose 16 keys all lie after the tile's last query has nothing
+    // live in it
+    if (causal && q0 + kBQ - 1 < k0 + 16 * warp) continue;
+    const T* q_t = q_s + stage * kBQ * kStride;
+    const T* do_t = do_s + stage * kBQ * kStride;
 
-    if (kReload) {
-      __syncthreads();   // every read of Q is done: dO takes its buffer
-      load_tile<T, kD>(do_s, dob, sd.t, q0, t_len, d);
-      __syncthreads();
-    }
-    // dP^T = V dO^T, same layout as P^T
-    float dp[kPer][kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < d; ++c) {
-      float vv[kPer], dov[kPer];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) vv[i] = v_s[(ty + 16 * i) * kStride + c];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) dov[j] = do_s[(tx + 16 * j) * kStride + c];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i)
-#pragma unroll
-        for (int j = 0; j < kPer; ++j)
-          dp[i][j] = __fmaf_rn(vv[i], dov[j], dp[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int j = 0; j < kPer; ++j)
-        p_s[(ty + 16 * i) * kPStride + tx + 16 * j] = p[i][j];
-    __syncthreads();
-
-    // dV += P^T dO over the tile's live queries
-    const int n_q = min(kTile, t_len - q0);
-#pragma unroll 4
-    for (int r = 0; r < n_q; ++r) {
-      float pv[kPer];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) pv[i] = p_s[(ty + 16 * i) * kPStride + r];
-#pragma unroll
-      for (int j = 0; j < kDPer; ++j) {
-        const float x = do_s[r * kStride + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) dv_acc[i][j] = __fmaf_rn(pv[i], x, dv_acc[i][j]);
-      }
-    }
-    __syncthreads();   // every read of P^T and of dO is done
-
-    // dS^T = P^T (dP^T - delta); dK += dS^T Q
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int j = 0; j < kPer; ++j)
-        p_s[(ty + 16 * i) * kPStride + tx + 16 * j] =
-            p[i][j] * (dp[i][j] - delta_s[tx + 16 * j]);
-    if (kReload) load_tile<T, kD>(q_s, qb, sq.t, q0, t_len, d);
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < n_q; ++r) {
-      float sv_[kPer];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) sv_[i] = p_s[(ty + 16 * i) * kPStride + r];
-#pragma unroll
-      for (int j = 0; j < kDPer; ++j) {
-        const float x = q_s[r * kStride + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) dk_acc[i][j] = __fmaf_rn(sv_[i], x, dk_acc[i][j]);
-      }
-    }
+    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys against the tile's
+    // queries
+    float st[kSNT][4], dpt[kSNT][4];
+    warp_mma_nt2<T, kSNT, kD, kScoreGroup>(st, dpt, k_s, v_s, 16 * warp, q_t,
+                                             do_t, kStride, lane);
+    const bool masked = (q0 + kBQ > t_len) || (k0 + kBK > t_len) ||
+                        (causal && q0 < k0 + kBK);
+    probs_cols<kSNT>(st, dpt, lse_s + stage * kBQ, delta_s + stage * kBQ, c2,
+                     masked, key0, q0, lane, t_len, causal, strict);
+    // dV += P^T dO, dK += dS^T Q
+    warp_mma_acc_t<T, kONT, kSNT, false, kOutAtOnce, kOutGroup>(
+        dv_acc, st, by_one, do_t, c0, kStride, lane);
+    warp_mma_acc_t<T, kONT, kSNT, false, kOutAtOnce, kOutGroup>(
+        dk_acc, dpt, by_one, q_t, c0, kStride, lane);
   }
 
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int key = k0 + ty + 16 * i;
-    if (key >= t_len) continue;
-    const int64_t at = (static_cast<int64_t>(b) * t_len + key) * n_heads + h;
-#pragma unroll
-    for (int j = 0; j < kDPer; ++j) {
-      const int c = tx + 16 * j;
-      if (c < d) {
-        store(dk + at * d + c, dk_acc[i][j] * scale);
-        store(dv + at * d + c, dv_acc[i][j]);
-      }
-    }
-  }
+  const float by_scale[2] = {scale, scale};
+  store_acc<T, kONT>(dk, dk_acc, by_scale, b, h, n_heads, t_len, d, key0, c0,
+                     lane);
+  store_acc<T, kONT>(dv, dv_acc, by_one, b, h, n_heads, t_len, d, key0, c0,
+                     lane);
 }
 
 // -------------------------------------------------------------------- dQ --
 
-template <int kD>
-constexpr size_t dq_smem_bytes() {
-  return (3 * kTile * (kD + 1) + kTile * kPStride + 2 * kTile) * sizeof(float);
-}
-
 template <typename T, int kD>
-__global__ void __launch_bounds__(kThreads, kD <= 64 ? 2 : 1)
+__global__ void __launch_bounds__(32 * bwd_warps<T, kD>())
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int n_heads, int t_len, int d, float scale, Strides sq,
                     Strides sk, Strides sv, Strides sd, int causal,
-                    int strict) {
-  constexpr int kStride = kD + 1;
-  constexpr int kDPer = kD / 16;
-  extern __shared__ float smem[];
-  float* q_s = smem;                       // [64][kStride]
-  float* do_s = q_s + kTile * kStride;     // [64][kStride]
-  float* kv_s = do_s + kTile * kStride;    // [64][kStride]: V, then K
-  float* ds_s = kv_s + kTile * kStride;    // [64 queries][kPStride]
-  float* lse_s = ds_s + kTile * kPStride;  // [64]
-  float* delta_s = lse_s + kTile;          // [64]
+                    int strict, int aligned) {
+  constexpr int kBlock = 32 * bwd_warps<T, kD>();          // threads
+  constexpr int kBM = kRowsPerWarp * bwd_warps<T, kD>();   // queries a block
+  constexpr int kBN = dq_keys<T, kD>();   // keys per streamed tile
+  constexpr int kStride = row_stride<T, kD>();
+  constexpr int kSNT = kBN / 8;           // 8-column tiles of S
+  constexpr int kONT = kD / 8;            // 8-column tiles of dQ
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);   // [rows][kStride]
+  T* do_s = q_s + kBM * kStride;             // [rows][kStride]
+  T* k_s = do_s + kBM * kStride;             // [2][kBN][kStride]
+  T* v_s = k_s + 2 * kBN * kStride;          // [2][kBN][kStride]
 
   const int bh = blockIdx.x;
   const int b = bh / n_heads;
   const int h = bh - b * n_heads;
-  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
-  const int q0 = qt * kTile;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  const int qt = gridDim.y - 1 - blockIdx.y;   // heaviest causal tiles first
+  const int q0 = qt * kBM;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float c2 = scale * kLog2e;
 
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
   const T* dob = dout + b * sd.b + h * sd.h;
-  load_tile<T, kD>(q_s, qb, sq.t, q0, t_len, d);
-  load_tile<T, kD>(do_s, dob, sd.t, q0, t_len, d);
-  load_rows(lse_s, delta_s, lse, delta, b, h, n_heads, q0, t_len);
 
-  float dq_acc[kPer][kDPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i)
-#pragma unroll
-    for (int j = 0; j < kDPer; ++j) dq_acc[i][j] = 0.f;
+  load_tile<T, kD, kBM, kBlock>(q_s, qb, sq.t, q0, t_len, d, aligned);
+  load_tile<T, kD, kBM, kBlock>(do_s, dob, sd.t, q0, t_len, d, aligned);
+  load_tile<T, kD, kBN, kBlock>(k_s, kb, sk.t, 0, t_len, d, aligned);
+  load_tile<T, kD, kBN, kBlock>(v_s, vb, sv.t, 0, t_len, d, aligned);
+  cp_async_commit();
 
-  const int n_kt_all = (t_len + kTile - 1) / kTile;
-  const int n_kt = causal ? min(n_kt_all, qt + 1) : n_kt_all;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();   // the last tile's reads of kv_s (K) and ds_s are done
-    load_tile<T, kD>(kv_s, vb, sv.t, k0, t_len, d);
-    __syncthreads();
-
-    // dP = dO V^T: queries ty + 16i against keys tx + 16j
-    float dp[kPer][kPer];
+  // this lane's two rows' statistics; 0 past the end (those rows are masked)
+  const int row0 = q0 + 16 * warp + (lane >> 2);
+  float lse2[2], dl[2];
 #pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < d; ++c) {
-      float dov[kPer], vv[kPer];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) dov[i] = do_s[(ty + 16 * i) * kStride + c];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) vv[j] = kv_s[(tx + 16 * j) * kStride + c];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i)
-#pragma unroll
-        for (int j = 0; j < kPer; ++j)
-          dp[i][j] = __fmaf_rn(dov[i], vv[j], dp[i][j]);
-    }
-    __syncthreads();   // every read of V is done: K takes its buffer
-    load_tile<T, kD>(kv_s, kb, sk.t, k0, t_len, d);
-    __syncthreads();
-
-    float s[kPer][kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < d; ++c) {
-      float qv[kPer], kv[kPer];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) qv[i] = q_s[(ty + 16 * i) * kStride + c];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) kv[j] = kv_s[(tx + 16 * j) * kStride + c];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i)
-#pragma unroll
-        for (int j = 0; j < kPer; ++j) s[i][j] = __fmaf_rn(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int row = q0 + ty + 16 * i;
-        const int key = k0 + tx + 16 * j;
-        const float p = live(row, key, t_len, causal, strict)
-                            ? expf(s[i][j] * scale - lse_s[ty + 16 * i])
-                            : 0.f;
-        ds_s[(ty + 16 * i) * kPStride + tx + 16 * j] =
-            p * (dp[i][j] - delta_s[ty + 16 * i]);
-      }
-    __syncthreads();
-
-    // dQ += dS K over the tile's live keys
-    const int n_c = min(kTile, t_len - k0);
-#pragma unroll 4
-    for (int c = 0; c < n_c; ++c) {
-      float dsv[kPer];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) dsv[i] = ds_s[(ty + 16 * i) * kPStride + c];
-#pragma unroll
-      for (int j = 0; j < kDPer; ++j) {
-        const float x = kv_s[c * kStride + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) dq_acc[i][j] = __fmaf_rn(dsv[i], x, dq_acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= t_len) continue;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
     const int64_t at = (static_cast<int64_t>(b) * t_len + row) * n_heads + h;
-#pragma unroll
-    for (int j = 0; j < kDPer; ++j) {
-      const int c = tx + 16 * j;
-      if (c < d) store(dq + at * d + c, dq_acc[i][j] * scale);
-    }
+    lse2[r] = row < t_len ? lse[at] * kLog2e : 0.f;
+    dl[r] = row < t_len ? delta[at] : 0.f;
   }
+
+  const float by_one[2] = {1.f, 1.f};
+  float dq_acc[kONT][4];
+  zero_acc(dq_acc);
+
+  const int n_kt_all = (t_len + kBN - 1) / kBN;
+  const int n_kt =
+      causal ? min(n_kt_all, (q0 + kBM + kBN - 1) / kBN) : n_kt_all;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBN;
+    const int stage = kt & 1;
+    cp_async_wait_all();
+    __syncthreads();   // tile kt has landed; tile kt-1 is read by no one
+    if (kt + 1 < n_kt) {
+      const int next = (stage ^ 1) * kBN * kStride;
+      load_tile<T, kD, kBN, kBlock>(k_s + next, kb, sk.t, k0 + kBN, t_len, d,
+                                    aligned);
+      load_tile<T, kD, kBN, kBlock>(v_s + next, vb, sv.t, k0 + kBN, t_len, d,
+                                    aligned);
+      cp_async_commit();
+    }
+    // a warp whose 16 queries all lie before the tile's first key has
+    // nothing live in it
+    if (causal && k0 > q0 + 16 * warp + 15) continue;
+    const T* k_t = k_s + stage * kBN * kStride;
+    const T* v_t = v_s + stage * kBN * kStride;
+
+    // S = Q K^T and dP = dO V^T: this warp's 16 queries against the tile's
+    // keys
+    float s[kSNT][4], dp[kSNT][4];
+    warp_mma_nt2<T, kSNT, kD, kScoreGroup>(s, dp, q_s, do_s, 16 * warp, k_t,
+                                             v_t, kStride, lane);
+    const bool masked = (k0 + kBN > t_len) || (q0 + kBM > t_len) ||
+                        (causal && k0 + kBN > q0);
+    probs_rows<kSNT>(s, dp, lse2, dl, c2, masked, row0, k0 + 2 * (lane & 3),
+                     t_len, causal, strict);
+    // dQ += dS K
+    warp_mma_acc_t<T, kONT, kSNT, false, kOutAtOnce, kOutGroup>(
+        dq_acc, dp, by_one, k_t, 0, kStride, lane);
+  }
+
+  const float by_scale[2] = {scale, scale};
+  store_acc<T, kONT>(dq, dq_acc, by_scale, b, h, n_heads, t_len, d, row0, 0,
+                     lane);
 }
 
 // --------------------------------------------------------------- launches --
 
-Strides strides_at(const int64_t* st, int i) {
-  return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
-}
-
 bool bad_shape(int b, int t, int h, int d) {
   return b < 1 || t < 1 || h < 1 || d < 1 || d > 256 ||
-         (t + kTile - 1) / kTile > 65535;
+         (t + kRowsPerBlock - 1) / kRowsPerBlock > 65535;
+}
+
+struct Views {
+  Strides sq, sk, sv, sd;
+  int aligned;
+};
+
+template <typename T>
+Views views_of(const void* q, const void* k, const void* v, const void* dout,
+               const int64_t* st) {
+  Views w{strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+          strides_at(st, 3), 0};
+  w.aligned = view_aligned(q, w.sq, sizeof(T)) &&
+              view_aligned(k, w.sk, sizeof(T)) &&
+              view_aligned(v, w.sv, sizeof(T)) &&
+              view_aligned(dout, w.sd, sizeof(T));
+  return w;
 }
 
 template <typename T, int kD>
@@ -478,19 +375,20 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                int b, int t, int h, int d, float scale, const int64_t* st,
                int causal, int strict, cudaStream_t stream) {
   auto kernel = flash_bwd_dkv_kernel<T, kD>;
-  constexpr size_t smem = dkv_smem_bytes<kD>();
+  constexpr size_t smem = bwd_smem_bytes<T, kD, dkv_queries<T, kD>()>();
   // above 48 KB the launch is refused unless the kernel opts in
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(b * h, (t + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  const Views w = views_of<T>(q, k, v, dout, st);
+  constexpr int kRows = kRowsPerWarp * bwd_warps<T, kD>();
+  const dim3 grid(b * h, (t + kRows - 1) / kRows, kD / dkv_cols(kD));
+  kernel<<<grid, 32 * bwd_warps<T, kD>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), h, t, d, scale,
-      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-      strides_at(st, 3), causal, strict);
+      static_cast<T*>(dk), static_cast<T*>(dv), h, t, d, scale, w.sq, w.sk,
+      w.sv, w.sd, causal, strict, w.aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -500,18 +398,19 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               int h, int d, float scale, const int64_t* st, int causal,
               int strict, cudaStream_t stream) {
   auto kernel = flash_bwd_dq_kernel<T, kD>;
-  constexpr size_t smem = dq_smem_bytes<kD>();
+  constexpr size_t smem = bwd_smem_bytes<T, kD, dq_keys<T, kD>()>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(b * h, (t + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  const Views w = views_of<T>(q, k, v, dout, st);
+  constexpr int kRows = kRowsPerWarp * bwd_warps<T, kD>();
+  const dim3 grid(b * h, (t + kRows - 1) / kRows);
+  kernel<<<grid, 32 * bwd_warps<T, kD>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), h, t, d, scale, strides_at(st, 0),
-      strides_at(st, 1), strides_at(st, 2), strides_at(st, 3), causal,
-      strict);
+      static_cast<T*>(dq), h, t, d, scale, w.sq, w.sk, w.sv, w.sd, causal,
+      strict, w.aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -566,17 +465,17 @@ int slt_flash_bwd_delta(const void* o, const void* dout, const float* g_lse,
                         cudaStream_t stream) {
   if (bad_shape(b, t, h, d)) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t rows = static_cast<int64_t>(b) * t * h;
-  const int64_t blocks = (rows * 32 + kThreads - 1) / kThreads;
+  const int64_t blocks = (rows * 32 + kDeltaThreads - 1) / kDeltaThreads;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const Strides so = strides_at(strides, 0), sd = strides_at(strides, 1);
   const unsigned grid = static_cast<unsigned>(blocks);
   if (is_bf16)
-    flash_bwd_delta_kernel<__nv_bfloat16><<<grid, kThreads, 0, stream>>>(
+    flash_bwd_delta_kernel<__nv_bfloat16><<<grid, kDeltaThreads, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(o),
         static_cast<const __nv_bfloat16*>(dout), g_lse, delta, rows, t, h, d,
         so, sd);
   else
-    flash_bwd_delta_kernel<float><<<grid, kThreads, 0, stream>>>(
+    flash_bwd_delta_kernel<float><<<grid, kDeltaThreads, 0, stream>>>(
         static_cast<const float*>(o), static_cast<const float*>(dout), g_lse,
         delta, rows, t, h, d, so, sd);
   return static_cast<int>(cudaGetLastError());

@@ -42,7 +42,8 @@ NEG_BIG = -1e30
 # sm_90a: Hopper with its architecture-specific instructions. --fmad=false
 # keeps a*b+c as two roundings, so the SGD kernel is bit-identical to its
 # plain PyTorch version (which rounds lr*g before the subtraction); the
-# flash-attention kernel writes its multiply-adds as explicit fmaf.
+# flash-attention kernels' products are tensor-core instructions, which the
+# flag does not touch.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 

@@ -21,8 +21,17 @@ Both are differentiable in every output through
 JAX's ``vjp_fwd`` does. On CUDA tensors its forward launches K5 and its
 backward K6, or they raise; on CPU tensors they run
 :func:`flash_attention_with_lse_plain` and
-:func:`flash_attention_bwd_plain`, dense float32 versions of the same
-math that are also the card's yardstick of correctness.
+:func:`flash_attention_bwd_plain`, dense versions of the same math that
+are also the card's yardstick of correctness.
+
+Where the plain versions round. Every product accumulates in float32,
+and the softmax, the LSE, delta and dS = P (dP - delta) are float32. The
+kernels hand P and dS to their second products in the operand type, as
+the JAX kernels do (``p.astype(vb.dtype)``, ``ds.astype(kb.dtype)``), so
+the plain versions round there too (:func:`_as_operand`): P before
+``P V`` and ``P^T dO``, dS before ``dS K`` and ``dS^T Q``. The row sum l
+is taken over the unrounded P. For float32 inputs that rounding is the
+identity, and nothing is rounded before the outputs.
 """
 
 from __future__ import annotations
@@ -103,11 +112,18 @@ def _live(t: int, causal: bool, strict: bool,
     return rows > cols if strict else rows >= cols
 
 
+def _as_operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """float32 ``x`` as the second product of a kernel sees it: rounded
+    to the operand ``dtype`` (the identity for float32)."""
+    return x.to(dtype).float()
+
+
 def flash_attention_with_lse_plain(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor, causal: bool = False,
                                    strict: bool = False
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense masked softmax attention in float32: ``(o, lse)``."""
+    """Dense masked softmax attention, ``(o, lse)``: float32 sums, P in
+    the operand dtype for ``P V``."""
     t, d = q.shape[1], q.shape[3]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * d ** -0.5
     ok = _live(t, causal, strict, q.device)
@@ -117,8 +133,8 @@ def flash_attention_with_lse_plain(q: torch.Tensor, k: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     live = l > 0
     l_safe = torch.where(live, l, 1.0)
-    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float()) / l_safe.permute(
-        0, 2, 1, 3)
+    o = torch.einsum("bhqk,bkhd->bqhd", _as_operand(p, q.dtype),
+                     v.float()) / l_safe.permute(0, 2, 1, 3)
     lse = torch.where(live, m + torch.log(l_safe), NEG_BIG)
     return o.to(q.dtype), lse[..., 0].permute(0, 2, 1)
 
@@ -158,8 +174,10 @@ def _grads_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool, strict: bool, dq: bool = True,
                  dkv: bool = True) -> Tuple[Optional[torch.Tensor], ...]:
     """``(dq, dk, dv)`` in the input dtype from one P and dS (five T x T
-    x D products for all three); None where not asked for."""
+    x D products for all three), each in the operand dtype for its
+    second product; None where not asked for."""
     p, ds = _probs_and_dscores(q, k, v, do, lse, delta, causal, strict)
+    p, ds = _as_operand(p, q.dtype), _as_operand(ds, q.dtype)
     scale = q.shape[3] ** -0.5
     dq_ = (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
            ).to(q.dtype) if dq else None

@@ -6,12 +6,13 @@ installed; tests/conftest.py imports JAX, hence on the card:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 
 Tolerances are chip_smoke.py's. Forward: float32 2e-5 on O and LSE
-(summation order and online rescaling against one dense softmax); bf16
-3e-2 on O (two bf16 ulps at |o| near 2) and 1e-3 on LSE. Backward:
-``BWD_TOL`` times the largest gradient entry of the plain version
-(float32: the tile loop's summation order against one dense sum per
-product; bf16: two bf16 ulps of the largest entry, since both round
-float32 sums that differ only in that order).
+(the 3xTF32 products, summation order and online rescaling against one
+dense float32 softmax); bf16 1.6e-2 on O (the plain version rounds P to
+bf16 where the kernel does, which leaves two bf16 ulps of an |o| below
+2) and 1e-3 on LSE. Backward: ``BWD_TOL`` times the largest gradient
+entry of the plain version (float32: the 3xTF32 products and the tile
+loop's summation order against one dense sum per product; bf16: two bf16
+ulps of the largest entry, both sides rounding P and dS to bf16).
 """
 
 import numpy as np
@@ -24,7 +25,7 @@ from split_learning_tpu_torch.ops.flash_attention import (
     flash_attention_with_lse, flash_attention_with_lse_plain,
     flash_bwd_cuda)
 
-TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (3e-2, 1e-3)}
+TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1.6e-2, 1e-3)}
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 8e-3}
 pytestmark = pytest.mark.cuda
 
