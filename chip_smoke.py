@@ -90,40 +90,58 @@ beside this script. Phases, any failure ending the run with a traceback:
    retained graph) for the whole, beside the bound; the
    step's median ms over steps 6-30, tokens/s, and a
    ``torch.profiler`` window of 10 steps.
-12. the wire kernels against their plain versions: K3's amax (two
-   kernels, one launch call), quantize and dequantize and K4's magnitude
-   fold, over sizes 1, 127, 129, 4099, the CNN cut (1,384,448) and the
-   LM cut ([64, 1024, 256], 16,777,216), random, all-equal, all-zero and
-   exact-half inputs, float32 and bf16: stats, q, x', x_eff, m and the
-   non-finite flag bit-equal; the codec's frames from the card byte-equal
-   to the host codec's on the same values (numpy for float32, the CPU
-   tensor path for bf16, which the CPU tests hold to JAX's), the
-   residuals bit-equal; one NaN or infinity refused by both codecs;
+12. the wire kernels against their plain versions: K3's amax/quantize
+   (one cooperative launch writing {amax, scale} ahead of q) and
+   dequantize, K4's magnitude fold (``magnitudes()``) and K4's five
+   select launches (the codec's whole topk8 encode), over sizes 1, 7, 8,
+   9, 127, 4099, the CNN cut (1,384,448), the generate cut ([8, 1040,
+   256]) and the LM cut ([64, 1024, 256]), random, all-equal, all-zero
+   and exact-half inputs, float32 and bf16, densities 0.01 (index form),
+   0.1 (bitmap) and 1.0, without a residual and with one at decay 1.0
+   and 0.5: buffers, q, x', x_eff, m, the new residual and the flag
+   bit-equal; the codec's frames from the card byte-equal to the host
+   codec's numpy path on the same values, the residuals bit-equal; one
+   NaN or infinity refused by both codecs. K4 rebuilt keeping the last
+   ties instead of the first must change both all-equal probe frames;
 13. the two-party path at full width: ``SplitClientTrainer`` over
    ``LocalTransport(ServerRuntime)`` on ``cuda``, the split CNN at batch
    64, 30 steps in each of ``none``, ``int8`` and ``topk8`` (density
    0.1). Launch counts reset before and read after each: per step
-   exactly 1 K1f, 1 K1b and 2 K2 (client and server), plus for int8 2 of
-   each K3 launch (amax, quantize, dequantize) and for topk8 2 K4 and 2
-   of K3's amax and quantize. At steps 1-3 of int8 and topk8 each
-   direction's cut tensor and EF residual are copied to the host and
-   encoded there: the frames must be byte-equal to the card's, with an
-   exact-half probe tensor beside them. The same check with K3's
-   quantize rebuilt with ``roundf`` in place of ``rintf`` (swapped in as
-   phase 10 plants its zero dQ) must fail. A CPU twin of the ``none``
-   run agrees on 5 losses within 1e-4;
-14. times at both cut sizes, float32: each wire kernel, its plain
-   version, the library call (``torch.amax(x.abs())``,
-   ``torch.quantize_per_tensor``, ``torch.dequantize``, ``torch.abs``,
-   and ``torch.topk`` for the selection) and the bound; the two-party
-   step's median ms (steps 6-30), wire bytes per step and a profiler
-   window of 10 steps per mode.
+   exactly 1 K1f, 1 K1b and 2 K2 (client and server), plus for int8 2
+   K3 amax/quantize and 2 dequantize launches, for topk8 2 of each of
+   K4's five select launches. Every card encode makes exactly one host
+   sync (counted with ``torch.cuda.set_sync_debug_mode``). At steps 1-3
+   of int8 and topk8 each direction's cut tensor and EF residual are
+   copied to the host and encoded there: the frames must be byte-equal
+   to the card's, with an exact-half probe tensor beside them. The same
+   check with K3 rebuilt with ``roundf`` in place of ``rintf`` must
+   fail. A CPU twin of the ``none`` run agrees on 5 losses within 1e-4;
+14. times at the CNN cut, the generate cut and the LM cut, float32: K3's
+   launch against ``torch.amax`` + ``torch.quantize_per_tensor``, the
+   dequantize against ``torch.dequantize``, the magnitude fold against
+   ``torch.abs``, the whole topk8 encode (with and without the
+   residual) against the old one (magnitude kernel, ``select_topk``,
+   K3, scatter) and ``torch.topk`` alone, K4's five launches by name
+   from a profiler window, each beside its bound; K2 at the LM's 54
+   leaves; the two-party step's median ms (steps 6-30), wire bytes per
+   step and a profiler window of 10 steps per mode;
+15. split-party LM decode at full width: ``generate_remote`` on ``cuda``
+   with the split causal LM (float32, d_model 256, 2 heads, vocab 256,
+   depths 1 + 2, max_len 2048, attn="flash") at batch 8, prompt 1024,
+   16 new tokens over ``LocalTransport(ServerRuntime)`` with compress
+   None, ``none``, ``int8`` and ``topk8`` (density 0.1). Launch counts
+   reset before and read after each: exactly 3 K5 per token plus the
+   wire launches of two frames per token. None and ``none`` give the
+   local re-forward decode's tokens; for int8 and topk8 a second,
+   untimed run holds the first 3 tokens' hops to the host codec (frame
+   twin) with one host sync per encode, and gives the same tokens.
+   Tokens/s and wire bytes per token per mode.
 
 Output, last lines: one JSON object with a record per kernel, one JSON
 object with the main path's step time, one with the serving path's
 times, one with the LM training path's, one with the two-party path's,
-the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
-{...}}``.
+one with split-party decode's, the ``nvidia-smi`` name and power limit,
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -186,10 +204,25 @@ TWIN_UPDATE_TOL, TWIN_UPDATE_FLOOR = 1e-3, 1e-3
 # the two-party path: the cut tensors the wire kernels see, and the modes
 CNN_CUT = (BATCH, 26, 26, 32)
 LM_CUT = (TRAIN_B, TRAIN_T, LM["d_model"])
-WIRE_SIZES = (1, 127, 129, 4099, math.prod(CNN_CUT), math.prod(LM_CUT))
+# split-party decode at full width: batch 8, prompt 1024, 16 new tokens;
+# each hop carries the [8, 1040, 256] cut (and the logits back)
+DEC_B, DEC_P, DEC_NEW = 8, 1024, 16
+GEN_CUT = (DEC_B, DEC_P + DEC_NEW, LM["d_model"])
+WIRE_SIZES = (1, 7, 8, 9, 127, 4099, math.prod(CNN_CUT), math.prod(GEN_CUT),
+              math.prod(LM_CUT))
 WIRE_INPUTS = ("random", "ties", "zeros", "halves")
+WIRE_DENSITIES = (0.01, 0.1, 1.0)
 WIRE_MODES, DENSITY, EF_DECAY = ("none", "int8", "topk8"), 0.1, 0.5
+DEC_MODES = (None, "none", "int8", "topk8")
 FRAME_TWIN_STEPS, WIRE_TWIN_STEPS, PROFILE_STEPS = 3, 5, 10
+# planted faults, each a copy of one source with one expression replaced:
+# K3 rounding halves away from zero, K4 keeping the last ties
+PLANTS = {
+    "quantize_roundf": ("quantize.cu", "rintf(", "roundf("),
+    "topk_select_ties_high": (
+        "topk_select.cu", "return min(r, need);",
+        "return r > eq_total - need ? r - (eq_total - need) : 0u;"),
+}
 
 
 def check(cond: bool, what: str) -> None:
@@ -279,26 +312,58 @@ def host_ms(torch, fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def start_planted_build():
-    """Start building K3's quantize source with ``roundf`` in place of
-    ``rintf`` (a planted fault for the frame twin) into
-    ``build/torch_kernels/planted/``: one ``nvcc``, started beside the
-    real build. Returns the process and the library's path."""
+def start_planted_builds():
+    """Start one ``nvcc`` per planted fault of :data:`PLANTS` (beside the
+    real build) into ``build/torch_kernels/planted/``. Returns ``{name:
+    (process, library path)}``."""
     import subprocess
 
     from split_learning_tpu_torch.ops import common
-    src = (common.CSRC_DIR / "quantize.cu").read_text()
-    check(src.count("rintf(") == 1, "quantize.cu: expected one rintf call")
     out_dir = common.BUILD_DIR / "planted"
     out_dir.mkdir(parents=True, exist_ok=True)
-    planted = out_dir / "quantize_roundf.cu"
-    planted.write_text(src.replace("rintf(", "roundf("))
-    lib = out_dir / "quantize_roundf.so"
-    proc = subprocess.Popen(
-        [common._nvcc(), *common.NVCC_FLAGS, "-I", str(common.CSRC_DIR),
-         "-o", str(lib), str(planted)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    return proc, lib
+    builds = {}
+    for name, (source, real, fault) in PLANTS.items():
+        src = (common.CSRC_DIR / source).read_text()
+        check(src.count(real) == 1, f"{source}: expected one {real!r}")
+        planted = out_dir / f"{name}.cu"
+        planted.write_text(src.replace(real, fault))
+        lib = out_dir / f"{name}.so"
+        builds[name] = (subprocess.Popen(
+            [common._nvcc(), *common.NVCC_FLAGS, "-I", str(common.CSRC_DIR),
+             "-o", str(lib), str(planted)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), lib)
+    return builds
+
+
+def planted_lib(builds, name):
+    """The planted build ``name`` of :func:`start_planted_builds`, loaded."""
+    import ctypes
+    proc, lib = builds[name]
+    _, err = proc.communicate()
+    check(proc.returncode == 0, f"planted build {name} failed: {err[-2000:]}")
+    return ctypes.CDLL(str(lib))
+
+
+class SyncCount:
+    """Counts the host syncs PyTorch makes inside the block (its sync
+    debug mode warns on each: D2H copies, ``.item()``, ``nonzero``)."""
+
+    def __init__(self, torch):
+        self.torch, self.n = torch, 0
+
+    def __enter__(self):
+        import warnings
+        self._catch = warnings.catch_warnings(record=True)
+        self._seen = self._catch.__enter__()
+        warnings.simplefilter("always")
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode("default")
+        self.n = sum("synchronizing CUDA operation" in str(w.message)
+                     for w in self._seen)
+        self._catch.__exit__(*exc)
 
 
 def wire_input(torch, dev, gen, n, kind, dtype):
@@ -316,25 +381,29 @@ def wire_input(torch, dev, gen, n, kind, dtype):
     return x.to(dtype)
 
 
-def wire_kernel_checks(torch, dev, gen):
-    """Phase 12: K3 and K4 against their plain versions on the card, and
-    the codec's card frames against the host codec's."""
+def _k_of(n, density):
+    return max(1, min(n, math.ceil(density * n)))
+
+
+def wire_kernel_checks(torch, dev, gen, planted):
+    """Phase 12: K3 and K4 against their plain versions on the card, the
+    codec's card frames against the host codec's, and K4's planted
+    tie-break fault."""
     from split_learning_tpu_torch.ops import quantize as qmod
     from split_learning_tpu_torch.ops import topk as kmod
     from split_learning_tpu_torch.transport import codec
-    errs = {qmod.AMAX: 0.0, qmod.QUANT: 0.0, qmod.DEQUANT: 0.0,
-            kmod.NAME: 0.0}
+    errs = {qmod.QUANT: 0.0, qmod.DEQUANT: 0.0, kmod.NAME: 0.0,
+            **{name: 0.0 for name in kmod.SELECT_LAUNCHES}}
     n_cases = frames = 0
 
-    def same(a, b, name, what):
-        """Bit-equal, on the host; records the max abs difference (0)."""
-        a, b = a.cpu(), b.cpu()
-        check(a.dtype == b.dtype and torch.equal(a, b),
-              f"{name} {what}: not bit-equal ({a.dtype}/{b.dtype}, max abs "
-              f"{(a.double() - b.double()).abs().max().item()})")
-        if a.numel():
-            errs[name] = max(errs[name],
-                             (a.double() - b.double()).abs().max().item())
+    def same(a, b, names, what):
+        """Bit-equal (so each launch's max abs error stays 0)."""
+        if a.dtype == b.dtype and torch.equal(a, b):
+            return
+        a, b = a.cpu().double(), b.cpu().double()
+        raise RuntimeError(
+            f"chip_smoke check failed: {names} {what}: not bit-equal (max "
+            f"abs {(a - b).abs().max().item()})")
 
     for dtype in (torch.float32, torch.bfloat16):
         for n in WIRE_SIZES:
@@ -342,13 +411,11 @@ def wire_kernel_checks(torch, dev, gen):
                 what = f"n={n} {kind} {dtype}"
                 x = wire_input(torch, dev, gen, n, kind, dtype)
                 res = 0.5 * torch.randn(n, device=dev, generator=gen)
-                stats = qmod.amax_cuda(x)
-                same(stats, qmod.amax_plain(x), qmod.AMAX, what)
                 n_out = qmod.tile_rows(n) * qmod.LANE
                 for size in (n, n_out):
-                    q = qmod.quantize_cuda(x, stats, size)
-                    same(q, qmod.quantize_plain(x, stats, size), qmod.QUANT,
-                         what)
+                    buf = qmod.q8_encode_cuda(x, size)
+                    same(buf, qmod.q8_encode_plain(x, size), qmod.QUANT, what)
+                stats, q = qmod.q8_views(buf)
                 scale = stats[1].item()
                 same(qmod.dequantize_cuda(q, scale),
                      qmod.dequantize_plain(q, scale), qmod.DEQUANT, what)
@@ -357,30 +424,58 @@ def wire_kernel_checks(torch, dev, gen):
                                     kmod.fold_magnitudes_plain(x, r,
                                                                EF_DECAY)):
                         same(a, b, kmod.NAME, what)
-                torch.cuda.synchronize()
-                # the same values through the host codec: numpy for
-                # float32, the CPU tensor path for bf16
-                host = (x.cpu().numpy() if dtype == torch.float32
-                        else x.cpu())
+                # the same values through the host codec's numpy path (a
+                # bf16 tensor as its float32 values, the frame's dtype
+                # named as the card's; the CPU tests hold the CPU tensor
+                # path of bf16 to that)
+                host = x.float().cpu().numpy()
                 res_h = res.cpu().numpy()
+                name = str(dtype).replace("torch.", "")
+
+                def host_frame(d):
+                    return codec.encode(dict(d, dtype=name))
+
                 check(codec.encode(codec.q8_compress(x))
-                      == codec.encode(codec.q8_compress(host)),
+                      == host_frame(codec.q8_compress(host)),
                       f"q8 frame {what}")
-                d_k, r_k = codec.topk8_compress(x, DENSITY, res, EF_DECAY)
-                d_h, r_h = codec.topk8_compress(host, DENSITY, res_h,
-                                                EF_DECAY)
-                check(codec.encode(d_k) == codec.encode(d_h),
-                      f"topk8 frame {what}")
-                check(np.array_equal(r_k.cpu().numpy(), np.asarray(r_h)),
-                      f"topk8 residual {what}")
-                frames += 2
+                frames += 1
+                for density in WIRE_DENSITIES:
+                    k = _k_of(n, density)
+                    for r, decay in ((None, 1.0), (res, 1.0), (res, EF_DECAY)):
+                        for keep in ((True, False) if r is None else (True,)):
+                            got = kmod.topk8_select_cuda(x, r, decay, k, keep)
+                            want = kmod.topk8_select_plain(x, r, decay, k,
+                                                           keep)
+                            same(got[0], want[0], kmod.SELECT_LAUNCHES, what)
+                            if keep:
+                                same(got[1], want[1], kmod.SELECT_LAUNCHES,
+                                     what)
+                        d_k, r_k = codec.topk8_compress(x, density, r, decay)
+                        d_h, r_h = codec.topk8_compress(
+                            host, density, None if r is None else res_h,
+                            decay)
+                        tag = f"{what} density {density} decay {decay}"
+                        check(codec.encode(d_k) == host_frame(d_h),
+                              f"topk8 frame {tag} (res {r is not None})")
+                        check(np.array_equal(r_k.cpu().numpy(),
+                                             np.asarray(r_h, np.float32)),
+                              f"topk8 residual {tag}")
+                        frames += 1
+                    check(codec.encode(codec.topk8_pack(x, density))
+                          == host_frame(codec.topk8_pack(host, density)),
+                          f"stateless topk8 frame {what} density {density}")
+                    frames += 1
                 n_cases += 1
         for bad in (float("nan"), float("inf")):
             x = wire_input(torch, dev, gen, math.prod(CNN_CUT), "random",
                            dtype)
-            x[12345] = bad
-            check(not math.isfinite(qmod.amax_cuda(x)[0].item())
-                  and kmod.fold_magnitudes_cuda(x)[2].item() == 1,
+            x[x.numel() // 3] = bad
+            check(not math.isfinite(qmod.q8_views(
+                qmod.q8_encode_cuda(x, x.numel()))[0][0].item())
+                and kmod.fold_magnitudes_cuda(x)[2].item() == 1
+                and kmod.split_select(kmod.topk8_select_cuda(
+                    x, None, 1.0, x.numel() // 10)[0].cpu(), x.numel(),
+                    x.numel() // 10)[0],
                   f"non-finite {bad} {dtype}: not flagged")
             for encode in (codec.q8_compress,
                            lambda t: codec.topk8_compress(t, DENSITY)):
@@ -390,48 +485,92 @@ def wire_kernel_checks(torch, dev, gen):
                     continue
                 raise RuntimeError(f"chip_smoke check failed: the codec "
                                    f"took a {bad} on the card ({dtype})")
-    return errs, n_cases, frames
+
+    # the planted fault: K4 keeping the last ties must change the frames
+    # of the all-equal probe (bitmap and index forms)
+    real = kmod._select_lib
+    bad_lib = kmod.bind_select(planted_lib(planted, "topk_select_ties_high"))
+    probe = wire_input(torch, dev, gen, math.prod(CNN_CUT), "ties",
+                       torch.float32)
+    kmod._select_lib = lambda: bad_lib
+    try:
+        planted_frames = [codec.encode(codec.topk8_pack(probe, d))
+                          for d in (DENSITY, 0.01)]
+    finally:
+        kmod._select_lib = real
+    host_frames = [codec.encode(codec.topk8_pack(probe.cpu().numpy(), d))
+                   for d in (DENSITY, 0.01)]
+    changed = sum(a != b for a, b in zip(planted_frames, host_frames))
+    check(changed == 2, f"a planted tie-break K4 changed {changed} of 2 "
+                        "all-equal frames")
+    return errs, n_cases, frames, changed
 
 
 class FrameTwin:
-    """Phase 13's twin: for the first ``FRAME_TWIN_STEPS`` packs of each
-    direction of a compressed ``LocalTransport``, copy the card's cut
-    tensor and EF residual to the host, encode them with the host codec,
-    and count frames (and residuals) that differ from the card's."""
+    """The card's frames against the host codec's. For the first
+    ``steps`` packs of each wrapped direction, copy the card's tensor
+    (and EF residual) to the host, encode it there, and count frames
+    (and residuals) that differ; and count the host syncs of every pack
+    (the card's encode), which must be one a frame."""
 
-    def __init__(self, transport, server, codec, mode):
-        self.codec, self.mode = codec, mode
-        self.frames = self.mismatched = 0
-        self._seen = {"up": 0, "down": 0}
-        transport._pack_up = self._wrap(
-            transport._pack_up, "up", lambda: transport._ef, 0)
-        transport._pack_down = self._wrap(
-            transport._pack_down, "down", lambda: server.wire_ef, 1)
+    def __init__(self, torch, codec, mode, steps=FRAME_TWIN_STEPS):
+        self.torch, self.codec, self.mode, self.steps = torch, codec, mode, steps
+        self.frames = self.mismatched = self.packs = 0
+        self.syncs = []
+        self._seen = {}
 
-    def _wrap(self, pack, direction, ef_of, role):
-        codec = self.codec
+    def wrap(self, pack, direction, ef_of=None, role=None):
+        codec, torch = self.codec, self.torch
+        self._seen[direction] = 0
 
-        def twin_pack(arr, key):
-            if self._seen[direction] >= FRAME_TWIN_STEPS:
-                return pack(arr, key)
+        def counted(*args):
+            with SyncCount(torch) as sc:
+                packed = pack(*args)
+            self.packs += 1
+            self.syncs.append(sc.n)
+            return packed
+
+        def twin_pack(arr, *key):
+            if self._seen[direction] >= self.steps:
+                return counted(arr, *key)
             self._seen[direction] += 1
             x_host = arr.detach().cpu().numpy()
-            prev = ef_of().residual(key)
-            prev = None if prev is None else prev.detach().cpu().numpy()
-            packed = pack(arr, key)
+            prev = None
+            if ef_of is not None:
+                prev = ef_of().residual(key[0])
+                prev = None if prev is None else prev.detach().cpu().numpy()
+            packed = counted(arr, *key)
+            ok = True
             if self.mode == "int8":
-                host, ok = codec.q8_compress(x_host), True
+                host = codec.q8_compress(x_host)
+            elif ef_of is None:   # stateless (predict)
+                host = codec.topk8_pack(x_host, DENSITY)
             else:
                 host, res_h = codec.topk8_compress(
                     x_host, DENSITY, residual=prev,
-                    decay=codec.ef_decay_for(key[role]))
+                    decay=codec.ef_decay_for(key[0][role]))
                 ok = np.array_equal(
-                    ef_of().residual(key).detach().cpu().numpy(), res_h)
+                    ef_of().residual(key[0]).detach().cpu().numpy(), res_h)
             self.frames += 1
             self.mismatched += int(
                 not ok or codec.encode(packed) != codec.encode(host))
             return packed
         return twin_pack
+
+    def attach_step(self, transport, server):
+        """Wrap both directions of ``split_step``."""
+        transport._pack_up = self.wrap(
+            transport._pack_up, "up", lambda: transport._ef, 0)
+        transport._pack_down = self.wrap(
+            transport._pack_down, "down", lambda: server.wire_ef, 1)
+        return self
+
+    def attach_predict(self, transport):
+        """Wrap the stateless packs of ``predict`` (both directions)."""
+        transport._pack_stateless = self.wrap(transport._pack_stateless,
+                                              "predict")
+        self.steps *= 2   # a token's hop packs twice: up and down
+        return self
 
     def probe(self, torch, dev):
         """An exact-half tensor through the card's and the host's q8."""
@@ -460,27 +599,35 @@ def two_party_stack(torch, mode, device, init_seed=0):
     return client, transport, server
 
 
-def two_party_runs(torch, dev, data, planted):
-    """Phase 13: the two-party CNN in each mode, with exact launch
-    counts, the frame twin, the planted fault and a CPU twin."""
+def wire_launches(mode, frames):
+    """The wire kernels' launches for ``frames`` packs in ``mode``: the
+    encode on the card, and for int8 the dequantize of the decode."""
     from split_learning_tpu_torch.ops import quantize as qmod
     from split_learning_tpu_torch.ops import topk as kmod
+    if mode == "int8":
+        return {qmod.QUANT: frames, qmod.DEQUANT: frames}
+    if mode == "topk8":
+        return {name: frames for name in kmod.SELECT_LAUNCHES}
+    return {}
+
+
+def two_party_runs(torch, dev, data, planted):
+    """Phase 13: the two-party CNN in each mode, with exact launch
+    counts, the frame twin, one host sync per frame, the planted fault
+    and a CPU twin."""
+    from split_learning_tpu_torch.ops import quantize as qmod
     from split_learning_tpu_torch.ops.common import LAUNCHES, NVCC_FLAGS
     from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
     from split_learning_tpu_torch.ops.sgd import NAME as SGD
     from split_learning_tpu_torch.transport import codec
-    import ctypes
 
     base = {FWD: 1, BWD: 1, SGD: 2}
-    per_step = {"none": base,
-                "int8": {**base, qmod.AMAX: 2, qmod.QUANT: 2,
-                         qmod.DEQUANT: 2},
-                "topk8": {**base, kmod.NAME: 2, qmod.AMAX: 2,
-                          qmod.QUANT: 2}}
+    per_step = {mode: {**base, **wire_launches(mode, 2)}
+                for mode in WIRE_MODES}
     modes, twins, totals = {}, {}, {}
     for mode in WIRE_MODES:
         client, transport, server = two_party_stack(torch, mode, "cuda")
-        twin = (FrameTwin(transport, server, codec, mode)
+        twin = (FrameTwin(torch, codec, mode).attach_step(transport, server)
                 if mode != "none" else None)
         LAUNCHES.reset()
         losses, step_ms = [], []
@@ -501,13 +648,18 @@ def two_party_runs(torch, dev, data, planted):
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
         if twin is not None:
+            check(twin.packs == 2 * STEPS and set(twin.syncs) == {1},
+                  f"{mode}: host syncs per card encode {sorted(set(twin.syncs))}"
+                  f" over {twin.packs} frames, want 1")
             twin.probe(torch, dev)
             check(twin.frames == 2 * FRAME_TWIN_STEPS + 1
                   and twin.mismatched == 0,
                   f"{mode} frame twin: {twin.mismatched} of {twin.frames} "
                   "frames differ from the host codec's")
             twins[mode] = {"frames": twin.frames,
-                           "mismatched": twin.mismatched}
+                           "mismatched": twin.mismatched,
+                           "encodes": twin.packs,
+                           "host_syncs_per_encode": twin.syncs[0]}
         stats = transport.stats.summary()
 
         def more_steps(client=client):
@@ -530,15 +682,12 @@ def two_party_runs(torch, dev, data, planted):
             none_losses = losses
 
     # the planted fault: K3's quantize with roundf must fail the twin
-    proc, lib_path = planted
-    _, err = proc.communicate()
-    check(proc.returncode == 0, f"planted build failed: {err[-2000:]}")
     real_lib = qmod._lib
-    planted_lib = qmod.bind(ctypes.CDLL(str(lib_path)))
-    qmod._lib = lambda: planted_lib
+    bad_lib = qmod.bind(planted_lib(planted, "quantize_roundf"))
+    qmod._lib = lambda: bad_lib
     try:
         client, transport, server = two_party_stack(torch, "int8", "cuda")
-        bad = FrameTwin(transport, server, codec, "int8")
+        bad = FrameTwin(torch, codec, "int8").attach_step(transport, server)
         for i, (x, y) in enumerate(data[:FRAME_TWIN_STEPS]):
             client.train_step(x, y, i)
         bad.probe(torch, dev)
@@ -565,33 +714,129 @@ def two_party_runs(torch, dev, data, planted):
                 cpu_twin_max_abs_diff=twin_diff), totals
 
 
-def wire_times(torch, dev, gen, bw, fp32):
-    """Phase 14: each wire kernel, its plain version, the library call
-    and the bound, at both cut sizes (float32)."""
+def decode_runs(torch, dev):
+    """Phase 15: split-party LM decode at full width, ``generate_remote``
+    over ``LocalTransport(ServerRuntime)`` on the card in each wire mode,
+    with exact launch counts, the local decode's tokens on the
+    uncompressed wires and a frame twin on the compressed ones."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.ops.flash_attention import NAME as FA
+    from split_learning_tpu_torch.runtime import (
+        ServerRuntime, generate_remote, greedy_generate)
+    from split_learning_tpu_torch.transport import LocalTransport, codec
+    from split_learning_tpu_torch.utils import Config
+
+    plan = get_plan(dtype="float32", **LM)
+    params = plan.init(torch.Generator().manual_seed(0), torch.zeros(1))
+    on_card = tuple({k: v.to(dev) for k, v in st.items()} for st in params)
+    client_params = [on_card[i] for i in plan.stages_of("client")]
+    prompt = np.random.RandomState(1).randint(
+        0, LM["vocab"], (DEC_B, DEC_P)).astype(np.int32)
+    server = ServerRuntime(plan, Config(batch_size=DEC_B), params,
+                           device="cuda")
+    local = greedy_generate(plan, on_card, prompt, DEC_NEW, kv_cache=False,
+                            device="cuda").cpu().numpy()
+    runs, totals = {}, {}
+    for mode in DEC_MODES:
+        transport = LocalTransport(server, compress=mode, density=DENSITY)
+        LAUNCHES.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        toks = generate_remote(plan, client_params, transport, prompt,
+                               DEC_NEW, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = LAUNCHES.snapshot()
+        want = {FA: N_BLOCKS * DEC_NEW, **wire_launches(mode, 2 * DEC_NEW)}
+        label = str(mode)
+        print(f"[decode] {label}: {DEC_NEW} tokens in {secs * 1e3:.1f} ms, "
+              f"launches {counts}", flush=True)
+        check(counts == want, f"decode {label} launches {counts}, want {want}")
+        check(toks.shape == (DEC_B, DEC_P + DEC_NEW)
+              and np.array_equal(toks[:, :DEC_P], prompt)
+              and 0 <= toks.min() and toks.max() < LM["vocab"],
+              f"decode {label}: tokens {toks.shape}")
+        stats = transport.stats.summary()
+        rec = dict(seconds=secs, tokens_per_s=DEC_B * DEC_NEW / secs,
+                   ms_per_token_step=secs * 1e3 / DEC_NEW, launches=counts,
+                   wire_bytes_per_token=(stats["bytes_sent"]
+                                         + stats["bytes_received"]) / DEC_NEW,
+                   compression_ratio=stats.get("compression_ratio"))
+        if mode in (None, "none"):
+            agree = float((toks == local).mean())
+            check(agree == 1.0, f"decode {label}: tokens agree with the "
+                                f"local re-forward decode on {agree}")
+            rec["tokens_equal_local_decode"] = True
+        else:
+            # the frame twin in a run of its own: the host encodes of the
+            # twin would swamp the timed run
+            twinned = LocalTransport(server, compress=mode, density=DENSITY)
+            twin = FrameTwin(torch, codec, mode).attach_predict(twinned)
+            twin_toks = generate_remote(plan, client_params, twinned, prompt,
+                                        DEC_NEW, device="cuda")
+            check(np.array_equal(twin_toks, toks)
+                  and twin.frames == 2 * FRAME_TWIN_STEPS
+                  and twin.mismatched == 0 and set(twin.syncs) == {1},
+                  f"decode {label} frame twin: {twin.mismatched} of "
+                  f"{twin.frames} frames differ, host syncs per encode "
+                  f"{sorted(set(twin.syncs))}")
+            rec.update(frame_twin=dict(frames=twin.frames,
+                                       mismatched=twin.mismatched),
+                       host_syncs_per_encode=twin.syncs[0],
+                       agree_with_local_decode=float((toks == local).mean()))
+        runs[label] = rec
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    return dict(model="transformer_lm", mode="split", dtype="float32",
+                d_model=LM["d_model"], num_heads=LM["num_heads"],
+                vocab=LM["vocab"], blocks=N_BLOCKS, attn="flash",
+                batch=DEC_B, prompt=DEC_P, new_tokens=DEC_NEW,
+                cut=list(GEN_CUT), density=DENSITY, modes=runs), totals
+
+
+def old_topk8_encode(torch, x, res, decay, k):
+    """The codec's topk8 encode before the select kernels (a measured
+    reference): the magnitude kernel, ``select_topk``'s PyTorch ops,
+    K3 over the survivors and the scatter of the residual."""
     from split_learning_tpu_torch.ops import quantize as qmod
     from split_learning_tpu_torch.ops import topk as kmod
-    out = {name: {} for name in (qmod.AMAX, qmod.QUANT, qmod.DEQUANT,
-                                 kmod.NAME)}
-    selection = {}
-    for label, shape in (("cnn_cut", CNN_CUT), ("lm_cut", LM_CUT)):
+    x_eff, m, _ = kmod.fold_magnitudes_cuda(x, res, decay)
+    idx, sel = kmod.select_topk(m, k)
+    vals = x_eff[idx]
+    stats, q = qmod.q8_views(qmod.q8_encode_cuda(vals, k))
+    x_eff[idx] = vals - q.float() * stats[1]
+    return kmod.packbits(sel), q, x_eff
+
+
+def wire_times(torch, dev, gen, bw, fp32):
+    """Phase 14: each wire kernel, its plain version, the library call
+    and the bound at the CNN cut, the generate cut and the LM cut
+    (float32); K4's five launches by name from a profiler window."""
+    from split_learning_tpu_torch.ops import quantize as qmod
+    from split_learning_tpu_torch.ops import topk as kmod
+    from torch.profiler import ProfilerActivity, profile
+    out = {name: {} for name in (qmod.QUANT, qmod.DEQUANT, kmod.NAME,
+                                 *kmod.SELECT_LAUNCHES)}
+    encode = {}
+    symbols = dict(zip(("fold_hist_kernel", "hist_mid_kernel",
+                        "hist_low_kernel", "count_kernel", "write_kernel"),
+                       kmod.SELECT_LAUNCHES))
+    for label, shape in (("cnn_cut", CNN_CUT), ("generate_cut", GEN_CUT),
+                         ("lm_cut", LM_CUT)):
         n = math.prod(shape)
         x = 3.0 * torch.randn(n, device=dev, generator=gen)
         res = 0.5 * torch.randn(n, device=dev, generator=gen)
-        stats = qmod.amax_cuda(x)
+        k = _k_of(n, DENSITY)
+        stats, q = qmod.q8_views(qmod.q8_encode_cuda(x, n))
         scale = stats[1].item()
-        q = qmod.quantize_cuda(x, stats, n)
         qx = torch.quantize_per_tensor(x, scale, 0, torch.qint8)
-        k = math.ceil(DENSITY * n)
-        m = kmod.fold_magnitudes_cuda(x, res, EF_DECAY)[1]
+        _, pos, payload = kmod.select_layout(n, k)
         # (kernel, plain, library, bytes moved: inputs once, outputs once)
         cases = {
-            qmod.AMAX: (lambda: qmod.amax_cuda(x),
-                        lambda: qmod.amax_plain(x),
-                        lambda: torch.amax(x.abs()), 4 * n + 8),
-            qmod.QUANT: (lambda: qmod.quantize_cuda(x, stats, n),
-                         lambda: qmod.quantize_plain(x, stats, n),
-                         lambda: torch.quantize_per_tensor(
-                             x, scale, 0, torch.qint8), 5 * n + 8),
+            qmod.QUANT: (lambda: qmod.q8_encode_cuda(x, n),
+                         lambda: qmod.q8_encode_plain(x, n),
+                         None, 5 * n + 16),
             qmod.DEQUANT: (lambda: qmod.dequantize_cuda(q, scale),
                            lambda: qmod.dequantize_plain(q, scale),
                            lambda: torch.dequantize(qx), 5 * n),
@@ -603,20 +848,74 @@ def wire_times(torch, dev, gen, bw, fp32):
             b_ms, b_by = bound(nbytes, 2 * n, bw, fp32)
             out[name][label] = dict(
                 n=n, ms=device_ms(torch, kern), plain_ms=device_ms(
-                    torch, plain), library_ms=device_ms(torch, lib),
+                    torch, plain, reps=20),
+                library_ms=None if lib is None else device_ms(torch, lib),
                 bytes=nbytes, bound_ms=b_ms, bound_by=b_by)
-        # the selection after K4 (PyTorch ops, as lax.top_k in JAX) and
-        # the library's top-k over the same magnitudes
-        selection[label] = dict(
-            k=k, select_topk_ms=host_ms(torch, lambda: kmod.select_topk(m, k),
-                                        reps=10),
-            torch_topk_ms=device_ms(torch, lambda: torch.topk(m, k),
-                                    reps=20))
+        # K3's library yardstick is two calls: the amax, then the quantize
+        amax_ms = device_ms(torch, lambda: torch.amax(x.abs()))
+        qpt_ms = device_ms(torch, lambda: torch.quantize_per_tensor(
+            x, scale, 0, torch.qint8))
+        out[qmod.QUANT][label].update(
+            library_ms=amax_ms + qpt_ms, library_amax_ms=amax_ms,
+            library_quantize_ms=qpt_ms)
+        # the whole topk8 encode: new (five launches) against old, with
+        # and without the residual, torch.topk alone as the yardstick
+        new = lambda: kmod.topk8_select_cuda(x, res, EF_DECAY, k)  # noqa
+        new_stateless = lambda: kmod.topk8_select_cuda(  # noqa: E731
+            x, None, 1.0, k, keep_residual=False)
+        m = x.abs()
+        b_ms, b_by = bound(12 * n + payload, 2 * n, bw, fp32)
+        b0_ms, _ = bound(4 * n + payload, 2 * n, bw, fp32)
+        encode[label] = dict(
+            n=n, k=k, ms=device_ms(torch, new),
+            ms_stateless=device_ms(torch, new_stateless),
+            host_ms=host_ms(torch, new, reps=10),
+            plain_ms=host_ms(torch, lambda: kmod.topk8_select_plain(
+                x, res, EF_DECAY, k), reps=5),
+            old_host_ms=host_ms(torch, lambda: old_topk8_encode(
+                torch, x, res, EF_DECAY, k), reps=5),
+            library_ms=device_ms(torch, lambda: torch.topk(m, k), reps=20),
+            library_call="torch.topk(|x|, k) alone",
+            bytes=12 * n + payload, bound_ms=b_ms, bound_by=b_by,
+            bytes_stateless=4 * n + payload, bound_ms_stateless=b0_ms)
+        # each launch's device time, from the profiler, per encode
+        reps = 20
+        for _ in range(3):
+            new()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                new()
+            torch.cuda.synchronize()
+        per = {name: 0.0 for name in kmod.SELECT_LAUNCHES}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for sym, name in symbols.items():
+                if sym in e.name:
+                    per[name] += e.time_range.end - e.time_range.start
+                    break
+        # the bytes each launch must move: its inputs once, its outputs once
+        launch_bytes = {kmod.SELECT_LAUNCHES[0]: 12 * n,
+                        kmod.SELECT_LAUNCHES[1]: 4 * n,
+                        kmod.SELECT_LAUNCHES[2]: 4 * n,
+                        kmod.SELECT_LAUNCHES[3]: 4 * n,
+                        kmod.SELECT_LAUNCHES[4]: 4 * n + payload + 4 * k}
+        for name in kmod.SELECT_LAUNCHES:
+            lb_ms, lb_by = bound(launch_bytes[name], n, bw, fp32)
+            out[name][label] = dict(
+                n=n, k=k, ms=per[name] / 1e3 / reps if per[name] else None,
+                bytes=launch_bytes[name], bound_ms=lb_ms, bound_by=lb_by)
         print(f"[wire] times at the {label} ({n} values): "
               + ", ".join(f"{name} {out[name][label]['ms']:.4f} ms "
                           f"(bound {out[name][label]['bound_ms']:.4f})"
-                          for name in out), flush=True)
-    return out, selection
+                          for name in cases)
+              + f"; topk8 encode {encode[label]['ms']:.4f} ms (stateless "
+              f"{encode[label]['ms_stateless']:.4f}, bound "
+              f"{encode[label]['bound_ms']:.4f}, host {encode[label]['host_ms']:.4f}"
+              f", old {encode[label]['old_host_ms']:.4f} host ms, torch.topk "
+              f"{encode[label]['library_ms']:.4f})", flush=True)
+    return out, encode
 
 
 def main() -> int:
@@ -664,7 +963,7 @@ def main() -> int:
           f"{bf16_peak / 1e12} TFLOP/s bf16, {tf32_peak / 1e12} TFLOP/s "
           f"TF32 ({tf32_peak / 3e12} as 3xTF32)", flush=True)
     t0 = time.perf_counter()
-    planted_build = start_planted_build()   # phase 13's planted fault
+    planted_builds = start_planted_builds()   # phases 12 and 13's faults
     load_kernels()
     print(f"[build] kernels built and loaded in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1438,53 +1737,97 @@ def main() -> int:
     # ---- 12. wire kernels vs plain ----------------------------------- #
     from split_learning_tpu_torch.ops import quantize as qmod
     from split_learning_tpu_torch.ops import topk as kmod
-    wire_err, wire_cases, wire_frames = wire_kernel_checks(torch, dev, gen)
+    wire_err, wire_cases, wire_frames, ties_changed = wire_kernel_checks(
+        torch, dev, gen, planted_builds)
     print(f"[k3/k4] wire kernels bit-equal to their plain versions on "
           f"{wire_cases} cases, {wire_frames} card frames byte-equal to the "
-          f"host codec's; NaN and inf refused", flush=True)
+          f"host codec's; NaN and inf refused; a planted tie-break K4 "
+          f"changes {ties_changed} of 2 all-equal frames", flush=True)
 
     # ---- 13. the two-party path at full width ---------------------- #
-    two_party, tp_counts = two_party_runs(torch, dev, data, planted_build)
+    two_party, tp_counts = two_party_runs(torch, dev, data, planted_builds)
 
     # ---- 14. times ---------------------------------------------------- #
-    wire_rec, selection = wire_times(torch, dev, gen, bw, fp32)
+    wire_rec, encode_times = wire_times(torch, dev, gen, bw, fp32)
+    # K2 at the LM's 54 leaves (3 launches a step)
+    p_lm = [torch.randn(s_, device=dev, generator=gen) for s_ in lm_shapes]
+    g_lm = [1e-3 * torch.randn(s_, device=dev, generator=gen)
+            for s_ in lm_shapes]
+    m_lm = [torch.zeros_like(t) for t in p_lm]
+    n_lm = sum(t.numel() for t in p_lm)
+    opt_p = [t.clone() for t in p_lm]
+    for t, g_ in zip(opt_p, g_lm):
+        t.grad = g_
+    opt = torch.optim.SGD(opt_p, lr=TRAIN_LR, momentum=TRAIN_MU, fused=True)
+    b_ms, b_by = bound(20 * n_lm, 4 * n_lm, bw, fp32)
+    records[2]["lm_leaves"] = dict(
+        leaves=LM_LEAVES, params=n_lm, momentum=TRAIN_MU,
+        launches_per_step=math.ceil(LM_LEAVES / SGD_TABLE),
+        ms=device_ms(torch, lambda: sgd_step_cuda(p_lm, g_lm, m_lm, TRAIN_LR,
+                                                  TRAIN_MU)),
+        plain_ms=device_ms(torch, lambda: sgd_step_plain(
+            p_lm, g_lm, m_lm, TRAIN_LR, TRAIN_MU)),
+        library_ms=device_ms(torch, opt.step), bytes=20 * n_lm,
+        bound_ms=b_ms, bound_by=b_by)
+    del p_lm, g_lm, m_lm, opt_p, opt
+
+    # ---- 15. split-party LM decode at full width ------------------- #
+    decode, dec_counts = decode_runs(torch, dev)
+
+    for rec in records:
+        key = launch_of.get(rec["name"], rec["name"])
+        rec["launches_two_party"] = tp_counts.get(key, 0)
+        rec["launches_decode"] = dec_counts.get(key, 0)
+    select_src = "topk_select.cu"
     wire_meta = {
-        qmod.AMAX: ("quantize.cu", "split_learning_tpu/ops/quantize.py:56",
-                    "torch.amax(x.abs())"),
-        qmod.QUANT: ("quantize.cu", "split_learning_tpu/ops/quantize.py:60",
-                     "torch.quantize_per_tensor(x, scale, 0, torch.qint8)"),
+        qmod.QUANT: ("quantize.cu", "split_learning_tpu/ops/quantize.py:44",
+                     "torch.amax(x.abs()) + torch.quantize_per_tensor(x, "
+                     "scale, 0, torch.qint8): two calls"),
         qmod.DEQUANT: ("quantize.cu",
                        "split_learning_tpu/ops/quantize.py:65",
                        "torch.dequantize(qint8 tensor)"),
         kmod.NAME: ("topk.cu", "split_learning_tpu/ops/topk.py:35",
-                    "torch.abs(x)")}
-    for rec in records:
-        rec["launches_two_party"] = tp_counts.get(
-            launch_of.get(rec["name"], rec["name"]), 0)
+                    "torch.abs(x)"),
+        **{name: (select_src, "split_learning_tpu/ops/topk.py:35", None)
+           for name in kmod.SELECT_LAUNCHES}}
     for name, (src, replaces, lib_call) in wire_meta.items():
-        records.append(dict(
+        cuts = wire_rec[name]
+        rec = dict(
             name=name, route="cuda",
             source=f"split_learning_tpu_torch/csrc/{src}",
-            replaces=replaces,
-            launches=tp_counts.get(name, 0),
-            launches_per_step={mode: rec["launches_per_step"].get(name, 0)
-                               for mode, rec in two_party["modes"].items()},
+            replaces=replaces, launches=tp_counts.get(name, 0),
+            launches_decode=dec_counts.get(name, 0),
+            launches_per_step={mode: r["launches_per_step"].get(name, 0)
+                               for mode, r in two_party["modes"].items()},
             max_abs_err=wire_err[name], library_call=lib_call,
-            shape=list(CNN_CUT), dtype="float32",
-            **wire_rec[name]["cnn_cut"], lm_cut=wire_rec[name]["lm_cut"]))
-    records[-4]["also_replaces"] = records[-3]["also_replaces"] = (
-        "split_learning_tpu/ops/quantize.py:44 (the fused one-block form)")
-    records[-1]["selection"] = selection
+            shape=list(CNN_CUT), dtype="float32", **cuts["cnn_cut"],
+            generate_cut=cuts["generate_cut"], lm_cut=cuts["lm_cut"])
+        if src == select_src:
+            # one launch of five: no plain version or library call of its
+            # own; the whole encode's stand beside it
+            rec.update(plain_ms=encode_times["cnn_cut"]["plain_ms"],
+                       library_ms=None, plain_of="the whole encode")
+            if name == kmod.SELECT_LAUNCHES[0]:
+                rec["encode"] = encode_times
+        if name == kmod.NAME:
+            rec["path"] = "magnitudes() only; the codec runs the select launches"
+        if name == qmod.QUANT:
+            rec["also_replaces"] = ("split_learning_tpu/ops/quantize.py:56, "
+                                    ":60 (the gridded amax and quantize)")
+        records.append(rec)
     two_party_line = dict(two_party=dict(
         model="split_cnn", mode="split", transport="local", batch=BATCH,
         steps=STEPS, density=DENSITY, device=kind, kernel_cases=wire_cases,
-        kernel_frames=wire_frames, **two_party))
+        kernel_frames=wire_frames, planted_ties_high_changed=ties_changed,
+        **two_party))
+    decode_line = dict(split_decode=dict(device=kind, **decode))
 
     print(json.dumps({"kernels": records}))
     print(json.dumps(step))
     print(json.dumps(serving))
     print(json.dumps(train_lm))
     print(json.dumps(two_party_line))
+    print(json.dumps(decode_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -11,13 +11,13 @@ header gives the design::
     q     = clip(rint(x / scale), -127, 127)  int8 (half to even)
     x'    = q * scale
 
-Three launches, each with its :data:`LAUNCHES` name:
+Two launches, each with its :data:`LAUNCHES` name:
 
-- :func:`q8_amax` (``AMAX``): ``{amax, scale}`` of a flat tensor, as a
-  float32 ``[2]`` tensor on its device (two kernels: per-block
-  partials, then a one-block reduce);
-- :func:`q8_quantize` (``QUANT``): int8 ``[n_out]`` from a flat tensor
-  and those stats, zeros past the input;
+- :func:`q8_encode` (``QUANT``): one cooperative launch that takes the
+  amax and quantizes, returning one uint8 buffer on the input's device:
+  a 16-byte header (float32 ``amax``, ``scale``, then zeros) and ``q``
+  ``[n_out]``, zeros past the input. The wire codec copies it to the
+  host in one piece (:func:`split_q8`);
 - :func:`q8_dequantize` (``DEQUANT``): float32 from int8 and a scale.
 
 On a CUDA tensor each launches its kernel or raises; on a CPU tensor
@@ -36,17 +36,18 @@ import ctypes
 import functools
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from split_learning_tpu_torch.ops.common import (
     LAUNCHES, check_cuda_tensor, check_launch, current_stream_handle,
     load_kernels)
 
-AMAX = "q8_amax"
-QUANT = "q8_quantize"
+QUANT = "q8_amax_quantize"
 DEQUANT = "q8_dequantize"
 EPS = 1e-12
 LANE, INT8_SUBLANE = 128, 32
+HEADER = 16   # bytes ahead of q in q8_encode's buffer
 _IN_DTYPES = (torch.float32, torch.bfloat16)
 _p, _i, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
@@ -59,15 +60,25 @@ def _lib() -> ctypes.CDLL:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of ``csrc/quantize.cu`` on a loaded
     library (any build of that source) and return it."""
-    lib.slt_q8_amax_blocks.argtypes = [_i64]
-    lib.slt_q8_amax_blocks.restype = _i
-    lib.slt_q8_amax.argtypes = [_p, _i64, _i, _p, _p, _p]
-    lib.slt_q8_amax.restype = _i
-    lib.slt_q8_quantize.argtypes = [_p, _i64, _i64, _i, _p, _p, _p]
-    lib.slt_q8_quantize.restype = _i
+    lib.slt_q8_coresident_blocks.argtypes = [_i]
+    lib.slt_q8_coresident_blocks.restype = _i
+    lib.slt_q8_amax_quantize_grid.argtypes = [_i64, _i64, _i]
+    lib.slt_q8_amax_quantize_grid.restype = _i
+    lib.slt_q8_amax_quantize.argtypes = [_p, _i64, _i64, _i, _p, _i, _p, _p]
+    lib.slt_q8_amax_quantize.restype = _i
     lib.slt_q8_dequantize.argtypes = [_p, _i64, ctypes.c_float, _p, _p]
     lib.slt_q8_dequantize.restype = _i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _coresident(lib: ctypes.CDLL, device: int, is_bf16: int) -> int:
+    with torch.cuda.device(device):
+        blocks = lib.slt_q8_coresident_blocks(is_bf16)
+    if blocks < 1:
+        raise RuntimeError(f"{QUANT}: no co-resident grid on cuda:{device} "
+                           f"(cudaError {-blocks})")
+    return blocks
 
 
 def tile_rows(n: int) -> int:
@@ -85,6 +96,15 @@ def scale_of(amax: torch.Tensor) -> torch.Tensor:
 
 def _flat(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1) if x.is_contiguous() else x.contiguous().reshape(-1)
+
+
+def split_q8(buf, n_out: int) -> Tuple[float, float, np.ndarray]:
+    """``(amax, float32 scale, q int8 [n_out])`` of a host copy of
+    :func:`q8_encode`'s buffer (a uint8 array or CPU tensor)."""
+    raw = np.asarray(buf, dtype=np.uint8).reshape(-1)
+    head = raw[:8].view(np.float32)
+    return float(head[0]), float(head[1]), raw[HEADER:HEADER + n_out].view(
+        np.int8)
 
 
 # --------------------------------------------------------------------- #
@@ -108,6 +128,16 @@ def quantize_plain(x: torch.Tensor, stats: torch.Tensor,
     return q
 
 
+def q8_encode_plain(x: torch.Tensor, n_out: int) -> torch.Tensor:
+    """What the amax/quantize launch writes, in PyTorch on ``x``'s
+    device: uint8 ``[16 + n_out]``."""
+    stats = amax_plain(x)
+    buf = torch.zeros(HEADER + n_out, dtype=torch.uint8, device=x.device)
+    buf[:8] = stats.view(torch.uint8)
+    buf[HEADER:] = quantize_plain(x, stats, n_out).view(torch.uint8)
+    return buf
+
+
 def dequantize_plain(q: torch.Tensor, scale: float) -> torch.Tensor:
     """float32 ``q * float32(scale)``, elementwise."""
     return q.float() * torch.tensor(scale, dtype=torch.float32)
@@ -116,42 +146,26 @@ def dequantize_plain(q: torch.Tensor, scale: float) -> torch.Tensor:
 # --------------------------------------------------------------------- #
 # kernel launches
 
-def amax_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Launch the two amax kernels over the contiguous ``x``."""
+def q8_encode_cuda(x: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Launch the amax/quantize kernel over the contiguous ``x``: uint8
+    ``[16 + n_out]`` on its device."""
     check_cuda_tensor(x, "x", _IN_DTYPES)
-    n = x.numel()
-    lib = _lib()
-    partials = torch.empty(lib.slt_q8_amax_blocks(n), device=x.device,
-                           dtype=torch.float32)
-    stats = torch.empty(2, device=x.device, dtype=torch.float32)
-    rc = lib.slt_q8_amax(x.data_ptr(), n, int(x.dtype == torch.bfloat16),
-                         partials.data_ptr(), stats.data_ptr(),
-                         current_stream_handle(x.device))
-    check_launch(rc, AMAX)
-    LAUNCHES.add(AMAX)
-    return stats
-
-
-def quantize_cuda(x: torch.Tensor, stats: torch.Tensor,
-                  n_out: int) -> torch.Tensor:
-    """Launch the quantize kernel: int8 ``[n_out]``, zeros past ``x``."""
-    check_cuda_tensor(x, "x", _IN_DTYPES)
-    check_cuda_tensor(stats, "stats", (torch.float32,))
-    if stats.numel() != 2 or stats.device != x.device:
-        raise ValueError("stats must be q8_amax's [2] on x's device")
     n = x.numel()
     if n_out < n:
         raise ValueError(f"n_out {n_out} < {n} input values")
-    q = torch.empty(n_out, device=x.device, dtype=torch.int8)
-    if n_out == 0:
-        return q
-    rc = _lib().slt_q8_quantize(x.data_ptr(), n, n_out,
-                                int(x.dtype == torch.bfloat16),
-                                stats.data_ptr(), q.data_ptr(),
-                                current_stream_handle(x.device))
+    lib = _lib()
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    cap = _coresident(lib, x.device.index if x.device.index is not None
+                      else torch.cuda.current_device(), is_bf16)
+    grid = lib.slt_q8_amax_quantize_grid(n, n_out, cap)
+    partials = torch.empty(grid, device=x.device, dtype=torch.float32)
+    buf = torch.empty(HEADER + n_out, device=x.device, dtype=torch.uint8)
+    rc = lib.slt_q8_amax_quantize(x.data_ptr(), n, n_out, is_bf16,
+                                  partials.data_ptr(), grid, buf.data_ptr(),
+                                  current_stream_handle(x.device))
     check_launch(rc, QUANT)
     LAUNCHES.add(QUANT)
-    return q
+    return buf
 
 
 def dequantize_cuda(q: torch.Tensor, scale: float) -> torch.Tensor:
@@ -179,17 +193,13 @@ def _on_cuda(t: torch.Tensor) -> bool:
 # --------------------------------------------------------------------- #
 # dispatch by device
 
-def q8_amax(x: torch.Tensor) -> torch.Tensor:
-    """``{amax, scale}`` of ``x`` (any shape) as float32 ``[2]``."""
-    return amax_cuda(_flat(x)) if _on_cuda(x) else amax_plain(x)
-
-
-def q8_quantize(x: torch.Tensor, stats: torch.Tensor,
-                n_out: int) -> torch.Tensor:
-    """int8 ``[n_out]`` of ``x`` (any shape) at ``stats``' scale."""
+def q8_encode(x: torch.Tensor, n_out: int) -> torch.Tensor:
+    """uint8 ``[16 + n_out]`` on ``x``'s device: float32 ``{amax,
+    scale}``, 8 zero bytes, then ``q`` of ``x`` (any shape), zeros past
+    it."""
     if _on_cuda(x):
-        return quantize_cuda(_flat(x), stats, n_out)
-    return quantize_plain(x, stats, n_out)
+        return q8_encode_cuda(_flat(x), n_out)
+    return q8_encode_plain(x, n_out)
 
 
 def q8_dequantize(q: torch.Tensor, scale: float) -> torch.Tensor:
@@ -199,15 +209,20 @@ def q8_dequantize(q: torch.Tensor, scale: float) -> torch.Tensor:
     return dequantize_plain(q, scale)
 
 
+def q8_views(buf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(``{amax, scale}`` float32 ``[2]``, ``q`` int8) views of a
+    :func:`q8_encode` buffer, on its device."""
+    return buf[:8].view(torch.float32), buf[HEADER:].view(torch.int8)
+
+
 # --------------------------------------------------------------------- #
 # the JAX package's functions
 
 def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (any shape, float) -> (q int8 ``[rows, 128]``, scale float32
     scalar), ``rows`` as :func:`tile_rows`; padding quantizes to 0."""
-    stats = q8_amax(x)
-    n_out = tile_rows(x.numel()) * LANE
-    return q8_quantize(x, stats, n_out).reshape(-1, LANE), stats[1]
+    stats, q = q8_views(q8_encode(x, tile_rows(x.numel()) * LANE))
+    return q.reshape(-1, LANE), stats[1]
 
 
 def dequantize_int8(q: torch.Tensor, scale, shape: Tuple[int, ...],

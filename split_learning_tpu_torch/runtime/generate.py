@@ -12,6 +12,9 @@ Two decode schemes, as in the JAX package:
 - **Re-forward decode** (``kv_cache=False``): each step re-runs the whole
   plan on a fixed-size token buffer; the causal mask keeps the unwritten
   positions inert.
+- **Split-party decode** (:func:`generate_remote`): the re-forward
+  scheme with the server's stage behind ``transport.predict``, one round
+  trip per token.
 
 Where JAX compiles one scan per (plan, shape), the port runs a Python
 loop, eagerly, under ``torch.no_grad()``. Greedy decoding is JAX's
@@ -30,6 +33,7 @@ import torch
 
 from split_learning_tpu_torch.core.stage import Params, SplitPlan
 from split_learning_tpu_torch.ops.common import NEG_BIG
+from split_learning_tpu_torch.runtime.evaluate import split_client_stages
 from split_learning_tpu_torch.utils.device import DeviceLike, resolve_device
 
 Pick = Callable[[torch.Tensor], torch.Tensor]
@@ -172,8 +176,55 @@ def generate_remote(plan: SplitPlan, client_params: Sequence[Params],
                     transport, prompt, n_new: int,
                     rng: Optional[torch.Generator] = None,
                     temperature: float = 1.0, *, top_k: int = 0,
-                    top_p: float = 1.0) -> np.ndarray:
-    """Split-party decode behind ``transport.predict``: not ported yet."""
-    raise NotImplementedError(
-        "generate_remote needs transport.predict and the two-party runtime "
-        "(ROADMAP items 8-12)")
+                    top_p: float = 1.0,
+                    device: DeviceLike = "cuda") -> np.ndarray:
+    """Split-party autoregressive decode: the client holds only its own
+    stages (``client_params``, ordered as ``plan.stages_of("client")``)
+    and picks the tokens; the server's stage runs behind
+    ``transport.predict``, one forward-only round trip per generated
+    token. Greedy when ``rng`` is None (the sampling knobs must then stay
+    at their defaults: passing them without an ``rng`` is an error, never
+    a silent greedy decode); otherwise :func:`sample_generate`'s
+    temperature/top-k/top-p sampling from the ``torch.Generator``.
+
+    The re-forward scheme over a fixed ``[B, P + n_new]`` buffer, as in
+    JAX: each hop carries the pre-cut activations of the whole buffer, as
+    tensors on ``device`` (so a compressing transport encodes them on the
+    card); a reply that comes back as numpy (a JAX peer) is moved there.
+    ``client_params`` must lie on ``device``. Returns the tokens as numpy
+    ``[B, P + n_new]``, token-exact against the local re-forward decode."""
+    if not temperature > 0.0:  # also rejects NaN, which `<= 0` lets past
+        raise ValueError(f"temperature must be > 0 (got {temperature})")
+    if top_k < 0:
+        raise ValueError(f"top_k must be >= 0 (got {top_k})")
+    if not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1] (got {top_p})")
+    if rng is None and (temperature != 1.0 or top_k or top_p != 1.0):
+        raise ValueError(
+            "sampling knobs (temperature/top_k/top_p) require rng; "
+            "omit them for greedy decoding")
+    if n_new <= 0:
+        if n_new < 0:
+            raise ValueError(f"n_new must be >= 0 (got {n_new})")
+        return np.asarray(prompt)
+    dev = resolve_device(device)
+    pre_stages, pre_params, post_stages, post_params = \
+        split_client_stages(plan, client_params)
+    _check_params(client_params, dev)
+    prompt = _prompt_on(prompt, dev)
+    pick = (_greedy(prompt.dtype) if rng is None else
+            _sampler(prompt.dtype, rng, temperature, top_k, top_p))
+    b, p = prompt.shape
+    total = p + n_new
+    buf = prompt.new_zeros((b, total))
+    buf[:, :p] = prompt
+    with torch.no_grad():
+        for pos in range(p - 1, total - 1):
+            x = buf
+            for st, pr in zip(pre_stages, pre_params):
+                x = st.apply(pr, x)
+            logits = torch.as_tensor(transport.predict(x)).to(dev)
+            for st, pr in zip(post_stages, post_params):
+                logits = st.apply(pr, logits)
+            buf[:, pos + 1] = pick(logits[:, pos, :])
+    return buf.cpu().numpy()

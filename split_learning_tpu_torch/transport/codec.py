@@ -13,12 +13,15 @@ What the port adds is where the arithmetic runs. ``q8_compress``,
 - a numpy array: the host path, JAX's numpy codec line for line (the
   bit-identical twin of its ``native/slt_codec.cc``, which is not
   ported); or
-- a tensor: the device path. On a CUDA tensor the arithmetic runs on the
-  card through the hand-written kernels (``ops/quantize.py`` K3,
-  ``ops/topk.py`` K4) and only the int8 payload (and the indices or the
-  bitmap) is copied to the host; on a CPU tensor the kernels' plain
-  versions run. Both give the numpy path's dict, and the new residual
-  stays a tensor on the input's device.
+- a tensor: the device path. On a CUDA tensor the whole encode runs on
+  the card through the hand-written kernels (``ops/quantize.py`` K3, one
+  launch; ``ops/topk.py`` K4, five launches), which leave a header (the
+  non-finite flag or the amax) and the payload (q, then the bitmap or
+  the indices) in one device buffer: the frame costs one copy to the
+  host, and the host waits for the card once. On a CPU tensor the
+  kernels' plain versions build the same buffer. Both give the numpy
+  path's dict, and the new residual stays a tensor on the input's
+  device. A refused tensor changes no ledger.
 
 ``decompress_tree(obj, device=None)`` rebuilds dense leaves on the host
 as numpy (JAX's behaviour) or, given a device, as tensors there: a copy
@@ -39,8 +42,9 @@ import numpy as np
 import torch
 
 from split_learning_tpu_torch.ops.quantize import (
-    EPS as _Q8_EPS, q8_amax, q8_dequantize, q8_quantize)
-from split_learning_tpu_torch.ops.topk import fold_magnitudes, select_topk
+    EPS as _Q8_EPS, q8_dequantize, q8_encode, split_q8)
+from split_learning_tpu_torch.ops.topk import (
+    BIT_WEIGHTS as _BIT_WEIGHTS, split_select, topk8_select)
 
 _NDARRAY_EXT = 42
 
@@ -174,12 +178,10 @@ def q8_compress(arr: Any) -> dict:
     if isinstance(arr, torch.Tensor):
         x = _device_input(arr)
         n = x.numel()
-        stats = q8_amax(x)
-        q = q8_quantize(x, stats, n)
-        amax = float(stats[0].item())
+        # the header and the payload in one copy to the host
+        amax, _, q = split_q8(q8_encode(x, n).cpu(), n)
         _refuse_non_finite(amax, arr)
-        return {_Q8_KEY: True,
-                "q": q.cpu().numpy().reshape(tuple(x.shape)),
+        return {_Q8_KEY: True, "q": q.reshape(tuple(x.shape)),
                 "scale": _wire_scale(amax, n),
                 "shape": list(x.shape), "dtype": _dtype_name(arr)}
     a = np.ascontiguousarray(arr, dtype=np.float32)
@@ -222,7 +224,6 @@ def q8_decompress(d: dict, device: Optional[torch.device] = None) -> Any:
 # packed bitmap ("m", n/8 bytes), whichever is smaller.
 # --------------------------------------------------------------------- #
 _TOPK8_KEY = "__topk8__"
-_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)   # np.packbits: MSB first
 
 
 def _topk8_select_numpy(flat: np.ndarray, k: int
@@ -244,16 +245,8 @@ def _topk8_select_numpy(flat: np.ndarray, k: int
     return idx, flat[idx]
 
 
-def _packbits(mask: torch.Tensor) -> torch.Tensor:
-    """``np.packbits`` of a boolean vector, on its device."""
-    pad = (-mask.numel()) % 8
-    bits = torch.nn.functional.pad(mask.to(torch.uint8), (0, pad))
-    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=mask.device)
-    return (bits.view(-1, 8) * w).sum(dim=1).to(torch.uint8)
-
-
 def _unpackbits(m: torch.Tensor, n: int) -> torch.Tensor:
-    """Inverse of :func:`_packbits`: the first ``n`` bits as booleans."""
+    """Inverse of ``np.packbits``: the first ``n`` bits as booleans."""
     w = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=m.device)
     return ((m.view(-1, 1) & w) != 0).reshape(-1)[:n]
 
@@ -263,8 +256,9 @@ def _k_of(density: float, n: int) -> int:
 
 
 def _topk8_compress_tensor(arr: torch.Tensor, density: float,
-                           residual: Any, decay: float
-                           ) -> Tuple[dict, torch.Tensor]:
+                           residual: Any, decay: float,
+                           keep_residual: bool = True
+                           ) -> Tuple[dict, Optional[torch.Tensor]]:
     x = _device_input(arr)
     shape, n = tuple(x.shape), x.numel()
     d: dict = {_TOPK8_KEY: True, "n": n, "shape": list(shape),
@@ -282,23 +276,17 @@ def _topk8_compress_tensor(arr: torch.Tensor, density: float,
         res = torch.as_tensor(residual, dtype=torch.float32,
                               device=x.device)
     k = _k_of(density, n)
-    x_eff, m, bad = fold_magnitudes(x, res, decay)
-    if bad.item():
+    # error feedback: the new residual is x_eff less what the receiver
+    # rebuilds (q * scale at the survivors); the dropped mass and the
+    # quantization error ride into the next step
+    buf, x_eff = topk8_select(x, res, decay, k, keep_residual)
+    # the header and the payload in one copy to the host
+    bad, amax, q, form, pos = split_select(buf.cpu(), n, k)
+    if bad:
         _refuse_non_finite(math.nan, arr)
-    idx, sel = select_topk(m, k)
-    vals = x_eff[idx]
-    stats = q8_amax(vals)
-    q = q8_quantize(vals, stats, k)
-    # error feedback: the receiver rebuilds q * scale at the survivors;
-    # the rest (dropped mass, quantization error) rides into the next step
-    x_eff[idx] = vals - q.float() * stats[1]
-    if n < 32 * k:   # bitmap (n/8 B) beats int32 indices (4k B)
-        d["m"] = _packbits(sel).cpu().numpy()
-    else:
-        d["idx"] = idx.to(torch.int32).cpu().numpy()
-    d.update(q=q.cpu().numpy(),
-             scale=_wire_scale(float(stats[0].item()), n))
-    return d, x_eff.reshape(shape)
+    d[form] = pos
+    d.update(q=q, scale=_wire_scale(amax, n))
+    return d, None if x_eff is None else x_eff.reshape(shape)
 
 
 def topk8_compress(arr: Any, density: float, residual: Any = None,
@@ -350,6 +338,17 @@ def topk8_compress(arr: Any, density: float, residual: Any = None,
         d["idx"] = idx
     d.update(q=q, scale=float(scale))
     return d, flat.reshape(a.shape)
+
+
+def topk8_pack(arr: Any, density: float) -> dict:
+    """Stateless :func:`topk8_compress` (inference: no error feedback on
+    either end): the dict alone. A tensor's encode writes no residual."""
+    if not isinstance(arr, torch.Tensor):
+        return topk8_compress(arr, density)[0]
+    if not 0.0 < density <= 1.0:
+        raise CodecError(f"topk8 density must be in (0, 1] (got {density})")
+    return _topk8_compress_tensor(arr, density, None, 1.0,
+                                  keep_residual=False)[0]
 
 
 def is_topk8(obj: Any) -> bool:

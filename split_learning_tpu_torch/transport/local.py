@@ -4,17 +4,20 @@ the reference's ``/forward_pass`` route with no network.
 
 With ``compress=None`` the transport hands the server what it was given
 and returns its reply as is: a CUDA tensor stays on the card, a numpy
-array stays numpy. Any of ``"none"``, ``"int8"``, ``"topk8"`` or
-``"clapping"`` switches ``split_step`` and ``predict`` to full wire
-emulation, exactly one HTTP hop minus the socket: each direction's
-payload is packed with that compression, encoded to the real msgpack
-frame, counted, decoded and expanded. ``"none"`` is the dense float32
-wire; ``"clapping"`` is topk8 selection with the storage-free
-error-feedback ledger (``codec.ClappingEF``).
+array stays numpy. ``through_codec=True`` (JAX's flag) instead encodes
+and decodes each payload of ``split_step`` and ``predict`` with the
+real codec, uncompressed and uncounted. Any of ``"none"``, ``"int8"``,
+``"topk8"`` or ``"clapping"`` switches ``split_step`` and ``predict``
+to full wire emulation, exactly one HTTP hop minus the socket: each
+direction's payload is packed with that compression, encoded to the
+real msgpack frame, counted, decoded and expanded. ``"none"`` is the
+dense float32 wire; ``"clapping"`` is topk8 selection with the
+storage-free error-feedback ledger (``codec.ClappingEF``).
 
 Where the arithmetic runs follows the tensor (``transport/codec.py``): a
-CUDA tensor is quantized or sparsified on the card (K3, K4) and only its
-int8 payload crosses to the host. The request is decoded on the
+CUDA tensor is quantized or sparsified on the card (K3, K4) and its
+header and payload cross to the host in one copy. The request (with or
+without compression) is decoded on the
 server's device (``server.device``; numpy for a peer without one, such
 as the JAX ``ServerRuntime``), and the reply in the kind the caller sent:
 a tensor on the caller's device, or numpy for a numpy caller (a JAX
@@ -54,26 +57,37 @@ def _device_of(x: Any) -> Optional[torch.device]:
 
 
 class LocalTransport(Transport):
-    """``server``: a ``ServerRuntime`` of the port, or any object with its
-    ``split_step``/``predict``/``health`` (duck-typed).
+    """JAX's signature: ``server`` is a ``ServerRuntime`` of the port, or
+    any object with its ``split_step``/``predict``/``health``
+    (duck-typed), the JAX ``ServerRuntime`` included.
 
-    ``density`` is topk8's kept fraction; ``density_controller`` (the
-    adaptive controller) is not ported yet."""
+    ``density`` is topk8's kept fraction. ``ef_mode`` and ``wire_id`` are
+    stored as JAX stores them (the ledgers follow ``compress``, as in
+    JAX); a ``density_controller`` (the adaptive controller) is not
+    ported yet."""
 
-    def __init__(self, server: Any, compress: Optional[str] = None,
+    def __init__(self, server: Any, through_codec: bool = False,
+                 compress: Optional[str] = None,
                  density: float = 0.1,
-                 density_controller: Optional[Any] = None) -> None:
+                 ef_mode: str = "topk8",
+                 density_controller: Optional[Any] = None,
+                 wire_id: Optional[str] = None) -> None:
         super().__init__()
         if compress not in COMPRESS_MODES:
             raise ValueError(f"unknown compression {compress!r}")
         if density_controller is not None:
             raise _not_ported("the adaptive density controller", "item 13")
         self.server = server
+        self.through_codec = bool(through_codec)
         self.compress = compress
         self.density = float(density)
+        self.ef_mode = ef_mode
         mode = "clapping" if compress == "clapping" else "topk8"
         self._ef = codec.make_wire_ef(mode)       # up (client-owned)
         self._down_ef = codec.make_wire_ef(mode)  # down, servers without one
+        stage = getattr(server, "stage_index", None)
+        self.wire_id = wire_id if wire_id is not None else (
+            f"hop{stage}" if stage is not None else "cut")
 
     def _topk8(self) -> bool:
         return self.compress in ("topk8", "clapping")
@@ -100,7 +114,7 @@ class LocalTransport(Transport):
     def _pack_stateless(self, arr: Any) -> Any:
         """Inference packing: no error feedback on either end."""
         if self._topk8():
-            return codec.topk8_compress(arr, self.density)[0]
+            return codec.topk8_pack(arr, self.density)
         if self.compress == "int8":
             return codec.q8_compress(arr)
         return arr
@@ -122,6 +136,13 @@ class LocalTransport(Transport):
     def _server_device(self) -> Optional[torch.device]:
         return getattr(self.server, "device", None)
 
+    def _roundtrip(self, obj: Any, device: Optional[torch.device]) -> Any:
+        """``through_codec``: the real encode and decode, expanded on
+        ``device`` (numpy for None); else ``obj`` untouched."""
+        if not self.through_codec:
+            return obj
+        return codec.decompress_tree(codec.decode(codec.encode(obj)), device)
+
     def _call(self, fn, *args):
         from split_learning_tpu_torch.runtime.party import ProtocolError
         try:
@@ -139,10 +160,13 @@ class LocalTransport(Transport):
             obs_trace.CTX.server_spans = None
         with timed(self.stats):
             if self.compress is None:
-                grads, loss = self._call(self.server.split_step,
-                                         activations, labels, step,
-                                         client_id)
-                res = grads, float(loss)
+                dev = self._server_device()
+                grads, loss = self._call(
+                    self.server.split_step,
+                    self._roundtrip(activations, dev),
+                    self._roundtrip(labels, dev), step, client_id)
+                res = (self._roundtrip(grads, _device_of(activations)),
+                       float(loss))
             else:
                 res = self._split_step_wire(activations, labels, step,
                                             client_id)
@@ -171,8 +195,11 @@ class LocalTransport(Transport):
     def predict(self, activations: Any, client_id: int = 0) -> Any:
         with timed(self.stats):
             if self.compress is None:
-                return self._call(self.server.predict, activations,
-                                  client_id)
+                out = self._call(
+                    self.server.predict,
+                    self._roundtrip(activations, self._server_device()),
+                    client_id)
+                return self._roundtrip(out, _device_of(activations))
             req, up = self._wire(
                 {"activations": self._pack_stateless(activations)},
                 self._server_device())

@@ -232,7 +232,8 @@ def test_lm_training_on_the_card(dev):
 
 
 # --------------------------------------------------------------------- #
-# the two-party slice: K3, K4, the wire codec and the trainer on the card
+# the wire: K3, K4, the wire codec, the two-party trainer and split-party
+# decode on the card
 
 WIRE_SIZES = (1, 127, 129, 4099, 64 * 26 * 26 * 32)
 
@@ -240,26 +241,83 @@ WIRE_SIZES = (1, 127, 129, 4099, 64 * 26 * 26 * 32)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n", WIRE_SIZES)
 def test_wire_kernels_match_plain(dev, n, dtype):
-    """K3's amax, quantize and dequantize and K4's fold: bit-equal to
-    their plain versions, one launch each."""
+    """K3's amax/quantize launch and its dequantize and K4's magnitude
+    fold: bit-equal to their plain versions, one launch each."""
     from split_learning_tpu_torch.ops import quantize as qmod
     from split_learning_tpu_torch.ops import topk as kmod
     g = torch.Generator(device=dev).manual_seed(n)
     x = (3.0 * torch.randn(n, device=dev, generator=g)).to(dtype)
     res = torch.randn(n, device=dev, generator=g)
+    n_out = qmod.tile_rows(n) * qmod.LANE
     LAUNCHES.reset()
-    stats = qmod.amax_cuda(x)
-    q = qmod.quantize_cuda(x, stats, qmod.tile_rows(n) * qmod.LANE)
+    buf = qmod.q8_encode_cuda(x, n_out)
+    stats, q = qmod.q8_views(buf)
     deq = qmod.dequantize_cuda(q, stats[1].item())
     fold = kmod.fold_magnitudes_cuda(x, res, 0.5)
     torch.cuda.synchronize()
-    assert LAUNCHES.snapshot() == {qmod.AMAX: 1, qmod.QUANT: 1,
-                                   qmod.DEQUANT: 1, kmod.NAME: 1}
-    assert torch.equal(stats, qmod.amax_plain(x))
-    assert torch.equal(q, qmod.quantize_plain(x, stats, q.numel()))
+    assert LAUNCHES.snapshot() == {qmod.QUANT: 1, qmod.DEQUANT: 1,
+                                   kmod.NAME: 1}
+    assert torch.equal(buf, qmod.q8_encode_plain(x, n_out))
     assert torch.equal(deq, qmod.dequantize_plain(q, stats[1].item()))
     for a, b in zip(fold, kmod.fold_magnitudes_plain(x, res, 0.5)):
         assert torch.equal(a, b)
+
+
+def _select_input(dev, n, kind, dtype):
+    if kind == "random":
+        x = 3.0 * torch.randn(n, device=dev,
+                              generator=torch.Generator(dev).manual_seed(n))
+    elif kind == "ties":
+        x = torch.full((n,), 0.7, device=dev)
+    else:
+        x = torch.zeros(n, device=dev)
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["random", "ties", "zeros"])
+@pytest.mark.parametrize("density", [0.01, 0.1, 1.0])
+@pytest.mark.parametrize("n", WIRE_SIZES)
+def test_topk8_select_kernels_match_plain(dev, n, density, kind, dtype):
+    """K4's five launches: the buffer and the new residual bit-equal to
+    the plain version, with a residual at decay 0.5 and without."""
+    import math
+    from split_learning_tpu_torch.ops import topk as kmod
+    x = _select_input(dev, n, kind, dtype)
+    res = 0.5 * torch.randn(n, device=dev,
+                            generator=torch.Generator(dev).manual_seed(7))
+    k = max(1, min(n, math.ceil(density * n)))
+    for r, keep in ((res, True), (None, False)):
+        buf, new_res = kmod.topk8_select_cuda(x, r, 0.5, k, keep)
+        want_buf, want_res = kmod.topk8_select_plain(x, r, 0.5, k, keep)
+        torch.cuda.synchronize()
+        assert torch.equal(buf, want_buf)
+        if keep:
+            assert torch.equal(new_res, want_res)
+        else:
+            assert new_res is None
+
+
+def test_topk8_select_launch_count_and_reset(dev):
+    """One encode is exactly the five select launches; two encodes in a
+    row on one stream give the same bytes (the scratch resets itself),
+    and a NaN is flagged without a fault."""
+    from split_learning_tpu_torch.ops import topk as kmod
+    n = 64 * 26 * 26 * 32
+    x = _select_input(dev, n, "random", torch.float32)
+    LAUNCHES.reset()
+    first = kmod.topk8_select_cuda(x, None, 1.0, n // 10)[0]
+    second = kmod.topk8_select_cuda(x, None, 1.0, n // 10)[0]
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {name: 2
+                                   for name in kmod.SELECT_LAUNCHES}
+    assert torch.equal(first, second)
+    y = x.clone()
+    y[1234] = float("nan")
+    buf = kmod.topk8_select_cuda(y, None, 1.0, n // 10)[0]
+    assert kmod.split_select(buf.cpu(), n, n // 10)[0]
+    assert torch.equal(kmod.topk8_select_cuda(x, None, 1.0, n // 10)[0],
+                       first)
 
 
 def test_wire_kernels_round_half_to_even_and_flag_non_finite(dev):
@@ -273,6 +331,8 @@ def test_wire_kernels_round_half_to_even_and_flag_non_finite(dev):
     y = torch.randn(1000, device=dev)
     y[17] = float("nan")
     assert kmod.fold_magnitudes_cuda(y)[2].item() == 1
+    assert kmod.split_select(kmod.topk8_select_cuda(y, None, 1.0, 100)[0].cpu(),
+                             1000, 100)[0]
     with pytest.raises(codec.CodecError):
         codec.q8_compress(y)
     with pytest.raises(codec.CodecError):
@@ -335,11 +395,51 @@ def test_two_party_training_on_the_card(dev, compress):
         if where == "cuda":
             per_step = {FWD: 1, BWD: 1, SGD: 2}
             if compress == "int8":
-                per_step.update({qmod.AMAX: 2, qmod.QUANT: 2,
-                                 qmod.DEQUANT: 2})
+                per_step.update({qmod.QUANT: 2, qmod.DEQUANT: 2})
             if compress == "topk8":
-                per_step.update({kmod.NAME: 2, qmod.AMAX: 2, qmod.QUANT: 2})
+                per_step.update({name: 2 for name in kmod.SELECT_LAUNCHES})
             assert LAUNCHES.snapshot() == {k: 2 * v
                                            for k, v in per_step.items()}
     tol = 1e-4 if compress == "none" else 1e-3
     assert max(abs(a - b) for a, b in zip(*losses.values())) <= tol
+
+
+@pytest.mark.parametrize("compress", [None, "none", "int8", "topk8"])
+def test_generate_remote_on_the_card(dev, compress):
+    """Split-party decode of a small flash LM on the card: exactly 3 K5
+    launches per token plus the wire launches of two frames per token;
+    on the uncompressed wires the local re-forward decode's tokens."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops import quantize as qmod
+    from split_learning_tpu_torch.ops import topk as kmod
+    from split_learning_tpu_torch.runtime import (
+        ServerRuntime, generate_remote, greedy_generate)
+    from split_learning_tpu_torch.transport import LocalTransport
+    from split_learning_tpu_torch.utils.config import Config
+    size = dict(model="transformer_lm", vocab=64, d_model=32, num_heads=2,
+                max_len=128, attn="flash")
+    plan = get_plan(**size)
+    params = plan.init(torch.Generator().manual_seed(0), torch.zeros(1))
+    on_card = [{k: v.to(dev) for k, v in st.items()} for st in params]
+    prompt = np.random.RandomState(0).randint(0, 64, (4, 40)).astype(
+        np.int32)
+    server = ServerRuntime(get_plan(**size), Config(batch_size=4), params,
+                           device="cuda")
+    n_new = 6
+    LAUNCHES.reset()
+    toks = generate_remote(plan, on_card[:1],
+                           LocalTransport(server, compress=compress),
+                           prompt, n_new, device="cuda")
+    torch.cuda.synchronize()
+    per_token = {FA: 3}
+    if compress == "int8":
+        per_token.update({qmod.QUANT: 2, qmod.DEQUANT: 2})
+    if compress == "topk8":
+        per_token.update({name: 2 for name in kmod.SELECT_LAUNCHES})
+    assert LAUNCHES.snapshot() == {k: v * n_new for k, v in per_token.items()}
+    assert toks.shape == (4, 40 + n_new) and toks.min() >= 0 \
+        and toks.max() < 64
+    if compress in (None, "none"):
+        want = greedy_generate(plan, on_card, prompt, n_new, kv_cache=False,
+                               device="cuda")
+        np.testing.assert_array_equal(toks, want.cpu().numpy())

@@ -1,12 +1,16 @@
 """The port's serving path against the JAX package's, on the CPU:
 generation (prefill, KV-cache decode, re-forward decode, greedy and
-sampled), forward-only evaluation on token data, and the token datasets.
+sampled), split-party decode (``generate_remote``) over the in-process
+wire, forward-only evaluation on token data, and the token datasets.
 
 Parameters start in JAX and cross through ``interop``; prompts come from
 numpy with a seed. Greedy tokens must equal JAX's; prefill caches agree
 within 2e-5 (float32, different summation orders). Sampling draws from a
 ``torch.Generator``, which cannot give JAX's bits, so it is held by its
-properties.
+properties. ``generate_remote`` runs at JAX's own test size
+(tests/test_split_inference.py): token-exact against the local
+re-forward decode and against JAX's ``generate_remote``, with either
+package's transport and server on either side.
 """
 
 import jax
@@ -20,15 +24,20 @@ from split_learning_tpu.models import get_plan as jax_get_plan
 from split_learning_tpu.runtime.evaluate import evaluate as jax_evaluate
 from split_learning_tpu.runtime.evaluate import (
     split_client_stages as jax_split_client_stages)
+from split_learning_tpu.runtime import ServerRuntime as JaxServer
 from split_learning_tpu.runtime.generate import (
-    greedy_generate as jax_greedy, sample_generate as jax_sample)
+    generate_remote as jax_generate_remote, greedy_generate as jax_greedy,
+    sample_generate as jax_sample)
+from split_learning_tpu.transport import LocalTransport as JaxLocal
+from split_learning_tpu.utils import Config as JaxConfig
 from split_learning_tpu_torch.data import datasets as tds
 from split_learning_tpu_torch.interop import params_from_jax
 from split_learning_tpu_torch.models import get_plan
 from split_learning_tpu_torch.runtime import (
-    evaluate, generate_remote, greedy_generate, sample_generate,
-    split_client_stages)
+    ServerRuntime, evaluate, generate_remote, greedy_generate,
+    sample_generate, split_client_stages)
 from split_learning_tpu_torch.runtime.fused import check_supported
+from split_learning_tpu_torch.transport import LocalTransport
 from split_learning_tpu_torch.utils.config import Config
 
 V, B, P, N_NEW = 61, 2, 5, 8
@@ -166,9 +175,159 @@ def test_params_must_lie_on_the_device(lm):
                         _prompt(), 2, device="cpu")
 
 
-def test_generate_remote_waits_for_the_two_party_slice():
-    with pytest.raises(NotImplementedError, match="items 8-12"):
-        generate_remote(None, [], None, _prompt(), 2)
+# --------------------------------------------------------------------- #
+# split-party decode, at JAX's test size (tests/test_split_inference.py)
+
+R_SIZE = dict(vocab=64, d_model=16, num_heads=1, max_len=64)
+R_NEW = 5
+
+
+@pytest.fixture(scope="module")
+def remote():
+    """(JAX plan, JAX params, port params, prompt) of the small LM."""
+    prompt = np.random.RandomState(3).randint(0, 64, (2, 6)).astype(np.int32)
+    jplan = jax_get_plan(model="transformer_lm", **R_SIZE)
+    jparams = jplan.init(jax.random.PRNGKey(5), jnp.asarray(prompt))
+    return jplan, jparams, params_from_jax(jparams), prompt
+
+
+def _port_lm_server(params):
+    return ServerRuntime(get_plan(model="transformer_lm", **R_SIZE),
+                         Config(batch_size=2), params, device="cpu")
+
+
+def _jax_lm_server(remote):
+    jplan, _, _, prompt = remote
+    return JaxServer(jplan, JaxConfig(mode="split", batch_size=2),
+                     jax.random.PRNGKey(5), prompt)
+
+
+def _jax_remote(remote, transport, **kw):
+    jplan, jparams, _, prompt = remote
+    client = [jparams[i] for i in jplan.stages_of("client")]
+    return np.asarray(jax_generate_remote(jplan, client, transport, prompt,
+                                          R_NEW, **kw))
+
+
+def _port_remote(remote, transport, **kw):
+    _, _, params, prompt = remote
+    plan = get_plan(model="transformer_lm", **R_SIZE)
+    client = [params[i] for i in plan.stages_of("client")]
+    return generate_remote(plan, client, transport, prompt, R_NEW,
+                           device="cpu", **kw)
+
+
+@pytest.mark.parametrize("wire", [
+    dict(), dict(through_codec=True), dict(compress="none")],
+    ids=["direct", "through_codec", "dense_wire"])
+def test_generate_remote_matches_local_decode_and_jax(remote, wire):
+    _, _, params, prompt = remote
+    got = _port_remote(remote, LocalTransport(_port_lm_server(params),
+                                              **wire))
+    assert isinstance(got, np.ndarray) and got.dtype == np.int32
+    local = greedy_generate(get_plan(model="transformer_lm", **R_SIZE),
+                            params, prompt, R_NEW, kv_cache=False,
+                            device="cpu")
+    np.testing.assert_array_equal(got, local.numpy())
+    want = _jax_remote(remote, JaxLocal(_jax_lm_server(remote),
+                                        through_codec=True))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[:, :6], prompt)
+
+
+@pytest.mark.parametrize("pair,wire", [
+    ("jax_client_port_server", dict()),
+    ("jax_client_port_server", dict(compress="none")),
+    ("port_client_jax_server", dict(through_codec=True)),
+    ("port_client_jax_server", dict(compress="none")),
+])
+def test_generate_remote_mixed_pairs(remote, pair, wire):
+    """Greedy tokens of a mixed pair equal the pure-JAX pair's: the
+    port's server answers numpy to a JAX client, and the port's client
+    takes a JAX server's numpy reply."""
+    _, _, params, _ = remote
+    want = _jax_remote(remote, JaxLocal(_jax_lm_server(remote)))
+    if pair == "jax_client_port_server":
+        got = _jax_remote(remote, JaxLocal(_port_lm_server(params), **wire))
+    else:
+        got = _port_remote(remote, LocalTransport(_jax_lm_server(remote),
+                                                  **wire))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("compress", ["int8", "topk8"])
+def test_generate_remote_compressed_matches_jax(remote, compress):
+    """The compressed wires' tokens equal JAX's pair's at this seed, and
+    both directions of each token's hop went through the codec."""
+    _, _, params, _ = remote
+    transport = LocalTransport(_port_lm_server(params), compress=compress)
+    got = _port_remote(remote, transport)
+    jtransport = JaxLocal(_jax_lm_server(remote), compress=compress)
+    np.testing.assert_array_equal(got, _jax_remote(remote, jtransport))
+    assert got.min() >= 0 and got.max() < R_SIZE["vocab"]
+    for field in ("round_trips", "bytes_sent", "bytes_received"):
+        assert getattr(transport.stats, field) == getattr(
+            jtransport.stats, field), field
+    assert transport.stats.round_trips == R_NEW
+
+
+def test_generate_remote_sampling(remote):
+    """The same generator seed gives the same tokens, the local
+    re-forward sampler's, in the vocabulary; top_k=1 is greedy."""
+    _, _, params, prompt = remote
+    transport = LocalTransport(_port_lm_server(params))
+    kw = dict(temperature=0.8, top_k=5, top_p=0.9)
+    a = _port_remote(remote, transport, rng=torch.Generator().manual_seed(11),
+                     **kw)
+    b = _port_remote(remote, transport, rng=torch.Generator().manual_seed(11),
+                     **kw)
+    np.testing.assert_array_equal(a, b)
+    assert a.min() >= 0 and a.max() < R_SIZE["vocab"]
+    local = sample_generate(get_plan(model="transformer_lm", **R_SIZE),
+                            params, prompt, R_NEW,
+                            torch.Generator().manual_seed(11), kv_cache=False,
+                            device="cpu", **kw)
+    np.testing.assert_array_equal(a, local.numpy())
+    np.testing.assert_array_equal(
+        _port_remote(remote, transport, rng=torch.Generator().manual_seed(2),
+                     top_k=1),
+        _port_remote(remote, transport))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(temperature=0.8), dict(top_k=5), dict(top_p=0.9),
+    dict(rng=True, temperature=0.0), dict(rng=True, top_k=-1),
+    dict(rng=True, top_p=1.5), dict(n_new=-1),
+])
+def test_generate_remote_value_errors_match_jax(remote, kw):
+    """JAX's refusals, including sampling knobs without an rng (never a
+    silent greedy decode)."""
+    jplan, jparams, params, prompt = remote
+    kw = dict(kw)
+    n_new = kw.pop("n_new", 2)
+    use_rng = kw.pop("rng", False)
+    plan = get_plan(model="transformer_lm", **R_SIZE)
+    with pytest.raises(ValueError):
+        jax_generate_remote(
+            jplan, [jparams[0]], JaxLocal(_jax_lm_server(remote)), prompt,
+            n_new, rng=jax.random.PRNGKey(0) if use_rng else None, **kw)
+    with pytest.raises(ValueError):
+        generate_remote(plan, [params[0]],
+                        LocalTransport(_port_lm_server(params)), prompt,
+                        n_new, rng=torch.Generator() if use_rng else None,
+                        device="cpu", **kw)
+
+
+def test_generate_remote_zero_tokens_and_ownership(remote):
+    _, _, params, prompt = remote
+    plan = get_plan(model="transformer_lm", **R_SIZE)
+    transport = LocalTransport(_port_lm_server(params))
+    same = generate_remote(plan, [params[0]], transport, prompt, 0,
+                           device="cpu")
+    np.testing.assert_array_equal(same, prompt)
+    with pytest.raises(ValueError, match="client-owned"):
+        generate_remote(plan, list(params), transport, prompt, 1,
+                        device="cpu")
 
 
 @pytest.mark.parametrize("attn", ["full", "flash"])

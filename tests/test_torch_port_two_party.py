@@ -163,6 +163,47 @@ def test_reply_lives_where_the_request_lived():
     assert isinstance(g_t, torch.Tensor) and g_t.shape == acts.shape
 
 
+@pytest.mark.parametrize("call", ["positional", "keyword"])
+def test_local_transport_takes_jax_arguments(call):
+    """JAX's signature, in JAX's order: a positional second argument is
+    ``through_codec``; ``ef_mode`` and ``wire_id`` are stored."""
+    import inspect
+    names = list(inspect.signature(LocalTransport).parameters)
+    assert names == list(inspect.signature(JaxLocal).parameters)
+    server = _port_server(_data())
+    args = (True, "int8", 0.25, "clapping", None, "w1")
+    if call == "positional":
+        t = LocalTransport(server, *args)
+    else:
+        t = LocalTransport(server, **dict(zip(names[1:], args)))
+    assert (t.through_codec, t.compress, t.density, t.ef_mode,
+            t.wire_id) == (True, "int8", 0.25, "clapping", "w1")
+    assert LocalTransport(server).wire_id == JaxLocal(server).wire_id == "cut"
+    with pytest.raises(NotImplementedError, match="item 13"):
+        LocalTransport(server, False, None, 0.1, "topk8", object())
+
+
+def test_through_codec_round_trips_each_payload():
+    """``through_codec`` runs the real encode and decode on the direct
+    path: the same losses and gradients as without it, the reply in the
+    request's kind, and no wire bytes counted (JAX's behaviour)."""
+    data = _data()
+    direct = LocalTransport(_port_server(data))
+    codec_t = LocalTransport(_port_server(data), through_codec=True)
+    acts = np.random.RandomState(1).randn(8, 26, 26, 32).astype(np.float32)
+    labels = data[0][1]
+    out = codec_t.predict(torch.from_numpy(acts))
+    assert isinstance(out, torch.Tensor)
+    np.testing.assert_array_equal(out.numpy(), direct.predict(acts))
+    g0, l0 = direct.split_step(acts, labels, step=0)
+    g1, l1 = codec_t.split_step(acts, labels, step=0)
+    assert isinstance(g1, np.ndarray) and l0 == l1
+    np.testing.assert_array_equal(g0, g1)
+    g2, _ = codec_t.split_step(torch.from_numpy(acts), labels, step=1)
+    assert isinstance(g2, torch.Tensor)
+    assert codec_t.stats.bytes_sent == codec_t.stats.bytes_received == 0
+
+
 def _protocol_stack(side):
     sample = np.zeros((4, 28, 28, 1), np.float32)
     if side == "jax":
