@@ -10,11 +10,19 @@ beside this script. Phases, any failure ending the run with a traceback:
 
 1. device and build: the card's name and power limit, then the kernels
    built from ``split_learning_tpu_torch/csrc`` (build seconds printed);
-2. fused cross-entropy (forward, backward) against its plain version over
-   N x C shapes, float32 and bfloat16 logits, and the LM training path's
-   [65536, 256] logits;
-3. multi-tensor SGD against its plain version on the split CNN's six
-   leaves, without and with momentum, over five steps: bit-identical;
+2. fused cross-entropy (K1: one forward launch, one backward launch)
+   against its plain version over N in {1, 32, 64, 1000, 4096} x C in
+   {10, 256, 1000} (C 10 is the CNN's and the classifier's) and the LM
+   training path's [65536, 256] logits, float32 and bf16: the loss within
+   1e-5 of it, the float32 gradient within 1e-6 and within 1e-5 of its
+   largest entry, the bf16 gradient within one bf16 ulp; two runs
+   bit-identical; a +inf or NaN logit, an all -inf row and a label
+   outside [0, C) each give a NaN loss and leave the other rows as the
+   plain version's;
+3. multi-tensor SGD (K2) against its plain version on the split CNN's 6
+   leaves, the LM's 54 and 300 leaves of mixed odd sizes (every third not
+   16-byte aligned), without and with momentum, over five steps:
+   bit-identical, each step one launch;
 4. the main path: ``FusedSplitTrainer`` on ``cuda`` with the full-width
    split CNN, batch 64, synthetic MNIST, 30 steps. Launch counts are
    reset just before and read just after; each kernel must have run
@@ -23,7 +31,9 @@ beside this script. Phases, any failure ending the run with a traceback:
    (``launch.run.main``) must train five steps and return 0;
 5. times with CUDA events: kernel, plain version and one PyTorch library
    call computing the same function, at the main path's shapes, beside
-   the least time the card could take (``bound_ms``); the main path's
+   the least time the card could take (``bound_ms``); K1 also at the LM's
+   [65536, 256] and in bf16, with a profiler window showing one device
+   kernel per forward; the main path's
    median step time, and a ``torch.profiler`` window of 20 more steps
    giving the device's idle share and its time by kernel;
 6. flash attention (forward) against its plain version over T in {1, 63,
@@ -73,8 +83,7 @@ beside this script. Phases, any failure ending the run with a traceback:
    depths 1 + 2, max_len 2048, attn="flash"), ``synthetic_lm`` at
    seq_len 1024, batch 64, 30 steps of SGD at lr 0.1, momentum 0.9.
    Launch counts reset before and read after: per step exactly 3 K5
-   and 3 of each K6 launch, one K1 pair and ceil(54 leaves / 24) = 3 K2
-   launches. The loss must fall; a float32 CPU twin on the first 2 rows
+   and 3 of each K6 launch, one K1 pair and one K2 launch (54 leaves). The loss must fall; a float32 CPU twin on the first 2 rows
    of the first 3 batches agrees with the card on the same rows: losses
    within ``TWIN_TOL``, each leaf's summed update within
    ``TWIN_UPDATE_TOL`` of its largest entry (or of a floor, for leaves
@@ -123,7 +132,7 @@ beside this script. Phases, any failure ending the run with a traceback:
    residual) against the old one (magnitude kernel, ``select_topk``,
    K3, scatter) and ``torch.topk`` alone, K4's five launches by name
    from a profiler window, each beside its bound; K2 at the LM's 54
-   leaves; the two-party step's median ms (steps 6-30), wire bytes per
+   leaves (one launch); the two-party step's median ms (steps 6-30), wire bytes per
    step and a profiler window of 10 steps per mode;
 15. split-party LM decode at full width: ``generate_remote`` on ``cuda``
    with the split causal LM (float32, d_model 256, 2 heads, vocab 256,
@@ -169,8 +178,10 @@ _CARD_PEAKS = (
 
 BATCH, STEPS, LR = 64, 30, 0.01
 CE_SHAPES_N = (1, 32, 64, 1000, 4096)
-CE_SHAPES_C = (10, 256, 1000)
-CE_GRAD_RTOL = 1e-5
+CE_SHAPES_C = (10, 256, 1000)   # C 10: the CNN's and the classifier's
+CE_LM = (65536, 256)            # the LM training path's [B*T, V] logits
+CE_LOSS_RTOL, CE_GRAD_RTOL = 1e-5, 1e-5
+CE_PROFILE_CALLS = 10
 CNN_LEAF_SHAPES = ((32, 1, 3, 3), (32,), (64, 32, 3, 3), (64,), (10, 9216),
                    (10,))
 # flash attention: shapes held to the plain version, and the serving path
@@ -190,7 +201,7 @@ N_BLOCKS = LM["client_depth"] + LM["server_depth"]
 FA_BWD_TOL = {"float32": 2e-5, "bfloat16": 8e-3}
 # the training path: the serving LM's widths in float32
 TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR, TRAIN_MU = 64, 1024, 30, 0.1, 0.9
-LM_LEAVES, SGD_TABLE = 54, 24
+LM_LEAVES, SGD_MANY = 54, 300   # K2: one launch for each leaf count
 TRAIN_SHAPE = (TRAIN_B, TRAIN_T, LM["num_heads"],
                LM["d_model"] // LM["num_heads"])   # attention's [B, T, H, D]
 TWIN_ROWS, TWIN_STEPS, TWIN_TOL = 2, 3, 1e-4
@@ -364,6 +375,213 @@ class SyncCount:
         self.n = sum("synchronizing CUDA operation" in str(w.message)
                      for w in self._seen)
         self._catch.__exit__(*exc)
+
+
+def ce_inputs(torch, dev, gen, n, c, dtype):
+    x = (3.0 * torch.randn(n, c, device=dev, generator=gen)).to(dtype)
+    y = torch.randint(0, c, (n,), device=dev, generator=gen)
+    return x, y
+
+
+def bf16_ulps(torch, a, b) -> int:
+    """Largest distance of two bf16 tensors in units in the last place."""
+    def ordered(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+def ce_checks(torch, dev, gen) -> dict:
+    """Phase 2: K1 against its plain version over the N x C grid and the
+    LM's logits, float32 and bf16, two runs bit-identical; then the NaN
+    rows. Returns the largest errors by dtype."""
+    from split_learning_tpu_torch.ops.cross_entropy import (
+        ce_backward_cuda, ce_backward_plain, ce_forward_cuda,
+        ce_forward_plain)
+    g_one = torch.ones((), device=dev)
+    cases = [(n, c) for n in CE_SHAPES_N for c in CE_SHAPES_C] + [CE_LM]
+    err = {"float32": dict(loss=0.0, grad=0.0, grad_lm=0.0),
+           "bfloat16": dict(loss=0.0, grad_ulps=0)}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for n, c in cases:
+            what = f"CE N={n} C={c} {name}"
+            x, y = ce_inputs(torch, dev, gen, n, c, dtype)
+            runs = []
+            for _ in range(2):
+                loss, lse = ce_forward_cuda(x, y)
+                runs.append((loss, lse, ce_backward_cuda(x, y, lse, g_one)))
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(*runs)),
+                  f"{what}: two runs differ")
+            loss_k, _, grad_k = runs[0]
+            loss_p, lse_p = ce_forward_plain(x, y)
+            grad_p = ce_backward_plain(x, y, lse_p, g_one)
+            d = abs(loss_k.item() - loss_p.item())
+            check(d <= CE_LOSS_RTOL * abs(loss_p.item()),
+                  f"{what}: loss {loss_k.item()} vs {loss_p.item()}")
+            err[name]["loss"] = max(err[name]["loss"], d)
+            if dtype == torch.float32:
+                # entries are at most 1/N: hold them to the largest one
+                # too (float32 rounding of the exp and of the row LSE)
+                e = (grad_k - grad_p).abs().max().item()
+                scale = grad_p.abs().max().item()
+                check(e <= 1e-6 and e <= CE_GRAD_RTOL * scale,
+                      f"{what}: grad abs {e} (largest {scale})")
+                key = "grad_lm" if (n, c) == CE_LM else "grad"
+                err[name][key] = max(err[name][key], e)
+            else:
+                # both round one float32 value to bf16; it differs only in
+                # its last float32 bits
+                u = bf16_ulps(torch, grad_k, grad_p)
+                check(u <= 1, f"{what}: grad {u} bf16 ulps apart")
+                err[name]["grad_ulps"] = max(err[name]["grad_ulps"], u)
+    # +inf, NaN, an all -inf row and labels outside [0, C): a NaN loss;
+    # the other rows as the plain version's
+    for c in (10, 256):
+        x0, y0 = ce_inputs(torch, dev, gen, 8, c, torch.float32)
+        for fault in ("inf", "nan", "all_neg_inf", "label_neg", "label_c"):
+            x, y = x0.clone(), y0.clone()
+            if fault == "inf":
+                x[3, c // 2] = float("inf")
+            elif fault == "nan":
+                x[3, c - 1] = float("nan")
+            elif fault == "all_neg_inf":
+                x[3] = float("-inf")
+            else:
+                y[3] = -1 if fault == "label_neg" else c
+            loss, lse = ce_forward_cuda(x, y)
+            grad = ce_backward_cuda(x, y, lse, g_one)
+            loss_p, lse_p = ce_forward_plain(x, y)
+            grad_p = ce_backward_plain(x, y, lse_p, g_one)
+            rows = torch.arange(8, device=dev) != 3
+            check(loss.isnan().item() and loss_p.isnan().item(),
+                  f"CE C={c} {fault}: loss {loss.item()}, plain "
+                  f"{loss_p.item()}")
+            check(bool(torch.isfinite(lse[rows]).all()) and
+                  (lse[rows] - lse_p[rows]).abs().max().item() <= 1e-5 and
+                  (grad[rows] - grad_p[rows]).abs().max().item() <= 1e-6,
+                  f"CE C={c} {fault}: the other rows moved")
+    err["cases"] = 2 * len(cases)
+    return err
+
+
+def ce_times(torch, dev, gen, bw, fp32) -> dict:
+    """Phase 5's K1 times at the CNN's [64, 10] and the LM's [65536, 256]
+    logits, float32 and bf16: kernel, plain, ``F.cross_entropy`` forward
+    and its autograd backward, the bound, and from a profiler window of
+    CE_PROFILE_CALLS calls each launch's device kernels (one a call) and
+    their own duration."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from split_learning_tpu_torch.ops.cross_entropy import (
+        ce_backward_cuda, ce_backward_plain, ce_forward_cuda,
+        ce_forward_plain)
+    g_one = torch.ones((), device=dev)
+    out = {}
+    for cut, (n, c) in (("cnn", (BATCH, 10)), ("lm", CE_LM)):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            x, y = ce_inputs(torch, dev, gen, n, c, dtype)
+            _, lse = ce_forward_cuda(x, y)
+            xr = x.clone().requires_grad_(True)
+            lib_loss = F.cross_entropy(xr, y)
+            logits_b = n * c * x.element_size()
+            fwd_b = logits_b + n * 8 + n * 4 + 4   # + labels, lse, loss
+            bwd_b = 2 * logits_b + n * 8 + n * 4 + 4   # + g
+            f_ms, f_by = bound(fwd_b, 4 * n * c, bw, fp32)
+            b_ms, b_by = bound(bwd_b, 4 * n * c, bw, fp32)
+            # each call's device kernels, and their own time, from the
+            # profiler: one kernel a call, and its duration without the
+            # launch and event gaps that CUDA-event times include
+            prof_of = {}
+            for part, kernel, fn in (
+                    ("fwd", "ce_fwd_kernel", lambda: ce_forward_cuda(x, y)),
+                    ("bwd", "ce_bwd_kernel",
+                     lambda: ce_backward_cuda(x, y, lse, g_one))):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(CE_PROFILE_CALLS):
+                        fn()
+                    torch.cuda.synchronize()
+                kernels, busy_us = {}, 0.0
+                for e in prof.events():
+                    if e.device_type == torch.autograd.DeviceType.CUDA:
+                        kernels[e.name] = kernels.get(e.name, 0) + 1
+                        busy_us += e.time_range.end - e.time_range.start
+                check(sum(kernels.values()) == CE_PROFILE_CALLS and
+                      all(kernel in k for k in kernels),
+                      f"K1 {part} {cut} {name}: {CE_PROFILE_CALLS} calls "
+                      f"ran the device kernels {kernels}")
+                prof_of[part] = dict(
+                    device_kernels_per_call=sum(kernels.values())
+                    / CE_PROFILE_CALLS,
+                    kernel_ms_profiler=busy_us / 1e3 / CE_PROFILE_CALLS)
+            out[cut, name] = dict(
+                shape=[n, c], fwd=dict(
+                    ms=device_ms(torch, lambda: ce_forward_cuda(x, y)),
+                    plain_ms=device_ms(torch, lambda: ce_forward_plain(x, y)),
+                    library_ms=device_ms(torch,
+                                         lambda: F.cross_entropy(x, y)),
+                    bytes=fwd_b, bound_ms=f_ms, bound_by=f_by,
+                    **prof_of["fwd"]),
+                bwd=dict(
+                    ms=device_ms(torch, lambda: ce_backward_cuda(
+                        x, y, lse, g_one)),
+                    plain_ms=device_ms(torch, lambda: ce_backward_plain(
+                        x, y, lse, g_one)),
+                    library_ms=device_ms(torch, lambda: torch.autograd.grad(
+                        lib_loss, xr, retain_graph=True)),
+                    bytes=bwd_b, bound_ms=b_ms, bound_by=b_by,
+                    **prof_of["bwd"]))
+            del xr, lib_loss
+            fwd, bwd = out[cut, name]["fwd"], out[cut, name]["bwd"]
+            print(f"[k1] {cut} [{n}, {c}] {name}: fwd {fwd['ms']:.5f} ms "
+                  f"(kernel {fwd['kernel_ms_profiler']:.5f}, bound "
+                  f"{f_ms:.5f}, F.cross_entropy {fwd['library_ms']:.5f}), "
+                  f"bwd {bwd['ms']:.5f} (kernel "
+                  f"{bwd['kernel_ms_profiler']:.5f}, bound {b_ms:.5f}, "
+                  f"autograd {bwd['library_ms']:.5f})", flush=True)
+    return out
+
+
+def sgd_checks(torch, dev, gen, lm_shapes) -> None:
+    """Phase 3: K2 bit-identical to its plain version over five steps, at
+    momentum 0 and 0.9, on the CNN's 6 leaves, the LM's 54 and SGD_MANY
+    leaves of mixed odd sizes (every third a view 4 bytes off a 16-byte
+    boundary), each step one launch."""
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.ops.sgd import (
+        NAME as SGD, sgd_step_cuda, sgd_step_plain)
+    rs = np.random.RandomState(SGD_MANY)
+    many = [(int(v),) for v in rs.randint(1, 3000, SGD_MANY)]
+    for label, shapes in (("CNN", CNN_LEAF_SHAPES), ("LM", lm_shapes),
+                          ("mixed", many)):
+        def leaves():
+            out = []
+            for i, sh in enumerate(shapes):
+                if label == "mixed" and i % 3 == 0:
+                    out.append(torch.randn(math.prod(sh) + 1, device=dev,
+                                           generator=gen)[1:].view(sh))
+                else:
+                    out.append(torch.randn(sh, device=dev, generator=gen))
+            return out
+        for mu in (0.0, 0.9):
+            p_k = leaves()
+            p_p = [t.clone() for t in p_k]
+            m_k = [torch.zeros_like(t) for t in p_k] if mu else None
+            m_p = [torch.zeros_like(t) for t in p_k] if mu else None
+            for _ in range(5):
+                grads = leaves()
+                LAUNCHES.reset()
+                sgd_step_cuda(p_k, grads, m_k, LR, mu)
+                torch.cuda.synchronize()
+                check(LAUNCHES.snapshot() == {SGD: 1},
+                      f"SGD launches for {len(shapes)} leaves: "
+                      f"{LAUNCHES.snapshot()}")
+                sgd_step_plain(p_p, grads, m_p, LR, mu)
+            for a, b in zip(p_k + (m_k or []), p_p + (m_p or [])):
+                check(torch.equal(a, b), f"SGD {label} mu={mu}: not "
+                      f"bit-identical (max abs {(a - b).abs().max().item()})")
 
 
 def wire_input(torch, dev, gen, n, kind, dtype):
@@ -932,9 +1150,7 @@ def main() -> int:
     from split_learning_tpu_torch.models import get_plan
     from split_learning_tpu_torch.ops.common import (
         LAUNCHES, NEG_BIG, load_kernels)
-    from split_learning_tpu_torch.ops.cross_entropy import (
-        BWD, FWD, ce_backward_cuda, ce_backward_plain, ce_forward_cuda,
-        ce_forward_plain)
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
     from split_learning_tpu_torch.ops.sgd import (
         NAME as SGD, sgd_step_cuda, sgd_step_plain)
     import split_learning_tpu_torch.ops.flash_attention as fa_mod
@@ -970,71 +1186,25 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def ce_inputs(n, c, dtype=torch.float32):
-        x = (3.0 * torch.randn(n, c, device=dev, generator=gen)).to(dtype)
-        y = torch.randint(0, c, (n,), device=dev, generator=gen)
-        return x, y
-
     # ---- 2. cross-entropy kernels vs plain -------------------------- #
-    g_one = torch.ones((), device=dev)
-    ce_err = {FWD: 0.0, BWD: 0.0}
-    cases = [(n, c, torch.float32) for n in CE_SHAPES_N for c in CE_SHAPES_C]
-    cases.append((64, 10, torch.bfloat16))
-    # the LM training path's logits, [B*T, V]
-    cases.append((TRAIN_B * TRAIN_T, LM["vocab"], torch.float32))
-    for n, c, dtype in cases:
-        x, y = ce_inputs(n, c, dtype)
-        loss_k, lse_k = ce_forward_cuda(x, y)
-        torch.cuda.synchronize()
-        loss_p, lse_p = ce_forward_plain(x, y)
-        grad_k = ce_backward_cuda(x, y, lse_k, g_one)
-        torch.cuda.synchronize()
-        grad_p = ce_backward_plain(x, y, lse_p, g_one)
-        rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-        check(rel <= 1e-5, f"CE loss N={n} C={c} {dtype}: rel {rel}")
-        gk, gp = grad_k.float(), grad_p.float()
-        err = (gk - gp).abs().max().item()
-        if dtype == torch.float32:
-            # entries are at most 1/N: hold them to the largest one too
-            # (float32 rounding of the exp and of the row LSE)
-            scale = gp.abs().max().item()
-            check(err <= 1e-6 and err <= CE_GRAD_RTOL * scale,
-                  f"CE grad N={n} C={c}: abs {err} (largest {scale})")
-            ce_err[FWD] = max(ce_err[FWD], abs(loss_k.item() - loss_p.item()))
-            ce_err[BWD] = max(ce_err[BWD], err)
-        else:
-            ok = ((gk - gp).abs() <= 1e-2 * gp.abs() + 1e-12).all().item()
-            check(ok, f"CE bf16 grad N={n} C={c}: max abs {err}")
-    print(f"[k1] cross-entropy matches its plain version on {len(cases)} "
-          f"shapes (max abs err fwd {ce_err[FWD]:.3g}, bwd "
-          f"{ce_err[BWD]:.3g})", flush=True)
+    ce_err = ce_checks(torch, dev, gen)
+    print(f"[k1] cross-entropy matches its plain version on "
+          f"{ce_err['cases']} cases (N x C grid and {list(CE_LM)}, f32 and "
+          f"bf16; two runs bit-identical; NaN rows), max abs err f32 loss "
+          f"{ce_err['float32']['loss']:.3g}, grad "
+          f"{ce_err['float32']['grad']:.3g} ({list(CE_LM)}: "
+          f"{ce_err['float32']['grad_lm']:.3g}); bf16 loss "
+          f"{ce_err['bfloat16']['loss']:.3g}, grad "
+          f"{ce_err['bfloat16']['grad_ulps']} ulp", flush=True)
 
     # ---- 3. SGD kernel vs plain ------------------------------------- #
     lm_shapes = [tuple(t.shape) for st in get_plan(dtype="float32", **LM).init(
         torch.Generator().manual_seed(0), torch.zeros(1)) for t in st.values()]
     check(len(lm_shapes) == LM_LEAVES, f"LM leaves: {len(lm_shapes)}")
-    for shapes in (CNN_LEAF_SHAPES, lm_shapes):
-        for mu in (0.0, 0.9):
-            p_k = [torch.randn(s, device=dev, generator=gen) for s in shapes]
-            p_p = [t.clone() for t in p_k]
-            m_k = [torch.zeros_like(t) for t in p_k] if mu else None
-            m_p = [torch.zeros_like(t) for t in p_k] if mu else None
-            for _ in range(5):
-                grads = [torch.randn(s, device=dev, generator=gen)
-                         for s in shapes]
-                LAUNCHES.reset()
-                sgd_step_cuda(p_k, grads, m_k, LR, mu)
-                torch.cuda.synchronize()
-                check(LAUNCHES.snapshot().get(SGD) == math.ceil(
-                    len(shapes) / SGD_TABLE), f"SGD launches for "
-                    f"{len(shapes)} leaves: {LAUNCHES.snapshot()}")
-                sgd_step_plain(p_p, grads, m_p, LR, mu)
-            for a, b in zip(p_k + (m_k or []), p_p + (m_p or [])):
-                check(torch.equal(a, b), f"SGD mu={mu}: not bit-identical "
-                      f"(max abs {(a - b).abs().max().item()})")
+    sgd_checks(torch, dev, gen, lm_shapes)
     print(f"[k2] SGD bit-identical to its plain version (mu 0 and 0.9, "
-          f"5 steps; the CNN's 6 leaves in one launch, the LM's "
-          f"{LM_LEAVES} in {math.ceil(LM_LEAVES / SGD_TABLE)})", flush=True)
+          f"5 steps; the CNN's 6 leaves, the LM's {LM_LEAVES} and {SGD_MANY} "
+          f"mixed leaves, each step one launch)", flush=True)
 
     # ---- 4. the main path ------------------------------------------- #
     ds = synthetic("mnist", n_train=BATCH * STEPS, n_test=512, seed=0)
@@ -1086,43 +1256,30 @@ def main() -> int:
           f"CLI launches {cli_counts}")
 
     # ---- 5. times ---------------------------------------------------- #
-    x64, y64 = ce_inputs(BATCH, 10)
-    _, lse64 = ce_forward_cuda(x64, y64)
-    xr = x64.clone().requires_grad_(True)
-    lib_loss = F.cross_entropy(xr, y64)
-    n_c = BATCH * 10
+    k1 = ce_times(torch, dev, gen, bw, fp32)
     ce_common = dict(route="cuda",
                      source="split_learning_tpu_torch/csrc/cross_entropy.cu",
                      jax_counterpart="split_learning_tpu/ops/cross_entropy.py"
                                      ":fused_cross_entropy",
                      shape=[BATCH, 10], dtype="float32")
-    fwd_bytes = n_c * 4 + BATCH * 8 + BATCH * 4 + 4
-    bwd_bytes = n_c * 4 + BATCH * 8 + BATCH * 4 + 4 + n_c * 4
     records = []
-    b_ms, b_by = bound(fwd_bytes, 4 * n_c, bw, fp32)
-    records.append(dict(
-        name="fused_cross_entropy_fwd",
-        replaces="split_learning_tpu/ops/cross_entropy.py:58",
-        launches=counts[FWD], launches_per_step=1,
-        max_abs_err=ce_err[FWD],
-        ms=device_ms(torch, lambda: ce_forward_cuda(x64, y64)),
-        plain_ms=device_ms(torch, lambda: ce_forward_plain(x64, y64)),
-        library_ms=device_ms(torch, lambda: F.cross_entropy(x64, y64)),
-        library_call="torch.nn.functional.cross_entropy (forward)",
-        bytes=fwd_bytes, bound_ms=b_ms, bound_by=b_by, **ce_common))
-    b_ms, b_by = bound(bwd_bytes, 4 * n_c, bw, fp32)
-    records.append(dict(
-        name="fused_cross_entropy_bwd",
-        replaces="split_learning_tpu/ops/cross_entropy.py:82",
-        launches=counts[BWD], launches_per_step=1,
-        max_abs_err=ce_err[BWD],
-        ms=device_ms(torch, lambda: ce_backward_cuda(x64, y64, lse64, g_one)),
-        plain_ms=device_ms(
-            torch, lambda: ce_backward_plain(x64, y64, lse64, g_one)),
-        library_ms=device_ms(torch, lambda: torch.autograd.grad(
-            lib_loss, xr, retain_graph=True)),
-        library_call="torch.autograd.grad of F.cross_entropy (backward)",
-        bytes=bwd_bytes, bound_ms=b_ms, bound_by=b_by, **ce_common))
+    for name, part, replaces, lib_call, err in (
+            ("fused_cross_entropy_fwd", "fwd", "cross_entropy.py:58",
+             "torch.nn.functional.cross_entropy (forward)",
+             ce_err["float32"]["loss"]),
+            ("fused_cross_entropy_bwd", "bwd", "cross_entropy.py:82",
+             "torch.autograd.grad of F.cross_entropy (backward)",
+             max(ce_err["float32"]["grad"], ce_err["float32"]["grad_lm"]))):
+        records.append(dict(
+            name=name, replaces=f"split_learning_tpu/ops/{replaces}",
+            launches=counts[FWD if part == "fwd" else BWD],
+            launches_per_step=1, max_abs_err=err, library_call=lib_call,
+            **k1["cnn", "float32"][part], **ce_common,
+            bfloat16=k1["cnn", "bfloat16"][part],
+            lm_shape=dict(shape=list(CE_LM),
+                          float32=k1["lm", "float32"][part],
+                          bfloat16=k1["lm", "bfloat16"][part])))
+    records[1]["max_bf16_ulps"] = ce_err["bfloat16"]["grad_ulps"]
 
     n_par = sum(math.prod(s) for s in CNN_LEAF_SHAPES)
     sgd_times = {}
@@ -1522,7 +1679,7 @@ def main() -> int:
     want_counts = {FA: N_BLOCKS * TRAIN_STEPS,
                    **{n: N_BLOCKS * TRAIN_STEPS for n in BWD_NAMES},
                    FWD: TRAIN_STEPS, BWD: TRAIN_STEPS,
-                   SGD: math.ceil(LM_LEAVES / SGD_TABLE) * TRAIN_STEPS}
+                   SGD: TRAIN_STEPS}
     print(f"[train] {TRAIN_STEPS} steps, launches {tr_counts}, losses "
           f"{tr_losses[0]:.4f} -> {tr_losses[-1]:.4f}", flush=True)
     check(tr_counts == want_counts,
@@ -1609,7 +1766,7 @@ def main() -> int:
         cli_runs[model] = LAUNCHES.snapshot()
         check(rc == 0, f"launch.run.main {model} returned {rc}")
         check(cli_runs[model] == {FA: 15, **{n: 15 for n in BWD_NAMES},
-                                  FWD: 5, BWD: 5, SGD: 15},
+                                  FWD: 5, BWD: 5, SGD: 5},
               f"CLI {model} launches {cli_runs[model]}")
     print(f"[train] CLI trained transformer_lm and transformer 5 steps each "
           f"(launches {cli_runs})", flush=True)
@@ -1749,7 +1906,7 @@ def main() -> int:
 
     # ---- 14. times ---------------------------------------------------- #
     wire_rec, encode_times = wire_times(torch, dev, gen, bw, fp32)
-    # K2 at the LM's 54 leaves (3 launches a step)
+    # K2 at the LM's 54 leaves (one launch a step)
     p_lm = [torch.randn(s_, device=dev, generator=gen) for s_ in lm_shapes]
     g_lm = [1e-3 * torch.randn(s_, device=dev, generator=gen)
             for s_ in lm_shapes]
@@ -1760,9 +1917,11 @@ def main() -> int:
         t.grad = g_
     opt = torch.optim.SGD(opt_p, lr=TRAIN_LR, momentum=TRAIN_MU, fused=True)
     b_ms, b_by = bound(20 * n_lm, 4 * n_lm, bw, fp32)
+    LAUNCHES.reset()
+    sgd_step_cuda(p_lm, g_lm, m_lm, TRAIN_LR, TRAIN_MU)
     records[2]["lm_leaves"] = dict(
         leaves=LM_LEAVES, params=n_lm, momentum=TRAIN_MU,
-        launches_per_step=math.ceil(LM_LEAVES / SGD_TABLE),
+        launches_per_step=LAUNCHES.snapshot()[SGD],
         ms=device_ms(torch, lambda: sgd_step_cuda(p_lm, g_lm, m_lm, TRAIN_LR,
                                                   TRAIN_MU)),
         plain_ms=device_ms(torch, lambda: sgd_step_plain(

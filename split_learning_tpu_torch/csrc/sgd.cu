@@ -9,19 +9,28 @@
 //
 // What bounds it on this card: bytes. Each parameter is read and written
 // once, its gradient read once (and its trace read and written once with
-// momentum): 12 or 20 bytes per float32 parameter, about 1.3 MB or 2.2 MB
-// for the split CNN's 110,986 parameters, which the card moves in well under
-// a microsecond. The kernel is bound by launch latency at that size.
+// momentum): 12 or 20 bytes per float32 parameter. The split CNN's 110,986
+// parameters take 0.4 us at 3.35 TB/s, so one launch is the whole cost; the
+// LM's 3,025,408 at momentum 0.9 take 18.1 us.
 //
 // Design, against the TPU version:
 // - The TPU makes one pallas_call per leaf (six per step for the CNN), each
 //   on a [rows, 128] padded copy, and returns new arrays. Here one launch
 //   updates every leaf in place: the leaves' pointers and sizes travel by
-//   value in a descriptor table, and each block finds its (leaf, chunk) from
-//   a prefix sum of blocks per leaf. No padding, no copies.
-// - Loads and stores are float4 where a leaf's pointers are 16-byte aligned
-//   (PyTorch's allocator aligns every tensor it allocates), with a scalar
-//   tail for sizes that are not a multiple of 4.
+//   value as the kernel's parameter (a __grid_constant__ table), and each
+//   block finds its (leaf, chunk) by a binary search of the prefix sum of
+//   blocks per leaf. No padding, no copies, no table in device memory.
+// - The table is a template on its capacity: 8, 64 or kMaxLeaves leaves,
+//   the smallest that holds the call's leaves, so that the launch carries
+//   no more parameter bytes than it needs. kMaxLeaves fills the 32,764
+//   bytes of kernel parameters that CUDA 12.1 and later allow; the CNN's 6
+//   leaves, the LM's 54 and a few hundred all take one launch.
+// - A block is kThreads threads of one 16-byte access each: 512 elements,
+//   so the CNN's six leaves spread over 220 blocks on the 132 SMs. Each
+//   thread issues its loads (p, g and m) before any store. Where a leaf's
+//   pointers are not all 16-byte aligned the block takes one element a
+//   thread, four times, loads first as well; a chunk's ragged end (fewer
+//   than 4 elements) goes one element at a time.
 // - Rounding: the build passes --fmad=false, so lr * g is rounded before the
 //   subtraction and mu * m before the addition, exactly as the plain PyTorch
 //   version (p.sub_(lr * g); m.mul_(mu).add_(g)) rounds them. The kernel is
@@ -33,101 +42,105 @@
 
 namespace {
 
-constexpr int kMaxLeaves = 24;   // leaves per launch; the caller batches more
-constexpr int kThreads = 256;
-constexpr int kChunk = 2048;     // elements per block (2 float4 per thread)
+constexpr int kThreads = 128;
+constexpr int kChunk = kThreads * 4;  // elements a block: one float4 a thread
+constexpr int kMaxLeaves = 896;
 
+template <int kCap>
 struct LeafTable {
-  float* p[kMaxLeaves];
-  const float* g[kMaxLeaves];
-  float* m[kMaxLeaves];          // null without momentum
-  int64_t numel[kMaxLeaves];
-  int block_start[kMaxLeaves + 1];  // prefix sum of blocks per leaf
+  float* p[kCap];
+  const float* g[kCap];
+  float* m[kCap];                // null without momentum
+  int64_t numel[kCap];
+  int block_start[kCap + 1];     // prefix sum of blocks per leaf
   int n_leaves;
 };
 
-__device__ __forceinline__ float upd_plain(float p, float g, float lr) {
-  return p - lr * g;
+static_assert(sizeof(LeafTable<kMaxLeaves>) + 2 * sizeof(float) <= 32764,
+              "the leaf table must fit the kernel parameter space");
+
+__device__ __forceinline__ float upd(float p, float d, float lr) {
+  return p - lr * d;
 }
 
+template <int kCap>
 __global__ void __launch_bounds__(kThreads)
-sgd_kernel(const LeafTable t, float lr, float mu) {
-  int leaf = 0;
-  while (leaf + 1 < t.n_leaves && blockIdx.x >= t.block_start[leaf + 1]) ++leaf;
-  const int64_t begin =
-      static_cast<int64_t>(blockIdx.x - t.block_start[leaf]) * kChunk;
-  const int64_t n = t.numel[leaf];
+sgd_kernel(const __grid_constant__ LeafTable<kCap> t, float lr, float mu) {
+  // the last leaf whose first block is at or before this one
+  const int b = blockIdx.x;
+  int lo = 0, hi = t.n_leaves - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (t.block_start[mid] <= b) lo = mid; else hi = mid - 1;
+  }
+  const int64_t begin = static_cast<int64_t>(b - t.block_start[lo]) * kChunk;
+  const int64_t n = t.numel[lo];
   const int64_t end = begin + kChunk < n ? begin + kChunk : n;
-  float* __restrict__ p = t.p[leaf];
-  const float* __restrict__ g = t.g[leaf];
-  float* __restrict__ m = t.m[leaf];
+  float* __restrict__ p = t.p[lo];
+  const float* __restrict__ g = t.g[lo];
+  float* __restrict__ m = t.m[lo];
 
   const bool aligned =
       ((reinterpret_cast<uintptr_t>(p) | reinterpret_cast<uintptr_t>(g) |
         reinterpret_cast<uintptr_t>(m)) & 15u) == 0;
-  int64_t i = begin + threadIdx.x * 4;
   if (aligned) {
-    // begin is a multiple of kChunk, so begin + 4k stays 16-byte aligned
-    for (; i + 3 < end; i += kThreads * 4) {
-      float4 pv = *reinterpret_cast<float4*>(p + i);
-      const float4 gv = *reinterpret_cast<const float4*>(g + i);
+    // begin is a multiple of kChunk, so begin + 4 * thread stays aligned
+    const int64_t i = begin + threadIdx.x * 4;
+    if (i + 3 < end) {
+      float4 pv = *reinterpret_cast<const float4*>(p + i);
+      float4 dv = *reinterpret_cast<const float4*>(g + i);
       if (m != nullptr) {
-        float4 mv = *reinterpret_cast<float4*>(m + i);
-        mv.x = mu * mv.x + gv.x;
-        mv.y = mu * mv.y + gv.y;
-        mv.z = mu * mv.z + gv.z;
-        mv.w = mu * mv.w + gv.w;
-        *reinterpret_cast<float4*>(m + i) = mv;
-        pv.x = upd_plain(pv.x, mv.x, lr);
-        pv.y = upd_plain(pv.y, mv.y, lr);
-        pv.z = upd_plain(pv.z, mv.z, lr);
-        pv.w = upd_plain(pv.w, mv.w, lr);
-      } else {
-        pv.x = upd_plain(pv.x, gv.x, lr);
-        pv.y = upd_plain(pv.y, gv.y, lr);
-        pv.z = upd_plain(pv.z, gv.z, lr);
-        pv.w = upd_plain(pv.w, gv.w, lr);
+        const float4 mv = *reinterpret_cast<const float4*>(m + i);
+        dv.x = mu * mv.x + dv.x;
+        dv.y = mu * mv.y + dv.y;
+        dv.z = mu * mv.z + dv.z;
+        dv.w = mu * mv.w + dv.w;
+        *reinterpret_cast<float4*>(m + i) = dv;
       }
+      pv.x = upd(pv.x, dv.x, lr);
+      pv.y = upd(pv.y, dv.y, lr);
+      pv.z = upd(pv.z, dv.z, lr);
+      pv.w = upd(pv.w, dv.w, lr);
       *reinterpret_cast<float4*>(p + i) = pv;
-    }
-    // the ragged tail (< 4 elements) of the leaf's last chunk
-    if (i < end) {
+    } else {
       for (int64_t j = i; j < end; ++j) {
         float d = g[j];
         if (m != nullptr) {
           d = mu * m[j] + d;
           m[j] = d;
         }
-        p[j] = upd_plain(p[j], d, lr);
+        p[j] = upd(p[j], d, lr);
       }
     }
   } else {
-    for (int64_t j = begin + threadIdx.x; j < end; j += kThreads) {
-      float d = g[j];
-      if (m != nullptr) {
-        d = mu * m[j] + d;
-        m[j] = d;
+    float pv[4], dv[4], mv[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int64_t j = begin + threadIdx.x + k * kThreads;
+      if (j < end) {
+        pv[k] = p[j];
+        dv[k] = g[j];
+        if (m != nullptr) mv[k] = m[j];
       }
-      p[j] = upd_plain(p[j], d, lr);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int64_t j = begin + threadIdx.x + k * kThreads;
+      if (j < end) {
+        if (m != nullptr) {
+          dv[k] = mu * mv[k] + dv[k];
+          m[j] = dv[k];
+        }
+        p[j] = upd(pv[k], dv[k], lr);
+      }
     }
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-int slt_sgd_max_leaves() { return kMaxLeaves; }
-
-// p, g, m: host arrays of n_leaves device pointers (m may be null, or hold
-// nulls, when mu == 0); numel: host array of element counts. Launches one
-// kernel over all leaves and returns cudaGetLastError().
-int slt_sgd_step(int n_leaves, void* const* p, void* const* g, void* const* m,
-                 const int64_t* numel, float lr, float mu,
-                 cudaStream_t stream) {
-  if (n_leaves < 1 || n_leaves > kMaxLeaves)
-    return static_cast<int>(cudaErrorInvalidValue);
-  LeafTable t;
+template <int kCap>
+int launch(int n_leaves, void* const* p, void* const* g, void* const* m,
+           const int64_t* numel, float lr, float mu, cudaStream_t stream) {
+  LeafTable<kCap> t;
   t.n_leaves = n_leaves;
   int blocks = 0;
   for (int k = 0; k < n_leaves; ++k) {
@@ -140,8 +153,29 @@ int slt_sgd_step(int n_leaves, void* const* p, void* const* g, void* const* m,
   }
   t.block_start[n_leaves] = blocks;
   if (blocks == 0) return 0;
-  sgd_kernel<<<blocks, kThreads, 0, stream>>>(t, lr, mu);
+  sgd_kernel<kCap><<<blocks, kThreads, 0, stream>>>(t, lr, mu);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+int slt_sgd_max_leaves() { return kMaxLeaves; }
+
+// p, g, m: host arrays of n_leaves device pointers (m may be null, or hold
+// nulls, when mu == 0); numel: host array of element counts. Launches one
+// kernel over all leaves and returns cudaGetLastError(). The arrays are
+// read before this returns, so the caller may refill them at once.
+int slt_sgd_step(int n_leaves, void* const* p, void* const* g, void* const* m,
+                 const int64_t* numel, float lr, float mu,
+                 cudaStream_t stream) {
+  if (n_leaves < 1 || n_leaves > kMaxLeaves)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_leaves <= 8) return launch<8>(n_leaves, p, g, m, numel, lr, mu, stream);
+  if (n_leaves <= 64)
+    return launch<64>(n_leaves, p, g, m, numel, lr, mu, stream);
+  return launch<kMaxLeaves>(n_leaves, p, g, m, numel, lr, mu, stream);
 }
 
 }  // extern "C"

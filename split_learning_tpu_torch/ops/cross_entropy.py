@@ -39,8 +39,8 @@ _i = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = load_kernels()["cross_entropy"]
-    lib.slt_ce_fwd_blocks.argtypes = [_i]
-    lib.slt_ce_fwd_blocks.restype = _i
+    lib.slt_ce_scratch_words.argtypes = []
+    lib.slt_ce_scratch_words.restype = _i
     lib.slt_ce_fwd.argtypes = [_p, _p, _p, _p, _p, _i, _i, _i, _p]
     lib.slt_ce_fwd.restype = _i
     lib.slt_ce_bwd.argtypes = [_p, _p, _p, _p, _p, _i, _i, _i, _p]
@@ -48,12 +48,23 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _scratch(device: torch.device, stream: int) -> torch.Tensor:
+    """The forward's scratch for one stream, zeroed once: every launch
+    leaves its arrival counter at zero (csrc/cross_entropy.cu)."""
+    del stream  # part of the key: concurrent streams must not share it
+    return torch.zeros(_lib().slt_ce_scratch_words(), dtype=torch.int32,
+                       device=device)
+
+
 def _check_inputs(logits: torch.Tensor, labels: torch.Tensor) -> None:
     if logits.dim() != 2 or labels.shape != (logits.shape[0],):
         raise ValueError(f"expected logits [N, C] and labels [N]; got "
                          f"{tuple(logits.shape)} and {tuple(labels.shape)}")
-    if logits.shape[0] == 0 or logits.shape[1] == 0:
-        raise ValueError("cross-entropy needs N >= 1 rows and C >= 1 classes")
+    n, c = logits.shape
+    if not (1 <= n < 2 ** 31 and 1 <= c < 2 ** 31):
+        raise ValueError(f"cross-entropy needs 1 <= N, C < 2**31 rows and "
+                         f"classes; got {n} x {c}")
 
 
 # --------------------------------------------------------------------- #
@@ -61,21 +72,25 @@ def _check_inputs(logits: torch.Tensor, labels: torch.Tensor) -> None:
 
 def ce_forward_plain(logits: torch.Tensor, labels: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(mean loss, row log-sum-exp [N]), float32, as the forward kernel."""
+    """(mean loss, row log-sum-exp [N]), float32, as the forward kernel:
+    a label outside [0, C) makes its row loss NaN."""
     x = logits.float()
     m = x.max(dim=1, keepdim=True).values
     log_s = torch.log(torch.exp(x - m).sum(dim=1))
-    x_y = x.gather(1, labels.long().unsqueeze(1)).squeeze(1)
-    row_loss = log_s - (x_y - m.squeeze(1))
+    y = labels.long()
+    ok = (y >= 0) & (y < x.shape[1])
+    x_y = x.gather(1, torch.where(ok, y, 0).unsqueeze(1)).squeeze(1)
+    row_loss = torch.where(ok, log_s - (x_y - m.squeeze(1)), torch.nan)
     return row_loss.sum() / x.shape[0], m.squeeze(1) + log_s
 
 
 def ce_backward_plain(logits: torch.Tensor, labels: torch.Tensor,
                       lse: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """(exp(x - lse) - onehot) * g / N, in the logits dtype."""
+    """(exp(x - lse) - onehot) * (g / N), in the logits dtype."""
     x = logits.float()
     p = torch.exp(x - lse.unsqueeze(1))
-    onehot = torch.nn.functional.one_hot(labels.long(), x.shape[1]).float()
+    cols = torch.arange(x.shape[1], device=x.device)
+    onehot = (cols == labels.long().unsqueeze(1)).float()
     return ((p - onehot) * (g.float() / x.shape[0])).to(logits.dtype)
 
 
@@ -84,20 +99,19 @@ def ce_backward_plain(logits: torch.Tensor, labels: torch.Tensor,
 
 def ce_forward_cuda(logits: torch.Tensor, labels: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernels: (mean loss, row log-sum-exp [N])."""
+    """Launch the forward kernel: (mean loss, row log-sum-exp [N])."""
     check_cuda_tensor(logits, "logits", _LOGIT_DTYPES)
     check_cuda_tensor(labels, "labels", (torch.int64,))
     _check_inputs(logits, labels)
     n, c = logits.shape
-    lib = _lib()
     lse = torch.empty(n, device=logits.device, dtype=torch.float32)
-    partials = torch.empty(lib.slt_ce_fwd_blocks(n), device=logits.device,
-                           dtype=torch.float32)
     loss = torch.empty((), device=logits.device, dtype=torch.float32)
-    rc = lib.slt_ce_fwd(logits.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-                        partials.data_ptr(), loss.data_ptr(), n, c,
-                        int(logits.dtype == torch.bfloat16),
-                        current_stream_handle(logits.device))
+    stream = current_stream_handle(logits.device)
+    rc = _lib().slt_ce_fwd(logits.data_ptr(), labels.data_ptr(),
+                           lse.data_ptr(),
+                           _scratch(logits.device, stream.value).data_ptr(),
+                           loss.data_ptr(), n, c,
+                           int(logits.dtype == torch.bfloat16), stream)
     check_launch(rc, FWD)
     LAUNCHES.add(FWD)
     return loss, lse
@@ -109,10 +123,13 @@ def ce_backward_cuda(logits: torch.Tensor, labels: torch.Tensor,
     check_cuda_tensor(logits, "logits", _LOGIT_DTYPES)
     check_cuda_tensor(labels, "labels", (torch.int64,))
     check_cuda_tensor(lse, "lse", (torch.float32,))
+    _check_inputs(logits, labels)
+    n, c = logits.shape
+    if lse.shape != (n,):
+        raise ValueError(f"lse must be [{n}]; got {tuple(lse.shape)}")
     g = g.to(device=logits.device, dtype=torch.float32).contiguous()
     if g.numel() != 1:
         raise ValueError("the loss cotangent must be a scalar")
-    n, c = logits.shape
     grad = torch.empty_like(logits)
     rc = _lib().slt_ce_bwd(logits.data_ptr(), labels.data_ptr(),
                            lse.data_ptr(), g.data_ptr(), grad.data_ptr(), n,

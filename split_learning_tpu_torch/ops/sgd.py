@@ -11,16 +11,17 @@ and a zero-initialised trace (:func:`init_trace`):
     m <- mu * m + g;  p <- p - lr * m      (mu > 0)
     p <- p - lr * g                        (mu == 0)
 
-On CUDA tensors it launches one kernel over every leaf (batches of up to
-the kernel's table size); on CPU tensors it runs
-:func:`sgd_step_plain`. The two round identically: the kernel is built
-without FMA contraction.
+On CUDA tensors it launches one kernel over every leaf (up to the
+kernel's table of ``slt_sgd_max_leaves()`` leaves a launch, 896); on CPU
+tensors it runs :func:`sgd_step_plain`. The two round identically: the
+kernel is built without FMA contraction.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import List, Optional, Sequence
 
 import torch
@@ -42,6 +43,28 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     lib.slt_sgd_step.restype = ctypes.c_int
     return lib
+
+
+class _Table:
+    """The host arrays one launch reads (pointers and sizes of its leaves),
+    allocated once a thread at the kernel's capacity and refilled for each
+    step: ``slt_sgd_step`` copies them into the launch before it returns."""
+
+    _local = threading.local()
+
+    def __init__(self, cap: int) -> None:
+        self.cap = cap
+        self.p = (ctypes.c_void_p * cap)()
+        self.g = (ctypes.c_void_p * cap)()
+        self.m = (ctypes.c_void_p * cap)()
+        self.numel = (ctypes.c_int64 * cap)()
+
+    @classmethod
+    def mine(cls) -> "_Table":
+        table = getattr(cls._local, "table", None)
+        if table is None:
+            table = cls._local.table = cls(_lib().slt_sgd_max_leaves())
+        return table
 
 
 def init_trace(params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -69,7 +92,7 @@ def sgd_step_cuda(params: Sequence[torch.Tensor],
                   grads: Sequence[torch.Tensor],
                   trace: Optional[Sequence[torch.Tensor]], lr: float,
                   momentum: float = 0.0) -> None:
-    """Launch the multi-tensor kernel: one launch per table of leaves."""
+    """Launch the multi-tensor kernel: one launch for up to 896 leaves."""
     leaves = list(zip(params, grads,
                       trace if momentum else [None] * len(params)))
     for p, g, m in leaves:
@@ -81,23 +104,18 @@ def sgd_step_cuda(params: Sequence[torch.Tensor],
             check_cuda_tensor(m, "trace", (torch.float32,))
             if m.shape != p.shape or m.device != p.device:
                 raise ValueError("trace must match its param")
-    lib = _lib()
-    table = lib.slt_sgd_max_leaves()
-    for lo in range(0, len(leaves), table):
-        part = leaves[lo:lo + table]
+    table = _Table.mine()
+    for lo in range(0, len(leaves), table.cap):
+        part = leaves[lo:lo + table.cap]
         k = len(part)
-        ptrs = (ctypes.c_void_p * k)
-        p_arr = ptrs(*[p.data_ptr() for p, _, _ in part])
-        g_arr = ptrs(*[g.data_ptr() for _, g, _ in part])
-        m_arr = ptrs(*[m.data_ptr() if m is not None else None
-                       for _, _, m in part])
-        numel = (ctypes.c_int64 * k)(*[p.numel() for p, _, _ in part])
-        rc = lib.slt_sgd_step(
-            k, ctypes.cast(p_arr, ctypes.c_void_p),
-            ctypes.cast(g_arr, ctypes.c_void_p),
-            ctypes.cast(m_arr, ctypes.c_void_p),
-            ctypes.cast(numel, ctypes.c_void_p), lr, momentum,
-            current_stream_handle(part[0][0].device))
+        table.p[:k] = [p.data_ptr() for p, _, _ in part]
+        table.g[:k] = [g.data_ptr() for _, g, _ in part]
+        table.m[:k] = [m.data_ptr() if m is not None else None
+                       for _, _, m in part]
+        table.numel[:k] = [p.numel() for p, _, _ in part]
+        rc = _lib().slt_sgd_step(k, table.p, table.g, table.m, table.numel,
+                                 lr, momentum,
+                                 current_stream_handle(part[0][0].device))
         check_launch(rc, NAME)
         LAUNCHES.add(NAME)
 

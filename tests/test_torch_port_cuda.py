@@ -204,8 +204,8 @@ def test_serving_path_on_the_card(dev):
 def test_lm_training_on_the_card(dev):
     """Two steps of the split causal LM (three blocks, attn="flash") on
     the card: per step 3 K5 and 3 of each K6 launch, one K1 pair, and
-    ceil(54 leaves / 24) = 3 K2 launches; losses within 1e-4 of a CPU
-    twin from the same parameters."""
+    one K2 launch over all 54 leaves; losses within 1e-4 of a CPU twin
+    from the same parameters."""
     from split_learning_tpu_torch.data import synthetic_lm
     from split_learning_tpu_torch.models import get_plan
     from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
@@ -226,9 +226,150 @@ def test_lm_training_on_the_card(dev):
     LAUNCHES.reset()
     losses = [card.train_step(x, y) for x, y in batches]
     assert LAUNCHES.snapshot() == {FA: 6, **{n: 6 for n in BWD_NAMES},
-                                   FWD: 2, BWD: 2, SGD: 6}
+                                   FWD: 2, BWD: 2, SGD: 2}
     want = [cpu.train_step(x, y) for x, y in batches]
     assert max(abs(a - b) for a, b in zip(losses, want)) <= 1e-4
+
+
+# --------------------------------------------------------------------- #
+# K1 (cross-entropy) and K2 (SGD): chip_smoke.py's tolerances. The loss
+# within 1e-6 + 1e-5 of it (float32 exp/log and another summation order);
+# the float32 gradient within 1e-5 of its largest entry; the bf16 gradient
+# within one bf16 ulp (both round the same float32 value to bf16, which
+# differs only in its last float32 bits). K2 is bit-identical.
+
+CE_SHAPES = ((1, 1), (7, 10), (64, 10), (33, 130), (1025, 256), (64, 1000),
+             (65536, 256))
+
+
+def bf16_ulps(a, b):
+    """Largest distance of two bf16 tensors in units in the last place."""
+    def ordered(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs().max().item()
+
+
+def _ce_check(x, y, g_scale=1.0):
+    from split_learning_tpu_torch.ops.cross_entropy import (
+        BWD, FWD, ce_backward_cuda, ce_backward_plain, ce_forward_cuda,
+        ce_forward_plain)
+    g = torch.full((), g_scale, device=x.device)
+    LAUNCHES.reset()
+    runs = []
+    for _ in range(2):
+        loss, lse = ce_forward_cuda(x, y)
+        runs.append((loss, lse, ce_backward_cuda(x, y, lse, g)))
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {FWD: 2, BWD: 2}
+    loss, lse, grad = runs[0]
+    for a, b in zip(runs[0], runs[1]):  # bit-reproducible
+        assert torch.equal(a, b)
+    want_loss, want_lse = ce_forward_plain(x, y)
+    want_grad = ce_backward_plain(x, y, want_lse, g)
+    assert abs(loss.item() - want_loss.item()) <= (
+        1e-6 + 1e-5 * abs(want_loss.item()))
+    assert (lse - want_lse).abs().max().item() <= 1e-5 * max(
+        1.0, want_lse.abs().max().item())
+    if x.dtype == torch.float32:
+        err = (grad - want_grad).abs().max().item()
+        assert err <= 1e-5 * want_grad.abs().max().item()
+    else:
+        assert bf16_ulps(grad, want_grad) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, c", CE_SHAPES)
+def test_ce_kernels_match_plain(dev, n, c, dtype):
+    """One forward and one backward launch, against the plain version;
+    two runs give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(n * 1000 + c)
+    x = (3.0 * torch.randn(n, c, device=dev, generator=g)).to(dtype)
+    y = torch.randint(0, c, (n,), device=dev, generator=g)
+    _ce_check(x, y, g_scale=0.5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [256, 10, 7])
+def test_ce_kernels_read_unaligned_rows(dev, c, dtype):
+    """Logits that start off a 16-byte boundary (and odd C, whose rows
+    cannot all be aligned) take the kernels' one-element loads."""
+    g = torch.Generator(device=dev).manual_seed(c)
+    n = 257
+    flat = (3.0 * torch.randn(n * c + 1, device=dev, generator=g)).to(dtype)
+    x = flat[1:].view(n, c)
+    y = torch.randint(0, c, (n,), device=dev, generator=g)
+    _ce_check(x, y)
+
+
+def test_ce_kernel_nan_rows(dev):
+    """A +inf or NaN logit, an all -inf row, and a label outside [0, C)
+    each make the loss NaN; the other rows' LSE and gradient stay those
+    of the plain version."""
+    from split_learning_tpu_torch.ops.cross_entropy import (
+        ce_backward_cuda, ce_backward_plain, ce_forward_cuda,
+        ce_forward_plain)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for c in (10, 256):
+        base = 3.0 * torch.randn(8, c, device=dev, generator=g)
+        labels = torch.randint(0, c, (8,), device=dev, generator=g)
+        for fault in ("inf", "nan", "all_neg_inf", "label_neg", "label_c"):
+            x, y = base.clone(), labels.clone()
+            if fault == "inf":
+                x[3, c // 2] = float("inf")
+            elif fault == "nan":
+                x[3, c - 1] = float("nan")
+            elif fault == "all_neg_inf":
+                x[3] = float("-inf")
+            else:
+                y[3] = -1 if fault == "label_neg" else c
+            loss, lse = ce_forward_cuda(x, y)
+            grad = ce_backward_cuda(x, y, lse, torch.ones((), device=dev))
+            want_loss, want_lse = ce_forward_plain(x, y)
+            want = ce_backward_plain(x, y, want_lse, torch.ones((), device=dev))
+            assert loss.isnan().item() and want_loss.isnan().item(), fault
+            rows = torch.arange(8, device=dev) != 3
+            assert torch.isfinite(lse[rows]).all()
+            assert (lse[rows] - want_lse[rows]).abs().max().item() <= 1e-5
+            assert (grad[rows] - want[rows]).abs().max().item() <= 1e-6
+            if fault.startswith("label"):
+                assert torch.isfinite(grad[3]).all()
+                assert (grad[3] - want[3]).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+def test_sgd_kernel_bit_identical_on_300_leaves(dev, momentum):
+    """300 leaves of mixed, odd sizes (some 16-byte aligned, some views
+    that are not) in one launch a step, bit-identical to the plain
+    version over five steps."""
+    from split_learning_tpu_torch.ops.sgd import (
+        NAME as SGD, sgd_step_cuda, sgd_step_plain)
+    rs = np.random.RandomState(300)
+    sizes = [int(v) for v in rs.randint(1, 3000, 300)]
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def leaves(misalign):
+        out = []
+        for i, n in enumerate(sizes):
+            if misalign and i % 3 == 0:
+                out.append(torch.randn(n + 1, device=dev, generator=g)[1:])
+            else:
+                out.append(torch.randn(n, device=dev, generator=g))
+        return out
+
+    p_k = leaves(True)
+    p_p = [t.clone() for t in p_k]
+    m_k = [torch.zeros_like(t) for t in p_k] if momentum else None
+    m_p = [torch.zeros_like(t) for t in p_k] if momentum else None
+    for _ in range(5):
+        grads = leaves(True)
+        LAUNCHES.reset()
+        sgd_step_cuda(p_k, grads, m_k, 0.01, momentum)
+        torch.cuda.synchronize()
+        assert LAUNCHES.snapshot() == {SGD: 1}
+        sgd_step_plain(p_p, grads, m_p, 0.01, momentum)
+    for a, b in zip(p_k + (m_k or []), p_p + (m_p or [])):
+        assert torch.equal(a, b)
 
 
 # --------------------------------------------------------------------- #
