@@ -144,13 +144,45 @@ beside this script. Phases, any failure ending the run with a traceback:
    local re-forward decode's tokens; for int8 and topk8 a second,
    untimed run holds the first 3 tokens' hops to the host codec (frame
    twin) with one host sync per encode, and gives the same tokens.
-   Tokens/s and wire bytes per token per mode.
+   Tokens/s and wire bytes per token per mode;
+16. the two-party path over HTTP at full width: phase 13's parties from
+   the same init, the server a ``SplitHTTPServer`` on 127.0.0.1:0 in a
+   thread of this process, the client over ``HttpTransport``, 30 steps
+   in each of ``none``, ``int8`` and ``topk8``. Launch counts reset
+   before and read after each: phase 13's counts per step; one host
+   sync per card encode on either side, with the frame twin at steps
+   1-3; the frame bytes of each direction phase 13's plus the HTTP
+   frame's own keys (step, client id, wire mode; the echoed step), to
+   the byte; the first 5 losses within 1e-4 of phase 13's. Median step
+   ms beside phase 13's and a profiler window of 10 steps per mode
+   (idle share, memcpy). Then the chaos twin in ``int8`` and ``topk8``:
+   server-side ``drop_resp=0.2,corrupt=0.1,http500=0.1,drop_req=0.1``
+   at seed 0, the client retrying behind a circuit breaker: no batch
+   dropped, the server's /health step 29, one replay hit per fault after
+   apply, every retried request frame byte-equal to its first attempt,
+   the losses within 1e-5 of a clean HTTP run's (both runs with cuDNN's
+   deterministic convolutions: its default backward sums in a varying
+   order);
+17. split-party inference and the CLI over HTTP: ``evaluate_remote`` on
+   phase 16's ``none`` parties over the synthetic MNIST test split at
+   batch 64 equals ``evaluate`` of the composed parameters (accuracy
+   equal, loss within 1e-5 relative), and over ``int8`` the local int8
+   wire's (the same frames; a CPU twin's loss is recorded beside it);
+   ``generate_remote`` with phase 15's LM over HTTP in ``none``,
+   ``int8`` and ``topk8``:
+   exactly 3 K5 per token plus two frames' wire launches, phase 15's
+   tokens; then ``launch.run serve --port 0 --device cuda`` as a
+   subprocess, ``launch.run.main(["train", "--transport", "http",
+   ...])`` against the URL of its ``[serve]`` line (5 int8 steps at lr
+   0.02: rc 0, a falling loss, the client's launches), and SIGINT to
+   the server (rc 0). Every wait has a timeout.
 
 Output, last lines: one JSON object with a record per kernel, one JSON
 object with the main path's step time, one with the serving path's
 times, one with the LM training path's, one with the two-party path's,
-one with split-party decode's, the ``nvidia-smi`` name and power limit,
-and ``{"ok": true, "device": {...}}``.
+one with split-party decode's, one with the HTTP wire's (``http``), the
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -226,6 +258,15 @@ WIRE_DENSITIES = (0.01, 0.1, 1.0)
 WIRE_MODES, DENSITY, EF_DECAY = ("none", "int8", "topk8"), 0.1, 0.5
 DEC_MODES = (None, "none", "int8", "topk8")
 FRAME_TWIN_STEPS, WIRE_TWIN_STEPS, PROFILE_STEPS = 3, 5, 10
+# the HTTP wire (phases 16-17): every socket wait has this timeout; the
+# chaos twin's server-side faults, at a fixed seed, in these modes, and
+# its losses against the clean HTTP run's; evaluate_remote against
+# evaluate (JAX's tests/test_split_inference.py tolerance); the CLI run's
+# lr (the default 0.01 rises over the first 5 steps at seed 0)
+HTTP_TIMEOUT, CLI_START_TIMEOUT = 60.0, 180.0
+CHAOS_SPEC = "drop_resp=0.2,corrupt=0.1,http500=0.1,drop_req=0.1"
+CHAOS_SEED, CHAOS_MODES, CHAOS_LOSS_TOL = 0, ("int8", "topk8"), 1e-5
+HTTP_EVAL_RTOL, CLI_LR = 1e-5, 0.02
 # planted faults, each a copy of one source with one expression replaced:
 # K3 rounding halves away from zero, K4 keeping the last ties
 PLANTS = {
@@ -294,11 +335,13 @@ def profile_window(torch, run, n: int, per: str = "step") -> dict:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.end - e.time_range.start)
     busy_us = sum(by_name.values())
+    copy_us = sum(us for name, us in by_name.items() if "Memcpy" in name)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
         f"{per}s": n, "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3 if by_name else None,
         "device_idle_share": 1 - busy_us / wall_us if by_name else None,
+        f"memcpy_ms_per_{per}": copy_us / 1e3 / n if by_name else None,
         f"device_ms_per_{per}_by_kernel": {
             name[:80]: us / 1e3 / n for name, us in top}}
 
@@ -499,7 +542,11 @@ def ce_times(torch, dev, gen, bw, fp32) -> dict:
                     ("fwd", "ce_fwd_kernel", lambda: ce_forward_cuda(x, y)),
                     ("bwd", "ce_bwd_kernel",
                      lambda: ce_backward_cuda(x, y, lse, g_one))):
+                # an idle device when tracing starts: a first kernel that
+                # raced the profiler's start went unrecorded once
+                torch.cuda.synchronize()
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    torch.cuda.synchronize()
                     for _ in range(CE_PROFILE_CALLS):
                         fn()
                     torch.cuda.synchronize()
@@ -738,6 +785,9 @@ class FrameTwin:
         self._seen = {}
 
     def wrap(self, pack, direction, ef_of=None, role=None):
+        """``pack(arr, *key)`` counted and twinned; ``key[0]`` is the EF
+        key, and ``key[0][role]`` (``key[0]`` itself for ``role`` None)
+        the tensor role that picks the residual's decay."""
         codec, torch = self.codec, self.torch
         self._seen[direction] = 0
 
@@ -766,7 +816,8 @@ class FrameTwin:
             else:
                 host, res_h = codec.topk8_compress(
                     x_host, DENSITY, residual=prev,
-                    decay=codec.ef_decay_for(key[0][role]))
+                    decay=codec.ef_decay_for(
+                        key[0] if role is None else key[0][role]))
                 ok = np.array_equal(
                     ef_of().residual(key[0]).detach().cpu().numpy(), res_h)
             self.frames += 1
@@ -781,6 +832,14 @@ class FrameTwin:
             transport._pack_up, "up", lambda: transport._ef, 0)
         transport._pack_down = self.wrap(
             transport._pack_down, "down", lambda: server.wire_ef, 1)
+        return self
+
+    def attach_http(self, transport, server):
+        """Wrap the HTTP client's pack and the server's reply pack."""
+        transport._pack = self.wrap(transport._pack, "up",
+                                    lambda: transport._ef)
+        server._pack_reply = self.wrap(server._pack_reply, "down",
+                                       lambda: server.runtime.wire_ef, 1)
         return self
 
     def attach_predict(self, transport):
@@ -894,6 +953,7 @@ def two_party_runs(torch, dev, data, planted):
             wire_bytes_down_per_step=stats["bytes_received"] / STEPS,
             compression_ratio=stats.get("compression_ratio"),
             loss_first=losses[0], loss_last=losses[-1],
+            losses_head=losses[:WIRE_TWIN_STEPS],
             launches=counts, launches_per_step=per_step[mode],
             profile=profile_window(torch, more_steps, PROFILE_STEPS))
         if mode == "none":
@@ -955,7 +1015,7 @@ def decode_runs(torch, dev):
                            device="cuda")
     local = greedy_generate(plan, on_card, prompt, DEC_NEW, kv_cache=False,
                             device="cuda").cpu().numpy()
-    runs, totals = {}, {}
+    runs, totals, tokens = {}, {}, {}
     for mode in DEC_MODES:
         transport = LocalTransport(server, compress=mode, density=DENSITY)
         LAUNCHES.reset()
@@ -975,6 +1035,7 @@ def decode_runs(torch, dev):
               and np.array_equal(toks[:, :DEC_P], prompt)
               and 0 <= toks.min() and toks.max() < LM["vocab"],
               f"decode {label}: tokens {toks.shape}")
+        tokens[label] = toks
         stats = transport.stats.summary()
         rec = dict(seconds=secs, tokens_per_s=DEC_B * DEC_NEW / secs,
                    ms_per_token_step=secs * 1e3 / DEC_NEW, launches=counts,
@@ -1006,11 +1067,412 @@ def decode_runs(torch, dev):
         runs[label] = rec
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
+    # what phase 17 decodes again over HTTP
+    ctx = dict(plan=plan, client_params=client_params, prompt=prompt,
+               server=server, tokens=tokens)
     return dict(model="transformer_lm", mode="split", dtype="float32",
                 d_model=LM["d_model"], num_heads=LM["num_heads"],
                 vocab=LM["vocab"], blocks=N_BLOCKS, attn="flash",
                 batch=DEC_B, prompt=DEC_P, new_tokens=DEC_NEW,
-                cut=list(GEN_CUT), density=DENSITY, modes=runs), totals
+                cut=list(GEN_CUT), density=DENSITY, modes=runs), totals, ctx
+
+
+def capture_posts(server):
+    """Every POST body ``server`` (a ``SplitHTTPServer``) receives, as
+    ``(path, bytes)``, in arrival order."""
+    import io
+    bodies = []
+    handler = server._httpd.RequestHandlerClass
+    do_post = handler.do_POST
+
+    def capturing(self):
+        raw = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+        bodies.append((self.path, raw))
+        self.rfile = io.BytesIO(raw)
+        do_post(self)
+
+    handler.do_POST = capturing
+    return bodies
+
+
+def http_stack(torch, mode, chaos=None):
+    """Phase 13's two parties from the same init, over a real socket: a
+    ``SplitHTTPServer`` on 127.0.0.1:0 in a thread of this process in
+    front of the ``ServerRuntime`` on the card, and the client over
+    ``HttpTransport``. With ``chaos`` (server-side faults) the client
+    retries, behind a circuit breaker, without backoff sleeps."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.runtime import (
+        CircuitBreaker, ServerRuntime, SplitClientTrainer)
+    from split_learning_tpu_torch.transport import (
+        ChaosPolicy, HttpTransport, SplitHTTPServer)
+    from split_learning_tpu_torch.utils import Config
+    cfg = Config(transport="http", batch_size=BATCH, lr=LR)
+    runtime = ServerRuntime(get_plan(), cfg, torch.Generator().manual_seed(0),
+                            device="cuda")
+    policy = ChaosPolicy(chaos, seed=CHAOS_SEED) if chaos else None
+    server = SplitHTTPServer(runtime, host="127.0.0.1", port=0,
+                             chaos=policy).start()
+    transport = HttpTransport(server.url, timeout=HTTP_TIMEOUT, compress=mode,
+                              density=DENSITY)
+    kw = {}
+    if chaos:
+        kw = dict(failure_policy="retry", retry_backoff=0.0,
+                  breaker=CircuitBreaker(transport.health, seed=0))
+    client = SplitClientTrainer(get_plan(), cfg,
+                                torch.Generator().manual_seed(0), transport,
+                                device="cuda", **kw)
+    return client, transport, server
+
+
+def http_extra_bytes(codec, mode, step):
+    """What an HTTP frame of ``step`` carries beyond the in-process wire's
+    frame of the same tensors, (up, down): the step and the client id up,
+    with the wire mode (and topk8's density), and the echoed step down.
+    They are entries of a msgpack map of at most 15 keys either way, so
+    their size is their own encoding less its one-byte map header."""
+    up = {"step": step, "client_id": 0}
+    if mode != "none":
+        up["compress"] = mode
+        if mode == "topk8":
+            up["density"] = DENSITY
+    return (len(codec.encode(up)) - 1,
+            len(codec.encode({"step": step})) - 1)
+
+
+def http_runs(torch, dev, data, two_party):
+    """Phase 16: the two-party CNN over HTTP in each mode, with phase 13's
+    exact launch counts, one host sync per card encode, phase 13's cut
+    bytes and first losses; then the chaos twin in int8 and topk8.
+    Returns the record, the launch totals of the clean runs and the
+    ``none`` run's live stack for phase 17."""
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    from split_learning_tpu_torch.transport import codec
+
+    base = {FWD: 1, BWD: 1, SGD: 2}
+    modes, totals, keep = {}, {}, None
+    for mode in WIRE_MODES:
+        client, transport, server = http_stack(torch, mode)
+        twin = (FrameTwin(torch, codec, mode).attach_http(transport, server)
+                if mode != "none" else None)
+        LAUNCHES.reset()
+        losses, step_ms = [], []
+        for i, (x, y) in enumerate(data):
+            t = time.perf_counter()
+            losses.append(client.train_step(x, y, i))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        counts = LAUNCHES.snapshot()
+        per_step = {**base, **wire_launches(mode, 2)}
+        want = {k: v * STEPS for k, v in per_step.items()}
+        print(f"[http] {mode}: {STEPS} steps over {server.url}, launches "
+              f"{counts}, losses {losses[0]:.4f} -> {losses[-1]:.4f}",
+              flush=True)
+        check(counts == want, f"http {mode} launches {counts}, want {want}")
+        check(all(math.isfinite(v) for v in losses), f"http {mode}: finite")
+        check(statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
+              f"http {mode}: loss did not fall: {losses}")
+        local = two_party["modes"][mode]
+        head = local["losses_head"]
+        head_diff = max(abs(a - b) for a, b in zip(losses, head))
+        check(head_diff <= 1e-4, f"http {mode}: losses {losses[:len(head)]} "
+                                 f"against the local wire's {head}")
+        stats = transport.stats.summary()
+        extra = [http_extra_bytes(codec, mode, i) for i in range(STEPS)]
+        local_up = round(local["wire_bytes_up_per_step"] * STEPS)
+        local_down = round(local["wire_bytes_down_per_step"] * STEPS)
+        check(stats["bytes_sent"] == local_up + sum(e[0] for e in extra)
+              and stats["bytes_received"]
+              == local_down + sum(e[1] for e in extra),
+              f"http {mode}: frame bytes {stats['bytes_sent']} / "
+              f"{stats['bytes_received']} against the local wire's "
+              f"{local_up} / {local_down} and the protocol keys {extra[:2]}")
+        rec = {}
+        if twin is not None:
+            check(twin.packs == 2 * STEPS and set(twin.syncs) == {1}
+                  and twin.frames == 2 * FRAME_TWIN_STEPS
+                  and twin.mismatched == 0,
+                  f"http {mode}: {twin.mismatched} of {twin.frames} frames "
+                  f"differ from the host codec's; host syncs per card "
+                  f"encode {sorted(set(twin.syncs))} over {twin.packs}")
+            rec.update(frame_twin=dict(frames=twin.frames,
+                                       mismatched=twin.mismatched),
+                       encodes=twin.packs,
+                       host_syncs_per_encode=twin.syncs[0])
+
+        def more_steps(client=client):
+            for i, (x, y) in enumerate(data[:PROFILE_STEPS]):
+                client.train_step(x, y, STEPS + i)
+            torch.cuda.synchronize()
+        steady = step_ms[5:]
+        rec.update(
+            step_ms_median=statistics.median(steady),
+            step_ms_min=min(steady), step_ms_max=max(steady),
+            step_ms_first=step_ms[0],
+            local_step_ms_median=local["step_ms_median"],
+            wire_bytes_up_per_step=stats["bytes_sent"] / STEPS,
+            wire_bytes_down_per_step=stats["bytes_received"] / STEPS,
+            local_wire_bytes_up_per_step=local["wire_bytes_up_per_step"],
+            local_wire_bytes_down_per_step=local[
+                "wire_bytes_down_per_step"],
+            protocol_bytes_per_step=[sum(e[0] for e in extra) / STEPS,
+                                     sum(e[1] for e in extra) / STEPS],
+            compression_ratio=stats.get("compression_ratio"),
+            losses_head_max_abs_diff=head_diff,
+            loss_first=losses[0], loss_last=losses[-1],
+            launches=counts, launches_per_step=per_step,
+            profile=profile_window(torch, more_steps, PROFILE_STEPS))
+        modes[mode] = rec
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        if mode == "none":
+            keep = (client, transport, server)
+        else:
+            transport.close()
+            server.stop()
+
+    chaos = {mode: chaos_twin(torch, codec, data, mode)
+             for mode in CHAOS_MODES}
+    return dict(modes=modes, chaos_twin=chaos), totals, keep
+
+
+def chaos_twin(torch, codec, data, mode):
+    """Phase 16's chaos twin in ``mode``: a clean HTTP run and one with
+    the server-side faults of :data:`CHAOS_SPEC`, from the same init.
+    cuDNN picks deterministic convolution algorithms for both (its
+    default backward sums in an order that changes run to run, which
+    moved a topk8 run's losses by 4e-4 through the selection), so the
+    two runs differ only by what the faults do."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for spec in (None, CHAOS_SPEC):
+            client, transport, server = http_stack(torch, mode, chaos=spec)
+            bodies = capture_posts(server)
+            try:
+                losses = [client.train_step(x, y, i)
+                          for i, (x, y) in enumerate(data)]
+                acked = transport.health()["step"]
+            finally:
+                transport.close()
+                server.stop()
+            runs[spec] = (losses, client, server, bodies, acked)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    clean = runs[None][0]
+    losses, client, server, bodies, acked = runs[CHAOS_SPEC]
+    injected = dict(server.chaos.injected)
+    post_apply = injected.get("drop_resp", 0) + injected.get("corrupt", 0)
+    hits = server.runtime.replay.body_hits
+    first, resent = {}, 0
+    for _, body in bodies:
+        step = int(codec.decode(body)["step"])
+        if step in first:
+            resent += 1
+            check(body == first[step], f"chaos {mode}: a retried frame of "
+                                       f"step {step} differs")
+        first.setdefault(step, body)
+    diff = max(abs(a - b) for a, b in zip(losses, clean))
+    print(f"[http] chaos {mode}: faults {injected}, {resent} frames resent "
+          f"byte-equal, replay hits {hits}, dropped "
+          f"{client.dropped_batches}, losses within {diff:.3g} of the "
+          f"clean run", flush=True)
+    check(client.dropped_batches == 0 and None not in losses,
+          f"chaos {mode}: dropped {client.dropped_batches}")
+    check(acked == runs[None][4] == STEPS - 1,
+          f"chaos {mode}: /health step {acked}")
+    check(post_apply > 0 and hits == post_apply,
+          f"chaos {mode}: {hits} replay hits for {post_apply} post-apply "
+          "faults")
+    check(resent == sum(injected.values()) and len(first) == STEPS,
+          f"chaos {mode}: {resent} resent frames for {injected}")
+    check(diff <= CHAOS_LOSS_TOL, f"chaos {mode}: losses {diff} from the "
+                                  "clean HTTP run's")
+    return dict(spec=CHAOS_SPEC, seed=CHAOS_SEED, faults=injected,
+                replay_body_hits=hits, frames_resent=resent,
+                breaker=client.breaker.counters, loss_max_abs_diff=diff,
+                cudnn_deterministic=True)
+
+
+def http_serving(torch, launch_run, ds, keep, dec_ctx, decode):
+    """Phase 17: ``evaluate_remote`` over phase 16's ``none`` server
+    against ``evaluate`` (and over int8 against a CPU twin),
+    ``generate_remote`` over HTTP against phase 15's tokens with exact
+    launch counts, and the ``serve`` subprocess with ``train
+    --transport http`` through the CLI."""
+    import contextlib
+    import io
+    import queue
+    import signal
+    import subprocess
+    import threading
+
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops import quantize as qmod
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.ops.flash_attention import NAME as FA
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    from split_learning_tpu_torch.runtime import (
+        ServerRuntime, evaluate, evaluate_remote, generate_remote)
+    from split_learning_tpu_torch.transport import (
+        HttpTransport, LocalTransport, SplitHTTPServer)
+    from split_learning_tpu_torch.utils import Config
+
+    # split-party inference of the CNN phase 16 trained
+    client, transport, server = keep
+    plan = get_plan()
+    try:
+        want = evaluate(plan, (client.params, server.runtime.params),
+                        ds.test, batch_size=BATCH)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = evaluate_remote(plan, [client.params], transport, ds.test,
+                              batch_size=BATCH)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t
+        t8 = HttpTransport(server.url, timeout=HTTP_TIMEOUT, compress="int8")
+        got8 = evaluate_remote(plan, [client.params], t8, ds.test,
+                               batch_size=BATCH)
+        t8.close()
+        # the same int8 frames without the socket
+        local8 = evaluate_remote(
+            plan, [client.params],
+            LocalTransport(server.runtime, compress="int8"), ds.test,
+            batch_size=BATCH)
+        cpu = [{k: v.detach().cpu() for k, v in p.items()}
+               for p in (client.params, server.runtime.params)]
+    finally:
+        transport.close()
+        server.stop()
+    # for the record: a CPU twin quantizes the CPU's cut, whose last bits
+    # differ from the card's, so an element can land one int8 step away
+    twin_rt = ServerRuntime(plan, Config(batch_size=BATCH), cpu,
+                            device="cpu")
+    twin8 = evaluate_remote(plan, cpu[:1],
+                            LocalTransport(twin_rt, compress="int8"),
+                            ds.test, batch_size=BATCH)
+    rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    rel8 = abs(got8["loss"] - local8["loss"]) / abs(local8["loss"])
+    print(f"[http] evaluate_remote {got['accuracy']:.4f} / {got['loss']:.6f}"
+          f" against evaluate {want['accuracy']:.4f} / {want['loss']:.6f};"
+          f" int8 {got8['loss']:.6f} against the local int8 wire's "
+          f"{local8['loss']:.6f} (CPU twin {twin8['loss']:.6f})", flush=True)
+    check(got["accuracy"] == want["accuracy"] and rel <= HTTP_EVAL_RTOL
+          and got["examples"] == len(ds.test),
+          f"evaluate_remote over HTTP {got} against evaluate {want}")
+    check(got8["accuracy"] == local8["accuracy"] and rel8 <= HTTP_EVAL_RTOL,
+          f"evaluate_remote over HTTP int8 {got8} against the local int8 "
+          f"wire's {local8}")
+    evaluation = dict(examples=got["examples"], accuracy=got["accuracy"],
+                      loss=got["loss"], evaluate_loss=want["loss"],
+                      loss_rel_diff=rel, int8_loss=got8["loss"],
+                      int8_local_wire_loss=local8["loss"],
+                      int8_loss_rel_diff=rel8,
+                      int8_cpu_twin_loss=twin8["loss"],
+                      int8_cpu_twin_rel_diff=abs(
+                          got8["loss"] - twin8["loss"]) / abs(twin8["loss"]),
+                      seconds=eval_s,
+                      examples_per_s=got["examples"] / eval_s)
+
+    # split-party decode of phase 15's LM over HTTP
+    srv = SplitHTTPServer(dec_ctx["server"], host="127.0.0.1",
+                          port=0).start()
+    gen, totals = {}, {}
+    try:
+        for mode in WIRE_MODES:
+            t = HttpTransport(srv.url, timeout=HTTP_TIMEOUT, compress=mode,
+                              density=DENSITY)
+            LAUNCHES.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = generate_remote(dec_ctx["plan"], dec_ctx["client_params"],
+                                   t, dec_ctx["prompt"], DEC_NEW,
+                                   device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = LAUNCHES.snapshot()
+            want = {FA: N_BLOCKS * DEC_NEW,
+                    **wire_launches(mode, 2 * DEC_NEW)}
+            stats = t.stats.summary()
+            t.close()
+            same = np.array_equal(toks, dec_ctx["tokens"][mode])
+            print(f"[http] generate_remote {mode}: {DEC_NEW} tokens in "
+                  f"{secs * 1e3:.1f} ms, launches {counts}, phase 15's "
+                  f"tokens: {same}", flush=True)
+            check(counts == want, f"http decode {mode} launches {counts}, "
+                                  f"want {want}")
+            check(same, f"http decode {mode}: tokens differ from phase 15's")
+            gen[mode] = dict(
+                seconds=secs, tokens_per_s=DEC_B * DEC_NEW / secs,
+                local_tokens_per_s=decode["modes"][mode]["tokens_per_s"],
+                ms_per_token_step=secs * 1e3 / DEC_NEW, launches=counts,
+                wire_bytes_per_token=(stats["bytes_sent"]
+                                      + stats["bytes_received"]) / DEC_NEW,
+                tokens_equal_local_wire=True)
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+    finally:
+        srv.stop()
+
+    # the CLI: serve in a subprocess, train --transport http here
+    err_path = os.path.join(REPO, "build", "chip_smoke_serve.err")
+    os.makedirs(os.path.dirname(err_path), exist_ok=True)
+    with open(err_path, "w") as err_f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "split_learning_tpu_torch.launch.run",
+             "serve", "--port", "0", "--host", "127.0.0.1", "--device",
+             "cuda", "--lr", str(CLI_LR)],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=err_f, text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                     daemon=True).start()
+    try:
+        try:
+            first = lines.get(timeout=CLI_START_TIMEOUT)
+        except queue.Empty:
+            first = ""
+        check(first.startswith("[serve] mode=split role=server listening on "),
+              f"serve printed {first!r}; stderr: "
+              f"{open(err_path).read()[-2000:]}")
+        url = first.split("listening on ")[1].strip()
+        out = io.StringIO()
+        LAUNCHES.reset()
+        with contextlib.redirect_stdout(out):
+            rc = launch_run.main([
+                "train", "--transport", "http", "--server-url", url,
+                "--compress", "int8", "--steps", "5", "--lr", str(CLI_LR),
+                "--dataset", "synthetic", "--data-dir",
+                os.path.join(REPO, "build", "chip_smoke_data"),
+                "--tracking", "stdout", "--wait-server", "60"])
+        cli_counts = LAUNCHES.snapshot()
+        text = out.getvalue()
+        print(text, end="", flush=True)
+        check(rc == 0, f"train --transport http returned {rc}")
+        first_loss = float(next(
+            ln for ln in text.splitlines()
+            if ln.startswith("[step 0] loss:")).split(":")[1])
+        final = float(text.split("final_loss=")[1].split()[0])
+        check(final < first_loss, f"CLI over HTTP: loss {first_loss} -> "
+                                  f"{final}")
+        # this process is the client: its K2, and its int8 encode and
+        # decode, one each a step (K1 runs in the server's process)
+        check(cli_counts == {SGD: 5, qmod.QUANT: 5, qmod.DEQUANT: 5},
+              f"CLI client launches {cli_counts}")
+        proc.send_signal(signal.SIGINT)
+        serve_rc = proc.wait(timeout=60)
+        check(serve_rc == 0, f"serve exited {serve_rc}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    cli = dict(serve_url=url, serve_rc=serve_rc, train_rc=rc,
+               loss_first=first_loss, loss_final=final,
+               client_launches=cli_counts)
+    return dict(evaluate_remote=evaluation, generate_remote=gen,
+                cli=cli), totals
 
 
 def old_topk8_encode(torch, x, res, decay, k):
@@ -1931,12 +2393,21 @@ def main() -> int:
     del p_lm, g_lm, m_lm, opt_p, opt
 
     # ---- 15. split-party LM decode at full width ------------------- #
-    decode, dec_counts = decode_runs(torch, dev)
+    decode, dec_counts, dec_ctx = decode_runs(torch, dev)
+
+    # ---- 16. the two-party path over HTTP --------------------------- #
+    http_rec, http_counts, http_keep = http_runs(torch, dev, data, two_party)
+
+    # ---- 17. split-party inference and the CLI over HTTP ------------ #
+    http_serving_rec, http_dec_counts = http_serving(
+        torch, launch_run, ds, http_keep, dec_ctx, decode)
 
     for rec in records:
         key = launch_of.get(rec["name"], rec["name"])
         rec["launches_two_party"] = tp_counts.get(key, 0)
         rec["launches_decode"] = dec_counts.get(key, 0)
+        rec["launches_http"] = http_counts.get(key, 0)
+        rec["launches_http_decode"] = http_dec_counts.get(key, 0)
     select_src = "topk_select.cu"
     wire_meta = {
         qmod.QUANT: ("quantize.cu", "split_learning_tpu/ops/quantize.py:44",
@@ -1956,6 +2427,8 @@ def main() -> int:
             source=f"split_learning_tpu_torch/csrc/{src}",
             replaces=replaces, launches=tp_counts.get(name, 0),
             launches_decode=dec_counts.get(name, 0),
+            launches_http=http_counts.get(name, 0),
+            launches_http_decode=http_dec_counts.get(name, 0),
             launches_per_step={mode: r["launches_per_step"].get(name, 0)
                                for mode, r in two_party["modes"].items()},
             max_abs_err=wire_err[name], library_call=lib_call,
@@ -1980,6 +2453,11 @@ def main() -> int:
         kernel_frames=wire_frames, planted_ties_high_changed=ties_changed,
         **two_party))
     decode_line = dict(split_decode=dict(device=kind, **decode))
+    http_line = dict(http=dict(
+        model="split_cnn", mode="split", transport="http", batch=BATCH,
+        steps=STEPS, density=DENSITY, device=kind, card=smi,
+        server="SplitHTTPServer on 127.0.0.1:0, a thread of this process",
+        **http_rec, **http_serving_rec))
 
     print(json.dumps({"kernels": records}))
     print(json.dumps(step))
@@ -1987,6 +2465,7 @@ def main() -> int:
     print(json.dumps(train_lm))
     print(json.dumps(two_party_line))
     print(json.dumps(decode_line))
+    print(json.dumps(http_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,11 +10,11 @@ cache and the transports call::
     tracer.export_chrome("trace.json")
     obs.disable()
 
-The flight recorder, the dispatch watchdog, the telemetry plane and the
-Prometheus text exposition are not ported (ROADMAP items 22-23).
+The flight recorder, the dispatch watchdog and the telemetry plane are
+not ported (ROADMAP items 22-23).
 """
 
 from split_learning_tpu_torch.obs.metrics import (  # noqa: F401
-    DEFAULT_BUCKETS, Histogram, Registry)
+    DEFAULT_BUCKETS, Histogram, Registry, render_prometheus)
 from split_learning_tpu_torch.obs.trace import (  # noqa: F401
     CLIENT_PHASES, CTX, Tracer, disable, enable, enabled, get_tracer)

@@ -1,11 +1,12 @@
-"""Fixed-bucket latency histograms (counterpart of
-``split_learning_tpu/obs/metrics.py``, less the Prometheus text
-exposition, which waits for the HTTP transport).
+"""Fixed-bucket latency histograms and their Prometheus text exposition
+(counterpart of ``split_learning_tpu/obs/metrics.py``).
 
 Spans land in per-phase :class:`Histogram`\\ s inside a
 :class:`Registry`, one registry per party; ``ServerRuntime.metrics()``
-returns its snapshot. Buckets are fixed at construction (cumulative
-counts stay monotone across scrapes), spanning 100 us to 10 s.
+returns its snapshot, and :func:`render_prometheus` turns a snapshot
+into the text ``GET /metrics`` serves, byte for byte JAX's. Buckets
+are fixed at construction (cumulative counts stay monotone across
+scrapes), spanning 100 us to 10 s.
 Stdlib-only; nothing here runs on the step path unless tracing is on.
 """
 
@@ -101,3 +102,77 @@ class Registry:
                      for name, h in snap_h.items()}
         return {"histograms": snap_h, "counters": counters,
                 "gauges": gauges, "phase_fractions": fractions}
+
+
+def _sanitize(name: str) -> str:
+    out = "".join(c if (c.isalnum() or c in "_:") else "_" for c in name)
+    return out if not out[:1].isdigit() else "_" + out
+
+
+def _fmt(v: float) -> str:
+    return f"{float(v):.9g}"
+
+
+def escape_label_value(value: str) -> str:
+    """Prometheus text-exposition label-value escaping: backslash,
+    double quote and newline (in that order: escaping the backslash
+    first keeps the other two unambiguous)."""
+    return (str(value).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _fmt_labels(labels: Dict[str, str]) -> str:
+    inner = ",".join(
+        f'{_sanitize(k)}="{escape_label_value(v)}"'
+        for k, v in sorted(labels.items()))
+    return "{" + inner + "}" if inner else ""
+
+
+def render_prometheus(snapshot: Dict[str, Any], prefix: str = "slt") -> str:
+    """Snapshot (from :meth:`Registry.snapshot`) -> Prometheus text
+    exposition (version 0.0.4). Histogram names gain a ``_seconds``
+    unit suffix; phase fractions render as one gauge with a ``phase``
+    label; ``labeled`` entries (``{"name", "labels", "value",
+    "type"?}``) render one series each, with one TYPE header a name."""
+    lines = []
+    for name, h in sorted(snapshot.get("histograms", {}).items()):
+        metric = f"{prefix}_{_sanitize(name)}_seconds"
+        lines.append(f"# HELP {metric} Latency of the {name} phase.")
+        lines.append(f"# TYPE {metric} histogram")
+        for le, cum in zip(h["buckets"], h["cumulative"]):
+            lines.append(f'{metric}_bucket{{le="{_fmt(le)}"}} {cum}')
+        lines.append(f'{metric}_bucket{{le="+Inf"}} {h["count"]}')
+        lines.append(f"{metric}_sum {_fmt(h['sum'])}")
+        lines.append(f"{metric}_count {h['count']}")
+    fractions = snapshot.get("phase_fractions", {})
+    if fractions:
+        metric = f"{prefix}_phase_fraction"
+        lines.append(f"# HELP {metric} Share of summed phase time.")
+        lines.append(f"# TYPE {metric} gauge")
+        for name, frac in sorted(fractions.items()):
+            lines.append(
+                f'{metric}{{phase="{_sanitize(name)}"}} {_fmt(frac)}')
+    typed_seen = set()
+    for name, v in sorted(snapshot.get("counters", {}).items()):
+        metric = f"{prefix}_{_sanitize(name)}"
+        typed_seen.add(metric)
+        lines.append(f"# TYPE {metric} counter")
+        lines.append(f"{metric} {_fmt(v)}")
+    for name, v in sorted(snapshot.get("gauges", {}).items()):
+        metric = f"{prefix}_{_sanitize(name)}"
+        typed_seen.add(metric)
+        lines.append(f"# TYPE {metric} gauge")
+        lines.append(f"{metric} {_fmt(v)}")
+    labeled = snapshot.get("labeled") or []
+    for entry in sorted(labeled,
+                        key=lambda e: (e["name"],
+                                       sorted(e.get("labels", {}).items()))):
+        metric = f"{prefix}_{_sanitize(entry['name'])}"
+        if metric not in typed_seen:
+            typed_seen.add(metric)
+            lines.append(
+                f"# TYPE {metric} {entry.get('type', 'counter')}")
+        lines.append(
+            f"{metric}{_fmt_labels(entry.get('labels', {}))} "
+            f"{_fmt(entry['value'])}")
+    return "\n".join(lines) + "\n"

@@ -14,6 +14,11 @@ CLIENT_BWD = "client_bwd"
 OPT_APPLY = "opt_apply"
 STEP_TOTAL = "step_total"
 
+# -- the HTTP client's split of its transport span: the codec both ways,
+# and the round trip less the server's own spans ---------------------- #
+ENCODE = "encode"
+WIRE = "wire"
+
 # -- server-party spans ------------------------------------------------ #
 QUEUE_WAIT = "queue_wait"
 DISPATCH = "dispatch"
@@ -32,5 +37,7 @@ CLIENT_PHASES = (CLIENT_FWD, TRANSPORT, CLIENT_BWD, OPT_APPLY)
 # server-party span names, for reporting tools
 SERVER_PHASES = (QUEUE_WAIT, DISPATCH, D2H)
 
+# the spans of every two-party step, on any wire; an HTTP step adds
+# ENCODE and WIRE
 ALL_SPANS = (CLIENT_FWD, TRANSPORT, CLIENT_BWD, OPT_APPLY, STEP_TOTAL,
              QUEUE_WAIT, DISPATCH, D2H)

@@ -19,10 +19,12 @@ Failure policy is explicit (SURVEY.md §3.4), as in JAX: ``"raise"``
 (default), ``"retry"`` (bounded, with exponential backoff, or the peer's
 advised delay after a ``Backpressure``) or ``"skip"`` (the reference's
 behaviour, but counted in ``dropped_batches``). A ``ProtocolError`` is
-permanent and is never retried or skipped.
+permanent and is never retried or skipped. An optional
+:class:`~split_learning_tpu_torch.runtime.breaker.CircuitBreaker` shapes
+when an attempt goes out: while it is open, the client probes
+``/health`` instead of sending the step again.
 
-The circuit breaker waits for ROADMAP item 13; the U-shaped and
-federated clients for item 11.
+The U-shaped and federated clients wait for ROADMAP item 11.
 """
 
 from __future__ import annotations
@@ -38,7 +40,6 @@ import torch
 from split_learning_tpu_torch.core.stage import Params, SplitPlan
 from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.obs import trace as obs_trace
-from split_learning_tpu_torch.runtime.party import not_ported
 from split_learning_tpu_torch.runtime.state import (
     TrainState, check_config, init_params, make_state, make_tx)
 from split_learning_tpu_torch.transport.base import (
@@ -66,8 +67,10 @@ class SplitClientTrainer:
     ``init`` is a ``torch.Generator`` or per-stage dicts for the whole
     plan (see :func:`~split_learning_tpu_torch.runtime.state.init_params`);
     the client keeps stage 0. ``retry_backoff`` is the base of the
-    exponential wait between retries (0.5 -> 0.5, 1, 2 s ...). ``device``
-    defaults to ``"cuda"`` and raises without a GPU."""
+    exponential wait between retries (0.5 -> 0.5, 1, 2 s ...).
+    ``breaker`` is an optional circuit breaker (``runtime/breaker.py``)
+    in front of every attempt. ``device`` defaults to ``"cuda"`` and
+    raises without a GPU."""
 
     def __init__(self, plan: SplitPlan, cfg: Config,
                  init: Union[torch.Generator, Sequence[Params]],
@@ -79,8 +82,6 @@ class SplitClientTrainer:
                  client_id: int = 0,
                  breaker: Optional[Any] = None,
                  device: DeviceLike = "cuda") -> None:
-        if breaker is not None:
-            raise not_ported("the circuit breaker", "item 13")
         if plan.stages_of("client") != (0,):
             raise ValueError(
                 "SplitClientTrainer expects the client to own exactly "
@@ -98,6 +99,7 @@ class SplitClientTrainer:
         self.retry_backoff = retry_backoff
         self.logger = logger
         self.client_id = client_id
+        self.breaker = breaker
         self.dropped_batches = 0
         self.stage = plan.stages[0]
         self._tx = make_tx(cfg)
@@ -107,7 +109,7 @@ class SplitClientTrainer:
     @property
     def wire_ef(self) -> Optional[Any]:
         """The transport's up-direction error-feedback ledger, when its
-        wire mode keeps one (``LocalTransport`` with topk8 or clapping)."""
+        wire mode keeps one (topk8 or clapping)."""
         return getattr(self.transport, "_ef", None)
 
     @property
@@ -160,6 +162,11 @@ class SplitClientTrainer:
         attempt = 0
         while True:
             try:
+                if self.breaker is not None:
+                    # while open this probes /health (backoff and jitter)
+                    # instead of sending the step to a dead server; it
+                    # raises TransportError when its budget is spent
+                    self.breaker.before_attempt()
                 if tid is not None:
                     obs_trace.CTX.trace_id = tid
                 t_tr0 = time.perf_counter() if tr is not None else 0.0
@@ -169,6 +176,8 @@ class SplitClientTrainer:
                 finally:
                     if tid is not None:
                         obs_trace.CTX.trace_id = None
+                if self.breaker is not None:
+                    self.breaker.record_success()
                 if tr is not None:
                     tr.record(spans.TRANSPORT, t_tr0,
                               time.perf_counter() - t_tr0, trace_id=tid,
@@ -176,11 +185,14 @@ class SplitClientTrainer:
                 break
             except Backpressure as exc:
                 # explicit flow control from a healthy server: wait the
-                # peer's advised delay, not a blind backoff
+                # peer's advised delay, not a blind backoff, and never
+                # count it toward the breaker's threshold
                 attempt += 1
                 if (self.failure_policy == FailurePolicy.RETRY
                         and attempt <= self.max_retries):
-                    if exc.retry_after_s > 0:
+                    if self.breaker is not None:
+                        self.breaker.backpressure_wait(exc.retry_after_s)
+                    elif exc.retry_after_s > 0:
                         time.sleep(exc.retry_after_s)
                     continue
                 if self.failure_policy == FailurePolicy.SKIP:
@@ -188,10 +200,16 @@ class SplitClientTrainer:
                     return None
                 raise
             except TransportError:
+                if self.breaker is not None:
+                    self.breaker.record_failure()
                 attempt += 1
                 if (self.failure_policy == FailurePolicy.RETRY
                         and attempt <= self.max_retries):
-                    if self.retry_backoff > 0:
+                    # with an open breaker the wait is its health probes;
+                    # the blind sleep is for blips below its threshold
+                    if self.retry_backoff > 0 and not (
+                            self.breaker is not None
+                            and self.breaker.state == "open"):
                         time.sleep(self.retry_backoff * 2 ** (attempt - 1))
                     continue
                 if self.failure_policy == FailurePolicy.SKIP:

@@ -1,7 +1,9 @@
 """Test-split evaluation (counterpart of ``split_learning_tpu/runtime/evaluate.py``).
 
-Accuracy and mean CE of a plan's full composition, with the JAX
-package's accounting: fixed order, the partial tail batch kept, every
+Accuracy and mean CE of a plan's full composition (:func:`evaluate`) or
+of the split-party composition, the server's stages behind
+``transport.predict`` (:func:`evaluate_remote`), with the JAX package's
+accounting: fixed order, the partial tail batch kept, every
 label element counted once (B for classifiers, B*T for the causal LM),
 perplexity exp(mean CE) nulled on overflow. Runs on the device the
 parameters lie on; the plan's own kernels (flash attention) run there
@@ -86,3 +88,39 @@ def split_client_stages(plan: SplitPlan, client_params: Sequence[Params]
     post_stages = [plan.stages[i] for i in client_idx if i > first_server]
     return (pre_stages, client_params[:len(pre_stages)],
             post_stages, client_params[len(pre_stages):])
+
+
+def evaluate_remote(plan: SplitPlan, client_params: Sequence[Params],
+                    transport: Any, split: Split,
+                    batch_size: int = 512) -> Dict[str, float]:
+    """Split-party inference: the client holds only its own stages, and
+    the server-owned compute runs behind ``transport.predict``.
+
+    ``client_params`` are the client-owned stages' parameters in plan
+    order. The client stages run on their parameters' device, without
+    autograd; ``transport.predict`` receives the cut tensor itself, so a
+    compressed wire encodes it where it lives (on the card, K3 or the
+    topk8 select launches), and the post-stages and the score run on
+    the reply. Labels never leave the client. The metrics equal
+    :func:`evaluate` of the full composition to float tolerance."""
+    pre_stages, pre_params, post_stages, post_params = \
+        split_client_stages(plan, client_params)
+    leaves = [t for p in client_params for t in p.values()]
+    device = leaves[0].device if leaves else torch.device("cpu")
+
+    @torch.no_grad()
+    def score(x, y):
+        x = torch.as_tensor(x).to(device)
+        if x.is_floating_point():
+            x = x.float()
+        for st, p in zip(pre_stages, pre_params):
+            x = st.apply(p, x)
+        out = transport.predict(x)
+        logits = torch.as_tensor(out).to(device)
+        for st, p in zip(post_stages, post_params):
+            logits = st.apply(p, logits)
+        y = torch.as_tensor(y).to(device, torch.int64)
+        return (cross_entropy(logits, y).item(),
+                (logits.argmax(dim=-1) == y).sum().item())
+
+    return _accumulate_metrics(split, batch_size, score)

@@ -42,13 +42,14 @@ from split_learning_tpu_torch.utils.device import DeviceLike, resolve_device
 def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for every value the fused trainer
     cannot run: a transport other than ``fused`` (the two-party path is
-    ``SplitClientTrainer`` over ``LocalTransport``), and
+    ``SplitClientTrainer`` over ``LocalTransport`` or ``HttpTransport``),
+    and
     :func:`~split_learning_tpu_torch.runtime.state.check_config`."""
     if cfg.transport != "fused":
         raise NotImplementedError(
             f"not ported yet: transport {cfg.transport!r} in the fused "
             "trainer (the two-party path, ROADMAP items 8-12, is "
-            "SplitClientTrainer over LocalTransport)")
+            "SplitClientTrainer over LocalTransport or HttpTransport)")
     check_config(cfg)
 
 

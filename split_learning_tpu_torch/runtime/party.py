@@ -29,6 +29,7 @@ from split_learning_tpu_torch.obs import locks as obs_locks
 from split_learning_tpu_torch.obs.metrics import Registry
 from split_learning_tpu_torch.runtime.replay import ReplayCache
 from split_learning_tpu_torch.transport import codec
+from split_learning_tpu_torch.transport.base import not_ported  # noqa: F401
 from split_learning_tpu_torch.utils.config import Config
 
 
@@ -41,12 +42,6 @@ class ProtocolError(RuntimeError):
     def __init__(self, message: str, status: int = 409) -> None:
         super().__init__(message)
         self.status = status
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error an argument or op of the JAX runtime that the port does
-    not run yet raises."""
-    return NotImplementedError(f"not ported yet: {what} (ROADMAP {item})")
 
 
 class PartyRuntime:

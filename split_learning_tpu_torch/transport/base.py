@@ -5,8 +5,9 @@ The reference realises it as pickle-over-HTTP: ``POST /forward_pass``
 carries activations and labels down and the cut-layer gradient back,
 ``GET /health`` reports mode and model (SURVEY.md §1 L2). The port has
 :class:`~split_learning_tpu_torch.transport.local.LocalTransport`, the
-in-process transport with full wire emulation; HTTP waits for ROADMAP
-item 12.
+in-process transport with full wire emulation, and
+:class:`~split_learning_tpu_torch.transport.http.HttpTransport`, the
+same frames over a real socket.
 
 Payloads at this boundary are numpy arrays, as in JAX, or tensors: a
 transport hands the peer what it was given and returns the reply in the
@@ -25,8 +26,20 @@ import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 Params = Any
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error an argument or op of the JAX package that the port does
+    not run yet raises, naming its ROADMAP item."""
+    return NotImplementedError(f"not ported yet: {what} (ROADMAP {item})")
+
+
+def device_of(x: Any) -> Optional["torch.device"]:
+    """Where a reply to ``x`` is decoded: its device, or None (numpy)."""
+    return x.device if isinstance(x, torch.Tensor) else None
 
 
 class TransportError(RuntimeError):

@@ -42,18 +42,9 @@ import torch
 from split_learning_tpu_torch.obs import trace as obs_trace
 from split_learning_tpu_torch.transport import codec
 from split_learning_tpu_torch.transport.base import (
-    Backpressure, Transport, TransportError, timed)
+    Backpressure, Transport, TransportError, device_of, not_ported, timed)
 
 COMPRESS_MODES = (None, "none", "int8", "topk8", "clapping")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"not ported yet: {what} (ROADMAP {item})")
-
-
-def _device_of(x: Any) -> Optional[torch.device]:
-    """Where a reply to ``x`` is decoded: its device, or None (numpy)."""
-    return x.device if isinstance(x, torch.Tensor) else None
 
 
 class LocalTransport(Transport):
@@ -76,7 +67,7 @@ class LocalTransport(Transport):
         if compress not in COMPRESS_MODES:
             raise ValueError(f"unknown compression {compress!r}")
         if density_controller is not None:
-            raise _not_ported("the adaptive density controller", "item 13")
+            raise not_ported("the adaptive density controller", "item 13")
         self.server = server
         self.through_codec = bool(through_codec)
         self.compress = compress
@@ -165,7 +156,7 @@ class LocalTransport(Transport):
                     self.server.split_step,
                     self._roundtrip(activations, dev),
                     self._roundtrip(labels, dev), step, client_id)
-                res = (self._roundtrip(grads, _device_of(activations)),
+                res = (self._roundtrip(grads, device_of(activations)),
                        float(loss))
             else:
                 res = self._split_step_wire(activations, labels, step,
@@ -188,7 +179,7 @@ class LocalTransport(Transport):
                                  client_id)
         resp, down = self._wire({
             "grads": self._pack_down(grads, (client_id, "/forward_pass")),
-            "loss": float(loss)}, _device_of(activations))
+            "loss": float(loss)}, device_of(activations))
         self.stats.add_bytes(sent=up, received=down)
         return resp["grads"], float(resp["loss"])
 
@@ -199,28 +190,28 @@ class LocalTransport(Transport):
                     self.server.predict,
                     self._roundtrip(activations, self._server_device()),
                     client_id)
-                return self._roundtrip(out, _device_of(activations))
+                return self._roundtrip(out, device_of(activations))
             req, up = self._wire(
                 {"activations": self._pack_stateless(activations)},
                 self._server_device())
             out = self._call(self.server.predict, req["activations"],
                              client_id)
             resp, down = self._wire({"outputs": self._pack_stateless(out)},
-                                    _device_of(activations))
+                                    device_of(activations))
             self.stats.add_bytes(sent=up, received=down)
             return resp["outputs"]
 
     def u_forward(self, activations: Any, step: int,
                   client_id: int = 0) -> Any:
-        raise _not_ported("u_forward (the U-shaped split)", "item 11")
+        raise not_ported("u_forward (the U-shaped split)", "item 11")
 
     def u_backward(self, feat_grads: Any, step: int,
                    client_id: int = 0) -> Any:
-        raise _not_ported("u_backward (the U-shaped split)", "item 11")
+        raise not_ported("u_backward (the U-shaped split)", "item 11")
 
     def aggregate(self, params: Any, epoch: int, loss: float, step: int,
                   num_examples: Optional[int] = None) -> Any:
-        raise _not_ported("aggregate (FedAvg)", "items 11 and 15")
+        raise not_ported("aggregate (FedAvg)", "items 11 and 15")
 
     def health(self) -> Dict[str, Any]:
         return self.server.health()

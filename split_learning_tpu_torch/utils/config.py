@@ -61,7 +61,8 @@ class Config:
     mode: str = "split"
     model: str = "split_cnn"
     dataset: str = "mnist"
-    # transport: the port runs "fused" only so far
+    # transport: "fused" (one program), "local" (two parties in one
+    # process) or "http" (the parties over a socket)
     transport: str = "local"
     server_url: str = "http://127.0.0.1:8000"
 

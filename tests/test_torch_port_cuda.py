@@ -545,6 +545,60 @@ def test_two_party_training_on_the_card(dev, compress):
     assert max(abs(a - b) for a, b in zip(*losses.values())) <= tol
 
 
+@pytest.mark.parametrize("compress", ["none", "int8", "topk8"])
+def test_two_party_over_http_on_the_card(dev, compress):
+    """The same two steps over a real socket: a SplitHTTPServer on
+    127.0.0.1:0 in a thread in front of the ServerRuntime on the card,
+    the client over HttpTransport. The local wire's exact launch counts
+    (the server decodes and packs on the card) and its losses within
+    1e-5 (cuDNN's default backward sums in a varying order)."""
+    from split_learning_tpu_torch.data import batches, synthetic
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops import quantize as qmod
+    from split_learning_tpu_torch.ops import topk as kmod
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    from split_learning_tpu_torch.runtime import (
+        ServerRuntime, SplitClientTrainer)
+    from split_learning_tpu_torch.transport import (
+        HttpTransport, LocalTransport, SplitHTTPServer)
+    from split_learning_tpu_torch.utils.config import Config
+    data = list(batches(synthetic("mnist", n_train=64, n_test=8).train, 32,
+                        seed=0))
+    losses = {}
+    for wire in ("local", "http"):
+        server = ServerRuntime(get_plan(), Config(batch_size=32),
+                               torch.Generator().manual_seed(0),
+                               device="cuda")
+        srv = None
+        if wire == "http":
+            srv = SplitHTTPServer(server).start()
+            transport = HttpTransport(srv.url, timeout=60,
+                                      compress=compress)
+        else:
+            transport = LocalTransport(server, compress=compress)
+        client = SplitClientTrainer(get_plan(), Config(batch_size=32),
+                                    torch.Generator().manual_seed(0),
+                                    transport, device="cuda")
+        LAUNCHES.reset()
+        try:
+            losses[wire] = [client.train_step(x, y, i)
+                            for i, (x, y) in enumerate(data)]
+            torch.cuda.synchronize()
+            counts = LAUNCHES.snapshot()
+        finally:
+            if srv is not None:
+                transport.close()
+                srv.stop()
+        per_step = {FWD: 1, BWD: 1, SGD: 2}
+        if compress == "int8":
+            per_step.update({qmod.QUANT: 2, qmod.DEQUANT: 2})
+        if compress == "topk8":
+            per_step.update({name: 2 for name in kmod.SELECT_LAUNCHES})
+        assert counts == {k: 2 * v for k, v in per_step.items()}
+    assert max(abs(a - b) for a, b in zip(*losses.values())) <= 1e-5
+
+
 @pytest.mark.parametrize("compress", [None, "none", "int8", "topk8"])
 def test_generate_remote_on_the_card(dev, compress):
     """Split-party decode of a small flash LM on the card: exactly 3 K5

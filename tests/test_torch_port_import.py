@@ -8,6 +8,9 @@
   or ``scripts`` in an import statement.
 - The two-party slice's modules (transport, obs, runtime.server,
   runtime.client, ops.quantize, ops.topk) import with jax blocked.
+- The HTTP slice's modules (transport.http, transport.chaos,
+  runtime.breaker, runtime.evaluate, launch.run) import with jax, flax,
+  optax and ``requests`` blocked, and a loopback round trip runs.
 - Asking for CUDA on a machine without a GPU raises: the trainers, the
   server, the CLI and the kernel build never fall back to the CPU.
 """
@@ -44,7 +47,7 @@ def _module_names():
 def test_every_port_module_imports_without_jax():
     code = (
         "import sys\n"
-        "for name in ('jax', 'flax', 'optax'):\n"
+        "for name in ('jax', 'flax', 'optax', 'requests'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for mod in {sorted(_module_names())!r}:\n"
@@ -100,6 +103,43 @@ def test_two_party_modules_import_without_jax():
         "d = codec.q8_compress(np.ones((2, 3), np.float32))\n"
         "assert codec.decompress_tree(codec.decode(codec.encode(d))).shape"
         " == (2, 3)\n"
+        "leaked = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] == 'split_learning_tpu')\n"
+        "assert not leaked, leaked\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+HTTP_MODULES = (
+    "split_learning_tpu_torch.transport.http",
+    "split_learning_tpu_torch.transport.chaos",
+    "split_learning_tpu_torch.runtime.breaker",
+    "split_learning_tpu_torch.runtime.evaluate",
+    "split_learning_tpu_torch.obs.metrics",
+    "split_learning_tpu_torch.launch.run")
+
+
+def test_http_modules_import_without_jax_or_requests():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'flax', 'optax', 'requests', 'urllib3'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for mod in {HTTP_MODULES!r}:\n"
+        "    importlib.import_module(mod)\n"
+        "from split_learning_tpu_torch.transport import (\n"
+        "    HttpTransport, SplitHTTPServer)\n"
+        "class Rt:\n"
+        "    def health(self):\n"
+        "        return {'status': 'healthy', 'mode': 'split'}\n"
+        "srv = SplitHTTPServer(Rt()).start()\n"
+        "t = HttpTransport(srv.url, timeout=10)\n"
+        "assert t.wait_ready(timeout=10)['mode'] == 'split'\n"
+        "t.close()\n"
+        "srv.stop()\n"
         "leaked = sorted(m for m in sys.modules\n"
         "                if m.split('.')[0] == 'split_learning_tpu')\n"
         "assert not leaked, leaked\n"

@@ -43,7 +43,7 @@ from split_learning_tpu_torch.interop import params_from_jax, params_to_jax
 from split_learning_tpu_torch.models import get_plan
 from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.runtime import (
-    ProtocolError, ServerRuntime, SplitClientTrainer)
+    CircuitBreaker, ProtocolError, ServerRuntime, SplitClientTrainer)
 from split_learning_tpu_torch.runtime.party import _DeferredApply
 from split_learning_tpu_torch.transport import (
     FaultInjector, FaultyTransport, LocalTransport, TransportError)
@@ -398,10 +398,11 @@ def test_unported_modes_and_ops_raise():
             call()
     with pytest.raises(NotImplementedError, match="item 13"):
         LocalTransport(server, density_controller=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        SplitClientTrainer(get_plan(), Config(),
-                           torch.Generator().manual_seed(0), t,
-                           breaker=object(), device="cpu")
+    breaker = CircuitBreaker(t.health)   # ported: accepted, not refused
+    assert SplitClientTrainer(get_plan(), Config(),
+                              torch.Generator().manual_seed(0), t,
+                              breaker=breaker,
+                              device="cpu").breaker is breaker
     with pytest.raises(ValueError, match="item 11"):
         SplitClientTrainer(get_plan(mode="u_split"), Config(),
                            torch.Generator().manual_seed(0), t, device="cpu")
@@ -444,7 +445,6 @@ def test_cli_without_device_cpu_raises(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--compress-density", "auto"], "item 13"),
     (["--replicas", "2"], "item 19"),
     (["--pipeline-depth", "2"], "item 15"),
     (["--mode", "federated"], "items 11"),
