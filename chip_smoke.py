@@ -175,12 +175,52 @@ beside this script. Phases, any failure ending the run with a traceback:
    subprocess, ``launch.run.main(["train", "--transport", "http",
    ...])`` against the URL of its ``[serve]`` line (5 int8 steps at lr
    0.02: rc 0, a falling loss, the client's launches), and SIGINT to
-   the server (rc 0). Every wait has a timeout.
+   the server (rc 0). Every wait has a timeout;
+18. K2 on bf16 leaves, and the fused LM in bf16 at phase 10's width: K2
+   alone on mixed float32/bf16 leaf lists (the bf16 LM's 54 leaves,
+   whose ``pos`` table is bf16, and 300 leaves of odd sizes alternating
+   the dtypes, every third a view one element off its vector alignment),
+   momentum 0 and 0.9, five steps: bit-identical to the plain version,
+   one launch a step; its time at the bf16 LM's 54 leaves beside
+   ``torch.optim.SGD(fused=True)`` and the bound (a bf16 leaf moves 2 +
+   2 + 2 bytes and an 8-byte trace read and write). Then
+   ``FusedSplitTrainer`` on ``cuda`` with the split causal LM in bf16
+   (``synthetic_lm``, batch 64, T 1024, 30 steps) under SGD (lr 0.1,
+   momentum 0.9) and under AdamW (lr 3e-4, weight decay 0.1), each with
+   a 5-step warmup, a cosine decay to 0 at step 30 and clipping at a
+   global norm of 1.0. Launch counts reset before and read after each:
+   per step exactly 3 K5, 3 of each K6 launch, one K1 pair, and one K2
+   launch under SGD, none under AdamW. The loss must fall, the leaves
+   keep their dtypes (float32, the ``pos`` table bf16), and a bf16 CPU
+   twin on the first 2 rows of the first 3 batches agrees on those
+   rows' losses within two bf16 ulps at the loss's magnitude
+   (:func:`bf16_loss_tol` derives it). Median step ms over steps 6-30
+   and tokens/s beside phase 10's float32 step, and a profiler window
+   of 10 steps per optimizer;
+19. the two-party LM at full width: ``SplitClientTrainer`` over
+   ``LocalTransport(ServerRuntime)`` with phase 18's LM (the client owns
+   the embedding and block 0, the server blocks 1-2 and the head; the
+   cut [64, 1024, 256]), AdamW with phase 18's schedule and clipping, in
+   float32 and bf16 over ``none``, ``int8`` and ``topk8`` (density 0.1),
+   30 steps each. Launch counts reset before and read after each: per
+   step exactly 3 K5 and 3 of each K6 launch (client 1, server 2), one
+   K1 pair (server), no K2, plus 2 K3 quantize and 2 dequantize launches
+   for int8, 2 of each K4s launch for topk8. One host sync per card
+   encode; the bf16 frame twin at steps 1-3 of int8 and topk8 (the host
+   codec on the same values, widened); a float32 ``none`` CPU twin on
+   the first 2 rows of 5 batches within 1e-4. Median step ms, tokens/s,
+   frame bytes per step and a profiler window of 10 steps per run. Then
+   ``launch.run serve --dtype bfloat16 --optimizer adamw ... --device
+   cuda`` as a subprocess, and ``train --transport http`` with the same
+   flags (warmup 2, decay 10, clip 1.0, lr 3e-3, int8) for 5 steps
+   against it: both rc 0, a falling loss, the client's launches exact
+   (its block's K5 and K6, its int8 encode and decode).
 
 Output, last lines: one JSON object with a record per kernel, one JSON
 object with the main path's step time, one with the serving path's
 times, one with the LM training path's, one with the two-party path's,
-one with split-party decode's, one with the HTTP wire's (``http``), the
+one with split-party decode's, one with the HTTP wire's (``http``), one
+with phases 18-19 (``train_lm_bf16``, ``two_party_lm``), the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``.
 """
@@ -267,6 +307,15 @@ HTTP_TIMEOUT, CLI_START_TIMEOUT = 60.0, 180.0
 CHAOS_SPEC = "drop_resp=0.2,corrupt=0.1,http500=0.1,drop_req=0.1"
 CHAOS_SEED, CHAOS_MODES, CHAOS_LOSS_TOL = 0, ("int8", "topk8"), 1e-5
 HTTP_EVAL_RTOL, CLI_LR = 1e-5, 0.02
+# phases 18-19: the LM as its users configure it. bf16 (and float32 for
+# the two-party pair), SGD at phase 10's lr and momentum or AdamW, both
+# behind a linear warmup, a cosine decay to 0 at step 30 and clipping at
+# a global norm of 1.0. The CLI run over HTTP: 5 steps, warmup 2, decay 10
+LM_SCHEDULE = dict(warmup_steps=5, decay_steps=TRAIN_STEPS, grad_clip_norm=1.0)
+LM_OPTIMS = {"sgd": dict(lr=TRAIN_LR, momentum=TRAIN_MU),
+             "adamw": dict(optimizer="adamw", lr=3e-4, weight_decay=0.1)}
+TP_LM_DTYPES = ("float32", "bfloat16")
+LM_CLI_LR = 3e-3
 # planted faults, each a copy of one source with one expression replaced:
 # K3 rounding halves away from zero, K4 keeping the last ties
 PLANTS = {
@@ -543,23 +592,33 @@ def ce_times(torch, dev, gen, bw, fp32) -> dict:
                     ("bwd", "ce_bwd_kernel",
                      lambda: ce_backward_cuda(x, y, lse, g_one))):
                 # an idle device when tracing starts: a first kernel that
-                # raced the profiler's start went unrecorded once
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                # raced the profiler's start went unrecorded once. A window
+                # in which the profiler traced no device activity at all
+                # (it happened once, on the third window of a run) measured
+                # nothing: it is taken again, at most twice, and counted
+                for attempt in range(3):
                     torch.cuda.synchronize()
-                    for _ in range(CE_PROFILE_CALLS):
-                        fn()
-                    torch.cuda.synchronize()
-                kernels, busy_us = {}, 0.0
-                for e in prof.events():
-                    if e.device_type == torch.autograd.DeviceType.CUDA:
-                        kernels[e.name] = kernels.get(e.name, 0) + 1
-                        busy_us += e.time_range.end - e.time_range.start
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        torch.cuda.synchronize()
+                        for _ in range(CE_PROFILE_CALLS):
+                            fn()
+                        torch.cuda.synchronize()
+                    kernels, busy_us = {}, 0.0
+                    for e in prof.events():
+                        if e.device_type == torch.autograd.DeviceType.CUDA:
+                            kernels[e.name] = kernels.get(e.name, 0) + 1
+                            busy_us += e.time_range.end - e.time_range.start
+                    if kernels:
+                        break
+                    print(f"[k1] {part} {cut} {name}: the profiler traced "
+                          "no device activity; window taken again",
+                          flush=True)
                 check(sum(kernels.values()) == CE_PROFILE_CALLS and
                       all(kernel in k for k in kernels),
                       f"K1 {part} {cut} {name}: {CE_PROFILE_CALLS} calls "
                       f"ran the device kernels {kernels}")
                 prof_of[part] = dict(
+                    profiler_empty_windows=attempt,
                     device_kernels_per_call=sum(kernels.values())
                     / CE_PROFILE_CALLS,
                     kernel_ms_profiler=busy_us / 1e3 / CE_PROFILE_CALLS)
@@ -802,7 +861,11 @@ class FrameTwin:
             if self._seen[direction] >= self.steps:
                 return counted(arr, *key)
             self._seen[direction] += 1
-            x_host = arr.detach().cpu().numpy()
+            # numpy has no bfloat16 here: the host codec takes a bf16
+            # tensor's values widened to float32 (exact) and its frame is
+            # labelled bfloat16, as the card's is
+            bf16 = arr.dtype == torch.bfloat16
+            x_host = arr.detach().cpu().float().numpy()
             prev = None
             if ef_of is not None:
                 prev = ef_of().residual(key[0])
@@ -820,6 +883,8 @@ class FrameTwin:
                         key[0] if role is None else key[0][role]))
                 ok = np.array_equal(
                     ef_of().residual(key[0]).detach().cpu().numpy(), res_h)
+            if bf16:
+                host["dtype"] = "bfloat16"
             self.frames += 1
             self.mismatched += int(
                 not ok or codec.encode(packed) != codec.encode(host))
@@ -1559,22 +1624,29 @@ def wire_times(torch, dev, gen, bw, fp32):
             bytes=12 * n + payload, bound_ms=b_ms, bound_by=b_by,
             bytes_stateless=4 * n + payload, bound_ms_stateless=b0_ms)
         # each launch's device time, from the profiler, per encode
+        # (a window that traced no device activity is taken again, at
+        # most twice, as phase 5's K1 windows are)
         reps = 20
         for _ in range(3):
-            new()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(3):
                 new()
             torch.cuda.synchronize()
-        per = {name: 0.0 for name in kmod.SELECT_LAUNCHES}
-        for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            for sym, name in symbols.items():
-                if sym in e.name:
-                    per[name] += e.time_range.end - e.time_range.start
-                    break
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    new()
+                torch.cuda.synchronize()
+            per = {name: 0.0 for name in kmod.SELECT_LAUNCHES}
+            traced = False
+            for e in prof.events():
+                if e.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                traced = True
+                for sym, name in symbols.items():
+                    if sym in e.name:
+                        per[name] += e.time_range.end - e.time_range.start
+                        break
+            if traced:
+                break
         # the bytes each launch must move: its inputs once, its outputs once
         launch_bytes = {kmod.SELECT_LAUNCHES[0]: 12 * n,
                         kmod.SELECT_LAUNCHES[1]: 4 * n,
@@ -1596,6 +1668,378 @@ def wire_times(torch, dev, gen, bw, fp32):
               f", old {encode[label]['old_host_ms']:.4f} host ms, torch.topk "
               f"{encode[label]['library_ms']:.4f})", flush=True)
     return out, encode
+
+
+def bf16_loss_tol(loss: float) -> float:
+    """Two bf16 ulps at the magnitude of ``loss``: 0.0625 in [4, 8). The
+    card and the CPU round the bf16 activations and logits at the same
+    places but sum their float32 products in other orders, so a logit can
+    land one bf16 ulp apart; the cross-entropy of such logits moves by
+    about as much as a logit does, and three updates later the parameters
+    have moved by less than that rounding."""
+    return 2 * 2.0 ** (math.floor(math.log2(abs(loss))) - 7)
+
+
+def k2_bf16_checks(torch, dev, gen, lm_leaves) -> int:
+    """Phase 18, K2 alone: mixed float32/bf16 leaf lists (the bf16 LM's
+    54 leaves, whose ``pos`` table is bf16, and SGD_MANY leaves of odd
+    sizes alternating the two dtypes, every third a view one element off
+    its vector alignment), at momentum 0 and 0.9 over five steps:
+    bit-identical to the plain version, each step one launch. Returns the
+    number of leaf lists held."""
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.ops.sgd import (
+        NAME as SGD, sgd_step_cuda, sgd_step_plain)
+    rs = np.random.RandomState(SGD_MANY + 1)
+    many = [((int(v),), torch.bfloat16 if i % 2 else torch.float32)
+            for i, v in enumerate(rs.randint(1, 3000, SGD_MANY))]
+    lists = 0
+    for label, spec in (("bf16 LM", lm_leaves), ("mixed", many)):
+        def leaves():
+            out = []
+            for i, (sh, dt) in enumerate(spec):
+                if label == "mixed" and i % 3 == 0:
+                    out.append(torch.randn(math.prod(sh) + 1, device=dev,
+                                           generator=gen).to(dt)[1:].view(sh))
+                else:
+                    out.append(torch.randn(sh, device=dev,
+                                           generator=gen).to(dt))
+            return out
+        for mu in (0.0, 0.9):
+            p_k = leaves()
+            p_p = [t.clone() for t in p_k]
+            m_k = ([torch.zeros(t.shape, device=dev) for t in p_k] if mu
+                   else None)
+            m_p = [t.clone() for t in m_k] if mu else None
+            for _ in range(5):
+                grads = leaves()
+                LAUNCHES.reset()
+                sgd_step_cuda(p_k, grads, m_k, TRAIN_LR, mu)
+                torch.cuda.synchronize()
+                check(LAUNCHES.snapshot() == {SGD: 1},
+                      f"SGD launches for {label}: {LAUNCHES.snapshot()}")
+                sgd_step_plain(p_p, grads, m_p, TRAIN_LR, mu)
+            for a, b in zip(p_k + (m_k or []), p_p + (m_p or [])):
+                check(torch.equal(a, b), f"SGD {label} mu={mu}: not "
+                      f"bit-identical (max abs "
+                      f"{(a.float() - b.float()).abs().max().item()})")
+            lists += 1
+    return lists
+
+
+def lm_train_counts(steps, sgd: bool) -> dict:
+    """The LM's launches over ``steps`` steps: per step one K5 and one of
+    each K6 launch per block, one K1 pair, and K2 once under SGD."""
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.flash_attention import (
+        BWD_NAMES, NAME as FA)
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    want = {FA: N_BLOCKS * steps, **{n: N_BLOCKS * steps for n in BWD_NAMES},
+            FWD: steps, BWD: steps}
+    if sgd:
+        want[SGD] = steps
+    return want
+
+
+def lm_bf16_runs(torch, tr_data):
+    """Phase 18's fused LM in bf16 at phase 10's width, under SGD and
+    AdamW with the schedule and clipping of :data:`LM_SCHEDULE`: exact
+    launch counts, a falling loss, the leaves' dtypes, a bf16 CPU twin on
+    the first rows, step times and a profiler window per optimizer."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.runtime import FusedSplitTrainer
+    from split_learning_tpu_torch.utils import Config
+    plan = get_plan(dtype="bfloat16", **LM)
+    init = plan.init(torch.Generator().manual_seed(0), torch.zeros(1))
+    rows = [(x[:TWIN_ROWS], y[:TWIN_ROWS]) for x, y in tr_data[:TWIN_STEPS]]
+    runs, totals = {}, {}
+    for name, okw in LM_OPTIMS.items():
+        cfg = Config(transport="fused", model="transformer_lm", attn="flash",
+                     batch_size=TRAIN_B, dtype="bfloat16", **LM_SCHEDULE,
+                     **okw)
+        trainer = FusedSplitTrainer(plan, cfg, init, tr_data[0][0],
+                                    device="cuda")
+        LAUNCHES.reset()
+        losses, ms = [], []
+        for x, y in tr_data:
+            t = time.perf_counter()
+            losses.append(trainer.train_step(x, y))  # float(): syncs
+            ms.append((time.perf_counter() - t) * 1e3)
+        counts = LAUNCHES.snapshot()
+        want = lm_train_counts(TRAIN_STEPS, name == "sgd")
+        print(f"[bf16] fused LM {name}: {TRAIN_STEPS} steps, launches "
+              f"{counts}, losses {losses[0]:.4f} -> {losses[-1]:.4f}",
+              flush=True)
+        check(counts == want, f"bf16 {name} launches {counts}, want {want}")
+        check(all(math.isfinite(v) for v in losses), f"bf16 {name}: finite")
+        check(statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
+              f"bf16 {name}: loss did not fall: {losses}")
+        for st in trainer.params:
+            for k, v in st.items():
+                check(v.dtype == (torch.bfloat16 if k == "pos"
+                                  else torch.float32), f"{k} dtype {v.dtype}")
+                check(bool(torch.isfinite(v).all()), f"finite {k}")
+        twin_cfg = cfg.replace(batch_size=TWIN_ROWS)
+        card = FusedSplitTrainer(plan, twin_cfg, init, rows[0][0],
+                                 device="cuda")
+        cpu = FusedSplitTrainer(plan, twin_cfg, init, rows[0][0],
+                                device="cpu")
+        card_l = [card.train_step(x, y) for x, y in rows]
+        cpu_l = [cpu.train_step(x, y) for x, y in rows]
+        gaps = [abs(a - b) for a, b in zip(card_l, cpu_l)]
+        tols = [bf16_loss_tol(b) for b in cpu_l]
+        check(all(g <= t for g, t in zip(gaps, tols)),
+              f"bf16 {name} CPU twin: card {card_l} vs cpu {cpu_l}")
+        print(f"[bf16] {name} CPU twin on {TWIN_ROWS} rows x {TWIN_STEPS} "
+              f"steps within {max(gaps):.3g} (tolerance {tols})", flush=True)
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        steady = ms[5:]
+        runs[name] = dict(
+            optimizer=cfg.optimizer, lr=cfg.lr, momentum=cfg.momentum,
+            weight_decay=cfg.weight_decay, **LM_SCHEDULE,
+            step_ms_median=statistics.median(steady),
+            step_ms_min=min(steady), step_ms_max=max(steady),
+            step_ms_first=ms[0],
+            tokens_per_s=TRAIN_B * TRAIN_T / statistics.median(steady) * 1e3,
+            loss_first=losses[0], loss_last=losses[-1], launches=counts,
+            twin_card=card_l, twin_cpu=cpu_l, twin_tol=tols,
+            profile=profile_steps(torch, trainer, tr_data[:PROFILE_STEPS]))
+        del trainer, card, cpu
+    return runs, totals
+
+
+def two_party_lm_stack(torch, mode, device, dtype, init, batch=TRAIN_B):
+    """The two-party LM at phase 10's width under AdamW with
+    :data:`LM_SCHEDULE`: the client owns the embedding and block 0, the
+    server blocks 1-2 and the head; both from ``init``."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.runtime import (
+        ServerRuntime, SplitClientTrainer)
+    from split_learning_tpu_torch.transport import LocalTransport
+    from split_learning_tpu_torch.utils import Config
+    plan = get_plan(dtype=dtype, **LM)
+    cfg = Config(transport="local", model="transformer_lm", attn="flash",
+                 batch_size=batch, dtype=dtype, **LM_SCHEDULE,
+                 **LM_OPTIMS["adamw"])
+    server = ServerRuntime(plan, cfg, init, device=device)
+    transport = LocalTransport(server, compress=mode, density=DENSITY)
+    client = SplitClientTrainer(plan, cfg, init, transport, device=device)
+    return client, transport, server
+
+
+def two_party_lm_runs(torch, tr_data):
+    """Phase 19 over the local wire: the two-party LM in float32 and bf16
+    over ``none``, ``int8`` and ``topk8``, 30 AdamW steps each, with exact
+    launch counts, one host sync per card encode, the bf16 frame twin at
+    steps 1-3, step times, frame bytes and a profiler window per run; then
+    a float32 ``none`` CPU twin on the first rows."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.transport import codec
+    inits = {dt: get_plan(dtype=dt, **LM).init(
+        torch.Generator().manual_seed(0), torch.zeros(1))
+        for dt in TP_LM_DTYPES}
+    # per step: the client's block (1 K5, 1 of each K6), the server's two
+    # blocks and its K1 pair; AdamW launches no K2
+    per_step = lm_train_counts(1, sgd=False)
+    runs, totals, twins = {}, {}, {}
+    for dtype in TP_LM_DTYPES:
+        for mode in WIRE_MODES:
+            client, transport, server = two_party_lm_stack(
+                torch, mode, "cuda", dtype, inits[dtype])
+            twin = None
+            if mode != "none":
+                twin = FrameTwin(torch, codec, mode, steps=(
+                    FRAME_TWIN_STEPS if dtype == "bfloat16" else 0))
+                twin.attach_step(transport, server)
+            LAUNCHES.reset()
+            losses, ms = [], []
+            for i, (x, y) in enumerate(tr_data):
+                t = time.perf_counter()
+                losses.append(client.train_step(x, y, i))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+            counts = LAUNCHES.snapshot()
+            want = {k: v * TRAIN_STEPS for k, v in
+                    {**per_step, **wire_launches(mode, 2)}.items()}
+            label = f"{dtype} {mode}"
+            print(f"[two-party LM] {label}: {TRAIN_STEPS} steps, launches "
+                  f"{counts}, losses {losses[0]:.4f} -> {losses[-1]:.4f}",
+                  flush=True)
+            check(counts == want, f"two-party LM {label} launches {counts}, "
+                                  f"want {want}")
+            check(all(math.isfinite(v) for v in losses), f"{label}: finite")
+            check(statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
+                  f"two-party LM {label}: loss did not fall: {losses}")
+            if twin is not None:
+                check(twin.packs == 2 * TRAIN_STEPS and set(twin.syncs) == {1},
+                      f"{label}: host syncs per card encode "
+                      f"{sorted(set(twin.syncs))} over {twin.packs} frames")
+                if dtype == "bfloat16":
+                    check(twin.frames == 2 * FRAME_TWIN_STEPS
+                          and twin.mismatched == 0,
+                          f"{label} frame twin: {twin.mismatched} of "
+                          f"{twin.frames} frames differ from the host "
+                          "codec's")
+                    twins[mode] = dict(frames=twin.frames,
+                                       mismatched=twin.mismatched)
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            stats = transport.stats.summary()
+
+            def more_steps(client=client):
+                for i, (x, y) in enumerate(tr_data[:PROFILE_STEPS]):
+                    client.train_step(x, y, TRAIN_STEPS + i)
+                torch.cuda.synchronize()
+            steady = ms[5:]
+            runs[label] = dict(
+                dtype=dtype, compress=mode,
+                step_ms_median=statistics.median(steady),
+                step_ms_min=min(steady), step_ms_max=max(steady),
+                step_ms_first=ms[0], tokens_per_s=(
+                    TRAIN_B * TRAIN_T / statistics.median(steady) * 1e3),
+                wire_bytes_up_per_step=stats["bytes_sent"] / TRAIN_STEPS,
+                wire_bytes_down_per_step=(stats["bytes_received"]
+                                          / TRAIN_STEPS),
+                compression_ratio=stats.get("compression_ratio"),
+                loss_first=losses[0], loss_last=losses[-1], launches=counts,
+                launches_per_step={**per_step, **wire_launches(mode, 2)},
+                host_syncs_per_encode=(None if twin is None
+                                       else twin.syncs[0]),
+                profile=profile_window(torch, more_steps, PROFILE_STEPS))
+            del client, transport, server
+    rows = [(x[:TWIN_ROWS], y[:TWIN_ROWS])
+            for x, y in tr_data[:WIRE_TWIN_STEPS]]
+    pair = {dev: two_party_lm_stack(torch, "none", dev, "float32",
+                                    inits["float32"], TWIN_ROWS)[0]
+            for dev in ("cuda", "cpu")}
+    twin_l = {dev: [c.train_step(x, y, i) for i, (x, y) in enumerate(rows)]
+              for dev, c in pair.items()}
+    diff = max(abs(a - b) for a, b in zip(twin_l["cuda"], twin_l["cpu"]))
+    check(diff <= TWIN_TOL, f"two-party LM CPU twin: {twin_l}")
+    print(f"[two-party LM] float32 none CPU twin on {TWIN_ROWS} rows x "
+          f"{WIRE_TWIN_STEPS} steps within {diff:.3g}; bf16 frame twin "
+          f"{twins}", flush=True)
+    return dict(runs=runs, frame_twin_bf16=twins,
+                cpu_twin=dict(rows=TWIN_ROWS, steps=WIRE_TWIN_STEPS,
+                              card=twin_l["cuda"], cpu=twin_l["cpu"],
+                              max_abs_diff=diff)), totals
+
+
+def lm_cli_http(torch, launch_run) -> dict:
+    """Phase 19 over HTTP: ``launch.run serve`` with the bf16 AdamW LM as
+    a subprocess on the card, and ``train --transport http`` with the same
+    flags against it for 5 int8 steps: both rc 0, a falling loss, and the
+    client's launches exact (its block's K5 and K6, its int8 encode and
+    decode; the server's K1 runs in the other process, AdamW has no K2)."""
+    import contextlib
+    import io
+    import queue
+    import signal
+    import subprocess
+    import threading
+
+    from split_learning_tpu_torch.ops import quantize as qmod
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.ops.flash_attention import (
+        BWD_NAMES, NAME as FA)
+    flags = ["--device", "cuda", "--model", "transformer_lm", "--dataset",
+             "lm", "--seq-len", str(TRAIN_T), "--d-model",
+             str(LM["d_model"]), "--num-heads", str(LM["num_heads"]),
+             "--client-depth", str(LM["client_depth"]), "--server-depth",
+             str(LM["server_depth"]), "--attn", "flash", "--batch-size",
+             str(TRAIN_B), "--dtype", "bfloat16", "--optimizer", "adamw",
+             "--lr", str(LM_CLI_LR), "--weight-decay", "0.1",
+             "--warmup-steps", "2", "--decay-steps", "10",
+             "--grad-clip-norm", "1.0", "--data-dir",
+             os.path.join(REPO, "build", "chip_smoke_data")]
+    err_path = os.path.join(REPO, "build", "chip_smoke_serve_lm.err")
+    os.makedirs(os.path.dirname(err_path), exist_ok=True)
+    with open(err_path, "w") as err_f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "split_learning_tpu_torch.launch.run",
+             "serve", "--port", "0", "--host", "127.0.0.1", *flags],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=err_f, text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                     daemon=True).start()
+    try:
+        try:
+            first = lines.get(timeout=CLI_START_TIMEOUT)
+        except queue.Empty:
+            first = ""
+        check(first.startswith("[serve] mode=split role=server listening on "),
+              f"serve printed {first!r}; stderr: "
+              f"{open(err_path).read()[-2000:]}")
+        url = first.split("listening on ")[1].strip()
+        out = io.StringIO()
+        LAUNCHES.reset()
+        with contextlib.redirect_stdout(out):
+            rc = launch_run.main([
+                "train", "--transport", "http", "--server-url", url,
+                "--compress", "int8", "--steps", "5", "--tracking",
+                "stdout", "--wait-server", "60", *flags])
+        counts = LAUNCHES.snapshot()
+        text = out.getvalue()
+        print(text, end="", flush=True)
+        check(rc == 0, f"LM train --transport http returned {rc}")
+        first_loss = float(next(
+            ln for ln in text.splitlines()
+            if ln.startswith("[step 0] loss:")).split(":")[1])
+        final = float(text.split("final_loss=")[1].split()[0])
+        check(final < first_loss, f"LM CLI over HTTP: loss {first_loss} -> "
+                                  f"{final}")
+        want = {FA: 5, **{n: 5 for n in BWD_NAMES}, qmod.QUANT: 5,
+                qmod.DEQUANT: 5}
+        check(counts == want, f"LM CLI client launches {counts}, want {want}")
+        proc.send_signal(signal.SIGINT)
+        serve_rc = proc.wait(timeout=60)
+        check(serve_rc == 0, f"LM serve exited {serve_rc}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    return dict(serve_rc=serve_rc, train_rc=rc, loss_first=first_loss,
+                loss_final=final, client_launches=counts,
+                flags=" ".join(flags))
+
+
+def k2_bf16_times(torch, dev, gen, lm_leaves, bw, fp32) -> dict:
+    """K2 at the bf16 LM's 54 leaves (its ``pos`` table bf16), momentum
+    0.9: one launch, its plain version, ``torch.optim.SGD(fused=True)``,
+    and the bound (float32 leaves 20 bytes, bf16 leaves 2 + 2 + 2 bytes
+    and an 8-byte trace read and write)."""
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.ops.sgd import (
+        NAME as SGD, sgd_step_cuda, sgd_step_plain)
+    p = [torch.randn(sh, device=dev, generator=gen).to(dt)
+         for sh, dt in lm_leaves]
+    g = [(1e-3 * torch.randn(sh, device=dev, generator=gen)).to(dt)
+         for sh, dt in lm_leaves]
+    m = [torch.zeros(t.shape, device=dev) for t in p]
+    n_bf16 = sum(t.numel() for t in p if t.dtype == torch.bfloat16)
+    n_all = sum(t.numel() for t in p)
+    nbytes = 20 * (n_all - n_bf16) + 14 * n_bf16
+    opt_p = [t.clone() for t in p]
+    for t, g_ in zip(opt_p, g):
+        t.grad = g_
+    opt = torch.optim.SGD(opt_p, lr=TRAIN_LR, momentum=TRAIN_MU, fused=True)
+    b_ms, b_by = bound(nbytes, 4 * n_all, bw, fp32)
+    LAUNCHES.reset()
+    sgd_step_cuda(p, g, m, TRAIN_LR, TRAIN_MU)
+    launches = LAUNCHES.snapshot()[SGD]
+    return dict(
+        leaves=len(p), params=n_all, bf16_params=n_bf16, momentum=TRAIN_MU,
+        launches_per_step=launches,
+        ms=device_ms(torch, lambda: sgd_step_cuda(p, g, m, TRAIN_LR,
+                                                  TRAIN_MU)),
+        plain_ms=device_ms(torch, lambda: sgd_step_plain(p, g, m, TRAIN_LR,
+                                                         TRAIN_MU)),
+        library_ms=device_ms(torch, opt.step),
+        library_call="torch.optim.SGD(fused=True).step()", bytes=nbytes,
+        bound_ms=b_ms, bound_by=b_by)
 
 
 def main() -> int:
@@ -2402,8 +2846,30 @@ def main() -> int:
     http_serving_rec, http_dec_counts = http_serving(
         torch, launch_run, ds, http_keep, dec_ctx, decode)
 
+    # ---- 18. K2 on bf16 leaves; the fused LM in bf16 ----------------- #
+    lm_bf16_leaves = [(tuple(t.shape), t.dtype) for st in get_plan(
+        dtype="bfloat16", **LM).init(torch.Generator().manual_seed(0),
+                                     torch.zeros(1)) for t in st.values()]
+    check(len(lm_bf16_leaves) == LM_LEAVES
+          and sum(dt == torch.bfloat16 for _, dt in lm_bf16_leaves) == 1,
+          "the bf16 LM: 54 leaves, its pos table bf16")
+    k2_lists = k2_bf16_checks(torch, dev, gen, lm_bf16_leaves)
+    print(f"[k2] bf16: bit-identical to its plain version on {k2_lists} "
+          f"mixed float32/bf16 leaf lists (the bf16 LM's {LM_LEAVES}, "
+          f"{SGD_MANY} of odd sizes, unaligned views; mu 0 and 0.9, 5 steps), "
+          "each step one launch", flush=True)
+    records[2]["bf16_lm_leaves"] = k2_bf16_times(torch, dev, gen,
+                                                 lm_bf16_leaves, bw, fp32)
+    bf16_runs, bf16_counts = lm_bf16_runs(torch, tr_data)
+
+    # ---- 19. the two-party LM: local wire, then the CLI over HTTP ---- #
+    tp_lm, tp_lm_counts = two_party_lm_runs(torch, tr_data)
+    tp_lm["cli_http"] = lm_cli_http(torch, launch_run)
+
     for rec in records:
         key = launch_of.get(rec["name"], rec["name"])
+        rec["launches_train_lm_bf16"] = bf16_counts.get(key, 0)
+        rec["launches_two_party_lm"] = tp_lm_counts.get(key, 0)
         rec["launches_two_party"] = tp_counts.get(key, 0)
         rec["launches_decode"] = dec_counts.get(key, 0)
         rec["launches_http"] = http_counts.get(key, 0)
@@ -2429,6 +2895,8 @@ def main() -> int:
             launches_decode=dec_counts.get(name, 0),
             launches_http=http_counts.get(name, 0),
             launches_http_decode=http_dec_counts.get(name, 0),
+            launches_two_party_lm=tp_lm_counts.get(name, 0),
+            launches_train_lm_bf16=bf16_counts.get(name, 0),
             launches_per_step={mode: r["launches_per_step"].get(name, 0)
                                for mode, r in two_party["modes"].items()},
             max_abs_err=wire_err[name], library_call=lib_call,
@@ -2459,6 +2927,17 @@ def main() -> int:
         server="SplitHTTPServer on 127.0.0.1:0, a thread of this process",
         **http_rec, **http_serving_rec))
 
+    lm_line = dict(train_lm_bf16=dict(
+        model="transformer_lm", mode="split", dtype="bfloat16",
+        d_model=LM["d_model"], num_heads=LM["num_heads"], vocab=LM["vocab"],
+        blocks=N_BLOCKS, attn="flash", batch=TRAIN_B, seq_len=TRAIN_T,
+        steps=TRAIN_STEPS, device=kind, card=smi,
+        float32_sgd_step_ms_median=train_lm["train_lm"]["step_ms_median"],
+        runs=bf16_runs), two_party_lm=dict(
+        model="transformer_lm", mode="split", transport="local",
+        batch=TRAIN_B, seq_len=TRAIN_T, cut=list(LM_CUT), steps=TRAIN_STEPS,
+        density=DENSITY, optimizer="adamw", device=kind, card=smi, **tp_lm))
+
     print(json.dumps({"kernels": records}))
     print(json.dumps(step))
     print(json.dumps(serving))
@@ -2466,6 +2945,7 @@ def main() -> int:
     print(json.dumps(two_party_line))
     print(json.dumps(decode_line))
     print(json.dumps(http_line))
+    print(json.dumps(lm_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

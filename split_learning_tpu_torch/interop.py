@@ -23,10 +23,12 @@ from one PRNG key, so a mixed pair starts from identical parameters.
 
 Both directions only transpose, so a round trip is bit-exact. Arrays
 cross as numpy, so neither side imports the other framework. Each leaf
-keeps its dtype on the port's side; a bfloat16 leaf (``pos`` in a bf16
+keeps its dtype in both directions: a bfloat16 leaf (``pos`` in a bf16
 tree) reaches numpy as an ``ml_dtypes`` array, which the port does not
-import, so it is read as float32 (exact) and cast back to
-``torch.bfloat16``, and it goes back to JAX as float32.
+import; it is read as float32 (exact) and cast back to
+``torch.bfloat16``, and it goes back to JAX as numpy's ``bfloat16``
+with the same bits (:func:`split_learning_tpu_torch.utils.arrays.to_host`;
+as float32 in a process that has no ``ml_dtypes`` loaded).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch
 
 from split_learning_tpu_torch.core.stage import Params
 from split_learning_tpu_torch.models.transformer import EMBED_LAYERS
+from split_learning_tpu_torch.utils.arrays import to_host
 
 _RAW_LEAVES = ("pos",)
 
@@ -96,13 +99,11 @@ def stage_from_jax(tree: Mapping[str, Any]) -> Params:
 
 def stage_to_jax(params: Params) -> Dict[str, Dict[str, Any]]:
     """One stage's ``{name: tensor}`` dict -> a flax tree of numpy arrays
-    (bfloat16 leaves as float32)."""
+    of the leaves' dtypes."""
     root: Dict[str, Any] = {}
     for name, t in params.items():
         *path, kind = name.split(".")
-        arr = t.detach().cpu()
-        arr = (arr.float() if arr.dtype == torch.bfloat16 else arr
-               ).numpy().copy()
+        arr = to_host(t).copy()
         if kind in ("bias",) + _RAW_LEAVES:
             leaf = kind
         elif kind != "weight":

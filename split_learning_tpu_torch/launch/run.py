@@ -18,6 +18,10 @@ behind ``SplitHTTPServer`` until SIGINT:
   python -m split_learning_tpu_torch.launch.run train \
       --model transformer_lm --dataset lm --seq-len 256 --attn flash \
       --d-model 256 --num-heads 2 --steps 20
+  python -m split_learning_tpu_torch.launch.run train \
+      --model transformer_lm --dataset lm --attn flash --dtype bfloat16 \
+      --optimizer adamw --lr 3e-4 --weight-decay 0.1 --warmup-steps 5 \
+      --decay-steps 30 --grad-clip-norm 1.0 --steps 30
 
 Config resolution is the JAX package's: CLI flags > environment
 (``LEARNING_MODE``, ``SLT_*``, ``SLT_SERVER_URL``) > defaults.
@@ -32,6 +36,13 @@ token data (rc 2). On a two-party wire ``--compress-density auto`` warns
 and uses 0.1, as in JAX (the adaptive controller drives the K-stage
 chain's hops only). A ``train`` client whose server reports another mode
 exits 4, as in JAX.
+
+Training as JAX's command configures it, on every transport and on
+``serve`` (whose server party builds its own optimizer from them):
+``--optimizer sgd|adam|adamw``, ``--momentum``, ``--weight-decay``,
+``--warmup-steps``, ``--decay-steps``, ``--grad-clip-norm`` and
+``--dtype float32|bfloat16`` (``runtime/state.py`` ``make_tx``).
+``train --trace PATH`` writes the run's spans as a Chrome trace.
 
 Not ported yet, each exiting 2 with the ROADMAP item it waits for:
 ``--replicas`` above 1 (item 19), ``--pipeline-depth`` above 1 (item
@@ -171,6 +182,7 @@ def _make_transport(args, cfg, density: float, server: Any):
 
 
 def cmd_train(args) -> int:
+    from split_learning_tpu_torch import obs
     from split_learning_tpu_torch.data import batches, load_dataset
     from split_learning_tpu_torch.models import get_plan
     from split_learning_tpu_torch.runtime import (
@@ -253,6 +265,8 @@ def cmd_train(args) -> int:
         trainer = FusedSplitTrainer(plan, cfg, seed_gen, sample,
                                     device=args.device)
     logger = make_logger(cfg)
+    # --trace: per-step spans (obs/), off by default and free when off
+    step_tracer = obs.enable() if args.trace else None
 
     budget = {"n": args.steps if args.steps else None, "epoch": 0}
 
@@ -282,6 +296,11 @@ def cmd_train(args) -> int:
                 logger.log_metric("loss", loss, step=n_steps)
             n_steps += 1
     dt = time.time() - t0
+    if step_tracer is not None:
+        obs.disable()
+        out_path = step_tracer.export_chrome(args.trace)
+        print(f"[trace] {len(step_tracer.spans())} spans -> {out_path}",
+              file=sys.stderr)
     if n_steps and dt > 0:
         logger.log_metric("steps_per_sec", n_steps / dt, step=n_steps)
     if two_party:
@@ -332,14 +351,6 @@ SERVE_NOT_PORTED = (
      "--role stage (a stage party of the K-stage chain)", "item 16"),
     ("resume", bool, "--resume (checkpoints)", "item 13"),
     ("checkpoint_dir", _given, "--checkpoint-dir (checkpoints)", "item 13"),
-    ("optimizer", lambda v: v not in (None, "sgd"),
-     "--optimizer adam/adamw", "item 10"),
-    ("weight_decay", bool, "--weight-decay", "item 10"),
-    ("warmup_steps", bool, "--warmup-steps", "item 10"),
-    ("decay_steps", bool, "--decay-steps", "item 10"),
-    ("grad_clip_norm", bool, "--grad-clip-norm", "item 10"),
-    ("dtype", lambda v: v not in (None, "float32"),
-     "--dtype bfloat16 (mixed precision)", "item 14"),
     ("remat", bool, "--remat", "item 16"),
     ("coalesce_max", lambda v: v > 1,
      "--coalesce-max > 1 (request coalescing)", "item 14"),
@@ -460,7 +471,28 @@ def _add_shared(p: argparse.ArgumentParser) -> None:
                    default=None)
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--optimizer", choices=["sgd", "adam", "adamw"],
+                   default=None,
+                   help="sgd (the reference's) | adam | adamw "
+                        "(runtime/state.py make_tx)")
     p.add_argument("--momentum", type=float, default=None)
+    p.add_argument("--weight-decay", dest="weight_decay", type=float,
+                   default=None,
+                   help="adamw decoupled decay; coupled L2 for sgd")
+    p.add_argument("--warmup-steps", dest="warmup_steps", type=int,
+                   default=None,
+                   help="linear lr warmup over this many steps")
+    p.add_argument("--decay-steps", dest="decay_steps", type=int,
+                   default=None,
+                   help="cosine-decay the lr to 0 by this total step "
+                        "count (includes warmup)")
+    p.add_argument("--grad-clip-norm", dest="grad_clip_norm", type=float,
+                   default=None,
+                   help="clip gradients to this global L2 norm (0 = off; "
+                        "each party clips over its own stages)")
+    p.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
+                   help="compute dtype (params stay float32: mixed "
+                        "precision)")
     p.add_argument("--microbatches", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--tracking", default=None, help="stdout | jsonl | noop")
@@ -506,18 +538,7 @@ def _add_serve_not_ported(p: argparse.ArgumentParser) -> None:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--checkpoint-dir", dest="checkpoint_dir", default=None)
     p.add_argument("--checkpoint-every", type=int, default=100)
-    p.add_argument("--optimizer", choices=["sgd", "adam", "adamw"],
-                   default=None)
-    p.add_argument("--weight-decay", dest="weight_decay", type=float,
-                   default=None)
-    p.add_argument("--warmup-steps", dest="warmup_steps", type=int,
-                   default=None)
-    p.add_argument("--decay-steps", dest="decay_steps", type=int,
-                   default=None)
-    p.add_argument("--grad-clip-norm", dest="grad_clip_norm", type=float,
-                   default=None)
     p.add_argument("--tracking-uri", dest="tracking_uri", default=None)
-    p.add_argument("--dtype", choices=["float32", "bfloat16"], default=None)
     p.add_argument("--remat", action="store_true")
     p.add_argument("--coalesce-max", dest="coalesce_max", type=int,
                    default=1)
@@ -595,6 +616,10 @@ def main(argv: Optional[list] = None) -> int:
     pt.add_argument("--eval", action="store_true",
                     help="report test-split accuracy after training "
                          "(over HTTP: split-party, evaluate_remote)")
+    pt.add_argument("--trace", default=None, metavar="PATH",
+                    help="per-step span tracing (obs/): write a Chrome-"
+                         "trace JSON here on exit (Perfetto-loadable). "
+                         "Off = zero overhead")
     pt.set_defaults(fn=cmd_train)
 
     ps = sub.add_parser("serve", help="serve the server party over HTTP")

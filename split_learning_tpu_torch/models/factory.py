@@ -6,9 +6,9 @@ and a chain plan outside split mode all raise ``ValueError``. The
 families the port has not reached yet are registered by name and raise
 ``NotImplementedError``.
 
-Dtypes: the transformer families take float32 and bfloat16 (flax's
-mixed precision, :mod:`models.transformer`); the CNN plans run float32
-only so far (ROADMAP item 14).
+Dtypes: every family takes float32 and bfloat16, flax's mixed precision
+(float32 parameters, bfloat16 compute: :mod:`models.transformer`,
+:mod:`models.cnn`); another dtype raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,24 +35,16 @@ def register_model(name: str):
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _cnn_dtype(dtype: torch.dtype) -> None:
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"dtype {dtype}: the CNN plans run float32 only so far "
-            "(ROADMAP item 14)")
-
-
 @register_model("split_cnn")
 def _split_cnn(mode: str, dtype: torch.dtype, **kw: Any) -> SplitPlan:
     if kw:
         raise ValueError(f"split_cnn is the fixed reference architecture; "
                          f"it takes no size overrides (got {sorted(kw)})")
-    _cnn_dtype(dtype)
     if mode == "u_split":
-        return u_split_cnn_plan()
+        return u_split_cnn_plan(dtype)
     # split and federated share the 2-stage plan (federated trains the
     # composition)
-    return split_cnn_plan()
+    return split_cnn_plan(dtype)
 
 
 @register_model("split_cnn_chain3")
@@ -65,8 +57,7 @@ def _split_cnn_chain3(mode: str, dtype: torch.dtype, **kw: Any
     if mode != "split":
         raise ValueError("split_cnn_chain3 is a pipeline chain plan; "
                          "use mode='split'")
-    _cnn_dtype(dtype)
-    return chain3_cnn_plan()
+    return chain3_cnn_plan(dtype)
 
 
 @register_model("transformer")

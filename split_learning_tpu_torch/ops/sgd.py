@@ -11,6 +11,11 @@ and a zero-initialised trace (:func:`init_trace`):
     m <- mu * m + g;  p <- p - lr * m      (mu > 0)
     p <- p - lr * g                        (mu == 0)
 
+A leaf is float32 or bfloat16, and its gradient has its dtype. As in the
+JAX kernel, a bfloat16 leaf is updated in float32 against a float32
+trace and rounded back to nearest even. ``lr`` is the step's learning
+rate, a host float: a schedule hands each step its own value.
+
 On CUDA tensors it launches one kernel over every leaf (up to the
 kernel's table of ``slt_sgd_max_leaves()`` leaves a launch, 896); on CPU
 tensors it runs :func:`sgd_step_plain`. The two round identically: the
@@ -31,6 +36,7 @@ from split_learning_tpu_torch.ops.common import (
     load_kernels)
 
 NAME = "sgd"
+LEAF_DTYPES = (torch.float32, torch.bfloat16)
 
 
 @functools.lru_cache(maxsize=None)
@@ -40,15 +46,17 @@ def _lib() -> ctypes.CDLL:
     lib.slt_sgd_max_leaves.restype = ctypes.c_int
     lib.slt_sgd_step.argtypes = [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_float,
+        ctypes.c_void_p]
     lib.slt_sgd_step.restype = ctypes.c_int
     return lib
 
 
 class _Table:
-    """The host arrays one launch reads (pointers and sizes of its leaves),
-    allocated once a thread at the kernel's capacity and refilled for each
-    step: ``slt_sgd_step`` copies them into the launch before it returns."""
+    """The host arrays one launch reads (pointers, sizes and dtype flags
+    of its leaves), allocated once a thread at the kernel's capacity and
+    refilled for each step: ``slt_sgd_step`` copies them into the launch
+    before it returns."""
 
     _local = threading.local()
 
@@ -58,6 +66,7 @@ class _Table:
         self.g = (ctypes.c_void_p * cap)()
         self.m = (ctypes.c_void_p * cap)()
         self.numel = (ctypes.c_int64 * cap)()
+        self.bf16 = (ctypes.c_uint8 * cap)()
 
     @classmethod
     def mine(cls) -> "_Table":
@@ -77,14 +86,19 @@ def sgd_step_plain(params: Sequence[torch.Tensor],
                    grads: Sequence[torch.Tensor],
                    trace: Optional[Sequence[torch.Tensor]], lr: float,
                    momentum: float = 0.0) -> None:
-    """The kernel's update in plain PyTorch, in place."""
-    if momentum:
-        for p, g, m in zip(params, grads, trace):
+    """The kernel's update in plain PyTorch, in place. A bfloat16 leaf is
+    widened, updated in float32 and copied back (round to nearest even),
+    as the kernel does."""
+    for i, (p, g) in enumerate(zip(params, grads)):
+        wide = p.float() if p.dtype != torch.float32 else p
+        if momentum:
+            m = trace[i]
             m.mul_(momentum).add_(g)
-            p.sub_(lr * m)
-    else:
-        for p, g in zip(params, grads):
-            p.sub_(lr * g)
+            wide.sub_(lr * m)
+        else:
+            wide.sub_(lr * g.float())
+        if wide is not p:
+            p.copy_(wide)
 
 
 @torch.no_grad()
@@ -92,12 +106,13 @@ def sgd_step_cuda(params: Sequence[torch.Tensor],
                   grads: Sequence[torch.Tensor],
                   trace: Optional[Sequence[torch.Tensor]], lr: float,
                   momentum: float = 0.0) -> None:
-    """Launch the multi-tensor kernel: one launch for up to 896 leaves."""
+    """Launch the multi-tensor kernel: one launch for up to 896 leaves,
+    float32 and bfloat16 mixed."""
     leaves = list(zip(params, grads,
                       trace if momentum else [None] * len(params)))
     for p, g, m in leaves:
-        check_cuda_tensor(p, "param", (torch.float32,))
-        check_cuda_tensor(g, "grad", (torch.float32,))
+        check_cuda_tensor(p, "param", LEAF_DTYPES)
+        check_cuda_tensor(g, "grad", (p.dtype,))
         if g.shape != p.shape or g.device != p.device:
             raise ValueError("grad must match its param in shape and device")
         if m is not None:
@@ -113,8 +128,9 @@ def sgd_step_cuda(params: Sequence[torch.Tensor],
         table.m[:k] = [m.data_ptr() if m is not None else None
                        for _, _, m in part]
         table.numel[:k] = [p.numel() for p, _, _ in part]
+        table.bf16[:k] = [p.dtype == torch.bfloat16 for p, _, _ in part]
         rc = _lib().slt_sgd_step(k, table.p, table.g, table.m, table.numel,
-                                 lr, momentum,
+                                 table.bf16, lr, momentum,
                                  current_stream_handle(part[0][0].device))
         check_launch(rc, NAME)
         LAUNCHES.add(NAME)

@@ -4,16 +4,21 @@
 The split loop of ``train_split_learning()``
 (``src/client_part.py:103-141``): forward the bottom stage, ship the
 activations through the transport, receive the cut-layer gradient,
-backpropagate it into the bottom stage, and take one SGD step (K2 on the
-card). The JAX client recomputes the stage forward in its backward
-(a jitted ``vjp``); here autograd keeps the forward's graph until the
-gradient arrives, which gives the same gradients.
+backpropagate it into the bottom stage, and take one step of the
+party's own optimizer (``runtime/state.py`` ``make_tx`` over its own
+stage, clipping over its own leaves; an SGD step is K2 on the card).
+Every model family runs here, the CNN and both transformer families, in
+float32 or bfloat16: the cut tensor crosses in the plan's dtype, and the
+gradient comes back in it. The JAX client recomputes the stage forward
+in its backward (a jitted ``vjp``); here autograd keeps the forward's
+graph until the gradient arrives, which gives the same gradients.
 
-The trainer hands the transport its activations as they are: a CUDA
-tensor on the card, a CPU tensor on the CPU, so the port's
-``LocalTransport`` encodes them where they live, and a JAX transport
-(which calls ``np.asarray``) still takes the CPU ones. The gradient may
-come back as numpy or as a tensor.
+The trainer hands a transport of the port its activations as they are:
+a CUDA tensor on the card, a CPU tensor on the CPU, so the port's
+``LocalTransport`` encodes them where they live. A transport of another
+framework (duck-typed, such as JAX's) gets a host numpy array, a
+bfloat16 one as numpy's ``ml_dtypes`` bfloat16 (:mod:`utils.arrays`).
+The gradient may come back as numpy or as a tensor.
 
 Failure policy is explicit (SURVEY.md §3.4), as in JAX: ``"raise"``
 (default), ``"retry"`` (bounded, with exponential backoff, or the peer's
@@ -34,7 +39,6 @@ import time
 from typing import (
     Any, Callable, Iterable, List, Optional, Sequence, Tuple, Union)
 
-import numpy as np
 import torch
 
 from split_learning_tpu_torch.core.stage import Params, SplitPlan
@@ -44,6 +48,7 @@ from split_learning_tpu_torch.runtime.state import (
     TrainState, check_config, init_params, make_state, make_tx)
 from split_learning_tpu_torch.transport.base import (
     Backpressure, Transport, TransportError)
+from split_learning_tpu_torch.utils.arrays import from_host, to_host
 from split_learning_tpu_torch.utils.config import Config
 from split_learning_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -153,6 +158,8 @@ class SplitClientTrainer:
         with torch.enable_grad():
             acts = self.stage.apply(params, self._to_device(x))
         labels = torch.as_tensor(y)
+        sent = (acts.detach() if isinstance(self.transport, Transport)
+                else to_host(acts))
         if tr is not None:
             self._sync()
             tr.record(spans.CLIENT_FWD, t_step0,
@@ -172,7 +179,7 @@ class SplitClientTrainer:
                 t_tr0 = time.perf_counter() if tr is not None else 0.0
                 try:
                     g_acts, loss = self.transport.split_step(
-                        acts.detach(), labels, step, self.client_id)
+                        sent, labels, step, self.client_id)
                 finally:
                     if tid is not None:
                         obs_trace.CTX.trace_id = None
@@ -221,8 +228,8 @@ class SplitClientTrainer:
 
         t_b0 = time.perf_counter() if tr is not None else 0.0
         if not isinstance(g_acts, torch.Tensor):  # a numpy reply: copy it
-            g_acts = torch.tensor(np.asarray(g_acts))
-        g = g_acts.to(self.device, torch.float32)
+            g_acts = from_host(g_acts)
+        g = g_acts.to(self.device, acts.dtype)
         grads = torch.autograd.grad(acts, list(params.values()), g)
         if tr is not None:
             self._sync()

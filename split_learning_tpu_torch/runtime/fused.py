@@ -2,12 +2,22 @@
 
 The whole split step runs in one process on one device: client stage
 forward, the cut tensor handed on as a tensor, server stage forward, the
-fused cross-entropy, backward, and one fused SGD update over both
-halves. On CUDA every step launches the cross-entropy kernels (forward
-and backward, once per microbatch), the SGD kernel once per table of
-24 leaves, and, for a transformer plan with ``attn="flash"``, the
-flash-attention forward (K5) and backward (K6) once per block and
-microbatch; on the CPU the same step runs their plain versions.
+fused cross-entropy, backward, and one update of ``make_tx``'s optimizer
+over both halves (``runtime/state.py``: SGD with momentum, coupled L2,
+adam or adamw, at a constant or scheduled lr, clipped over the whole
+model's global norm). On CUDA every step launches the cross-entropy
+kernels (forward and backward, once per microbatch, on float32 or
+bfloat16 logits), under SGD the SGD kernel once per table of up to 896
+leaves (float32 and bfloat16 mixed; adam and adamw run plain
+``_foreach`` arithmetic and launch none), and, for a transformer plan
+with ``attn="flash"``, the flash-attention forward (K5) and backward
+(K6) once per block and microbatch; on the CPU the same step runs their
+plain versions.
+
+``cfg.dtype`` is the plan's compute dtype, which the caller builds the
+plan with (``get_plan(..., dtype=cfg.dtype)``): ``"bfloat16"`` is flax's
+mixed precision, float32 parameters (and a bfloat16 ``pos`` table) with
+bfloat16 activations and logits.
 
 The model families are the CNN plans and the two transformer families
 (``transformer``: ``[B, T]`` token ids to ``[B, classes]``;

@@ -4,16 +4,20 @@
 ``split_step`` is the reference's ``/forward_pass`` handler
 (``src/server_part.py:25-58``): take the cut activations and labels,
 run the server stage forward, the cross-entropy, the backward and one
-SGD update, and return the cut-layer gradient with the loss. On the card
-the loss is K1 (``ops/cross_entropy.py``) and the update K2
-(``ops/sgd.py``), as in the fused trainer. Beyond the reference, as in
-JAX: a per-client step handshake (a step at or below the last one is a
+update of the party's own optimizer (``runtime/state.py`` ``make_tx``
+over its own stage, clipping over its own leaves), and return the
+cut-layer gradient with the loss. On the card the loss is K1
+(``ops/cross_entropy.py``) and an SGD update K2 (``ops/sgd.py``), as in
+the fused trainer. The cut tensor is taken in the dtype it arrives in
+(bfloat16 for a bfloat16 plan) and its gradient returned in that dtype.
+Beyond the reference, as in JAX: a per-client step handshake (a step at or below the last one is a
 ``ProtocolError``, 409) and the replay cache, which serves a duplicate
 of an applied step its original reply instead of applying it twice.
 
 The reply lives where the request lived: numpy activations get a numpy
-gradient back (JAX's contract, which a JAX client needs), a tensor gets
-a tensor on its own device. The in-process wire decodes on the server's
+gradient back (JAX's contract, which a JAX client needs; a bfloat16 one
+as numpy's ``ml_dtypes`` bfloat16, :mod:`utils.arrays`), a tensor gets a
+tensor on its own device. The in-process wire decodes on the server's
 device, so on the card the down-wire encodes from a CUDA tensor.
 
 The lock covers the handshake and the launch of the step; the reply is
@@ -47,6 +51,7 @@ from split_learning_tpu_torch.runtime.party import (
     PartyRuntime, ProtocolError, not_ported)
 from split_learning_tpu_torch.runtime.state import (
     check_config, init_params, make_state, make_tx)
+from split_learning_tpu_torch.utils.arrays import from_host, to_host
 from split_learning_tpu_torch.utils.config import Config
 from split_learning_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -62,7 +67,7 @@ def _reply_like(value: torch.Tensor, request: Any) -> Any:
     tensor on the request's device otherwise."""
     if isinstance(request, torch.Tensor):
         return value.to(request.device)
-    return value.detach().cpu().numpy()
+    return to_host(value)
 
 
 class ServerRuntime(PartyRuntime):
@@ -130,10 +135,15 @@ class ServerRuntime(PartyRuntime):
         return self.state.params[0]
 
     # ------------------------------------------------------------------ #
-    def _to_dev(self, x: Any, dtype: torch.dtype) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            return x.detach().to(self.device, dtype)
-        return torch.tensor(np.asarray(x), device=self.device, dtype=dtype)
+    def _to_dev(self, x: Any, dtype: Optional[torch.dtype] = None
+                ) -> torch.Tensor:
+        """``x`` on the device, in ``dtype`` (None: a float32 or bfloat16
+        tensor keeps its dtype, another float becomes float32)."""
+        t = from_host(x) if not isinstance(x, torch.Tensor) else x.detach()
+        if dtype is None:
+            dtype = (t.dtype if t.dtype in (torch.float32, torch.bfloat16)
+                     else torch.float32)
+        return t.to(self.device, dtype)
 
     def _check_step(self, step: int, client_id: int = 0) -> None:
         last = self._last_step.get(client_id, -1)
@@ -177,7 +187,7 @@ class ServerRuntime(PartyRuntime):
                 self._check_step(step, client_id)
                 self._check_batch_rows(_rows(activations), _rows(labels))
                 g_acts, loss = self._step(
-                    self._to_dev(activations, torch.float32),
+                    self._to_dev(activations),
                     self._to_dev(labels, torch.int64))
                 # max(): with strict_steps off steps may arrive out of
                 # order; the acknowledged step never regresses
@@ -226,7 +236,7 @@ class ServerRuntime(PartyRuntime):
             # launched under the lock: a concurrent step's in-place
             # update queues behind this forward
             out = self._stage.apply(self.state.params[0],
-                                    self._to_dev(activations, torch.float32))
+                                    self._to_dev(activations))
         return _reply_like(out, activations)
 
     # -- ops of the other modes ----------------------------------------- #

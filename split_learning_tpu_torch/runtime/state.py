@@ -1,14 +1,40 @@
-"""Training state and the optimizer (counterpart of ``split_learning_tpu/runtime/state.py``).
+"""Training state and the optimizer (counterpart of
+``split_learning_tpu/runtime/state.py``).
 
 The JAX state is an immutable pytree threaded through pure steps. Here
 :class:`TrainState` holds the live tensors, and the optimizer updates
-the parameters and the momentum trace **in place** (under
-``torch.no_grad``) through the fused SGD kernel.
+the parameters and its own state **in place** (under ``torch.no_grad``).
 
-Only what the trainers run is ported: constant-lr SGD with optional
-momentum, with optax.trace semantics and a zero-initialised trace
-(m <- mu*m + g; p <- p - lr*m). Schedules, coupled L2, adam/adamw and
-clipping raise ``NotImplementedError`` naming the ROADMAP item.
+:func:`make_tx` builds what the JAX ``make_tx`` builds, as optax computes
+it, from the same Config fields:
+
+- ``sgd``: optax.sgd with optional momentum, and coupled L2
+  (``weight_decay``: ``g + wd * p`` ahead of the trace). The update is
+  the fused SGD kernel (K2, ``ops/sgd.py``): one launch a step over
+  every leaf. It mirrors JAX's Pallas ``fused_sgd_step``, whose trace is
+  float32 for every leaf and which updates a bfloat16 leaf in float32;
+  optax's own trace takes the leaf's dtype, so the two differ on a
+  bfloat16 leaf only, by the rounding of its trace.
+- ``adam`` and ``adamw``: optax.adam / optax.adamw (b1 0.9, b2 0.999,
+  eps 1e-8; adamw's decoupled ``+ wd * p`` on every leaf, before the lr
+  scale), with moments in each leaf's dtype, as optax keeps them. Plain
+  PyTorch ``_foreach`` arithmetic, grouped by dtype; no kernel (the JAX
+  package computes adam in optax/XLA too).
+- the learning rate of :func:`make_lr`: constant, linear warmup then
+  constant, or linear warmup then cosine decay to 0 at ``decay_steps``,
+  read at optax's count (0 at the first update, so a warmup's first lr
+  is 0) and computed in float32 as optax's schedule computes it;
+- ``grad_clip_norm``: optax.clip_by_global_norm, first in the chain, over
+  the leaves this optimizer updates: the whole model in the fused
+  trainer, each party's own stages in the two-party runtimes.
+
+Scalars meet a bfloat16 leaf rounded to bfloat16 first, as JAX's weak
+types do, and every operation rounds to the leaf's dtype. XLA may keep
+excess precision between fused operations, so a bfloat16 leaf agrees
+with optax within an ulp, not bit for bit. Under ``jit`` XLA also turns
+the schedule's division by a constant into a multiplication by its
+reciprocal: :func:`make_lr` follows the schedule as optax writes it
+(bit for bit with optax called eagerly).
 
 Beside it, what every trainer and party shares: :func:`check_config`,
 the Config values the port cannot run yet, and :func:`init_params`, a
@@ -18,14 +44,18 @@ party's own stages from a seed or from given per-stage dicts.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple, Union
+import math
+from typing import (
+    Any, Callable, Dict, List, Optional, Sequence, Tuple, Union)
 
+import numpy as np
 import torch
 
 from split_learning_tpu_torch.core.stage import Params, SplitPlan
 from split_learning_tpu_torch.ops.sgd import fused_sgd_step, init_trace
 
-OPTIMIZER_ITEM = "ROADMAP item 10"
+_F32 = np.float32
+LR = Union[float, Callable[[int], float]]
 
 
 def leaves_of(params: Sequence[Params]) -> List[torch.Tensor]:
@@ -35,65 +65,241 @@ def leaves_of(params: Sequence[Params]) -> List[torch.Tensor]:
 
 @dataclasses.dataclass
 class TrainState:
-    """Live training state: per-stage params, momentum trace, step count.
+    """Live training state: per-stage params, the optimizer's state and
+    the step count (optax's count: the updates taken so far).
 
-    ``trace`` is one tensor per leaf of ``leaves_of(params)``, or None
-    without momentum."""
+    ``opt_state`` is what the optimizer's ``init`` returned: the momentum
+    trace (one float32 tensor per leaf of ``leaves_of(params)``) or None
+    for SGD, the moment lists ``(mu, nu)`` for adam/adamw."""
 
     params: Tuple[Params, ...]
-    trace: Optional[List[torch.Tensor]]
+    opt_state: Any
     step: int = 0
 
 
-class SGD:
-    """Constant-lr SGD with optional momentum, applied in place."""
+# --------------------------------------------------------------------- #
+# learning-rate schedules, in float32 as optax computes them
+# --------------------------------------------------------------------- #
+def _linear(count: int, init: float, end: float, steps: int) -> _F32:
+    """optax.linear_schedule (polynomial, power 1)."""
+    if steps <= 0:
+        return _F32(init)
+    frac = _F32(1) - _F32(min(max(count, 0), steps)) / _F32(steps)
+    return _F32(init - end) * frac + _F32(end)
 
-    def __init__(self, lr: float, momentum: float = 0.0) -> None:
-        self.lr = float(lr)
+
+def _cosine(count: int, init: float, steps: int) -> _F32:
+    """optax.cosine_decay_schedule with alpha 0, exponent 1. The cosine
+    of the float32 argument, correctly rounded, is what XLA's float32
+    cosine gives."""
+    x = _F32(math.pi) * _F32(min(count, steps)) / _F32(steps)
+    decay = _F32(0.5) * (_F32(1) + _F32(math.cos(float(x))))
+    return _F32(init) * (_F32(1.0) * decay + _F32(0.0))
+
+
+class Schedule:
+    """The lr at optax's count: linear warmup from 0 over ``warmup``
+    steps, then the constant ``lr`` (``decay`` 0) or a cosine decay to 0
+    by step ``decay``, which counts the warmup (``warmup_cosine_decay_
+    schedule(0, lr, warmup, decay, 0)``)."""
+
+    def __init__(self, lr: float, warmup: int, decay: int = 0) -> None:
+        self.lr, self.warmup, self.decay = float(lr), int(warmup), int(decay)
+
+    def __call__(self, count: int) -> float:
+        count = int(count)
+        if count < self.warmup:
+            value = _linear(count, 0.0, self.lr, self.warmup)
+        elif self.decay:
+            value = _cosine(count - self.warmup, self.lr,
+                            self.decay - self.warmup)
+        else:
+            value = _F32(self.lr)
+        return float(value)
+
+
+def make_lr(cfg) -> LR:
+    """Learning rate from Config: the constant ``lr``, or a
+    :class:`Schedule` (linear warmup over ``warmup_steps``, then constant
+    or, with ``decay_steps``, cosine decay to 0 by that total step)."""
+    if not (cfg.warmup_steps or cfg.decay_steps):
+        return cfg.lr
+    return Schedule(cfg.lr, cfg.warmup_steps, cfg.decay_steps)
+
+
+# --------------------------------------------------------------------- #
+# the optimizers
+# --------------------------------------------------------------------- #
+def _in_dtype(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype``, as a weak-typed scalar meets a leaf."""
+    if dtype == torch.float32:
+        return float(_F32(x))
+    return float(torch.tensor(x, dtype=torch.float32).to(dtype).float())
+
+
+def _by_dtype(tensors: Sequence[torch.Tensor]
+              ) -> Dict[torch.dtype, List[int]]:
+    groups: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.dtype, []).append(i)
+    return groups
+
+
+def _pick(seq: Sequence[Any], idx: Sequence[int]) -> List[Any]:
+    return [seq[i] for i in idx]
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> None:
+    """optax.clip_by_global_norm, in place and without a host sync: every
+    gradient becomes ``g / norm * max_norm`` when the global norm is not
+    below ``max_norm``, else stays as it is (a division and a product by
+    1). Each leaf's sum of squares is rounded to its dtype, as optax's
+    ``jnp.sum`` of a bfloat16 leaf is, and the sums add in float32."""
+    groups = _by_dtype(grads)
+    total = None
+    for dtype, idx in groups.items():
+        norms = torch._foreach_norm(_pick(grads, idx), 2,
+                                    dtype=torch.float32)
+        sq = torch.stack(norms).square().to(dtype).float().sum()
+        total = sq if total is None else total + sq
+    norm = total.sqrt()
+    keep = norm < max_norm
+    one = torch.ones_like(norm)
+    den = torch.where(keep, one, norm)
+    mul = torch.where(keep, one, torch.full_like(norm, max_norm))
+    for dtype, idx in groups.items():
+        part = _pick(grads, idx)
+        torch._foreach_div_(part, den.to(dtype))
+        torch._foreach_mul_(part, mul.to(dtype))
+
+
+class _Optimizer:
+    """Clipping and the schedule, shared by both update rules."""
+
+    def __init__(self, lr: LR, grad_clip_norm: float = 0.0) -> None:
+        self.lr = lr
+        self.grad_clip_norm = float(grad_clip_norm)
+
+    def lr_at(self, count: int) -> float:
+        """The learning rate of the update after ``count`` updates."""
+        return self.lr(count) if callable(self.lr) else float(self.lr)
+
+    def init(self, leaves: Sequence[torch.Tensor]) -> Any:
+        raise NotImplementedError
+
+    def _apply(self, state: TrainState, leaves: List[torch.Tensor],
+               grads: List[torch.Tensor], lr: float) -> None:
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def update(self, state: TrainState,
+               grads: Sequence[torch.Tensor]) -> None:
+        """Apply ``grads`` to ``state`` in place and count the step. The
+        gradients are this step's own: clipping scales them in place."""
+        leaves = leaves_of(state.params)
+        grads = list(grads)
+        if len(grads) != len(leaves):
+            raise ValueError("one gradient per parameter leaf")
+        if self.grad_clip_norm:
+            clip_by_global_norm(grads, self.grad_clip_norm)
+        self._apply(state, leaves, grads, self.lr_at(state.step))
+        state.step += 1
+
+
+class SGD(_Optimizer):
+    """optax.sgd (+ coupled L2) through the fused SGD kernel."""
+
+    def __init__(self, lr: LR, momentum: float = 0.0,
+                 weight_decay: float = 0.0,
+                 grad_clip_norm: float = 0.0) -> None:
+        super().__init__(lr, grad_clip_norm)
         self.momentum = float(momentum)
+        self.weight_decay = float(weight_decay)
 
     def init(self, leaves: Sequence[torch.Tensor]
              ) -> Optional[List[torch.Tensor]]:
         return init_trace(leaves) if self.momentum else None
 
-    def update(self, state: TrainState,
-               grads: Sequence[torch.Tensor]) -> None:
-        """Apply ``grads`` to ``state`` in place and count the step."""
-        fused_sgd_step(leaves_of(state.params), grads, state.trace,
-                       self.lr, self.momentum)
-        state.step += 1
+    def _apply(self, state, leaves, grads, lr) -> None:
+        if self.weight_decay:
+            # optax.add_decayed_weights ahead of the trace: g + wd * p
+            for dtype, idx in _by_dtype(leaves).items():
+                decayed = torch._foreach_mul(
+                    _pick(leaves, idx), _in_dtype(self.weight_decay, dtype))
+                torch._foreach_add_(_pick(grads, idx), decayed)
+        fused_sgd_step(leaves, grads, state.opt_state, lr, self.momentum)
 
 
-def sgd(lr: float, momentum: float = 0.0) -> SGD:
+class Adam(_Optimizer):
+    """optax.adam, or optax.adamw with ``weight_decay`` (decoupled)."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+
+    def __init__(self, lr: LR, weight_decay: float = 0.0,
+                 grad_clip_norm: float = 0.0) -> None:
+        super().__init__(lr, grad_clip_norm)
+        self.weight_decay = float(weight_decay)
+
+    def init(self, leaves: Sequence[torch.Tensor]
+             ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        return ([torch.zeros_like(p) for p in leaves],
+                [torch.zeros_like(p) for p in leaves])
+
+    def _apply(self, state, leaves, grads, lr) -> None:
+        mu_all, nu_all = state.opt_state
+        count = state.step + 1
+        # 1 - b**count in float32; each leaf divides by it in its dtype
+        bc1 = float(_F32(1) - _F32(self.B1) ** _F32(count))
+        bc2 = float(_F32(1) - _F32(self.B2) ** _F32(count))
+        for dtype, idx in _by_dtype(leaves).items():
+            c = lambda x: _in_dtype(x, dtype)  # noqa: E731
+            p, g = _pick(leaves, idx), _pick(grads, idx)
+            mu, nu = _pick(mu_all, idx), _pick(nu_all, idx)
+            # mu <- (1 - b1) g + b1 mu;  nu <- (1 - b2) g^2 + b2 nu
+            g1 = torch._foreach_mul(g, c(1 - self.B1))
+            torch._foreach_mul_(mu, c(self.B1))
+            torch._foreach_add_(mu, g1)
+            g2 = torch._foreach_mul(g, g)
+            torch._foreach_mul_(g2, c(1 - self.B2))
+            torch._foreach_mul_(nu, c(self.B2))
+            torch._foreach_add_(nu, g2)
+            # u = mu_hat / (sqrt(nu_hat) + eps)
+            den = torch._foreach_div(nu, c(bc2))
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, c(self.EPS))
+            u = torch._foreach_div(mu, c(bc1))
+            torch._foreach_div_(u, den)
+            if self.weight_decay:
+                torch._foreach_add_(
+                    u, torch._foreach_mul(p, c(self.weight_decay)))
+            torch._foreach_mul_(u, c(-lr))
+            torch._foreach_add_(p, u)
+
+
+def sgd(lr: LR, momentum: float = 0.0) -> SGD:
     """The reference's optimizer: SGD(lr=0.01), no momentum by default."""
     return SGD(lr, momentum)
 
 
-def make_lr(cfg) -> float:
-    """The learning rate from Config: a constant (schedules not ported)."""
-    if cfg.warmup_steps or cfg.decay_steps:
-        raise NotImplementedError(
-            "lr warmup/decay schedules are not ported yet "
-            f"({OPTIMIZER_ITEM})")
-    return cfg.lr
+def make_tx(cfg) -> _Optimizer:
+    """Optimizer from Config, the one construction site every trainer
+    shares (JAX's ``make_tx``): ``sgd`` with momentum and coupled L2,
+    ``adam``, or ``adamw`` with decoupled weight decay, each at the lr
+    of :func:`make_lr` and behind ``grad_clip_norm``'s clipping."""
+    lr = make_lr(cfg)
+    if cfg.optimizer == "sgd":
+        return SGD(lr, cfg.momentum, cfg.weight_decay, cfg.grad_clip_norm)
+    if cfg.optimizer == "adam":
+        return Adam(lr, 0.0, cfg.grad_clip_norm)
+    if cfg.optimizer == "adamw":
+        return Adam(lr, cfg.weight_decay, cfg.grad_clip_norm)
+    raise ValueError(f"Unknown optimizer: {cfg.optimizer!r}")
 
 
-def make_tx(cfg) -> SGD:
-    """Optimizer from Config: plain (momentum-)SGD at a constant lr."""
-    if cfg.optimizer != "sgd":
-        raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r} is not ported yet "
-            f"({OPTIMIZER_ITEM})")
-    if cfg.weight_decay or cfg.grad_clip_norm:
-        raise NotImplementedError(
-            "weight_decay and grad_clip_norm are not ported yet "
-            f"({OPTIMIZER_ITEM})")
-    return sgd(make_lr(cfg), cfg.momentum)
-
-
-def make_state(params: Sequence[Params], tx: SGD) -> TrainState:
+def make_state(params: Sequence[Params], tx: _Optimizer) -> TrainState:
     params = tuple(params)
-    return TrainState(params=params, trace=tx.init(leaves_of(params)))
+    return TrainState(params=params, opt_state=tx.init(leaves_of(params)))
 
 
 def check_config(cfg) -> None:
@@ -107,13 +313,16 @@ def check_config(cfg) -> None:
         (cfg.seq_parallel > 1,
          "seq_parallel > 1 (context parallelism: ROADMAP item 21)"),
         (cfg.remat, "remat (ROADMAP item 16)"),
-        (cfg.dtype != "float32",
-         f"dtype {cfg.dtype!r} (mixed precision: ROADMAP item 14)"),
     ]
     for bad, what in unsupported:
         if bad:
             raise NotImplementedError(f"not ported yet: {what}")
-    make_tx(cfg)  # optimizer, schedule, weight decay and clipping checks
+    make_tx(cfg)
+
+
+def _plan_dtypes(plan: SplitPlan, i: int) -> Dict[str, torch.dtype]:
+    return {k: p.dtype
+            for k, p in plan.stages[i].module.named_parameters()}
 
 
 def init_params(plan: SplitPlan,
@@ -121,8 +330,9 @@ def init_params(plan: SplitPlan,
                 device: torch.device,
                 stages: Optional[Sequence[int]] = None
                 ) -> Tuple[Params, ...]:
-    """The parameters of ``stages`` (default: all), as float32 leaves on
-    ``device`` that require grad.
+    """The parameters of ``stages`` (default: all), on ``device``, each
+    leaf in the plan's own dtype for it (float32, but for a bfloat16
+    plan's ``pos`` table, which flax creates in bfloat16), requiring grad.
 
     ``init`` is a ``torch.Generator``, from which the whole plan is drawn
     on the CPU (so each party, keeping only its own stages, starts where
@@ -138,7 +348,11 @@ def init_params(plan: SplitPlan,
             raise ValueError(f"expected {plan.num_stages} per-stage param "
                              f"dicts, got {len(params)}")
     keep = range(plan.num_stages) if stages is None else stages
-    return tuple(
-        {k: torch.as_tensor(v).detach().to(device, torch.float32).clone()
-         .requires_grad_(True) for k, v in params[i].items()}
-        for i in keep)
+    out = []
+    for i in keep:
+        dtypes = _plan_dtypes(plan, i)
+        out.append({
+            k: torch.as_tensor(v).detach()
+            .to(device, dtypes.get(k, torch.float32)).clone()
+            .requires_grad_(True) for k, v in params[i].items()})
+    return tuple(out)

@@ -21,7 +21,8 @@ without compression) is decoded on the
 server's device (``server.device``; numpy for a peer without one, such
 as the JAX ``ServerRuntime``), and the reply in the kind the caller sent:
 a tensor on the caller's device, or numpy for a numpy caller (a JAX
-client).
+client). A numpy peer or caller gets numpy arrays only, a bfloat16 one
+as numpy's ``ml_dtypes`` bfloat16 (:func:`utils.arrays.host_tree`).
 
 Exception contract (uniform across ops): a ``ProtocolError`` of the
 server propagates as is (permanent, never masked by retry or skip), a
@@ -43,6 +44,7 @@ from split_learning_tpu_torch.obs import trace as obs_trace
 from split_learning_tpu_torch.transport import codec
 from split_learning_tpu_torch.transport.base import (
     Backpressure, Transport, TransportError, device_of, not_ported, timed)
+from split_learning_tpu_torch.utils.arrays import host_tree
 
 COMPRESS_MODES = (None, "none", "int8", "topk8", "clapping")
 
@@ -122,17 +124,20 @@ class LocalTransport(Transport):
             nwc = getattr(self.server, "note_wire_compression", None)
             if nwc is not None:
                 nwc(raw_b, wire_b)
-        return codec.decompress_tree(codec.decode(body), device), len(body)
+        tree = codec.decompress_tree(codec.decode(body), device)
+        return (tree if device is not None else host_tree(tree)), len(body)
 
     def _server_device(self) -> Optional[torch.device]:
         return getattr(self.server, "device", None)
 
     def _roundtrip(self, obj: Any, device: Optional[torch.device]) -> Any:
         """``through_codec``: the real encode and decode, expanded on
-        ``device`` (numpy for None); else ``obj`` untouched."""
-        if not self.through_codec:
-            return obj
-        return codec.decompress_tree(codec.decode(codec.encode(obj)), device)
+        ``device`` (numpy for None); else ``obj`` untouched, but as host
+        numpy for a numpy peer (``device`` None)."""
+        if self.through_codec:
+            obj = codec.decompress_tree(codec.decode(codec.encode(obj)),
+                                        device)
+        return obj if device is not None else host_tree(obj)
 
     def _call(self, fn, *args):
         from split_learning_tpu_torch.runtime.party import ProtocolError

@@ -372,6 +372,99 @@ def test_sgd_kernel_bit_identical_on_300_leaves(dev, momentum):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+def test_sgd_kernel_bit_identical_on_mixed_bf16_leaves(dev, momentum):
+    """float32 and bfloat16 leaves in one launch a step: a bfloat16 leaf
+    updated in float32 against a float32 trace and rounded to nearest
+    even, bit-identical to the plain version over five steps, aligned
+    leaves and views one element off their vector alignment alike."""
+    from split_learning_tpu_torch.ops.sgd import (
+        NAME as SGD, sgd_step_cuda, sgd_step_plain)
+    rs = np.random.RandomState(54)
+    spec = [(int(n), torch.bfloat16 if i % 2 else torch.float32)
+            for i, n in enumerate(rs.randint(1, 5000, 54))]
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def leaves():
+        out = []
+        for i, (n, dt) in enumerate(spec):
+            t = torch.randn(n + 1, device=dev, generator=g).to(dt)
+            out.append(t[1:] if i % 3 == 0 else t[:n])
+        return out
+
+    p_k = leaves()
+    p_p = [t.clone() for t in p_k]
+    m_k = ([torch.zeros(t.shape, device=dev) for t in p_k] if momentum
+           else None)
+    m_p = [t.clone() for t in m_k] if momentum else None
+    for _ in range(5):
+        grads = leaves()
+        LAUNCHES.reset()
+        sgd_step_cuda(p_k, grads, m_k, 0.1, momentum)
+        torch.cuda.synchronize()
+        assert LAUNCHES.snapshot() == {SGD: 1}
+        sgd_step_plain(p_p, grads, m_p, 0.1, momentum)
+    for a, b in zip(p_k + (m_k or []), p_p + (m_p or [])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_party_lm_step_on_the_card(dev, dtype):
+    """One two-party LM step (AdamW, warmup, cosine decay, clipping) over
+    LocalTransport(ServerRuntime) with an int8 wire on the card: exact
+    launch counts (client 1 K5 and 1 of each K6 launch; server 2 K5, 2 of
+    each K6 launch and the K1 pair; 2 K3 quantize and 2 dequantize; no
+    K2 under AdamW), the cut in the plan's dtype, and the loss within a
+    CPU twin's bound (float32 1e-3 on int8; bf16 two bf16 ulps at the
+    loss's magnitude, times 4 on int8)."""
+    import math
+
+    from split_learning_tpu_torch.data import batches, synthetic_lm
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops import quantize as qmod
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.runtime import (
+        ServerRuntime, SplitClientTrainer)
+    from split_learning_tpu_torch.transport import LocalTransport
+    from split_learning_tpu_torch.utils.config import Config
+    size = dict(model="transformer_lm", vocab=256, d_model=64, num_heads=2,
+                client_depth=1, server_depth=2, max_len=256, attn="flash")
+    cfg = Config(transport="local", model="transformer_lm", attn="flash",
+                 batch_size=4, dtype=dtype, optimizer="adamw", lr=3e-3,
+                 weight_decay=0.1, warmup_steps=1, decay_steps=4,
+                 grad_clip_norm=1.0)
+    data = list(batches(synthetic_lm(n_train=8, n_test=4, seq_len=128).train,
+                        4, seed=0))
+    plan = get_plan(dtype=dtype, **size)
+    init = plan.init(torch.Generator().manual_seed(0), torch.zeros(1))
+    losses, sent = {}, []
+    for where in ("cuda", "cpu"):
+        server = ServerRuntime(plan, cfg, init, device=where)
+        transport = LocalTransport(server, compress="int8")
+        pack = transport._pack_up
+
+        def spy(arr, key, _pack=pack):
+            sent.append(arr.dtype)
+            return _pack(arr, key)
+
+        transport._pack_up = spy
+        client = SplitClientTrainer(plan, cfg, init, transport, device=where)
+        LAUNCHES.reset()
+        losses[where] = [client.train_step(x, y, i)
+                         for i, (x, y) in enumerate(data)]
+        if where == "cuda":
+            torch.cuda.synchronize()
+            per_step = {FA: 3, **{n: 3 for n in BWD_NAMES}, FWD: 1, BWD: 1,
+                        qmod.QUANT: 2, qmod.DEQUANT: 2}
+            assert LAUNCHES.snapshot() == {k: 2 * v
+                                           for k, v in per_step.items()}
+    assert set(sent) == {getattr(torch, dtype)}
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        tol = (1e-3 if dtype == "float32" else
+               4 * 2 * 2.0 ** (math.floor(math.log2(b)) - 7))
+        assert abs(a - b) <= tol, losses
+
+
 # --------------------------------------------------------------------- #
 # the wire: K3, K4, the wire codec, the two-party trainer and split-party
 # decode on the card

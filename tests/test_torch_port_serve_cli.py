@@ -173,12 +173,7 @@ def test_train_and_serve_without_device_cpu_raise(tmp_path):
 _FLAG_VALUES = {
     "role": ["--role", "stage"], "resume": ["--resume"],
     "checkpoint_dir": ["--checkpoint-dir", "ckpt"],
-    "optimizer": ["--optimizer", "adamw"],
-    "weight_decay": ["--weight-decay", "0.1"],
-    "warmup_steps": ["--warmup-steps", "5"],
-    "decay_steps": ["--decay-steps", "5"],
-    "grad_clip_norm": ["--grad-clip-norm", "1.0"],
-    "dtype": ["--dtype", "bfloat16"], "remat": ["--remat"],
+    "remat": ["--remat"],
     "coalesce_max": ["--coalesce-max", "4"],
     "batching": ["--batching", "continuous"],
     "tenants": ["--tenants", "2"], "quota": ["--quota", "5"],

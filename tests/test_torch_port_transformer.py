@@ -58,10 +58,10 @@ def test_interop_round_trip_bit_exact(jax_trees, model, mode, dtype):
     for (path, a), (_, b) in zip(flat_a, flat_b):
         a = np.asarray(a)
         assert a.shape == b.shape, path
-        # a bf16 leaf crosses as float32 (exact) and keeps bf16 in the port
-        assert b.dtype == (np.float32 if a.dtype.name == "bfloat16"
-                           else a.dtype), path
-        np.testing.assert_array_equal(a.astype(np.float32), b)
+        # a bf16 leaf keeps bf16 (and its bits) in both directions
+        assert b.dtype == a.dtype, path
+        np.testing.assert_array_equal(a.astype(np.float32),
+                                      b.astype(np.float32))
     pos = port[0]["pos"]
     assert pos.dtype == (torch.bfloat16 if dtype == "bfloat16"
                          else torch.float32)
@@ -175,8 +175,12 @@ def test_out_of_vocab_token_gives_nan_logits_like_jax(jax_trees):
 
 
 def test_get_plan_dtypes():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        get_plan(model="split_cnn", dtype="bfloat16")
+    cnn = get_plan(model="split_cnn", dtype="bfloat16")
+    params = cnn.init(torch.Generator().manual_seed(0), torch.zeros(1))
+    assert all(v.dtype == torch.float32 for st in params for v in st.values())
+    with torch.no_grad():
+        y = cnn.apply(params, torch.zeros(2, 28, 28, 1))
+    assert y.dtype == torch.bfloat16 and y.shape == (2, 10)
     for model in ("transformer", "transformer_lm"):
         plan = get_plan(model=model, dtype="bfloat16", **SIZE)
         params = plan.init(torch.Generator().manual_seed(0), torch.zeros(1))
