@@ -103,8 +103,10 @@ beside this script. Phases, any failure ending the run with a traceback:
    (one cooperative launch writing {amax, scale} ahead of q) and
    dequantize, K4's magnitude fold (``magnitudes()``) and K4's five
    select launches (the codec's whole topk8 encode), over sizes 1, 7, 8,
-   9, 127, 4099, the CNN cut (1,384,448), the generate cut ([8, 1040,
-   256]) and the LM cut ([64, 1024, 256]), random, all-equal, all-zero
+   9, 32 and 288 (stage A's leaves, phase 23's bottom sync), 127, 4099,
+   the U-shaped CNN's hop 2 ([64, 9216], phase 20), the CNN cut
+   (1,384,448), the generate cut ([8, 1040, 256]) and the LM cut ([64,
+   1024, 256]), random, all-equal, all-zero
    and exact-half inputs, float32 and bf16, densities 0.01 (index form),
    0.1 (bitmap) and 1.0, without a residual and with one at decay 1.0
    and 0.5: buffers, q, x', x_eff, m, the new residual and the flag
@@ -215,14 +217,53 @@ beside this script. Phases, any failure ending the run with a traceback:
    flags (warmup 2, decay 10, clip 1.0, lr 3e-3, int8) for 5 steps
    against it: both rc 0, a falling loss, the client's launches exact
    (its block's K5 and K6, its int8 encode and decode).
+20. the U-shaped CNN: ``USplitClientTrainer`` over
+   ``LocalTransport(ServerRuntime(mode="u_split"))`` at batch 64, 30
+   steps in each of ``none``, ``int8`` and ``topk8``. Launch counts
+   reset before and read after each: per step exactly the client's K1
+   pair and 2 K2 (A and C), the server's 1 K2 (its own ops counted
+   apart), plus four frames' wire launches (4 K3 quantize and 4
+   dequantize, or 4 of each K4s launch). The loss falls; frame bytes per
+   hop and direction, median step ms and a profiler window per mode; a
+   CPU twin of each mode (its hops through the host codec) agrees on 2
+   losses within 1e-4 (``none``) or 1e-3 (``int8``, ``topk8``);
+21. the U-shaped LM at full width (d_model 256, 2 heads, vocab 256,
+   depths 1 + 2, ``attn="flash"``), bf16 under AdamW with phase 18's
+   schedule and clipping, batch 64, T 1024, 20 steps in each of
+   ``int8``, ``topk8`` and ``none``: per step exactly the client's 1 K5,
+   1 of each K6 launch and the K1 pair, the server's 4 K5 (hop 1 and
+   hop 2's recompute) and 2 of each K6 launch (counted apart), no K2,
+   and four frames' wire launches; the loss falls; a bf16 CPU twin on
+   the first 2 rows of 3 batches within :func:`bf16_loss_tol`;
+22. federated training over HTTP: a ``SplitHTTPServer`` thread in
+   front of ``ServerRuntime(mode="federated", num_clients=2)`` on the
+   card and two ``FederatedClientTrainer``s on ``HttpTransport`` in two
+   threads, the CNN at batch 64, 2 epochs of 20 steps on disjoint
+   halves: exactly the K1 pair and one K2 per client step; after each
+   epoch both clients' parameters bit-identical and within 1e-6 of the
+   mean of their pre-sync parameters, computed on the card; the
+   aggregate round trip ms and its bytes each way;
+23. ``MultiClientSplitRunner``: 4 clients against one ``ServerRuntime``
+   over ``LocalTransport`` ``topk8``, a ``topk8`` bottom sync every 2
+   rounds, 10 rounds, round-robin and then ``concurrent=True``: exact
+   launches (per round the K1 pair 4, K2 8, each K4s launch 8; per
+   compressed sync 5 x 2 leaves x 4 clients, none on the first), the
+   bottoms equal after each sync, the handshakes, the sync byte
+   counters and the round ms. Then ``serve --mode u_split`` with phase
+   19's LM flags as a subprocess and ``train --mode u_split --transport
+   http`` against it for 5 int8 steps (the client's launches exact: 1
+   K5 and 1 of each K6, the K1 pair, 2 int8 encodes and decodes a
+   step), and ``train --mode federated --transport local`` on the CNN
+   (the K1 pair and one K2 a step): rc 0 and a falling loss each.
 
 Output, last lines: one JSON object with a record per kernel, one JSON
 object with the main path's step time, one with the serving path's
 times, one with the LM training path's, one with the two-party path's,
 one with split-party decode's, one with the HTTP wire's (``http``), one
-with phases 18-19 (``train_lm_bf16``, ``two_party_lm``), the
-``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
-{...}}``.
+with phases 18-19 (``train_lm_bf16``, ``two_party_lm``), one with
+phases 20-23 (``u_split``, ``u_split_lm``, ``federated``,
+``multi_client``, ``cli``), the ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -291,8 +332,14 @@ LM_CUT = (TRAIN_B, TRAIN_T, LM["d_model"])
 # each hop carries the [8, 1040, 256] cut (and the logits back)
 DEC_B, DEC_P, DEC_NEW = 8, 1024, 16
 GEN_CUT = (DEC_B, DEC_P + DEC_NEW, LM["d_model"])
-WIRE_SIZES = (1, 7, 8, 9, 127, 4099, math.prod(CNN_CUT), math.prod(GEN_CUT),
-              math.prod(LM_CUT))
+# the U-shaped CNN's hop 2 (the trunk's features down, their gradient
+# up), and the leaves of stage A that the multi-client topk8 bottom sync
+# encodes (its 3x3x1x32 kernel and its bias); phases 20 and 23 check
+# that these are the sizes they launch at
+U_CNN_HOP2 = (BATCH, 9216)
+A_LEAVES = (288, 32)
+WIRE_SIZES = (1, 7, 8, 9, *A_LEAVES, 127, 4099, math.prod(U_CNN_HOP2),
+              math.prod(CNN_CUT), math.prod(GEN_CUT), math.prod(LM_CUT))
 WIRE_INPUTS = ("random", "ties", "zeros", "halves")
 WIRE_DENSITIES = (0.01, 0.1, 1.0)
 WIRE_MODES, DENSITY, EF_DECAY = ("none", "int8", "topk8"), 0.1, 0.5
@@ -318,6 +365,15 @@ TP_LM_DTYPES = ("float32", "bfloat16")
 LM_CLI_LR = 3e-3
 # planted faults, each a copy of one source with one expression replaced:
 # K3 rounding halves away from zero, K4 keeping the last ties
+# phases 20-23: the U-shaped CNN and LM (the LM in bf16 under phase 18's
+# AdamW schedule), federated training over HTTP (2 clients, 2 epochs of
+# 20 steps), the multi-client runner (4 clients, topk8, a bottom sync
+# every 2 rounds, 10 rounds); the CPU twins' steps
+U_LM = dict(LM, mode="u_split")
+U_LM_MODES, U_LM_STEPS, U_TWIN_STEPS = ("int8", "topk8", "none"), 20, 2
+U_TWIN_TOL = {"none": 1e-4, "int8": 1e-3, "topk8": 1e-3}
+FED_EPOCHS, FED_STEPS = 2, 20
+MC_CLIENTS, MC_ROUNDS, MC_SYNC_EVERY = 4, 10, 2
 PLANTS = {
     "quantize_roundf": ("quantize.cu", "rintf(", "roundf("),
     "topk_select_ties_high": (
@@ -2042,6 +2098,532 @@ def k2_bf16_times(torch, dev, gen, lm_leaves, bw, fp32) -> dict:
         bound_ms=b_ms, bound_by=b_by)
 
 
+
+# --------------------------------------------------------------------- #
+# phases 20-23: the U-shaped split, federated training, the multi-client
+# runner, and their CLI
+# --------------------------------------------------------------------- #
+def hop_bytes(transport) -> dict:
+    """Record each frame's bytes on the local wire, in call order: hop 1
+    up and down, then hop 2 up and down."""
+    sizes = []
+    wire = transport._wire
+
+    def spy(payload, device):
+        tree, n = wire(payload, device)
+        sizes.append(n)
+        return tree, n
+
+    transport._wire = spy
+    return sizes
+
+
+def party_counts(server) -> dict:
+    """Count the launches made inside the server's U ops (its trunk's
+    compute; the wire's encodes and decodes run in the transport)."""
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    counts: dict = {}
+    for op in ("u_forward", "u_backward"):
+        fn = getattr(server, op)
+
+        def spy(*a, _fn=fn, **kw):
+            before = LAUNCHES.snapshot()
+            out = _fn(*a, **kw)
+            for k, v in LAUNCHES.snapshot().items():
+                if v != before.get(k, 0):
+                    counts[k] = counts.get(k, 0) + v - before.get(k, 0)
+            return out
+
+        setattr(server, op, spy)
+    return counts
+
+
+def u_stack(torch, mode, device, plan, cfg, init):
+    from split_learning_tpu_torch.runtime import (
+        ServerRuntime, USplitClientTrainer)
+    from split_learning_tpu_torch.transport import LocalTransport
+    server = ServerRuntime(plan, cfg, init, device=device)
+    transport = LocalTransport(server, compress=mode, density=DENSITY)
+    client = USplitClientTrainer(plan, cfg, init, transport, device=device)
+    return client, transport, server
+
+
+def u_run(torch, client, transport, data, steps, label, want):
+    """``steps`` U steps with step times, launch counts held to ``want``
+    (per step), the frames' bytes and a profiler window."""
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    sizes = hop_bytes(transport)
+    LAUNCHES.reset()
+    losses, ms = [], []
+    for i, (x, y) in enumerate(data[:steps]):
+        t = time.perf_counter()
+        losses.append(client.train_step(x, y, i))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    counts = LAUNCHES.snapshot()
+    total = {k: v * steps for k, v in want.items()}
+    print(f"[{label}] {steps} steps, launches {counts}, losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}", flush=True)
+    check(counts == total, f"{label} launches {counts}, want {total}")
+    check(all(math.isfinite(v) for v in losses), f"{label}: finite")
+    check(statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
+          f"{label}: loss did not fall: {losses}")
+    frames = {"u_forward": {"up": sizes[0], "down": sizes[1]},
+              "u_backward": {"up": sizes[2], "down": sizes[3]}} \
+        if len(sizes) >= 4 else None
+
+    def more_steps():
+        for i, (x, y) in enumerate(data[:PROFILE_STEPS]):
+            client.train_step(x, y, steps + i)
+        torch.cuda.synchronize()
+    steady = ms[5:]
+    stats = transport.stats.summary()
+    return dict(step_ms_median=statistics.median(steady),
+                step_ms_min=min(steady), step_ms_max=max(steady),
+                step_ms_first=ms[0], frame_bytes_per_hop=frames,
+                wire_bytes_up_per_step=stats["bytes_sent"] / steps,
+                wire_bytes_down_per_step=stats["bytes_received"] / steps,
+                compression_ratio=stats.get("compression_ratio"),
+                loss_first=losses[0], loss_last=losses[-1],
+                losses_head=losses[:U_TWIN_STEPS], launches=counts,
+                launches_per_step=want,
+                profile=profile_window(torch, more_steps, PROFILE_STEPS))
+
+
+def u_cnn_runs(torch, data):
+    """Phase 20: the U-shaped CNN over ``none``, ``int8`` and ``topk8``,
+    30 steps each with exact launches per step, frame bytes per hop and
+    direction, a profiler window, and a CPU twin in each mode (its hops
+    through the host codec; phase 12 holds K3 and K4s at the hops'
+    sizes)."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    from split_learning_tpu_torch.utils import Config
+    plan = get_plan(mode="u_split")
+    cfg = Config(mode="u_split", transport="local", batch_size=BATCH, lr=LR)
+    with torch.no_grad():
+        params = plan.init(torch.Generator().manual_seed(0), torch.zeros(1))
+        acts = plan.apply_range(params, torch.as_tensor(data[0][0]), 0, 1)
+        feats = plan.apply_range(params, acts, 1, 2)
+    check((tuple(acts.shape), tuple(feats.shape)) == (CNN_CUT, U_CNN_HOP2),
+          f"U CNN hops {acts.shape}, {feats.shape}: phase 12 checks "
+          f"{CNN_CUT} and {U_CNN_HOP2}")
+    # client: the head's K1 pair, K2 for A and for C; server: K2 for the
+    # trunk; four frames a step
+    base = {FWD: 1, BWD: 1, SGD: 3}
+    runs, totals = {}, {}
+    for mode in WIRE_MODES:
+        client, transport, server = u_stack(
+            torch, mode, "cuda", plan, cfg, torch.Generator().manual_seed(0))
+        srv = party_counts(server)
+        want = {**base, **wire_launches(mode, 4)}
+        runs[mode] = u_run(torch, client, transport, data, STEPS,
+                           f"U CNN {mode}", want)
+        check(srv == {SGD: STEPS + PROFILE_STEPS},
+              f"U CNN {mode}: server launches {srv}")
+        check(not server._u_residual, f"U CNN {mode}: residuals left")
+        runs[mode]["server_launches"] = srv
+        for k, v in runs[mode]["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+    diffs = {}
+    for mode in WIRE_MODES:
+        twin = u_stack(torch, mode, "cpu", plan, cfg,
+                       torch.Generator().manual_seed(0))[0]
+        twin_l = [twin.train_step(x, y, i)
+                  for i, (x, y) in enumerate(data[:U_TWIN_STEPS])]
+        diffs[mode] = max(abs(a - b) for a, b in
+                          zip(twin_l, runs[mode]["losses_head"]))
+        check(diffs[mode] <= U_TWIN_TOL[mode],
+              f"U CNN CPU twin {mode}: {twin_l} vs "
+              f"{runs[mode]['losses_head']}")
+    print(f"[U CNN] median step ms " + ", ".join(
+        f"{m} {r['step_ms_median']:.2f}" for m, r in runs.items())
+        + f"; CPU twins within {diffs}", flush=True)
+    return dict(runs=runs, cpu_twin_steps=U_TWIN_STEPS,
+                cpu_twin_max_abs_diff=diffs), totals
+
+
+def u_lm_runs(torch, tr_data):
+    """Phase 21: the U-shaped LM at full width in bf16 under AdamW with
+    phase 18's schedule and clipping, over ``int8``, ``topk8`` and
+    ``none``, 20 steps each: exact launches per step, the client's and
+    the server's K5/K6 apart, the cut's bytes per hop; a bf16 CPU twin on
+    the first rows."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.flash_attention import (
+        BWD_NAMES, NAME as FA)
+    from split_learning_tpu_torch.utils import Config
+    plan = get_plan(dtype="bfloat16", **U_LM)
+    cfg = Config(mode="u_split", transport="local", model="transformer_lm",
+                 attn="flash", batch_size=TRAIN_B, dtype="bfloat16",
+                 **LM_SCHEDULE, **LM_OPTIMS["adamw"])
+    init = plan.init(torch.Generator().manual_seed(0), torch.zeros(1))
+    cd, sd = U_LM["client_depth"], U_LM["server_depth"]
+    server_step = {FA: 2 * sd, **{n: sd for n in BWD_NAMES}}
+    client_step = {FA: cd, **{n: cd for n in BWD_NAMES}, FWD: 1, BWD: 1}
+    base = {k: client_step.get(k, 0) + server_step.get(k, 0)
+            for k in {**client_step, **server_step}}
+    runs, totals = {}, {}
+    for mode in U_LM_MODES:
+        client, transport, server = u_stack(torch, mode, "cuda", plan, cfg,
+                                            init)
+        srv = party_counts(server)
+        want = {**base, **wire_launches(mode, 4)}
+        runs[mode] = u_run(torch, client, transport, tr_data, U_LM_STEPS,
+                           f"U LM bf16 {mode}", want)
+        n = U_LM_STEPS + PROFILE_STEPS
+        check(srv == {k: v * n for k, v in server_step.items()},
+              f"U LM {mode}: server launches {srv}")
+        runs[mode].update(
+            server_launches_per_step=server_step,
+            client_launches_per_step=client_step,
+            tokens_per_s=(TRAIN_B * TRAIN_T / runs[mode]["step_ms_median"]
+                          * 1e3))
+        for k, v in runs[mode]["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+        del client, transport, server
+    rows = [(x[:TWIN_ROWS], y[:TWIN_ROWS])
+            for x, y in tr_data[:TWIN_STEPS]]
+    cfg_twin = cfg.replace(batch_size=TWIN_ROWS)
+    twin_l = {}
+    for dev in ("cuda", "cpu"):
+        c = u_stack(torch, "none", dev, plan, cfg_twin, init)[0]
+        twin_l[dev] = [c.train_step(x, y, i) for i, (x, y) in enumerate(rows)]
+    diffs = [abs(a - b) for a, b in zip(twin_l["cuda"], twin_l["cpu"])]
+    check(all(d <= bf16_loss_tol(v) for d, v in zip(diffs, twin_l["cpu"])),
+          f"U LM bf16 CPU twin: {twin_l}")
+    print(f"[U LM] median step ms " + ", ".join(
+        f"{m} {r['step_ms_median']:.2f}" for m, r in runs.items())
+        + f"; bf16 CPU twin on {TWIN_ROWS} rows x {TWIN_STEPS} steps within "
+        f"{max(diffs):.3g}", flush=True)
+    return dict(runs=runs, cpu_twin=dict(
+        rows=TWIN_ROWS, steps=TWIN_STEPS, card=twin_l["cuda"],
+        cpu=twin_l["cpu"], max_abs_diff=max(diffs))), totals
+
+
+def federated_http_runs(torch):
+    """Phase 22: a federated ``SplitHTTPServer`` thread (``num_clients``
+    2) and two ``FederatedClientTrainer``s on ``HttpTransport`` in two
+    threads, the CNN at batch 64, 2 epochs of 20 steps on disjoint
+    halves: after each epoch both clients' parameters bit-identical and
+    within 1e-6 of the mean of their pre-sync parameters (computed on
+    the card); the K1 pair and one K2 launch per client step; the
+    aggregate round trip and its bytes each way."""
+    import threading
+
+    from split_learning_tpu_torch.data import batches, synthetic
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    from split_learning_tpu_torch.runtime import (
+        FederatedClientTrainer, ServerRuntime, leaves_of)
+    from split_learning_tpu_torch.transport import (
+        HttpTransport, SplitHTTPServer)
+    from split_learning_tpu_torch.utils import Config
+    ds = synthetic("mnist", n_train=BATCH * FED_STEPS * 2, n_test=8, seed=1)
+    data = list(batches(ds.train, BATCH, seed=1, drop_remainder=True))
+    shards = [data[:FED_STEPS], data[FED_STEPS:]]
+    plan = get_plan(mode="federated")
+    cfg = Config(mode="federated", transport="http", batch_size=BATCH,
+                 lr=LR, num_clients=2, epochs=FED_EPOCHS)
+    server = ServerRuntime(plan, cfg, torch.Generator().manual_seed(0),
+                           device="cuda")
+    srv = SplitHTTPServer(server).start()
+    transports = [HttpTransport(srv.url, timeout=HTTP_TIMEOUT)
+                  for _ in range(2)]
+    clients = [FederatedClientTrainer(plan, cfg,
+                                      torch.Generator().manual_seed(0), t,
+                                      device="cuda") for t in transports]
+    pre, post, rtt = ({i: [] for i in range(2)} for _ in range(3))
+    for i, c in enumerate(clients):
+        sync = c.sync
+
+        def spy(*a, _i=i, _c=c, _sync=sync, **kw):
+            pre[_i].append([t.detach().clone() for t in leaves_of(_c.params)])
+            t0 = time.perf_counter()
+            _sync(*a, **kw)
+            rtt[_i].append((time.perf_counter() - t0) * 1e3)
+            post[_i].append([t.detach().clone()
+                             for t in leaves_of(_c.params)])
+
+        c.sync = spy
+    errors, records = [], {}
+
+    def run(i):
+        try:
+            records[i] = clients[i].train(lambda: iter(shards[i]),
+                                          epochs=FED_EPOCHS)
+        except Exception as exc:  # surfaced below
+            errors.append((i, repr(exc)))
+
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(2)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = LAUNCHES.snapshot()
+        check(not errors and not any(t.is_alive() for t in threads),
+              f"federated clients failed or hung: {errors}")
+        stats = [t.stats.summary() for t in transports]
+    finally:
+        for t in transports:
+            t.close()
+        srv.stop()
+    n = 2 * FED_EPOCHS * FED_STEPS
+    want = {FWD: n, BWD: n, SGD: n}
+    print(f"[federated] 2 clients x {FED_EPOCHS} epochs x {FED_STEPS} "
+          f"steps over HTTP, launches {counts}", flush=True)
+    check(counts == want, f"federated launches {counts}, want {want}")
+    max_err = 0.0
+    for e in range(FED_EPOCHS):
+        for a, b, p0, p1 in zip(post[0][e], post[1][e], pre[0][e],
+                                pre[1][e]):
+            check(torch.equal(a, b), f"epoch {e}: clients differ")
+            max_err = max(max_err, (a - (p0 + p1) / 2).abs().max().item())
+    check(max_err <= 1e-6, f"FedAvg mean off by {max_err}")
+    losses = {i: [r.loss for r in records[i]] for i in range(2)}
+    for i in range(2):
+        check(all(math.isfinite(v) for v in losses[i]), "federated: finite")
+        check(losses[i][-1] < losses[i][0],
+              f"federated client {i}: epoch losses {losses[i]}")
+    check(server.health()["step"] == FED_EPOCHS * FED_STEPS,
+          f"federated server step {server.health()['step']}")
+    print(f"[federated] clients bit-identical after each sync, mean within "
+          f"{max_err:.3g}; aggregate round trip ms {rtt}; epoch losses "
+          f"{losses}", flush=True)
+    return dict(model="split_cnn", batch=BATCH, clients=2,
+                epochs=FED_EPOCHS, steps_per_epoch=FED_STEPS,
+                launches=counts,
+                launches_per_client_step={FWD: 1, BWD: 1, SGD: 1},
+                mean_max_abs_err=max_err, aggregate_rtt_ms=rtt,
+                aggregate_bytes_up=[s["bytes_sent"] / FED_EPOCHS
+                                    for s in stats],
+                aggregate_bytes_down=[s["bytes_received"] / FED_EPOCHS
+                                      for s in stats],
+                params=sum(t.numel() for t in leaves_of(clients[0].params)),
+                epoch_losses=losses, wall_ms=wall_ms), counts
+
+
+def multi_client_runs(torch):
+    """Phase 23: ``MultiClientSplitRunner`` with 4 clients and one
+    ``ServerRuntime`` on the card over ``topk8``, a ``topk8`` bottom sync
+    every 2 rounds, 10 rounds, round-robin and then concurrent: exact
+    launches per round and per sync, the bottoms equal after each sync,
+    the sync byte counters and round ms."""
+    from split_learning_tpu_torch.data import batches, synthetic
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops import topk as kmod
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    from split_learning_tpu_torch.runtime import (
+        MultiClientSplitRunner, ServerRuntime, leaves_of)
+    from split_learning_tpu_torch.transport import LocalTransport
+    from split_learning_tpu_torch.utils import Config
+    n = MC_CLIENTS
+    ds = synthetic("mnist", n_train=BATCH * n * MC_ROUNDS, n_test=8, seed=2)
+    data = list(batches(ds.train, BATCH, seed=2, drop_remainder=True))
+    per_client = [data[i::n] for i in range(n)]
+    sizes_a = tuple(p.numel() for p in
+                    get_plan().stages[0].module.state_dict().values())
+    check(sizes_a == A_LEAVES, f"stage A's leaves {sizes_a}: phase 12 "
+                               f"checks {A_LEAVES}")
+    leaves_a = len(sizes_a)
+    per_round = {FWD: n, BWD: n, SGD: 2 * n,
+                 **{k: 2 * n for k in kmod.SELECT_LAUNCHES}}
+    per_sync = {k: leaves_a * n for k in kmod.SELECT_LAUNCHES}
+    runs, totals = {}, {}
+    for concurrent in (False, True):
+        cfg = Config(transport="local", batch_size=BATCH, lr=LR,
+                     num_clients=n)
+        server = ServerRuntime(get_plan(), cfg,
+                               torch.Generator().manual_seed(0),
+                               device="cuda")
+        runner = MultiClientSplitRunner(
+            get_plan(), cfg, torch.Generator().manual_seed(0),
+            lambda i: LocalTransport(server, compress="topk8",
+                                     density=DENSITY),
+            sync_bottoms_every=MC_SYNC_EVERY, sync_compress="topk8",
+            sync_density=DENSITY, concurrent=concurrent, device="cuda")
+        syncs = []
+        sync = runner.sync_bottoms
+
+        def spy(_sync=sync, _runner=runner):
+            before = LAUNCHES.snapshot()
+            raw0, wire0 = _runner.sync_raw_bytes, _runner.sync_wire_bytes
+            _sync()
+            torch.cuda.synchronize()
+            after = LAUNCHES.snapshot()
+            ls = [leaves_of(c.state.params) for c in _runner.clients]
+            equal = all(torch.equal(a, b) for other in ls[1:]
+                        for a, b in zip(ls[0], other))
+            syncs.append(dict(
+                select_launches={k: after.get(k, 0) - before.get(k, 0)
+                                 for k in kmod.SELECT_LAUNCHES},
+                raw_bytes=_runner.sync_raw_bytes - raw0,
+                wire_bytes=_runner.sync_wire_bytes - wire0, equal=equal))
+
+        runner.sync_bottoms = spy
+        LAUNCHES.reset()
+        round_ms, losses = [], []
+        try:
+            for r in range(MC_ROUNDS):
+                t = time.perf_counter()
+                losses.append(runner.train_round(
+                    [per_client[i][r] for i in range(n)]))
+                torch.cuda.synchronize()
+                round_ms.append((time.perf_counter() - t) * 1e3)
+        finally:
+            runner.close()
+        counts = LAUNCHES.snapshot()
+        n_sync = MC_ROUNDS // MC_SYNC_EVERY
+        want = {k: MC_ROUNDS * v + (n_sync - 1) * per_sync.get(k, 0)
+                for k, v in per_round.items()}
+        label = "concurrent" if concurrent else "round-robin"
+        print(f"[multi-client] {label}: {MC_ROUNDS} rounds, launches "
+              f"{counts}, syncs {[s['select_launches'] for s in syncs]}",
+              flush=True)
+        check(counts == want, f"multi-client {label} launches {counts}, "
+                              f"want {want}")
+        check(len(syncs) == n_sync and all(s["equal"] for s in syncs),
+              f"multi-client {label}: bottoms differ after a sync")
+        check(syncs[0]["select_launches"] == {k: 0 for k in per_sync}
+              and all(s["select_launches"] == per_sync for s in syncs[1:]),
+              f"multi-client {label}: sync launches {syncs}")
+        check(runner.sync_raw_bytes > runner.sync_wire_bytes > 0,
+              f"multi-client {label}: sync bytes")
+        check(all(math.isfinite(v) for r in losses for v in r),
+              f"multi-client {label}: finite losses")
+        check(server._last_step == {i: MC_ROUNDS - 1 for i in range(n)},
+              f"multi-client {label}: handshakes {server._last_step}")
+        runs[label] = dict(
+            round_ms_median=statistics.median(round_ms[1:]),
+            round_ms_min=min(round_ms[1:]), round_ms_first=round_ms[0],
+            launches=counts, launches_per_round=per_round,
+            select_launches_per_compressed_sync=per_sync, syncs=syncs,
+            sync_raw_bytes=runner.sync_raw_bytes,
+            sync_wire_bytes=runner.sync_wire_bytes,
+            sync_ratio=runner.sync_raw_bytes / runner.sync_wire_bytes,
+            loss_first=statistics.mean(losses[0]),
+            loss_last=statistics.mean(losses[-1]))
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    print(f"[multi-client] round ms round-robin "
+          f"{runs['round-robin']['round_ms_median']:.2f}, concurrent "
+          f"{runs['concurrent']['round_ms_median']:.2f}; sync raw/wire "
+          f"bytes {runs['round-robin']['sync_raw_bytes']}/"
+          f"{runs['round-robin']['sync_wire_bytes']}", flush=True)
+    return dict(clients=n, rounds=MC_ROUNDS, sync_every=MC_SYNC_EVERY,
+                wire="topk8", density=DENSITY, runs=runs), totals
+
+
+def u_fed_cli(torch, launch_run) -> dict:
+    """The CLI of phases 20-23: ``serve --mode u_split`` with the bf16
+    AdamW LM as a subprocess and ``train --mode u_split --transport
+    http`` with the same flags for 5 int8 steps against it (the client's
+    launches exact: its block's K5 and K6, the head's K1 pair, two int8
+    encodes and decodes a step); then ``train --mode federated
+    --transport local`` on the CNN (the K1 pair and one K2 a step; FedAvg
+    launches none). Both rc 0 with a falling loss."""
+    import contextlib
+    import io
+    import queue
+    import signal
+    import subprocess
+    import threading
+
+    from split_learning_tpu_torch.ops import quantize as qmod
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.flash_attention import (
+        BWD_NAMES, NAME as FA)
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    data_dir = os.path.join(REPO, "build", "chip_smoke_data")
+    flags = ["--mode", "u_split", "--device", "cuda", "--model",
+             "transformer_lm", "--dataset", "lm", "--seq-len", str(TRAIN_T),
+             "--d-model", str(LM["d_model"]), "--num-heads",
+             str(LM["num_heads"]), "--client-depth", str(LM["client_depth"]),
+             "--server-depth", str(LM["server_depth"]), "--attn", "flash",
+             "--batch-size", str(TRAIN_B), "--dtype", "bfloat16",
+             "--optimizer", "adamw", "--lr", str(LM_CLI_LR),
+             "--weight-decay", "0.1", "--warmup-steps", "2",
+             "--decay-steps", "10", "--grad-clip-norm", "1.0",
+             "--data-dir", data_dir]
+    err_path = os.path.join(REPO, "build", "chip_smoke_serve_u.err")
+    os.makedirs(os.path.dirname(err_path), exist_ok=True)
+
+    def run_cli(args):
+        out = io.StringIO()
+        LAUNCHES.reset()
+        with contextlib.redirect_stdout(out):
+            rc = launch_run.main(args)
+        counts = LAUNCHES.snapshot()
+        text = out.getvalue()
+        print(text, end="", flush=True)
+        first = float(next(ln for ln in text.splitlines()
+                           if ln.startswith("[step 0] loss:")).split(":")[1])
+        final = float(text.split("final_loss=")[1].split()[0])
+        return rc, counts, first, final
+
+    with open(err_path, "w") as err_f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "split_learning_tpu_torch.launch.run",
+             "serve", "--port", "0", "--host", "127.0.0.1", *flags],
+            cwd=REPO, stdout=subprocess.PIPE, stderr=err_f, text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                     daemon=True).start()
+    try:
+        try:
+            first = lines.get(timeout=CLI_START_TIMEOUT)
+        except queue.Empty:
+            first = ""
+        check(first.startswith("[serve] mode=u_split role=server listening "
+                               "on "),
+              f"serve printed {first!r}; stderr: "
+              f"{open(err_path).read()[-2000:]}")
+        url = first.split("listening on ")[1].strip()
+        rc, counts, l0, l1 = run_cli([
+            "train", "--transport", "http", "--server-url", url,
+            "--compress", "int8", "--steps", "5", "--tracking", "stdout",
+            "--wait-server", "60", *flags])
+        check(rc == 0, f"U LM train --transport http returned {rc}")
+        check(l1 < l0, f"U LM CLI over HTTP: loss {l0} -> {l1}")
+        cd = LM["client_depth"]
+        want = {FA: 5 * cd, **{n: 5 * cd for n in BWD_NAMES}, FWD: 5,
+                BWD: 5, qmod.QUANT: 10, qmod.DEQUANT: 10}
+        check(counts == want, f"U LM CLI client launches {counts}, "
+                              f"want {want}")
+        proc.send_signal(signal.SIGINT)
+        serve_rc = proc.wait(timeout=60)
+        check(serve_rc == 0, f"U serve exited {serve_rc}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    u_rec = dict(serve_rc=serve_rc, train_rc=rc, loss_first=l0,
+                 loss_final=l1, client_launches=counts)
+    rc, counts, l0, l1 = run_cli([
+        "train", "--mode", "federated", "--transport", "local", "--steps",
+        "8", "--lr", str(CLI_LR), "--dataset", "synthetic", "--tracking",
+        "stdout", "--data-dir", data_dir])
+    check(rc == 0, f"federated train --transport local returned {rc}")
+    check(l1 < l0, f"federated CLI: loss {l0} -> {l1}")
+    check(counts == {FWD: 8, BWD: 8, SGD: 8},
+          f"federated CLI launches {counts}")
+    return dict(u_split_http=u_rec, federated_local=dict(
+        train_rc=rc, loss_first=l0, loss_final=l1, launches=counts))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2866,6 +3448,19 @@ def main() -> int:
     tp_lm, tp_lm_counts = two_party_lm_runs(torch, tr_data)
     tp_lm["cli_http"] = lm_cli_http(torch, launch_run)
 
+    # ---- 20. the U-shaped CNN ---------------------------------------- #
+    u_cnn, u_cnn_counts = u_cnn_runs(torch, data)
+
+    # ---- 21. the U-shaped LM at full width, bf16 --------------------- #
+    u_lm, u_lm_counts = u_lm_runs(torch, tr_data)
+
+    # ---- 22. federated training over HTTP ---------------------------- #
+    fed, fed_counts = federated_http_runs(torch)
+
+    # ---- 23. the multi-client runner, then the CLI of 20-23 --------- #
+    mc, mc_counts = multi_client_runs(torch)
+    cli_u_fed = u_fed_cli(torch, launch_run)
+
     for rec in records:
         key = launch_of.get(rec["name"], rec["name"])
         rec["launches_train_lm_bf16"] = bf16_counts.get(key, 0)
@@ -2915,6 +3510,23 @@ def main() -> int:
             rec["also_replaces"] = ("split_learning_tpu/ops/quantize.py:56, "
                                     ":60 (the gridded amax and quantize)")
         records.append(rec)
+    mc_rr = mc["runs"]["round-robin"]
+    for rec in records:
+        key = launch_of.get(rec["name"], rec["name"])
+        rec["launches_u_split_cnn"] = u_cnn_counts.get(key, 0)
+        rec["launches_u_split_lm_bf16"] = u_lm_counts.get(key, 0)
+        rec["launches_federated"] = fed_counts.get(key, 0)
+        rec["launches_multi_client"] = mc_counts.get(key, 0)
+        rec["launches_per_step_new_paths"] = dict(
+            u_split_cnn={m: r["launches_per_step"].get(key, 0)
+                         for m, r in u_cnn["runs"].items()},
+            u_split_lm_bf16={m: r["launches_per_step"].get(key, 0)
+                             for m, r in u_lm["runs"].items()},
+            federated_per_client_step=fed["launches_per_client_step"].get(
+                key, 0),
+            multi_client_per_round=mc_rr["launches_per_round"].get(key, 0),
+            multi_client_per_compressed_sync=mc_rr[
+                "select_launches_per_compressed_sync"].get(key, 0))
     two_party_line = dict(two_party=dict(
         model="split_cnn", mode="split", transport="local", batch=BATCH,
         steps=STEPS, density=DENSITY, device=kind, kernel_cases=wire_cases,
@@ -2946,6 +3558,16 @@ def main() -> int:
     print(json.dumps(decode_line))
     print(json.dumps(http_line))
     print(json.dumps(lm_line))
+    print(json.dumps(dict(
+        u_split=dict(model="split_cnn", batch=BATCH, steps=STEPS,
+                     density=DENSITY, device=kind, card=smi, **u_cnn),
+        u_split_lm=dict(model="transformer_lm", dtype="bfloat16",
+                        optimizer="adamw", batch=TRAIN_B, seq_len=TRAIN_T,
+                        cut=list(LM_CUT), steps=U_LM_STEPS, device=kind,
+                        card=smi, **u_lm),
+        federated=dict(transport="http", device=kind, card=smi, **fed),
+        multi_client=dict(device=kind, card=smi, **mc),
+        cli=cli_u_fed)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -72,10 +73,18 @@ def flax_like_init(module: nn.Module, generator: torch.Generator) -> Params:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Stage:
-    """One differentiable segment of a split model."""
+    """One differentiable segment of a split model.
+
+    ``apply`` is safe from concurrent threads (clients of one plan in a
+    thread pool, HTTP handlers): ``functional_call`` swaps the given
+    parameters into the shared module for the call, so calls of one
+    stage hold its lock for the forward. The graph a forward records
+    holds the tensors themselves, so backward passes run unlocked."""
 
     name: str
     module: nn.Module  # architecture only (meta device); params live outside
+    _lock: threading.RLock = dataclasses.field(
+        default_factory=threading.RLock, repr=False, compare=False)
 
     def init(self, generator: torch.Generator, sample: torch.Tensor
              ) -> Params:
@@ -88,20 +97,27 @@ class Stage:
         to its ``forward``, as ``from_flax`` passes them to
         ``module.apply``: the transformer stages take their KV-cache
         modes this way (``cache_len=``/``decode_cache=``/``pos=``)."""
-        return torch.func.functional_call(self.module, params, (x,), kw)
+        with self._lock:
+            return torch.func.functional_call(self.module, params, (x,), kw)
 
 
 def stage_backward(stage: Stage, params: Params, x: torch.Tensor,
-                   g_out: torch.Tensor) -> Params:
+                   g_out: torch.Tensor, input_grad: bool = False):
     """Rematerialised backward through one stage: re-run the forward on
     detached copies of ``params`` and pull the transported cotangent
     ``g_out`` through it with ``torch.autograd.backward``. Returns the
-    parameter gradients, keyed like ``params``."""
+    parameter gradients, keyed like ``params``; with ``input_grad`` the
+    pair ``(parameter gradients, gradient of x)``, as the U-shaped
+    server's ``u_backward`` needs (JAX's ``jax.vjp`` over both)."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    x_in = x.detach()
+    if input_grad:
+        x_in.requires_grad_(True)
     with torch.enable_grad():
-        y = stage.apply(leaves, x.detach())
+        y = stage.apply(leaves, x_in)
         torch.autograd.backward(y, g_out)
-    return {k: v.grad for k, v in leaves.items()}
+    grads = {k: v.grad for k, v in leaves.items()}
+    return (grads, x_in.grad) if input_grad else grads
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

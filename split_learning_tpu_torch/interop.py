@@ -22,7 +22,11 @@ JAX init and each keep their own stage, as the JAX parties keep theirs
 from one PRNG key, so a mixed pair starts from identical parameters.
 
 Both directions only transpose, so a round trip is bit-exact. Arrays
-cross as numpy, so neither side imports the other framework. Each leaf
+cross as numpy, so neither side imports the other framework; a flax
+tree whose leaves are tensors (a federated server's average on the
+card) converts on their device. :func:`stage_to_jax` orders every dict's
+keys as ``jax.tree_util`` does, so the FedAvg frame of a port client is
+byte-equal to a JAX client's. Each leaf
 keeps its dtype in both directions: a bfloat16 leaf (``pos`` in a bf16
 tree) reaches numpy as an ``ml_dtypes`` array, which the port does not
 import; it is read as float32 (exact) and cast back to
@@ -45,9 +49,10 @@ from split_learning_tpu_torch.utils.arrays import to_host
 _RAW_LEAVES = ("pos",)
 
 
-def _kernel_to_weight(k: np.ndarray) -> np.ndarray:
+def _kernel_to_weight(k: Any) -> Any:
     if k.ndim == 4:   # HWIO -> OIHW
-        return k.transpose(3, 2, 0, 1)
+        return (k.permute(3, 2, 0, 1) if isinstance(k, torch.Tensor)
+                else k.transpose(3, 2, 0, 1))
     if k.ndim == 2:   # [in, out] -> [out, in]
         return k.T
     raise ValueError(f"unsupported kernel rank {k.ndim}")
@@ -62,6 +67,10 @@ def _weight_to_kernel(w: np.ndarray) -> np.ndarray:
 
 
 def _leaf_to_torch(value: Any, transform=None) -> torch.Tensor:
+    if isinstance(value, torch.Tensor):
+        # a tensor stays on its device and keeps its dtype
+        t = value.detach()
+        return (transform(t) if transform is not None else t).contiguous()
     arr = np.asarray(value)
     bf16 = arr.dtype.name == "bfloat16"
     arr = arr.astype(np.float32)   # a copy: the tensor owns its memory
@@ -118,7 +127,16 @@ def stage_to_jax(params: Params) -> Dict[str, Dict[str, Any]]:
         for part in path:
             node = node.setdefault(part, {})
         node[leaf] = arr
-    return {"params": root}
+    return {"params": _sorted(root)}
+
+
+def _sorted(node: Any) -> Any:
+    """Keys in sorted order at every level: the order ``jax.tree_util``
+    rebuilds a dict in, so a frame of this tree is byte-equal to JAX's
+    ``tree_map(np.asarray, params)``."""
+    if not isinstance(node, dict):
+        return node
+    return {k: _sorted(node[k]) for k in sorted(node)}
 
 
 def params_from_jax(flax_params: Sequence[Mapping[str, Any]]

@@ -1,12 +1,16 @@
 """CLI entry point (counterpart of ``split_learning_tpu/launch/run.py``).
 
 ``train``, on the GPU by default: the fused transport (one process, one
-program), the two-party path in one process (``--transport local``:
-``SplitClientTrainer`` over ``LocalTransport`` to an in-process
+program), the two-party path in one process (``--transport local``: the
+client of ``--mode`` over ``LocalTransport`` to an in-process
 ``ServerRuntime`` built from the same seed, with the wire compression of
 ``--compress``), or the client party of a two-process run over HTTP
-(``--transport http --server-url URL``). ``serve`` runs the server party
-behind ``SplitHTTPServer`` until SIGINT:
+(``--transport http --server-url URL``). The client of each mode:
+``SplitClientTrainer`` (``split``), ``USplitClientTrainer``
+(``u_split``: labels stay with the client) and ``FederatedClientTrainer``
+(``federated``: local epochs, one FedAvg round an epoch). ``serve`` runs
+the server party of ``--mode`` behind ``SplitHTTPServer`` until SIGINT;
+a federated server's round size is ``SLT_NUM_CLIENTS`` (default 1):
 
   python -m split_learning_tpu_torch.launch.run train \
       --mode split --dataset synthetic --steps 20
@@ -15,6 +19,11 @@ behind ``SplitHTTPServer`` until SIGINT:
   python -m split_learning_tpu_torch.launch.run serve --port 8000 &
   python -m split_learning_tpu_torch.launch.run train --transport http \
       --server-url http://127.0.0.1:8000 --compress int8 --steps 20
+  python -m split_learning_tpu_torch.launch.run train --mode u_split \
+      --transport local --compress int8 --dataset synthetic --steps 20
+  python -m split_learning_tpu_torch.launch.run serve --mode federated &
+  python -m split_learning_tpu_torch.launch.run train --mode federated \
+      --transport http --server-url http://127.0.0.1:8000 --epochs 2
   python -m split_learning_tpu_torch.launch.run train \
       --model transformer_lm --dataset lm --seq-len 256 --attn flash \
       --d-model 256 --num-heads 2 --steps 20
@@ -42,13 +51,19 @@ Training as JAX's command configures it, on every transport and on
 ``--optimizer sgd|adam|adamw``, ``--momentum``, ``--weight-decay``,
 ``--warmup-steps``, ``--decay-steps``, ``--grad-clip-norm`` and
 ``--dtype float32|bfloat16`` (``runtime/state.py`` ``make_tx``).
-``train --trace PATH`` writes the run's spans as a Chrome trace.
+``train --trace PATH`` writes the run's spans as a Chrome trace. As in
+JAX, ``--failure-policy`` other than ``raise`` and ``--prefetch`` apply
+to the split client only: in another mode they warn and fall back.
+``--eval`` scores the composition each mode trains: the client's and
+the server's stages (over HTTP the server's stay remote,
+``evaluate_remote``; for ``u_split`` the client's A and C around them),
+or the federated client's whole model.
 
 Not ported yet, each exiting 2 with the ROADMAP item it waits for:
 ``--replicas`` above 1 (item 19), ``--pipeline-depth`` above 1 (item
-15), the U-shaped and federated modes (item 11), and the ``serve`` flags
-of :data:`SERVE_NOT_PORTED`; the ``eval`` and ``generate`` commands and
-checkpoints are item 13.
+15), ``--prefetch`` on the split client (item 13), and the ``serve``
+flags of :data:`SERVE_NOT_PORTED`; the ``eval`` and ``generate``
+commands and checkpoints are item 13.
 """
 
 from __future__ import annotations
@@ -186,8 +201,9 @@ def cmd_train(args) -> int:
     from split_learning_tpu_torch.data import batches, load_dataset
     from split_learning_tpu_torch.models import get_plan
     from split_learning_tpu_torch.runtime import (
-        CircuitBreaker, FusedSplitTrainer, ServerRuntime, SplitClientTrainer,
-        check_config, check_supported)
+        CircuitBreaker, FederatedClientTrainer, FusedSplitTrainer,
+        ServerRuntime, SplitClientTrainer, USplitClientTrainer, check_config,
+        check_supported)
     from split_learning_tpu_torch.tracking import make_logger
     from split_learning_tpu_torch.transport.chaos import parse_chaos_spec
     from split_learning_tpu_torch.utils.device import resolve_device
@@ -204,6 +220,10 @@ def cmd_train(args) -> int:
                        f"--dataset {cfg.dataset!r})")
         two_party = cfg.transport in ("local", "http")
         density = _density_or_default(args) if two_party else None
+        if err is None and args.prefetch > 0 and cfg.mode == "split":
+            raise NotImplementedError(
+                "not ported yet: --prefetch > 0 (DevicePrefetch, ROADMAP "
+                "item 13)")
         if err is None and two_party:
             err = _wire_error(args, density)
             if args.chaos:
@@ -220,10 +240,6 @@ def cmd_train(args) -> int:
                                    torch.Generator().manual_seed(cfg.seed),
                                    device=args.device)
         elif two_party:
-            if cfg.mode != "split":
-                raise NotImplementedError(
-                    f"not ported yet: mode {cfg.mode!r} over HTTP (the "
-                    "U-shaped and federated clients, ROADMAP item 11)")
             check_config(cfg)
         else:
             check_supported(cfg)
@@ -240,6 +256,14 @@ def cmd_train(args) -> int:
             if val is not None:
                 print(f"[warn] {flag} {val!r} ignored: the fused "
                       "transport has no wire", file=sys.stderr)
+    if args.prefetch > 0 and cfg.mode != "split":
+        print(f"[warn] --prefetch ignored in mode {cfg.mode!r} (split "
+              "only)", file=sys.stderr)
+    fail_policy = args.failure_policy or "raise"
+    if two_party and fail_policy != "raise" and cfg.mode != "split":
+        print(f"[warn] --failure-policy {fail_policy} applies to the "
+              "serialized split client only; ignored here", file=sys.stderr)
+        fail_policy = "raise"
     if two_party:
         # the wire before the data: a server in another mode stops here
         transport, rc = _make_transport(args, cfg, density, server)
@@ -251,8 +275,13 @@ def cmd_train(args) -> int:
               f"({len(ds.train)} train examples)", file=sys.stderr)
     sample = ds.train.x[:cfg.batch_size]
     seed_gen = torch.Generator().manual_seed(cfg.seed)
-    if two_party:
-        fail_policy = args.failure_policy or "raise"
+    if two_party and cfg.mode == "u_split":
+        trainer = USplitClientTrainer(plan, cfg, seed_gen, transport,
+                                      device=args.device)
+    elif two_party and cfg.mode == "federated":
+        trainer = FederatedClientTrainer(plan, cfg, seed_gen, transport,
+                                         device=args.device)
+    elif two_party:
         # retry clients probe /health while the server is down instead
         # of resending full steps; its jitter is seeded from the config
         breaker = (CircuitBreaker(transport.health, seed=cfg.seed)
@@ -285,16 +314,27 @@ def cmd_train(args) -> int:
     t0 = time.time()
     n_steps = 0
     final_loss = float("nan")
-    for _ in range(cfg.epochs):  # the step cap is enforced by data_iter
-        for x, y in data_iter():
-            if two_party:
-                loss = trainer.train_step(x, y, n_steps)
-            else:
-                loss = trainer.train_step(x, y)
-            if loss is not None:
-                final_loss = loss
-                logger.log_metric("loss", loss, step=n_steps)
-            n_steps += 1
+    if isinstance(trainer, FederatedClientTrainer):
+        # one FedAvg round an epoch; an epoch the step cap leaves empty
+        # is not run
+        per_epoch = max(len(ds.train) // cfg.batch_size, 1)
+        epochs = (cfg.epochs if not args.steps
+                  else min(cfg.epochs, -(-args.steps // per_epoch)))
+        trainer.train(data_iter, epochs=epochs)
+        for n_steps, loss in enumerate(trainer.losses, 1):
+            final_loss = loss
+            logger.log_metric("loss", loss, step=n_steps - 1)
+    else:
+        for _ in range(cfg.epochs):  # data_iter enforces the step cap
+            for x, y in data_iter():
+                if two_party:
+                    loss = trainer.train_step(x, y, n_steps)
+                else:
+                    loss = trainer.train_step(x, y)
+                if loss is not None:
+                    final_loss = loss
+                    logger.log_metric("loss", loss, step=n_steps)
+                n_steps += 1
     dt = time.time() - t0
     if step_tracer is not None:
         obs.disable()
@@ -311,18 +351,24 @@ def cmd_train(args) -> int:
               f"bytes_sent={wire['bytes_sent']} "
               f"bytes_received={wire['bytes_received']} "
               f"compression_ratio={wire.get('compression_ratio', 1.0):.2f} "
-              f"dropped_batches={trainer.dropped_batches}")
+              f"dropped_batches={getattr(trainer, 'dropped_batches', 0)}")
 
     if args.eval:
         from split_learning_tpu_torch.runtime.evaluate import (
             evaluate, evaluate_remote)
-        if cfg.transport == "http":
+        client_params = (list(trainer.params) if cfg.mode == "u_split"
+                         else [trainer.params])
+        if cfg.mode == "federated" or not two_party:
+            res = evaluate(plan, trainer.params, ds.test,
+                           batch_size=cfg.batch_size)
+        elif cfg.transport == "http":
             # the server's stage stays remote: split-party inference
-            res = evaluate_remote(plan, [trainer.params], transport,
+            res = evaluate_remote(plan, client_params, transport,
                                   ds.test, batch_size=cfg.batch_size)
         else:
-            params = ((trainer.params, server.params) if two_party
-                      else trainer.params)
+            # the composition in stage order: [A, trunk, C] for u_split
+            params = [*client_params[:1], server.params,
+                      *client_params[1:]]
             res = evaluate(plan, params, ds.test,
                            batch_size=cfg.batch_size)
         logger.log_metric("test_accuracy", res["accuracy"], step=n_steps)
@@ -613,6 +659,10 @@ def main(argv: Optional[list] = None) -> int:
     pt.add_argument("--pipeline-depth", dest="pipeline_depth", type=int,
                     default=1,
                     help="steps in flight (only 1 is ported)")
+    pt.add_argument("--prefetch", type=int, default=0,
+                    help="batches staged on the device ahead of the split "
+                         "client (not ported: 0 only; ignored with a "
+                         "warning in the other modes)")
     pt.add_argument("--eval", action="store_true",
                     help="report test-split accuracy after training "
                          "(over HTTP: split-party, evaluate_remote)")

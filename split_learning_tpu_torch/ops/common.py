@@ -25,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -49,19 +50,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 class LaunchCounts:
-    """Per-kernel launch counters (plain integers keyed by kernel name)."""
+    """Per-kernel launch counters (plain integers keyed by kernel name),
+    exact under concurrent launching threads (the multi-client runner's
+    clients, the HTTP server's handlers)."""
 
     def __init__(self) -> None:
         self._counts: Dict[str, int] = {}
+        self._lock = threading.Lock()
 
     def add(self, name: str) -> None:
-        self._counts[name] = self._counts.get(name, 0) + 1
+        with self._lock:
+            self._counts[name] = self._counts.get(name, 0) + 1
 
     def reset(self) -> None:
-        self._counts.clear()
+        with self._lock:
+            self._counts.clear()
 
     def snapshot(self) -> Dict[str, int]:
-        return dict(self._counts)
+        with self._lock:
+            return dict(self._counts)
 
 
 LAUNCHES = LaunchCounts()

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -203,6 +204,12 @@ def topk8_select_plain(x: torch.Tensor, res: Optional[torch.Tensor],
     return buf, (x_eff if keep_residual else None)
 
 
+# one encode's five launches are enqueued together: threads that encode
+# on one stream (concurrent clients, HTTP handlers) must not interleave
+# their launches, or one encode's histogram passes read another's scratch
+_ENCODE_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def _scratch(device: torch.device, stream: int) -> torch.Tensor:
     """The select launches' scratch for one stream, zeroed once: every
@@ -230,11 +237,12 @@ def topk8_select_cuda(x: torch.Tensor, res: Optional[torch.Tensor],
              if keep_residual else None)
     stream = current_stream_handle(x.device)
     scratch = _scratch(x.device, stream.value)
-    rc = _select_lib().slt_topk8_encode(
-        x.data_ptr(), int(x.dtype == torch.bfloat16),
-        res.data_ptr() if res is not None else None, float(decay), n, k,
-        int(bitmap), x_eff.data_ptr() if x_eff is not None else None,
-        scratch.data_ptr(), buf.data_ptr(), stream)
+    with _ENCODE_LOCK:
+        rc = _select_lib().slt_topk8_encode(
+            x.data_ptr(), int(x.dtype == torch.bfloat16),
+            res.data_ptr() if res is not None else None, float(decay), n,
+            k, int(bitmap), x_eff.data_ptr() if x_eff is not None else None,
+            scratch.data_ptr(), buf.data_ptr(), stream)
     check_launch(rc, SELECT_LAUNCHES[0])
     for name in SELECT_LAUNCHES:
         LAUNCHES.add(name)

@@ -1,23 +1,29 @@
 from split_learning_tpu_torch.runtime.breaker import CircuitBreaker
 from split_learning_tpu_torch.runtime.client import (
-    FailurePolicy, SplitClientTrainer, StepRecord)
+    FailurePolicy, FederatedClientTrainer, SplitClientTrainer, StepRecord,
+    USplitClientTrainer)
 from split_learning_tpu_torch.runtime.evaluate import (
     evaluate, evaluate_remote, split_client_stages)
 from split_learning_tpu_torch.runtime.fused import (
     FusedSplitTrainer, check_supported)
 from split_learning_tpu_torch.runtime.generate import (
     generate_remote, greedy_generate, sample_generate)
+from split_learning_tpu_torch.runtime.multi_client import (
+    MultiClientSplitRunner)
 from split_learning_tpu_torch.runtime.party import ProtocolError
 from split_learning_tpu_torch.runtime.replay import ReplayCache
-from split_learning_tpu_torch.runtime.server import ServerRuntime
+from split_learning_tpu_torch.runtime.server import (
+    FedAvgAggregator, ServerRuntime)
 from split_learning_tpu_torch.runtime.state import (
-    SGD, TrainState, check_config, init_params, leaves_of, make_lr,
-    make_state, make_tx, sgd)
+    SGD, TrainState, check_config, compressed_sync_contribution,
+    fedavg_mean, init_params, leaves_of, make_lr, make_state, make_tx, sgd)
 
-__all__ = ["CircuitBreaker", "FailurePolicy", "FusedSplitTrainer",
-           "ProtocolError", "ReplayCache", "SGD", "ServerRuntime",
-           "SplitClientTrainer", "StepRecord", "TrainState", "check_config",
-           "check_supported", "evaluate", "evaluate_remote",
-           "generate_remote", "greedy_generate", "init_params", "leaves_of",
-           "make_lr", "make_state", "make_tx", "sample_generate", "sgd",
-           "split_client_stages"]
+__all__ = ["CircuitBreaker", "FailurePolicy", "FedAvgAggregator",
+           "FederatedClientTrainer", "FusedSplitTrainer",
+           "MultiClientSplitRunner", "ProtocolError", "ReplayCache", "SGD",
+           "ServerRuntime", "SplitClientTrainer", "StepRecord", "TrainState",
+           "USplitClientTrainer", "check_config", "check_supported",
+           "compressed_sync_contribution", "evaluate", "evaluate_remote",
+           "fedavg_mean", "generate_remote", "greedy_generate",
+           "init_params", "leaves_of", "make_lr", "make_state", "make_tx",
+           "sample_generate", "sgd", "split_client_stages"]

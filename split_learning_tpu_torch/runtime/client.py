@@ -1,5 +1,7 @@
-"""Client-party trainer of the classic split (counterpart of
-``split_learning_tpu/runtime/client.py`` ``SplitClientTrainer``).
+"""Client-party trainers (counterpart of
+``split_learning_tpu/runtime/client.py``): the classic split client
+``SplitClientTrainer``, the U-shaped client ``USplitClientTrainer`` and
+the federated client ``FederatedClientTrainer``.
 
 The split loop of ``train_split_learning()``
 (``src/client_part.py:103-141``): forward the bottom stage, ship the
@@ -29,7 +31,24 @@ permanent and is never retried or skipped. An optional
 when an attempt goes out: while it is open, the client probes
 ``/health`` instead of sending the step again.
 
-The U-shaped and federated clients wait for ROADMAP item 11.
+:class:`USplitClientTrainer` (BASELINE config 5) owns the bottom stage
+A and the head C of a ``(client, server, client)`` plan, both from the
+shared-seed init: A's activations go up on hop 1 (``u_forward``), the
+trunk's features come back, the head computes the loss on the client
+(K1 on the card; labels and logits never leave it) and updates C, the
+features' gradient goes up on hop 2 (``u_backward``), and the gradient
+of A's output comes back into A's update. Each of A and C has its own
+optimizer state (an SGD update of each is one K2 launch).
+
+:class:`FederatedClientTrainer` is the reference's
+``train_federated_learning`` (``src/client_part.py:143-198``): local
+full-model steps (K1 pair and one K2 launch a step on the card), then
+once an epoch one ``transport.aggregate`` weighted by the epoch's
+example count. Its parameters cross in JAX's layout
+(:func:`~split_learning_tpu_torch.interop.params_to_jax` out,
+:func:`~split_learning_tpu_torch.interop.params_from_jax` back), so a
+port client and a JAX server average the same leaves; the optimizer
+state stays local.
 """
 
 from __future__ import annotations
@@ -39,13 +58,17 @@ import time
 from typing import (
     Any, Callable, Iterable, List, Optional, Sequence, Tuple, Union)
 
+import numpy as np
 import torch
 
 from split_learning_tpu_torch.core.stage import Params, SplitPlan
+from split_learning_tpu_torch.interop import params_from_jax, params_to_jax
 from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.obs import trace as obs_trace
+from split_learning_tpu_torch.ops.cross_entropy import fused_cross_entropy
 from split_learning_tpu_torch.runtime.state import (
-    TrainState, check_config, init_params, make_state, make_tx)
+    TrainState, adopt_params, check_config, init_params, leaves_of,
+    make_state, make_tx)
 from split_learning_tpu_torch.transport.base import (
     Backpressure, Transport, TransportError)
 from split_learning_tpu_torch.utils.arrays import from_host, to_host
@@ -64,6 +87,33 @@ class FailurePolicy:
     RAISE = "raise"
     RETRY = "retry"
     SKIP = "skip"
+
+
+def _input(x: Any, device: torch.device) -> torch.Tensor:
+    """Floating inputs as float32, token ids as they are."""
+    x = torch.as_tensor(x).to(device)
+    return x.float() if x.is_floating_point() else x
+
+
+def _labels(y: Any, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(y).to(device, torch.int64)
+
+
+def _on_wire(transport: Any, t: torch.Tensor) -> Any:
+    """What goes on the wire: the tensor itself to a transport of the
+    port (it encodes where the tensor lives), host numpy to another
+    framework's."""
+    return (t.detach() if isinstance(transport, Transport)
+            else to_host(t))
+
+
+def _received(x: Any, device: torch.device) -> torch.Tensor:
+    """A wire reply (numpy or a tensor) on ``device``: float32 or
+    bfloat16 keep their dtype, another float becomes float32."""
+    t = x.detach() if isinstance(x, torch.Tensor) else from_host(x)
+    dtype = (t.dtype if t.dtype in (torch.float32, torch.bfloat16)
+             else torch.float32)
+    return t.to(device, dtype)
 
 
 class SplitClientTrainer:
@@ -90,7 +140,7 @@ class SplitClientTrainer:
         if plan.stages_of("client") != (0,):
             raise ValueError(
                 "SplitClientTrainer expects the client to own exactly "
-                "stage 0 (the U-shaped client is ROADMAP item 11)")
+                "stage 0 (the U-shaped client is USplitClientTrainer)")
         if failure_policy not in (FailurePolicy.RAISE, FailurePolicy.RETRY,
                                   FailurePolicy.SKIP):
             raise ValueError(f"unknown failure_policy {failure_policy!r}")
@@ -132,11 +182,6 @@ class SplitClientTrainer:
                 init_params(self.plan, self._init, self.device, (0,)),
                 self._tx)
 
-    def _to_device(self, x: Any) -> torch.Tensor:
-        """Floating inputs as float32, token ids as they are."""
-        x = torch.as_tensor(x).to(self.device)
-        return x.float() if x.is_floating_point() else x
-
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -156,10 +201,9 @@ class SplitClientTrainer:
         t_step0 = time.perf_counter() if tr is not None else 0.0
         params = self.state.params[0]
         with torch.enable_grad():
-            acts = self.stage.apply(params, self._to_device(x))
+            acts = self.stage.apply(params, _input(x, self.device))
         labels = torch.as_tensor(y)
-        sent = (acts.detach() if isinstance(self.transport, Transport)
-                else to_host(acts))
+        sent = _on_wire(self.transport, acts)
         if tr is not None:
             self._sync()
             tr.record(spans.CLIENT_FWD, t_step0,
@@ -227,9 +271,7 @@ class SplitClientTrainer:
                 raise
 
         t_b0 = time.perf_counter() if tr is not None else 0.0
-        if not isinstance(g_acts, torch.Tensor):  # a numpy reply: copy it
-            g_acts = from_host(g_acts)
-        g = g_acts.to(self.device, acts.dtype)
+        g = _received(g_acts, self.device).to(acts.dtype)
         grads = torch.autograd.grad(acts, list(params.values()), g)
         if tr is not None:
             self._sync()
@@ -271,3 +313,180 @@ class SplitClientTrainer:
                 on_epoch_end(epoch, step)
         return records
 
+
+
+class USplitClientTrainer:
+    """U-shaped client: owns the bottom stage A and the head C; labels
+    and logits never leave it (BASELINE config 5). ``init`` is a
+    ``torch.Generator`` or per-stage dicts for the whole plan; the client
+    keeps stages 0 and 2 (the trunk's, drawn in passing, are dropped).
+    ``device`` defaults to ``"cuda"`` and raises without a GPU."""
+
+    def __init__(self, plan: SplitPlan, cfg: Config,
+                 init: Union[torch.Generator, Sequence[Params]],
+                 transport: Transport, logger: Optional[Any] = None,
+                 client_id: int = 0, device: DeviceLike = "cuda") -> None:
+        if plan.owners != ("client", "server", "client"):
+            raise ValueError("USplitClientTrainer expects owners "
+                             "(client, server, client)")
+        check_config(cfg)
+        self.device = resolve_device(device)
+        self.plan = plan
+        self.cfg = cfg
+        self.transport = transport
+        self.logger = logger
+        self.client_id = client_id
+        self._tx = make_tx(cfg)
+        self._init = init
+        self.state_a: Optional[TrainState] = None
+        self.state_c: Optional[TrainState] = None
+        self.stage_a, _, self.stage_c = plan.stages
+
+    def ensure_init(self, sample_x: Any = None) -> None:
+        """Draw (or adopt) stages A and C once. ``sample_x`` keeps the
+        JAX signature."""
+        del sample_x
+        if self.state_a is None:
+            params_a, params_c = init_params(self.plan, self._init,
+                                             self.device, (0, 2))
+            self.state_a = make_state((params_a,), self._tx)
+            self.state_c = make_state((params_c,), self._tx)
+
+    @property
+    def params(self) -> Tuple[Params, Params]:
+        """Stages A and C's parameters (live tensors)."""
+        self.ensure_init()
+        return self.state_a.params[0], self.state_c.params[0]
+
+    def train_step(self, x: Any, y: Any, step: int) -> float:
+        self.ensure_init()
+        params_a = self.state_a.params[0]
+        params_c = self.state_c.params[0]
+        with torch.enable_grad():
+            acts = self.stage_a.apply(params_a, _input(x, self.device))
+        # hop 1: activations -> trunk features
+        feats = _received(self.transport.u_forward(
+            _on_wire(self.transport, acts), step, self.client_id),
+            self.device)
+        feats.requires_grad_(True)
+        # the head: loss and gradients here, labels stay on the client
+        leaves_c = list(params_c.values())
+        with torch.enable_grad():
+            loss = fused_cross_entropy(self.stage_c.apply(params_c, feats),
+                                       _labels(y, self.device))
+            *g_c, g_feats = torch.autograd.grad(loss, leaves_c + [feats])
+        self._tx.update(self.state_c, [g.contiguous() for g in g_c])
+        # hop 2: feature gradient -> activation gradient (the server
+        # updates the trunk on the way)
+        g_acts = _received(self.transport.u_backward(
+            _on_wire(self.transport, g_feats), step, self.client_id),
+            self.device)
+        grads = torch.autograd.grad(acts, list(params_a.values()),
+                                    g_acts.to(acts.dtype))
+        # cuDNN may hand conv weight grads back channels-last
+        self._tx.update(self.state_a, [g.contiguous() for g in grads])
+        return float(loss.detach())
+
+    def train(self, data_iter: Callable[[], Iterable[Tuple[Any, Any]]],
+              epochs: Optional[int] = None, start_step: int = 0,
+              on_epoch_end: Optional[Callable[[int, int], None]] = None
+              ) -> List[StepRecord]:
+        records: List[StepRecord] = []
+        step = start_step
+        for epoch in range(epochs if epochs is not None else self.cfg.epochs):
+            for x, y in data_iter():
+                loss = self.train_step(x, y, step)
+                records.append(StepRecord(step=step, loss=loss, epoch=epoch))
+                if self.logger is not None:
+                    self.logger.log_metric("loss", loss, step=step)
+                step += 1
+            if on_epoch_end is not None:
+                on_epoch_end(epoch, step)
+        return records
+
+
+class FederatedClientTrainer:
+    """Federated client (``src/client_part.py:143-198``): local
+    full-model epochs, a weight sync through the transport after each.
+    ``init`` is a ``torch.Generator`` or per-stage dicts for the whole
+    plan. ``device`` defaults to ``"cuda"`` and raises without a GPU.
+
+    ``losses`` keeps every step's loss; :meth:`train` records one
+    ``StepRecord`` an epoch (its mean loss), as JAX's does."""
+
+    def __init__(self, plan: SplitPlan, cfg: Config,
+                 init: Union[torch.Generator, Sequence[Params]],
+                 transport: Transport, logger: Optional[Any] = None,
+                 device: DeviceLike = "cuda") -> None:
+        check_config(cfg)
+        self.device = resolve_device(device)
+        self.plan = plan
+        self.cfg = cfg
+        self.transport = transport
+        self.logger = logger
+        self._tx = make_tx(cfg)
+        self._init = init
+        self.state: Optional[TrainState] = None
+        self.losses: List[float] = []
+
+    def ensure_init(self, sample_x: Any = None) -> None:
+        del sample_x
+        if self.state is None:
+            self.state = make_state(
+                init_params(self.plan, self._init, self.device), self._tx)
+
+    @property
+    def params(self) -> Tuple[Params, ...]:
+        """Every stage's parameters (live tensors)."""
+        self.ensure_init()
+        return self.state.params
+
+    def train_step(self, x: Any, y: Any) -> float:
+        """One local step of the whole model; returns the loss."""
+        self.ensure_init()
+        leaves = leaves_of(self.state.params)
+        with torch.enable_grad():
+            loss = fused_cross_entropy(
+                self.plan.apply(self.state.params, _input(x, self.device)),
+                _labels(y, self.device))
+            grads = torch.autograd.grad(loss, leaves)
+        self._tx.update(self.state, [g.contiguous() for g in grads])
+        value = float(loss.detach())
+        self.losses.append(value)
+        return value
+
+    def sync(self, epoch: int, loss: float, step: int,
+             num_examples: Optional[int]) -> None:
+        """One FedAvg round: the parameters up in JAX's layout, the mean
+        adopted in its own dtypes (the optimizer state stays)."""
+        self.ensure_init()
+        agg = self.transport.aggregate(params_to_jax(self.state.params),
+                                       epoch, loss, step,
+                                       num_examples=num_examples)
+        adopt_params(self.state, params_from_jax(agg), self.device)
+
+    def train(self, data_iter: Callable[[], Iterable[Tuple[Any, Any]]],
+              epochs: Optional[int] = None, start_step: int = 0,
+              on_epoch_end: Optional[Callable[[int, int], None]] = None
+              ) -> List[StepRecord]:
+        records: List[StepRecord] = []
+        step = start_step
+        for epoch in range(epochs if epochs is not None else self.cfg.epochs):
+            epoch_losses: List[float] = []
+            n_examples = 0
+            for x, y in data_iter():
+                epoch_losses.append(self.train_step(x, y))
+                n_examples += len(y)
+                step += 1
+            avg_loss = (float(np.mean(epoch_losses)) if epoch_losses
+                        else float("nan"))
+            # per-epoch sync (src/client_part.py:171-194), weighted by
+            # this client's example count (canonical FedAvg)
+            self.sync(epoch, avg_loss, step, n_examples or None)
+            records.append(StepRecord(step=step, loss=avg_loss, epoch=epoch))
+            if self.logger is not None:
+                self.logger.log_metric("loss", avg_loss, step=step)
+                self.logger.log_metric("epoch", epoch, step=step)
+            if on_epoch_end is not None:
+                on_epoch_end(epoch, step)
+        return records

@@ -53,13 +53,18 @@ def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for every value the fused trainer
     cannot run: a transport other than ``fused`` (the two-party path is
     ``SplitClientTrainer`` over ``LocalTransport`` or ``HttpTransport``),
-    and
+    ``num_clients > 1`` (JAX's fused trainer reads it as the ``data``
+    axis of a device mesh), and
     :func:`~split_learning_tpu_torch.runtime.state.check_config`."""
     if cfg.transport != "fused":
         raise NotImplementedError(
             f"not ported yet: transport {cfg.transport!r} in the fused "
             "trainer (the two-party path, ROADMAP items 8-12, is "
             "SplitClientTrainer over LocalTransport or HttpTransport)")
+    if cfg.num_clients > 1:
+        raise NotImplementedError(
+            "not ported yet: num_clients > 1 in the fused trainer "
+            "(data-parallel mesh: ROADMAP item 18)")
     check_config(cfg)
 
 

@@ -12,10 +12,17 @@ What is here, each as in JAX:
   compressed wire modes, and :meth:`note_wire_compression`, which folds
   the transports' byte counts into the ``wire_compression_ratio`` gauge;
 - :meth:`_check_batch_rows`, the shape check of an incoming batch;
+- the two protocol hooks a resume calls, which each party fills in:
+  :meth:`_reset_protocol_state` (re-arm the handshake, drop residuals;
+  the server's also drops the U-shaped residuals) and
+  :meth:`_post_resume_hook` (the federated server restarts its FedAvg
+  round);
 - the shared health/metrics folds and :meth:`close`.
 
-What waits, raising ``NotImplementedError`` naming its ROADMAP item: a
-device mesh (item 18), checkpoint resume and the runtime-extras sidecar
+The protocol ops themselves (the split step, the U-shaped hops,
+FedAvg) live on ``ServerRuntime`` (``runtime/server.py``). What waits,
+raising ``NotImplementedError`` naming its ROADMAP item: a device mesh
+(item 18), checkpoint resume itself and the runtime-extras sidecar
 (item 13), the deferred-apply queue of the decoupled backward (item 14)
 and multi-tenant admission (item 14).
 """
@@ -85,6 +92,15 @@ class PartyRuntime:
             raise ProtocolError(
                 f"batch of {rows} activation rows and {label_rows} labels; "
                 "send at least one row and one label per row", status=400)
+
+    # -- protocol hooks (a resume calls them under the lock) ------------ #
+    def _reset_protocol_state(self, step: int) -> None:
+        """Re-arm the party's handshake floor so the next accepted op is
+        ``step`` or later, and drop pre-restore residuals."""
+        raise NotImplementedError
+
+    def _post_resume_hook(self) -> None:
+        """Reset any protocol machinery beyond the shared pieces."""
 
     # -- not ported yet ------------------------------------------------- #
     def resume_from(self, state: Any, step: int,

@@ -1,57 +1,87 @@
-"""Server-party runtime: the top half of the split step (counterpart of
-``split_learning_tpu/runtime/server.py`` ``ServerRuntime``, split mode).
+"""Server-party runtime (counterpart of
+``split_learning_tpu/runtime/server.py`` ``ServerRuntime``): the top
+half of the split step, the U-shaped trunk's two hops, and FedAvg.
 
-``split_step`` is the reference's ``/forward_pass`` handler
-(``src/server_part.py:25-58``): take the cut activations and labels,
-run the server stage forward, the cross-entropy, the backward and one
-update of the party's own optimizer (``runtime/state.py`` ``make_tx``
-over its own stage, clipping over its own leaves), and return the
-cut-layer gradient with the loss. On the card the loss is K1
-(``ops/cross_entropy.py``) and an SGD update K2 (``ops/sgd.py``), as in
-the fused trainer. The cut tensor is taken in the dtype it arrives in
-(bfloat16 for a bfloat16 plan) and its gradient returned in that dtype.
-Beyond the reference, as in JAX: a per-client step handshake (a step at or below the last one is a
-``ProtocolError``, 409) and the replay cache, which serves a duplicate
-of an applied step its original reply instead of applying it twice.
+- ``split_step`` is the reference's ``/forward_pass`` handler
+  (``src/server_part.py:25-58``): take the cut activations and labels,
+  run the server stage forward, the cross-entropy, the backward and one
+  update of the party's own optimizer (``runtime/state.py`` ``make_tx``
+  over its own stage, clipping over its own leaves), and return the
+  cut-layer gradient with the loss. On the card the loss is K1
+  (``ops/cross_entropy.py``) and an SGD update K2 (``ops/sgd.py``).
+- ``u_forward`` and ``u_backward`` (mode ``"u_split"``, BASELINE config
+  5): the server owns the middle stage, the trunk; labels and logits
+  stay with the client. Hop 1 runs the trunk forward and keeps its
+  input as the residual of ``(client_id, step)``; hop 2 recomputes the
+  trunk forward with autograd, as JAX's ``jax.vjp`` does, pulls the
+  client's feature gradient through it, updates the trunk and returns
+  the input's gradient. A residual pins its input only, never a graph:
+  at most ``MAX_PENDING_RESIDUALS`` per client (FIFO) and
+  ``MAX_TOTAL_RESIDUALS`` in all. The recompute doubles the trunk's
+  forward launches (K5 on the U-shaped LM: 2 x ``server_depth`` a step).
+- ``aggregate`` (mode ``"federated"``, ``/aggregate_weights``,
+  ``src/server_part.py:60-93``): the server keeps the whole composition,
+  and :class:`FedAvgAggregator` averages rounds of ``cfg.num_clients``
+  submissions (weighted by example counts when every client sends one)
+  on the server's device. The wire carries JAX's tree (a tuple of flax
+  trees, HWIO and ``[in, out]`` kernels, :mod:`interop`); the server
+  averages in that layout, adopts the mean into its own state in the
+  port's layout, and replies with the mean copied to the host once.
+- ``health`` (``src/server_part.py:95-102``).
+
+Beyond the reference, as in JAX: a per-client step handshake (a step at
+or below the last one is a ``ProtocolError``, 409; an op of another mode
+is one with status 400) and the replay cache, which serves a duplicate
+of an applied step its original reply instead of applying it twice (a
+duplicate hop 1 keeps its residual).
 
 The reply lives where the request lived: numpy activations get a numpy
 gradient back (JAX's contract, which a JAX client needs; a bfloat16 one
 as numpy's ``ml_dtypes`` bfloat16, :mod:`utils.arrays`), a tensor gets a
 tensor on its own device. The in-process wire decodes on the server's
-device, so on the card the down-wire encodes from a CUDA tensor.
+device, so on the card the down-wire encodes from a CUDA tensor. The
+FedAvg reply is always host numpy.
 
 The lock covers the handshake and the launch of the step; the reply is
 materialised (the loss read, a host copy for a numpy caller) after it
-is released, as JAX's ``overlap`` default does. The parameters are
-updated in place, and a later step's kernels queue behind this one's on
-the same stream, so nothing reads them early.
+is released, as JAX's ``overlap`` default does. ``aggregate`` waits for
+its round outside the lock: waiting under it would deadlock concurrent
+clients. The parameters are updated in place, and a later step's
+kernels queue behind this one's on the same stream, so nothing reads
+them early.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 item: request coalescing (``coalesce_max > 1``) and multi-tenant
 admission (``tenants``, ``quota``, ``slo_ms``), item 14; the decoupled
 backward (``decouple_bwd``, ``apply_lag``), item 14; a ``mesh``, item 18;
-the U-shaped and federated servers with ``u_forward``/``u_backward`` and
-``aggregate``, items 11 and 15.
+checkpoint resume, item 13.
 """
 
 from __future__ import annotations
 
+import sys
+import threading
 import time
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import (
+    Any, Callable, Dict, List, Optional, Sequence, Tuple, Union)
 
 import numpy as np
 import torch
 
 from split_learning_tpu_torch import __version__
-from split_learning_tpu_torch.core.stage import Params, SplitPlan
+from split_learning_tpu_torch.core.stage import (
+    Params, SplitPlan, stage_backward)
+from split_learning_tpu_torch.interop import params_from_jax, params_to_jax
 from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.obs import trace as obs_trace
 from split_learning_tpu_torch.ops.cross_entropy import fused_cross_entropy
 from split_learning_tpu_torch.runtime.party import (
     PartyRuntime, ProtocolError, not_ported)
 from split_learning_tpu_torch.runtime.state import (
-    check_config, init_params, make_state, make_tx)
-from split_learning_tpu_torch.utils.arrays import from_host, to_host
+    adopt_params, check_config, fedavg_mean, init_params, make_state,
+    make_tx)
+from split_learning_tpu_torch.utils.arrays import (
+    from_host, host_tree, to_host, tree_map)
 from split_learning_tpu_torch.utils.config import Config
 from split_learning_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -70,16 +100,30 @@ def _reply_like(value: torch.Tensor, request: Any) -> Any:
     return to_host(value)
 
 
+def _shape_key(a: Any) -> str:
+    """A leaf's shape as a string (a tuple would read as a subtree)."""
+    return "x".join(str(int(d)) for d in np.shape(a))
+
+
 class ServerRuntime(PartyRuntime):
-    """Holds the server-owned stage state and serves ``split_step`` and
-    ``predict``. Thread-safe: all state transitions happen under one
-    lock.
+    """Holds the server-owned state and serves the ops of its mode:
+    ``split_step`` and ``predict`` (``"split"``), ``u_forward``,
+    ``u_backward`` and ``predict`` (``"u_split"``), ``aggregate``
+    (``"federated"``). Thread-safe: all state transitions happen under
+    one lock.
 
     ``init`` is a ``torch.Generator`` or per-stage dicts for the whole
     plan (see :func:`~split_learning_tpu_torch.runtime.state.init_params`);
-    the server keeps its own stage. ``sample_input`` keeps the JAX
-    signature. ``device`` defaults to ``"cuda"`` and raises without a
-    GPU."""
+    the server keeps its own stage, or in federated mode the whole
+    composition. ``sample_input`` keeps the JAX signature. ``device``
+    defaults to ``"cuda"`` and raises without a GPU."""
+
+    # bounds on residuals awaiting their hop-2 u_backward: per client
+    # (FIFO: one client's backlog never evicts another's live residual)
+    # and in all (orphans of clients that died between hops are
+    # reclaimed by other clients' traffic)
+    MAX_PENDING_RESIDUALS = 8
+    MAX_TOTAL_RESIDUALS = 64
 
     def __init__(self, plan: SplitPlan, cfg: Config,
                  init: Union[torch.Generator, Sequence[Params]],
@@ -100,12 +144,6 @@ class ServerRuntime(PartyRuntime):
         if decouple_bwd or apply_lag:
             raise not_ported("the decoupled backward (decouple_bwd, "
                              "apply_lag)", "item 14")
-        if cfg.mode == "u_split":
-            raise not_ported("the U-shaped server (mode 'u_split')",
-                             "item 11")
-        if cfg.mode == "federated":
-            raise not_ported("the federated server and FedAvg (mode "
-                             "'federated')", "items 11 and 15")
         super().__init__(cfg, party="server",
                          lock_name="ServerRuntime._lock", mesh=mesh,
                          replay_window=replay_window, tenants=tenants,
@@ -116,23 +154,54 @@ class ServerRuntime(PartyRuntime):
         self.plan = plan
         self.mode = cfg.mode
         self.strict_steps = strict_steps
-        # per-client step handshake: the last acknowledged step
+        # per-client step handshake: the last acknowledged step, and the
+        # floor below which no client's step is accepted
         self._last_step: Dict[int, int] = {}
-        server_idx = plan.stages_of("server")
-        if len(server_idx) != 1 or server_idx[0] != plan.num_stages - 1:
-            raise ValueError("the split server owns exactly the last stage "
-                             f"(plan owners {plan.owners})")
-        self.server_stage = server_idx[0]
-        self._stage = plan.stages[self.server_stage]
+        self._step_floor = -1
         self._tx = make_tx(cfg)
-        self.state = make_state(
-            init_params(plan, init, self.device, (self.server_stage,)),
-            self._tx)
+        self._agg: Optional[FedAvgAggregator] = None
+        if cfg.mode == "federated":
+            # the federated server keeps the full model
+            # (ref src/model_def.py:56-57)
+            self.server_stage = None
+            self._stage = None
+            self.state = make_state(init_params(plan, init, self.device),
+                                    self._tx)
+            self._agg = FedAvgAggregator(cfg.num_clients)
+            # the shapes of JAX's tree of this composition: a submission
+            # of another layout is refused before it joins a round
+            self._fed_shapes = tree_map(_shape_key,
+                                        params_to_jax(self.state.params))
+        else:
+            server_idx = plan.stages_of("server")
+            if len(server_idx) != 1 or (
+                    cfg.mode == "split"
+                    and server_idx[0] != plan.num_stages - 1):
+                raise ValueError(
+                    "the server owns exactly one stage, in split mode the "
+                    f"last (mode {cfg.mode!r}, plan owners {plan.owners})")
+            self.server_stage = server_idx[0]
+            self._stage = plan.stages[self.server_stage]
+            self.state = make_state(
+                init_params(plan, init, self.device, (self.server_stage,)),
+                self._tx)
+        # the U-shaped step's residuals: the trunk input of (client, step)
+        self._u_residual: Dict[Tuple[int, int], torch.Tensor] = {}
 
     @property
-    def params(self) -> Params:
-        """The server stage's parameters (live tensors)."""
+    def params(self) -> Any:
+        """The server stage's parameters (live tensors); in federated
+        mode the whole composition, one dict per stage."""
+        if self.mode == "federated":
+            return self.state.params
         return self.state.params[0]
+
+    def _mode_guard(self, op: str, mode: str) -> None:
+        """An op of another mode is a request this server cannot take
+        (400, ref ``src/server_part.py:31-36``)."""
+        if self.mode != mode:
+            raise ProtocolError(f"{op} called in mode {self.mode!r}",
+                                status=400)
 
     # ------------------------------------------------------------------ #
     def _to_dev(self, x: Any, dtype: Optional[torch.dtype] = None
@@ -146,7 +215,7 @@ class ServerRuntime(PartyRuntime):
         return t.to(self.device, dtype)
 
     def _check_step(self, step: int, client_id: int = 0) -> None:
-        last = self._last_step.get(client_id, -1)
+        last = max(self._last_step.get(client_id, -1), self._step_floor)
         if self.strict_steps and step <= last:
             raise ProtocolError(
                 f"non-monotonic step {step} from client {client_id} "
@@ -169,18 +238,33 @@ class ServerRuntime(PartyRuntime):
         self._tx.update(self.state, [g.contiguous() for g in g_params])
         return g_acts, loss.detach()
 
+    def _exactly_once(self, client_id: int, op: str, step: int,
+                      run: Callable[[], Any]) -> Any:
+        """``run()`` once per ``(client_id, op, step)``: a duplicate
+        delivery (lost response, retried request) blocks on the first
+        one's replay entry and is served its one reply. A failed ``run``
+        releases the claim, so a retry can re-own the step, and hands the
+        error to anyone blocked on it."""
+        if self.replay is None:
+            return run()
+        entry, owner = self.replay.begin(client_id, op, step)
+        if not owner:
+            return self.replay.wait(entry)
+        try:
+            res = run()
+        except BaseException as exc:
+            self.replay.fail(entry, exc)
+            raise
+        self.replay.resolve(entry, res)
+        return res
+
     def split_step(self, activations: Any, labels: Any, step: int,
                    client_id: int = 0) -> Tuple[Any, float]:
-        # duplicate delivery (lost response, retried request): claim the
-        # step exactly once; losers block on the winner's entry and are
-        # served its one reply
-        entry = None
-        if self.replay is not None:
-            entry, owner = self.replay.begin(client_id, "split_step", step)
-            if not owner:
-                return self.replay.wait(entry)
+        self._mode_guard("split_step", "split")
         tr = obs_trace.get_tracer()
-        try:
+        times: List[float] = []
+
+        def run() -> Tuple[Any, float]:
             t_q0 = time.perf_counter() if tr is not None else 0.0
             with self._lock:
                 t_d0 = time.perf_counter() if tr is not None else 0.0
@@ -194,21 +278,15 @@ class ServerRuntime(PartyRuntime):
                 self._last_step[client_id] = max(
                     self._last_step.get(client_id, -1), step)
                 t_d1 = time.perf_counter() if tr is not None else 0.0
+            times[:] = [t_q0, t_d0, t_d1]
             # off the lock: the loss read waits for the step's kernels
-            res = (_reply_like(g_acts, activations), float(loss))
-            if entry is not None:
-                self.replay.resolve(entry, res)
-            if tr is not None:
-                self._record_server_spans(
-                    tr, t_q0, t_d0, t_d1, time.perf_counter(), step,
-                    client_id)
-            return res
-        except BaseException as exc:
-            # no reply was produced: release the claim so a retry can
-            # re-own the step, and hand the error to anyone blocked on it
-            if entry is not None:
-                self.replay.fail(entry, exc)
-            raise
+            return _reply_like(g_acts, activations), float(loss)
+
+        res = self._exactly_once(client_id, "split_step", step, run)
+        if tr is not None and times:   # not for a duplicate's replay
+            self._record_server_spans(tr, *times, time.perf_counter(), step,
+                                      client_id)
+        return res
 
     def _record_server_spans(self, tr, t_q0: float, t_d0: float,
                              t_d1: float, t_end: float, step: int,
@@ -232,6 +310,9 @@ class ServerRuntime(PartyRuntime):
         """Forward-only through the server stage: the logits. No step
         handshake; inference never desyncs training."""
         del client_id
+        if self._stage is None:
+            raise ProtocolError(f"predict called in mode {self.mode!r}",
+                                status=400)
         with self._lock, torch.no_grad():
             # launched under the lock: a concurrent step's in-place
             # update queues behind this forward
@@ -239,27 +320,135 @@ class ServerRuntime(PartyRuntime):
                                     self._to_dev(activations))
         return _reply_like(out, activations)
 
-    # -- ops of the other modes ----------------------------------------- #
+    # -- the U-shaped split -------------------------------------------- #
+    def _keep_residual(self, client_id: int, step: int,
+                       acts: torch.Tensor) -> None:
+        """Store hop 1's input and evict: this client's oldest beyond
+        MAX_PENDING_RESIDUALS, then the oldest of all beyond
+        MAX_TOTAL_RESIDUALS (dicts keep insertion order)."""
+        self._u_residual[(client_id, step)] = acts
+        mine = [k for k in self._u_residual if k[0] == client_id]
+        for key in mine[:max(len(mine) - self.MAX_PENDING_RESIDUALS, 0)]:
+            del self._u_residual[key]
+        overflow = len(self._u_residual) - self.MAX_TOTAL_RESIDUALS
+        for key in list(self._u_residual)[:max(overflow, 0)]:
+            del self._u_residual[key]
+
     def u_forward(self, activations: Any, step: int,
                   client_id: int = 0) -> Any:
-        raise not_ported("u_forward (the U-shaped split)", "item 11")
+        """Hop 1: the trunk's forward on the client's activations; the
+        input stays behind as the residual of ``(client_id, step)``. A
+        duplicate is served the original features and keeps the residual
+        (hop 2 may still be coming)."""
+        self._mode_guard("u_forward", "u_split")
+
+        def run() -> Any:
+            with self._lock:
+                self._check_step(step, client_id)
+                rows = _rows(activations)
+                self._check_batch_rows(rows, rows)
+                acts = self._to_dev(activations)
+                with torch.no_grad():
+                    feats = self._stage.apply(self.state.params[0], acts)
+                self._keep_residual(client_id, step, acts)
+            return _reply_like(feats, activations)
+
+        return self._exactly_once(client_id, "u_forward", step, run)
 
     def u_backward(self, feat_grads: Any, step: int,
                    client_id: int = 0) -> Any:
-        raise not_ported("u_backward (the U-shaped split)", "item 11")
+        """Hop 2: the trunk's forward again under autograd on the stored
+        input, the client's feature gradient pulled through it, one
+        update of the trunk; returns the input's gradient. A duplicate is
+        served the original reply (its residual was consumed: without the
+        cache it would be the unknown step a lost response turns into)."""
+        self._mode_guard("u_backward", "u_split")
 
+        def run() -> Any:
+            with self._lock:
+                acts = self._u_residual.pop((client_id, step), None)
+                if acts is None:
+                    raise ProtocolError(
+                        f"u_backward for unknown step {step} "
+                        f"(client {client_id})")
+                params = self.state.params[0]
+                g_params, g_acts = stage_backward(
+                    self._stage, params, acts,
+                    self._to_dev(feat_grads, acts.dtype), input_grad=True)
+                # cuDNN may hand conv weight grads back channels-last
+                self._tx.update(self.state, [g_params[k].contiguous()
+                                             for k in params])
+                self._last_step[client_id] = max(
+                    self._last_step.get(client_id, -1), step)
+            return _reply_like(g_acts, feat_grads)
+
+        return self._exactly_once(client_id, "u_backward", step, run)
+
+    # -- federated ------------------------------------------------------- #
     def aggregate(self, params: Any, epoch: int, loss: float, step: int,
                   num_examples: Optional[int] = None) -> Any:
-        raise not_ported("aggregate (FedAvg)", "items 11 and 15")
+        """``/aggregate_weights``: join this round of FedAvg with
+        ``params`` (JAX's tree; numpy or tensor leaves) and return the
+        round's mean as host numpy, in that layout. ``num_examples``
+        weights the submission. The server adopts the mean."""
+        del epoch, loss
+        self._mode_guard("aggregate", "federated")
+        if num_examples is not None and num_examples <= 0:
+            raise ProtocolError(
+                f"num_examples must be positive (got {num_examples})",
+                status=400)
+        self._check_layout(params)
+        tree = tree_map(self._to_dev, params)
+        # submit() blocks until the round is full: outside the runtime
+        # lock, or concurrent clients deadlock
+        mean = self._agg.submit(
+            tree, weight=(float(num_examples) if num_examples is not None
+                          else None))
+        with self._lock:
+            adopt_params(self.state, params_from_jax(mean), self.device)
+            self.state.step += 1
+            self._last_step[0] = max(self._last_step.get(0, -1), step)
+        return host_tree(mean)
+
+    def _check_layout(self, params: Any) -> None:
+        """A submission must be JAX's tree of this composition (the tuple
+        of flax trees, HWIO and ``[in, out]`` kernels): the server adopts
+        the mean into its own layout, and another tree would poison the
+        round for every client (400)."""
+        def leaf(a: Any, want: str) -> None:
+            if _shape_key(a) != want:
+                raise ValueError(f"leaf of shape {_shape_key(a)}, "
+                                 f"want {want}")
+        try:
+            tree_map(leaf, params, self._fed_shapes)
+        except (ValueError, TypeError, AttributeError) as exc:
+            raise ProtocolError(
+                "aggregate: params are not JAX's tree of this model "
+                f"({exc})", status=400) from exc
+
+    # -- PartyRuntime hooks ---------------------------------------------- #
+    def _reset_protocol_state(self, step: int) -> None:
+        self._last_step = {}
+        self._step_floor = step - 1  # applies to every client_id
+        self._u_residual.clear()
+
+    def _post_resume_hook(self) -> None:
+        if self._agg is not None:
+            # drop pre-restore submissions: averaging stale params into
+            # the first post-restore round would corrupt it
+            self._agg = FedAvgAggregator(self._agg.num_clients)
 
     # ------------------------------------------------------------------ #
     def health(self) -> Dict[str, Any]:
         """GET /health (``src/server_part.py:95-102``), plus ``step``: the
         highest client step this server has acknowledged."""
+        model_type = ("FullModel" if self.mode == "federated"
+                      else self._stage.name)
         with self._lock:
-            step = max(self._last_step.values(), default=-1)
+            step = max(max(self._last_step.values(), default=-1),
+                       self._step_floor)
         return {"status": "healthy", "mode": self.mode,
-                "model_type": self._stage.name, "step": step,
+                "model_type": model_type, "step": step,
                 "strict_steps": self.strict_steps,
                 "version": __version__,
                 "uptime_seconds": time.monotonic() - self._t_start}
@@ -271,3 +460,72 @@ class ServerRuntime(PartyRuntime):
         snap["gauges"]["acked_step"] = float(self.health()["step"])
         self._fold_shared_metrics(snap)
         return snap
+
+
+class FedAvgAggregator:
+    """FedAvg over rounds of ``num_clients`` submissions (JAX's).
+
+    The reference aggregates by overwriting with the single client's
+    weights (``src/server_part.py:81-83``); the mean of one submission is
+    that overwrite. A round's mean is computed once, by the submitter
+    that completes it, on the submissions' device (a ``torch.stack``
+    mean, or a weighted sum), and kept under its round id until all
+    ``num_clients`` members have read it: a slow waiter still reads its
+    own round's mean, never a later one."""
+
+    def __init__(self, num_clients: int) -> None:
+        if num_clients < 1:
+            raise ValueError("num_clients must be >= 1")
+        self.num_clients = num_clients
+        self._pending: list = []
+        self._results: Dict[int, list] = {}  # round -> [mean, reads_left]
+        self._round = 0
+        self._cond = threading.Condition(threading.Lock())
+
+    def _read_result(self, round_id: int) -> Any:
+        slot = self._results[round_id]
+        slot[1] -= 1
+        if slot[1] <= 0:
+            del self._results[round_id]
+        return slot[0]
+
+    def submit(self, params: Any, timeout: float = 120.0,
+               weight: Optional[float] = None) -> Any:
+        """Block until the round is full, then return the mean tree of
+        the round this submission joined. ``weight`` is this client's
+        FedAvg weight (None = uniform). A round is weighted only when
+        every submission carries a weight; a mixed round falls back to
+        uniform with a warning. A submission that times out is withdrawn
+        and raises ``TimeoutError``."""
+        if weight is not None and not weight > 0:
+            # refused before touching shared state: a bad weight fails its
+            # own client, never the round
+            raise ValueError(f"FedAvg weight must be > 0 (got {weight})")
+        entry = (object(), params, weight)  # token: a retry after a
+        with self._cond:                     # timeout is not counted twice
+            round_id = self._round
+            self._pending.append(entry)
+            if len(self._pending) >= self.num_clients:
+                ws = [w for _, _, w in self._pending]
+                if any(w is None for w in ws):
+                    if any(w is not None for w in ws):
+                        print("[fedavg] mixed weighted/unweighted round "
+                              "(some clients omitted num_examples); "
+                              "falling back to uniform averaging",
+                              file=sys.stderr)
+                    ws = None
+                self._results[round_id] = [
+                    fedavg_mean([p for _, p, _ in self._pending],
+                                weights=ws),
+                    self.num_clients]
+                self._pending = []
+                self._round += 1
+                self._cond.notify_all()
+            elif not self._cond.wait_for(lambda: self._round != round_id,
+                                         timeout=timeout):
+                self._pending = [e for e in self._pending
+                                 if e[0] is not entry[0]]
+                raise TimeoutError(
+                    f"FedAvg round incomplete: {len(self._pending)}/"
+                    f"{self.num_clients} clients reported")
+            return self._read_result(round_id)

@@ -37,13 +37,18 @@ reciprocal: :func:`make_lr` follows the schedule as optax writes it
 (bit for bit with optax called eagerly).
 
 Beside it, what every trainer and party shares: :func:`check_config`,
-the Config values the port cannot run yet, and :func:`init_params`, a
-party's own stages from a seed or from given per-stage dicts.
+the Config values the port cannot run yet, :func:`init_params`, a
+party's own stages from a seed or from given per-stage dicts, and the
+parameter averaging of the federated server and the multi-client runner:
+:func:`fedavg_mean` (JAX's, dtype rule included) and
+:func:`compressed_sync_contribution` (a party's topk8 delta through the
+wire codec, on the card for CUDA leaves).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import (
     Any, Callable, Dict, List, Optional, Sequence, Tuple, Union)
@@ -53,6 +58,7 @@ import torch
 
 from split_learning_tpu_torch.core.stage import Params, SplitPlan
 from split_learning_tpu_torch.ops.sgd import fused_sgd_step, init_trace
+from split_learning_tpu_torch.utils.arrays import from_host, tree_map
 
 _F32 = np.float32
 LR = Union[float, Callable[[int], float]]
@@ -252,17 +258,29 @@ class Adam(_Optimizer):
         # 1 - b**count in float32; each leaf divides by it in its dtype
         bc1 = float(_F32(1) - _F32(self.B1) ** _F32(count))
         bc2 = float(_F32(1) - _F32(self.B2) ** _F32(count))
-        for dtype, idx in _by_dtype(leaves).items():
+        groups: Dict[Tuple[torch.dtype, torch.dtype], List[int]] = {}
+        for i, p in enumerate(leaves):
+            groups.setdefault((p.dtype, mu_all[i].dtype), []).append(i)
+        for (dtype, m_dtype), idx in groups.items():
             c = lambda x: _in_dtype(x, dtype)  # noqa: E731
             p, g = _pick(leaves, idx), _pick(grads, idx)
             mu, nu = _pick(mu_all, idx), _pick(nu_all, idx)
             # mu <- (1 - b1) g + b1 mu;  nu <- (1 - b2) g^2 + b2 nu
             g1 = torch._foreach_mul(g, c(1 - self.B1))
-            torch._foreach_mul_(mu, c(self.B1))
-            torch._foreach_add_(mu, g1)
+            torch._foreach_mul_(mu, _in_dtype(self.B1, m_dtype))
             g2 = torch._foreach_mul(g, g)
             torch._foreach_mul_(g2, c(1 - self.B2))
-            torch._foreach_mul_(nu, c(self.B2))
+            torch._foreach_mul_(nu, _in_dtype(self.B2, m_dtype))
+            if m_dtype != dtype:
+                # the moments of a leaf whose dtype an adopted FedAvg
+                # mean changed (bfloat16 to float32): optax takes b * m
+                # in the moment's dtype and the sum promotes, so from
+                # this update on the moments are in the leaf's dtype
+                mu = [m.to(dtype) for m in mu]
+                nu = [m.to(dtype) for m in nu]
+                for j, i in enumerate(idx):
+                    mu_all[i], nu_all[i] = mu[j], nu[j]
+            torch._foreach_add_(mu, g1)
             torch._foreach_add_(nu, g2)
             # u = mu_hat / (sqrt(nu_hat) + eps)
             den = torch._foreach_div(nu, c(bc2))
@@ -302,12 +320,28 @@ def make_state(params: Sequence[Params], tx: _Optimizer) -> TrainState:
     return TrainState(params=params, opt_state=tx.init(leaves_of(params)))
 
 
+def adopt_params(state: TrainState, params: Sequence[Params],
+                 device: torch.device) -> None:
+    """Make ``params`` (a FedAvg mean, per-stage dicts) the live
+    parameters of ``state``: a copy of each leaf on ``device`` in the
+    mean's own dtype, as JAX's parties adopt the mean's tree (a weighted
+    mean, or a compressed sync's, turns a bfloat16 leaf into float32; see
+    :func:`fedavg_mean`). The optimizer state stays; :class:`Adam`'s
+    moments follow a leaf whose dtype changed at the next update. Each
+    stage keeps its own key order, the order of the optimizer's state."""
+    state.params = tuple(
+        {k: _as_leaf_tensor(new[k]).to(device, copy=True)
+         .requires_grad_(True) for k in live}
+        for live, new in zip(state.params, params))
+
+
 def check_config(cfg) -> None:
     """Raise ``NotImplementedError`` for every Config value (other than
-    the transport, which each trainer checks) the port cannot run."""
+    the transport and ``num_clients``, which each trainer checks) the
+    port cannot run. ``num_clients`` is the federated server's round
+    size and the multi-client runner's client count; only the fused
+    trainer's data-parallel mesh refuses it (``runtime/fused.py``)."""
     unsupported = [
-        (cfg.num_clients > 1,
-         "num_clients > 1 (data-parallel mesh: ROADMAP item 18)"),
         (cfg.model_parallel > 1,
          "model_parallel > 1 (tensor parallelism: ROADMAP item 18)"),
         (cfg.seq_parallel > 1,
@@ -356,3 +390,84 @@ def init_params(plan: SplitPlan,
             .to(device, dtypes.get(k, torch.float32)).clone()
             .requires_grad_(True) for k, v in params[i].items()})
     return tuple(out)
+
+
+# --------------------------------------------------------------------- #
+# parameter averaging: the federated server and the multi-client runner
+# --------------------------------------------------------------------- #
+def _as_leaf_tensor(x: Any) -> torch.Tensor:
+    return x.detach() if isinstance(x, torch.Tensor) else from_host(x)
+
+
+def _result_dtype(dtypes: Sequence[torch.dtype]) -> torch.dtype:
+    """``jnp.result_type(*dtypes, float32)`` over floating dtypes: at
+    least float32, float64 where a leaf is."""
+    return (torch.float64 if torch.float64 in dtypes else torch.float32)
+
+
+def fedavg_mean(params_list: Sequence[Any],
+                weights: Optional[Sequence[float]] = None) -> Any:
+    """FedAvg (JAX's ``fedavg_mean``): the leafwise mean over parameter
+    trees, or with ``weights`` (canonically each client's example count)
+    the weighted mean. One tree is returned as it is. Leaves are tensors
+    (averaged on their device) or numpy arrays (on the CPU); the result's
+    leaves are tensors.
+
+    The dtype is JAX's on each path: the uniform mean keeps a leaf's
+    dtype (``jnp.mean`` of a bfloat16 stack is bfloat16, summed in
+    float32), the weighted one is at least float32 (the weights are
+    normalised in float64, then a ``tensordot`` in ``result_type(leaves,
+    float32)``), so a bfloat16 leaf comes back float32."""
+    if len(params_list) == 1:
+        return params_list[0]
+    if weights is None:
+        def mean(*xs):
+            return torch.stack([_as_leaf_tensor(x) for x in xs]).mean(0)
+        return tree_map(mean, *params_list)
+    if len(weights) != len(params_list):
+        raise ValueError(f"{len(weights)} weights for "
+                         f"{len(params_list)} param trees")
+    w = np.asarray(weights, dtype=np.float64)
+    if not (w > 0).all():
+        raise ValueError(f"weights must be positive (got {weights})")
+    w = w / w.sum()
+
+    def wmean(*xs):
+        ts = [_as_leaf_tensor(x) for x in xs]
+        acc = _result_dtype([t.dtype for t in ts])
+        stack = torch.stack([t.to(acc) for t in ts])
+        return torch.tensordot(torch.as_tensor(w, dtype=acc,
+                                               device=stack.device),
+                               stack, dims=1)
+
+    return tree_map(wmean, *params_list)
+
+
+def compressed_sync_contribution(ef: Any, tag: Any, params: Any, ref: Any,
+                                 density: float) -> Tuple[Any, int, int]:
+    """One party's contribution to a compressed parameter sync (JAX's):
+    the drift from the last agreed mean, ``params - ref``, through the
+    topk8 wire codec, and the receiver's reconstruction ``ref + delta'``.
+    The error-feedback ledger ``ef`` is keyed ``(tag, leaf_index)`` at
+    decay 1.0 (a parameter delta must be repaid in full), so the dropped
+    drift rides into the next sync. CUDA leaves encode on the card (the
+    five topk8 select launches a leaf) and decode there; the leaves come
+    back float32, as JAX's do. Returns ``(reconstruction, raw_bytes,
+    wire_bytes)``."""
+    from split_learning_tpu_torch.transport import codec
+    counter = itertools.count()
+    totals = [0, 0]
+
+    def one(p, r):
+        i = next(counter)
+        p32 = _as_leaf_tensor(p).float()
+        r32 = _as_leaf_tensor(r).to(p32.device, torch.float32)
+        packed = ef.compress((tag, i), (p32 - r32).contiguous(), density,
+                             decay=1.0)
+        rb, wb = codec.compressed_leaf_bytes(packed)
+        totals[0] += rb
+        totals[1] += wb
+        return r32 + codec.decompress_tree(packed, p32.device)
+
+    out = tree_map(one, params, ref)
+    return out, totals[0], totals[1]

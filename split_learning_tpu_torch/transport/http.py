@@ -14,8 +14,10 @@ Status mapping, as in JAX: 400 = a request the server cannot take or a
 bad frame, 409 = a step-handshake violation (both permanent: the client
 raises ``ProtocolError``), 429 = admission refused (``Backpressure``,
 with ``Retry-After``), 500 = a server fault (transient:
-``TransportError``). An op the port does not run yet reaches the
-runtime, whose error (naming its ROADMAP item) comes back as a 500.
+``TransportError``). An op of another mode is the runtime's 400; an op
+the port does not run yet reaches the runtime, whose error (naming its
+ROADMAP item) comes back as a 500. The FedAvg route carries JAX's
+parameter tree, dense both ways (weights are never compressed).
 
 Both sides are the standard library: :class:`SplitHTTPServer` on
 ``http.server.ThreadingHTTPServer`` (HTTP/1.0: one connection a
@@ -601,15 +603,38 @@ class HttpTransport(Transport):
 
     def u_forward(self, activations: Any, step: int,
                   client_id: int = 0) -> Any:
-        raise not_ported("u_forward (the U-shaped split)", "item 11")
+        with timed(self.stats):
+            try:
+                return self._post("/u_forward", {
+                    "activations": self._pack(activations, "u_acts"),
+                    "step": step, "client_id": client_id,
+                }, device_of(activations))["features"]
+            except Exception:
+                self._rollback("u_acts")
+                raise
 
     def u_backward(self, feat_grads: Any, step: int,
                    client_id: int = 0) -> Any:
-        raise not_ported("u_backward (the U-shaped split)", "item 11")
+        with timed(self.stats):
+            try:
+                return self._post("/u_backward", {
+                    "feat_grads": self._pack(feat_grads, "u_grads"),
+                    "step": step, "client_id": client_id,
+                }, device_of(feat_grads))["grads"]
+            except Exception:
+                self._rollback("u_grads")
+                raise
 
     def aggregate(self, params: Any, epoch: int, loss: float, step: int,
                   num_examples: Optional[int] = None) -> Any:
-        raise not_ported("aggregate (FedAvg)", "items 11 and 15")
+        """``POST /aggregate_weights``: ``params`` (JAX's tree) dense, the
+        round's mean back as host numpy."""
+        with timed(self.stats):
+            payload = {"model_state": params, "epoch": epoch,
+                       "loss": loss, "step": step}
+            if num_examples is not None:
+                payload["num_examples"] = int(num_examples)
+            return self._post("/aggregate_weights", payload)["model_state"]
 
     def health(self) -> Dict[str, Any]:
         resp, content = self._request("GET", "/health")

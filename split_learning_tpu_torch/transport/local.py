@@ -7,8 +7,9 @@ and returns its reply as is: a CUDA tensor stays on the card, a numpy
 array stays numpy. ``through_codec=True`` (JAX's flag) instead encodes
 and decodes each payload of ``split_step`` and ``predict`` with the
 real codec, uncompressed and uncounted. Any of ``"none"``, ``"int8"``,
-``"topk8"`` or ``"clapping"`` switches ``split_step`` and ``predict``
-to full wire emulation, exactly one HTTP hop minus the socket: each
+``"topk8"`` or ``"clapping"`` switches ``split_step``, ``predict`` and
+the U-shaped hops ``u_forward``/``u_backward`` to full wire emulation,
+exactly one HTTP hop minus the socket: each
 direction's payload is packed with that compression, encoded to the
 real msgpack frame, counted, decoded and expanded. ``"none"`` is the
 dense float32 wire; ``"clapping"`` is topk8 selection with the
@@ -29,9 +30,16 @@ server propagates as is (permanent, never masked by retry or skip), a
 ``Backpressure`` too; anything else becomes ``TransportError``
 (transient).
 
-Not ported yet: the U-shaped ops (``u_forward``/``u_backward``, ROADMAP
-item 11), ``aggregate`` (items 11 and 15), the pipeline hop ops
-(item 16), the adaptive density controller (item 13).
+The U-shaped hops key their error feedback as JAX's do: ``("u_acts",
+cid)`` and ``("u_grads", cid)`` up, ``(cid, "/u_forward")`` and ``(cid,
+"/u_backward")`` down (the gradient roles decay at 1.0,
+``codec.ef_decay_for``). ``aggregate`` (FedAvg) carries weights, which
+always travel dense: with wire emulation on, its payload goes through
+the real frame, uncompressed, and, as in JAX, its bytes are not counted
+in the stats.
+
+Not ported yet: the pipeline hop ops (item 16), the adaptive density
+controller (item 13).
 """
 
 from __future__ import annotations
@@ -206,17 +214,65 @@ class LocalTransport(Transport):
             self.stats.add_bytes(sent=up, received=down)
             return resp["outputs"]
 
+    def _hop_wire(self, up_key: str, role_key: Tuple[Any, Any], path: str,
+                  down_key: str, fn, payload: Any, step: int,
+                  client_id: int) -> Any:
+        """One U-shaped hop: ``payload`` packed up under ``role_key``,
+        ``fn`` on the server, the reply packed down under ``(client_id,
+        path)``, both frames counted."""
+        req, up = self._wire({up_key: self._pack_up(payload, role_key)},
+                             self._server_device())
+        out = self._call(fn, req[up_key], step, client_id)
+        resp, down = self._wire(
+            {down_key: self._pack_down(out, (client_id, path))},
+            device_of(payload))
+        self.stats.add_bytes(sent=up, received=down)
+        return resp[down_key]
+
     def u_forward(self, activations: Any, step: int,
                   client_id: int = 0) -> Any:
-        raise not_ported("u_forward (the U-shaped split)", "item 11")
+        with timed(self.stats):
+            if self.compress is not None:
+                return self._hop_wire(
+                    "activations", ("u_acts", client_id), "/u_forward",
+                    "features", self.server.u_forward, activations, step,
+                    client_id)
+            feats = self._call(
+                self.server.u_forward,
+                self._roundtrip(activations, self._server_device()), step,
+                client_id)
+            return self._roundtrip(feats, device_of(activations))
 
     def u_backward(self, feat_grads: Any, step: int,
                    client_id: int = 0) -> Any:
-        raise not_ported("u_backward (the U-shaped split)", "item 11")
+        with timed(self.stats):
+            if self.compress is not None:
+                return self._hop_wire(
+                    "feat_grads", ("u_grads", client_id), "/u_backward",
+                    "grads", self.server.u_backward, feat_grads, step,
+                    client_id)
+            g = self._call(
+                self.server.u_backward,
+                self._roundtrip(feat_grads, self._server_device()), step,
+                client_id)
+            return self._roundtrip(g, device_of(feat_grads))
 
     def aggregate(self, params: Any, epoch: int, loss: float, step: int,
                   num_examples: Optional[int] = None) -> Any:
-        raise not_ported("aggregate (FedAvg)", "items 11 and 15")
+        """FedAvg: ``params`` in JAX's layout, dense both ways; the mean
+        comes back as host numpy."""
+        dev = self._server_device()
+        with timed(self.stats):
+            if self.compress is not None or self.through_codec:
+                sent = codec.decompress_tree(
+                    codec.decode(codec.encode(params)), dev)
+            else:
+                sent = params if dev is not None else host_tree(params)
+            out = self._call(self.server.aggregate, sent, epoch, loss, step,
+                             num_examples)
+            if self.compress is not None or self.through_codec:
+                out = codec.decode(codec.encode(out))
+            return host_tree(out)
 
     def health(self) -> Dict[str, Any]:
         return self.server.health()

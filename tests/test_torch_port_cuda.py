@@ -731,3 +731,200 @@ def test_generate_remote_on_the_card(dev, compress):
         want = greedy_generate(plan, on_card, prompt, n_new, kv_cache=False,
                                device="cuda")
         np.testing.assert_array_equal(toks, want.cpu().numpy())
+
+
+def _cnn_data(n=64, batch=32):
+    from split_learning_tpu_torch.data import batches, synthetic
+    return list(batches(synthetic("mnist", n_train=n, n_test=8).train, batch,
+                        seed=0))
+
+
+def _wire_per_step(compress, frames):
+    """Launches of ``frames`` card encodes and decodes a step."""
+    from split_learning_tpu_torch.ops import quantize as qmod
+    from split_learning_tpu_torch.ops import topk as kmod
+    if compress == "int8":
+        return {qmod.QUANT: frames, qmod.DEQUANT: frames}
+    if compress == "topk8":
+        return {name: frames for name in kmod.SELECT_LAUNCHES}
+    return {}
+
+
+@pytest.mark.parametrize("compress", ["none", "int8", "topk8"])
+@pytest.mark.parametrize("wire", ["local", "http"])
+def test_u_split_cnn_on_the_card(dev, wire, compress):
+    """Two U-shaped CNN steps on the card: per step the client's K1 pair
+    and 2 K2 (A and C), the server's 1 K2 (the trunk), and four frames'
+    wire launches (two hops, each way); losses within 1e-4 of a CPU twin
+    (1e-3 on int8 and topk8)."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    from split_learning_tpu_torch.runtime import (
+        ServerRuntime, USplitClientTrainer)
+    from split_learning_tpu_torch.transport import (
+        HttpTransport, LocalTransport, SplitHTTPServer)
+    from split_learning_tpu_torch.utils.config import Config
+    data = _cnn_data()
+    cfg = Config(mode="u_split", batch_size=32, lr=0.002)
+    plan = get_plan(mode="u_split")
+    losses = {}
+    for where in ("cuda", "cpu"):
+        server = ServerRuntime(plan, cfg, torch.Generator().manual_seed(0),
+                               device=where)
+        srv = None
+        if wire == "http" and where == "cuda":
+            srv = SplitHTTPServer(server).start()
+            transport = HttpTransport(srv.url, timeout=60,
+                                      compress=compress)
+        else:
+            transport = LocalTransport(server, compress=compress)
+        client = USplitClientTrainer(plan, cfg,
+                                     torch.Generator().manual_seed(0),
+                                     transport, device=where)
+        LAUNCHES.reset()
+        try:
+            losses[where] = [client.train_step(x, y, i)
+                             for i, (x, y) in enumerate(data)]
+            torch.cuda.synchronize()
+            counts = LAUNCHES.snapshot()
+        finally:
+            if srv is not None:
+                transport.close()
+                srv.stop()
+        if where == "cuda":
+            per_step = {FWD: 1, BWD: 1, SGD: 3,
+                        **_wire_per_step(compress, 4)}
+            assert counts == {k: 2 * v for k, v in per_step.items()}
+            assert not server._u_residual
+    tol = 1e-4 if compress == "none" else 1e-3
+    assert max(abs(a - b) for a, b in zip(*losses.values())) <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_u_split_lm_on_the_card(dev, dtype):
+    """One U-shaped LM step (flash, AdamW) on the card over int8: the
+    client's block 1 K5 and 1 of each K6 launch and the K1 pair (head C);
+    the server's 2 blocks twice forward (hop 1, and the recompute of hop
+    2: 4 K5) and 2 of each K6 launch; 4 K3 quantize and 4 dequantize; no
+    K2 under AdamW. The hops carry the plan's dtype."""
+    from split_learning_tpu_torch.data import batches, synthetic_lm
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.runtime import (
+        ServerRuntime, USplitClientTrainer)
+    from split_learning_tpu_torch.transport import LocalTransport
+    from split_learning_tpu_torch.utils.config import Config
+    size = dict(model="transformer_lm", vocab=256, d_model=64, num_heads=2,
+                client_depth=1, server_depth=2, max_len=256, attn="flash")
+    cfg = Config(mode="u_split", model="transformer_lm", attn="flash",
+                 batch_size=4, dtype=dtype, optimizer="adamw", lr=3e-3,
+                 weight_decay=0.1, warmup_steps=1, decay_steps=4,
+                 grad_clip_norm=1.0)
+    (x, y), = list(batches(synthetic_lm(n_train=4, n_test=4,
+                                        seq_len=128).train, 4, seed=0))
+    plan = get_plan(mode="u_split", dtype=dtype, **size)
+    server = ServerRuntime(plan, cfg, torch.Generator().manual_seed(0),
+                           device="cuda")
+    transport = LocalTransport(server, compress="int8")
+    sent = []
+    pack = transport._pack_up
+    transport._pack_up = lambda arr, key: sent.append(arr.dtype) or pack(
+        arr, key)
+    client = USplitClientTrainer(plan, cfg, torch.Generator().manual_seed(0),
+                                 transport, device="cuda")
+    LAUNCHES.reset()
+    loss = client.train_step(x, y, 0)
+    torch.cuda.synchronize()
+    assert np.isfinite(loss)
+    want = {FA: 1 + 4, **{n: 1 + 2 for n in BWD_NAMES}, FWD: 1, BWD: 1,
+            **_wire_per_step("int8", 4)}
+    assert LAUNCHES.snapshot() == want
+    dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    assert sent == [dt, dt]
+
+
+def test_federated_two_clients_on_the_card(dev):
+    """Two federated clients in threads against a server on the card
+    (``num_clients=2``): per client and step the K1 pair and one K2
+    launch; after the epoch both hold the same parameters, the mean of
+    their pre-sync ones within 1e-6."""
+    import threading
+
+    from split_learning_tpu_torch.interop import params_to_jax
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    from split_learning_tpu_torch.runtime import (
+        FederatedClientTrainer, ServerRuntime, leaves_of)
+    from split_learning_tpu_torch.transport import LocalTransport
+    from split_learning_tpu_torch.utils.config import Config
+    data = _cnn_data(n=128)
+    shards = [data[:2], data[2:]]
+    cfg = Config(mode="federated", batch_size=32, lr=0.002, num_clients=2)
+    plan = get_plan(mode="federated")
+    server = ServerRuntime(plan, cfg, torch.Generator().manual_seed(0),
+                           device="cuda")
+    clients = [FederatedClientTrainer(plan, cfg,
+                                      torch.Generator().manual_seed(0),
+                                      LocalTransport(server), device="cuda")
+               for _ in range(2)]
+    pre = {}
+    for i, c in enumerate(clients):
+        sync = c.sync
+
+        def spy(*a, _i=i, _c=c, _sync=sync, **kw):
+            pre[_i] = [t.detach().clone() for t in leaves_of(_c.params)]
+            _sync(*a, **kw)
+
+        c.sync = spy
+    LAUNCHES.reset()
+    threads = [threading.Thread(target=lambda i=i: clients[i].train(
+        lambda: iter(shards[i]), epochs=1)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {FWD: 4, BWD: 4, SGD: 4}
+    for a, b, p0, p1 in zip(leaves_of(clients[0].params),
+                            leaves_of(clients[1].params), pre[0], pre[1]):
+        assert torch.equal(a, b)
+        assert (a - (p0 + p1) / 2).abs().max().item() <= 1e-6
+    assert len(params_to_jax(server.params)) == 2
+
+
+def test_multi_client_compressed_sync_on_the_card(dev):
+    """Two split clients, a topk8 bottom sync every round: the first sync
+    dense (no select launch), the second 5 select launches per leaf and
+    ready client (the CNN's stage A has 2 leaves: 20); the bottoms equal
+    after each sync."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops import topk as kmod
+    from split_learning_tpu_torch.runtime import (
+        MultiClientSplitRunner, ServerRuntime, leaves_of)
+    from split_learning_tpu_torch.transport import LocalTransport
+    from split_learning_tpu_torch.utils.config import Config
+    cfg = Config(batch_size=32, num_clients=2)
+    server = ServerRuntime(get_plan(), cfg, torch.Generator().manual_seed(0),
+                           device="cuda")
+    runner = MultiClientSplitRunner(
+        get_plan(), cfg, torch.Generator().manual_seed(0),
+        lambda i: LocalTransport(server), sync_bottoms_every=1,
+        sync_compress="topk8", device="cuda")
+    data = _cnn_data()
+    counts = []
+    for r in range(2):
+        runner.train_round([data[0], data[1]])
+        LAUNCHES.reset()
+        runner.sync_bottoms()
+        torch.cuda.synchronize()
+        counts.append(sum(LAUNCHES.snapshot().get(n, 0)
+                          for n in kmod.SELECT_LAUNCHES))
+        for a, b in zip(*(leaves_of(c.state.params)
+                          for c in runner.clients)):
+            assert torch.equal(a, b)
+    # the sync inside round 0's train_round was dense and set the
+    # reference; every sync after it is compressed
+    assert counts == [20, 20]
+    assert runner.sync_raw_bytes > runner.sync_wire_bytes > 0

@@ -39,6 +39,7 @@ from split_learning_tpu.data.datasets import synthetic as jax_synthetic
 from split_learning_tpu.models import get_plan as jax_get_plan
 from split_learning_tpu.obs.metrics import (
     render_prometheus as jax_render_prometheus)
+from split_learning_tpu.runtime import ProtocolError as JaxProtocolError
 from split_learning_tpu.runtime import ServerRuntime as JaxServer
 from split_learning_tpu.runtime import SplitClientTrainer as JaxClient
 from split_learning_tpu.transport import TransportError as JaxTransportError
@@ -240,10 +241,11 @@ def test_health_payload_and_off_path_routes():
 
 
 def test_status_mapping():
-    """409 (a step below the replay window), 400 (a bad frame CRC), 500
-    with the ROADMAP item for the ops the port does not serve, a refused
-    connection; a duplicate within the window is served the original
-    frame."""
+    """409 (a step below the replay window), 400 (a bad frame CRC, and
+    an op of another mode: the U-shaped hops and FedAvg on a split
+    server), 500 with the ROADMAP item for the ops the port does not
+    serve, a refused connection; a duplicate within the window is served
+    the original frame."""
     data = _data()
     runtime = _port_server(data)
     srv = SplitHTTPServer(runtime).start()
@@ -269,14 +271,24 @@ def test_status_mapping():
         assert codec.decode(resp.read()) == {
             "error": "frame checksum mismatch"}
         conn.close()
-        # the runtime's not_ported error, as a 500 naming its item
-        for call, item in (
-                (lambda: jt.u_forward(acts, 0), "item 11"),
-                (lambda: jt.aggregate({"w": np.zeros(2, np.float32)}, 0,
-                                      0.0, 99), "items 11 and 15"),
-                (lambda: jt.hop_forward(acts, 0), "item 16")):
-            with pytest.raises(JaxTransportError, match=item):
+        # an op of another mode: the runtime's mode guard, a 400 (JAX's
+        # client raises its ProtocolError for it without the status)
+        for call in (lambda: jt.u_forward(acts, 0),
+                     lambda: jt.aggregate({"w": np.zeros(2, np.float32)},
+                                          0, 0.0, 99)):
+            with pytest.raises(JaxProtocolError,
+                               match="called in mode 'split'"):
                 call()
+        for call in (lambda: t.u_backward(acts, 0),
+                     lambda: t.aggregate({"w": np.zeros(2, np.float32)},
+                                         0, 0.0, 99)):
+            with pytest.raises(ProtocolError,
+                               match="called in mode 'split'") as exc:
+                call()
+            assert exc.value.status == 400
+        # the runtime's not_ported error, as a 500 naming its item
+        with pytest.raises(JaxTransportError, match="item 16"):
+            jt.hop_forward(acts, 0)
     finally:
         t.close()
         jt.close()
@@ -471,12 +483,14 @@ def test_wait_ready_backoff_schedule(monkeypatch):
 def test_unported_client_ops_and_arguments():
     t = HttpTransport("http://127.0.0.1:9", timeout=5)
     x = np.zeros((1, 4), np.float32)
-    for call, item in ((lambda: t.u_forward(x, 0), "item 11"),
-                       (lambda: t.u_backward(x, 0), "item 11"),
-                       (lambda: t.aggregate({}, 0, 0.0, 0), "items 11"),
-                       (lambda: t.hop_forward(x, 0), "item 16"),
+    for call, item in ((lambda: t.hop_forward(x, 0), "item 16"),
                        (lambda: t.hop_loss(x, x, 0), "item 16")):
         with pytest.raises(NotImplementedError, match=item):
+            call()
+    # the U-shaped hops and FedAvg are ported: they reach the socket
+    for call in (lambda: t.u_forward(x, 0), lambda: t.u_backward(x, 0),
+                 lambda: t.aggregate({}, 0, 0.0, 0)):
+        with pytest.raises(TransportError):
             call()
     with pytest.raises(NotImplementedError, match="item 16"):
         HttpTransport("http://127.0.0.1:9", density_controller=object())

@@ -201,3 +201,92 @@ def test_two_party_entry_points_raise_without_gpu(no_gpu):
         SplitClientTrainer(get_plan(), Config(),
                            torch.Generator().manual_seed(0),
                            LocalTransport(server))
+
+
+U_FED_MODULES = (
+    "split_learning_tpu_torch.runtime.multi_client",
+    "split_learning_tpu_torch.runtime.client",
+    "split_learning_tpu_torch.runtime.server",
+    "split_learning_tpu_torch.runtime.state",
+    "split_learning_tpu_torch.interop")
+
+
+def test_u_split_federated_and_multi_client_modules_import_without_jax():
+    """The tenth slice's modules import with jax, flax, optax and
+    ml_dtypes blocked, and run: one U-shaped step, one FedAvg round of
+    two submissions, one multi-client round with a bottom sync."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'flax', 'optax', 'ml_dtypes'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for mod in {U_FED_MODULES!r}:\n"
+        "    importlib.import_module(mod)\n"
+        "import threading\n"
+        "import numpy as np, torch\n"
+        "from split_learning_tpu_torch.interop import params_to_jax\n"
+        "from split_learning_tpu_torch.models import get_plan\n"
+        "from split_learning_tpu_torch.runtime import (\n"
+        "    MultiClientSplitRunner, ServerRuntime, USplitClientTrainer)\n"
+        "from split_learning_tpu_torch.transport import LocalTransport\n"
+        "from split_learning_tpu_torch.utils.config import Config\n"
+        "g = lambda: torch.Generator().manual_seed(0)\n"
+        "x = np.zeros((2, 28, 28, 1), np.float32)\n"
+        "y = np.zeros(2, np.int64)\n"
+        "cfg = Config(mode='u_split')\n"
+        "srv = ServerRuntime(get_plan(mode='u_split'), cfg, g(),\n"
+        "                    device='cpu')\n"
+        "c = USplitClientTrainer(get_plan(mode='u_split'), cfg, g(),\n"
+        "                        LocalTransport(srv, compress='int8'),\n"
+        "                        device='cpu')\n"
+        "assert np.isfinite(c.train_step(x, y, 0))\n"
+        "fed = ServerRuntime(get_plan(mode='federated'),\n"
+        "                    Config(mode='federated', num_clients=2), g(),\n"
+        "                    device='cpu')\n"
+        "p = params_to_jax(fed.params)\n"
+        "out = {}\n"
+        "t = threading.Thread(target=lambda: out.setdefault(\n"
+        "    'a', fed.aggregate(p, 0, 1.0, 1, num_examples=4)))\n"
+        "t.start()\n"
+        "out['b'] = fed.aggregate(p, 0, 1.0, 2)\n"
+        "t.join(timeout=30)\n"
+        "assert sorted(out) == ['a', 'b']\n"
+        "split = ServerRuntime(get_plan(), Config(num_clients=2), g(),\n"
+        "                      device='cpu')\n"
+        "r = MultiClientSplitRunner(get_plan(), Config(num_clients=2), g(),\n"
+        "    lambda i: LocalTransport(split), sync_bottoms_every=1,\n"
+        "    device='cpu')\n"
+        "assert all(np.isfinite(r.train_round([(x, y), (x, y)])))\n"
+        "leaked = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] == 'split_learning_tpu')\n"
+        "assert not leaked, leaked\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_u_split_federated_and_multi_client_raise_without_gpu(no_gpu):
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.runtime import (
+        FederatedClientTrainer, MultiClientSplitRunner, ServerRuntime,
+        USplitClientTrainer)
+    from split_learning_tpu_torch.transport import LocalTransport
+    from split_learning_tpu_torch.utils.config import Config
+    gen = torch.Generator().manual_seed(0)
+    for mode in ("u_split", "federated"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            ServerRuntime(get_plan(mode=mode), Config(mode=mode), gen)
+    server = ServerRuntime(get_plan(mode="u_split"), Config(mode="u_split"),
+                           gen, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        USplitClientTrainer(get_plan(mode="u_split"), Config(mode="u_split"),
+                            gen, LocalTransport(server))
+    with pytest.raises(RuntimeError, match="cuda"):
+        FederatedClientTrainer(get_plan(mode="federated"),
+                               Config(mode="federated"), gen,
+                               LocalTransport(server))
+    with pytest.raises(RuntimeError, match="cuda"):
+        MultiClientSplitRunner(get_plan(), Config(num_clients=2), gen,
+                               lambda i: LocalTransport(server))

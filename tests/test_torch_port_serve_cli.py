@@ -209,7 +209,6 @@ def test_unported_serve_flags_exit_2(attr, item, capsys):
 @pytest.mark.parametrize("flags,msg", [
     (["--compress-density", "1.5"], "--compress-density must be in"),
     (["--chaos", "drop_response=0.1"], "unknown chaos kind"),
-    (["--mode", "federated"], "items 11 and 15"),
 ])
 def test_serve_refuses_bad_arguments(flags, msg, capsys):
     assert main(["serve", "--device", "cpu", "--port", "0", *flags]) == 2
@@ -217,7 +216,6 @@ def test_serve_refuses_bad_arguments(flags, msg, capsys):
 
 
 @pytest.mark.parametrize("flags,msg", [
-    (["--mode", "u_split"], "ROADMAP item 11"),
     (["--chaos", "dup=2"], "in [0, 1]"),
     (["--pipeline-depth", "2"], "ROADMAP item 15"),
 ])

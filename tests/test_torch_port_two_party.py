@@ -379,18 +379,22 @@ def test_unported_server_arguments_raise(kw, item):
 
 
 def test_unported_modes_and_ops_raise():
-    for mode, item in (("u_split", "item 11"), ("federated", "items 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            ServerRuntime(get_plan(mode=mode), Config(mode=mode),
-                          torch.Generator().manual_seed(0), device="cpu")
+    # the U-shaped and federated servers are ported: each mode builds
+    for mode in ("u_split", "federated"):
+        assert ServerRuntime(get_plan(mode=mode), Config(mode=mode),
+                             torch.Generator().manual_seed(0),
+                             device="cpu").health()["mode"] == mode
     server = ServerRuntime(get_plan(), Config(),
                            torch.Generator().manual_seed(0), device="cpu")
     t = LocalTransport(server)
     x = np.zeros((1, 26, 26, 32), np.float32)
-    for call, item in ((lambda: t.u_forward(x, 0), "item 11"),
-                       (lambda: t.u_backward(x, 0), "item 11"),
-                       (lambda: t.aggregate({}, 0, 0.0, 0), "items 11"),
-                       (lambda: t.hop_forward(x, 0), "item 16"),
+    # their ops on a split server: the mode guard (400), never retried
+    for call in (lambda: t.u_forward(x, 0), lambda: t.u_backward(x, 0),
+                 lambda: t.aggregate({}, 0, 0.0, 0)):
+        with pytest.raises(ProtocolError, match="called in mode") as exc:
+            call()
+        assert exc.value.status == 400
+    for call, item in ((lambda: t.hop_forward(x, 0), "item 16"),
                        (lambda: server.resume_from(None, 0), "item 13"),
                        (lambda: server.export_runtime_extras(0), "item 13"),
                        (lambda: _DeferredApply(), "item 14")):
@@ -403,7 +407,7 @@ def test_unported_modes_and_ops_raise():
                               torch.Generator().manual_seed(0), t,
                               breaker=breaker,
                               device="cpu").breaker is breaker
-    with pytest.raises(ValueError, match="item 11"):
+    with pytest.raises(ValueError, match="USplitClientTrainer"):
         SplitClientTrainer(get_plan(mode="u_split"), Config(),
                            torch.Generator().manual_seed(0), t, device="cpu")
     h = server.health()
@@ -447,7 +451,7 @@ def test_cli_without_device_cpu_raises(tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--replicas", "2"], "item 19"),
     (["--pipeline-depth", "2"], "item 15"),
-    (["--mode", "federated"], "items 11"),
+    (["--prefetch", "2"], "item 13"),
 ])
 def test_cli_unported_flags_refuse(flags, item, tmp_path):
     out = _cli("--transport", "local", "--steps", "1", "--dataset",
