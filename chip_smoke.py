@@ -254,7 +254,29 @@ beside this script. Phases, any failure ending the run with a traceback:
    http`` against it for 5 int8 steps (the client's launches exact: 1
    K5 and 1 of each K6, the K1 pair, 2 int8 encodes and decodes a
    step), and ``train --mode federated --transport local`` on the CNN
-   (the K1 pair and one K2 a step): rc 0 and a falling loss each.
+   (the K1 pair and one K2 a step): rc 0 and a falling loss each;
+24. checkpoints and what loads them, through the CLI: phase 18's bf16
+   AdamW LM at full width trains 20 steps with ``--checkpoint-every
+   10``, against 10 steps and ``--resume`` for 10 more (the resumed
+   losses within 2 bf16 ulps, bit-equality reported; per resumed step
+   exactly 3 K5, 3 of each K6, the K1 pair, no K2; the ms each save
+   blocked the loop, the write's ms, the step's bytes, the restore's
+   ms); ``eval`` of that checkpoint against ``evaluate()`` of the live
+   trainer's parameters within 1e-5 relative (examples/s), ``generate``
+   of 64 tokens with the KV cache (3 K5: the prefill) and without (3 K5
+   a token) equal to ``greedy_generate`` of the live parameters, and
+   ``generate --server-url`` against ``serve --resume`` of it (the
+   client's K5 and its int8 encode and decode a token); the two-party
+   CNN over HTTP per wire mode, 5 steps against ``serve
+   --checkpoint-every 1`` (a subprocess), a stop, ``serve --resume``,
+   the in-flight step's frame replayed byte for byte and ``train
+   --resume`` for 5 more, within phase 20's twin tolerances of 10
+   uninterrupted steps (topk8: clearing both ledgers moves the series);
+   a resumed client against a fresh server exits 3; ``train
+   --prefetch 2`` against ``--prefetch 0`` on the CNN (the same losses
+   bit for bit under deterministic cuDNN, both median step ms, a
+   profiler window with the batch copies on a stream of their own);
+   then the card tests of these pieces.
 
 Output, last lines: one JSON object with a record per kernel, one JSON
 object with the main path's step time, one with the serving path's
@@ -262,8 +284,9 @@ times, one with the LM training path's, one with the two-party path's,
 one with split-party decode's, one with the HTTP wire's (``http``), one
 with phases 18-19 (``train_lm_bf16``, ``two_party_lm``), one with
 phases 20-23 (``u_split``, ``u_split_lm``, ``federated``,
-``multi_client``, ``cli``), the ``nvidia-smi`` name and power limit, and
-``{"ok": true, "device": {...}}``.
+``multi_client``, ``cli``), one with phase 24 (``checkpoint``), the
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -374,6 +397,19 @@ U_LM_MODES, U_LM_STEPS, U_TWIN_STEPS = ("int8", "topk8", "none"), 20, 2
 U_TWIN_TOL = {"none": 1e-4, "int8": 1e-3, "topk8": 1e-3}
 FED_EPOCHS, FED_STEPS = 2, 20
 MC_CLIENTS, MC_ROUNDS, MC_SYNC_EVERY = 4, 10, 2
+# phase 24: checkpoints and what loads them. The fused LM (phase 18's
+# bf16 AdamW schedule) trains CKPT_K steps, saves, and resumes for CKPT_K
+# more, against 2 * CKPT_K uninterrupted; the two-party CNN over HTTP
+# does CKPT_TP_K and CKPT_TP_K more per wire mode, with phase 20's twin
+# tolerances; eval within CKPT_EVAL_RTOL of evaluate(); generate decodes
+# CKPT_GEN_NEW tokens locally and CKPT_REMOTE_NEW over HTTP; prefetch
+# runs CKPT_PREFETCH_STEPS two-party CNN steps per depth
+CKPT_K, CKPT_TP_K, CKPT_EVAL_RTOL = 10, 5, 1e-5
+CKPT_GEN_NEW, CKPT_REMOTE_NEW, CKPT_PROMPT = 64, 16, 16
+CKPT_TP_TOL = {"none": 1e-4, "int8": 1e-3, "topk8": 1e-3}
+CKPT_PREFETCH_STEPS, CKPT_PREFETCH_DEPTH = 30, 2
+CARD_TEST_FILTER = "checkpoint or prefetch or resume"
+CARD_TEST_TIMEOUT = 600
 PLANTS = {
     "quantize_roundf": ("quantize.cu", "rintf(", "roundf("),
     "topk_select_ties_high": (
@@ -2624,6 +2660,663 @@ def u_fed_cli(torch, launch_run) -> dict:
         train_rc=rc, loss_first=l0, loss_final=l1, launches=counts))
 
 
+# --------------------------------------------------------------------- #
+# phase 24: checkpoints and what loads them
+
+def _ckpt_dir(name):
+    path = os.path.join(REPO, "build", "chip_smoke_ckpt", name)
+    import shutil
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+def _ckpt_data():
+    return os.path.join(REPO, "build", "chip_smoke_ckpt_data")
+
+
+def _take_losses(data_dir):
+    """The jsonl metrics' losses of the run just made, and the log
+    cleared for the next one."""
+    folder = os.path.join(data_dir, "metrics")
+    losses = []
+    for name in sorted(os.listdir(folder)):
+        path = os.path.join(folder, name)
+        with open(path) as f:
+            losses += [r["value"] for r in map(json.loads, f)
+                       if r.get("key") == "loss"]
+        os.remove(path)
+    return losses
+
+
+def _cli(torch, launch_run, argv):
+    """``launch.run.main(argv)`` in this process with launch counts reset
+    just before and read just after: ``(rc, counts, stdout, seconds)``."""
+    import contextlib
+    import io
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    out = io.StringIO()
+    LAUNCHES.reset()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = launch_run.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    return rc, LAUNCHES.snapshot(), out.getvalue(), secs
+
+
+class _Serve:
+    """``launch.run serve`` as a subprocess on the card: its URL, and
+    SIGINT with the exit code. stderr goes to ``build/``."""
+
+    def __init__(self, name, *flags):
+        import queue
+        import subprocess
+        import threading
+        self.err_path = os.path.join(REPO, "build", f"chip_smoke_{name}.err")
+        os.makedirs(os.path.dirname(self.err_path), exist_ok=True)
+        with open(self.err_path, "w") as err_f:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "split_learning_tpu_torch.launch.run",
+                 "serve", "--device", "cuda", "--host", "127.0.0.1",
+                 "--port", "0", *flags],
+                cwd=REPO, stdout=subprocess.PIPE, stderr=err_f, text=True)
+        lines = queue.Queue()
+        threading.Thread(target=lambda: [lines.put(ln)
+                                         for ln in self.proc.stdout],
+                         daemon=True).start()
+        try:
+            first = lines.get(timeout=CLI_START_TIMEOUT)
+        except queue.Empty:
+            first = ""
+        if "listening on " not in first:
+            self.kill()
+            check(False, f"serve {name} printed {first!r}; stderr: "
+                         f"{open(self.err_path).read()[-2000:]}")
+        self.url = first.split("listening on ")[1].strip()
+
+    def stop(self) -> int:
+        import signal
+        self.proc.send_signal(signal.SIGINT)
+        rc = self.proc.wait(timeout=120)
+        check(rc == 0, f"serve exited {rc}: "
+                       f"{open(self.err_path).read()[-2000:]}")
+        return rc
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
+def _lm_flags(data_dir):
+    """Phase 18's bf16 AdamW LM at full width, as the CLI takes it."""
+    adamw = LM_OPTIMS["adamw"]
+    return ["--device", "cuda", "--model", "transformer_lm", "--dataset",
+            "lm", "--seq-len", str(TRAIN_T), "--d-model", str(LM["d_model"]),
+            "--num-heads", str(LM["num_heads"]), "--client-depth",
+            str(LM["client_depth"]), "--server-depth", str(LM["server_depth"]),
+            "--attn", "flash", "--dtype", "bfloat16", "--batch-size",
+            str(TRAIN_B), "--optimizer", "adamw", "--lr", str(adamw["lr"]),
+            "--weight-decay", str(adamw["weight_decay"]), "--warmup-steps",
+            str(LM_SCHEDULE["warmup_steps"]), "--decay-steps",
+            str(LM_SCHEDULE["decay_steps"]), "--grad-clip-norm",
+            str(LM_SCHEDULE["grad_clip_norm"]), "--data-dir", data_dir]
+
+
+def _record_checkpointer():
+    """Every save's snapshot ms (what the loop was blocked), every
+    write's ms and bytes, and every restore's ms, from the
+    ``Checkpointer`` of any run in this process."""
+    from split_learning_tpu_torch.runtime import checkpoint as ckmod
+    rec = {"snapshot_ms": [], "write_ms": [], "bytes": [], "restore_ms": []}
+    cls = ckmod.Checkpointer
+    save, write, raw = cls.save, cls._write, cls.restore_raw
+
+    def saving(self, *a, **kw):
+        save(self, *a, **kw)
+        rec["snapshot_ms"].append(self.stats["snapshot_ms"])
+
+    def writing(self, job):
+        write(self, job)
+        rec["write_ms"].append(self.stats["write_ms"])
+        rec["bytes"].append(self.stats["bytes"])
+
+    def restoring(self, *a, **kw):
+        out = raw(self, *a, **kw)
+        rec["restore_ms"].append(self.stats["restore_ms"])
+        return out
+
+    cls.save, cls._write, cls.restore_raw = saving, writing, restoring
+    return rec, lambda: setattr(cls, "save", save) or setattr(
+        cls, "_write", write) or setattr(cls, "restore_raw", raw)
+
+
+def fused_resume_run(torch, launch_run):
+    """Phase 24, the fused LM: ``train --checkpoint-dir --checkpoint-every
+    CKPT_K`` uninterrupted for 2 * CKPT_K steps, against CKPT_K steps, a
+    stop, and ``--resume`` for CKPT_K more. Returns the record and the
+    uninterrupted run's live trainer and checkpoint for eval/generate."""
+    import split_learning_tpu_torch.runtime as rt
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.flash_attention import (
+        BWD_NAMES, NAME as FA)
+    data = _ckpt_data()
+    flags = _lm_flags(data) + ["--tracking", "jsonl"]
+    live = []
+    fused_cls = rt.FusedSplitTrainer
+
+    class Recording(fused_cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            live.append(self)
+
+    rec, restore_cls = _record_checkpointer()
+    rt.FusedSplitTrainer = Recording
+    try:
+        whole_dir, cut_dir = _ckpt_dir("lm_whole"), _ckpt_dir("lm_cut")
+        rc, whole_counts, _, whole_s = _cli(torch, launch_run, [
+            "train", *flags, "--steps", str(2 * CKPT_K), "--checkpoint-dir",
+            whole_dir, "--checkpoint-every", str(CKPT_K)])
+        check(rc == 0, f"LM train (uninterrupted) returned {rc}")
+        whole = _take_losses(data)
+        n_saves = len(rec["snapshot_ms"])
+        rc, head_counts, _, _ = _cli(torch, launch_run, [
+            "train", *flags, "--steps", str(CKPT_K), "--checkpoint-dir",
+            cut_dir, "--checkpoint-every", str(CKPT_K)])
+        check(rc == 0, f"LM train (first leg) returned {rc}")
+        head = _take_losses(data)
+        rc, tail_counts, _, _ = _cli(torch, launch_run, [
+            "train", *flags, "--steps", str(CKPT_K), "--checkpoint-dir",
+            cut_dir, "--resume"])
+        check(rc == 0, f"LM train --resume returned {rc}")
+        tail = _take_losses(data)
+    finally:
+        rt.FusedSplitTrainer = fused_cls
+        restore_cls()
+    per_step = {FA: N_BLOCKS, **{n: N_BLOCKS for n in BWD_NAMES}, FWD: 1,
+                BWD: 1}
+    check(whole_counts == {k: 2 * CKPT_K * v for k, v in per_step.items()},
+          f"uninterrupted launches {whole_counts}")
+    check(tail_counts == {k: CKPT_K * v for k, v in per_step.items()},
+          f"resumed launches {tail_counts}, want {per_step} a step")
+    check(len(whole) == 2 * CKPT_K and len(head) == len(tail) == CKPT_K,
+          f"loss counts {len(whole)}, {len(head)}, {len(tail)}")
+    head_err = max(abs(a - b) for a, b in zip(head, whole))
+    tail_err = max(abs(a - b) for a, b in zip(tail, whole[CKPT_K:]))
+    tol = [bf16_loss_tol(v) for v in whole[CKPT_K:]]
+    check(all(abs(a - b) <= t for a, b, t in zip(tail, whole[CKPT_K:], tol)),
+          f"resumed losses {tail} against {whole[CKPT_K:]} (2 bf16 ulps)")
+    check(whole[-1] < whole[0], f"LM loss {whole[0]} -> {whole[-1]}")
+    out = dict(
+        steps=2 * CKPT_K, resume_at=CKPT_K, losses=whole,
+        resumed_losses=tail, first_leg_max_abs_err=head_err,
+        resumed_max_abs_err=tail_err, bit_equal=tail == whole[CKPT_K:],
+        launches_per_step=per_step, seconds_uninterrupted=whole_s,
+        save_blocking_ms=rec["snapshot_ms"][:n_saves],
+        save_blocking_ms_median=statistics.median(
+            rec["snapshot_ms"][:n_saves]),
+        write_ms=rec["write_ms"], checkpoint_bytes=rec["bytes"][0],
+        restore_ms=rec["restore_ms"][-1])
+    print(f"[ckpt] fused LM: {2 * CKPT_K} steps against {CKPT_K} + resume "
+          f"{CKPT_K}: resumed losses bit-equal {out['bit_equal']} (max abs "
+          f"err {tail_err:.3g}; first leg {head_err:.3g}); launches a "
+          f"resumed step {per_step}; save blocked the loop "
+          f"{out['save_blocking_ms_median']:.3f} ms (median of "
+          f"{n_saves}), write {statistics.median(rec['write_ms']):.1f} ms, "
+          f"{out['checkpoint_bytes'] / 1e6:.2f} MB a step, restore "
+          f"{out['restore_ms']:.1f} ms", flush=True)
+    return out, live[0], whole_dir
+
+
+def eval_generate_runs(torch, launch_run, trainer, ckdir):
+    """Phase 24, ``eval`` and ``generate`` on the fused LM's checkpoint
+    against ``evaluate`` and ``greedy_generate`` on the live trainer's
+    parameters; then ``generate --server-url`` against ``serve --resume``
+    of the same checkpoint on ``int8``."""
+    from split_learning_tpu_torch.data import load_dataset
+    from split_learning_tpu_torch.ops import quantize as qmod
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.ops.flash_attention import NAME as FA
+    from split_learning_tpu_torch.runtime import evaluate, greedy_generate
+    data = _ckpt_data()
+    flags = _lm_flags(data)
+    ds = load_dataset("lm", data, seq_len=TRAIN_T)
+    # eval: the unrounded result of the command's own code path
+    args = launch_run.parse_args(["eval", *flags, "--checkpoint-dir", ckdir])
+    LAUNCHES.reset()
+    t = time.perf_counter()
+    record, res = launch_run.eval_checkpoint(args)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t
+    eval_counts = LAUNCHES.snapshot()
+    live = evaluate(trainer.plan, trainer.params, ds.test,
+                    batch_size=TRAIN_B)
+    n_batches = -(-len(ds.test) // TRAIN_B)
+    check(eval_counts.get(FA) == N_BLOCKS * n_batches,
+          f"eval launches {eval_counts}")
+    for key in ("loss", "perplexity"):
+        check(abs(res[key] - live[key]) <= CKPT_EVAL_RTOL * abs(live[key]),
+              f"eval {key} {res[key]} against evaluate() {live[key]}")
+    check(record["checkpoint_step"] == 2 * CKPT_K, f"eval record {record}")
+    # generate, KV cache and re-forward, against the live parameters
+    prompt = np.asarray(ds.test.x[:1, :CKPT_PROMPT], np.int32)
+    gen = {}
+    for scheme, extra in (("kv_cache", []), ("reforward", ["--no-kv-cache"])):
+        args = launch_run.parse_args([
+            "generate", *flags, "--checkpoint-dir", ckdir, "--n-new",
+            str(CKPT_GEN_NEW), "--prompt-len", str(CKPT_PROMPT), *extra])
+        LAUNCHES.reset()
+        t = time.perf_counter()
+        rec, toks = launch_run.generate_checkpoint(args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = LAUNCHES.snapshot()
+        want = greedy_generate(trainer.plan, trainer.params, prompt,
+                               CKPT_GEN_NEW, kv_cache=not extra,
+                               device="cuda").cpu().numpy()
+        # the decode alone, warm (the command's time above includes the
+        # checkpoint's restore and the prompt's dataset load)
+        decode_s = host_ms(torch, lambda: greedy_generate(
+            trainer.plan, trainer.params, prompt, CKPT_GEN_NEW,
+            kv_cache=not extra, device="cuda")) / 1e3
+        # KV: one prefill through the blocks, then single-position steps
+        # that attend to the cache without the kernel; re-forward: every
+        # token re-runs the blocks
+        want_fa = N_BLOCKS * (CKPT_GEN_NEW if extra else 1)
+        check(np.array_equal(toks, want), f"generate {scheme}: tokens "
+                                          "differ from greedy_generate's")
+        check(counts.get(FA) == want_fa, f"generate {scheme} launches "
+                                         f"{counts}, want {FA} {want_fa}")
+        gen[scheme] = dict(tokens_per_s=CKPT_GEN_NEW / secs, seconds=secs,
+                           decode_tokens_per_s=CKPT_GEN_NEW / decode_s,
+                           launches=counts, k5_per_token=counts.get(FA, 0)
+                           / CKPT_GEN_NEW, tokens_equal_live=True)
+    srv = _Serve("serve_ckpt_lm", *flags[2:], "--checkpoint-dir", ckdir,
+                 "--resume")
+    try:
+        remote = {}
+        for mode in ("none", "int8"):
+            argv = ["generate", *flags, "--checkpoint-dir", ckdir,
+                    "--n-new", str(CKPT_REMOTE_NEW), "--prompt-len",
+                    str(CKPT_PROMPT), "--server-url", srv.url,
+                    "--compress", mode]
+            LAUNCHES.reset()
+            t = time.perf_counter()
+            rec, toks = launch_run.generate_checkpoint(
+                launch_run.parse_args(argv))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            counts = LAUNCHES.snapshot()
+            remote[mode] = dict(tokens_per_s=CKPT_REMOTE_NEW / secs,
+                                launches=counts, tokens=rec["tokens"])
+        srv.stop()
+    finally:
+        srv.kill()
+    want_none = greedy_generate(trainer.plan, trainer.params, prompt,
+                                CKPT_REMOTE_NEW, kv_cache=False,
+                                device="cuda").cpu().numpy()
+    check(remote["none"]["tokens"] == want_none[:, CKPT_PROMPT:].tolist(),
+          "generate --server-url: tokens differ from the live re-forward's")
+    # the client's share of phase 17's per-token wire launches: its
+    # encode of the cut and its decode of the reply (the server's two
+    # run in its process), and its one block's K5
+    n = CKPT_REMOTE_NEW
+    want = {FA: LM["client_depth"] * n, qmod.QUANT: n, qmod.DEQUANT: n}
+    check(remote["int8"]["launches"] == want,
+          f"generate --server-url int8 client launches "
+          f"{remote['int8']['launches']}, want {want}")
+    check(remote["none"]["launches"] == {FA: LM["client_depth"] * n},
+          f"generate --server-url none launches {remote['none']['launches']}")
+    print(f"[ckpt] eval: loss {res['loss']:.6f} (evaluate() "
+          f"{live['loss']:.6f}), {res['examples'] / eval_s:.1f} examples/s, "
+          f"K5 {eval_counts.get(FA)}; generate {CKPT_GEN_NEW} tokens (the "
+          f"command; the warm decode alone): KV "
+          f"{gen['kv_cache']['tokens_per_s']:.1f}; "
+          f"{gen['kv_cache']['decode_tokens_per_s']:.1f} tokens/s (K5 "
+          f"{gen['kv_cache']['launches'].get(FA)}), re-forward "
+          f"{gen['reforward']['tokens_per_s']:.1f}; "
+          f"{gen['reforward']['decode_tokens_per_s']:.1f} tokens/s (K5 "
+          f"{gen['reforward']['k5_per_token']:.0f} a token); over HTTP none "
+          f"{remote['none']['tokens_per_s']:.1f}, int8 "
+          f"{remote['int8']['tokens_per_s']:.1f} tokens/s", flush=True)
+    for r in remote.values():
+        del r["tokens"]
+    return dict(
+        eval=dict(record=record, loss=res["loss"], live_loss=live["loss"],
+                  perplexity=res["perplexity"],
+                  live_perplexity=live["perplexity"],
+                  examples_per_s=res["examples"] / eval_s,
+                  launches=eval_counts),
+        generate=gen, generate_remote=remote)
+
+
+def _capture_requests():
+    """Every POST the port's HttpTransport makes in this process: (path,
+    request body, reply body); and the undo."""
+    from split_learning_tpu_torch.transport import http as http_mod
+    seen = []
+    orig = http_mod.HttpTransport._request
+
+    def request(self, method, path, body=None):
+        resp, content = orig(self, method, path, body)
+        if method == "POST":
+            seen.append((path, body, content))
+        return resp, content
+    http_mod.HttpTransport._request = request
+    return seen, lambda: setattr(http_mod.HttpTransport, "_request", orig)
+
+
+def _post(url, path, body):
+    import http.client
+    import urllib.parse
+    from split_learning_tpu_torch.transport import http as http_mod
+    u = urllib.parse.urlparse(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port,
+                                      timeout=HTTP_TIMEOUT)
+    try:
+        conn.request("POST", path, body=body, headers={
+            http_mod.CRC_HEADER: str(http_mod.codec.checksum(body))})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def two_party_resume_runs(torch, launch_run):
+    """Phase 24, the two-party CNN over HTTP in each wire mode: an
+    uninterrupted 2 * CKPT_TP_K-step run against a ``SplitHTTPServer`` of
+    this process, against ``serve --checkpoint-dir --checkpoint-every 1``
+    (a subprocess) with a client that checkpoints, stops after CKPT_TP_K
+    steps, ``serve --resume``, the in-flight step sent again (its original
+    frame back byte for byte) and ``train --resume``. On topk8 the same
+    resume with both ledgers cleared moves the series. A resumed client
+    against a fresh server exits 3."""
+    import shutil
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    from split_learning_tpu_torch.runtime import ServerRuntime
+    from split_learning_tpu_torch.runtime import client as client_mod
+    from split_learning_tpu_torch.transport import SplitHTTPServer
+    from split_learning_tpu_torch.utils.config import Config
+    data = _ckpt_data()
+    common = ["--device", "cuda", "--dataset", "synthetic", "--batch-size",
+              str(BATCH), "--lr", str(CLI_LR), "--data-dir", data]
+
+    def client(url, mode, steps, *extra):
+        rc, counts, _, _ = _cli(torch, launch_run, [
+            "train", "--transport", "http", "--server-url", url,
+            "--compress", mode, "--steps", str(steps), "--tracking",
+            "jsonl", "--wait-server", "60", *common, *extra])
+        return rc, counts, (_take_losses(data) if rc == 0 else None)
+
+    def in_process_server():
+        cfg = Config(mode="split", batch_size=BATCH, lr=CLI_LR)
+        return SplitHTTPServer(ServerRuntime(
+            get_plan(), cfg, torch.Generator().manual_seed(cfg.seed),
+            device="cuda"), host="127.0.0.1", port=0).start()
+
+    out = {}
+    for mode in WIRE_MODES:
+        srv = in_process_server()
+        try:
+            rc, _, whole = client(srv.url, mode, 2 * CKPT_TP_K)
+        finally:
+            srv.stop()
+        check(rc == 0, f"two-party {mode} uninterrupted returned {rc}")
+        sdir, cdir = _ckpt_dir(f"tp_{mode}_s"), _ckpt_dir(f"tp_{mode}_c")
+        wire = ["--compress", mode, "--lr", str(CLI_LR)]
+        seen, undo = _capture_requests()
+        serve = _Serve(f"serve_ckpt_{mode}", *wire, "--checkpoint-dir", sdir,
+                       "--checkpoint-every", "1")
+        try:
+            rc, head_counts, head = client(serve.url, mode, CKPT_TP_K,
+                                           "--checkpoint-dir", cdir)
+            serve.stop()
+        finally:
+            serve.kill()
+            undo()
+        check(rc == 0, f"two-party {mode} first leg returned {rc}")
+        path, request, reply = seen[-1]
+        if mode == "topk8":
+            for name in ("s", "c"):
+                src = sdir if name == "s" else cdir
+                shutil.copytree(src, src + "_cleared")
+        serve = _Serve(f"serve_ckpt_{mode}_resume", *wire, "--checkpoint-dir",
+                       sdir, "--resume")
+        try:
+            status, again = _post(serve.url, path, request)
+            rc, tail_counts, tail = client(serve.url, mode, CKPT_TP_K,
+                                           "--checkpoint-dir", cdir,
+                                           "--resume")
+            serve.stop()
+        finally:
+            serve.kill()
+        check(status == 200 and again == reply,
+              f"two-party {mode}: the replayed step's frame is not the "
+              f"original ({status}, {len(again)} bytes against "
+              f"{len(reply)})")
+        check(rc == 0, f"two-party {mode} train --resume returned {rc}")
+        err = max(abs(a - b) for a, b in zip(head + tail, whole))
+        check(err <= CKPT_TP_TOL[mode], f"two-party {mode}: resumed series "
+              f"{head + tail} against {whole} (max abs err {err})")
+        per_step = {SGD: 1, **wire_launches(mode, 1)}
+        check(tail_counts == {k: CKPT_TP_K * v for k, v in per_step.items()},
+              f"two-party {mode} resumed client launches {tail_counts}")
+        rec = dict(losses=whole, resumed_losses=head + tail,
+                   max_abs_err=err, bit_equal=head + tail == whole,
+                   client_launches_per_step=per_step,
+                   replayed_frame_bytes=len(again),
+                   replayed_frame_equal=True)
+        if mode == "topk8":
+            # both ledgers cleared: the server's sidecar and the client's
+            for name in os.listdir(sdir + "_cleared"):
+                if name.startswith("extras-"):
+                    os.remove(os.path.join(sdir + "_cleared", name))
+            restore = client_mod._restore_ledger
+            client_mod._restore_ledger = lambda transport, records: None
+            serve = _Serve("serve_ckpt_cleared", *wire, "--checkpoint-dir",
+                           sdir + "_cleared", "--resume")
+            try:
+                rc, _, cleared = client(serve.url, mode, CKPT_TP_K,
+                                        "--checkpoint-dir",
+                                        cdir + "_cleared", "--resume")
+                serve.stop()
+            finally:
+                serve.kill()
+                client_mod._restore_ledger = restore
+            check(rc == 0, f"topk8 cleared resume returned {rc}")
+            moved = max(abs(a - b) for a, b in zip(cleared,
+                                                   whole[CKPT_TP_K:]))
+            check(moved > max(err, 0.0) and moved > 0,
+                  f"topk8: clearing the ledgers moved the series by {moved}, "
+                  f"no more than restoring them ({err})")
+            rec["cleared_ledger_max_abs_err"] = moved
+        out[mode] = rec
+        print(f"[ckpt] two-party {mode} over HTTP: {CKPT_TP_K} + resume "
+              f"{CKPT_TP_K} steps, max abs err {err:.3g} (bit-equal "
+              f"{rec['bit_equal']}), replayed frame byte-equal "
+              f"({len(again)} bytes), client launches a step {per_step}"
+              + (f"; ledgers cleared: {rec['cleared_ledger_max_abs_err']:.3g}"
+                 if mode == "topk8" else ""), flush=True)
+    # a resumed client against a fresh server exits 3
+    srv = in_process_server()
+    try:
+        rc, _, _ = client(srv.url, "none", 1, "--checkpoint-dir",
+                          os.path.join(REPO, "build", "chip_smoke_ckpt",
+                                       "tp_none_c"), "--resume")
+    finally:
+        srv.stop()
+    check(rc == 3, f"resumed client against a fresh server returned {rc}")
+    out["fresh_server_rc"] = rc
+    return out
+
+
+def prefetch_runs(torch, launch_run):
+    """Phase 24, ``train --transport local --prefetch N`` on the CNN: the
+    loss series of ``--prefetch 0`` bit for bit (both under cuDNN's
+    deterministic convolutions), each depth's median step ms (host clock
+    around ``train_step``; two runs a depth, in turns, as users run it),
+    and a profiler window of the prefetched client showing the batch's
+    copy to the card on a stream of its own."""
+    from torch.profiler import ProfilerActivity, profile
+    from split_learning_tpu_torch.data import batches, synthetic
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.runtime import (
+        ServerRuntime, SplitClientTrainer)
+    from split_learning_tpu_torch.runtime import client as client_mod
+    from split_learning_tpu_torch.transport import LocalTransport
+    from split_learning_tpu_torch.utils.config import Config
+    data = _ckpt_data()
+    cls = client_mod.SplitClientTrainer
+    step = cls.train_step
+    times = []
+
+    def timed(self, *a, **kw):
+        t = time.perf_counter()
+        loss = step(self, *a, **kw)
+        times.append((time.perf_counter() - t) * 1e3)
+        return loss
+
+    def run(depth):
+        times.clear()
+        rc, counts, _, _ = _cli(torch, launch_run, [
+            "train", "--device", "cuda", "--transport", "local",
+            "--compress", "int8", "--dataset", "synthetic", "--batch-size",
+            str(BATCH), "--lr", str(CLI_LR), "--steps",
+            str(CKPT_PREFETCH_STEPS), "--prefetch", str(depth),
+            "--tracking", "jsonl", "--data-dir", data])
+        check(rc == 0, f"train --prefetch {depth} returned {rc}")
+        return dict(losses=_take_losses(data),
+                    step_ms_median=statistics.median(times[5:]),
+                    launches=counts)
+
+    cls.train_step = timed
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        # the series: cuDNN's deterministic convolutions, so that two
+        # runs of one command are bit-equal and any gap is the prefetch's
+        torch.backends.cudnn.deterministic = True
+        series = {d: run(d) for d in (0, CKPT_PREFETCH_DEPTH)}
+        torch.backends.cudnn.deterministic = deterministic
+        # the times: as users run it, in turns (0, N, N, 0)
+        timing = {0: [], CKPT_PREFETCH_DEPTH: []}
+        for d in (0, CKPT_PREFETCH_DEPTH, CKPT_PREFETCH_DEPTH, 0):
+            timing[d].append(run(d)["step_ms_median"])
+    finally:
+        cls.train_step = step
+        torch.backends.cudnn.deterministic = deterministic
+    runs = {d: dict(series[d], step_ms_median=statistics.mean(timing[d]),
+                    step_ms_medians=timing[d]) for d in series}
+    same = runs[0]["losses"] == runs[CKPT_PREFETCH_DEPTH]["losses"]
+    err = max(abs(a - b) for a, b in zip(runs[0]["losses"],
+                                         runs[CKPT_PREFETCH_DEPTH]["losses"]))
+    check(same, f"--prefetch {CKPT_PREFETCH_DEPTH} moved the loss series "
+                f"(max abs err {err}; deterministic cuDNN)")
+    check(runs[0]["launches"] == runs[CKPT_PREFETCH_DEPTH]["launches"],
+          "prefetch changed the launches")
+    # the profiler window: the client's train(prefetch=) on the API
+    cfg = Config(mode="split", batch_size=BATCH, lr=CLI_LR)
+    server = ServerRuntime(get_plan(), cfg, torch.Generator().manual_seed(0),
+                           device="cuda")
+    trainer = SplitClientTrainer(get_plan(), cfg,
+                                 torch.Generator().manual_seed(0),
+                                 LocalTransport(server), device="cuda")
+    ds = synthetic("mnist", n_train=BATCH * 12, n_test=8, seed=1)
+    window = list(batches(ds.train, BATCH, seed=1, drop_remainder=True))
+    trainer.train(lambda: iter(window[:2]), epochs=1, prefetch=2)
+    torch.cuda.synchronize()
+    trace = os.path.join(REPO, "build", "chip_smoke_prefetch_trace.json")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train(lambda: iter(window[2:]), epochs=1,
+                      start_step=2, prefetch=CKPT_PREFETCH_DEPTH)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernel_streams = {e["args"].get("stream") for e in events
+                      if e.get("cat") == "kernel" and "args" in e}
+    h2d = [e for e in events if e.get("cat") == "gpu_memcpy"
+           and "HtoD" in e.get("name", "")]
+    batch_bytes = BATCH * 28 * 28 * 4
+    staged = [e for e in h2d if e["args"].get("bytes") == batch_bytes]
+    copy_streams = {e["args"].get("stream") for e in staged}
+    # the trace may drop some activity records; every batch copy it kept
+    # must have run on a stream that ran no kernel
+    own = copy_streams - kernel_streams
+    check(staged and own == copy_streams,
+          f"prefetch window: {len(staged)} batch copies on streams "
+          f"{sorted(copy_streams)}, kernels on {sorted(kernel_streams)}")
+    out = dict(
+        steps=CKPT_PREFETCH_STEPS, depth=CKPT_PREFETCH_DEPTH,
+        losses_equal=same, max_abs_err=err,
+        step_ms_median={str(d): r["step_ms_median"] for d, r in runs.items()},
+        step_ms_medians={str(d): r["step_ms_medians"]
+                         for d, r in runs.items()},
+        profile=dict(batch_copies=len(staged),
+                     batches_in_window=len(window) - 2,
+                     copy_streams=sorted(own),
+                     kernel_streams=sorted(kernel_streams),
+                     copy_us=[e.get("dur") for e in staged][:4],
+                     trace=os.path.relpath(trace, REPO)))
+    print(f"[ckpt] prefetch: --prefetch 0 and {CKPT_PREFETCH_DEPTH} losses "
+          f"equal {same} (deterministic cuDNN); median step ms (mean of two "
+          f"runs in turns) "
+          f"{runs[0]['step_ms_median']:.3f} against "
+          f"{runs[CKPT_PREFETCH_DEPTH]['step_ms_median']:.3f}; the "
+          f"window's {len(staged)} batch copies (of {len(window) - 2} "
+          f"batches) on stream(s) {sorted(own)}, kernels on "
+          f"{sorted(kernel_streams)}", flush=True)
+    return out
+
+
+def card_test_step():
+    """The card tests of phase 24's pieces (tests/test_torch_port_cuda.py,
+    ``-k CARD_TEST_FILTER``), in a subprocess without the JAX conftest."""
+    import subprocess
+    t = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q",
+         "-p", "no:cacheprovider", "tests/test_torch_port_cuda.py", "-k",
+         CARD_TEST_FILTER], cwd=REPO, capture_output=True, text=True,
+        timeout=CARD_TEST_TIMEOUT)
+    tail = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
+    print(f"[card tests] {tail} ({time.perf_counter() - t:.1f} s)",
+          flush=True)
+    check(out.returncode == 0 and " passed" in tail and "failed" not in tail
+          and "skipped" not in tail,
+          f"card tests: rc {out.returncode}: {out.stdout[-3000:]}"
+          f"{out.stderr[-2000:]}")
+    return tail
+
+
+def checkpoint_runs(torch, launch_run):
+    """Phase 24 (see the module docstring). Returns the record and the
+    launch totals of its runs."""
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    totals = {}
+    orig_reset = LAUNCHES.reset
+
+    def reset():
+        # every part reads its own counts; fold them into the phase's
+        for k, v in LAUNCHES.snapshot().items():
+            totals[k] = totals.get(k, 0) + v
+        orig_reset()
+    LAUNCHES.reset = reset
+    try:
+        fused, trainer, ckdir = fused_resume_run(torch, launch_run)
+        loads = eval_generate_runs(torch, launch_run, trainer, ckdir)
+        del trainer
+        two_party = two_party_resume_runs(torch, launch_run)
+        prefetch = prefetch_runs(torch, launch_run)
+        reset()
+    finally:
+        LAUNCHES.reset = orig_reset
+    cards = card_test_step()
+    return dict(fused_lm=fused, **loads, two_party_http=two_party,
+                prefetch=prefetch, card_tests=cards), totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3461,6 +4154,9 @@ def main() -> int:
     mc, mc_counts = multi_client_runs(torch)
     cli_u_fed = u_fed_cli(torch, launch_run)
 
+    # ---- 24. checkpoints and what loads them ------------------------- #
+    ckpt_rec, ckpt_counts = checkpoint_runs(torch, launch_run)
+
     for rec in records:
         key = launch_of.get(rec["name"], rec["name"])
         rec["launches_train_lm_bf16"] = bf16_counts.get(key, 0)
@@ -3517,6 +4213,7 @@ def main() -> int:
         rec["launches_u_split_lm_bf16"] = u_lm_counts.get(key, 0)
         rec["launches_federated"] = fed_counts.get(key, 0)
         rec["launches_multi_client"] = mc_counts.get(key, 0)
+        rec["launches_checkpoint"] = ckpt_counts.get(key, 0)
         rec["launches_per_step_new_paths"] = dict(
             u_split_cnn={m: r["launches_per_step"].get(key, 0)
                          for m, r in u_cnn["runs"].items()},
@@ -3568,6 +4265,8 @@ def main() -> int:
         federated=dict(transport="http", device=kind, card=smi, **fed),
         multi_client=dict(device=kind, card=smi, **mc),
         cli=cli_u_fed)))
+    print(json.dumps({"checkpoint": dict(device=kind, card=smi,
+                                         **ckpt_rec)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

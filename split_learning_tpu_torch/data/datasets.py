@@ -5,14 +5,14 @@ imports the JAX package: the :class:`Split`/:class:`Dataset` records,
 the cache store protocol with its local backend, the MNIST IDX readers,
 the seeded synthetic generators (images, class-conditional tokens and
 the causal-LM Markov chains), the cache-first :func:`load_dataset`, and
-the seeded batcher. The same seeds give the same bytes as the JAX
-package, and the cache keys are the same, so both packages share a
-cache directory. Images are NHWC float32, normalised like the reference;
-token inputs are ``[N, T] int32``.
+the seeded batcher, and :class:`DevicePrefetch`, which stages the next
+batches on the device while a step is in flight. The same seeds give
+the same bytes as the JAX package, and the cache keys are the same, so
+both packages share a cache directory. Images are NHWC float32,
+normalised like the reference; token inputs are ``[N, T] int32``.
 
-Not ported yet: the S3 store, the downloader and device prefetch
-(ROADMAP item 13), and CIFAR-10, which serves the ResNet and ViT
-families (ROADMAP item 20).
+Not ported: the S3 store and the downloader (network), and CIFAR-10,
+which serves the ResNet and ViT families (ROADMAP item 20).
 """
 
 from __future__ import annotations
@@ -21,8 +21,11 @@ import dataclasses
 import gzip
 import io
 import os
+import queue
 import struct
-from typing import Dict, Iterator, Optional, Tuple
+import threading
+import time
+from typing import Any, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -314,3 +317,130 @@ def batches(split: Split, batch_size: int, seed: int = 0, *,
 
 def epoch_steps(n: int, batch_size: int, drop_remainder: bool = False) -> int:
     return n // batch_size if drop_remainder else -(-n // batch_size)
+
+
+# --------------------------------------------------------------------- #
+# device prefetch: batch k+1's host-to-device copy under step k
+
+_DONE = object()  # end-of-stream marker on the prefetch queue
+
+
+class DevicePrefetch:
+    """Stage batch k+1 on the device while step k is in flight (JAX's
+    ``DevicePrefetch``).
+
+    Wraps any ``(x, y)`` batch iterator: a background thread pulls up to
+    ``depth`` batches ahead and stages ``x`` on ``device``. On the card
+    that is a pinned host copy, then ``.to(device, non_blocking=True)``
+    on a side ``torch.cuda.Stream`` with an event recorded behind it;
+    the consumer's stream waits on the event before it touches ``x``,
+    and ``x`` is recorded on that stream (``record_stream``), so the
+    caching allocator never hands its memory to the side stream early.
+    On the CPU it is a plain copy, which is how the tests run it. Labels
+    pass through untouched: they travel host-side over the wire.
+
+    It yields exactly the plain iterator's sequence (the copy keeps the
+    values; the queue is FIFO), and :meth:`close` (also the context
+    exit) stops the thread and joins it, mid-epoch too; an exception of
+    the source is raised on the consumer's thread. ``device`` defaults
+    to ``"cuda"`` and raises without a GPU; ``depth < 1`` raises
+    ``ValueError``."""
+
+    def __init__(self, source: Iterable[Tuple[Any, Any]], depth: int = 2,
+                 device: Any = "cuda") -> None:
+        if depth < 1:
+            raise ValueError(f"prefetch depth must be >= 1 (got {depth})")
+        from split_learning_tpu_torch.utils.device import resolve_device
+        self.device = resolve_device(device)
+        self.depth = depth
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._exc: Optional[BaseException] = None
+        self._finished = False
+        self._stream = None
+        if self.device.type == "cuda":
+            import torch
+            self._stream = torch.cuda.Stream(self.device)
+        self._thread = threading.Thread(
+            target=self._run, args=(iter(source),),
+            name="slt-prefetch", daemon=True)
+        self._thread.start()
+
+    def _put(self, item: Any) -> bool:
+        # bounded waits only: a consumer that left early sets _stop and
+        # drains, and this producer must notice instead of parking
+        # forever on a full queue
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _stage(self, x: Any) -> Tuple[Any, Any]:
+        import torch
+        t = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
+                            else x)
+        if self._stream is None:
+            return t.clone(), None
+        with torch.cuda.stream(self._stream):
+            out = t.pin_memory().to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._stream)
+        return out, ready
+
+    def _run(self, it: Iterator[Tuple[Any, Any]]) -> None:
+        try:
+            for x, y in it:
+                if self._stop.is_set():
+                    return
+                if not self._put((*self._stage(x), y)):
+                    return
+        except BaseException as exc:  # re-raised on the consumer thread
+            self._exc = exc
+        finally:
+            self._put(_DONE)
+
+    # -- iterator protocol --------------------------------------------- #
+    def __iter__(self) -> "DevicePrefetch":
+        return self
+
+    def __next__(self) -> Tuple[Any, Any]:
+        if self._finished:
+            raise StopIteration
+        item = self._q.get()
+        if item is _DONE:
+            self._finished = True
+            self._thread.join(timeout=5.0)
+            if self._exc is not None:
+                raise self._exc
+            raise StopIteration
+        x, ready, y = item
+        if ready is not None:
+            import torch
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(ready)
+            x.record_stream(stream)
+        return x, y
+
+    # -- lifecycle ----------------------------------------------------- #
+    def close(self, timeout: float = 5.0) -> None:
+        """Stop staging and join the thread. Safe at any point (a
+        mid-epoch break included) and idempotent."""
+        self._stop.set()
+        self._finished = True
+        deadline = time.monotonic() + timeout
+        while self._thread.is_alive() and time.monotonic() < deadline:
+            try:
+                # drain: unblocks a producer parked on a full queue
+                self._q.get_nowait()
+            except queue.Empty:
+                pass
+            self._thread.join(timeout=0.02)
+
+    def __enter__(self) -> "DevicePrefetch":
+        return self
+
+    def __exit__(self, *exc_info: Any) -> None:
+        self.close()

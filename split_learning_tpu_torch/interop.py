@@ -33,11 +33,24 @@ import; it is read as float32 (exact) and cast back to
 ``torch.bfloat16``, and it goes back to JAX as numpy's ``bfloat16``
 with the same bits (:func:`split_learning_tpu_torch.utils.arrays.to_host`;
 as float32 in a process that has no ``ml_dtypes`` loaded).
+
+A training state crosses too, optimizer and schedule included:
+:func:`train_state_from_jax` takes the numpy tree JAX's
+``Checkpointer.restore_raw`` gives for a ``TrainState`` (``{'params',
+'opt_state', 'step'}``, optax's chain as nested lists with ``None`` for
+its empty states) and returns the port's checkpoint form of a state
+(``runtime/state.py`` ``state_tree``, which ``restore_state`` loads);
+optax's ``TraceState`` becomes the momentum trace (float32, the SGD
+kernel's), ``ScaleByAdamState`` the moments, and each count must equal
+the step. :func:`train_state_to_jax` goes back, building the chain
+JAX's ``make_tx`` builds for the Config. Moments take the parameters'
+transposes. This is how a run trained on a TPU continues on the card,
+and the reverse.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -148,3 +161,106 @@ def params_from_jax(flax_params: Sequence[Mapping[str, Any]]
 def params_to_jax(params: Sequence[Params]) -> Tuple[Dict[str, Any], ...]:
     """Per-stage dicts -> per-stage flax trees of numpy arrays."""
     return tuple(stage_to_jax(p) for p in params)
+
+
+# --------------------------------------------------------------------- #
+# training state: params, optimizer state and step count
+# --------------------------------------------------------------------- #
+def _opt_pieces(node: Any, out: Dict[str, List[Any]]) -> None:
+    """Collect optax's states from a raw chain: the momentum trace, the
+    Adam moments and every count."""
+    if node is None:
+        return
+    if hasattr(node, "_asdict"):  # a live optax NamedTuple
+        node = node._asdict()
+    if isinstance(node, Mapping):
+        if not node:  # an optax EmptyState
+            return
+        if "trace" in node:
+            out["trace"].append(node["trace"])
+        elif "mu" in node and "nu" in node:
+            out["adam"].append((node["mu"], node["nu"]))
+            out["count"].append(node["count"])
+        elif set(node) == {"count"}:
+            out["count"].append(node["count"])
+        else:
+            raise ValueError(f"unexpected optimizer state keys {sorted(node)}")
+        return
+    if isinstance(node, (list, tuple)):
+        for item in node:
+            _opt_pieces(item, out)
+        return
+    raise ValueError(f"unexpected optimizer state leaf {type(node).__name__}")
+
+
+def _stage_trees(node: Any) -> List[Any]:
+    """A party's stages: JAX keeps a one-stage party's tree bare, a
+    whole plan's as a sequence of trees."""
+    return [node] if isinstance(node, Mapping) else list(node)
+
+
+def train_state_from_jax(raw: Mapping[str, Any]) -> Dict[str, Any]:
+    """JAX's raw ``TrainState`` tree (a whole plan's, or one party's
+    single stage) -> the port's ``state_tree``."""
+    params = [stage_from_jax(t) for t in _stage_trees(raw["params"])]
+    step = int(np.asarray(raw["step"]))
+    pieces: Dict[str, List[Any]] = {"trace": [], "adam": [], "count": []}
+    _opt_pieces(raw["opt_state"], pieces)
+    if len(pieces["trace"]) + len(pieces["adam"]) > 1:
+        raise ValueError("more than one optimizer state in the chain")
+    bad = [int(np.asarray(c)) for c in pieces["count"]
+           if int(np.asarray(c)) != step]
+    if bad:
+        raise ValueError(f"optimizer counts {bad} differ from step {step}")
+
+    def stages(trees: Any) -> List[Dict[str, torch.Tensor]]:
+        return [stage_from_jax(t) for t in _stage_trees(trees)]
+
+    if pieces["adam"]:
+        mu, nu = pieces["adam"][0]
+        opt: Any = {"mu": stages(mu), "nu": stages(nu)}
+    elif pieces["trace"]:
+        # the SGD kernel's trace is float32 for every leaf
+        opt = {"trace": [{k: v.float() for k, v in st.items()}
+                         for st in stages(pieces["trace"][0])]}
+    else:
+        opt = None
+    return {"params": params, "opt_state": opt, "step": step}
+
+
+def train_state_to_jax(tree: Mapping[str, Any], cfg: Any) -> Dict[str, Any]:
+    """The port's ``state_tree`` -> JAX's raw ``TrainState`` tree for
+    the optimizer ``cfg`` configures (``make_tx``'s chain: clipping and
+    coupled L2 as empty states, the schedule's count). A momentum trace
+    goes back in each parameter's dtype, as optax keeps it. A one-stage
+    state (a party's) comes back as JAX's party keeps it: the bare tree,
+    not a sequence."""
+    step = np.asarray(int(tree["step"]), np.int32)
+
+    def jax_stages(trees: List[Any]) -> Any:
+        return trees[0] if len(trees) == 1 else trees
+
+    params = jax_stages([stage_to_jax(p) for p in tree["params"]])
+    opt = tree["opt_state"]
+    sched = ({"count": step.copy()} if (cfg.warmup_steps or cfg.decay_steps)
+             else None)
+
+    def moments(stages: Sequence[Params]) -> Any:
+        return jax_stages([
+            stage_to_jax({k: v.to(p[k].dtype) for k, v in st.items()})
+            for st, p in zip(stages, tree["params"])])
+
+    if cfg.optimizer == "sgd":
+        trace = ({"trace": moments(opt["trace"])} if cfg.momentum
+                 else None)
+        chain: Any = [trace, sched]
+        if cfg.weight_decay:
+            chain = [None, chain]
+    else:
+        adam = {"count": step.copy(), "mu": moments(opt["mu"]),
+                "nu": moments(opt["nu"])}
+        chain = ([adam, sched] if cfg.optimizer == "adam"
+                 else [adam, None, sched])
+    if cfg.grad_clip_norm:
+        chain = [None, chain]
+    return {"params": params, "opt_state": chain, "step": step}

@@ -59,22 +59,56 @@ the server's stages (over HTTP the server's stay remote,
 ``evaluate_remote``; for ``u_split`` the client's A and C around them),
 or the federated client's whole model.
 
+Checkpoints, as in JAX: ``train --checkpoint-dir D`` saves the joint
+state of every party the run holds at each epoch's end (and every
+``--checkpoint-every`` steps on the fused transport) with ``meta.json``
+beside it (the layout, mode, model, dataset, sizes, and ``framework``:
+``torch``, which marks a port directory); ``--resume`` restores the
+latest step, re-arms the in-process server's handshake and resumes the
+data stream where it stopped (the epoch's shuffle and the batch in it),
+so a resumed run is the uninterrupted one. A client over HTTP refuses
+(rc 3) a server that is behind its checkpoint. ``serve --checkpoint-dir
+--resume`` owns the server half: a server-only directory, or the server
+subtree of a joint one (its own saves then go to ``server_party/``);
+each save there follows the step's reply, so the sidecar holds that
+reply's frame. ``eval`` and ``generate`` read a checkpoint (JAX's flags,
+JSON record, ``[error]`` refusals and rc 2). A JAX checkpoint directory
+is refused with rc 2. ``train --prefetch N`` stages the split client's
+next batches on the device (``DevicePrefetch``); ``--require-real``
+refuses the synthetic fallback.
+
 Not ported yet, each exiting 2 with the ROADMAP item it waits for:
 ``--replicas`` above 1 (item 19), ``--pipeline-depth`` above 1 (item
-15), ``--prefetch`` on the split client (item 13), and the ``serve``
-flags of :data:`SERVE_NOT_PORTED`; the ``eval`` and ``generate``
-commands and checkpoints are item 13.
+15), the ``train`` flags of :data:`TRAIN_NOT_PORTED` and the ``serve``
+flags of :data:`SERVE_NOT_PORTED`.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import inspect
+import json
+import os
 import sys
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+
+
+@contextlib.contextmanager
+def _ckpt_drain(ckptr):
+    """Barrier on the checkpointer's writes on every exit path: saves
+    are asynchronous, and an exception that skips the success path's
+    barrier must not let interpreter teardown tear the newest step."""
+    try:
+        yield
+    finally:
+        if ckptr is not None:
+            ckptr.wait_until_finished()
 
 
 def _config_from_args(args):
@@ -84,7 +118,7 @@ def _config_from_args(args):
                   "optimizer", "momentum", "weight_decay", "warmup_steps",
                   "decay_steps", "grad_clip_norm", "microbatches", "seed",
                   "data_dir", "tracking", "transport", "server_url", "attn",
-                  "dtype", "remat"):
+                  "dtype", "checkpoint_dir"):
         val = getattr(args, field, None)
         if val is not None:
             overrides[field] = val
@@ -110,19 +144,133 @@ def _pairing_error(cfg) -> Optional[str]:
     return None
 
 
-def _plan_kw(args, cfg) -> Dict[str, Any]:
-    """Plan-builder kwargs from the size flags. As in JAX
-    (``_plan_size_kw``), ``max_len`` is derived: a ``--seq-len`` above
-    the 2048 default table extends it. ``attn`` goes to the attention
-    families only."""
-    kw = {name: getattr(args, name) for name in (
+def _size_kw_from_args(args) -> Dict[str, Any]:
+    """The model-size flags given on the command line."""
+    return {name: getattr(args, name) for name in (
         "d_model", "num_heads", "client_depth", "server_depth")
-        if getattr(args, name) is not None}
-    if cfg.model in _ATTENTION_FAMILIES:
-        kw["attn"] = cfg.attn
-        if args.seq_len and args.seq_len > 2048:
-            kw["max_len"] = args.seq_len
+        if getattr(args, name, None) is not None}
+
+
+def _plan_kw(model: str, attn: str, size_kw: Dict[str, Any],
+             seq_len: Optional[int]) -> Dict[str, Any]:
+    """Plan-builder kwargs from the size flags. As in JAX
+    (``_plan_size_kw``), ``max_len`` is derived, never persisted: a
+    ``--seq-len`` above the 2048 default table extends it. ``attn`` goes
+    to the attention families only."""
+    kw = dict(size_kw)
+    if model in _ATTENTION_FAMILIES:
+        kw["attn"] = attn
+        if seq_len and seq_len > 2048:
+            kw["max_len"] = seq_len
     return kw
+
+
+# --------------------------------------------------------------------- #
+# checkpoint layout bookkeeping (JAX's): meta.json beside the step
+# directories records how the saved tree maps onto the parties
+
+def _builder_size_defaults(model: str) -> Dict[str, Any]:
+    """The size-parameterised plan builder's own defaults ({} for a
+    family without sizes)."""
+    if model not in _ATTENTION_FAMILIES:
+        return {}
+    from split_learning_tpu_torch.models.transformer import transformer_plan
+    params = inspect.signature(transformer_plan).parameters
+    return {k: params[k].default for k in (
+        "d_model", "num_heads", "client_depth", "server_depth")}
+
+
+def _reconcile_ckpt_sizes(meta: Dict[str, Any], size_kw: Dict[str, Any],
+                          seq_len: Optional[int], what: str,
+                          model: str = ""):
+    """Adopt-or-refuse against a checkpoint's recorded model sizes (JAX's
+    rule). Returns ``(size_kw, seq_len, error)``: flags left out adopt
+    the saved sizes and ``--seq-len``; explicit flags compare as
+    effective plans (merged over the builder's defaults), so restating a
+    default is accepted and only a different plan is refused."""
+    saved = meta.get("size_kw", {})
+    defaults = _builder_size_defaults(model)
+    effective_saved = {**defaults, **saved}
+    effective_req = {**effective_saved, **size_kw}
+    if size_kw and effective_saved != effective_req:
+        keys = sorted(set(effective_saved) | set(effective_req))
+        conflicts = ", ".join(
+            f"{k}: saved {effective_saved.get(k)} != requested "
+            f"{effective_req.get(k)}" for k in keys
+            if effective_saved.get(k) != effective_req.get(k))
+        return size_kw, seq_len, (
+            f"checkpoint was written with sizes {saved or '{}'} but "
+            f"{what} requested {size_kw} ({conflicts})")
+    if saved and not size_kw:
+        print(f"[ckpt] {what} with the checkpoint's model sizes "
+              f"{saved}", file=sys.stderr)
+    size_kw = dict(saved)
+    saved_seq = meta.get("seq_len")
+    if saved_seq:
+        if seq_len is None:
+            seq_len = saved_seq
+            print(f"[ckpt] {what} with the checkpoint's --seq-len "
+                  f"{seq_len}", file=sys.stderr)
+        elif seq_len != saved_seq:
+            return size_kw, seq_len, (
+                f"checkpoint was trained at --seq-len {saved_seq} but "
+                f"{what} requested {seq_len}")
+    return size_kw, seq_len, None
+
+
+def _write_ckpt_meta(directory: str, layout: str, cfg,
+                     size_kw: Optional[Dict[str, Any]] = None,
+                     seq_len: Optional[int] = None) -> None:
+    """JAX's meta.json, plus ``framework``, which marks a port
+    directory."""
+    path = os.path.join(os.path.abspath(os.path.expanduser(directory)),
+                        "meta.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    meta = {"layout": layout, "mode": cfg.mode, "model": cfg.model,
+            "dataset": cfg.dataset, "framework": "torch"}
+    if size_kw:
+        meta["size_kw"] = size_kw
+    if seq_len is not None:
+        meta["seq_len"] = seq_len
+    with open(path, "w") as f:
+        json.dump(meta, f)
+
+
+def _read_ckpt_meta(directory: str) -> Dict[str, Any]:
+    path = os.path.join(os.path.abspath(os.path.expanduser(directory)),
+                        "meta.json")
+    with open(path) as f:
+        return json.load(f)
+
+
+def _assemble_full_params(layout: str, raw: Dict[str, Any]):
+    """Per-stage params for ``plan.apply`` from a saved tree."""
+    if layout == "fused":
+        return raw["trainer"]["params"]
+    if layout == "split_local":
+        return [raw["client"]["params"][0], raw["server"]["params"][0]]
+    if layout == "u_split_local":
+        return [raw["client_a"]["params"][0], raw["server"]["params"][0],
+                raw["client_c"]["params"][0]]
+    if layout == "federated":
+        return raw["client"]["params"]
+    if layout in ("chain", "pipeline"):
+        raise NotImplementedError(
+            f"not ported yet: a {layout!r} checkpoint (the K-stage chain, "
+            "ROADMAP item 16)")
+    raise ValueError(
+        f"cannot evaluate a {layout!r} checkpoint: the client half alone "
+        "does not form the full composition (train with --transport local "
+        "or fused to checkpoint the joint state)")
+
+
+def _client_params(plan, params):
+    """The client-owned stages of a full composition, in plan order."""
+    return [params[i] for i in plan.stages_of("client")]
+
+
+def _on_device(params, device: torch.device):
+    return [{k: v.to(device) for k, v in stage.items()} for stage in params]
 
 
 def _density_arg(v: str):
@@ -196,6 +344,90 @@ def _make_transport(args, cfg, density: float, server: Any):
     return transport, 0
 
 
+def _given(v: Any) -> bool:
+    return v is not None
+
+
+# the JAX ``train`` flags the port does not run yet: (attribute, whether
+# it asks for something unported, the flag, its ROADMAP item). Each
+# exits 2 naming its item. ``--kernels`` and ``--download`` stay out by
+# design (no kernel fallback knob; no network).
+TRAIN_NOT_PORTED = (
+    ("decouple_bwd", bool, "--decouple-bwd (2BP)", "item 14"),
+    ("apply_lag", bool, "--apply-lag (2BP)", "item 14"),
+    ("no_overlap", bool, "--no-overlap (the async-dispatch escape hatch)",
+     "item 14"),
+    ("num_stages", lambda v: v is not None and v > 2,
+     "--stages > 2 (the K-stage chain)", "item 16"),
+    ("stage_urls", _given, "--stage-urls (the K-stage chain)", "item 16"),
+    ("schedule", _given, "--schedule (the K-stage chain)", "item 16"),
+    ("remat", bool, "--remat", "item 16"),
+    ("gate_dropped_steps", bool,
+     "--gate-dropped-steps (the K-stage chain)", "item 16"),
+    ("num_clients", lambda v: v is not None and v > 1,
+     "--num-clients > 1 (a data-parallel mesh)", "item 18"),
+    ("model_parallel", lambda v: v is not None and v > 1,
+     "--model-parallel > 1 (tensor parallelism)", "item 18"),
+    ("mesh_data", lambda v: v > 1, "--mesh-data > 1 (a sharded server)",
+     "item 18"),
+    ("mesh_model", lambda v: v > 1, "--mesh-model > 1 (a sharded server)",
+     "item 18"),
+    ("coordinator", _given, "--coordinator (multi-host runs)", "item 18"),
+    ("num_processes", _given, "--num-processes (multi-host runs)",
+     "item 18"),
+    ("process_id", _given, "--process-id (multi-host runs)", "item 18"),
+    ("replica_sync_every", bool, "--replica-sync-every (server replicas)",
+     "item 19"),
+    ("handoff", lambda v: v != "live",
+     "--handoff checkpoint (server replicas)", "item 19"),
+    ("autoscale", bool, "--autoscale (elastic replicas)", "item 19"),
+    ("autoscale_min", _given, "--autoscale-min (elastic replicas)",
+     "item 19"),
+    ("autoscale_max", _given, "--autoscale-max (elastic replicas)",
+     "item 19"),
+    ("autoscale_cooldown_s", _given,
+     "--autoscale-cooldown-s (elastic replicas)", "item 19"),
+    ("seq_parallel", lambda v: v is not None and v > 1,
+     "--seq-parallel > 1 (context parallelism)", "item 21"),
+    ("flight", _given, "--flight (the flight recorder)", "item 22"),
+    ("telemetry_port", _given, "--telemetry-port (the telemetry ring)",
+     "item 22"),
+    ("profile_dir", _given, "--profile-dir (the phase profiler)",
+     "item 22"),
+    ("tracking_uri", _given, "--tracking-uri (MLflow)", "item 22"),
+    ("scan_steps", lambda v: v > 1,
+     "--scan-steps > 1 (steps batched per launch; CUDA graphs)", "item 7"),
+)
+
+
+def _refuse_unported(table, args) -> None:
+    for attr, is_set, what, item in table:
+        if is_set(getattr(args, attr)):
+            raise NotImplementedError(
+                f"not ported yet: {what} (ROADMAP {item})")
+
+
+def _open_checkpoint(cfg, args, size_kw, seq_len):
+    """The run's checkpointer and reconciled sizes. A ``--resume`` onto
+    a sized checkpoint adopts its sizes, or refuses different ones; a
+    JAX checkpoint directory is refused (``ValueError``)."""
+    from split_learning_tpu_torch.runtime.checkpoint import Checkpointer
+    if not cfg.checkpoint_dir:
+        return None, size_kw, seq_len
+    ckptr = Checkpointer(cfg.checkpoint_dir)
+    if args.resume:
+        try:
+            meta = _read_ckpt_meta(cfg.checkpoint_dir)
+        except (FileNotFoundError, json.JSONDecodeError, OSError):
+            meta = None
+        if meta is not None:
+            size_kw, seq_len, err = _reconcile_ckpt_sizes(
+                meta, size_kw, seq_len, "--resume", model=cfg.model)
+            if err:
+                raise ValueError(err)
+    return ckptr, size_kw, seq_len
+
+
 def cmd_train(args) -> int:
     from split_learning_tpu_torch import obs
     from split_learning_tpu_torch.data import batches, load_dataset
@@ -204,12 +436,16 @@ def cmd_train(args) -> int:
         CircuitBreaker, FederatedClientTrainer, FusedSplitTrainer,
         ServerRuntime, SplitClientTrainer, USplitClientTrainer, check_config,
         check_supported)
+    from split_learning_tpu_torch.runtime.checkpoint import (
+        read_latest_extras)
+    from split_learning_tpu_torch.runtime.state import state_tree
     from split_learning_tpu_torch.tracking import make_logger
     from split_learning_tpu_torch.transport.chaos import parse_chaos_spec
     from split_learning_tpu_torch.utils.device import resolve_device
 
     resolve_device(args.device)  # no GPU for "cuda": raise before any work
     try:
+        _refuse_unported(TRAIN_NOT_PORTED, args)
         cfg = _config_from_args(args)
         err = _pairing_error(cfg)
         if err is None and args.seq_len is not None:
@@ -220,18 +456,16 @@ def cmd_train(args) -> int:
                        f"--dataset {cfg.dataset!r})")
         two_party = cfg.transport in ("local", "http")
         density = _density_or_default(args) if two_party else None
-        if err is None and args.prefetch > 0 and cfg.mode == "split":
-            raise NotImplementedError(
-                "not ported yet: --prefetch > 0 (DevicePrefetch, ROADMAP "
-                "item 13)")
         if err is None and two_party:
             err = _wire_error(args, density)
             if args.chaos:
                 parse_chaos_spec(args.chaos)  # a bad spec fails here
         if err is not None:
             raise ValueError(err)
+        ckptr, size_kw, seq_len = _open_checkpoint(
+            cfg, args, _size_kw_from_args(args), args.seq_len)
         plan = get_plan(model=cfg.model, mode=cfg.mode, dtype=cfg.dtype,
-                        **_plan_kw(args, cfg))
+                        **_plan_kw(cfg.model, cfg.attn, size_kw, seq_len))
         server = None
         if cfg.transport == "local":
             # the in-process server from the same seed: each party keeps
@@ -256,9 +490,13 @@ def cmd_train(args) -> int:
             if val is not None:
                 print(f"[warn] {flag} {val!r} ignored: the fused "
                       "transport has no wire", file=sys.stderr)
-    if args.prefetch > 0 and cfg.mode != "split":
+    prefetch = args.prefetch
+    if prefetch > 0 and (cfg.mode != "split" or not two_party):
         print(f"[warn] --prefetch ignored in mode {cfg.mode!r} (split "
-              "only)", file=sys.stderr)
+              "only)" if cfg.mode != "split" else
+              "[warn] --prefetch ignored: the fused transport stages "
+              "nothing", file=sys.stderr)
+        prefetch = 0
     fail_policy = args.failure_policy or "raise"
     if two_party and fail_policy != "raise" and cfg.mode != "split":
         print(f"[warn] --failure-policy {fail_policy} applies to the "
@@ -269,18 +507,26 @@ def cmd_train(args) -> int:
         transport, rc = _make_transport(args, cfg, density, server)
         if rc:
             return rc
-    ds = load_dataset(cfg.dataset, cfg.data_dir, seq_len=args.seq_len)
+    try:
+        ds = load_dataset(cfg.dataset, cfg.data_dir, seq_len=seq_len,
+                          allow_synthetic=not args.require_real)
+    except FileNotFoundError as e:
+        print(f"[error] {e} (--require-real)", file=sys.stderr)
+        return 2
     if ds.synthetic:
         print(f"[data] using synthetic {ds.name} "
               f"({len(ds.train)} train examples)", file=sys.stderr)
     sample = ds.train.x[:cfg.batch_size]
     seed_gen = torch.Generator().manual_seed(cfg.seed)
+    logger = make_logger(cfg)
     if two_party and cfg.mode == "u_split":
         trainer = USplitClientTrainer(plan, cfg, seed_gen, transport,
-                                      device=args.device)
+                                      logger=logger, device=args.device)
+        layout = "u_split_local" if server is not None else "client_only"
     elif two_party and cfg.mode == "federated":
         trainer = FederatedClientTrainer(plan, cfg, seed_gen, transport,
                                          device=args.device)
+        layout = "federated"
     elif two_party:
         # retry clients probe /health while the server is down instead
         # of resending full steps; its jitter is seeded from the config
@@ -289,52 +535,129 @@ def cmd_train(args) -> int:
         trainer = SplitClientTrainer(plan, cfg, seed_gen, transport,
                                      failure_policy=fail_policy,
                                      max_retries=args.max_retries,
-                                     breaker=breaker, device=args.device)
+                                     logger=logger, breaker=breaker,
+                                     device=args.device)
+        layout = "split_local" if server is not None else "client_only"
     else:
         trainer = FusedSplitTrainer(plan, cfg, seed_gen, sample,
                                     device=args.device)
-    logger = make_logger(cfg)
+        layout = "fused"
+
+    def party_tree() -> Dict[str, Any]:
+        tree = trainer.export_states()
+        if server is not None:
+            tree["server"] = state_tree(server.export_state())
+        return tree
+
+    def save(step: int) -> None:
+        if ckptr is None or ckptr.last_enqueued == step:
+            return
+        ckptr.save(step, party_tree(), extras=(
+            server.capture_runtime_extras(step) if server is not None
+            else None))
+
+    def refuse(rc: int) -> int:
+        if two_party:
+            transport.close()
+        return rc
+
+    start_step = 0
+    if ckptr is not None:
+        latest = ckptr.latest_step()
+        if args.resume and latest is not None:
+            raw = ckptr.restore_raw(latest)
+            try:
+                trainer.restore_states(raw)
+                if server is not None:
+                    # re-arms the handshake at the restored step; the
+                    # sidecar's replay cache and EF ledger come back when
+                    # one was written for exactly this step
+                    server.resume_from(raw["server"], latest,
+                                       extras=read_latest_extras(
+                                           ckptr.directory, step=latest))
+            except (KeyError, ValueError) as e:
+                print(f"[error] cannot resume from {cfg.checkpoint_dir}: "
+                      f"{e}", file=sys.stderr)
+                return refuse(2)
+            start_step = latest
+            print(f"[ckpt] resumed at step {start_step} from "
+                  f"{cfg.checkpoint_dir}", file=sys.stderr)
+            if layout == "client_only":
+                # a fresh server with a resumed client would desync the
+                # composition: the server reports its acknowledged step
+                srv_step = transport.health().get("step", -1)
+                if srv_step < start_step - 1:
+                    print(f"[ckpt] server is at step {srv_step} but the "
+                          f"client checkpoint is at {start_step}: the "
+                          "server half was not resumed. Restart it with "
+                          "serve --checkpoint-dir ... --resume, or drop "
+                          "--resume here to start both halves fresh.",
+                          file=sys.stderr)
+                    return refuse(3)
+        # after the resume: a refused one leaves the directory's meta
+        _write_ckpt_meta(cfg.checkpoint_dir, layout, cfg, size_kw, seq_len)
     # --trace: per-step spans (obs/), off by default and free when off
     step_tracer = obs.enable() if args.trace else None
 
-    budget = {"n": args.steps if args.steps else None, "epoch": 0}
+    # the data stream resumes where it stopped: the epoch's shuffle and
+    # the batch in it, so a resumed run sees the uninterrupted run's data
+    per_epoch = max(len(ds.train) // cfg.batch_size, 1)
+    budget = {"n": args.steps if args.steps else None,
+              "epoch": start_step // per_epoch,
+              "skip": start_step % per_epoch, "taken": 0}
 
     def data_iter():
         # reshuffle per epoch; each call is one epoch
         epoch_seed = cfg.seed + budget["epoch"]
         budget["epoch"] += 1
-        for xy in batches(ds.train, cfg.batch_size, seed=epoch_seed,
-                          drop_remainder=True):
+        skip, budget["skip"] = budget["skip"], 0
+        for i, xy in enumerate(batches(ds.train, cfg.batch_size,
+                                       seed=epoch_seed,
+                                       drop_remainder=True)):
+            if i < skip:
+                continue
             if budget["n"] is not None:
                 if budget["n"] <= 0:
                     return
                 budget["n"] -= 1
+            budget["taken"] += 1
             yield xy
 
+    def on_epoch_end(epoch: int, next_step: int) -> None:
+        save(next_step)
+
     t0 = time.time()
-    n_steps = 0
     final_loss = float("nan")
-    if isinstance(trainer, FederatedClientTrainer):
-        # one FedAvg round an epoch; an epoch the step cap leaves empty
-        # is not run
-        per_epoch = max(len(ds.train) // cfg.batch_size, 1)
-        epochs = (cfg.epochs if not args.steps
-                  else min(cfg.epochs, -(-args.steps // per_epoch)))
-        trainer.train(data_iter, epochs=epochs)
-        for n_steps, loss in enumerate(trainer.losses, 1):
-            final_loss = loss
-            logger.log_metric("loss", loss, step=n_steps - 1)
-    else:
-        for _ in range(cfg.epochs):  # data_iter enforces the step cap
-            for x, y in data_iter():
-                if two_party:
-                    loss = trainer.train_step(x, y, n_steps)
-                else:
-                    loss = trainer.train_step(x, y)
-                if loss is not None:
-                    final_loss = loss
-                    logger.log_metric("loss", loss, step=n_steps)
-                n_steps += 1
+    with _ckpt_drain(ckptr):
+        if isinstance(trainer, FederatedClientTrainer):
+            # one FedAvg round an epoch; an epoch the step cap leaves
+            # empty is not run
+            epochs = (cfg.epochs if not args.steps
+                      else min(cfg.epochs, -(-args.steps // per_epoch)))
+            trainer.train(data_iter, epochs=epochs, start_step=start_step,
+                          on_epoch_end=on_epoch_end)
+            for i, loss in enumerate(trainer.losses):
+                final_loss = loss
+                logger.log_metric("loss", loss, step=start_step + i)
+        elif two_party:
+            records = trainer.train(
+                data_iter, epochs=cfg.epochs, start_step=start_step,
+                on_epoch_end=on_epoch_end,
+                **({"prefetch": prefetch} if prefetch else {}))
+            if records:
+                final_loss = records[-1].loss
+        else:
+            step = start_step
+            for _ in range(cfg.epochs):  # data_iter enforces the step cap
+                for x, y in data_iter():
+                    final_loss = trainer.train_step(x, y)
+                    logger.log_metric("loss", final_loss, step=step)
+                    step += 1
+                    if (args.checkpoint_every and (step - start_step)
+                            % args.checkpoint_every == 0):
+                        save(step)
+                save(step)
+    n_steps = budget["taken"]
     dt = time.time() - t0
     if step_tracer is not None:
         obs.disable()
@@ -352,6 +675,8 @@ def cmd_train(args) -> int:
               f"bytes_received={wire['bytes_received']} "
               f"compression_ratio={wire.get('compression_ratio', 1.0):.2f} "
               f"dropped_batches={getattr(trainer, 'dropped_batches', 0)}")
+    if ckptr is not None:
+        ckptr.close()
 
     if args.eval:
         from split_learning_tpu_torch.runtime.evaluate import (
@@ -385,18 +710,12 @@ def cmd_train(args) -> int:
     return 0
 
 
-def _given(v: Any) -> bool:
-    return v is not None
-
-
 # the JAX ``serve`` flags the port does not run yet: (attribute, whether
 # it asks for something unported, the flag, its ROADMAP item). Each
 # exits 2 naming its item.
 SERVE_NOT_PORTED = (
     ("role", lambda v: v != "server",
      "--role stage (a stage party of the K-stage chain)", "item 16"),
-    ("resume", bool, "--resume (checkpoints)", "item 13"),
-    ("checkpoint_dir", _given, "--checkpoint-dir (checkpoints)", "item 13"),
     ("remat", bool, "--remat", "item 16"),
     ("coalesce_max", lambda v: v > 1,
      "--coalesce-max > 1 (request coalescing)", "item 14"),
@@ -438,9 +757,111 @@ SERVE_NOT_PORTED = (
 )
 
 
+def _serve_checkpoint(args, cfg, runtime, size_kw, seq_len):
+    """``serve``'s checkpointing (JAX's): the server half's saves and its
+    resume. A joint directory (written by a local or fused ``train``)
+    keeps its meta; this server's saves go to its ``server_party/``, and
+    a resume takes the newer of the two. Returns ``(checkpointer,
+    error)``; the error is the ``[error]`` text of an rc 2."""
+    from split_learning_tpu_torch.runtime.checkpoint import (
+        Checkpointer, foreign_checkpoint, read_latest_extras)
+    from split_learning_tpu_torch.runtime.state import state_tree
+    directory = cfg.checkpoint_dir
+    foreign = foreign_checkpoint(os.path.abspath(directory))
+    if foreign is not None:
+        return None, foreign
+    try:
+        existing = _read_ckpt_meta(directory)
+    except FileNotFoundError:
+        existing = None
+    except (json.JSONDecodeError, OSError) as e:
+        print(f"[ckpt] meta.json unreadable ({e}); treating {directory} as "
+              "a server-only dir", file=sys.stderr)
+        existing = None
+    joint = existing is not None and existing.get(
+        "layout", "server_only") != "server_only"
+    if existing is not None:
+        for key, got in (("mode", cfg.mode), ("model", cfg.model)):
+            want = existing.get(key)
+            if want is not None and want != got:
+                return None, (
+                    f"checkpoint dir was written with {key}={want!r} but "
+                    f"serve was started with {key}={got!r}; refusing to "
+                    "resume a mismatched server half")
+    save_dir = (os.path.join(directory, "server_party") if joint
+                else directory)
+    ckptr = Checkpointer(save_dir)
+    _write_ckpt_meta(save_dir, "server_only", cfg, size_kw, seq_len)
+    if joint:
+        print(f"[ckpt] joint-layout dir: periodic server saves go to "
+              f"{save_dir}", file=sys.stderr)
+    latest = ckptr.latest_step()
+    if args.resume and joint:
+        root = Checkpointer(directory)
+        root_latest = root.latest_step()
+        if root_latest is not None and (latest is None
+                                        or root_latest > latest):
+            layout = existing.get("layout")
+            raw = root.restore_raw(root_latest)
+            if layout == "fused":
+                # one whole-plan tree: the server's share of the params,
+                # its optimizer restarted (the joint moments span every
+                # stage), as in JAX
+                if cfg.warmup_steps or cfg.decay_steps or cfg.momentum \
+                        or cfg.optimizer != "sgd":
+                    print("[ckpt] note: optimizer state (moments / "
+                          "lr-schedule position) restarts on a fused-layout "
+                          "handoff; params and the step handshake are "
+                          "exact", file=sys.stderr)
+                params = raw["trainer"]["params"]
+                tree = state_tree(runtime.state)
+                tree["params"] = (list(params) if cfg.mode == "federated"
+                                  else [params[runtime.server_stage]])
+                tree["step"] = root_latest
+                runtime.resume_from(tree, root_latest)
+            elif "server" not in raw:
+                return None, (
+                    f"checkpoint layout {layout!r} under {directory} has no "
+                    "server subtree to resume (it was written by a client "
+                    "whose server was remote)")
+            else:
+                runtime.resume_from(
+                    raw["server"], root_latest,
+                    extras=read_latest_extras(root.directory,
+                                              step=root_latest))
+            print(f"[ckpt] server resumed at step {root_latest} from joint "
+                  f"{directory} (layout {layout})", file=sys.stderr)
+            latest = None  # handled: skip the server_party branch
+    if args.resume and latest is not None:
+        raw = ckptr.restore_raw(latest)
+        runtime.resume_from(raw["server"], latest, extras=read_latest_extras(
+            ckptr.directory, step=latest))
+        print(f"[ckpt] server resumed at step {latest} from "
+              f"{ckptr.directory}", file=sys.stderr)
+    every = max(args.checkpoint_every, 1)
+    if cfg.mode == "federated":
+        # FedAvg replies are not replay-cached: save under the lock, at
+        # the acknowledged step, as JAX does
+        def on_step(step: int) -> None:
+            if (step + 1) % every == 0:
+                runtime.checkpoint(ckptr, step + 1)
+        runtime.on_step = on_step
+    else:
+        # once the step's frame is pinned to its replay entry, so the
+        # sidecar holds it: a retry of the step after a restart is
+        # served the original bytes
+        def on_reply(client_id: int, op: str, step: int) -> None:
+            if op in ("split_step", "u_backward") and (step + 1) % every == 0:
+                runtime.checkpoint(ckptr, step + 1)
+        runtime.on_reply = on_reply
+    return ckptr, None
+
+
 def cmd_serve(args) -> int:
     """The server party behind ``SplitHTTPServer`` until SIGINT: JAX's
-    ``cmd_serve``, server role, with the same ``[serve]`` line."""
+    ``cmd_serve``, server role, with the same ``[serve]`` line, and its
+    checkpoints (``--checkpoint-dir``, ``--checkpoint-every``,
+    ``--resume``)."""
     import signal
 
     from split_learning_tpu_torch.models import get_plan
@@ -451,16 +872,24 @@ def cmd_serve(args) -> int:
 
     resolve_device(args.device)  # no GPU for "cuda": raise before any work
     try:
-        for attr, is_set, what, item in SERVE_NOT_PORTED:
-            if is_set(getattr(args, attr)):
-                raise NotImplementedError(
-                    f"not ported yet: {what} (ROADMAP {item})")
+        _refuse_unported(SERVE_NOT_PORTED, args)
         if not 0.0 < args.compress_density <= 1.0:
             raise ValueError(f"--compress-density must be in (0, 1] (got "
                              f"{args.compress_density})")
         cfg = _config_from_args(args)
+        size_kw, seq_len = _size_kw_from_args(args), args.seq_len
+        if cfg.checkpoint_dir:
+            try:
+                prior = _read_ckpt_meta(cfg.checkpoint_dir)
+            except (FileNotFoundError, json.JSONDecodeError, OSError):
+                prior = None
+            if prior is not None:
+                size_kw, seq_len, err = _reconcile_ckpt_sizes(
+                    prior, size_kw, seq_len, "serve", model=cfg.model)
+                if err:
+                    raise ValueError(err)
         plan = get_plan(model=cfg.model, mode=cfg.mode, dtype=cfg.dtype,
-                        **_plan_kw(args, cfg))
+                        **_plan_kw(cfg.model, cfg.attn, size_kw, seq_len))
         # the seed's init, of which the server keeps its own stage: a
         # client started from the same seed holds the other one
         runtime = ServerRuntime(
@@ -470,6 +899,12 @@ def cmd_serve(args) -> int:
             device=args.device)
         chaos = (ChaosPolicy(args.chaos, seed=args.chaos_seed)
                  if args.chaos else None)
+        ckptr = None
+        if cfg.checkpoint_dir:
+            ckptr, err = _serve_checkpoint(args, cfg, runtime, size_kw,
+                                           seq_len)
+            if err:
+                raise ValueError(err)
     except (ValueError, NotImplementedError) as e:
         print(f"[error] {e}", file=sys.stderr)
         return 2
@@ -487,8 +922,9 @@ def cmd_serve(args) -> int:
     print(f"[serve] mode={cfg.mode} role=server listening on {server.url}",
           flush=True)
     try:
-        while True:
-            time.sleep(3600)
+        with _ckpt_drain(ckptr):
+            while True:
+                time.sleep(3600)
     except KeyboardInterrupt:
         if main_thread:  # a second SIGINT must not cut the shutdown short
             signal.signal(signal.SIGINT, signal.SIG_IGN)
@@ -496,8 +932,236 @@ def cmd_serve(args) -> int:
         server.stop()
     finally:
         runtime.close()
+        if ckptr is not None:
+            # saves are asynchronous: make the newest durable before the
+            # process exits, or a resume comes back behind the clients
+            ckptr.close()
         if main_thread:
             signal.signal(signal.SIGINT, prev)
+    return 0
+
+
+def _resolve_checkpoint(args, cfg, cmd: str,
+                        require_model: Optional[str] = None):
+    """``eval``/``generate``'s preamble (JAX's): mode, model and dataset
+    from the flags or the checkpoint's meta, the reconciled sizes, the
+    plan, the step (``--step`` or the latest) and the full composition
+    on ``--device``. Returns ``(None, rc)`` on a user error, else
+    ``((meta, mode, model, dataset, plan, step, params, seq_len),
+    None)``."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.runtime.checkpoint import (
+        Checkpointer, foreign_checkpoint)
+    ckdir = cfg.checkpoint_dir
+    if not ckdir:
+        print(f"{cmd} requires --checkpoint-dir", file=sys.stderr)
+        return None, 2
+    foreign = foreign_checkpoint(os.path.abspath(ckdir))
+    if foreign is not None:
+        print(f"[error] {foreign}", file=sys.stderr)
+        return None, 2
+    try:
+        meta = _read_ckpt_meta(ckdir)
+    except (ValueError, OSError) as e:
+        print(f"[error] no readable meta.json under {ckdir} ({e})",
+              file=sys.stderr)
+        return None, 2
+    mode = args.mode or meta.get("mode", cfg.mode)
+    model = args.model or meta.get("model", cfg.model)
+    dataset = args.dataset or meta.get("dataset", cfg.dataset)
+    if require_model and model != require_model:
+        print(f"[error] {cmd} needs a {require_model!r} checkpoint "
+              f"(got {model!r})", file=sys.stderr)
+        return None, 2
+    size_kw, seq_len, err = _reconcile_ckpt_sizes(
+        meta, _size_kw_from_args(args), args.seq_len, cmd, model=model)
+    if err:
+        print(f"[error] {err}", file=sys.stderr)
+        return None, 2
+    try:
+        ckptr = Checkpointer(ckdir)
+        plan = get_plan(model=model, mode=mode, dtype=cfg.dtype,
+                        **_plan_kw(model, cfg.attn, size_kw, seq_len))
+        step = args.step if args.step is not None else ckptr.latest_step()
+        params = _assemble_full_params(meta["layout"],
+                                       ckptr.restore_raw(step))
+    except (ValueError, NotImplementedError, FileNotFoundError) as e:
+        print(f"[error] {e}", file=sys.stderr)
+        return None, 2
+    from split_learning_tpu_torch.utils.device import resolve_device
+    params = _on_device(params, resolve_device(args.device))
+    return (meta, mode, model, dataset, plan, step, params, seq_len), None
+
+
+def _test_split(cfg, dataset: str, seq_len: Optional[int]):
+    from split_learning_tpu_torch.data import load_dataset
+    return load_dataset(dataset, cfg.data_dir,
+                        seq_len=seq_len if dataset in _TOKEN_SETS else None)
+
+
+def eval_checkpoint(args) -> Tuple[Optional[dict], Any]:
+    """``eval``'s work: ``(record, result)``, JAX's record (its keys,
+    values rounded to 4 places) and the unrounded result of ``evaluate``
+    (or ``evaluate_remote`` with ``--server-url``); or ``(None, rc)``."""
+    from split_learning_tpu_torch.runtime.evaluate import (
+        evaluate, evaluate_remote)
+    from split_learning_tpu_torch.utils.device import resolve_device
+    resolve_device(args.device)
+    cfg = _config_from_args(args)
+    resolved, rc = _resolve_checkpoint(args, cfg, "eval")
+    if resolved is None:
+        return None, rc
+    meta, mode, model, dataset, plan, step, params, seq_len = resolved
+    ds = _test_split(cfg, dataset, seq_len)
+    record = {"checkpoint_step": step, "dataset": dataset}
+    if args.server_url:
+        # split-party inference: the client stages here, the serving
+        # peer's server stage behind /predict
+        from split_learning_tpu_torch.transport import HttpTransport
+        transport = HttpTransport(args.server_url,
+                                  compress=args.compress or "none")
+        try:
+            transport.wait_ready(timeout=60.0)
+            res = evaluate_remote(plan, _client_params(plan, params),
+                                  transport, ds.test,
+                                  batch_size=cfg.batch_size)
+        finally:
+            transport.close()
+        record["remote_server"] = args.server_url
+    else:
+        res = evaluate(plan, params, ds.test, batch_size=cfg.batch_size)
+    record.update({
+        "accuracy": round(res["accuracy"], 4),
+        "loss": round(res["loss"], 4),
+        "perplexity": (None if res["perplexity"] is None
+                       else round(res["perplexity"], 4)),
+        "examples": res["examples"],
+        "predictions": res["predictions"],
+    })
+    return record, res
+
+
+def cmd_eval(args) -> int:
+    record, res = eval_checkpoint(args)
+    if record is None:
+        return res
+    print(json.dumps(record))
+    return 0
+
+
+def _vocab_of(params) -> Optional[int]:
+    """The token table's size: the first stage's 2-D embedding weight."""
+    from split_learning_tpu_torch.models.transformer import EMBED_LAYERS
+    for name, leaf in params[0].items():
+        parts = name.split(".")
+        if len(parts) >= 2 and parts[-2] in EMBED_LAYERS and leaf.ndim == 2:
+            return int(leaf.shape[0])
+    return None
+
+
+def generate_checkpoint(args) -> Tuple[Optional[dict], Any]:
+    """``generate``'s work: ``(record, tokens)`` or ``(None, rc)``. The
+    refusals are JAX's, in its order: the sampling flags, the prompt,
+    then the checkpoint (a non-LM one), then ids outside its vocabulary.
+    Sampling draws from a ``torch.Generator`` seeded ``--seed``: the same
+    seed gives the same tokens (not JAX's, whose PRNG differs)."""
+    from split_learning_tpu_torch.runtime.generate import (
+        generate_remote, greedy_generate, sample_generate)
+    from split_learning_tpu_torch.utils.device import resolve_device
+    resolve_device(args.device)
+    cfg = _config_from_args(args)
+    # the flags before the (expensive) checkpoint restore; no falsy-zero
+    # coercion: --temperature 0 / --top-p 0 are errors, never rewritten
+    sampled = (args.temperature is not None or args.top_p is not None
+               or args.top_k > 0)
+    temperature = 1.0 if args.temperature is None else args.temperature
+    top_p = 1.0 if args.top_p is None else args.top_p
+    if sampled and not temperature > 0.0:
+        print(f"[error] --temperature must be > 0 (got {temperature}); "
+              "omit all sampling flags for deterministic greedy decode",
+              file=sys.stderr)
+        return None, 2
+    if sampled and not 0.0 < top_p <= 1.0:
+        print(f"[error] --top-p must be in (0, 1] (got {top_p})",
+              file=sys.stderr)
+        return None, 2
+    if args.top_k < 0:
+        print(f"[error] --top-k must be >= 0 (got {args.top_k})",
+              file=sys.stderr)
+        return None, 2
+    tokens = None
+    if args.prompt:
+        try:
+            tokens = [int(tok) for tok in args.prompt.split(",")]
+        except ValueError:
+            print(f"[error] --prompt must be comma-separated token ids "
+                  f"(got {args.prompt!r})", file=sys.stderr)
+            return None, 2
+        if any(tok < 0 for tok in tokens):
+            print(f"[error] --prompt token ids must be >= 0 "
+                  f"(got {args.prompt!r})", file=sys.stderr)
+            return None, 2
+    resolved, rc = _resolve_checkpoint(args, cfg, "generate",
+                                       require_model="transformer_lm")
+    if resolved is None:
+        return None, rc
+    meta, mode, model, dataset, plan, step, params, seq_len = resolved
+    if tokens is not None:
+        prompt = np.asarray([tokens], np.int32)
+        vocab = _vocab_of(params)
+        if vocab is not None:
+            bad = [tok for tok in tokens if tok >= vocab]
+            if bad:
+                print(f"[error] --prompt ids {bad} are outside the "
+                      f"checkpoint's vocabulary ({vocab})", file=sys.stderr)
+                return None, 2
+    else:
+        # no prompt: the test split's first example, as eval reads it
+        ds = _test_split(cfg, dataset, seq_len)
+        prompt = np.asarray(ds.test.x[:1, :args.prompt_len], np.int32)
+    record = {"checkpoint_step": step, "prompt_len": int(prompt.shape[1]),
+              "n_new": args.n_new,
+              "decode": "sampled" if sampled else "greedy"}
+    rng = (torch.Generator(device=args.device).manual_seed(cfg.seed)
+           if sampled else None)
+    if args.server_url:
+        from split_learning_tpu_torch.transport import HttpTransport
+        transport = HttpTransport(args.server_url,
+                                  compress=args.compress or "none")
+        try:
+            transport.wait_ready(timeout=60.0)
+            kw = (dict(rng=rng, temperature=temperature, top_k=args.top_k,
+                       top_p=top_p) if sampled else {})
+            out = generate_remote(plan, _client_params(plan, params),
+                                  transport, prompt, args.n_new,
+                                  device=args.device, **kw)
+        finally:
+            transport.close()
+        record["remote_server"] = args.server_url
+    elif sampled:
+        out = sample_generate(plan, params, prompt, args.n_new, rng,
+                              temperature=temperature, top_k=args.top_k,
+                              top_p=top_p, kv_cache=not args.no_kv_cache,
+                              device=args.device)
+    else:
+        out = greedy_generate(plan, params, prompt, args.n_new,
+                              kv_cache=not args.no_kv_cache,
+                              device=args.device)
+    out = np.asarray(torch.as_tensor(out).cpu())
+    record["prompt"] = out[:, :prompt.shape[1]].tolist()
+    record["tokens"] = out[:, prompt.shape[1]:].tolist()
+    return record, out
+
+
+def cmd_generate(args) -> int:
+    """Decode from a causal-LM checkpoint: KV-cache local decode by
+    default, the re-forward decode with ``--no-kv-cache``, split-party
+    decode (the client stages here, the server's behind /predict) with
+    ``--server-url``."""
+    record, out = generate_checkpoint(args)
+    if record is None:
+        return out
+    print(json.dumps(record))
     return 0
 
 
@@ -542,6 +1206,9 @@ def _add_shared(p: argparse.ArgumentParser) -> None:
     p.add_argument("--microbatches", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--tracking", default=None, help="stdout | jsonl | noop")
+    p.add_argument("--tracking-uri", dest="tracking_uri", default=None)
+    p.add_argument("--remat", action="store_true")
+    p.add_argument("--checkpoint-dir", dest="checkpoint_dir", default=None)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda (default; raises without a GPU) or cpu "
                         "(the kernels' plain versions)")
@@ -577,15 +1244,52 @@ def _add_shared(p: argparse.ArgumentParser) -> None:
                         "seed give the same faults at the same steps)")
 
 
+def _add_train_not_ported(p: argparse.ArgumentParser) -> None:
+    """JAX's ``train`` flags that exit 2 here (:data:`TRAIN_NOT_PORTED`;
+    ``--tracking-uri`` and ``--remat`` are shared)."""
+    p.add_argument("--decouple-bwd", dest="decouple_bwd",
+                   action="store_true")
+    p.add_argument("--apply-lag", dest="apply_lag", type=int, default=0)
+    p.add_argument("--no-overlap", dest="no_overlap", action="store_true")
+    p.add_argument("--stages", dest="num_stages", type=int, default=None)
+    p.add_argument("--stage-urls", dest="stage_urls", default=None)
+    p.add_argument("--schedule", choices=["gpipe", "1f1b"], default=None)
+    p.add_argument("--gate-dropped-steps", dest="gate_dropped_steps",
+                   action="store_true")
+    p.add_argument("--num-clients", dest="num_clients", type=int,
+                   default=None)
+    p.add_argument("--model-parallel", dest="model_parallel", type=int,
+                   default=None)
+    p.add_argument("--mesh-data", dest="mesh_data", type=int, default=1)
+    p.add_argument("--mesh-model", dest="mesh_model", type=int, default=1)
+    p.add_argument("--coordinator", default=None)
+    p.add_argument("--num-processes", dest="num_processes", type=int,
+                   default=None)
+    p.add_argument("--process-id", dest="process_id", type=int, default=None)
+    p.add_argument("--replica-sync-every", dest="replica_sync_every",
+                   type=int, default=0)
+    p.add_argument("--handoff", choices=["live", "checkpoint"],
+                   default="live")
+    p.add_argument("--autoscale", action="store_true")
+    p.add_argument("--autoscale-min", dest="autoscale_min", type=int,
+                   default=None)
+    p.add_argument("--autoscale-max", dest="autoscale_max", type=int,
+                   default=None)
+    p.add_argument("--autoscale-cooldown-s", dest="autoscale_cooldown_s",
+                   type=float, default=None)
+    p.add_argument("--seq-parallel", dest="seq_parallel", type=int,
+                   default=None)
+    p.add_argument("--flight", default=None, metavar="PATH")
+    p.add_argument("--telemetry-port", dest="telemetry_port", type=int,
+                   default=None)
+    p.add_argument("--profile-dir", dest="profile_dir", default=None)
+    p.add_argument("--scan-steps", dest="scan_steps", type=int, default=0)
+
+
 def _add_serve_not_ported(p: argparse.ArgumentParser) -> None:
     """JAX's ``serve`` flags that exit 2 here (:data:`SERVE_NOT_PORTED`)."""
     p.add_argument("--role", choices=["server", "stage"], default="server")
     p.add_argument("--stage-index", dest="stage_index", type=int, default=1)
-    p.add_argument("--resume", action="store_true")
-    p.add_argument("--checkpoint-dir", dest="checkpoint_dir", default=None)
-    p.add_argument("--checkpoint-every", type=int, default=100)
-    p.add_argument("--tracking-uri", dest="tracking_uri", default=None)
-    p.add_argument("--remat", action="store_true")
     p.add_argument("--coalesce-max", dest="coalesce_max", type=int,
                    default=1)
     p.add_argument("--coalesce-window-ms", dest="coalesce_window_ms",
@@ -622,7 +1326,8 @@ def _add_serve_not_ported(p: argparse.ArgumentParser) -> None:
                    type=float, default=None)
 
 
-def main(argv: Optional[list] = None) -> int:
+def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
+    """The command line as ``main`` reads it (``args.fn`` runs it)."""
     ap = argparse.ArgumentParser(prog="split_learning_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     pt = sub.add_parser("train", help="run a split trainer")
@@ -660,9 +1365,19 @@ def main(argv: Optional[list] = None) -> int:
                     default=1,
                     help="steps in flight (only 1 is ported)")
     pt.add_argument("--prefetch", type=int, default=0,
-                    help="batches staged on the device ahead of the split "
-                         "client (not ported: 0 only; ignored with a "
-                         "warning in the other modes)")
+                    help="split mode: stage the next N batches on the "
+                         "device while the current step is in flight "
+                         "(DevicePrefetch; 0 = off; ignored with a warning "
+                         "in the other modes)")
+    pt.add_argument("--resume", action="store_true",
+                    help="restore the latest checkpoint before training")
+    pt.add_argument("--checkpoint-every", dest="checkpoint_every", type=int,
+                    default=0,
+                    help="also checkpoint every N steps (fused transport)")
+    pt.add_argument("--require-real", dest="require_real",
+                    action="store_true",
+                    help="fail if real dataset files are absent instead of "
+                         "falling back to synthetic data")
     pt.add_argument("--eval", action="store_true",
                     help="report test-split accuracy after training "
                          "(over HTTP: split-party, evaluate_remote)")
@@ -670,6 +1385,7 @@ def main(argv: Optional[list] = None) -> int:
                     help="per-step span tracing (obs/): write a Chrome-"
                          "trace JSON here on exit (Perfetto-loadable). "
                          "Off = zero overhead")
+    _add_train_not_ported(pt)
     pt.set_defaults(fn=cmd_train)
 
     ps = sub.add_parser("serve", help="serve the server party over HTTP")
@@ -685,9 +1401,55 @@ def main(argv: Optional[list] = None) -> int:
                     action="store_true",
                     help="accept out-of-order client steps (the strict "
                          "step handshake off)")
+    ps.add_argument("--resume", action="store_true",
+                    help="restore the latest server checkpoint on startup")
+    ps.add_argument("--checkpoint-every", dest="checkpoint_every", type=int,
+                    default=100,
+                    help="checkpoint the server half every N acknowledged "
+                         "steps (with --checkpoint-dir)")
     _add_serve_not_ported(ps)
     ps.set_defaults(fn=cmd_serve)
-    args = ap.parse_args(argv)
+
+    pe = sub.add_parser("eval", help="evaluate a checkpoint on the test split")
+    _add_shared(pe)
+    pe.add_argument("--step", type=int, default=None,
+                    help="checkpoint step (default: latest)")
+    pe.add_argument("--server-url", dest="server_url", default=None,
+                    help="split-party inference: run only the client-"
+                         "owned stages here and the server-owned compute "
+                         "behind this serving server's /predict")
+    pe.set_defaults(fn=cmd_eval)
+
+    pg = sub.add_parser("generate",
+                        help="decode from a causal-LM checkpoint "
+                             "(KV-cache local, or split-party remote)")
+    _add_shared(pg)
+    pg.add_argument("--step", type=int, default=None,
+                    help="checkpoint step (default: latest)")
+    pg.add_argument("--prompt", default=None,
+                    help="comma-separated token ids (default: first "
+                         "test-split example)")
+    pg.add_argument("--prompt-len", dest="prompt_len", type=int, default=16,
+                    help="tokens taken from the test split when no "
+                         "--prompt is given")
+    pg.add_argument("--n-new", dest="n_new", type=int, default=32,
+                    help="tokens to generate")
+    pg.add_argument("--temperature", type=float, default=None,
+                    help="sample at this temperature (omit = greedy)")
+    pg.add_argument("--top-k", dest="top_k", type=int, default=0)
+    pg.add_argument("--top-p", dest="top_p", type=float, default=None)
+    pg.add_argument("--no-kv-cache", dest="no_kv_cache",
+                    action="store_true",
+                    help="use the O(T^2) re-forward reference decode")
+    pg.add_argument("--server-url", dest="server_url", default=None,
+                    help="split-party decode: client stages here, server "
+                         "compute behind this server's /predict")
+    pg.set_defaults(fn=cmd_generate)
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[list] = None) -> int:
+    args = parse_args(argv)
     return args.fn(args)
 
 

@@ -14,11 +14,15 @@ from split_learning_tpu_torch.runtime.party import ProtocolError
 from split_learning_tpu_torch.runtime.replay import ReplayCache
 from split_learning_tpu_torch.runtime.server import (
     FedAvgAggregator, ServerRuntime)
+from split_learning_tpu_torch.runtime.checkpoint import (
+    Checkpointer, ForeignCheckpointError, read_latest_extras, write_extras)
 from split_learning_tpu_torch.runtime.state import (
     SGD, TrainState, check_config, compressed_sync_contribution,
-    fedavg_mean, init_params, leaves_of, make_lr, make_state, make_tx, sgd)
+    fedavg_mean, init_params, leaves_of, make_lr, make_state, make_tx,
+    restore_state, sgd, state_tree)
 
-__all__ = ["CircuitBreaker", "FailurePolicy", "FedAvgAggregator",
+__all__ = ["Checkpointer", "CircuitBreaker", "FailurePolicy",
+           "FedAvgAggregator", "ForeignCheckpointError",
            "FederatedClientTrainer", "FusedSplitTrainer",
            "MultiClientSplitRunner", "ProtocolError", "ReplayCache", "SGD",
            "ServerRuntime", "SplitClientTrainer", "StepRecord", "TrainState",
@@ -26,4 +30,5 @@ __all__ = ["CircuitBreaker", "FailurePolicy", "FedAvgAggregator",
            "compressed_sync_contribution", "evaluate", "evaluate_remote",
            "fedavg_mean", "generate_remote", "greedy_generate",
            "init_params", "leaves_of", "make_lr", "make_state", "make_tx",
-           "sample_generate", "sgd", "split_client_stages"]
+           "read_latest_extras", "restore_state", "sample_generate", "sgd",
+           "split_client_stages", "state_tree", "write_extras"]

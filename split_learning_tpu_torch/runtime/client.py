@@ -49,14 +49,21 @@ example count. Its parameters cross in JAX's layout
 :func:`~split_learning_tpu_torch.interop.params_from_jax` back), so a
 port client and a JAX server average the same leaves; the optimizer
 state stays local.
+
+Each trainer's share of a checkpoint is :meth:`export_states` (its
+states under JAX's layout keys, ``client`` or ``client_a``/``client_c``,
+and a topk8 wire's up-direction EF ledger) and comes back through
+:meth:`restore_states`; ``train(start_step=, on_epoch_end=)`` resumes
+the step counter and saves at each epoch's end.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import (
-    Any, Callable, Iterable, List, Optional, Sequence, Tuple, Union)
+    Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union)
 
 import numpy as np
 import torch
@@ -68,7 +75,7 @@ from split_learning_tpu_torch.obs import trace as obs_trace
 from split_learning_tpu_torch.ops.cross_entropy import fused_cross_entropy
 from split_learning_tpu_torch.runtime.state import (
     TrainState, adopt_params, check_config, init_params, leaves_of,
-    make_state, make_tx)
+    make_state, make_tx, restore_state, state_tree)
 from split_learning_tpu_torch.transport.base import (
     Backpressure, Transport, TransportError)
 from split_learning_tpu_torch.utils.arrays import from_host, to_host
@@ -114,6 +121,45 @@ def _received(x: Any, device: torch.device) -> torch.Tensor:
     dtype = (t.dtype if t.dtype in (torch.float32, torch.bfloat16)
              else torch.float32)
     return t.to(device, dtype)
+
+
+LEDGER_KEY = "client_wire_ef"
+
+
+def _export_ledger(transport: Any) -> Optional[list]:
+    """The transport's up-direction topk8 ledger as checkpoint records
+    (``{"key", "res"}`` with tensor residuals), or None when its wire
+    keeps none."""
+    ef = getattr(transport, "_ef", None)
+    if ef is None:
+        return None
+    return [{"key": rec["key"], "res": torch.as_tensor(rec["res"])}
+            for rec in ef.export_state()]
+
+
+def _restore_ledger(transport: Any, records: Optional[list]) -> None:
+    ef = getattr(transport, "_ef", None)
+    if ef is not None and records is not None:
+        ef.restore_state([{"key": rec["key"], "res": np.asarray(rec["res"])}
+                          for rec in records])
+
+
+def _restore(states: Dict[str, TrainState], tree: Dict[str, Any]) -> None:
+    for key, live in states.items():
+        if key not in tree:
+            raise KeyError(f"checkpoint has no {key!r} state; present: "
+                           f"{sorted(tree)}")
+        restore_state(live, tree[key])
+
+
+def _epoch_iter(stack: contextlib.ExitStack, data_iter: Callable,
+                prefetch: int, device: torch.device) -> Iterable:
+    it: Iterable = data_iter()
+    if prefetch > 0:
+        from split_learning_tpu_torch.data.datasets import DevicePrefetch
+        it = stack.enter_context(DevicePrefetch(it, depth=prefetch,
+                                                device=device))
+    return it
 
 
 class SplitClientTrainer:
@@ -292,26 +338,51 @@ class SplitClientTrainer:
 
     def train(self, data_iter: Callable[[], Iterable[Tuple[Any, Any]]],
               epochs: Optional[int] = None, start_step: int = 0,
-              on_epoch_end: Optional[Callable[[int, int], None]] = None
-              ) -> List[StepRecord]:
+              on_epoch_end: Optional[Callable[[int, int], None]] = None,
+              prefetch: int = 0) -> List[StepRecord]:
         """Full training run (``train_split_learning``, 3 epochs by
         default). ``start_step`` seeds the client-authoritative step
-        counter; ``on_epoch_end(epoch, next_step)`` fires after each
-        epoch."""
+        counter (resume); ``on_epoch_end(epoch, next_step)`` fires after
+        each epoch (the checkpoint hook). ``prefetch`` > 0 wraps each
+        epoch's iterator in a
+        :class:`~split_learning_tpu_torch.data.datasets.DevicePrefetch` of
+        that depth, so batch k+1's copy to the device runs under step
+        k's round trip; the batches are the same."""
         records: List[StepRecord] = []
         step = start_step
         for epoch in range(epochs if epochs is not None else self.cfg.epochs):
-            for x, y in data_iter():
-                loss = self.train_step(x, y, step)
-                if loss is not None:
-                    records.append(StepRecord(step=step, loss=loss,
-                                              epoch=epoch))
-                    if self.logger is not None:
-                        self.logger.log_metric("loss", loss, step=step)
-                step += 1
+            with contextlib.ExitStack() as stack:
+                for x, y in _epoch_iter(stack, data_iter, prefetch,
+                                        self.device):
+                    loss = self.train_step(x, y, step)
+                    if loss is not None:
+                        records.append(StepRecord(step=step, loss=loss,
+                                                  epoch=epoch))
+                        if self.logger is not None:
+                            self.logger.log_metric("loss", loss, step=step)
+                    step += 1
             if on_epoch_end is not None:
                 on_epoch_end(epoch, step)
         return records
+
+    def export_states(self) -> Dict[str, Any]:
+        """The client's share of a checkpoint: ``{"client": state}`` (a
+        :func:`~split_learning_tpu_torch.runtime.state.state_tree`) and,
+        on a topk8 wire, the up-direction EF ledger, without which a
+        resumed topk8 run is not the uninterrupted one."""
+        self.ensure_init()
+        tree: Dict[str, Any] = {"client": state_tree(self.state)}
+        ledger = _export_ledger(self.transport)
+        if ledger is not None:
+            tree[LEDGER_KEY] = ledger
+        return tree
+
+    def restore_states(self, tree: Dict[str, Any]) -> None:
+        """Adopt :meth:`export_states`'s tree (restored from disk): the
+        state in place, the ledger when the checkpoint has one."""
+        self.ensure_init()
+        _restore({"client": self.state}, tree)
+        _restore_ledger(self.transport, tree.get(LEDGER_KEY))
 
 
 
@@ -357,6 +428,22 @@ class USplitClientTrainer:
         """Stages A and C's parameters (live tensors)."""
         self.ensure_init()
         return self.state_a.params[0], self.state_c.params[0]
+
+    def export_states(self) -> Dict[str, Any]:
+        """``{"client_a": ..., "client_c": ...}`` (JAX's layout keys) and,
+        on a topk8 wire, the client's EF ledger of both hops."""
+        self.ensure_init()
+        tree: Dict[str, Any] = {"client_a": state_tree(self.state_a),
+                                "client_c": state_tree(self.state_c)}
+        ledger = _export_ledger(self.transport)
+        if ledger is not None:
+            tree[LEDGER_KEY] = ledger
+        return tree
+
+    def restore_states(self, tree: Dict[str, Any]) -> None:
+        self.ensure_init()
+        _restore({"client_a": self.state_a, "client_c": self.state_c}, tree)
+        _restore_ledger(self.transport, tree.get(LEDGER_KEY))
 
     def train_step(self, x: Any, y: Any, step: int) -> float:
         self.ensure_init()
@@ -440,6 +527,15 @@ class FederatedClientTrainer:
         """Every stage's parameters (live tensors)."""
         self.ensure_init()
         return self.state.params
+
+    def export_states(self) -> Dict[str, Any]:
+        """``{"client": state}``: the whole model and its optimizer."""
+        self.ensure_init()
+        return {"client": state_tree(self.state)}
+
+    def restore_states(self, tree: Dict[str, Any]) -> None:
+        self.ensure_init()
+        _restore({"client": self.state}, tree)
 
     def train_step(self, x: Any, y: Any) -> float:
         """One local step of the whole model; returns the loss."""

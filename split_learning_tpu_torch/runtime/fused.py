@@ -28,7 +28,9 @@ integers they are; floating inputs are cast to float32.
 Where the JAX trainer compiles one XLA program per step (and a
 ``lax.scan`` per epoch), this one runs eagerly: ``train_epoch`` is a
 Python loop over the leading step axis. CUDA graphs over the step come
-later. The state is updated in place.
+later. The state is updated in place; :meth:`FusedSplitTrainer.
+export_states` and :meth:`~FusedSplitTrainer.restore_states` carry it
+through a checkpoint.
 
 Config values the port cannot run yet raise ``NotImplementedError``
 naming the ROADMAP item that brings them (:func:`check_supported`).
@@ -36,7 +38,7 @@ naming the ROADMAP item that brings them (:func:`check_supported`).
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Any, Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -44,7 +46,8 @@ import torch
 from split_learning_tpu_torch.core.stage import Params, SplitPlan
 from split_learning_tpu_torch.ops.cross_entropy import fused_cross_entropy
 from split_learning_tpu_torch.runtime.state import (
-    TrainState, check_config, init_params, leaves_of, make_state, make_tx)
+    TrainState, check_config, init_params, leaves_of, make_state, make_tx,
+    restore_state, state_tree)
 from split_learning_tpu_torch.utils.config import Config
 from split_learning_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -146,3 +149,13 @@ class FusedSplitTrainer:
     @property
     def params(self) -> Tuple[Params, ...]:
         return self.state.params
+
+    def export_states(self) -> Dict[str, Any]:
+        """The checkpoint tree of the ``fused`` layout: ``{"trainer":
+        state_tree(state)}``."""
+        return {"trainer": state_tree(self.state)}
+
+    def restore_states(self, tree: Dict[str, Any]) -> None:
+        """Restore :meth:`export_states`'s tree in place (each leaf in its
+        saved dtype, the schedule's count with it)."""
+        restore_state(self.state, tree["trainer"])

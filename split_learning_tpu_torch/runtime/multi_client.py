@@ -143,25 +143,37 @@ class MultiClientSplitRunner:
                      rounds: Optional[int] = None,
                      prefetch: int = 0) -> List[List[Optional[float]]]:
         """Whole rounds from per-client batch iterators: stops after
-        ``rounds`` rounds or when any client's iterator drains. A
-        ``prefetch`` above 0 (``DevicePrefetch``) is not ported."""
-        if prefetch > 0:
-            raise not_ported("DevicePrefetch (prefetch > 0)", "item 13")
+        ``rounds`` rounds or when any client's iterator drains (every
+        round needs all clients). ``prefetch`` > 0 wraps each client's
+        iterator in a :class:`~split_learning_tpu_torch.data.datasets.
+        DevicePrefetch` of that depth on its client's device, so every
+        client's next batch stages while the round is in flight; the
+        wrappers are closed and joined on every exit path."""
         if len(batch_iters) != len(self.clients):
             raise ValueError(
                 f"expected {len(self.clients)} batch iterators, "
                 f"got {len(batch_iters)}")
-        its = [iter(b) for b in batch_iters]
+        its: List[Any] = [iter(b) for b in batch_iters]
+        wrapped: List[Any] = []
+        if prefetch > 0:
+            from split_learning_tpu_torch.data.datasets import DevicePrefetch
+            its = wrapped = [DevicePrefetch(it, depth=prefetch,
+                                            device=c.device)
+                             for it, c in zip(its, self.clients)]
         losses: List[List[Optional[float]]] = []
-        while rounds is None or len(losses) < rounds:
-            batch = []
-            for it in its:
-                try:
-                    batch.append(next(it))
-                except StopIteration:
-                    return losses
-            losses.append(self.train_round(batch))
-        return losses
+        try:
+            while rounds is None or len(losses) < rounds:
+                batch = []
+                for it in its:
+                    try:
+                        batch.append(next(it))
+                    except StopIteration:
+                        return losses
+                losses.append(self.train_round(batch))
+            return losses
+        finally:
+            for w in wrapped:
+                w.close()
 
     def close(self) -> None:
         if self._pool is not None:

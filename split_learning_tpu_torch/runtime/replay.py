@@ -15,8 +15,11 @@ step) exactly once and leaves a pending entry behind; duplicates that
 lose the claim block on it (:meth:`ReplayCache.wait`) and are served
 the one materialised result. Entries can also carry the exact encoded
 wire reply (:meth:`ReplayCache.attach_body`), so a replayed frame is
-byte-identical. Persisting the cache beside a checkpoint waits for
-ROADMAP item 13.
+byte-identical. :meth:`ReplayCache.export_state` and
+:meth:`ReplayCache.restore_state` carry the resolved entries, bodies
+included, through the checkpoint's runtime-extras sidecar
+(``runtime/checkpoint.py``), so a duplicate that reaches a restarted
+server is served the pre-crash frame byte for byte.
 """
 
 from __future__ import annotations
@@ -126,6 +129,39 @@ class ReplayCache:
             result = entry.result
         return result
 
+    # -- value-level surface ------------------------------------------- #
+    def get(self, client_id: int, op: str, step: int) -> Optional[Any]:
+        """The cached result for a duplicate delivery, or None on a miss.
+        Counts the hit. Non-blocking: a still-pending entry reads as a
+        miss (callers that can block use :meth:`begin`/:meth:`wait` or
+        :meth:`lookup`)."""
+        key = (int(client_id), op, int(step))
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is None or not entry.done:
+                return None
+            self.hits += 1
+            return entry.result
+
+    def contains(self, client_id: int, op: str, step: int) -> bool:
+        with self._lock:
+            return (int(client_id), op, int(step)) in self._entries
+
+    def put(self, client_id: int, op: str, step: int, result: Any) -> None:
+        key = (int(client_id), op, int(step))
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is not None:
+                if entry.done:
+                    return  # first apply wins; never overwrite a reply
+            else:
+                entry = _Entry(key)
+                self._entries[key] = entry
+            entry.result = result
+            entry.done = True
+            self._evict_locked(int(client_id), op)
+        entry.event.set()
+
     # ------------------------------------------------------------------ #
     def attach_body(self, client_id: int, op: str, step: int,
                     body: bytes) -> None:
@@ -137,6 +173,18 @@ class ReplayCache:
             entry = self._entries.get(key)
             if entry is not None and entry.body is None:
                 entry.body = body
+
+    def get_body(self, client_id: int, op: str, step: int
+                 ) -> Optional[bytes]:
+        """The original encoded reply bytes, or None. Counts a body hit
+        (the caller serves these raw: the bit-identical path)."""
+        key = (int(client_id), op, int(step))
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is None or entry.body is None:
+                return None
+            self.body_hits += 1
+            return entry.body
 
     def lookup(self, client_id: int, op: str, step: int,
                timeout: float = 120.0
@@ -183,6 +231,41 @@ class ReplayCache:
             else:
                 break  # everything left is pending; let owners finish
         return
+
+    def clear(self) -> None:
+        """Drop everything: a resume re-bases the step floor, and replies
+        of the pre-restore lineage must not be replayable."""
+        with self._lock:
+            self._entries.clear()
+
+    # -- persistence (the checkpoint's runtime-extras sidecar) ---------- #
+    def export_state(self) -> list:
+        """Resolved entries only, in FIFO order. A pending entry has an
+        owner thread mid-materialization: its result does not exist yet,
+        so it cannot be made durable; after a crash the retry re-owns
+        the step. Bodies ride along, so a post-restart duplicate is
+        served the byte-identical wire reply."""
+        with self._lock:
+            return [{"key": list(e.key), "result": e.result, "body": e.body}
+                    for e in self._entries.values() if e.done]
+
+    def restore_state(self, entries: list) -> None:
+        """Repopulate from :meth:`export_state` output. Every restored
+        entry is born resolved (event already set), so pre-crash
+        duplicates are served at once, never blocked on an owner that no
+        longer exists."""
+        with self._lock:
+            self._entries.clear()
+            for rec in entries:
+                cid, op, step = rec["key"]
+                key = (int(cid), str(op), int(step))
+                entry = _Entry(key)
+                entry.result = rec.get("result")
+                body = rec.get("body")
+                entry.body = bytes(body) if body is not None else None
+                entry.done = True
+                entry.event.set()
+                self._entries[key] = entry
 
     def counters(self) -> Dict[str, float]:
         with self._lock:

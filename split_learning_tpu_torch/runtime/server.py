@@ -50,11 +50,15 @@ clients. The parameters are updated in place, and a later step's
 kernels queue behind this one's on the same stream, so nothing reads
 them early.
 
+Checkpoints (``runtime/party.py``): ``on_step(acked)`` runs under the
+lock after each op that updates the state, as in JAX; ``resume_from``
+re-arms the handshake so the next accepted op is at the restored step
+or later, and drops the U-shaped residuals and a partial FedAvg round.
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
 item: request coalescing (``coalesce_max > 1``) and multi-tenant
 admission (``tenants``, ``quota``, ``slo_ms``), item 14; the decoupled
-backward (``decouple_bwd``, ``apply_lag``), item 14; a ``mesh``, item 18;
-checkpoint resume, item 13.
+backward (``decouple_bwd``, ``apply_lag``), item 14; a ``mesh``, item 18.
 """
 
 from __future__ import annotations
@@ -187,6 +191,9 @@ class ServerRuntime(PartyRuntime):
                 self._tx)
         # the U-shaped step's residuals: the trunk input of (client, step)
         self._u_residual: Dict[Tuple[int, int], torch.Tensor] = {}
+        # called under the lock with the acknowledged step after every
+        # step op that updates the state (JAX's checkpoint hook)
+        self.on_step: Optional[Callable[[int], None]] = None
 
     @property
     def params(self) -> Any:
@@ -277,6 +284,8 @@ class ServerRuntime(PartyRuntime):
                 # order; the acknowledged step never regresses
                 self._last_step[client_id] = max(
                     self._last_step.get(client_id, -1), step)
+                if self.on_step is not None:
+                    self.on_step(self._last_step[client_id])
                 t_d1 = time.perf_counter() if tr is not None else 0.0
             times[:] = [t_q0, t_d0, t_d1]
             # off the lock: the loss read waits for the step's kernels
@@ -380,6 +389,8 @@ class ServerRuntime(PartyRuntime):
                                              for k in params])
                 self._last_step[client_id] = max(
                     self._last_step.get(client_id, -1), step)
+                if self.on_step is not None:
+                    self.on_step(self._last_step[client_id])
             return _reply_like(g_acts, feat_grads)
 
         return self._exactly_once(client_id, "u_backward", step, run)
@@ -408,6 +419,8 @@ class ServerRuntime(PartyRuntime):
             adopt_params(self.state, params_from_jax(mean), self.device)
             self.state.step += 1
             self._last_step[0] = max(self._last_step.get(0, -1), step)
+            if self.on_step is not None:
+                self.on_step(step)
         return host_tree(mean)
 
     def _check_layout(self, params: Any) -> None:

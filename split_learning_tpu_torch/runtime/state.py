@@ -42,7 +42,10 @@ party's own stages from a seed or from given per-stage dicts, and the
 parameter averaging of the federated server and the multi-client runner:
 :func:`fedavg_mean` (JAX's, dtype rule included) and
 :func:`compressed_sync_contribution` (a party's topk8 delta through the
-wire codec, on the card for CUDA leaves).
+wire codec, on the card for CUDA leaves); and the checkpoint form of a
+state, :func:`state_tree` (a tree ``torch.load(weights_only=True)``
+reads back) and :func:`restore_state` (back in place, each leaf in the
+dtype it was saved in, the schedule's count with them).
 """
 
 from __future__ import annotations
@@ -318,6 +321,92 @@ def make_tx(cfg) -> _Optimizer:
 def make_state(params: Sequence[Params], tx: _Optimizer) -> TrainState:
     params = tuple(params)
     return TrainState(params=params, opt_state=tx.init(leaves_of(params)))
+
+
+def _per_stage(params: Sequence[Params], flat: Sequence[torch.Tensor]
+               ) -> List[Dict[str, torch.Tensor]]:
+    """A list in ``leaves_of(params)`` order as one dict per stage,
+    keyed as the parameters are."""
+    it = iter(flat)
+    return [{k: next(it) for k in stage} for stage in params]
+
+
+def state_tree(state: TrainState) -> Dict[str, Any]:
+    """``state`` as a tree ``torch.load(weights_only=True)`` reads back:
+    ``{"params": [one dict per stage], "opt_state": ..., "step": int}``.
+    The optimizer's state is None (SGD without momentum), ``{"trace":
+    [...]}`` (the momentum trace) or ``{"mu": [...], "nu": [...]}``
+    (adam/adamw), each a dict per stage keyed by parameter name. The
+    tensors are the live ones: :class:`~split_learning_tpu_torch.runtime.
+    checkpoint.Checkpointer` snapshots them."""
+    params = [dict(stage) for stage in state.params]
+    opt = state.opt_state
+    if opt is None:
+        opt_tree = None
+    elif isinstance(opt, tuple):
+        opt_tree = {"mu": _per_stage(state.params, opt[0]),
+                    "nu": _per_stage(state.params, opt[1])}
+    else:
+        opt_tree = {"trace": _per_stage(state.params, opt)}
+    return {"params": params, "opt_state": opt_tree, "step": int(state.step)}
+
+
+def _restore_leaf(live: torch.Tensor, saved: torch.Tensor, what: str,
+                  grad: bool) -> torch.Tensor:
+    """``saved`` in ``live``'s place: copied into it when the dtypes
+    agree, else a new tensor of the saved dtype on its device (a bf16
+    leaf a weighted FedAvg round made float32 stays float32)."""
+    saved = torch.as_tensor(saved)
+    if tuple(saved.shape) != tuple(live.shape):
+        raise ValueError(f"{what}: saved shape {tuple(saved.shape)}, live "
+                         f"{tuple(live.shape)}")
+    if saved.dtype == live.dtype:
+        with torch.no_grad():
+            live.copy_(saved)
+        return live
+    return saved.to(live.device).clone().requires_grad_(grad)
+
+
+def restore_state(state: TrainState, tree: Dict[str, Any]) -> None:
+    """Restore a :func:`state_tree` into ``state`` in place: every
+    parameter and moment keeps the dtype it was saved in, and the step
+    count (optax's count, which the lr schedule and Adam's bias
+    correction read) comes back with them. A tree of another model or
+    optimizer raises ``ValueError``."""
+    saved_params = list(tree["params"])
+    if len(saved_params) != len(state.params) or any(
+            set(s) != set(live)
+            for s, live in zip(saved_params, state.params)):
+        raise ValueError(
+            "checkpoint parameters do not match this model: saved "
+            f"{[sorted(s) for s in saved_params]}, live "
+            f"{[sorted(live) for live in state.params]}")
+    for i, (live, saved) in enumerate(zip(state.params, saved_params)):
+        for k in live:
+            live[k] = _restore_leaf(live[k], saved[k], f"params[{i}].{k}",
+                                    True)
+    opt, saved_opt = state.opt_state, tree["opt_state"]
+    kind = (None if opt is None else "adam" if isinstance(opt, tuple)
+            else "trace")
+    saved_kind = (None if saved_opt is None else
+                  "adam" if "mu" in saved_opt else "trace")
+    if kind != saved_kind:
+        raise ValueError(f"checkpoint optimizer state is {saved_kind!r}, "
+                         f"this optimizer's is {kind!r}")
+
+    def refill(flat: List[torch.Tensor], stages: Sequence[Dict[str, Any]],
+               what: str) -> None:
+        saved_flat = [stage[k] for stage, live in zip(stages, state.params)
+                      for k in live]
+        for j, s in enumerate(saved_flat):
+            flat[j] = _restore_leaf(flat[j], s, f"{what}[{j}]", False)
+
+    if kind == "adam":
+        refill(opt[0], saved_opt["mu"], "mu")
+        refill(opt[1], saved_opt["nu"], "nu")
+    elif kind == "trace":
+        refill(opt, saved_opt["trace"], "trace")
+    state.step = int(tree["step"])
 
 
 def adopt_params(state: TrainState, params: Sequence[Params],

@@ -928,3 +928,91 @@ def test_multi_client_compressed_sync_on_the_card(dev):
     # reference; every sync after it is compressed
     assert counts == [20, 20]
     assert runner.sync_raw_bytes > runner.sync_wire_bytes > 0
+
+
+# --------------------------------------------------------------------- #
+# checkpoints and DevicePrefetch on the card (chip_smoke.py phase 24)
+
+def test_checkpoint_snapshot_survives_in_place_updates_on_the_card(
+        dev, tmp_path):
+    """``save()`` clones on the card and returns; the same stream then
+    updates the parameters in place (as the SGD kernel and Adam's
+    ``_foreach`` ops do), and the checkpoint holds the values at
+    save(), in their dtypes."""
+    from split_learning_tpu_torch.runtime.checkpoint import Checkpointer
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tree = {"w": torch.randn(1 << 20, device=dev, generator=gen),
+            "pos": torch.randn(64, 32, device=dev, generator=gen)
+            .to(torch.bfloat16), "step": 7}
+    want = {k: v.clone().cpu() for k, v in tree.items() if k != "step"}
+    ck = Checkpointer(str(tmp_path))
+    ck.save(1, tree)
+    for _ in range(20):
+        tree["w"].mul_(1.5).add_(1.0)
+        tree["pos"].add_(1.0)
+    raw = ck.restore_raw(1)
+    ck.close()
+    assert raw["step"] == 7 and raw["pos"].dtype == torch.bfloat16
+    for k, v in want.items():
+        assert torch.equal(raw[k], v), k
+    assert ck.stats["bytes"] > 4 << 20 and ck.stats["write_ms"] > 0
+
+
+def test_device_prefetch_stages_on_a_side_stream(dev):
+    """``DevicePrefetch(device="cuda")`` yields CUDA tensors equal to the
+    source's batches, labels untouched, and the staging thread joined."""
+    from split_learning_tpu_torch.data import DevicePrefetch
+    rs = np.random.RandomState(0)
+    data = [(rs.randn(64, 28, 28, 1).astype(np.float32), np.arange(64) + i)
+            for i in range(6)]
+    with DevicePrefetch(iter(data), depth=2, device="cuda") as it:
+        got = [(x.clone(), y) for x, y in it]
+    assert not it._thread.is_alive()
+    for (x, y), (x0, y0) in zip(got, data):
+        assert x.is_cuda and torch.equal(x.cpu(), torch.from_numpy(x0))
+        assert y is y0
+
+
+def test_fused_lm_resume_on_the_card(dev, tmp_path):
+    """The bf16 LM (attn="flash") under AdamW with a schedule: 3 steps,
+    a save, a fresh trainer restored from it, 3 more steps on each: the
+    same losses and the same launches per step (K5 3, each K6 3, one K1
+    pair, no K2)."""
+    from split_learning_tpu_torch.data import synthetic_lm
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.runtime import FusedSplitTrainer
+    from split_learning_tpu_torch.runtime.checkpoint import Checkpointer
+    from split_learning_tpu_torch.utils.config import Config
+    plan = get_plan(model="transformer_lm", vocab=61, d_model=64,
+                    num_heads=2, client_depth=1, server_depth=2,
+                    max_len=128, attn="flash", dtype="bfloat16")
+    ds = synthetic_lm(n_train=24, n_test=4, vocab=61, seq_len=96)
+    cfg = Config(transport="fused", model="transformer_lm", attn="flash",
+                 batch_size=4, dtype="bfloat16", optimizer="adamw", lr=3e-3,
+                 weight_decay=0.1, warmup_steps=2, decay_steps=6,
+                 grad_clip_norm=1.0)
+    batches = [(ds.train.x[i:i + 4], ds.train.y[i:i + 4])
+               for i in range(0, 24, 4)]
+
+    def trainer(seed):
+        return FusedSplitTrainer(plan, cfg, torch.Generator().manual_seed(
+            seed), ds.train.x[:4], device="cuda")
+
+    a = trainer(0)
+    head = [a.train_step(x, y) for x, y in batches[:3]]
+    ck = Checkpointer(str(tmp_path))
+    ck.save(3, a.export_states())
+    LAUNCHES.reset()
+    tail = [a.train_step(x, y) for x, y in batches[3:]]
+    want = LAUNCHES.snapshot()
+    b = trainer(1)
+    b.restore_states(ck.restore_raw(3))
+    ck.close()
+    assert b.state.step == 3 and b.state.params[0]["pos"].dtype == \
+        torch.bfloat16
+    LAUNCHES.reset()
+    resumed = [b.train_step(x, y) for x, y in batches[3:]]
+    assert LAUNCHES.snapshot() == want == {
+        FA: 9, **{n: 9 for n in BWD_NAMES}, FWD: 3, BWD: 3}
+    assert resumed == tail and all(np.isfinite(head))

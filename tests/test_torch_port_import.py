@@ -1,11 +1,11 @@
 """The port stands alone: no JAX, no JAX package, no CPU fallback.
 
 - Every module of ``split_learning_tpu_torch`` (and ``chip_smoke.py``)
-  imports in a fresh interpreter where ``jax``, ``flax`` and ``optax``
-  cannot be imported. It must be a subprocess: tests/conftest.py
+  imports in a fresh interpreter where ``jax``, ``flax``, ``optax`` and
+  ``orbax`` cannot be imported. It must be a subprocess: tests/conftest.py
   imports jax into every test worker.
-- No port file names ``jax``, ``flax``, ``optax``, ``split_learning_tpu``
-  or ``scripts`` in an import statement.
+- No port file names ``jax``, ``flax``, ``optax``, ``orbax``,
+  ``split_learning_tpu`` or ``scripts`` in an import statement.
 - The two-party slice's modules (transport, obs, runtime.server,
   runtime.client, ops.quantize, ops.topk) import with jax blocked.
 - The HTTP slice's modules (transport.http, transport.chaos,
@@ -26,7 +26,8 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "split_learning_tpu_torch")
-FORBIDDEN = ("jax", "flax", "optax", "split_learning_tpu", "scripts")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "split_learning_tpu",
+             "scripts")
 
 
 def _port_files():
@@ -47,7 +48,7 @@ def _module_names():
 def test_every_port_module_imports_without_jax():
     code = (
         "import sys\n"
-        "for name in ('jax', 'flax', 'optax', 'requests'):\n"
+        "for name in ('jax', 'flax', 'optax', 'orbax', 'requests'):\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for mod in {sorted(_module_names())!r}:\n"
@@ -140,6 +141,46 @@ def test_http_modules_import_without_jax_or_requests():
         "assert t.wait_ready(timeout=10)['mode'] == 'split'\n"
         "t.close()\n"
         "srv.stop()\n"
+        "leaked = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] == 'split_learning_tpu')\n"
+        "assert not leaked, leaked\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+CHECKPOINT_MODULES = (
+    "split_learning_tpu_torch.runtime.checkpoint",
+    "split_learning_tpu_torch.runtime.state",
+    "split_learning_tpu_torch.interop",
+    "split_learning_tpu_torch.data.datasets",
+    "split_learning_tpu_torch.launch.run")
+
+
+def test_checkpoint_modules_save_and_restore_without_jax(tmp_path):
+    """The checkpoint slice with JAX, Orbax and ``ml_dtypes`` blocked: a
+    state saves, its sidecar writes, both read back, and a prefetch
+    runs."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'flax', 'optax', 'orbax', 'ml_dtypes'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for mod in {CHECKPOINT_MODULES!r}:\n"
+        "    importlib.import_module(mod)\n"
+        "import torch\n"
+        "from split_learning_tpu_torch.data import DevicePrefetch\n"
+        "from split_learning_tpu_torch.runtime import checkpoint as ck\n"
+        f"c = ck.Checkpointer({str(tmp_path)!r})\n"
+        "c.save(1, {'w': torch.ones(3, dtype=torch.bfloat16)},\n"
+        "       extras=ck.build_extras(1, 1, replay=[]))\n"
+        "c.close()\n"
+        "assert c.restore_raw(1)['w'].dtype == torch.bfloat16\n"
+        f"assert ck.read_latest_extras({str(tmp_path)!r}, step=1)\n"
+        "pf = DevicePrefetch([(torch.zeros(2), 0)], depth=1, device='cpu')\n"
+        "assert len(list(pf)) == 1\n"
         "leaked = sorted(m for m in sys.modules\n"
         "                if m.split('.')[0] == 'split_learning_tpu')\n"
         "assert not leaked, leaked\n"

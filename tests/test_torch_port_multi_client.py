@@ -384,9 +384,10 @@ def test_weighted_fedavg_by_example_count():
 
 
 def test_unported_runner_arguments_raise():
-    _, runner = make(1)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        runner.train_rounds([[batches(1, 0)[0]]], prefetch=2)
+    # prefetch > 0 runs (DevicePrefetch): the same losses as without
+    losses = [make(1)[1].train_rounds([[batches(1, 0)[0]]], prefetch=p)
+              for p in (0, 2)]
+    assert losses[0] == losses[1] and len(losses[0]) == 1
     with pytest.raises(NotImplementedError, match="item 22"):
         make(1, profiler=object())
     with pytest.raises(ValueError, match="sync compression"):

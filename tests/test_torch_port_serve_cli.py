@@ -171,8 +171,7 @@ def test_train_and_serve_without_device_cpu_raise(tmp_path):
 
 
 _FLAG_VALUES = {
-    "role": ["--role", "stage"], "resume": ["--resume"],
-    "checkpoint_dir": ["--checkpoint-dir", "ckpt"],
+    "role": ["--role", "stage"],
     "remat": ["--remat"],
     "coalesce_max": ["--coalesce-max", "4"],
     "batching": ["--batching", "continuous"],

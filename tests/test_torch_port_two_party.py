@@ -44,6 +44,7 @@ from split_learning_tpu_torch.models import get_plan
 from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.runtime import (
     CircuitBreaker, ProtocolError, ServerRuntime, SplitClientTrainer)
+from split_learning_tpu_torch.runtime.checkpoint import extras_valid
 from split_learning_tpu_torch.runtime.party import _DeferredApply
 from split_learning_tpu_torch.transport import (
     FaultInjector, FaultyTransport, LocalTransport, TransportError)
@@ -395,11 +396,14 @@ def test_unported_modes_and_ops_raise():
             call()
         assert exc.value.status == 400
     for call, item in ((lambda: t.hop_forward(x, 0), "item 16"),
-                       (lambda: server.resume_from(None, 0), "item 13"),
-                       (lambda: server.export_runtime_extras(0), "item 13"),
                        (lambda: _DeferredApply(), "item 14")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # checkpoint resume and the extras sidecar are ported
+    payload = server.export_runtime_extras(0)
+    assert extras_valid(payload) and payload["step"] == 0
+    server.resume_from(server.export_state(), 0, extras=payload)
+    assert server.health()["step"] == -1
     with pytest.raises(NotImplementedError, match="item 13"):
         LocalTransport(server, density_controller=object())
     breaker = CircuitBreaker(t.health)   # ported: accepted, not refused
@@ -451,7 +455,7 @@ def test_cli_without_device_cpu_raises(tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--replicas", "2"], "item 19"),
     (["--pipeline-depth", "2"], "item 15"),
-    (["--prefetch", "2"], "item 13"),
+    (["--decouple-bwd"], "item 14"),
 ])
 def test_cli_unported_flags_refuse(flags, item, tmp_path):
     out = _cli("--transport", "local", "--steps", "1", "--dataset",

@@ -10,7 +10,7 @@
   (``evaluate_remote``), the federated client's whole model;
 - as in JAX, ``--failure-policy`` other than ``raise`` and ``--prefetch``
   warn outside split mode and the run falls back; ``--prefetch`` in
-  split mode exits 2 naming ROADMAP item 13 (``DevicePrefetch``);
+  split mode runs (``DevicePrefetch``);
 - ``num_clients > 1`` is refused by the fused trainer only.
 
 Every wait has a timeout; the subprocess is killed in ``finally``.
@@ -114,10 +114,11 @@ def test_split_only_flags_warn_outside_split_mode(tmp_path, capsys):
     assert "[warn] --failure-policy retry applies to the serialized split " \
            "client only; ignored here" in err
     assert "[warn] --prefetch ignored in mode 'u_split' (split only)" in err
+    # in split mode the prefetch runs (DevicePrefetch)
     rc = main(_args(tmp_path, "split", "--transport", "local",
                     "--prefetch", "2", "--steps", "1"))
-    assert rc == 2
-    assert "ROADMAP item 13" in capsys.readouterr().err
+    assert rc == 0
+    assert "--prefetch" not in capsys.readouterr().err
 
 
 def test_num_clients_refused_by_the_fused_trainer_only(tmp_path, capsys,
