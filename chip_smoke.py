@@ -277,6 +277,29 @@ beside this script. Phases, any failure ending the run with a traceback:
    bit for bit under deterministic cuDNN, both median step ms, a
    profiler window with the batch copies on a stream of their own);
    then the card tests of these pieces.
+25. the server under many clients. (a) Coalescing: 4 clients of
+   ``MultiClientSplitRunner(concurrent=True)`` (the split CNN, batch 64,
+   float32, SGD lr 0.01) against one server on the card, on the local
+   wire (``none``, ``int8``) and over HTTP (``int8``), with the server
+   serialized, coalescing 4 in a 2 ms window, and continuous: round ms,
+   mean occupancy, flush reasons and exact launches (the server's K1
+   pair and K2 once a group, each client's K2 and the wire's once a
+   step); one group of four through ``_dispatch_group`` on the card
+   (exactly one K1 forward, one backward, one K2) and on the CPU, within
+   1e-4. (b) 2BP: the CNN coupled, at lag 0 and at lag 2 (the reply's
+   round trip as the client sees it, the step, per step K1 twice and
+   the server's K2 once, the queue never deeper than the lag, lag 0
+   within 1e-4 of the coupled series); the bf16 AdamW LM two-party on
+   ``topk8``, coupled and at lag 1 (step ms; the server's K5 and each
+   K6 launch 2 a step coupled, 4 decoupled). (c) The pipelined client on
+   the CNN over HTTP on ``int8``: depth 1 bit-equal to
+   ``SplitClientTrainer`` under deterministic cuDNN, then depths 1, 2
+   and 4 against ``serve --allow-out-of-order`` (a subprocess): ms a
+   step; the bf16 LM on ``topk8`` at depth 2 (the client's K5 twice a
+   step: its backward recomputes the forward). (d) Admission over HTTP:
+   2 tenants, tenant 0 at 2 steps/s: its client gets 429s with
+   ``Retry-After``, retries, completes every step, and the counters are
+   the clients'. Then the card tests of these pieces.
 
 Output, last lines: one JSON object with a record per kernel, one JSON
 object with the main path's step time, one with the serving path's
@@ -284,9 +307,9 @@ times, one with the LM training path's, one with the two-party path's,
 one with split-party decode's, one with the HTTP wire's (``http``), one
 with phases 18-19 (``train_lm_bf16``, ``two_party_lm``), one with
 phases 20-23 (``u_split``, ``u_split_lm``, ``federated``,
-``multi_client``, ``cli``), one with phase 24 (``checkpoint``), the
-``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
-{...}}``.
+``multi_client``, ``cli``), one with phase 24 (``checkpoint``), one
+with phase 25 (``many_clients``), the ``nvidia-smi`` name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -410,6 +433,28 @@ CKPT_TP_TOL = {"none": 1e-4, "int8": 1e-3, "topk8": 1e-3}
 CKPT_PREFETCH_STEPS, CKPT_PREFETCH_DEPTH = 30, 2
 CARD_TEST_FILTER = "checkpoint or prefetch or resume"
 CARD_TEST_TIMEOUT = 600
+# phase 25: the server under many clients. Coalescing: 4 concurrent
+# clients, 10 rounds, per leg (wire, compress) and server config; the
+# group's CPU twin within GROUP_TWIN_TOL. 2BP: the CNN at each lag (and
+# lag 0 within TWO_BP_LAG0_TOL of the coupled series), the bf16 LM at
+# lag TWO_BP_LM_LAG. The pipelined client: the CNN over HTTP at each
+# depth after PIPE_WARMUP steps, depth 1 bit-equal to the synchronous
+# client over PIPE_TWIN_STEPS; the bf16 LM at depth PIPE_LM_DEPTH.
+# Admission: 2 tenants over HTTP, tenant 0 held to ADMIT_QUOTA[0] steps/s
+MANY_CLIENTS, MANY_ROUNDS, MANY_WINDOW_MS = 4, 10, 2.0
+MANY_LEGS = (("local", "none"), ("local", "int8"), ("http", "int8"))
+MANY_CONFIGS = (
+    ("serialized", {}),
+    ("window", dict(coalesce_max=MANY_CLIENTS,
+                    coalesce_window_ms=MANY_WINDOW_MS)),
+    ("continuous", dict(coalesce_max=MANY_CLIENTS, batching="continuous")))
+GROUP_TWIN_TOL = 1e-4
+TWO_BP_STEPS, TWO_BP_LAGS, TWO_BP_LAG0_TOL = 30, (0, 2), 1e-4
+TWO_BP_LM_LAG, TWO_BP_LM_STEPS = 1, 10
+PIPE_DEPTHS, PIPE_STEPS, PIPE_WARMUP, PIPE_TWIN_STEPS = (1, 2, 4), 30, 5, 10
+PIPE_LM_DEPTH, PIPE_LM_STEPS = 2, 10
+ADMIT_STEPS, ADMIT_QUOTA, ADMIT_RETRIES = 6, (2.0, 1000.0), 20
+MANY_CARD_TEST_FILTER = "many_clients"
 PLANTS = {
     "quantize_roundf": ("quantize.cu", "rintf(", "roundf("),
     "topk_select_ties_high": (
@@ -3270,15 +3315,15 @@ def prefetch_runs(torch, launch_run):
     return out
 
 
-def card_test_step():
-    """The card tests of phase 24's pieces (tests/test_torch_port_cuda.py,
-    ``-k CARD_TEST_FILTER``), in a subprocess without the JAX conftest."""
+def card_test_step(filter_: str = CARD_TEST_FILTER):
+    """The card tests of a phase's pieces (tests/test_torch_port_cuda.py,
+    ``-k filter_``), in a subprocess without the JAX conftest."""
     import subprocess
     t = time.perf_counter()
     out = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q",
          "-p", "no:cacheprovider", "tests/test_torch_port_cuda.py", "-k",
-         CARD_TEST_FILTER], cwd=REPO, capture_output=True, text=True,
+         filter_], cwd=REPO, capture_output=True, text=True,
         timeout=CARD_TEST_TIMEOUT)
     tail = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
     print(f"[card tests] {tail} ({time.perf_counter() - t:.1f} s)",
@@ -3290,31 +3335,518 @@ def card_test_step():
     return tail
 
 
-def checkpoint_runs(torch, launch_run):
-    """Phase 24 (see the module docstring). Returns the record and the
-    launch totals of its runs."""
-    from split_learning_tpu_torch.ops.common import LAUNCHES
+def _phase_totals(LAUNCHES):
+    """Fold every part's counts into the phase's at each reset (each part
+    resets before its own run and reads just after); returns the totals
+    and a function restoring the plain reset."""
     totals = {}
     orig_reset = LAUNCHES.reset
 
     def reset():
-        # every part reads its own counts; fold them into the phase's
         for k, v in LAUNCHES.snapshot().items():
             totals[k] = totals.get(k, 0) + v
         orig_reset()
     LAUNCHES.reset = reset
+
+    def restore():
+        reset()
+        LAUNCHES.reset = orig_reset
+    return totals, restore
+
+
+def checkpoint_runs(torch, launch_run):
+    """Phase 24 (see the module docstring). Returns the record and the
+    launch totals of its runs."""
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    totals, restore = _phase_totals(LAUNCHES)
     try:
         fused, trainer, ckdir = fused_resume_run(torch, launch_run)
         loads = eval_generate_runs(torch, launch_run, trainer, ckdir)
         del trainer
         two_party = two_party_resume_runs(torch, launch_run)
         prefetch = prefetch_runs(torch, launch_run)
-        reset()
     finally:
-        LAUNCHES.reset = orig_reset
+        restore()
     cards = card_test_step()
     return dict(fused_lm=fused, **loads, two_party_http=two_party,
                 prefetch=prefetch, card_tests=cards), totals
+
+
+# --------------------------------------------------------------------- #
+# phase 25: the server under many clients
+# --------------------------------------------------------------------- #
+def _many_cfg(**kw):
+    from split_learning_tpu_torch.utils import Config
+    return Config(mode="split", batch_size=BATCH, lr=LR,
+                  num_clients=MANY_CLIENTS, **kw)
+
+
+def coalesce_runs(torch, data):
+    """Phase 25 (a): 4 clients of ``MultiClientSplitRunner(concurrent=
+    True)`` against one server on the card, on the local wire (``none``,
+    ``int8``) and over HTTP (``int8``), serialized against coalescing
+    (``coalesce_max`` 4, window 2 ms or continuous): round ms, mean
+    occupancy, flush reasons, exact launches (the server's K1 pair and
+    K2 once per group; a client's K2 and the wire's per step); then one
+    group through ``_dispatch_group`` on the card and on the CPU."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    from split_learning_tpu_torch.runtime import (
+        MultiClientSplitRunner, ServerRuntime)
+    from split_learning_tpu_torch.runtime.coalesce import CoalesceRequest
+    from split_learning_tpu_torch.transport import (
+        HttpTransport, LocalTransport, SplitHTTPServer)
+    n = MANY_CLIENTS
+    per_client = [data[i::n] for i in range(n)]
+    cfg = _many_cfg()
+    runs = {}
+    for wire, mode in MANY_LEGS:
+        for name, kw in MANY_CONFIGS:
+            server = ServerRuntime(get_plan(), cfg,
+                                   torch.Generator().manual_seed(0),
+                                   device="cuda", **kw)
+            http = None
+            if wire == "http":
+                http = SplitHTTPServer(server, host="127.0.0.1",
+                                       port=0).start()
+
+                def factory(i, _url=http.url, _mode=mode):
+                    return HttpTransport(_url, timeout=HTTP_TIMEOUT,
+                                         compress=_mode, density=DENSITY)
+            else:
+                def factory(i, _server=server, _mode=mode):
+                    return LocalTransport(_server, compress=_mode,
+                                          density=DENSITY)
+            runner = MultiClientSplitRunner(
+                get_plan(), cfg, torch.Generator().manual_seed(0), factory,
+                concurrent=True, device="cuda")
+            LAUNCHES.reset()
+            round_ms, losses = [], []
+            try:
+                for r in range(MANY_ROUNDS):
+                    t = time.perf_counter()
+                    losses.append(runner.train_round(
+                        [per_client[i][r] for i in range(n)]))
+                    torch.cuda.synchronize()
+                    round_ms.append((time.perf_counter() - t) * 1e3)
+            finally:
+                runner.close()
+                if http is not None:
+                    http.stop()
+                server.close()
+            counts = LAUNCHES.snapshot()
+            label = f"{wire} {mode} {name}"
+            steps = MANY_ROUNDS * n
+            c = server.health().get("coalescing", {})
+            groups = c.get("groups_flushed", steps)
+            want = {FWD: groups, BWD: groups, SGD: steps + groups,
+                    **{k: 2 * v for k, v in
+                       wire_launches(mode, steps).items()}}
+            check(counts == want, f"coalescing {label}: launches {counts}, "
+                                  f"want {want}")
+            check(all(math.isfinite(v) for r in losses for v in r),
+                  f"coalescing {label}: finite losses")
+            check(server._last_step == {i: MANY_ROUNDS - 1
+                                        for i in range(n)},
+                  f"coalescing {label}: handshakes {server._last_step}")
+            runs[label] = dict(
+                wire=wire, compress=mode, batching=name,
+                round_ms_median=statistics.median(round_ms[1:]),
+                round_ms_min=min(round_ms[1:]), round_ms_first=round_ms[0],
+                groups=groups, steps=steps,
+                mean_occupancy=c.get("mean_occupancy", 1.0),
+                flush_reasons={k[6:]: v for k, v in c.items()
+                               if k.startswith("flush_")},
+                compile_count=c.get("compile_count"),
+                server_launches_per_group={
+                    FWD: counts[FWD] / groups, BWD: counts[BWD] / groups,
+                    SGD: (counts[SGD] - steps) / groups},
+                server_launches_per_round={
+                    FWD: counts[FWD] / MANY_ROUNDS,
+                    BWD: counts[BWD] / MANY_ROUNDS,
+                    SGD: (counts[SGD] - steps) / MANY_ROUNDS},
+                launches=counts,
+                loss_first=statistics.mean(losses[0]),
+                loss_last=statistics.mean(losses[-1]))
+            print(f"[many] {label}: round ms "
+                  f"{runs[label]['round_ms_median']:.2f}, occupancy "
+                  f"{runs[label]['mean_occupancy']:.2f}, flushes "
+                  f"{runs[label]['flush_reasons']}, server launches a group "
+                  f"{runs[label]['server_launches_per_group']}", flush=True)
+    # one group of four through the dispatch on the card and on the CPU
+    g = torch.Generator().manual_seed(5)
+    members = [(torch.randn(*CNN_CUT, generator=g),
+                torch.randint(0, 10, (BATCH,), generator=g))
+               for _ in range(n)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        server = ServerRuntime(get_plan(), cfg,
+                               torch.Generator().manual_seed(0),
+                               coalesce_max=n, device=dev)
+        reqs = [CoalesceRequest(x.to(server.device), y.to(server.device),
+                                0, i) for i, (x, y) in enumerate(members)]
+        LAUNCHES.reset()
+        server._dispatch_group(reqs, "full")
+        replies = [r.result() for r in reqs]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = LAUNCHES.snapshot()
+            check(counts == {FWD: 1, BWD: 1, SGD: 1},
+                  f"one group's launches {counts}")
+        out[dev] = ([(gr.cpu(), loss) for gr, loss in replies],
+                    {k: v.detach().cpu() for k, v in server.params.items()})
+        server.close()
+    err_g = max((a[0] - b[0]).abs().max().item()
+                for a, b in zip(out["cuda"][0], out["cpu"][0]))
+    err_l = max(abs(a[1] - b[1]) for a, b in zip(out["cuda"][0],
+                                                    out["cpu"][0]))
+    err_p = max((out["cuda"][1][k] - out["cpu"][1][k]).abs().max().item()
+                for k in out["cpu"][1])
+    check(max(err_g, err_l, err_p) <= GROUP_TWIN_TOL,
+          f"group CPU twin: gradient {err_g}, loss {err_l}, params {err_p}")
+    print(f"[many] one group of {n} on the card: launches {counts}; CPU "
+          f"twin within gradient {err_g:.3g}, loss {err_l:.3g}, params "
+          f"{err_p:.3g}", flush=True)
+    return dict(clients=n, rounds=MANY_ROUNDS, window_ms=MANY_WINDOW_MS,
+                runs=runs, group_twin=dict(
+                    launches=counts, grad_max_abs_diff=err_g,
+                    loss_max_abs_diff=err_l, params_max_abs_diff=err_p))
+
+
+def decoupled_runs(torch, data, tr_data):
+    """Phase 25 (b): the decoupled backward. The split CNN (one client,
+    local wire) coupled, at lag 0 and at lag 2: the reply's ms as the
+    client sees it (the transport's round trip), step ms, launches per
+    step (2BP: the server's K1 pair twice and K2 once), the queue never
+    deeper than the lag. The bf16 AdamW LM two-party on ``topk8``,
+    coupled and at lag 1: step ms and the server's K5/K6 per step."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.flash_attention import (
+        BWD_NAMES, NAME as FA)
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    from split_learning_tpu_torch.runtime import (
+        ServerRuntime, SplitClientTrainer)
+    from split_learning_tpu_torch.transport import LocalTransport
+    from split_learning_tpu_torch.utils import Config
+
+    def run(client, transport, server, batches, lag, label):
+        LAUNCHES.reset()
+        ms, losses = [], []
+        for i, (x, y) in enumerate(batches):
+            t = time.perf_counter()
+            losses.append(client.train_step(x, y, i))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            if lag is not None:
+                depth = server.health()["decoupled_bwd"][
+                    "deferred_apply_depth"]
+                check(depth <= lag, f"{label}: queue depth {depth} > {lag}")
+        applied = server.flush_deferred()
+        torch.cuda.synchronize()
+        counts = LAUNCHES.snapshot()
+        check(all(math.isfinite(v) for v in losses), f"{label}: finite")
+        reply = sorted(transport.stats._latencies)
+        return dict(step_ms_median=statistics.median(ms[3:]),
+                    reply_ms_median=statistics.median(reply) * 1e3,
+                    reply_ms_min=reply[0] * 1e3, launches=counts,
+                    flushed_at_end=applied, loss_first=losses[0],
+                    loss_last=losses[-1], losses=losses)
+
+    steps = TWO_BP_STEPS
+    cnn = {}
+    for lag in (None, *TWO_BP_LAGS):
+        kw = {} if lag is None else dict(decouple_bwd=True, apply_lag=lag)
+        cfg = Config(transport="local", batch_size=BATCH, lr=LR)
+        server = ServerRuntime(get_plan(), cfg,
+                               torch.Generator().manual_seed(0),
+                               device="cuda", **kw)
+        transport = LocalTransport(server, compress="none")
+        client = SplitClientTrainer(get_plan(), cfg,
+                                    torch.Generator().manual_seed(0),
+                                    transport, device="cuda")
+        label = "coupled" if lag is None else f"lag {lag}"
+        cnn[label] = run(client, transport, server, data[:steps], lag,
+                         f"2BP CNN {label}")
+        k1 = 1 if lag is None else 2
+        want = {FWD: k1 * steps, BWD: k1 * steps, SGD: 2 * steps}
+        check(cnn[label]["launches"] == want,
+              f"2BP CNN {label}: launches {cnn[label]['launches']}, want "
+              f"{want}")
+        cnn[label]["launches_per_step"] = {FWD: k1, BWD: k1, SGD: 2}
+        cnn[label]["server_launches_per_step"] = {FWD: k1, BWD: k1, SGD: 1}
+        server.close()
+        print(f"[many] 2BP CNN {label}: reply ms "
+              f"{cnn[label]['reply_ms_median']:.3f}, step ms "
+              f"{cnn[label]['step_ms_median']:.3f}, launches a step "
+              f"{cnn[label]['launches_per_step']}", flush=True)
+    # lag 0 runs the coupled step's arithmetic in two backward passes;
+    # cuDNN's default algorithms need not repeat bit for bit run to run
+    lag0_diff = max(abs(a - b) for a, b in zip(cnn["lag 0"]["losses"],
+                                              cnn["coupled"]["losses"]))
+    check(lag0_diff <= TWO_BP_LAG0_TOL,
+          f"2BP lag 0 left the coupled series by {lag0_diff}")
+    # the bf16 AdamW LM, two-party on topk8
+    plan = get_plan(dtype="bfloat16", **LM)
+    init = plan.init(torch.Generator().manual_seed(0), torch.zeros(1))
+    cd, sd = LM["client_depth"], LM["server_depth"]
+    lm = {}
+    for lag in (None, TWO_BP_LM_LAG):
+        kw = {} if lag is None else dict(decouple_bwd=True, apply_lag=lag)
+        cfg = Config(transport="local", model="transformer_lm",
+                     attn="flash", batch_size=TRAIN_B, dtype="bfloat16",
+                     **LM_SCHEDULE, **LM_OPTIMS["adamw"])
+        server = ServerRuntime(plan, cfg, init, device="cuda", **kw)
+        transport = LocalTransport(server, compress="topk8",
+                                   density=DENSITY)
+        client = SplitClientTrainer(plan, cfg, init, transport,
+                                    device="cuda")
+        label = "coupled" if lag is None else f"lag {lag}"
+        rec = run(client, transport, server, tr_data[:TWO_BP_LM_STEPS], lag,
+                  f"2BP LM {label}")
+        k = 1 if lag is None else 2
+        srv = {FA: k * sd, **{b: k * sd for b in BWD_NAMES}, FWD: k, BWD: k}
+        per = {FA: cd + k * sd, **{b: cd + k * sd for b in BWD_NAMES},
+               FWD: k, BWD: k, **wire_launches("topk8", 2)}
+        want = {name: v * TWO_BP_LM_STEPS for name, v in per.items()}
+        check(rec["launches"] == want,
+              f"2BP LM {label}: launches {rec['launches']}, want {want}")
+        rec.update(launches_per_step=per, server_launches_per_step=srv,
+                   tokens_per_s=TRAIN_B * TRAIN_T / rec["step_ms_median"]
+                   * 1e3)
+        del rec["losses"]
+        lm[label] = rec
+        server.close()
+        del client, transport, server
+        print(f"[many] 2BP LM bf16 topk8 {label}: step ms "
+              f"{rec['step_ms_median']:.2f}, reply ms "
+              f"{rec['reply_ms_median']:.2f}, server K5/K6 a step "
+              f"{srv[FA]}/{srv[BWD_NAMES[0]]}", flush=True)
+    for r in cnn.values():
+        del r["losses"]
+    return dict(cnn=dict(steps=steps, wire="none", runs=cnn,
+                         lag0_against_coupled_max_abs_diff=lag0_diff),
+                lm=dict(steps=TWO_BP_LM_STEPS, wire="topk8",
+                        dtype="bfloat16", optimizer="adamw", runs=lm))
+
+
+def pipelined_runs(torch, data, tr_data):
+    """Phase 25 (c): ``PipelinedSplitClientTrainer`` on the split CNN over
+    HTTP on ``int8``: depth 1 against ``SplitClientTrainer`` on fresh
+    servers, bit-equal under deterministic cuDNN; then depths 1, 2 and 4
+    against ``serve --allow-out-of-order`` (a subprocess): ms a step.
+    The bf16 LM on ``topk8`` at depth 2 on the local wire."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.flash_attention import (
+        BWD_NAMES, NAME as FA)
+    from split_learning_tpu_torch.runtime import (
+        PipelinedSplitClientTrainer, ServerRuntime, SplitClientTrainer)
+    from split_learning_tpu_torch.transport import (
+        HttpTransport, LocalTransport, SplitHTTPServer)
+    from split_learning_tpu_torch.utils import Config
+    cfg = Config(transport="http", batch_size=BATCH, lr=LR)
+    steps = PIPE_STEPS
+
+    def http_transport(url):
+        return HttpTransport(url, timeout=HTTP_TIMEOUT, compress="int8",
+                             density=DENSITY)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        series = {}
+        for kind in ("sync", "depth 1"):
+            runtime = ServerRuntime(get_plan(), cfg,
+                                    torch.Generator().manual_seed(0),
+                                    strict_steps=False, device="cuda")
+            srv = SplitHTTPServer(runtime, host="127.0.0.1", port=0).start()
+            try:
+                if kind == "sync":
+                    c = SplitClientTrainer(get_plan(), cfg,
+                                           torch.Generator().manual_seed(0),
+                                           http_transport(srv.url),
+                                           device="cuda")
+                    series[kind] = [c.train_step(x, y, i) for i, (x, y)
+                                    in enumerate(data[:PIPE_TWIN_STEPS])]
+                    c.transport.close()
+                else:
+                    p = PipelinedSplitClientTrainer(
+                        get_plan(), cfg, torch.Generator().manual_seed(0),
+                        http_transport(srv.url), depth=1, device="cuda")
+                    series[kind] = [r.loss for r in p.train(
+                        lambda: iter(data[:PIPE_TWIN_STEPS]), epochs=1)]
+                    p.close()
+            finally:
+                srv.stop()
+        check(series["sync"] == series["depth 1"],
+              f"pipelined depth 1 against SplitClientTrainer: {series}")
+        serve = _Serve("pipelined", "--allow-out-of-order", "--compress",
+                       "int8", "--batch-size", str(BATCH))
+        runs = {}
+        try:
+            for depth in PIPE_DEPTHS:
+                p = PipelinedSplitClientTrainer(
+                    get_plan(), cfg, torch.Generator().manual_seed(0),
+                    http_transport(serve.url), depth=depth,
+                    transport_factory=lambda: http_transport(serve.url),
+                    client_id=depth, device="cuda")
+                p.train(lambda: iter(data[:PIPE_WARMUP]), epochs=1)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                recs = p.train(lambda: iter(data[:steps]), epochs=1,
+                               start_step=PIPE_WARMUP)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) * 1e3
+                p.close()
+                losses = [r.loss for r in recs]
+                check(len(recs) == steps and all(math.isfinite(v)
+                                                 for v in losses),
+                      f"pipelined depth {depth}: {len(recs)} records")
+                runs[str(depth)] = dict(ms_per_step=wall / steps,
+                                        loss_first=losses[0],
+                                        loss_last=losses[-1],
+                                        round_trips=p.stats.round_trips)
+                print(f"[many] pipelined CNN over HTTP int8, depth {depth}: "
+                      f"{wall / steps:.3f} ms a step", flush=True)
+        finally:
+            serve.stop()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    # the bf16 LM on topk8 at depth 2, the local wire: the client's
+    # forward runs twice a step (its backward recomputes it)
+    plan = get_plan(dtype="bfloat16", **LM)
+    init = plan.init(torch.Generator().manual_seed(0), torch.zeros(1))
+    lm_cfg = Config(transport="local", model="transformer_lm", attn="flash",
+                    batch_size=TRAIN_B, dtype="bfloat16", **LM_SCHEDULE,
+                    **LM_OPTIMS["adamw"])
+    server = ServerRuntime(plan, lm_cfg, init, strict_steps=False,
+                           device="cuda")
+    p = PipelinedSplitClientTrainer(
+        plan, lm_cfg, init, LocalTransport(server, compress="topk8",
+                                           density=DENSITY),
+        depth=PIPE_LM_DEPTH, device="cuda")
+    p.train(lambda: iter(tr_data[:PIPE_WARMUP]), epochs=1)
+    LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    recs = p.train(lambda: iter(tr_data[:PIPE_LM_STEPS]), epochs=1,
+                   start_step=PIPE_WARMUP)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    counts = LAUNCHES.snapshot()
+    p.close()
+    server.close()
+    cd, sd = LM["client_depth"], LM["server_depth"]
+    per = {FA: 2 * cd + sd, **{b: cd + sd for b in BWD_NAMES}, FWD: 1,
+           BWD: 1, **wire_launches("topk8", 2)}
+    want = {k: v * PIPE_LM_STEPS for k, v in per.items()}
+    check(counts == want, f"pipelined LM launches {counts}, want {want}")
+    losses = [r.loss for r in recs]
+    check(all(math.isfinite(v) for v in losses), "pipelined LM: finite")
+    lm = dict(depth=PIPE_LM_DEPTH, steps=PIPE_LM_STEPS, wire="topk8",
+              ms_per_step=wall / PIPE_LM_STEPS, launches_per_step=per,
+              loss_first=losses[0], loss_last=losses[-1])
+    print(f"[many] pipelined bf16 LM topk8 depth {PIPE_LM_DEPTH}: "
+          f"{lm['ms_per_step']:.2f} ms a step, launches a step {per}",
+          flush=True)
+    return dict(cnn=dict(wire="http", compress="int8", steps=steps,
+                         depth1_bit_equal_to_sync=True,
+                         twin_steps=PIPE_TWIN_STEPS, runs=runs), lm=lm)
+
+
+def admission_runs(torch):
+    """Phase 25 (d): admission over HTTP: 2 tenants, a quota on tenant 0
+    only; two retrying clients (one a tenant) on ``int8``: the 429s with
+    ``Retry-After`` reach tenant 0's client, every step completes, and
+    the server's counters are the clients' counts."""
+    from split_learning_tpu_torch.data import batches, synthetic
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.runtime import (
+        ServerRuntime, SplitClientTrainer)
+    from split_learning_tpu_torch.transport import (
+        HttpTransport, SplitHTTPServer)
+    from split_learning_tpu_torch.transport.base import Backpressure
+    ds = synthetic("mnist", n_train=BATCH * ADMIT_STEPS, n_test=8, seed=3)
+    data = list(batches(ds.train, BATCH, seed=3, drop_remainder=True))
+    cfg = _many_cfg(transport="http")
+    runtime = ServerRuntime(get_plan(), cfg, torch.Generator().manual_seed(0),
+                            tenants=2, quota=list(ADMIT_QUOTA),
+                            device="cuda")
+    srv = SplitHTTPServer(runtime, host="127.0.0.1", port=0).start()
+    refused = {0: [], 1: []}
+    clients = []
+    for i in range(2):
+        transport = HttpTransport(srv.url, timeout=HTTP_TIMEOUT,
+                                  compress="int8")
+        send = transport.split_step
+
+        def spy(*a, _send=send, _i=i, **kw):
+            try:
+                return _send(*a, **kw)
+            except Backpressure as exc:
+                refused[_i].append(exc.retry_after_s)
+                raise
+        transport.split_step = spy
+        clients.append(SplitClientTrainer(
+            get_plan(), cfg, torch.Generator().manual_seed(i), transport,
+            client_id=i, failure_policy="retry", max_retries=ADMIT_RETRIES,
+            retry_backoff=0.0, device="cuda"))
+    t = time.perf_counter()
+    try:
+        losses = [[c.train_step(x, y, s) for c in clients]
+                  for s, (x, y) in enumerate(data)]
+        wall = time.perf_counter() - t
+        adm = runtime.health()["admission"]
+    finally:
+        for c in clients:
+            c.transport.close()
+        srv.stop()
+        runtime.close()
+    check(all(math.isfinite(v) for r in losses for v in r),
+          "admission: finite losses")
+    check(refused[0] and not refused[1] and max(refused[0]) > 0,
+          f"admission: 429s seen {refused}")
+    check(adm["admission_admitted_t0"] == adm["admission_admitted_t1"]
+          == ADMIT_STEPS and adm["admission_rejected_t0"] == len(refused[0])
+          and adm["admission_rejected_t1"] == 0
+          and adm["admission_queue_depth_t0"] == 0,
+          f"admission counters {adm}")
+    check(all(c.dropped_batches == 0 for c in clients), "admission: drops")
+    print(f"[many] admission over HTTP: tenant 0 refused {len(refused[0])} "
+          f"times (Retry-After {min(refused[0]):.3f}-{max(refused[0]):.3f} "
+          f"s), every step done in {wall:.2f} s; counters {adm}",
+          flush=True)
+    return dict(tenants=2, quota=list(ADMIT_QUOTA), steps=ADMIT_STEPS,
+                refused_429=len(refused[0]),
+                retry_after_s=[min(refused[0]), max(refused[0])],
+                wall_s=wall, counters=adm)
+
+
+def many_clients_runs(torch, tr_data):
+    """Phase 25 (see the module docstring). Returns the record and the
+    launch totals of its runs."""
+    from split_learning_tpu_torch.data import batches, synthetic
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    ds = synthetic("mnist", n_train=BATCH * MANY_CLIENTS * MANY_ROUNDS,
+                   n_test=8, seed=2)
+    data = list(batches(ds.train, BATCH, seed=2, drop_remainder=True))
+    t = time.perf_counter()
+    totals, restore = _phase_totals(LAUNCHES)
+    try:
+        rec = dict(coalescing=coalesce_runs(torch, data),
+                   decoupled_bwd=decoupled_runs(torch, data, tr_data),
+                   pipelined=pipelined_runs(torch, data, tr_data),
+                   admission=admission_runs(torch))
+    finally:
+        restore()
+    rec["card_tests"] = card_test_step(MANY_CARD_TEST_FILTER)
+    rec["seconds"] = time.perf_counter() - t
+    return rec, totals
 
 
 def main() -> int:
@@ -4157,6 +4689,9 @@ def main() -> int:
     # ---- 24. checkpoints and what loads them ------------------------- #
     ckpt_rec, ckpt_counts = checkpoint_runs(torch, launch_run)
 
+    # ---- 25. the server under many clients --------------------------- #
+    many_rec, many_counts = many_clients_runs(torch, tr_data)
+
     for rec in records:
         key = launch_of.get(rec["name"], rec["name"])
         rec["launches_train_lm_bf16"] = bf16_counts.get(key, 0)
@@ -4214,6 +4749,7 @@ def main() -> int:
         rec["launches_federated"] = fed_counts.get(key, 0)
         rec["launches_multi_client"] = mc_counts.get(key, 0)
         rec["launches_checkpoint"] = ckpt_counts.get(key, 0)
+        rec["launches_many_clients"] = many_counts.get(key, 0)
         rec["launches_per_step_new_paths"] = dict(
             u_split_cnn={m: r["launches_per_step"].get(key, 0)
                          for m, r in u_cnn["runs"].items()},
@@ -4224,6 +4760,21 @@ def main() -> int:
             multi_client_per_round=mc_rr["launches_per_round"].get(key, 0),
             multi_client_per_compressed_sync=mc_rr[
                 "select_launches_per_compressed_sync"].get(key, 0))
+    many_group = many_rec["coalescing"]["runs"][
+        "local none window"]["server_launches_per_group"]
+    many_2bp = many_rec["decoupled_bwd"]
+    for rec in records:
+        key = launch_of.get(rec["name"], rec["name"])
+        rec["launches_per_step_many_clients"] = dict(
+            server_per_coalesced_group=many_group.get(key, 0),
+            two_bp_cnn_per_step={
+                lag: r["launches_per_step"].get(key, 0)
+                for lag, r in many_2bp["cnn"]["runs"].items()},
+            two_bp_lm_bf16_per_step={
+                lag: r["launches_per_step"].get(key, 0)
+                for lag, r in many_2bp["lm"]["runs"].items()},
+            pipelined_lm_bf16_per_step=many_rec["pipelined"]["lm"][
+                "launches_per_step"].get(key, 0))
     two_party_line = dict(two_party=dict(
         model="split_cnn", mode="split", transport="local", batch=BATCH,
         steps=STEPS, density=DENSITY, device=kind, kernel_cases=wire_cases,
@@ -4267,6 +4818,8 @@ def main() -> int:
         cli=cli_u_fed)))
     print(json.dumps({"checkpoint": dict(device=kind, card=smi,
                                          **ckpt_rec)}))
+    print(json.dumps({"many_clients": dict(device=kind, card=smi,
+                                           **many_rec)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

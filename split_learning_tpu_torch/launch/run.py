@@ -77,10 +77,23 @@ is refused with rc 2. ``train --prefetch N`` stages the split client's
 next batches on the device (``DevicePrefetch``); ``--require-real``
 refuses the synthetic fallback.
 
+The server under many clients, as in JAX: ``serve --coalesce-max N
+[--coalesce-window-ms W] [--batching continuous]`` coalesces concurrent
+split steps into one step a group (classifier plans; an LM plan is
+refused with rc 2), ``--tenants/--quota/--slo-ms`` turn on admission
+(429 with ``Retry-After``), ``--decouple-bwd [--apply-lag N]`` replies
+before the server's update, and ``--no-overlap`` reads the reply inside
+the lock. ``train --transport local`` takes ``--decouple-bwd``,
+``--apply-lag`` and ``--no-overlap`` for its in-process server, and
+``train --pipeline-depth W`` keeps W steps in flight
+(``PipelinedSplitClientTrainer``; the in-process server then accepts
+out-of-order steps, and over HTTP a server without
+``--allow-out-of-order`` is refused with rc 5).
+
 Not ported yet, each exiting 2 with the ROADMAP item it waits for:
-``--replicas`` above 1 (item 19), ``--pipeline-depth`` above 1 (item
-15), the ``train`` flags of :data:`TRAIN_NOT_PORTED` and the ``serve``
-flags of :data:`SERVE_NOT_PORTED`.
+``--replicas`` above 1 (item 19), the ``train`` flags of
+:data:`TRAIN_NOT_PORTED` and the ``serve`` flags of
+:data:`SERVE_NOT_PORTED`.
 """
 
 from __future__ import annotations
@@ -303,10 +316,8 @@ def _wire_error(args, density: float) -> Optional[str]:
     if args.replicas > 1:
         raise NotImplementedError(
             "not ported yet: --replicas > 1 (ROADMAP item 19)")
-    if args.pipeline_depth > 1:
-        raise NotImplementedError(
-            "not ported yet: --pipeline-depth > 1 (the pipelined client, "
-            "ROADMAP item 15)")
+    if args.pipeline_depth < 1:
+        return f"--pipeline-depth must be >= 1 (got {args.pipeline_depth})"
     if not 0.0 < density <= 1.0:
         return f"--compress-density must be in (0, 1] (got {density})"
     if args.failure_policy is not None and args.max_retries < 0:
@@ -314,11 +325,14 @@ def _wire_error(args, density: float) -> Optional[str]:
     return None
 
 
-def _make_transport(args, cfg, density: float, server: Any):
+def _make_transport(args, cfg, density: float, server: Any,
+                    depth: int = 1):
     """The client's wire: ``LocalTransport`` to the in-process server, or
     ``HttpTransport`` to ``cfg.server_url`` after its /health barrier;
     then the chaos schedule of ``--chaos`` around either. Returns
-    ``(transport, rc)``: rc 4 when the server is in another mode."""
+    ``(transport, rc)``: rc 4 when the server is in another mode, rc 5
+    when a client with ``depth`` > 1 steps in flight meets a server that
+    refuses out-of-order steps."""
     from split_learning_tpu_torch.transport import (
         ChaosPolicy, ChaosTransport, HttpTransport, LocalTransport)
     if server is not None:
@@ -336,6 +350,15 @@ def _make_transport(args, cfg, density: float, server: Any):
                   f"but this client wants {cfg.mode!r}", file=sys.stderr)
             transport.close()
             return None, 4
+        # a server predating the field is strict: refuse it too
+        if depth > 1 and info.get("strict_steps", True):
+            # fail fast: with W lanes the arrival order is a thread race,
+            # and a strict server would 409 at random mid-run
+            print(f"[transport] --pipeline-depth {depth} needs the server "
+                  "started with serve --allow-out-of-order (it reports "
+                  "strict_steps=true)", file=sys.stderr)
+            transport.close()
+            return None, 5
     if args.chaos:
         policy = ChaosPolicy(args.chaos, seed=args.chaos_seed)
         transport = ChaosTransport(transport, policy)
@@ -353,10 +376,6 @@ def _given(v: Any) -> bool:
 # exits 2 naming its item. ``--kernels`` and ``--download`` stay out by
 # design (no kernel fallback knob; no network).
 TRAIN_NOT_PORTED = (
-    ("decouple_bwd", bool, "--decouple-bwd (2BP)", "item 14"),
-    ("apply_lag", bool, "--apply-lag (2BP)", "item 14"),
-    ("no_overlap", bool, "--no-overlap (the async-dispatch escape hatch)",
-     "item 14"),
     ("num_stages", lambda v: v is not None and v > 2,
      "--stages > 2 (the K-stage chain)", "item 16"),
     ("stage_urls", _given, "--stage-urls (the K-stage chain)", "item 16"),
@@ -434,8 +453,8 @@ def cmd_train(args) -> int:
     from split_learning_tpu_torch.models import get_plan
     from split_learning_tpu_torch.runtime import (
         CircuitBreaker, FederatedClientTrainer, FusedSplitTrainer,
-        ServerRuntime, SplitClientTrainer, USplitClientTrainer, check_config,
-        check_supported)
+        PipelinedSplitClientTrainer, ServerRuntime, SplitClientTrainer,
+        USplitClientTrainer, check_config, check_supported)
     from split_learning_tpu_torch.runtime.checkpoint import (
         read_latest_extras)
     from split_learning_tpu_torch.runtime.state import state_tree
@@ -466,12 +485,22 @@ def cmd_train(args) -> int:
             cfg, args, _size_kw_from_args(args), args.seq_len)
         plan = get_plan(model=cfg.model, mode=cfg.mode, dtype=cfg.dtype,
                         **_plan_kw(cfg.model, cfg.attn, size_kw, seq_len))
+        depth = args.pipeline_depth if two_party else 1
+        if depth > 1 and cfg.mode != "split":
+            print(f"[warn] --pipeline-depth ignored in mode {cfg.mode!r} "
+                  "(split only)", file=sys.stderr)
+            depth = 1
         server = None
         if cfg.transport == "local":
             # the in-process server from the same seed: each party keeps
-            # its own stages of one init, as a fused run would start
+            # its own stages of one init, as a fused run would start; a
+            # depth-W window's steps arrive out of order
             server = ServerRuntime(plan, cfg,
                                    torch.Generator().manual_seed(cfg.seed),
+                                   strict_steps=depth <= 1,
+                                   overlap=not args.no_overlap,
+                                   decouple_bwd=args.decouple_bwd,
+                                   apply_lag=args.apply_lag,
                                    device=args.device)
         elif two_party:
             check_config(cfg)
@@ -490,6 +519,16 @@ def cmd_train(args) -> int:
             if val is not None:
                 print(f"[warn] {flag} {val!r} ignored: the fused "
                       "transport has no wire", file=sys.stderr)
+        if args.pipeline_depth > 1:
+            print(f"[warn] --pipeline-depth ignored on transport="
+                  f"{cfg.transport!r} (the in-flight window applies to the "
+                  "local/http transports; the fused step has no wire to "
+                  "overlap)", file=sys.stderr)
+        if args.decouple_bwd:
+            print(f"[warn] --decouple-bwd ignored on transport="
+                  f"{cfg.transport!r} (2BP splits the server party's reply "
+                  "from its weight update; the fused path has no server "
+                  "party)", file=sys.stderr)
     prefetch = args.prefetch
     if prefetch > 0 and (cfg.mode != "split" or not two_party):
         print(f"[warn] --prefetch ignored in mode {cfg.mode!r} (split "
@@ -498,13 +537,14 @@ def cmd_train(args) -> int:
               "nothing", file=sys.stderr)
         prefetch = 0
     fail_policy = args.failure_policy or "raise"
-    if two_party and fail_policy != "raise" and cfg.mode != "split":
+    if two_party and fail_policy != "raise" and (cfg.mode != "split"
+                                                 or depth > 1):
         print(f"[warn] --failure-policy {fail_policy} applies to the "
               "serialized split client only; ignored here", file=sys.stderr)
         fail_policy = "raise"
     if two_party:
         # the wire before the data: a server in another mode stops here
-        transport, rc = _make_transport(args, cfg, density, server)
+        transport, rc = _make_transport(args, cfg, density, server, depth)
         if rc:
             return rc
     try:
@@ -527,6 +567,19 @@ def cmd_train(args) -> int:
         trainer = FederatedClientTrainer(plan, cfg, seed_gen, transport,
                                          device=args.device)
         layout = "federated"
+    elif two_party and depth > 1:
+        factory = None
+        if server is None:
+            # one connection and one EF ledger per in-flight lane, as JAX
+            def factory():
+                from split_learning_tpu_torch.transport import HttpTransport
+                return HttpTransport(cfg.server_url,
+                                     compress=args.compress or "none",
+                                     density=density)
+        trainer = PipelinedSplitClientTrainer(
+            plan, cfg, seed_gen, transport, depth=depth,
+            transport_factory=factory, logger=logger, device=args.device)
+        layout = "split_local" if server is not None else "client_only"
     elif two_party:
         # retry clients probe /health while the server is down instead
         # of resending full steps; its jitter is seeded from the config
@@ -667,7 +720,8 @@ def cmd_train(args) -> int:
     if n_steps and dt > 0:
         logger.log_metric("steps_per_sec", n_steps / dt, step=n_steps)
     if two_party:
-        wire = transport.stats.summary()
+        # a pipelined client's lanes each count their own round trips
+        wire = (trainer.stats if depth > 1 else transport.stats).summary()
         mode = args.compress or ("none" if server is None else None)
         print(f"[transport] {cfg.transport} compress={mode} "
               f"round_trips={wire['round_trips']} "
@@ -717,18 +771,6 @@ SERVE_NOT_PORTED = (
     ("role", lambda v: v != "server",
      "--role stage (a stage party of the K-stage chain)", "item 16"),
     ("remat", bool, "--remat", "item 16"),
-    ("coalesce_max", lambda v: v > 1,
-     "--coalesce-max > 1 (request coalescing)", "item 14"),
-    ("batching", lambda v: v != "window",
-     "--batching continuous (continuous batching)", "item 14"),
-    ("tenants", lambda v: v > 1, "--tenants > 1 (admission control)",
-     "item 14"),
-    ("quota", _given, "--quota (admission control)", "item 14"),
-    ("slo_ms", _given, "--slo-ms (admission control)", "item 14"),
-    ("no_overlap", bool, "--no-overlap (the async-dispatch escape hatch)",
-     "item 14"),
-    ("decouple_bwd", bool, "--decouple-bwd (2BP)", "item 14"),
-    ("apply_lag", bool, "--apply-lag (2BP)", "item 14"),
     ("mesh_data", lambda v: v > 1, "--mesh-data > 1 (a sharded server)",
      "item 18"),
     ("mesh_model", lambda v: v > 1, "--mesh-model > 1 (a sharded server)",
@@ -895,6 +937,12 @@ def cmd_serve(args) -> int:
         runtime = ServerRuntime(
             plan, cfg, torch.Generator().manual_seed(cfg.seed),
             strict_steps=not args.allow_out_of_order,
+            coalesce_max=args.coalesce_max,
+            coalesce_window_ms=args.coalesce_window_ms,
+            overlap=not args.no_overlap,
+            batching=args.batching,
+            tenants=args.tenants, quota=args.quota, slo_ms=args.slo_ms,
+            decouple_bwd=args.decouple_bwd, apply_lag=args.apply_lag,
             ef_mode="clapping" if args.compress == "clapping" else "topk8",
             device=args.device)
         chaos = (ChaosPolicy(args.chaos, seed=args.chaos_seed)
@@ -1244,13 +1292,55 @@ def _add_shared(p: argparse.ArgumentParser) -> None:
                         "seed give the same faults at the same steps)")
 
 
+def _add_server_knobs(p: argparse.ArgumentParser, serve: bool) -> None:
+    """The server party's knobs of the many-clients slice: the in-process
+    server's on ``train --transport local``, the HTTP server's on
+    ``serve`` (which adds coalescing and admission)."""
+    if serve:
+        p.add_argument("--coalesce-max", dest="coalesce_max", type=int,
+                       default=1,
+                       help="split mode, classifier plans: run up to N "
+                            "concurrent split steps as one server step "
+                            "(one group-mean update); 1 = serialized")
+        p.add_argument("--coalesce-window-ms", dest="coalesce_window_ms",
+                       type=float, default=2.0,
+                       help="how long a group waits for peers after its "
+                            "first request (with --coalesce-max > 1)")
+        p.add_argument("--batching", choices=["window", "continuous"],
+                       default="window",
+                       help="the coalescer's flush policy: 'window' waits "
+                            "out --coalesce-window-ms; 'continuous' takes "
+                            "what is queued the moment the previous group "
+                            "is launched, earliest deadline first")
+        p.add_argument("--tenants", type=int, default=1,
+                       help="admission control: clients map to tenants by "
+                            "client_id %% tenants")
+        p.add_argument("--quota", type=float, default=None,
+                       help="admission control: steps/s per tenant (token "
+                            "bucket, burst one second of quota); over "
+                            "quota a step gets 429 + Retry-After")
+        p.add_argument("--slo-ms", dest="slo_ms", type=float, default=None,
+                       help="admission control: a tenant's latency SLO; "
+                            "the continuous batcher picks groups earliest-"
+                            "deadline-first")
+    where = "" if serve else "local transport: "
+    p.add_argument("--no-overlap", dest="no_overlap", action="store_true",
+                   help=f"{where}read the step's reply (the loss, a host "
+                        "copy) inside the server's lock")
+    p.add_argument("--decouple-bwd", dest="decouple_bwd",
+                   action="store_true",
+                   help=f"split mode, {where}2BP: reply with the cut "
+                        "gradient first and queue the server's weight "
+                        "update behind it")
+    p.add_argument("--apply-lag", dest="apply_lag", type=int, default=0,
+                   help="with --decouple-bwd: up to N updates may queue, "
+                        "so a step's forward uses weights at most N "
+                        "updates old; 0 applies each before the next step")
+
+
 def _add_train_not_ported(p: argparse.ArgumentParser) -> None:
     """JAX's ``train`` flags that exit 2 here (:data:`TRAIN_NOT_PORTED`;
     ``--tracking-uri`` and ``--remat`` are shared)."""
-    p.add_argument("--decouple-bwd", dest="decouple_bwd",
-                   action="store_true")
-    p.add_argument("--apply-lag", dest="apply_lag", type=int, default=0)
-    p.add_argument("--no-overlap", dest="no_overlap", action="store_true")
     p.add_argument("--stages", dest="num_stages", type=int, default=None)
     p.add_argument("--stage-urls", dest="stage_urls", default=None)
     p.add_argument("--schedule", choices=["gpipe", "1f1b"], default=None)
@@ -1290,19 +1380,6 @@ def _add_serve_not_ported(p: argparse.ArgumentParser) -> None:
     """JAX's ``serve`` flags that exit 2 here (:data:`SERVE_NOT_PORTED`)."""
     p.add_argument("--role", choices=["server", "stage"], default="server")
     p.add_argument("--stage-index", dest="stage_index", type=int, default=1)
-    p.add_argument("--coalesce-max", dest="coalesce_max", type=int,
-                   default=1)
-    p.add_argument("--coalesce-window-ms", dest="coalesce_window_ms",
-                   type=float, default=2.0)
-    p.add_argument("--batching", choices=["window", "continuous"],
-                   default="window")
-    p.add_argument("--tenants", type=int, default=1)
-    p.add_argument("--quota", type=float, default=None)
-    p.add_argument("--slo-ms", dest="slo_ms", type=float, default=None)
-    p.add_argument("--no-overlap", dest="no_overlap", action="store_true")
-    p.add_argument("--decouple-bwd", dest="decouple_bwd",
-                   action="store_true")
-    p.add_argument("--apply-lag", dest="apply_lag", type=int, default=0)
     p.add_argument("--mesh-data", dest="mesh_data", type=int, default=1)
     p.add_argument("--mesh-model", dest="mesh_model", type=int, default=1)
     p.add_argument("--replicas", type=int, default=1)
@@ -1363,7 +1440,10 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
                     help="server replicas (only 1 is ported)")
     pt.add_argument("--pipeline-depth", dest="pipeline_depth", type=int,
                     default=1,
-                    help="steps in flight (only 1 is ported)")
+                    help="split mode, local/http transports: keep up to N "
+                         "cut-layer exchanges in flight (bounded-staleness "
+                         "async SGD; an http server needs "
+                         "--allow-out-of-order when N > 1)")
     pt.add_argument("--prefetch", type=int, default=0,
                     help="split mode: stage the next N batches on the "
                          "device while the current step is in flight "
@@ -1385,6 +1465,7 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
                     help="per-step span tracing (obs/): write a Chrome-"
                          "trace JSON here on exit (Perfetto-loadable). "
                          "Off = zero overhead")
+    _add_server_knobs(pt, serve=False)
     _add_train_not_ported(pt)
     pt.set_defaults(fn=cmd_train)
 
@@ -1407,6 +1488,7 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
                     default=100,
                     help="checkpoint the server half every N acknowledged "
                          "steps (with --checkpoint-dir)")
+    _add_server_knobs(ps, serve=True)
     _add_serve_not_ported(ps)
     ps.set_defaults(fn=cmd_serve)
 

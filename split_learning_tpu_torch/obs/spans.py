@@ -29,6 +29,24 @@ D2H = "d2h"
 # SLT_LOCK_DEBUG=1, by obs/locks.py InstrumentedLock
 LOCK_HOLD = "lock_hold"
 
+# -- admission control (runtime/admission.py): metrics-only counter and
+# gauge names (never trace spans: admission happens before a request has
+# a trace); render_prometheus adds the slt_ prefix ------------------- #
+ADMISSION_ADMITTED = "admission_admitted"
+ADMISSION_REJECTED = "admission_rejected"
+ADMISSION_QUEUE_DEPTH = "admission_queue_depth"
+
+# -- the decoupled backward (2BP, runtime/server.py) ------------------- #
+# reply_grad: the client-visible reply window of a decoupled server, from
+# the reply's launch (forward + the gradient of the activations only) to
+# the reply in the caller's hands; recorded only with decouple_bwd on
+REPLY_GRAD = "reply_grad"
+# deferred_apply: one drained weight update (the gradient of the weights
+# at the reply's parameters + the optimizer step), off the reply's path.
+# Like lock_hold it never tiles a step next to ``dispatch``: a lag-0
+# drain runs inside the same lock window
+DEFERRED_APPLY = "deferred_apply"
+
 # the client-level phases that tile a step: the denominator of the
 # compute-vs-wire fraction (queue_wait/dispatch belong to the server
 # party; counting them would double-book)
@@ -41,3 +59,6 @@ SERVER_PHASES = (QUEUE_WAIT, DISPATCH, D2H)
 # ENCODE and WIRE
 ALL_SPANS = (CLIENT_FWD, TRANSPORT, CLIENT_BWD, OPT_APPLY, STEP_TOTAL,
              QUEUE_WAIT, DISPATCH, D2H)
+
+# what a decoupled server records besides
+DECOUPLED_SPANS = (REPLY_GRAD, DEFERRED_APPLY)

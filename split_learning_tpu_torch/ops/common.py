@@ -74,6 +74,7 @@ class LaunchCounts:
 LAUNCHES = LaunchCounts()
 
 _LOADED: Dict[str, Dict[str, ctypes.CDLL]] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -100,7 +101,15 @@ def _sources_digest() -> str:
 def load_kernels() -> Dict[str, ctypes.CDLL]:
     """Build (if needed) and load every ``csrc/*.cu``; ``{stem: CDLL}``.
 
-    Raises ``RuntimeError`` when there is no ``nvcc`` or a build fails."""
+    Raises ``RuntimeError`` when there is no ``nvcc`` or a build fails.
+    Threads of one process build once: the first call may come from any
+    of them (a coalescing server's flusher, HTTP handlers, client lanes),
+    and builds write their objects under the process's id."""
+    with _LOAD_LOCK:
+        return _load_kernels()
+
+
+def _load_kernels() -> Dict[str, ctypes.CDLL]:
     digest = _sources_digest()
     if digest in _LOADED:
         return _LOADED[digest]

@@ -14,6 +14,11 @@ kernels; on a CPU tensor it returns the plain ``cross_entropy``.
 The function's own forward and backward also accept CPU tensors, where
 they run :func:`ce_forward_plain` and :func:`ce_backward_plain`, the
 plain PyTorch versions of the kernels' math.
+
+:func:`cross_entropy_rows` is the same pair of kernels for a caller that
+also needs each row's loss (the coalescing server, which hands every
+client the mean of its own rows): the forward's row log-sum-exp comes
+out of the function, and a row's loss is ``lse - logits[row, label]``.
 """
 
 from __future__ import annotations
@@ -173,6 +178,45 @@ class CrossEntropyFunction(torch.autograd.Function):
         else:
             grad = ce_backward_plain(logits, labels, lse, g)
         return grad, None
+
+
+class CrossEntropyRowsFunction(torch.autograd.Function):
+    """:class:`CrossEntropyFunction` that also returns the forward's row
+    log-sum-exp ``[N]`` (float32, no gradient). The same launches: one
+    forward, and one backward when the mean is differentiated."""
+
+    @staticmethod
+    def forward(ctx, logits: torch.Tensor, labels: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        _check_inputs(logits, labels)
+        if _on_cuda(logits):
+            loss, lse = ce_forward_cuda(logits, labels)
+        else:
+            loss, lse = ce_forward_plain(logits, labels)
+        ctx.save_for_backward(logits, labels, lse)
+        ctx.mark_non_differentiable(lse)
+        return loss, lse
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor, g_lse: torch.Tensor):
+        del g_lse  # the row LSE carries no gradient
+        return CrossEntropyFunction.backward(ctx, g)
+
+
+def cross_entropy_rows(logits: torch.Tensor, labels: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mean softmax CE of logits ``[N, C]`` and labels ``[N]``
+    (differentiable; K1's forward and backward on a CUDA tensor, their
+    plain versions on a CPU one) and each row's loss ``[N]`` (float32,
+    detached): ``lse - logits[row, label]``, NaN for a label outside
+    ``[0, C)`` as in the forward kernel. The mean over any set of rows'
+    losses is that set's own mean loss."""
+    loss, lse = CrossEntropyRowsFunction.apply(logits, labels)
+    x = logits.detach().float()
+    y = labels.long()
+    ok = (y >= 0) & (y < x.shape[1])
+    x_y = x.gather(1, torch.where(ok, y, 0).unsqueeze(1)).squeeze(1)
+    return loss, torch.where(ok, lse - x_y, torch.nan)
 
 
 def fused_cross_entropy(logits: torch.Tensor, labels: torch.Tensor

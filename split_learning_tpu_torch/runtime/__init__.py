@@ -1,7 +1,10 @@
+from split_learning_tpu_torch.runtime.admission import AdmissionController
 from split_learning_tpu_torch.runtime.breaker import CircuitBreaker
 from split_learning_tpu_torch.runtime.client import (
     FailurePolicy, FederatedClientTrainer, SplitClientTrainer, StepRecord,
     USplitClientTrainer)
+from split_learning_tpu_torch.runtime.coalesce import (
+    ContinuousBatcher, RequestCoalescer)
 from split_learning_tpu_torch.runtime.evaluate import (
     evaluate, evaluate_remote, split_client_stages)
 from split_learning_tpu_torch.runtime.fused import (
@@ -11,6 +14,8 @@ from split_learning_tpu_torch.runtime.generate import (
 from split_learning_tpu_torch.runtime.multi_client import (
     MultiClientSplitRunner)
 from split_learning_tpu_torch.runtime.party import ProtocolError
+from split_learning_tpu_torch.runtime.pipelined_client import (
+    PipelinedSplitClientTrainer)
 from split_learning_tpu_torch.runtime.replay import ReplayCache
 from split_learning_tpu_torch.runtime.server import (
     FedAvgAggregator, ServerRuntime)
@@ -21,10 +26,12 @@ from split_learning_tpu_torch.runtime.state import (
     fedavg_mean, init_params, leaves_of, make_lr, make_state, make_tx,
     restore_state, sgd, state_tree)
 
-__all__ = ["Checkpointer", "CircuitBreaker", "FailurePolicy",
+__all__ = ["AdmissionController", "Checkpointer", "CircuitBreaker",
+           "ContinuousBatcher", "FailurePolicy",
            "FedAvgAggregator", "ForeignCheckpointError",
            "FederatedClientTrainer", "FusedSplitTrainer",
-           "MultiClientSplitRunner", "ProtocolError", "ReplayCache", "SGD",
+           "MultiClientSplitRunner", "PipelinedSplitClientTrainer",
+           "ProtocolError", "ReplayCache", "RequestCoalescer", "SGD",
            "ServerRuntime", "SplitClientTrainer", "StepRecord", "TrainState",
            "USplitClientTrainer", "check_config", "check_supported",
            "compressed_sync_contribution", "evaluate", "evaluate_remote",

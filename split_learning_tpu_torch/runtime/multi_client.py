@@ -182,10 +182,10 @@ class MultiClientSplitRunner:
 
     def _flush_server_halves(self) -> None:
         """Flush each in-process server's deferred applies before a sync
-        (``flush_deferred``, the decoupled backward), reached through the
-        transports (unwrapping ``.inner``). The port's servers apply every
-        step before replying (the decoupled backward is ROADMAP item 14),
-        so this finds nothing to flush on them."""
+        (``flush_deferred``: a decoupled server's state may be up to
+        ``apply_lag`` updates behind the replies its clients hold),
+        reached through the transports (unwrapping ``.inner``); each
+        server once."""
         seen = set()
         for c in self.clients:
             t = getattr(c, "transport", None)

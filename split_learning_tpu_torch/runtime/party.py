@@ -12,6 +12,15 @@ What is here, each as in JAX:
   compressed wire modes, and :meth:`note_wire_compression`, which folds
   the transports' byte counts into the ``wire_compression_ratio`` gauge;
 - :meth:`_check_batch_rows`, the shape check of an incoming batch;
+- multi-tenant admission (``tenants``, ``quota``, ``slo_ms``): an
+  :class:`~split_learning_tpu_torch.runtime.admission.AdmissionController`,
+  built only when a knob is set;
+- the deferred-apply queue of the decoupled backward (2BP),
+  :class:`_DeferredApply`, which a decoupled server installs, and the
+  barriers that flush it before the state is read:
+  :meth:`flush_deferred`, :meth:`export_state`, :meth:`checkpoint` (and
+  the sidecar's capture) and :meth:`close`; :meth:`resume_from` drops it
+  instead (its entries are gradients of the pre-restore lineage);
 - checkpoints, as in JAX: :meth:`PartyRuntime.export_state` (the
   caught-up state), :meth:`PartyRuntime.export_runtime_extras` (the
   checksummed sidecar with the replay cache and the ``wire_ef`` ledger,
@@ -31,20 +40,20 @@ What is here, each as in JAX:
 - the shared health/metrics folds and :meth:`close`.
 
 The protocol ops themselves (the split step, the U-shaped hops,
-FedAvg) live on ``ServerRuntime`` (``runtime/server.py``). What waits,
-raising ``NotImplementedError`` naming its ROADMAP item: a device mesh
-(item 18), the deferred-apply queue of the decoupled backward (item 14)
-and multi-tenant admission (item 14).
+FedAvg) live on ``ServerRuntime`` (``runtime/server.py``). A device
+mesh (ROADMAP item 18) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import time
+from collections import deque
 from typing import Any, Callable, Dict, Optional, Tuple
 
 from split_learning_tpu_torch.obs import locks as obs_locks
 from split_learning_tpu_torch.obs.metrics import Registry
 from split_learning_tpu_torch.runtime import checkpoint as ckpt
+from split_learning_tpu_torch.runtime.admission import AdmissionController
 from split_learning_tpu_torch.runtime.replay import ReplayCache
 from split_learning_tpu_torch.runtime.state import (
     TrainState, restore_state, state_tree)
@@ -77,9 +86,6 @@ class PartyRuntime:
                  ef_mode: str = "topk8") -> None:
         if mesh is not None:
             raise not_ported("a sharded party (mesh)", "item 18")
-        if tenants > 1 or quota is not None or slo_ms is not None:
-            raise not_ported("multi-tenant admission (tenants, quota, "
-                             "slo_ms)", "item 14")
         self.cfg = cfg
         self.party = str(party)
         self._metrics = Registry()
@@ -90,6 +96,15 @@ class PartyRuntime:
         self.replay: Optional[ReplayCache] = (
             ReplayCache(window=replay_window) if replay_window > 0
             else None)
+        # the admission layer: built only when a knob is set, so other
+        # parties pay nothing
+        self._admission: Optional[AdmissionController] = None
+        if tenants > 1 or quota is not None or slo_ms is not None:
+            self._admission = AdmissionController(
+                tenants=tenants, quota=quota, slo_ms=slo_ms)
+        # the deferred-apply queue (2BP): a decoupled server installs
+        # one; None makes every barrier below a no-op
+        self._deferred: Optional[_DeferredApply] = None
         # reply-direction error feedback for the compressed wire modes,
         # keyed (client_id, op) by the transports; "clapping" is the
         # storage-free ledger (same selection, nothing exported)
@@ -118,12 +133,25 @@ class PartyRuntime:
     def _post_resume_hook(self) -> None:
         """Reset any protocol machinery beyond the shared pieces."""
 
-    # -- checkpoints ------------------------------------------------------ #
+    # -- barriers and checkpoints --------------------------------------- #
+    def flush_deferred(self) -> int:
+        """Apply every queued deferred update now, in step order, and
+        return how many were applied (0 on a coupled party). For callers
+        about to read the state as if training were caught up
+        (``MultiClientSplitRunner.sync_bottoms``); safe from any thread
+        and from under the runtime lock (reentrant)."""
+        if self._deferred is None:
+            return 0
+        return self._deferred.flush()
+
     def export_state(self) -> TrainState:
-        """The state to checkpoint. Every reply's update landed before
-        the reply left (no deferred applies are ported), so this is
-        ``self.state``: live tensors, which the checkpointer snapshots."""
+        """The state to checkpoint: the deferred-apply queue is flushed
+        first (a decoupled party's live state may be up to ``apply_lag``
+        updates behind the replies it sent), then ``self.state``, live
+        tensors, which the checkpointer snapshots."""
         with self._lock:
+            if self._deferred is not None:
+                self._deferred.flush()
             return self.state
 
     def capture_runtime_extras(self, step: int
@@ -133,8 +161,12 @@ class PartyRuntime:
         (by reference: entries and residuals are replaced, never updated
         in place) and a lineage number assigned under the lock; the
         returned callable encodes and checksums them (host copies, base64)
-        off it, on the checkpointer's writer thread."""
+        off it, on the checkpointer's writer thread. The deferred-apply
+        queue is flushed first, under the same lock: the sidecar describes
+        the caught-up instant the state beside it does."""
         with self._lock:
+            if self._deferred is not None:
+                self._deferred.flush()
             self._ckpt_lineage += 1
             lineage = self._ckpt_lineage
             replay = (self.replay.export_state()
@@ -159,7 +191,8 @@ class PartyRuntime:
         what the lock is held for, the write happens off it
         (``Checkpointer.save_once``). Returns whether a save was made."""
         with self._lock:
-            return ckptr.save_once(step, {key: state_tree(self.state)},
+            tree = {key: state_tree(self.export_state())}
+            return ckptr.save_once(step, tree,
                                    extras=self.capture_runtime_extras(step))
 
     def resume_from(self, state: Any, step: int,
@@ -180,6 +213,10 @@ class PartyRuntime:
         use_extras = (extras is not None and ckpt.extras_valid(extras)
                       and extras["step"] == int(step))
         with self._lock:
+            if self._deferred is not None:
+                # drop, not flush: the queued updates are gradients of
+                # the pre-restore lineage
+                self._deferred.clear()
             if state is not self.state:
                 restore_state(self.state, state if isinstance(state, dict)
                               else state_tree(state))
@@ -205,10 +242,16 @@ class PartyRuntime:
                                          int(extras["lineage"]))
             self._post_resume_hook()
 
+    def _close_hook(self) -> None:
+        """Drain party machinery (the server's coalescer) before the
+        deferred queue: its last groups queue applies of their own."""
+
     def close(self) -> None:
-        """Nothing is queued on a serialized party (no coalescer, no
-        deferred applies): every reply's update landed before it was
-        returned."""
+        """Drain, never drop: the replies of queued steps have left, so a
+        clean shutdown lands their updates."""
+        self._close_hook()
+        if self._deferred is not None:
+            self._deferred.flush()
 
     # -- wire compression + replay hooks (transports) ------------------- #
     def note_wire_compression(self, raw_bytes: int, wire_bytes: int) -> None:
@@ -249,6 +292,16 @@ class PartyRuntime:
     def _fold_shared_metrics(self, snap: Dict[str, Any]) -> None:
         snap["gauges"]["uptime_seconds"] = float(
             time.monotonic() - self._t_start)
+        if self._admission is not None:
+            for k, v in self._admission.counters().items():
+                snap["counters"][k] = float(v)
+            snap["gauges"].update(self._admission.gauges())
+        if self._deferred is not None:
+            dc = self._deferred.counters()
+            snap["gauges"]["deferred_apply_depth"] = float(
+                dc.pop("deferred_apply_depth"))
+            for k, v in dc.items():
+                snap["counters"][f"{k}_total"] = float(v)
         if self.replay is not None:
             rc = self.replay.counters()
             snap["gauges"]["replay_cache_size"] = float(
@@ -258,9 +311,79 @@ class PartyRuntime:
 
 
 class _DeferredApply:
-    """The step-ordered queue of deferred weight updates of the
-    decoupled backward (2BP): not ported yet."""
+    """Step-ordered queue of pending weight updates (2BP; JAX's).
 
-    def __init__(self, *args: Any, **kwargs: Any) -> None:
-        raise not_ported("the deferred-apply queue (decouple_bwd, "
-                         "apply_lag)", "item 14")
+    The reply path pushes one entry per dispatch (a single step or a
+    whole coalesced group) in lock order, which is the order the updates
+    apply in, and entries drain strictly FIFO, each through ``apply_fn``.
+    Every method takes the owning runtime's (reentrant) lock: on the step
+    path, where it is held, push and drain are atomic with the reply that
+    produced them; from barrier callers on other threads, ``flush``
+    serialises against steps in flight. An entry leaves the deque exactly
+    when it is applied (popped before the apply, so a failed apply is
+    never retried: its reply has left).
+
+    ``lag`` bounds staleness: ``drain_over_lag`` (after every reply,
+    under the lock) applies the oldest entries until at most ``lag``
+    remain, so a forward at step t runs on weights at most ``lag``
+    updates old."""
+
+    def __init__(self, apply_fn: Callable[[Dict[str, Any]], None],
+                 lag: int, lock: Any) -> None:
+        self._apply = apply_fn
+        self.lag = int(lag)
+        self._lock = lock
+        self._q: "deque[Dict[str, Any]]" = deque()
+        self._enqueued = 0
+        self._applied = 0
+        self._flushes = 0
+
+    def push(self, entry: Dict[str, Any]) -> None:
+        with self._lock:
+            self._q.append(entry)
+            self._enqueued += 1
+
+    def pending(self) -> list:
+        """The queued entries, oldest first (under the caller's lock)."""
+        with self._lock:
+            return list(self._q)
+
+    def drain_over_lag(self) -> int:
+        """Apply the oldest entries until depth <= lag."""
+        return self._drain(limit_to_lag=True)
+
+    def flush(self) -> int:
+        """Apply everything queued (the state-export barrier)."""
+        return self._drain(limit_to_lag=False)
+
+    def _drain(self, limit_to_lag: bool) -> int:
+        n = 0
+        with self._lock:
+            floor = self.lag if limit_to_lag else 0
+            while len(self._q) > floor:
+                entry = self._q.popleft()
+                self._apply(entry)
+                self._applied += 1
+                n += 1
+            if n:
+                self._flushes += 1
+        return n
+
+    def clear(self) -> int:
+        """Drop everything queued without applying it (``resume_from``
+        only). Returns how many were dropped."""
+        with self._lock:
+            n = len(self._q)
+            self._q.clear()
+            return n
+
+    def depth(self) -> int:
+        with self._lock:
+            return len(self._q)
+
+    def counters(self) -> Dict[str, int]:
+        with self._lock:
+            return {"deferred_apply_depth": len(self._q),
+                    "deferred_enqueued": self._enqueued,
+                    "deferred_applied": self._applied,
+                    "deferred_flushes": self._flushes}

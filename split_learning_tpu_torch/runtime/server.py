@@ -44,21 +44,58 @@ FedAvg reply is always host numpy.
 
 The lock covers the handshake and the launch of the step; the reply is
 materialised (the loss read, a host copy for a numpy caller) after it
-is released, as JAX's ``overlap`` default does. ``aggregate`` waits for
-its round outside the lock: waiting under it would deadlock concurrent
-clients. The parameters are updated in place, and a later step's
-kernels queue behind this one's on the same stream, so nothing reads
-them early.
+is released, as JAX's ``overlap`` default does (``overlap=False``, the
+``--no-overlap`` escape hatch, reads it inside the lock). ``aggregate``
+waits for its round outside the lock: waiting under it would deadlock
+concurrent clients. The parameters are updated in place, and a later
+step's kernels queue behind this one's on the same stream, so nothing
+reads them early.
+
+The server under many clients (BASELINE config 3), split mode only, as
+in JAX:
+
+- **Request coalescing** (``coalesce_max > 1``; ``batching`` ``"window"``
+  or ``"continuous"``, :mod:`runtime.coalesce`): concurrent split steps
+  of one shape wait in a queue, and a flusher thread runs each group as
+  one step (:meth:`ServerRuntime._dispatch_group`) over the concatenated
+  rows: one K1 forward, one K1 backward and one update (K2 under SGD) a
+  group, where G serialized clients cost G of each. The port compiles
+  nothing, so a group is not padded: the mean of K1 over the group's
+  real rows is JAX's group objective (its weights are 1/total on real
+  rows, 0 on padding), each client gets its rows of the cut gradient
+  times ``total / rows`` and the mean of its own rows' losses
+  (:func:`~split_learning_tpu_torch.ops.cross_entropy.cross_entropy_rows`).
+  ``compile_count`` still counts JAX's pow2 signatures, so /health reads
+  as JAX's does for the same arrivals. The flusher only launches; the
+  group's one host read (the row losses) is made by the first waiter
+  (:class:`_GroupD2H`). A failure in the flusher reaches each waiting
+  client as its error. Classifier plans only: JAX's group step cannot
+  run the causal LM (its per-token losses ``[B, T]`` meet weights
+  ``[B]``), so an LM plan with ``coalesce_max > 1`` is refused.
+- **Admission** (``tenants``, ``quota``, ``slo_ms``;
+  :mod:`runtime.admission`): an over-quota step raises ``Backpressure``
+  (429 with ``Retry-After`` over HTTP) before it touches the state, and
+  an admitted one carries its EDF deadline into the continuous batcher.
+- **The decoupled backward** (2BP; ``decouple_bwd``, ``apply_lag``): the
+  reply is the gradient of the activations only (the forward, K1's pair,
+  no weight gradient), and the step's update is queued
+  (:class:`~split_learning_tpu_torch.runtime.party._DeferredApply`) and
+  drained after the reply, at most ``apply_lag`` entries behind. The
+  deferred apply differentiates the loss with respect to the parameters
+  its reply used, then updates the live state. The updates are in
+  place, so the parameters a queued entry used are kept copy-on-write:
+  an apply about to mutate tensors that a queued entry still references
+  first gives those entries a clone. At lag 0 the apply drains in the
+  reply's lock window and nothing is cloned. A 2BP step on the split
+  CNN under SGD launches K1's forward and backward twice and K2 once.
 
 Checkpoints (``runtime/party.py``): ``on_step(acked)`` runs under the
 lock after each op that updates the state, as in JAX; ``resume_from``
 re-arms the handshake so the next accepted op is at the restored step
 or later, and drops the U-shaped residuals and a partial FedAvg round.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: request coalescing (``coalesce_max > 1``) and multi-tenant
-admission (``tenants``, ``quota``, ``slo_ms``), item 14; the decoupled
-backward (``decouple_bwd``, ``apply_lag``), item 14; a ``mesh``, item 18.
+Not ported yet: a ``mesh`` (ROADMAP item 18), which raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -78,9 +115,13 @@ from split_learning_tpu_torch.core.stage import (
 from split_learning_tpu_torch.interop import params_from_jax, params_to_jax
 from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.obs import trace as obs_trace
-from split_learning_tpu_torch.ops.cross_entropy import fused_cross_entropy
+from split_learning_tpu_torch.models.transformer import LMHeadStage
+from split_learning_tpu_torch.ops.cross_entropy import (
+    cross_entropy_rows, fused_cross_entropy)
+from split_learning_tpu_torch.runtime.coalesce import (
+    CoalesceRequest, RequestCoalescer, pow2_bucket)
 from split_learning_tpu_torch.runtime.party import (
-    PartyRuntime, ProtocolError, not_ported)
+    PartyRuntime, ProtocolError, _DeferredApply)
 from split_learning_tpu_torch.runtime.state import (
     adopt_params, check_config, fedavg_mean, init_params, make_state,
     make_tx)
@@ -96,12 +137,19 @@ def _rows(x: Any) -> int:
     return int(shape[0]) if shape else 0
 
 
-def _reply_like(value: torch.Tensor, request: Any) -> Any:
+def _reply_like(value: Any, request: Any) -> Any:
     """``value`` in the kind of ``request``: numpy for a numpy request, a
     tensor on the request's device otherwise."""
+    if not isinstance(value, torch.Tensor):
+        return value  # already on the host
     if isinstance(request, torch.Tensor):
         return value.to(request.device)
     return to_host(value)
+
+
+def _is_lm(stage: Any) -> bool:
+    """Whether a stage ends in the causal LM's per-token head."""
+    return any(isinstance(m, LMHeadStage) for m in stage.module.modules())
 
 
 def _shape_key(a: Any) -> str:
@@ -120,7 +168,14 @@ class ServerRuntime(PartyRuntime):
     plan (see :func:`~split_learning_tpu_torch.runtime.state.init_params`);
     the server keeps its own stage, or in federated mode the whole
     composition. ``sample_input`` keeps the JAX signature. ``device``
-    defaults to ``"cuda"`` and raises without a GPU."""
+    defaults to ``"cuda"`` and raises without a GPU.
+
+    The knobs of the server under many clients take JAX's names and
+    checks: ``coalesce_max`` (> 1 turns coalescing on; split mode,
+    classifier plans), ``coalesce_window_ms``, ``batching`` (``"window"``
+    or ``"continuous"``, which needs ``coalesce_max >= 2``), ``tenants``,
+    ``quota``, ``slo_ms``, ``decouple_bwd`` (split mode), ``apply_lag``
+    (>= 0, > 0 only with ``decouple_bwd``) and ``overlap``."""
 
     # bounds on residuals awaiting their hop-2 u_backward: per client
     # (FIFO: one client's backlog never evicts another's live residual)
@@ -133,7 +188,10 @@ class ServerRuntime(PartyRuntime):
                  init: Union[torch.Generator, Sequence[Params]],
                  sample_input: Any = None, strict_steps: bool = True,
                  coalesce_max: int = 1,
+                 coalesce_window_ms: float = 2.0,
                  replay_window: int = 8,
+                 overlap: bool = True,
+                 batching: str = "window",
                  tenants: int = 1,
                  quota: Optional[Any] = None,
                  slo_ms: Optional[Any] = None,
@@ -142,12 +200,6 @@ class ServerRuntime(PartyRuntime):
                  mesh: Optional[Any] = None,
                  ef_mode: str = "topk8",
                  device: DeviceLike = "cuda") -> None:
-        if coalesce_max > 1:
-            raise not_ported("request coalescing (coalesce_max > 1)",
-                             "item 14")
-        if decouple_bwd or apply_lag:
-            raise not_ported("the decoupled backward (decouple_bwd, "
-                             "apply_lag)", "item 14")
         super().__init__(cfg, party="server",
                          lock_name="ServerRuntime._lock", mesh=mesh,
                          replay_window=replay_window, tenants=tenants,
@@ -158,6 +210,34 @@ class ServerRuntime(PartyRuntime):
         self.plan = plan
         self.mode = cfg.mode
         self.strict_steps = strict_steps
+        self.overlap = bool(overlap)
+        if coalesce_max > 1 and cfg.mode != "split":
+            raise ValueError(
+                f"coalesce_max={coalesce_max} is split-mode only (the "
+                "batched group step computes the loss server-side); mode "
+                f"is {cfg.mode!r}")
+        if batching not in ("window", "continuous"):
+            raise ValueError(
+                f"batching must be 'window' or 'continuous' "
+                f"(got {batching!r})")
+        if batching == "continuous" and coalesce_max < 2:
+            raise ValueError(
+                "continuous batching runs inside the coalescer: raise "
+                f"coalesce_max to >= 2 (got {coalesce_max})")
+        self.batching = batching
+        self.decouple_bwd = bool(decouple_bwd)
+        self.apply_lag = int(apply_lag)
+        if self.apply_lag < 0:
+            raise ValueError(f"apply_lag must be >= 0 (got {apply_lag})")
+        if self.apply_lag > 0 and not self.decouple_bwd:
+            raise ValueError(
+                f"apply_lag={apply_lag} needs decouple_bwd=True (the "
+                "deferred-apply queue only exists on a decoupled server)")
+        if self.decouple_bwd and cfg.mode != "split":
+            raise ValueError(
+                "decouple_bwd is split-mode only (the reply/apply split "
+                "decouples the classic split step, where the server "
+                f"computes the loss); mode is {cfg.mode!r}")
         # per-client step handshake: the last acknowledged step, and the
         # floor below which no client's step is accepted
         self._last_step: Dict[int, int] = {}
@@ -189,6 +269,25 @@ class ServerRuntime(PartyRuntime):
             self.state = make_state(
                 init_params(plan, init, self.device, (self.server_stage,)),
                 self._tx)
+            if coalesce_max > 1 and _is_lm(self._stage):
+                raise ValueError(
+                    "request coalescing takes classifier plans only: the "
+                    "reference's group step multiplies per-token losses "
+                    "[B, T] by per-example weights [B], which fails to "
+                    "broadcast or, where it broadcasts, scales the "
+                    "gradient by T; serve the causal LM with "
+                    "coalesce_max=1 (2BP and the pipelined client run it)")
+        self._coalescer: Optional[RequestCoalescer] = None
+        if self.decouple_bwd:
+            self._deferred = _DeferredApply(self._apply_deferred_entry,
+                                            self.apply_lag, self._lock)
+        if coalesce_max > 1:
+            # the distinct pow2 group signatures JAX would compile: the
+            # compile_count counter /health reports
+            self._coalesce_shapes: set = set()
+            self._coalescer = RequestCoalescer(
+                self._dispatch_group, coalesce_max,
+                coalesce_window_ms / 1e3, mode=batching)
         # the U-shaped step's residuals: the trunk input of (client, step)
         self._u_residual: Dict[Tuple[int, int], torch.Tensor] = {}
         # called under the lock with the acknowledged step after every
@@ -272,30 +371,269 @@ class ServerRuntime(PartyRuntime):
         times: List[float] = []
 
         def run() -> Tuple[Any, float]:
-            t_q0 = time.perf_counter() if tr is not None else 0.0
-            with self._lock:
-                t_d0 = time.perf_counter() if tr is not None else 0.0
-                self._check_step(step, client_id)
-                self._check_batch_rows(_rows(activations), _rows(labels))
-                g_acts, loss = self._step(
-                    self._to_dev(activations),
-                    self._to_dev(labels, torch.int64))
-                # max(): with strict_steps off steps may arrive out of
-                # order; the acknowledged step never regresses
-                self._last_step[client_id] = max(
-                    self._last_step.get(client_id, -1), step)
-                if self.on_step is not None:
-                    self.on_step(self._last_step[client_id])
-                t_d1 = time.perf_counter() if tr is not None else 0.0
-            times[:] = [t_q0, t_d0, t_d1]
-            # off the lock: the loss read waits for the step's kernels
-            return _reply_like(g_acts, activations), float(loss)
+            admitted = False
+            try:
+                deadline = None
+                if self._admission is not None:
+                    # the quota gate: a Backpressure here releases the
+                    # replay claim (_exactly_once), so the advised retry
+                    # re-owns the step
+                    deadline = self._admission.admit(client_id)
+                    admitted = True
+                if self._coalescer is not None:
+                    return self._coalesced(activations, labels, step,
+                                           client_id, deadline, tr)
+                return self._serialized(activations, labels, step,
+                                        client_id, tr, times)
+            finally:
+                if admitted:
+                    self._admission.complete(client_id)
 
         res = self._exactly_once(client_id, "split_step", step, run)
         if tr is not None and times:   # not for a duplicate's replay
-            self._record_server_spans(tr, *times, time.perf_counter(), step,
-                                      client_id)
+            self._record_server_spans(tr, *times, step, client_id)
+            if self._deferred is not None:
+                # the client-visible reply window: the reply's launch to
+                # the reply in hand
+                rw = times[3] - times[1]
+                tr.record(spans.REPLY_GRAD, times[1], rw,
+                          trace_id=obs_trace.CTX.trace_id, party="server",
+                          tid=client_id, step=step)
+                self._metrics.observe(spans.REPLY_GRAD, rw)
         return res
+
+    def _serialized(self, activations: Any, labels: Any, step: int,
+                    client_id: int, tr: Any, times: List[float]
+                    ) -> Tuple[Any, float]:
+        """One client's step under the lock: coupled (:meth:`_step`), or
+        on a decoupled server the reply (:meth:`_reply`) with its update
+        queued and the over-lag tail drained behind it."""
+        t_q0 = time.perf_counter() if tr is not None else 0.0
+        with self._lock:
+            t_d0 = time.perf_counter() if tr is not None else 0.0
+            self._check_step(step, client_id)
+            self._check_batch_rows(_rows(activations), _rows(labels))
+            acts = self._to_dev(activations)
+            labels_dev = self._to_dev(labels, torch.int64)
+            read = None
+            if self._deferred is not None:
+                g_acts, loss = self._reply(acts, labels_dev)
+                # the reply's host read is queued before the update's
+                # launches, so reading it never waits for them
+                host = not isinstance(activations, torch.Tensor)
+                read = _HostRead(loss, *((g_acts,) if host else ()))
+                # a replayed duplicate never gets here (the replay claim),
+                # so it never queues a second apply
+                self._deferred.push({
+                    "step": step, "client_id": client_id,
+                    "fwd_params": self.state.params[0], "acts": acts,
+                    "labels": labels_dev})
+                self._deferred.drain_over_lag()
+            else:
+                g_acts, loss = self._step(acts, labels_dev)
+            if not self.overlap:
+                # --no-overlap: the host copy and the loss read inside
+                # the lock
+                res = self._reply_of(g_acts, loss, read, activations)
+            # max(): with strict_steps off steps may arrive out of
+            # order; the acknowledged step never regresses
+            self._last_step[client_id] = max(
+                self._last_step.get(client_id, -1), step)
+            if self.on_step is not None:
+                self.on_step(self._last_step[client_id])
+            t_d1 = time.perf_counter() if tr is not None else 0.0
+        if self.overlap:
+            # off the lock: the loss read waits for the step's kernels
+            res = self._reply_of(g_acts, loss, read, activations)
+        times[:] = [t_q0, t_d0, t_d1,
+                    time.perf_counter() if tr is not None else 0.0]
+        return res
+
+    @staticmethod
+    def _reply_of(g_acts: torch.Tensor, loss: torch.Tensor,
+                  read: Optional["_HostRead"], request: Any
+                  ) -> Tuple[Any, float]:
+        """The wire reply: the gradient in the request's kind and the loss
+        as a float, from ``read`` where the 2BP reply queued one."""
+        if read is None:
+            return _reply_like(g_acts, request), float(loss)
+        host = read.get()
+        g = host[1] if len(host) > 1 else g_acts
+        return _reply_like(g, request), float(host[0])
+
+    def _reply(self, acts: torch.Tensor, labels: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The 2BP reply: forward, loss and the gradient of the
+        activations only, at the live parameters; the weight gradient
+        is left to the deferred apply."""
+        acts = acts.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = fused_cross_entropy(
+                self._stage.apply(self.state.params[0], acts), labels)
+            (g_acts,) = torch.autograd.grad(loss, [acts])
+        return g_acts, loss.detach()
+
+    def _protect_queued(self) -> None:
+        """Copy-on-write for the queued entries: an entry that still
+        references the live parameters gets a clone of them before an
+        update mutates them in place, so its apply differentiates at the
+        parameters its reply used. One clone serves every such entry
+        (they all saw the same weights)."""
+        live = self.state.params[0]
+        snap = None
+        for entry in self._deferred.pending():
+            if entry["fwd_params"] is live:
+                if snap is None:
+                    with torch.no_grad():
+                        snap = {k: v.detach().clone().requires_grad_(True)
+                                for k, v in live.items()}
+                entry["fwd_params"] = snap
+
+    def _apply_deferred_entry(self, entry: Dict[str, Any]) -> None:
+        """One queued update (``_DeferredApply``'s drain, under the lock):
+        the gradient of the entry's loss (one client's mean, or a group's
+        mean over its rows: the same K1 mean) with respect to the
+        parameters its reply used, then the optimizer's update of the
+        live state. Launches only."""
+        tr = obs_trace.get_tracer()
+        t0 = time.perf_counter() if tr is not None else 0.0
+        params = entry["fwd_params"]
+        with torch.enable_grad():
+            loss = fused_cross_entropy(
+                self._stage.apply(params, entry["acts"].detach()),
+                entry["labels"])
+            g_params = torch.autograd.grad(loss, list(params.values()))
+        self._protect_queued()
+        self._tx.update(self.state, [g.contiguous() for g in g_params])
+        if tr is not None:
+            dw = time.perf_counter() - t0
+            tr.record(spans.DEFERRED_APPLY, t0, dw,
+                      trace_id=obs_trace.CTX.trace_id, party="server",
+                      tid=entry["client_id"], step=entry["step"])
+            self._metrics.observe(spans.DEFERRED_APPLY, dw)
+
+    # -- request coalescing ---------------------------------------------- #
+    def _coalesced(self, activations: Any, labels: Any, step: int,
+                   client_id: int, deadline: Optional[float], tr: Any
+                   ) -> Tuple[Any, float]:
+        """Queue one step for its group and wait for the group's reply.
+        The batch moves to the device on the caller's thread, so the
+        flusher only launches; the handshake runs at the group's
+        dispatch, so a refused step fails its own client only."""
+        self._check_batch_rows(_rows(activations), _rows(labels))
+        acts = self._to_dev(activations)
+        labels_dev = self._to_dev(labels, torch.int64)
+        if labels_dev.dim() != 1:
+            raise ProtocolError(
+                "a coalescing server takes classifier labels [batch] "
+                f"(got {tuple(labels_dev.shape)})", status=400)
+        traced = tr is not None
+        g, loss = self._coalescer.submit(
+            acts, labels_dev, step, client_id,
+            trace_id=obs_trace.CTX.trace_id if traced else None,
+            t_enqueue=time.perf_counter() if traced else None,
+            deadline=deadline)
+        return _reply_like(g, activations), loss
+
+    def _dispatch_group(self, group: List[CoalesceRequest],
+                        reason: str) -> None:
+        """The flusher's callback: one step for a same-shape group, on
+        the flusher thread. One update on the group-mean loss; each
+        client gets the gradient of its own rows' mean (the group's
+        gradient times ``total / rows``) and the mean of its rows'
+        losses, so a group of one is the serialized step. On a decoupled
+        server the group's replies come first and its one update is
+        queued behind them."""
+        del reason  # the coalescer counts it
+        tr = obs_trace.get_tracer()
+        t_pick = time.perf_counter() if tr is not None else 0.0
+        with self._lock:
+            t_lk0 = time.perf_counter() if tr is not None else 0.0
+            admitted: List[CoalesceRequest] = []
+            # a retry in the same window as its original (replay off):
+            # the leader computes, followers share its reply
+            leaders: Dict[Tuple[int, int], CoalesceRequest] = {}
+            followers: Dict[Tuple[int, int], list] = {}
+            for r in group:
+                key = (r.client_id, r.step)
+                if key in leaders:
+                    followers.setdefault(key, []).append(r)
+                    continue
+                try:
+                    self._check_step(r.step, r.client_id)
+                    leaders[key] = r
+                    admitted.append(r)
+                except ProtocolError as exc:
+                    r.error = exc
+                    r.done.set()
+            if not admitted:
+                return
+            sizes = [int(r.acts.shape[0]) for r in admitted]
+            total = sum(sizes)
+            head = admitted[0]
+            sig = ((pow2_bucket(total),) + tuple(head.acts.shape[1:]),
+                   str(head.acts.dtype), str(head.labels.dtype))
+            if sig not in self._coalesce_shapes:
+                self._coalesce_shapes.add(sig)
+                self._coalescer.stats.incr("compile_count")
+            t_d0 = time.perf_counter() if tr is not None else 0.0
+            acts = torch.cat([r.acts.detach() for r in admitted])
+            labels = torch.cat([r.labels for r in admitted])
+            params = self.state.params[0]
+            acts.requires_grad_(True)
+            with torch.enable_grad():
+                loss, rows = cross_entropy_rows(
+                    self._stage.apply(params, acts), labels)
+                if self._deferred is not None:
+                    (g_acts,) = torch.autograd.grad(loss, [acts])
+                else:
+                    *g_params, g_acts = torch.autograd.grad(
+                        loss, list(params.values()) + [acts])
+            if self._deferred is None:
+                self._tx.update(self.state,
+                                [g.contiguous() for g in g_params])
+            pg = _GroupD2H(g_acts, rows, total)
+            if not self.overlap:
+                pg.materialize()  # --no-overlap: the host read here
+            dw = time.perf_counter() - t_d0 if tr is not None else 0.0
+            off = 0
+            for r, b in zip(admitted, sizes):
+                thunk = pg.segment(off, b)
+                r.result = thunk if self.overlap else thunk()
+                off += b
+                for f in followers.get((r.client_id, r.step), ()):
+                    f.result = r.result
+                    f.done.set()
+                self._last_step[r.client_id] = max(
+                    self._last_step.get(r.client_id, -1), r.step)
+                if self.on_step is not None:
+                    self.on_step(self._last_step[r.client_id])
+                if tr is not None and r.t_enqueue is not None:
+                    # each request's queue wait (the window included);
+                    # the dispatch is one event shared by the group
+                    qw = max(t_pick - r.t_enqueue, 0.0)
+                    r.server_spans = {spans.QUEUE_WAIT: qw,
+                                      spans.DISPATCH: dw}
+                    for name, t0, secs in ((spans.QUEUE_WAIT,
+                                            r.t_enqueue, qw),
+                                           (spans.DISPATCH, t_d0, dw)):
+                        tr.record(name, t0, secs, trace_id=r.trace_id,
+                                  party="server", tid=r.client_id,
+                                  step=r.step)
+                        self._metrics.observe(name, secs)
+                    self._metrics.incr("split_steps_total")
+                r.done.set()
+            if self._deferred is not None:
+                # every member holds its reply; only now does the group's
+                # update join the queue, and only the over-lag tail runs
+                self._deferred.push({
+                    "step": max(r.step for r in admitted), "client_id": -1,
+                    "fwd_params": params, "acts": acts.detach(),
+                    "labels": labels})
+                self._deferred.drain_over_lag()
+            if tr is not None:
+                self._metrics.observe(spans.LOCK_HOLD,
+                                      time.perf_counter() - t_lk0)
 
     def _record_server_spans(self, tr, t_q0: float, t_d0: float,
                              t_d1: float, t_end: float, step: int,
@@ -323,6 +661,9 @@ class ServerRuntime(PartyRuntime):
             raise ProtocolError(f"predict called in mode {self.mode!r}",
                                 status=400)
         with self._lock, torch.no_grad():
+            if self._deferred is not None:
+                # inference sees every update whose reply has left
+                self._deferred.flush()
             # launched under the lock: a concurrent step's in-place
             # update queues behind this forward
             out = self._stage.apply(self.state.params[0],
@@ -451,6 +792,12 @@ class ServerRuntime(PartyRuntime):
             # the first post-restore round would corrupt it
             self._agg = FedAvgAggregator(self._agg.num_clients)
 
+    def _close_hook(self) -> None:
+        # flush and join the coalescer before the base drains the
+        # deferred queue: its last groups queue applies of their own
+        if self._coalescer is not None:
+            self._coalescer.close()
+
     # ------------------------------------------------------------------ #
     def health(self) -> Dict[str, Any]:
         """GET /health (``src/server_part.py:95-102``), plus ``step``: the
@@ -460,19 +807,103 @@ class ServerRuntime(PartyRuntime):
         with self._lock:
             step = max(max(self._last_step.values(), default=-1),
                        self._step_floor)
-        return {"status": "healthy", "mode": self.mode,
+        info = {"status": "healthy", "mode": self.mode,
                 "model_type": model_type, "step": step,
                 "strict_steps": self.strict_steps,
                 "version": __version__,
                 "uptime_seconds": time.monotonic() - self._t_start}
+        if self._coalescer is not None:
+            info["coalescing"] = {
+                "coalesce_max": self._coalescer.max_group,
+                "coalesce_window_ms": self._coalescer.window_s * 1e3,
+                "batching": self._coalescer.mode,
+                **self._coalescer.counters()}
+        if self._admission is not None:
+            info["admission"] = {
+                **self._admission.config(),
+                **self._admission.counters(),
+                **self._admission.gauges()}
+        if self._deferred is not None:
+            info["decoupled_bwd"] = {
+                "apply_lag": self.apply_lag,
+                **self._deferred.counters()}
+        return info
 
     def metrics(self) -> Dict[str, Any]:
         """The histogram/counter/gauge snapshot, with the acknowledged
-        step and the replay counters folded in."""
+        step, the coalescer's counters (``coalesce_*``), the admission
+        and deferred-apply counters and the replay counters folded in."""
         snap = self._metrics.snapshot()
-        snap["gauges"]["acked_step"] = float(self.health()["step"])
+        h = self.health()
+        snap["gauges"]["acked_step"] = float(h["step"])
+        for k, v in h.get("coalescing", {}).items():
+            if isinstance(v, (int, float)):
+                snap["counters"][f"coalesce_{k}"] = float(v)
         self._fold_shared_metrics(snap)
         return snap
+
+
+class _HostRead:
+    """A host read queued on the stream where a reply's kernels end: a
+    copy to pinned memory and an event behind it. :meth:`get` waits for
+    that event only, so the read never waits for what is launched on the
+    stream after it (a deferred apply, the next group). CPU tensors are
+    read as they are."""
+
+    __slots__ = ("_host", "_event")
+
+    def __init__(self, *tensors: torch.Tensor) -> None:
+        self._event = None
+        if tensors and tensors[0].is_cuda:
+            self._host = [torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=True).copy_(
+                                          t, non_blocking=True)
+                          for t in tensors]
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = [t.detach() for t in tensors]
+
+    def get(self) -> List[torch.Tensor]:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host
+
+
+class _GroupD2H:
+    """The host read of one coalesced group, made once, by the first
+    waiter that redeems its thunk (JAX's ``_GroupD2H``): the flusher
+    launches the group (and queues the copy of its row losses right
+    behind it, :class:`_HostRead`) and moves on to the next group while
+    this group's waiters share the copy. Each member's gradient segment
+    stays where the group's gradient is (on the card for a card request)
+    and is rescaled to its own rows' mean there."""
+
+    __slots__ = ("_g", "_read", "_total", "_lock", "rows")
+
+    def __init__(self, g_acts: torch.Tensor, rows: torch.Tensor,
+                 total: int) -> None:
+        self._g = g_acts
+        self._read: Optional[_HostRead] = _HostRead(rows)
+        self._total = total
+        self._lock = threading.Lock()
+        self.rows: Optional[np.ndarray] = None
+
+    def materialize(self) -> None:
+        with self._lock:
+            if self.rows is None:
+                self.rows = self._read.get()[0].numpy()
+                self._read = None
+
+    def segment(self, off: int, b: int) -> Callable[[], Tuple[Any, float]]:
+        """The thunk of the member at rows ``[off, off + b)``: its
+        gradient times ``total / b`` and its rows' mean loss, as JAX's
+        host arithmetic computes it (a float32 mean in numpy)."""
+        def seg() -> Tuple[Any, float]:
+            self.materialize()
+            g = self._g[off:off + b] * (self._total / b)
+            return g, float(self.rows[off:off + b].mean())
+        return seg
 
 
 class FedAvgAggregator:

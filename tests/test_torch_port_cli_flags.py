@@ -53,8 +53,7 @@ def test_every_jax_flag_has_a_port_flag(cmd):
 
 
 _VALUES = {
-    "decouple_bwd": ["--decouple-bwd"], "apply_lag": ["--apply-lag", "2"],
-    "no_overlap": ["--no-overlap"], "num_stages": ["--stages", "3"],
+    "num_stages": ["--stages", "3"],
     "stage_urls": ["--stage-urls", "http://a"],
     "schedule": ["--schedule", "1f1b"], "remat": ["--remat"],
     "gate_dropped_steps": ["--gate-dropped-steps"],

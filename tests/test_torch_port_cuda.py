@@ -1016,3 +1016,140 @@ def test_fused_lm_resume_on_the_card(dev, tmp_path):
     assert LAUNCHES.snapshot() == want == {
         FA: 9, **{n: 9 for n in BWD_NAMES}, FWD: 3, BWD: 3}
     assert resumed == tail and all(np.isfinite(head))
+
+
+# --------------------------------------------------------------------- #
+# the server under many clients on the card (chip_smoke.py phase 25)
+
+def _many_clients_server(device, **kw):
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.runtime import ServerRuntime
+    from split_learning_tpu_torch.utils.config import Config
+    return ServerRuntime(get_plan(), Config(batch_size=32, num_clients=4),
+                         torch.Generator().manual_seed(0), device=device,
+                         **kw)
+
+
+def test_many_clients_group_step_matches_the_cpu(dev):
+    """One group of [8, 8, 4] cut rows through ``_dispatch_group`` on the
+    card: exactly one K1 forward, one K1 backward and one K2 launch, each
+    member's gradient and loss and the server's parameters after it
+    within 1e-4 of the same group on the CPU."""
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    from split_learning_tpu_torch.runtime.coalesce import CoalesceRequest
+    g = torch.Generator().manual_seed(3)
+    members = [(torch.randn(b, 26, 26, 32, generator=g),
+                torch.randint(0, 10, (b,), generator=g)) for b in (8, 8, 4)]
+    out = {}
+    for device in ("cuda", "cpu"):
+        server = _many_clients_server(device, coalesce_max=4)
+        reqs = [CoalesceRequest(x.to(device), y.to(device), 0, i)
+                for i, (x, y) in enumerate(members)]
+        LAUNCHES.reset()
+        server._dispatch_group(reqs, "full")
+        replies = [r.result() for r in reqs]
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert LAUNCHES.snapshot() == {FWD: 1, BWD: 1, SGD: 1}
+            assert all(gr.is_cuda for gr, _ in replies)
+        out[device] = ([(gr.cpu(), loss) for gr, loss in replies],
+                       {k: v.detach().cpu() for k, v in
+                        server.params.items()})
+        server.close()
+    for (ga, la), (gb, lb) in zip(out["cuda"][0], out["cpu"][0]):
+        assert (ga - gb).abs().max().item() <= 1e-4
+        assert abs(la - lb) <= 1e-4
+    for k, v in out["cpu"][1].items():
+        assert (out["cuda"][1][k] - v).abs().max().item() <= 1e-4, k
+
+
+def test_many_clients_decoupled_backward_matches_the_cpu(dev):
+    """2BP at lag 2 on the card: 6 steps of one client within 1e-4 of the
+    same pair on the CPU; per step the K1 pair twice and K2 twice (the
+    server's deferred apply and the client's update)."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    from split_learning_tpu_torch.runtime import SplitClientTrainer
+    from split_learning_tpu_torch.transport import LocalTransport
+    from split_learning_tpu_torch.utils.config import Config
+    data = _cnn_data(n=192)
+    losses = {}
+    for device in ("cuda", "cpu"):
+        server = _many_clients_server(device, decouple_bwd=True,
+                                      apply_lag=2)
+        client = SplitClientTrainer(get_plan(), Config(batch_size=32),
+                                    torch.Generator().manual_seed(0),
+                                    LocalTransport(server), device=device)
+        LAUNCHES.reset()
+        losses[device] = [client.train_step(x, y, i)
+                          for i, (x, y) in enumerate(data)]
+        assert server.health()["decoupled_bwd"]["deferred_apply_depth"] == 2
+        server.close()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert LAUNCHES.snapshot() == {FWD: 12, BWD: 12, SGD: 12}
+    assert max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"])) \
+        <= 1e-4
+
+
+def test_many_clients_concurrent_coalescing_on_the_card(dev):
+    """Four concurrent clients against a coalescing server on the card:
+    every step lands, the flusher's launches run on the card (the K1
+    pair once a group), and the groups hold more than one request."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.cross_entropy import FWD
+    from split_learning_tpu_torch.runtime import MultiClientSplitRunner
+    from split_learning_tpu_torch.transport import LocalTransport
+    from split_learning_tpu_torch.utils.config import Config
+    server = _many_clients_server("cuda", coalesce_max=4,
+                                  coalesce_window_ms=50.0)
+    runner = MultiClientSplitRunner(
+        get_plan(), Config(batch_size=32, num_clients=4),
+        torch.Generator().manual_seed(0), lambda i: LocalTransport(server),
+        concurrent=True, device="cuda")
+    data = _cnn_data(n=128)
+    LAUNCHES.reset()
+    try:
+        for r in range(3):
+            losses = runner.train_round([data[(r + i) % len(data)]
+                                         for i in range(4)])
+            assert all(np.isfinite(v) for v in losses)
+    finally:
+        runner.close()
+    torch.cuda.synchronize()
+    c = server.health()["coalescing"]
+    server.close()
+    assert c["requests_coalesced"] == 12
+    assert LAUNCHES.snapshot()[FWD] == c["groups_flushed"]
+    assert c["mean_occupancy"] > 1.0
+
+
+def test_many_clients_pipelined_depth1_is_the_synchronous_client(dev):
+    """The pipelined client at depth 1 on the card: the synchronous
+    client's losses bit for bit under deterministic cuDNN."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.runtime import (
+        PipelinedSplitClientTrainer, SplitClientTrainer)
+    from split_learning_tpu_torch.transport import LocalTransport
+    from split_learning_tpu_torch.utils.config import Config
+    data = _cnn_data(n=192)
+    cfg = Config(batch_size=32)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        sync = SplitClientTrainer(get_plan(), cfg,
+                                  torch.Generator().manual_seed(0),
+                                  LocalTransport(_many_clients_server("cuda")),
+                                  device="cuda")
+        want = [sync.train_step(x, y, i) for i, (x, y) in enumerate(data)]
+        piped = PipelinedSplitClientTrainer(
+            get_plan(), cfg, torch.Generator().manual_seed(0),
+            LocalTransport(_many_clients_server("cuda")), depth=1,
+            device="cuda")
+        got = [r.loss for r in piped.train(lambda: iter(data), epochs=1)]
+        piped.close()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert got == want

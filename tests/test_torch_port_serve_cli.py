@@ -173,11 +173,6 @@ def test_train_and_serve_without_device_cpu_raise(tmp_path):
 _FLAG_VALUES = {
     "role": ["--role", "stage"],
     "remat": ["--remat"],
-    "coalesce_max": ["--coalesce-max", "4"],
-    "batching": ["--batching", "continuous"],
-    "tenants": ["--tenants", "2"], "quota": ["--quota", "5"],
-    "slo_ms": ["--slo-ms", "250"], "no_overlap": ["--no-overlap"],
-    "decouple_bwd": ["--decouple-bwd"], "apply_lag": ["--apply-lag", "2"],
     "mesh_data": ["--mesh-data", "2"], "mesh_model": ["--mesh-model", "2"],
     "replicas": ["--replicas", "2"],
     "replica_sync_every": ["--replica-sync-every", "4"],
@@ -216,7 +211,7 @@ def test_serve_refuses_bad_arguments(flags, msg, capsys):
 
 @pytest.mark.parametrize("flags,msg", [
     (["--chaos", "dup=2"], "in [0, 1]"),
-    (["--pipeline-depth", "2"], "ROADMAP item 15"),
+    (["--pipeline-depth", "0"], "--pipeline-depth must be >= 1"),
 ])
 def test_train_over_http_refuses_bad_arguments(flags, msg, tmp_path,
                                                capsys):

@@ -366,17 +366,31 @@ def test_lock_watchdog_instruments_the_runtime(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(coalesce_max=2), "item 14"),
-    (dict(tenants=2), "item 14"),
-    (dict(quota=5.0), "item 14"),
-    (dict(decouple_bwd=True), "item 14"),
-    (dict(apply_lag=1), "item 14"),
     (dict(mesh=object()), "item 18"),
 ])
 def test_unported_server_arguments_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         ServerRuntime(get_plan(), Config(), torch.Generator().manual_seed(0),
                       device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw,block", [
+    (dict(coalesce_max=2), "coalescing"),
+    (dict(tenants=2), "admission"),
+    (dict(quota=5.0), "admission"),
+    (dict(decouple_bwd=True), "decoupled_bwd"),
+    (dict(decouple_bwd=True, apply_lag=1), "decoupled_bwd"),
+])
+def test_server_under_many_clients_arguments_build(kw, block):
+    """Coalescing, admission and 2BP are ported (ROADMAP item 14): each
+    builds and reports its /health block."""
+    server = ServerRuntime(get_plan(), Config(),
+                           torch.Generator().manual_seed(0), device="cpu",
+                           **kw)
+    try:
+        assert block in server.health()
+    finally:
+        server.close()
 
 
 def test_unported_modes_and_ops_raise():
@@ -395,10 +409,15 @@ def test_unported_modes_and_ops_raise():
         with pytest.raises(ProtocolError, match="called in mode") as exc:
             call()
         assert exc.value.status == 400
-    for call, item in ((lambda: t.hop_forward(x, 0), "item 16"),
-                       (lambda: _DeferredApply(), "item 14")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    with pytest.raises(NotImplementedError, match="item 16"):
+        t.hop_forward(x, 0)
+    # the deferred-apply queue of 2BP is ported: FIFO, bounded by its lag
+    seen = []
+    queue = _DeferredApply(seen.append, 1, server._lock)
+    queue.push({"step": 0})
+    queue.push({"step": 1})
+    assert queue.drain_over_lag() == 1 and seen == [{"step": 0}]
+    assert queue.flush() == 1 and queue.depth() == 0
     # checkpoint resume and the extras sidecar are ported
     payload = server.export_runtime_extras(0)
     assert extras_valid(payload) and payload["step"] == 0
@@ -454,8 +473,6 @@ def test_cli_without_device_cpu_raises(tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--replicas", "2"], "item 19"),
-    (["--pipeline-depth", "2"], "item 15"),
-    (["--decouple-bwd"], "item 14"),
 ])
 def test_cli_unported_flags_refuse(flags, item, tmp_path):
     out = _cli("--transport", "local", "--steps", "1", "--dataset",
