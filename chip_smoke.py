@@ -300,6 +300,33 @@ beside this script. Phases, any failure ending the run with a traceback:
    2 tenants, tenant 0 at 2 steps/s: its client gets 429s with
    ``Retry-After``, retries, completes every step, and the counters are
    the clients'. Then the card tests of these pieces.
+26. the image families on synthetic CIFAR-10 (no CIFAR-10 files are in
+   the repository). K5 and K6 non-causal against their plain versions
+   at the ViT's shapes ([8, 49, 4, 16]: MNIST's defaults, a ragged T;
+   [128, 64, 4, 16]: CIFAR-10's; [128, 64, 6, 64]: ViT-S), float32 and
+   bf16, with their times beside SDPA's and the bound. ResNet-18 through
+   ``launch.run.main(["train", "--model", "resnet18", "--dataset",
+   "cifar10", ...])`` at batch 128 for 30 steps, float32 and bf16, SGD:
+   exactly one K1 pair and one K2 a step; step ms (median of steps
+   6-30, from the loss records' host times), images/s; a trainer of the
+   same config: its FLOPs a step (``torch.utils.flop_counter``) beside
+   the bound and a profiler window with the device's shares of conv,
+   norm and layout-copy kernels; a CPU twin of 3 steps at batch 16 from
+   the trained state, each step from one state on both devices (losses
+   within :data:`IMG_TWIN_TOL`, bf16 within :func:`bf16_loss_tol`; each
+   step's update within :data:`IMG_UPDATE_TOL`, bf16 within
+   :data:`IMG_BF16_UPDATE_FACTOR` times its own rounding). ResNet-18's two
+   parties in one process at batch 128 on ``none`` and ``int8``, 10
+   steps: the server's K1 pair and K2 inside its ``split_step``, the
+   client's K2 and two frames' wire launches a step, exactly; one host
+   sync per card encode, the frame twin at steps 1-3, frame bytes each
+   way, a CPU twin from the parties' trained state. ViT-S (d_model 384,
+   6 heads, 2 +
+   10 blocks, patch 4) in bf16 under AdamW with a warmup, cosine decay
+   and clipping through the CLI, as the ResNet: exactly 12 K5, 12 of
+   each K6 launch and one K1 pair a step. The default ViT's two parties
+   on ``topk8`` (K5/K6 on both: the client's 1 a step, the server's 2).
+   Then the card tests of these pieces.
 
 Output, last lines: one JSON object with a record per kernel, one JSON
 object with the main path's step time, one with the serving path's
@@ -308,8 +335,9 @@ one with split-party decode's, one with the HTTP wire's (``http``), one
 with phases 18-19 (``train_lm_bf16``, ``two_party_lm``), one with
 phases 20-23 (``u_split``, ``u_split_lm``, ``federated``,
 ``multi_client``, ``cli``), one with phase 24 (``checkpoint``), one
-with phase 25 (``many_clients``), the ``nvidia-smi`` name and power
-limit, and ``{"ok": true, "device": {...}}``.
+with phase 25 (``many_clients``), one with phase 26 (``image``), the
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -455,6 +483,46 @@ PIPE_DEPTHS, PIPE_STEPS, PIPE_WARMUP, PIPE_TWIN_STEPS = (1, 2, 4), 30, 5, 10
 PIPE_LM_DEPTH, PIPE_LM_STEPS = 2, 10
 ADMIT_STEPS, ADMIT_QUOTA, ADMIT_RETRIES = 6, (2.0, 1000.0), 20
 MANY_CARD_TEST_FILTER = "many_clients"
+# phase 26: the image families on CIFAR-10 (synthetic: no CIFAR-10 files
+# are in the repository). ResNet-18 fused (float32, bf16) and two-party
+# (none, int8) at IMG_B; ViT-S (d 384, 6 heads, 2 + 10 blocks, patch 4:
+# T 64) in bf16 under AdamW (lr 1e-3, warmup 5, cosine to step 30, clip
+# 1.0); the default ViT two-party on topk8. CPU twins: the first
+# IMG_TWIN_STEPS steps at batch IMG_TWIN_B from one init. K5/K6 are held
+# to their plain versions, non-causal, at VIT_FA_SHAPES ([B, T, H, D]:
+# MNIST's defaults, CIFAR-10's defaults, ViT-S at IMG_B)
+IMG_B, IMG_STEPS, IMG_TWIN_B, IMG_TWIN_STEPS = 128, 30, 16, 3
+IMG_TP_STEPS = 10
+VIT_FA_SHAPES = ((8, 49, 4, 16), (IMG_B, 64, 4, 16), (IMG_B, 64, 6, 64))
+VIT_S = dict(d_model=384, num_heads=6, client_depth=2, server_depth=10)
+VIT_S_OPT = ["--optimizer", "adamw", "--lr", "1e-3", "--weight-decay",
+             "0.05", "--warmup-steps", "5", "--decay-steps", str(IMG_STEPS),
+             "--grad-clip-norm", "1.0"]
+# the twins: each of IMG_TWIN_STEPS steps runs on the card and on the CPU
+# from one state, the card's (a free-running pair drifts apart through
+# ReLU kinks that float32 rounding flips: ResNet-18's third loss moved
+# by 1.9e-3 on the none wire and 6.2e-3 on int8, from run to run). The
+# loss of every step within phase 20's wire tolerance (float32) or
+# bf16_loss_tol (bf16); the step's update, summed over the whole model,
+# within IMG_UPDATE_TOL of the CPU's in relative L2 distance (float32:
+# tests/test_torch_port_resnet_train.py's bar), or for bf16 within
+# IMG_BF16_UPDATE_FACTOR times the distance of the CPU's bf16 update
+# from its float32 one from the same state (two independent bf16
+# roundings are about sqrt(2) times one apart)
+IMG_TWIN_TOL = U_TWIN_TOL
+IMG_UPDATE_TOL, IMG_BF16_UPDATE_FACTOR = 2e-2, 3.0
+IMG_CARD_TEST_FILTER = "image"
+# kernel classes of a profiler window, by lower-case name fragments
+IMG_CLASSES = {
+    "conv": ("conv", "xmma", "fprop", "dgrad", "wgrad", "implicit_gemm",
+             "cudnn"),
+    # ATen's GroupNorm (ResNet-18) and LayerNorm (ViT) kernels
+    "norm": ("group_norm", "groupnorm", "rowwisemoments", "fusedparams",
+             "gammabeta", "layer_norm", "internalgradients"),
+    "flash": ("flash",),
+    "gemm": ("gemm", "cutlass", "sm90_"),
+    "layout_copy": ("copy", "nchwtonhwc", "nhwctonchw", "transpose"),
+    "memcpy": ("memcpy",)}
 PLANTS = {
     "quantize_roundf": ("quantize.cu", "rintf(", "roundf("),
     "topk_select_ties_high": (
@@ -503,10 +571,13 @@ def device_ms(torch, fn, reps: int = 100) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def profile_window(torch, run, n: int, per: str = "step") -> dict:
+def profile_window(torch, run, n: int, per: str = "step",
+                   classes=None) -> dict:
     """Device busy share of ``run()`` (``n`` units of work) and the device
     time by kernel per unit, from ``torch.profiler``; ``None`` figures
-    where the profiler recorded no device activity."""
+    where the profiler recorded no device activity. ``classes`` maps a
+    label to lower-case name fragments: the share of the device time of
+    the kernels whose names hold one (the first label that matches)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -523,13 +594,22 @@ def profile_window(torch, run, n: int, per: str = "step") -> dict:
     busy_us = sum(by_name.values())
     copy_us = sum(us for name, us in by_name.items() if "Memcpy" in name)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {
+    rec = {
         f"{per}s": n, "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3 if by_name else None,
         "device_idle_share": 1 - busy_us / wall_us if by_name else None,
         f"memcpy_ms_per_{per}": copy_us / 1e3 / n if by_name else None,
         f"device_ms_per_{per}_by_kernel": {
             name[:80]: us / 1e3 / n for name, us in top}}
+    if classes and by_name:
+        shares = {label: 0.0 for label in (*classes, "other")}
+        for name, us in by_name.items():
+            low = name.lower()
+            label = next((lb for lb, frags in classes.items()
+                          if any(f in low for f in frags)), "other")
+            shares[label] += us / busy_us
+        rec["device_share_by_class"] = shares
+    return rec
 
 
 def profile_steps(torch, trainer, data) -> dict:
@@ -2199,12 +2279,12 @@ def hop_bytes(transport) -> dict:
     return sizes
 
 
-def party_counts(server) -> dict:
-    """Count the launches made inside the server's U ops (its trunk's
+def party_counts(server, ops=("u_forward", "u_backward")) -> dict:
+    """Count the launches made inside the server's ``ops`` (its stages'
     compute; the wire's encodes and decodes run in the transport)."""
     from split_learning_tpu_torch.ops.common import LAUNCHES
     counts: dict = {}
-    for op in ("u_forward", "u_backward"):
+    for op in ops:
         fn = getattr(server, op)
 
         def spy(*a, _fn=fn, **kw):
@@ -3849,6 +3929,463 @@ def many_clients_runs(torch, tr_data):
     return rec, totals
 
 
+# --------------------------------------------------------------------- #
+# phase 26: the image families (ResNet-18 and the ViT on CIFAR-10)
+
+def vit_flash_checks(torch, dev, gen, bw, flash_peak) -> dict:
+    """Phase 26 (a): K5 and K6 non-causal at :data:`VIT_FA_SHAPES`
+    against their plain versions, float32 and bf16 (phase 6's and phase
+    9's tolerances), with their device ms beside the plain versions',
+    ``F.scaled_dot_product_attention``'s (its backward through autograd)
+    and the bound (phase 8's roofs; 4 T x T x D products a forward
+    counted whole, 10 for the backward)."""
+    import torch.nn.functional as F
+    from split_learning_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_with_lse_plain,
+        flash_bwd_cuda, flash_fwd_cuda)
+    out = {}
+    for shape in VIT_FA_SHAPES:
+        b, t, h, d = shape
+        n, rows, pairs = math.prod(shape), b * t * h, b * h * t * t
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            e = torch.tensor([], dtype=dtype).element_size()
+            q, k, v, do = (torch.randn(shape, device=dev,
+                                       generator=gen).to(dtype)
+                           for _ in range(4))
+            o, lse = flash_fwd_cuda(q, k, v, False)
+            grads = flash_bwd_cuda(q, k, v, o, lse, do, None, False)
+            torch.cuda.synchronize()
+            o_p, lse_p = flash_attention_with_lse_plain(q, k, v, False)
+            e_o = (o.float() - o_p.float()).abs().max().item()
+            e_l = (lse - lse_p).abs().max().item()
+            tol_o, tol_l = FA_TOL[name]
+            check(e_o <= tol_o and e_l <= tol_l,
+                  f"K5 at {shape} {name}: O err {e_o}, LSE err {e_l}")
+            e_g = 0.0
+            for got, want in zip(grads, flash_attention_bwd_plain(
+                    q, k, v, o, lse, do, None, False)):
+                err = (got.float() - want.float()).abs().max().item()
+                scale = max(1.0, want.float().abs().max().item())
+                check(got.dtype == want.dtype
+                      and err <= FA_BWD_TOL[name] * scale,
+                      f"K6 at {shape} {name}: err {err} (scale {scale})")
+                e_g = max(e_g, err)
+            f_ms, f_by = bound(4 * n * e + 4 * rows, 4 * pairs * d, bw,
+                               flash_peak[name])
+            b_ms, b_by = bound(8 * n * e + 4 * rows, 10 * pairs * d, bw,
+                               flash_peak[name])
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                          for x in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(qt, kt, vt)
+            do_t = do.transpose(1, 2)
+            out[f"{list(shape)} {name}"] = dict(
+                shape=list(shape), dtype=name, causal=False,
+                fwd=dict(
+                    ms=device_ms(torch, lambda: flash_fwd_cuda(q, k, v,
+                                                               False)),
+                    plain_ms=device_ms(
+                        torch, lambda: flash_attention_with_lse_plain(
+                            q, k, v, False), reps=20),
+                    library_ms=device_ms(
+                        torch, lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt)),
+                    bound_ms=f_ms, bound_by=f_by, max_abs_err=e_o,
+                    max_abs_err_lse=e_l),
+                bwd=dict(
+                    ms=device_ms(torch, lambda: flash_bwd_cuda(
+                        q, k, v, o, lse, do, None, False), reps=50),
+                    plain_ms=device_ms(
+                        torch, lambda: flash_attention_bwd_plain(
+                            q, k, v, o, lse, do, None, False), reps=20),
+                    library_ms=device_ms(
+                        torch, lambda: torch.autograd.grad(
+                            lib_out, (qt, kt, vt), do_t, retain_graph=True),
+                        reps=50),
+                    bound_ms=b_ms, bound_by=b_by, max_abs_err=e_g))
+            del q, k, v, do, o, lse, grads, qt, kt, vt, lib_out, do_t
+    print("[k5/k6] non-causal at the ViT's shapes, ms kernel / SDPA: "
+          + "; ".join(f"{key} fwd {r['fwd']['ms']:.4f} / "
+                      f"{r['fwd']['library_ms']:.4f}, bwd "
+                      f"{r['bwd']['ms']:.4f} / {r['bwd']['library_ms']:.4f}"
+                      for key, r in out.items()), flush=True)
+    return out
+
+
+def _img_data_dir():
+    return os.path.join(REPO, "build", "chip_smoke_image_data")
+
+
+def _loss_times(data_dir):
+    """The jsonl metrics' losses of the run just made and the host time
+    of each record, and the log cleared for the next one."""
+    folder = os.path.join(data_dir, "metrics")
+    recs = []
+    for name in sorted(os.listdir(folder)):
+        path = os.path.join(folder, name)
+        with open(path) as f:
+            recs += [r for r in map(json.loads, f) if r.get("key") == "loss"]
+        os.remove(path)
+    return [r["value"] for r in recs], [r["ts"] for r in recs]
+
+
+def image_cli_leg(torch, launch_run, label, flags, per_step) -> dict:
+    """``launch.run.main(["train", ...])`` for IMG_STEPS fused steps at
+    IMG_B with launch counts reset before and read after (``per_step``
+    each step, exactly); the step ms from the loss records' host times
+    (each step ends in the loss's read), median of steps 6-30."""
+    data_dir = _img_data_dir()
+    rc, counts, _, secs = _cli(torch, launch_run, [
+        "train", "--device", "cuda", "--dataset", "cifar10", "--transport",
+        "fused", "--batch-size", str(IMG_B), "--steps", str(IMG_STEPS),
+        "--tracking", "jsonl", "--data-dir", data_dir, *flags])
+    check(rc == 0, f"{label}: launch.run.main returned {rc}")
+    want = {k: v * IMG_STEPS for k, v in per_step.items()}
+    print(f"[image] {label}: {IMG_STEPS} steps through the CLI, launches "
+          f"{counts}", flush=True)
+    check(counts == want, f"{label} launches {counts}, want {want}")
+    losses, ts = _loss_times(data_dir)
+    check(len(losses) == IMG_STEPS and all(map(math.isfinite, losses)),
+          f"{label}: losses {losses}")
+    check(statistics.mean(losses[-5:]) < statistics.mean(losses[:5]),
+          f"{label}: loss did not fall: {losses}")
+    steady = [(b - a) * 1e3 for a, b in zip(ts[4:], ts[5:])]
+    med = statistics.median(steady)
+    return dict(step_ms_median=med, step_ms_min=min(steady),
+                step_ms_max=max(steady), images_per_s=IMG_B / med * 1e3,
+                cli_seconds=secs, loss_first=losses[0],
+                loss_last=losses[-1], launches=counts,
+                launches_per_step=per_step)
+
+
+def image_trainer_window(torch, plan, cfg, data, peak) -> dict:
+    """A fused trainer of the leg's plan and config on the card: the
+    FLOPs of one step (``torch.utils.flop_counter``) beside their bound
+    at ``peak``, and a profiler window of 10 steps with the device's
+    time by kernel class. Returns the record and the trainer's state
+    after the window (``export_states``)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from split_learning_tpu_torch.runtime import FusedSplitTrainer
+    trainer = FusedSplitTrainer(plan, cfg, torch.Generator().manual_seed(0),
+                                data[0][0], device="cuda")
+    for x, y in data[:3]:
+        trainer.train_step(x, y)
+    with FlopCounterMode(display=False) as fc:
+        trainer.train_step(*data[3])
+    flops = fc.get_total_flops()
+    b_ms, b_by = bound(0, flops, 1.0, peak)
+
+    def run():
+        for x, y in data[4:4 + PROFILE_STEPS]:
+            trainer.train_step(x, y)
+    rec = dict(flops_per_step=flops, bound_ms=b_ms, bound_by=b_by,
+               bound_peak_flops=peak,
+               profile=profile_window(torch, run, PROFILE_STEPS,
+                                      classes=IMG_CLASSES))
+    return rec, trainer.export_states()
+
+
+def host_params(params) -> tuple:
+    """Host copies of per-stage parameter dicts."""
+    return tuple({k: v.detach().cpu().clone() for k, v in st.items()}
+                 for st in params)
+
+
+def update_gap(before, card, cpu) -> float:
+    """The relative L2 distance of the card's update (``card`` minus
+    ``before``, every leaf of every stage together) from the CPU's."""
+    num = den = 0.0
+    for st0, st_card, st_cpu in zip(before, card, cpu):
+        for k, p0 in st0.items():
+            u_cpu = st_cpu[k].detach().cpu().double() - p0.double()
+            u_card = st_card[k].detach().cpu().double() - p0.double()
+            num += (u_card - u_cpu).square().sum().item()
+            den += u_cpu.square().sum().item()
+    check(den > 0, "a CPU twin step left the parameters where they were")
+    return math.sqrt(num / den)
+
+
+def twin_check(label, losses, gaps, loss_tol, update_tols, floors=None
+               ) -> dict:
+    """Hold a twin's per-step losses (``{"cuda": [...], "cpu": [...]}``)
+    within ``loss_tol(cpu_loss)`` and its per-step update gaps
+    (:func:`update_gap`) within ``update_tols``; the twin's record
+    (``floors``: a bf16 twin's CPU bf16-against-float32 gaps)."""
+    diffs = [abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"])]
+    tols = [loss_tol(b) for b in losses["cpu"]]
+    check(all(d <= t for d, t in zip(diffs, tols)),
+          f"{label} CPU twin: card losses {losses['cuda']} vs CPU "
+          f"{losses['cpu']}, tolerance {tols}")
+    check(all(g <= t for g, t in zip(gaps, update_tols)),
+          f"{label} CPU twin: the updates differ by {gaps} (relative L2), "
+          f"tolerance {update_tols}")
+    return dict(steps=IMG_TWIN_STEPS, batch=IMG_TWIN_B,
+                card=losses["cuda"], cpu=losses["cpu"],
+                max_abs_diff=max(diffs), loss_tol=tols,
+                update_rel_l2=gaps, update_tol=update_tols,
+                bf16_floor_rel_l2=floors)
+
+
+def as_float32(torch, tree):
+    """``tree`` (nested dicts, lists and tuples) with every floating
+    tensor in float32."""
+    if torch.is_tensor(tree):
+        return tree.float() if tree.is_floating_point() else tree
+    if isinstance(tree, dict):
+        return {k: as_float32(torch, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(as_float32(torch, v) for v in tree)
+    return tree
+
+
+def image_fused_twin(torch, label, plan, cfg, state, data, loss_tol,
+                     wide_plan=None) -> dict:
+    """IMG_TWIN_STEPS fused steps at IMG_TWIN_B, each on the card and on
+    the CPU from one state (cuDNN deterministic): the card's trainer
+    starts from ``state`` (the profiled trainer's ``export_states``, 14
+    steps in: parameters, optimizer state and count) and runs on, and
+    before each step the CPU's adopts the card's whole state. A bf16 leg
+    also steps ``wide_plan`` (its plan in float32) on the CPU from that
+    state, in float32: the bf16 update's own rounding, which sets the
+    update's bound. Held by :func:`twin_check`."""
+    from split_learning_tpu_torch.runtime import FusedSplitTrainer
+    rows = [(x[:IMG_TWIN_B], y[:IMG_TWIN_B])
+            for x, y in data[-IMG_TWIN_STEPS:]]
+    cfg = cfg.replace(batch_size=IMG_TWIN_B)
+    init = host_params(state["trainer"]["params"])
+    card, cpu = (FusedSplitTrainer(plan, cfg, init, rows[0][0], device=where)
+                 for where in ("cuda", "cpu"))
+    wide = (None if wide_plan is None else FusedSplitTrainer(
+        wide_plan, cfg.replace(dtype="float32"), as_float32(torch, init),
+        rows[0][0], device="cpu"))
+    card.restore_states(state)
+    losses, gaps, tols, floors = {"cuda": [], "cpu": []}, [], [], []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for x, y in rows:
+            # the tree holds the card's live tensors: adopt it before
+            # the card steps
+            tree = card.export_states()
+            cpu.restore_states(tree)
+            if wide is not None:
+                wide.restore_states(as_float32(torch, tree))
+            before = host_params(card.params)
+            losses["cuda"].append(card.train_step(x, y))
+            losses["cpu"].append(cpu.train_step(x, y))
+            gaps.append(update_gap(before, card.params, cpu.params))
+            if wide is None:
+                tols.append(IMG_UPDATE_TOL)
+                continue
+            wide.train_step(x, y)
+            floors.append(update_gap(before, cpu.params, wide.params))
+            tols.append(IMG_BF16_UPDATE_FACTOR * floors[-1])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return twin_check(label, losses, gaps, loss_tol, tols, floors or None)
+
+
+def image_two_party(torch, dev, label, model, kw, cfg, data, mode,
+                    server_step, client_step, twin_tol) -> dict:
+    """Phase 26's two parties in one process: ``SplitClientTrainer`` over
+    ``LocalTransport(ServerRuntime)`` on the card, IMG_TP_STEPS steps in
+    ``mode``. Launch counts reset before and read after: the server's
+    ``server_step`` a step inside its ``split_step``, the whole run's
+    ``server_step + client_step`` plus two frames' wire launches a step;
+    one host sync per card encode and the frame twin at steps 1-3; frame
+    bytes each way; a CPU twin of IMG_TWIN_STEPS steps at IMG_TWIN_B
+    from both parties' state after the run, each step from one state on
+    both devices, held by :func:`twin_check` (losses within
+    ``twin_tol``)."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.runtime import (
+        ServerRuntime, SplitClientTrainer)
+    from split_learning_tpu_torch.transport import LocalTransport, codec
+    plan = get_plan(model=model, **kw)
+
+    def stack(device, init, c):
+        server = ServerRuntime(plan, c, init, device=device)
+        transport = LocalTransport(server, compress=mode, density=DENSITY)
+        return (SplitClientTrainer(plan, c, init, transport, device=device),
+                transport, server)
+
+    client, transport, server = stack("cuda",
+                                      torch.Generator().manual_seed(0), cfg)
+    twin = (FrameTwin(torch, codec, mode).attach_step(transport, server)
+            if mode != "none" else None)
+    srv = party_counts(server, ("split_step",))
+    LAUNCHES.reset()
+    losses, ms = [], []
+    for i, (x, y) in enumerate(data[:IMG_TP_STEPS]):
+        t = time.perf_counter()
+        losses.append(client.train_step(x, y, i))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    counts = LAUNCHES.snapshot()
+    per_step = dict(client_step)
+    for k, v in {**server_step, **wire_launches(mode, 2)}.items():
+        per_step[k] = per_step.get(k, 0) + v
+    want = {k: v * IMG_TP_STEPS for k, v in per_step.items()}
+    want_srv = {k: v * IMG_TP_STEPS for k, v in server_step.items()}
+    print(f"[image] {label} {mode}: {IMG_TP_STEPS} steps, launches {counts} "
+          f"(server {srv}), losses {losses[0]:.4f} -> {losses[-1]:.4f}",
+          flush=True)
+    check(counts == want, f"{label} {mode} launches {counts}, want {want}")
+    check(srv == want_srv, f"{label} {mode} server launches {srv}, want "
+                           f"{want_srv}")
+    check(all(map(math.isfinite, losses)), f"{label} {mode}: finite")
+    rec = {}
+    if twin is not None:
+        check(twin.packs == 2 * IMG_TP_STEPS and set(twin.syncs) == {1},
+              f"{label} {mode}: host syncs per card encode "
+              f"{sorted(set(twin.syncs))} over {twin.packs} frames")
+        twin.probe(torch, dev)
+        check(twin.frames == 2 * FRAME_TWIN_STEPS + 1
+              and twin.mismatched == 0,
+              f"{label} {mode} frame twin: {twin.mismatched} of "
+              f"{twin.frames} frames differ from the host codec's")
+        rec["frame_twin"] = dict(frames=twin.frames,
+                                 mismatched=twin.mismatched,
+                                 host_syncs_per_encode=twin.syncs[0])
+    stats = transport.stats.summary()
+    # each twin step from one state: fresh parties on both devices from
+    # the parameters the card reached (plain SGD keeps no other state,
+    # and a fresh wire's residuals are zero on both)
+    check(cfg.optimizer == "sgd" and not cfg.momentum,
+          f"{label} {mode}: the twin's parties keep no optimizer state")
+    before = host_params((client.params, server.params))
+    rows = [(x[:IMG_TWIN_B], y[:IMG_TWIN_B])
+            for x, y in data[-IMG_TWIN_STEPS:]]
+    small = cfg.replace(batch_size=IMG_TWIN_B)
+    losses_twin, gaps = {"cuda": [], "cpu": []}, []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for x, y in rows:
+            after = {}
+            for where in ("cuda", "cpu"):
+                c, _, srv_party = stack(where, before, small)
+                losses_twin[where].append(c.train_step(x, y, 0))
+                after[where] = (c.params, srv_party.params)
+            gaps.append(update_gap(before, after["cuda"], after["cpu"]))
+            before = host_params(after["cuda"])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    check(cfg.dtype == "float32", f"{label} {mode}: a float32 twin")
+    rec["cpu_twin"] = twin_check(f"{label} {mode}", losses_twin, gaps,
+                                 lambda _loss: twin_tol,
+                                 [IMG_UPDATE_TOL] * len(gaps))
+
+    def more_steps():
+        for i, (x, y) in enumerate(data[:5]):
+            client.train_step(x, y, IMG_TP_STEPS + i)
+    steady = ms[3:]
+    return dict(
+        rec, step_ms_median=statistics.median(steady),
+        step_ms_min=min(steady), step_ms_max=max(steady),
+        images_per_s=len(data[0][1]) / statistics.median(steady) * 1e3,
+        wire_bytes_up_per_step=stats["bytes_sent"] / IMG_TP_STEPS,
+        wire_bytes_down_per_step=stats["bytes_received"] / IMG_TP_STEPS,
+        compression_ratio=stats.get("compression_ratio"),
+        loss_first=losses[0], loss_last=losses[-1], launches=counts,
+        launches_per_step=per_step, server_launches_per_step=server_step,
+        profile=profile_window(torch, more_steps, 5, classes=IMG_CLASSES))
+
+
+def _f32_twin_tol(_loss):
+    return IMG_TWIN_TOL["none"]
+
+
+def image_runs(torch, launch_run, dev, gen, peaks) -> tuple:
+    """Phase 26 (see the module docstring). Returns the record, the
+    launch totals of its runs and the K5/K6 records at the ViT's
+    shapes."""
+    from split_learning_tpu_torch.data import batches, synthetic
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.flash_attention import (
+        BWD_NAMES, NAME as FA)
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    from split_learning_tpu_torch.utils import Config
+    bw, fp32, bf16_peak, flash_peak = peaks
+    t0 = time.perf_counter()
+    vit_fa = vit_flash_checks(torch, dev, gen, bw, flash_peak)
+    ds = synthetic("cifar10", n_train=IMG_B * (4 + PROFILE_STEPS), n_test=8,
+                   seed=0)
+    data = list(batches(ds.train, IMG_B, seed=0, drop_remainder=True))
+    totals, restore = _phase_totals(LAUNCHES)
+    rec = {"resnet18_fused": {}}
+    try:
+        for dtype in ("float32", "bfloat16"):
+            leg = image_cli_leg(
+                torch, launch_run, f"resnet18 fused {dtype}",
+                ["--model", "resnet18", "--dtype", dtype],
+                {FWD: 1, BWD: 1, SGD: 1})
+            plan = get_plan(model="resnet18", dtype=dtype)
+            cfg = Config(transport="fused", model="resnet18", dtype=dtype,
+                         batch_size=IMG_B, lr=LR)
+            window, state = image_trainer_window(
+                torch, plan, cfg, data,
+                fp32 if dtype == "float32" else bf16_peak)
+            leg.update(window)
+            wide = None if dtype == "float32" else get_plan(model="resnet18")
+            leg["cpu_twin"] = image_fused_twin(
+                torch, f"resnet18 fused {dtype}", plan, cfg, state, data,
+                _f32_twin_tol if wide is None else bf16_loss_tol, wide)
+            rec["resnet18_fused"][dtype] = leg
+        cfg = Config(transport="local", model="resnet18", batch_size=IMG_B,
+                     lr=LR)
+        rec["resnet18_two_party"] = {
+            mode: image_two_party(
+                torch, dev, "resnet18 two-party", "resnet18", {}, cfg,
+                data, mode, {FWD: 1, BWD: 1, SGD: 1}, {SGD: 1},
+                IMG_TWIN_TOL[mode]) for mode in ("none", "int8")}
+        n_blocks = VIT_S["client_depth"] + VIT_S["server_depth"]
+        vit_s_flags = ["--model", "vit", "--attn", "flash", "--dtype",
+                       "bfloat16", *VIT_S_OPT,
+                       *(f"--{k.replace('_', '-')}={v}"
+                         for k, v in VIT_S.items())]
+        leg = image_cli_leg(
+            torch, launch_run, "ViT-S bf16 AdamW", vit_s_flags,
+            {FA: n_blocks, **{n: n_blocks for n in BWD_NAMES}, FWD: 1,
+             BWD: 1})
+        plan = get_plan(model="vit", attn="flash", dtype="bfloat16",
+                        channels=3, **VIT_S)
+        cfg = Config(transport="fused", model="vit", attn="flash",
+                     dtype="bfloat16", batch_size=IMG_B, optimizer="adamw",
+                     lr=1e-3, weight_decay=0.05, warmup_steps=5,
+                     decay_steps=IMG_STEPS, grad_clip_norm=1.0)
+        window, state = image_trainer_window(torch, plan, cfg, data,
+                                             bf16_peak)
+        leg.update(window)
+        leg["cpu_twin"] = image_fused_twin(
+            torch, "ViT-S bf16", plan, cfg, state, data, bf16_loss_tol,
+            get_plan(model="vit", attn="flash", channels=3, **VIT_S))
+        rec["vit_s_bf16"] = dict(leg, blocks=n_blocks, tokens=64, **VIT_S)
+        cfg = Config(transport="local", model="vit", attn="flash",
+                     batch_size=IMG_B, lr=LR)
+        rec["vit_two_party"] = {"topk8": image_two_party(
+            torch, dev, "ViT two-party", "vit",
+            dict(attn="flash", channels=3), cfg, data, "topk8",
+            {FA: 2, **{n: 2 for n in BWD_NAMES}, FWD: 1, BWD: 1, SGD: 1},
+            {FA: 1, **{n: 1 for n in BWD_NAMES}, SGD: 1},
+            IMG_TWIN_TOL["topk8"])}
+    finally:
+        restore()
+    rec["card_tests"] = card_test_step(IMG_CARD_TEST_FILTER)
+    rec["seconds"] = time.perf_counter() - t0
+    for key, leg in (("resnet18 f32", rec["resnet18_fused"]["float32"]),
+                     ("resnet18 bf16", rec["resnet18_fused"]["bfloat16"]),
+                     ("ViT-S bf16", rec["vit_s_bf16"])):
+        print(f"[image] {key}: {leg['step_ms_median']:.2f} ms a step, "
+              f"{leg['images_per_s']:.0f} images/s, bound "
+              f"{leg['bound_ms']:.2f} ms, idle "
+              f"{leg['profile']['device_idle_share']}", flush=True)
+    return rec, totals, vit_fa
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4692,6 +5229,10 @@ def main() -> int:
     # ---- 25. the server under many clients --------------------------- #
     many_rec, many_counts = many_clients_runs(torch, tr_data)
 
+    # ---- 26. the image families: ResNet-18 and the ViT --------------- #
+    image_rec, image_counts, vit_fa = image_runs(
+        torch, launch_run, dev, gen, (bw, fp32, bf16_peak, flash_peak))
+
     for rec in records:
         key = launch_of.get(rec["name"], rec["name"])
         rec["launches_train_lm_bf16"] = bf16_counts.get(key, 0)
@@ -4775,6 +5316,26 @@ def main() -> int:
                 for lag, r in many_2bp["lm"]["runs"].items()},
             pipelined_lm_bf16_per_step=many_rec["pipelined"]["lm"][
                 "launches_per_step"].get(key, 0))
+    per_leg = {"resnet18_fused_" + dt: leg for dt, leg in
+               image_rec["resnet18_fused"].items()}
+    per_leg.update({"resnet18_two_party_" + m: leg for m, leg in
+                    image_rec["resnet18_two_party"].items()})
+    per_leg["vit_s_bf16"] = image_rec["vit_s_bf16"]
+    per_leg["vit_two_party_topk8"] = image_rec["vit_two_party"]["topk8"]
+    for rec in records:
+        key = launch_of.get(rec["name"], rec["name"])
+        rec["launches_image"] = image_counts.get(key, 0)
+        rec["launches_per_step_image"] = {
+            leg_name: leg["launches_per_step"].get(key, 0)
+            for leg_name, leg in per_leg.items()}
+        if rec["name"] == FA:
+            rec["vit_shapes"] = {k: dict(r["fwd"], shape=r["shape"],
+                                         dtype=r["dtype"], causal=False)
+                                 for k, r in vit_fa.items()}
+        if rec["name"] == BWD_DKV:
+            rec["vit_shapes_whole_backward"] = {
+                k: dict(r["bwd"], shape=r["shape"], dtype=r["dtype"],
+                        causal=False) for k, r in vit_fa.items()}
     two_party_line = dict(two_party=dict(
         model="split_cnn", mode="split", transport="local", batch=BATCH,
         steps=STEPS, density=DENSITY, device=kind, kernel_cases=wire_cases,
@@ -4820,6 +5381,8 @@ def main() -> int:
                                          **ckpt_rec)}))
     print(json.dumps({"many_clients": dict(device=kind, card=smi,
                                            **many_rec)}))
+    print(json.dumps({"image": dict(device=kind, card=smi, batch=IMG_B,
+                                    steps=IMG_STEPS, **image_rec)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -31,7 +31,7 @@ def _draw(module: nn.Module, name: str, shape, generator: torch.Generator
           ) -> torch.Tensor:
     """One leaf of ``module`` (parameter ``name``) with flax's default."""
     t = torch.empty(shape, dtype=torch.float32)
-    if isinstance(module, nn.LayerNorm):
+    if isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
         return t.fill_(1.0 if name == "weight" else 0.0)
     if isinstance(module, nn.Embedding):
         # default_embed_init: variance_scaling(1, "fan_in", "normal",
@@ -54,13 +54,14 @@ def flax_like_init(module: nn.Module, generator: torch.Generator) -> Params:
 
     Dense and conv weights: lecun_normal (truncated normal, variance
     1 / fan_in, where fan_in is the weight's size over its output
-    dimension); biases zero. LayerNorm: scale 1, bias 0. Embedding
+    dimension; the ViT's patch conv: ``patch * patch * channels``);
+    biases zero. LayerNorm and GroupNorm: scale 1, bias 0. Embedding
     tables: normal with variance 1 / dim. A raw parameter (the
-    transformer's ``pos`` table): normal(0.02). Drawn on the CPU from
-    ``generator`` in ``named_parameters`` order, in float32, then cast to
-    the parameter's own dtype (float32 but for ``pos`` in a bf16 plan,
-    which flax creates in the plan dtype). The bits cannot match JAX's
-    PRNG; parity tests carry JAX parameters across instead
+    transformer's and the ViT's ``pos`` table): normal(0.02). Drawn on
+    the CPU from ``generator`` in ``named_parameters`` order, in float32,
+    then cast to the parameter's own dtype (float32 but for ``pos`` in a
+    bf16 plan, which flax creates in the plan dtype). The bits cannot
+    match JAX's PRNG; parity tests carry JAX parameters across instead
     (:mod:`split_learning_tpu_torch.interop`).
     """
     params: Params = {}

@@ -9,10 +9,12 @@ the seeded batcher, and :class:`DevicePrefetch`, which stages the next
 batches on the device while a step is in flight. The same seeds give
 the same bytes as the JAX package, and the cache keys are the same, so
 both packages share a cache directory. Images are NHWC float32,
-normalised like the reference; token inputs are ``[N, T] int32``.
+normalised like the reference (MNIST) or by the CIFAR-10 channel means
+and deviations (the binary distribution, read with numpy, no pickle);
+token inputs are ``[N, T] int32``. Without raw files, ``cifar10``
+synthesises 32x32x3 images as JAX does.
 
-Not ported: the S3 store and the downloader (network), and CIFAR-10,
-which serves the ResNet and ViT families (ROADMAP item 20).
+Not ported: the S3 store and the downloader (network).
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ import gzip
 import io
 import os
 import queue
+import re
 import struct
+import tarfile
 import threading
 import time
 from typing import Any, Dict, Iterable, Iterator, Optional, Tuple
@@ -30,6 +34,8 @@ from typing import Any, Dict, Iterable, Iterator, Optional, Tuple
 import numpy as np
 
 MNIST_MEAN, MNIST_STD = 0.1307, 0.3081
+CIFAR_MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
+CIFAR_STD = np.array([0.2470, 0.2435, 0.2616], np.float32)
 
 
 @dataclasses.dataclass
@@ -168,16 +174,69 @@ def load_mnist_idx(data_dir: str) -> Optional[Dataset]:
         name="mnist", num_classes=10)
 
 
+def load_cifar10_binary(data_dir: str) -> Optional[Dataset]:
+    """CIFAR-10 from the binary distribution under ``data_dir``:
+    ``data_batch_1..5.bin`` and ``test_batch.bin`` (in ``data_dir`` or
+    its ``cifar-10-batches-bin/``), or ``cifar-10-binary.tar.gz``; None
+    if absent. Records are 1 label byte and 3072 CHW pixel bytes."""
+    root = os.path.expanduser(data_dir)
+    bin_dir = None
+    for cand in (root, os.path.join(root, "cifar-10-batches-bin")):
+        if os.path.exists(os.path.join(cand, "data_batch_1.bin")):
+            bin_dir = cand
+            break
+    raws: Dict[str, bytes] = {}
+    if bin_dir is not None:
+        for i in range(1, 6):
+            with open(os.path.join(bin_dir, f"data_batch_{i}.bin"), "rb") as f:
+                raws[f"b{i}"] = f.read()
+        with open(os.path.join(bin_dir, "test_batch.bin"), "rb") as f:
+            raws["test"] = f.read()
+    else:
+        tar_path = os.path.join(root, "cifar-10-binary.tar.gz")
+        if not os.path.exists(tar_path):
+            return None
+        with tarfile.open(tar_path, "r:gz") as tar:
+            for m in tar.getmembers():
+                base = os.path.basename(m.name)
+                match = re.fullmatch(r"data_batch_(\d)\.bin", base)
+                if match:
+                    raws[f"b{match.group(1)}"] = tar.extractfile(m).read()
+                elif base == "test_batch.bin":
+                    raws["test"] = tar.extractfile(m).read()
+        if len(raws) != 6:
+            return None
+
+    def parse(raw: bytes) -> Tuple[np.ndarray, np.ndarray]:
+        rec = np.frombuffer(raw, np.uint8).reshape(-1, 3073)
+        y = rec[:, 0].astype(np.int64)
+        x = rec[:, 1:].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+        x = x.astype(np.float32) / 255.0
+        return (x - CIFAR_MEAN) / CIFAR_STD, y
+
+    xs, ys = zip(*(parse(raws[f"b{i}"]) for i in range(1, 6)))
+    tx, ty = parse(raws["test"])
+    return Dataset(
+        train=Split(np.concatenate(xs), np.concatenate(ys)),
+        test=Split(tx, ty), name="cifar10", num_classes=10)
+
+
 # --------------------------------------------------------------------- #
 # synthetic fallback (zero-egress environments)
 
 _SHAPES = {"mnist": (28, 28, 1), "cifar10": (32, 32, 3)}
 
 
+def image_shape(name: str) -> Tuple[int, int, int]:
+    """``(H, W, C)`` of an image dataset's examples (``synthetic`` is
+    MNIST-shaped)."""
+    return _SHAPES.get(name, _SHAPES["mnist"])
+
+
 def synthetic(name: str, n_train: int = 4096, n_test: int = 512,
               num_classes: int = 10, seed: int = 0) -> Dataset:
     """Class-conditional Gaussian images, deterministic, learnable."""
-    h, w, c = _SHAPES.get(name, (28, 28, 1))
+    h, w, c = image_shape(name)
     rs = np.random.RandomState(seed)
     centers = rs.randn(num_classes, h * w * c).astype(np.float32)
 
@@ -259,11 +318,7 @@ def load_dataset(name: str, data_dir: str,
             f"seq_len applies to the token datasets only (got {name!r})")
     if seq_len is not None and seq_len <= 0:
         raise ValueError(f"seq_len must be positive (got {seq_len})")
-    if name == "cifar10":
-        raise NotImplementedError(
-            "dataset 'cifar10' serves model families the port has not "
-            "reached yet (ROADMAP item 20)")
-    if name not in ("mnist", "synthetic", "tokens", "lm"):
+    if name not in ("mnist", "cifar10", "synthetic", "tokens", "lm"):
         raise ValueError(f"Unknown dataset: {name!r}")
     if seq_len == _TOKEN_SEQ_LEN:
         seq_len = None   # the default length is the bare dataset
@@ -275,7 +330,8 @@ def load_dataset(name: str, data_dir: str,
 
     if store.exists(real_key):
         return _from_blob(name, store.fetch(real_key))
-    ds = load_mnist_idx(data_dir) if name == "mnist" else None
+    raw = {"mnist": load_mnist_idx, "cifar10": load_cifar10_binary}.get(name)
+    ds = raw(data_dir) if raw is not None else None
     if ds is not None:
         store.put(real_key, _to_blob(ds))
         return ds
@@ -291,7 +347,7 @@ def load_dataset(name: str, data_dir: str,
     elif name == "lm":
         ds = synthetic_lm(**tkw)
     else:
-        ds = synthetic("mnist")
+        ds = synthetic("mnist" if name == "synthetic" else name)
     store.put(synth_key, _to_blob(ds))
     return ds
 

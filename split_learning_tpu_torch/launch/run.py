@@ -36,14 +36,17 @@ Config resolution is the JAX package's: CLI flags > environment
 (``LEARNING_MODE``, ``SLT_*``, ``SLT_SERVER_URL``) > defaults.
 ``--device cpu`` is the only way onto the CPU, where the kernels' plain
 versions run. The JAX ``--kernels`` flag does not exist here: the device
-picks the kernel. The transformer families take the JAX size flags
-(``--d-model``, ``--num-heads``, ``--client-depth``, ``--server-depth``),
-``--seq-len`` for the token datasets and ``--attn``, with the JAX
-command's checks: ``transformer_lm`` needs ``--dataset lm``,
-``transformer`` needs ``--dataset tokens``, and an image model refuses
-token data (rc 2). On a two-party wire ``--compress-density auto`` warns
-and uses 0.1, as in JAX (the adaptive controller drives the K-stage
-chain's hops only). A ``train`` client whose server reports another mode
+picks the kernel. The image families are the split CNN, ResNet-18
+(``resnet18``; ``resnet18_4stage``, whose K-stage chain waits for
+ROADMAP item 16) and the ViT (``vit``) on ``mnist``, ``cifar10`` or
+``synthetic``. The transformer families and the ViT take the JAX size
+flags (``--d-model``, ``--num-heads``, ``--client-depth``,
+``--server-depth``) and ``--attn``; the token families ``--seq-len``,
+with the JAX command's checks: ``transformer_lm`` needs ``--dataset
+lm``, ``transformer`` needs ``--dataset tokens``, an image model
+refuses token data, and ResNet-18 refuses the size flags (rc 2). On a
+two-party wire ``--compress-density auto`` warns and uses 0.1, as in
+JAX (the adaptive controller drives the K-stage chain's hops only). A ``train`` client whose server reports another mode
 exits 4, as in JAX.
 
 Training as JAX's command configures it, on every transport and on
@@ -138,7 +141,10 @@ def _config_from_args(args):
     return Config.from_env(**overrides)
 
 
-_ATTENTION_FAMILIES = ("transformer", "transformer_lm")
+# the families that take --attn and the size flags, and those that take
+# token ids (the ViT has attention but consumes images)
+_ATTENTION_FAMILIES = ("transformer", "transformer_lm", "vit")
+_TOKEN_FAMILIES = ("transformer", "transformer_lm")
 _TOKEN_SETS = ("tokens", "lm")
 
 
@@ -151,9 +157,10 @@ def _pairing_error(cfg) -> Optional[str]:
     if cfg.model == "transformer" and cfg.dataset != "tokens":
         return (f"model 'transformer' (sequence classifier) needs "
                 f"--dataset tokens (got {cfg.dataset!r})")
-    if cfg.model not in _ATTENTION_FAMILIES and cfg.dataset in _TOKEN_SETS:
+    if cfg.model not in _TOKEN_FAMILIES and cfg.dataset in _TOKEN_SETS:
         return (f"dataset {cfg.dataset!r} is token-shaped; model "
-                f"{cfg.model!r} consumes images (mnist | synthetic)")
+                f"{cfg.model!r} consumes images (mnist | cifar10 | "
+                "synthetic)")
     return None
 
 
@@ -165,16 +172,21 @@ def _size_kw_from_args(args) -> Dict[str, Any]:
 
 
 def _plan_kw(model: str, attn: str, size_kw: Dict[str, Any],
-             seq_len: Optional[int]) -> Dict[str, Any]:
+             seq_len: Optional[int], dataset: str) -> Dict[str, Any]:
     """Plan-builder kwargs from the size flags. As in JAX
     (``_plan_size_kw``), ``max_len`` is derived, never persisted: a
     ``--seq-len`` above the 2048 default table extends it. ``attn`` goes
-    to the attention families only."""
+    to the attention families only. The ViT's ``channels`` (what flax
+    reads off the sample at init) is the dataset's, derived the same
+    way."""
+    from split_learning_tpu_torch.data.datasets import image_shape
     kw = dict(size_kw)
     if model in _ATTENTION_FAMILIES:
         kw["attn"] = attn
-        if seq_len and seq_len > 2048:
-            kw["max_len"] = seq_len
+    if model in _TOKEN_FAMILIES and seq_len and seq_len > 2048:
+        kw["max_len"] = seq_len
+    if model == "vit":
+        kw["channels"] = image_shape(dataset)[2]
     return kw
 
 
@@ -185,10 +197,14 @@ def _plan_kw(model: str, attn: str, size_kw: Dict[str, Any],
 def _builder_size_defaults(model: str) -> Dict[str, Any]:
     """The size-parameterised plan builder's own defaults ({} for a
     family without sizes)."""
-    if model not in _ATTENTION_FAMILIES:
+    if model in _TOKEN_FAMILIES:
+        from split_learning_tpu_torch.models.transformer import (
+            transformer_plan as builder)
+    elif model == "vit":
+        from split_learning_tpu_torch.models.vit import vit_plan as builder
+    else:
         return {}
-    from split_learning_tpu_torch.models.transformer import transformer_plan
-    params = inspect.signature(transformer_plan).parameters
+    params = inspect.signature(builder).parameters
     return {k: params[k].default for k in (
         "d_model", "num_heads", "client_depth", "server_depth")}
 
@@ -484,7 +500,8 @@ def cmd_train(args) -> int:
         ckptr, size_kw, seq_len = _open_checkpoint(
             cfg, args, _size_kw_from_args(args), args.seq_len)
         plan = get_plan(model=cfg.model, mode=cfg.mode, dtype=cfg.dtype,
-                        **_plan_kw(cfg.model, cfg.attn, size_kw, seq_len))
+                        **_plan_kw(cfg.model, cfg.attn, size_kw, seq_len,
+                                   cfg.dataset))
         depth = args.pipeline_depth if two_party else 1
         if depth > 1 and cfg.mode != "split":
             print(f"[warn] --pipeline-depth ignored in mode {cfg.mode!r} "
@@ -511,7 +528,7 @@ def cmd_train(args) -> int:
         return 2
     if cfg.model not in _ATTENTION_FAMILIES and cfg.attn != "full":
         print(f"[warn] --attn {cfg.attn!r} ignored: model {cfg.model!r} has "
-              "no attention (transformer families only)", file=sys.stderr)
+              "no attention (transformer/vit only)", file=sys.stderr)
     if not two_party:
         for flag, val in (("--compress", args.compress),
                           ("--chaos", args.chaos),
@@ -931,7 +948,8 @@ def cmd_serve(args) -> int:
                 if err:
                     raise ValueError(err)
         plan = get_plan(model=cfg.model, mode=cfg.mode, dtype=cfg.dtype,
-                        **_plan_kw(cfg.model, cfg.attn, size_kw, seq_len))
+                        **_plan_kw(cfg.model, cfg.attn, size_kw, seq_len,
+                                   cfg.dataset))
         # the seed's init, of which the server keeps its own stage: a
         # client started from the same seed holds the other one
         runtime = ServerRuntime(
@@ -1029,7 +1047,8 @@ def _resolve_checkpoint(args, cfg, cmd: str,
     try:
         ckptr = Checkpointer(ckdir)
         plan = get_plan(model=model, mode=mode, dtype=cfg.dtype,
-                        **_plan_kw(model, cfg.attn, size_kw, seq_len))
+                        **_plan_kw(model, cfg.attn, size_kw, seq_len,
+                                   dataset))
         step = args.step if args.step is not None else ckptr.latest_step()
         params = _assemble_full_params(meta["layout"],
                                        ckptr.restore_raw(step))
@@ -1219,11 +1238,12 @@ def _add_shared(p: argparse.ArgumentParser) -> None:
     p.add_argument("--mode", choices=["split", "federated", "u_split"],
                    default=None)
     p.add_argument("--model", default=None,
-                   help="split_cnn | split_cnn_chain3 | transformer | "
-                        "transformer_lm (the others are not ported)")
+                   help="split_cnn | split_cnn_chain3 | resnet18 | "
+                        "resnet18_4stage | vit | transformer | "
+                        "transformer_lm")
     p.add_argument("--dataset", default=None,
-                   help="mnist | synthetic | tokens (transformer) | lm "
-                        "(transformer_lm)")
+                   help="mnist | cifar10 | synthetic | tokens "
+                        "(transformer) | lm (transformer_lm)")
     p.add_argument("--data-dir", dest="data_dir", default=None)
     p.add_argument("--batch-size", dest="batch_size", type=int,
                    default=None)
@@ -1260,8 +1280,8 @@ def _add_shared(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda (default; raises without a GPU) or cpu "
                         "(the kernels' plain versions)")
-    # size overrides for the transformer families (the fixed reference
-    # CNN rejects them)
+    # size overrides for the transformer and ViT families (the fixed
+    # reference CNN and ResNet-18 reject them)
     p.add_argument("--d-model", dest="d_model", type=int, default=None)
     p.add_argument("--num-heads", dest="num_heads", type=int, default=None)
     p.add_argument("--client-depth", dest="client_depth", type=int,
@@ -1274,7 +1294,7 @@ def _add_shared(p: argparse.ArgumentParser) -> None:
     p.add_argument("--attn", choices=["full", "flash", "auto", "ring",
                                       "ring_flash", "ulysses"],
                    default=None,
-                   help="transformer attention: full (dense) or flash "
+                   help="transformer/vit attention: full (dense) or flash "
                         "(the hand-written kernels on the card); auto "
                         "and the sequence-parallel forms are not ported")
     p.add_argument("--compress", choices=["none", "int8", "topk8",

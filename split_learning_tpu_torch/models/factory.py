@@ -1,10 +1,9 @@
 """Model factory (counterpart of ``split_learning_tpu/models/factory.py``).
 
 Same role+mode dispatch and the same ``ValueError`` contract: an unknown
-mode, model family or role, size overrides on the fixed reference CNN,
-and a chain plan outside split mode all raise ``ValueError``. The
-families the port has not reached yet are registered by name and raise
-``NotImplementedError``.
+mode, model family or role, size overrides on the fixed reference CNN
+or ResNet-18, and a chain or pipeline plan (``split_cnn_chain3``,
+``resnet18_4stage``) outside split mode all raise ``ValueError``.
 
 Dtypes: every family takes float32 and bfloat16, flax's mixed precision
 (float32 parameters, bfloat16 compute: :mod:`models.transformer`,
@@ -20,7 +19,9 @@ import torch
 from split_learning_tpu_torch.core.stage import SplitPlan
 from split_learning_tpu_torch.models.cnn import (
     chain3_cnn_plan, split_cnn_plan, u_split_cnn_plan)
+from split_learning_tpu_torch.models.resnet import resnet18_plan
 from split_learning_tpu_torch.models.transformer import transformer_plan
+from split_learning_tpu_torch.models.vit import vit_plan
 
 _FAMILIES: Dict[str, Callable[..., SplitPlan]] = {}
 
@@ -72,16 +73,32 @@ def _transformer_lm(mode: str, dtype: torch.dtype, **kw: Any) -> SplitPlan:
     return transformer_plan(mode=mode, dtype=dtype, lm=True, **kw)
 
 
-def _not_ported(name: str) -> Callable[..., SplitPlan]:
-    def build(mode: str, dtype: torch.dtype, **kw: Any) -> SplitPlan:
-        raise NotImplementedError(
-            f"model family {name!r} is not ported to PyTorch yet "
-            "(ROADMAP item 20)")
-    return build
+@register_model("resnet18")
+def _resnet18(mode: str, dtype: torch.dtype, **kw: Any) -> SplitPlan:
+    if kw:
+        raise ValueError(f"resnet18 takes no size overrides "
+                         f"(got {sorted(kw)})")
+    return resnet18_plan(mode=mode, dtype=dtype)
 
 
-for _name in ("resnet18", "resnet18_4stage", "vit"):
-    register_model(_name)(_not_ported(_name))
+@register_model("resnet18_4stage")
+def _resnet18_4stage(mode: str, dtype: torch.dtype, **kw: Any
+                     ) -> SplitPlan:
+    """The 4-stage pipeline cut (BASELINE config 4)."""
+    if kw:
+        raise ValueError(f"resnet18_4stage takes no size overrides "
+                         f"(got {sorted(kw)})")
+    if mode != "split":
+        raise ValueError("resnet18_4stage is a pipeline plan; use "
+                         "mode='split'")
+    return resnet18_plan(mode=mode, dtype=dtype, stages=4)
+
+
+@register_model("vit")
+def _vit(mode: str, dtype: torch.dtype, **kw: Any) -> SplitPlan:
+    """Vision transformer on the image datasets: a patchify stem and the
+    transformer classifier's trunk and head."""
+    return vit_plan(mode=mode, dtype=dtype, **kw)
 
 
 def _dtype_of(dtype: Any) -> torch.dtype:
@@ -98,8 +115,9 @@ def get_plan(model: str = "split_cnn", mode: str = "split",
     """Build the SplitPlan for a model family under a learning mode.
 
     ``size_kw`` (d_model, num_heads, client_depth, server_depth, vocab,
-    max_len, attn, ...) forwards to the transformer plan builder; the
-    fixed reference CNN rejects it with a ``ValueError``."""
+    max_len, attn, ...) forwards to the transformer and ViT plan
+    builders; the fixed reference CNN and ResNet-18 reject it with a
+    ``ValueError``."""
     if mode not in ("split", "federated", "u_split"):
         raise ValueError(f"Unknown learning mode: {mode!r}")
     if model not in _FAMILIES:

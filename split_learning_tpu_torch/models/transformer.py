@@ -325,17 +325,10 @@ class TrunkAndHead(nn.Module):
         return self.head(self.trunk(x))
 
 
-def transformer_plan(mode: str = "split", dtype: torch.dtype = torch.float32,
-                     *, vocab: int = 256, d_model: int = 64,
-                     num_heads: int = 4, client_depth: int = 1,
-                     server_depth: int = 2, num_classes: int = 10,
-                     max_len: int = 2048, mesh: Any = None,
-                     attn: str = "full", causal: bool = False,
-                     lm: bool = False) -> SplitPlan:
-    """Build the split-transformer :class:`SplitPlan` for ``mode``.
-
-    ``dtype`` is ``torch.float32`` or ``torch.bfloat16``. ``mesh`` must
-    stay None: the sequence-parallel forms wait for ROADMAP item 21."""
+def check_attn(attn: str, mesh: Any = None) -> None:
+    """The attention forms the port runs: ``"full"`` and ``"flash"``. An
+    unknown name raises ``ValueError`` (JAX's); ``"auto"`` and the
+    context-parallel forms raise ``NotImplementedError``."""
     if attn not in _ATTN_IMPLS:
         raise ValueError(
             f"Unknown attn impl: {attn!r} (expected {_ATTN_IMPLS})")
@@ -348,6 +341,20 @@ def transformer_plan(mode: str = "split", dtype: torch.dtype = torch.float32,
         raise NotImplementedError(
             f"attn={attn!r} / mesh: context parallelism is not ported yet "
             "(ROADMAP item 21)")
+
+
+def transformer_plan(mode: str = "split", dtype: torch.dtype = torch.float32,
+                     *, vocab: int = 256, d_model: int = 64,
+                     num_heads: int = 4, client_depth: int = 1,
+                     server_depth: int = 2, num_classes: int = 10,
+                     max_len: int = 2048, mesh: Any = None,
+                     attn: str = "full", causal: bool = False,
+                     lm: bool = False) -> SplitPlan:
+    """Build the split-transformer :class:`SplitPlan` for ``mode``.
+
+    ``dtype`` is ``torch.float32`` or ``torch.bfloat16``. ``mesh`` must
+    stay None: the sequence-parallel forms wait for ROADMAP item 21."""
+    check_attn(attn, mesh)
     causal = causal or lm
     common = dict(attn=attn, causal=causal, dtype=dtype)
     embed = Stage("embed", EmbedStage(vocab, d_model, num_heads,

@@ -1153,3 +1153,110 @@ def test_many_clients_pipelined_depth1_is_the_synchronous_client(dev):
     finally:
         torch.backends.cudnn.deterministic = deterministic
     assert got == want
+
+
+# --------------------------------------------------------------------- #
+# the image families: ResNet-18 and the ViT (K5/K6 non-causal at the
+# ViT's head dimension and token counts)
+
+VIT_SHAPES = ((8, 49, 4, 16), (16, 64, 4, 16), (16, 64, 6, 64))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,d", VIT_SHAPES)
+def test_image_flash_at_vit_shapes_matches_plain(dev, b, t, h, d, dtype):
+    """K5 and K6 non-causal at the ViT's shapes: MNIST's T 49 (a ragged
+    tail in a 64-row block), CIFAR-10's T 64, D 16 (the defaults, padded
+    to the 32-wide tile) and 64 (ViT-S): O and LSE within ``TOL``, each
+    gradient within ``BWD_TOL`` of the plain version's largest entry."""
+    g = torch.Generator(device=dev).manual_seed(t * d + h)
+    q, k, v, do = (torch.randn(b, t, h, d, device=dev, generator=g).to(dtype)
+                   for _ in range(4))
+    LAUNCHES.reset()
+    with torch.no_grad():
+        o, lse = flash_attention_with_lse(q, k, v, False)
+    got = flash_bwd_cuda(q, k, v, o, lse, do, None, False)
+    torch.cuda.synchronize()
+    assert LAUNCHES.snapshot() == {FA: 1, **{n: 1 for n in BWD_NAMES}}
+    o_p, lse_p = flash_attention_with_lse_plain(q, k, v, False)
+    tol_o, tol_l = TOL[dtype]
+    assert (o.float() - o_p.float()).abs().max().item() <= tol_o
+    assert (lse - lse_p).abs().max().item() <= tol_l
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, None, False)
+    _assert_grads_close(got, want, dtype)
+
+
+def _image_data(n, hw, c, batch):
+    from split_learning_tpu_torch.data import batches, synthetic
+    name = "cifar10" if c == 3 else "mnist"
+    ds = synthetic(name, n_train=n, n_test=8, seed=1)
+    return list(batches(ds.train, batch, seed=1, drop_remainder=True))
+
+
+def _bf16_loss_tol(loss):
+    """Two bfloat16 ulps at the loss's magnitude (chip_smoke.py's)."""
+    return 2 * 2.0 ** (np.floor(np.log2(abs(loss))) - 7)
+
+
+def _fused_twins(model, kw, cfg_kw, data, launches):
+    """The fused trainer on the card and on the CPU from one init: the
+    card's launch counts over the run, and both loss series."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.runtime import FusedSplitTrainer
+    from split_learning_tpu_torch.utils.config import Config
+    plan = get_plan(model=model, **kw)
+    init = plan.init(torch.Generator().manual_seed(0), torch.zeros(1))
+    cfg = Config(transport="fused", model=model, batch_size=len(data[0][1]),
+                 **cfg_kw)
+    losses = {}
+    for where in ("cuda", "cpu"):
+        trainer = FusedSplitTrainer(plan, cfg, init, data[0][0],
+                                    device=where)
+        LAUNCHES.reset()
+        losses[where] = [trainer.train_step(x, y) for x, y in data]
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert LAUNCHES.snapshot() == {
+                name: n * len(data) for name, n in launches.items()}
+    return losses
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_image_resnet18_fused_steps_on_the_card(dev, dtype):
+    """Two fused SGD steps of ResNet-18 at batch 16 on the card against
+    the CPU from one init: per step exactly one K1 pair and one K2 launch
+    (62 leaves); losses within 1e-4 (float32, deterministic cuDNN) or two
+    bf16 ulps at the loss's magnitude."""
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        losses = _fused_twins(
+            "resnet18", dict(dtype=dtype), dict(dtype=dtype),
+            _image_data(32, 32, 3, 16), {FWD: 1, BWD: 1, SGD: 1})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        tol = 1e-4 if dtype == "float32" else _bf16_loss_tol(b)
+        assert abs(a - b) <= tol, losses
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["split", "u_split"])
+def test_image_vit_flash_fused_steps_on_the_card(dev, mode, dtype):
+    """Two fused SGD steps of the ViT (defaults: d_model 64, 4 heads,
+    depths 1 + 2) with ``attn="flash"`` on CIFAR-10's T 64 at batch 16:
+    per step exactly 3 K5 and 3 of each K6 launch (non-causal, one a
+    block), one K1 pair and one K2; losses within 1e-4 of the CPU's
+    (float32) or two bf16 ulps."""
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    losses = _fused_twins(
+        "vit", dict(mode=mode, attn="flash", channels=3, dtype=dtype),
+        dict(mode=mode, attn="flash", dtype=dtype),
+        _image_data(32, 32, 3, 16),
+        {FA: 3, **{n: 3 for n in BWD_NAMES}, FWD: 1, BWD: 1, SGD: 1})
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        tol = 1e-4 if dtype == "float32" else _bf16_loss_tol(b)
+        assert abs(a - b) <= tol, losses

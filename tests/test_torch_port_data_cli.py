@@ -48,8 +48,15 @@ def test_load_dataset_shares_the_jax_cache(tmp_path):
     _assert_split_equal(t.test, j.test)
     with pytest.raises(ValueError):
         tds.load_dataset("nope", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
-        tds.load_dataset("cifar10", str(tmp_path))
+    # cifar10 (once refused, ROADMAP item 20): JAX's synthetic bytes under
+    # JAX's key, which JAX's loader reads back
+    t = tds.load_dataset("cifar10", str(tmp_path))
+    assert t.synthetic and t.train.x.shape[1:] == (32, 32, 3)
+    assert (tmp_path / "cache" / "datasets" / "cifar10-synthetic.npz"
+            ).exists()
+    j = jds.load_dataset("cifar10", str(tmp_path))
+    _assert_split_equal(t.train, j.train)
+    _assert_split_equal(t.test, j.test)
 
 
 def _write_idx(root, rs):
@@ -94,8 +101,23 @@ def test_cli_train_on_cpu_prints_done_and_eval(tmp_path, capsys):
 
 
 def test_cli_rejects_unported_model(tmp_path, capsys):
+    """ResNet-18's 4-stage plan builds, but its K-stage chain (``--stages
+    4``) waits for ROADMAP item 16."""
+    from split_learning_tpu_torch.launch.run import main
+    rc = main(["train", "--device", "cpu", "--model", "resnet18_4stage",
+               "--stages", "4", "--dataset", "cifar10", "--data-dir",
+               str(tmp_path)])
+    assert rc == 2
+    assert "ROADMAP item 16" in capsys.readouterr().err
+
+
+def test_cli_trains_resnet18_on_cpu(tmp_path, capsys):
+    """``train --model resnet18 --dataset cifar10`` (once refused, ROADMAP
+    item 20) runs on the CPU."""
     from split_learning_tpu_torch.launch.run import main
     rc = main(["train", "--device", "cpu", "--model", "resnet18",
+               "--dataset", "cifar10", "--batch-size", "4", "--steps", "2",
                "--data-dir", str(tmp_path)])
-    assert rc == 2
-    assert "ROADMAP item 20" in capsys.readouterr().err
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "mode=split transport=fused steps=2 final_loss=" in out

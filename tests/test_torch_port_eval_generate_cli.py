@@ -18,8 +18,9 @@ with the port's meta of the same layout). Then:
   tests/test_cli_checkpoint.py has its counterpart: rc 2 with the same
   ``[error]`` text (a non-LM checkpoint, a bad prompt, each bad sampling
   flag, a negative id, ids outside the vocabulary, sizes that rebuild
-  another plan), plus the port's own: a K-stage chain layout (item 16)
-  and the ResNet/ViT families (item 20). The stale server (rc 3) and the
+  another plan), plus the port's own: a K-stage chain layout (item 16).
+  ``eval`` of ResNet-18 and ViT checkpoints is held to JAX's in
+  tests/test_torch_port_image_cli.py. The stale server (rc 3) and the
   serverless ``serve --resume`` (rc 2) are in
   tests/test_torch_port_resume_http.py.
 """
@@ -222,10 +223,8 @@ def test_eval_refuses_what_it_cannot_read(checkpoints, tmp_path, capsys):
     assert "eval requires --checkpoint-dir" in capsys.readouterr().err
     for meta, item in (({"layout": "chain", "model": "split_cnn_chain3",
                          "dataset": "synthetic"}, "ROADMAP item 16"),
-                       ({"model": "resnet18", "dataset": "cifar10"},
-                        "ROADMAP item 20"),
-                       ({"model": "vit", "dataset": "cifar10"},
-                        "ROADMAP item 20")):
+                       ({"layout": "pipeline", "model": "resnet18_4stage",
+                         "dataset": "cifar10"}, "ROADMAP item 16")):
         ck = _meta_dir(tmp_path / meta["model"], **meta)
         saver = Checkpointer(ck)
         saver.save(1, {"trainer": {"params": []}})
