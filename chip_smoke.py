@@ -327,6 +327,27 @@ beside this script. Phases, any failure ending the run with a traceback:
    each K6 launch and one K1 pair a step. The default ViT's two parties
    on ``topk8`` (K5/K6 on both: the client's 1 a step, the server's 2).
    Then the card tests of these pieces.
+27. the K-stage chain (``runtime/stage.py``, ``runtime/pipeline_runner.py``,
+   ``transport/device.py``, ``transport/density.py``). ``resnet18_4stage``
+   (the hub's stem and layer1; layer2, layer3 and the head as
+   ``StageRuntime`` parties) at batch 128, M 4, plain SGD, lag 0, on
+   ``DeviceTransport`` in float32 and bf16 for 8 GPipe steps: exactly
+   2M K1 pairs (the last stage's loss hops and its deferred apply's
+   recompute) and S K2 (the hub and a deferred apply a stage) a step, no
+   hop payload on the host, step ms beside phase 26's fused step, the
+   measured bubble beside the ideal 3/7, a profiler window; 1F1B
+   bit-equal to GPipe (3 steps from one init, deterministic cuDNN); a
+   CPU twin of 2 steps at batch 16, each from one state on both devices
+   (phase 26's bounds). The same chain on ``LocalTransport`` with
+   ``int8``, then ``topk8`` under the adaptive controller (4 steps each):
+   (4S - 6) M packs and decodes a step (K3q/K3d, or K4s's five select
+   launches a pack) and the wires' bytes; the controller's decisions on
+   the card and on the CPU from one init (3 steps at batch 32). Then
+   ``split_cnn_chain3`` over HTTP on ``int8``: two ``serve --role
+   stage`` parties in this process (``launch.run.serve_party``, port 0)
+   and ``launch.run.main(["train", "--stages", "3", ...])`` for 12
+   steps at batch 64, M 4, with exact launch counts and a falling loss.
+   Then the card tests of these pieces.
 
 Output, last lines: one JSON object with a record per kernel, one JSON
 object with the main path's step time, one with the serving path's
@@ -335,9 +356,9 @@ one with split-party decode's, one with the HTTP wire's (``http``), one
 with phases 18-19 (``train_lm_bf16``, ``two_party_lm``), one with
 phases 20-23 (``u_split``, ``u_split_lm``, ``federated``,
 ``multi_client``, ``cli``), one with phase 24 (``checkpoint``), one
-with phase 25 (``many_clients``), one with phase 26 (``image``), the
-``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
-{...}}``.
+with phase 25 (``many_clients``), one with phase 26 (``image``), one
+with phase 27 (``chain``), the ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -523,6 +544,29 @@ IMG_CLASSES = {
     "gemm": ("gemm", "cutlass", "sm90_"),
     "layout_copy": ("copy", "nchwtonhwc", "nhwctonchw", "transpose"),
     "memcpy": ("memcpy",)}
+# phase 27: the K-stage chain. resnet18_4stage (the hub's stem and
+# layer1; layer2, layer3 and the head as stage parties) at CHAIN_B with
+# CHAIN_M microbatches, plain SGD at LR, lag 0. On DeviceTransport in
+# float32 and bf16: GPipe over CHAIN_STEPS (step ms, a profiler window,
+# the measured bubble beside the ideal (S-1)/(M+S-1)); 1F1B against
+# GPipe bit for bit over CHAIN_EQ_STEPS from one init under
+# deterministic cuDNN; a CPU twin of CHAIN_TWIN_STEPS steps at
+# CHAIN_TWIN_B, each step from one state on both devices (phase 26's
+# bounds). On LocalTransport in float32: int8, then topk8 under the
+# adaptive controller, CHAIN_WIRE_STEPS each (wire launches and bytes a
+# step); the controller's decisions against a CPU run of CHAIN_DC_STEPS
+# at CHAIN_DC_B from one init (a window a step). Then split_cnn_chain3
+# over HTTP (int8): two serve --role stage parties in this process
+# (launch.run.serve_party) and launch.run.main(["train", "--stages",
+# "3", ...]) for CNN_CHAIN_STEPS at CNN_CHAIN_B.
+CHAIN_B, CHAIN_M, CHAIN_S = 128, 4, 4
+CHAIN_STEPS, CHAIN_EQ_STEPS, CHAIN_WIRE_STEPS, CHAIN_PROFILE_STEPS = (
+    8, 3, 4, 3)
+CHAIN_TWIN_B, CHAIN_TWIN_STEPS = 16, 2
+CHAIN_DC_B, CHAIN_DC_STEPS = 32, 3
+CNN_CHAIN_B, CNN_CHAIN_STEPS = 64, 12
+CHAIN_CARD_TEST_FILTER = "chain"
+CHAIN_STEP_TIMEOUT = 120.0   # a step that does not drain fails the phase
 PLANTS = {
     "quantize_roundf": ("quantize.cu", "rintf(", "roundf("),
     "topk_select_ties_high": (
@@ -4386,6 +4430,350 @@ def image_runs(torch, launch_run, dev, gen, peaks) -> tuple:
     return rec, totals, vit_fa
 
 
+# phase 27: the K-stage chain
+
+def chain_per_step(mode=None, s=CHAIN_S, m=CHAIN_M) -> dict:
+    """The chain's launches a step, from the code: the last stage's K1
+    pair 2M times (its M loss hops, and the deferred apply's recompute
+    of them), K2 S times (the hub's update and one deferred apply a
+    stage), and on a compressed wire (4S - 6) M packs and decodes (a
+    middle wire packs x up, y down, g up and g_in down; the loss wire x
+    up and g down; the labels travel dense)."""
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    per = {FWD: 2 * m, BWD: 2 * m, SGD: s}
+    per.update(wire_launches(mode, (4 * s - 6) * m))
+    return per
+
+
+def chain_stack(torch, plan, cfg, init, device, mode=None, dc=None,
+                schedule="gpipe"):
+    """A chain of ``plan`` on ``device`` from ``init``: the hub's
+    ``PipelineRunner`` and a ``StageRuntime`` a stage behind
+    ``DeviceTransport`` (``mode`` None) or ``LocalTransport`` with
+    ``mode`` and the controller ``dc``. Returns (runner, stages,
+    wires)."""
+    from split_learning_tpu_torch.runtime import PipelineRunner, StageRuntime
+    from split_learning_tpu_torch.transport import (
+        DeviceTransport, LocalTransport)
+    stages = [StageRuntime(plan, i, cfg, init,
+                           microbatches=cfg.microbatches, device=device)
+              for i in range(1, plan.num_stages)]
+    wires = [DeviceTransport(st) if mode is None else LocalTransport(
+        st, compress=mode, density=DENSITY, density_controller=dc)
+        for st in stages]
+    runner = PipelineRunner(plan, cfg, init, None, wires,
+                            microbatches=cfg.microbatches,
+                            schedule=schedule, device=device,
+                            step_timeout_s=CHAIN_STEP_TIMEOUT)
+    runner.density_controller = dc
+    return runner, stages, wires
+
+
+def chain_close(chain) -> None:
+    runner, stages, _ = chain
+    runner.close()
+    for st in stages:
+        st.close()
+
+
+def chain_params(chain) -> tuple:
+    runner, stages, _ = chain
+    return (runner.params, *(st.params for st in stages))
+
+
+def chain_leg(torch, label, plan, cfg, data, mode=None, dc=None,
+              steps=CHAIN_STEPS, profile=False):
+    """One chain on the card from seed 0: ``steps`` steps with launch
+    counts reset before and read after (:func:`chain_per_step` each
+    step, exactly), ms a step on the host clock (each step ends in a
+    synchronise; median from the third step), finite losses, no host
+    copy on a device wire, the wires' bytes a step; with ``profile`` the
+    measured bubble of those steps beside the ideal and a profiler
+    window of CHAIN_PROFILE_STEPS more. Returns the record and the open
+    chain."""
+    from split_learning_tpu_torch.obs import spans
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    chain = runner, _, wires = chain_stack(
+        torch, plan, cfg, torch.Generator().manual_seed(0), "cuda", mode, dc)
+    LAUNCHES.reset()
+    losses, ms = [], []
+    for i, (x, y) in enumerate(data[:steps]):
+        t = time.perf_counter()
+        losses.append(runner.step(x, y, i))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    counts = LAUNCHES.snapshot()
+    per_step = chain_per_step(mode)
+    want = {k: v * steps for k, v in per_step.items()}
+    copies = [w.stats.counters.get(spans.HOP_HOST_COPIES, 0) for w in wires]
+    print(f"[chain] {label}: {steps} steps, launches {counts}, losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, hop host copies {copies}",
+          flush=True)
+    check(counts == want, f"{label} launches {counts}, want {want}")
+    check(all(map(math.isfinite, losses)), f"{label}: losses {losses}")
+    if mode is None:
+        check(copies == [0] * len(wires),
+              f"{label}: hop payloads fell to the host {copies}")
+    steady = ms[2:]
+    med = statistics.median(steady)
+    rec = dict(
+        steps=steps, step_ms_median=med, step_ms_min=min(steady),
+        step_ms_max=max(steady), images_per_s=CHAIN_B / med * 1e3,
+        losses=losses, launches=counts, launches_per_step=per_step,
+        hop_host_copies=copies,
+        wire_bytes_per_step=[dict(
+            up=w.stats.bytes_sent / steps,
+            down=w.stats.bytes_received / steps,
+            compression_ratio=w.stats.summary().get("compression_ratio"))
+            for w in wires])
+    if profile:
+        rec["bubble"] = [dict(stage=r["stage"], measured=r["bubble_fraction"],
+                              ideal=r["bubble_theoretical"],
+                              reply_p50_ms=r["reply_p50_ms"])
+                         for r in runner.stage_report()]
+
+        def more():
+            for i, (x, y) in enumerate(
+                    data[steps:steps + CHAIN_PROFILE_STEPS]):
+                runner.step(x, y, steps + i)
+        rec["profile"] = profile_window(torch, more, CHAIN_PROFILE_STEPS,
+                                        classes=IMG_CLASSES)
+    return rec, chain
+
+
+def chain_schedules_equal(torch, plan, cfg, data) -> dict:
+    """GPipe and 1F1B from one init over CHAIN_EQ_STEPS steps under
+    deterministic cuDNN: the loss series bit for bit."""
+    series = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for schedule in ("gpipe", "1f1b"):
+            chain = chain_stack(torch, plan, cfg,
+                                torch.Generator().manual_seed(0), "cuda",
+                                schedule=schedule)
+            try:
+                series[schedule] = [chain[0].step(x, y, i) for i, (x, y)
+                                    in enumerate(data[:CHAIN_EQ_STEPS])]
+            finally:
+                chain_close(chain)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    check(series["1f1b"] == series["gpipe"],
+          f"1F1B {series['1f1b']} is not GPipe's {series['gpipe']}")
+    return dict(series, bit_equal=True)
+
+
+def chain_twin(torch, label, plan, cfg, params, data, loss_tol,
+               wide_plan=None) -> dict:
+    """CHAIN_TWIN_STEPS chain steps at CHAIN_TWIN_B, each on the card and
+    on the CPU from one state, the card chain's parameters (plain SGD at
+    lag 0 keeps no other state), under deterministic cuDNN. A bf16 leg
+    also steps ``wide_plan`` (its plan in float32) on the CPU from that
+    state, for the bf16 update's own rounding. Held by
+    :func:`twin_check`."""
+    rows = [(x[:CHAIN_TWIN_B], y[:CHAIN_TWIN_B])
+            for x, y in data[-CHAIN_TWIN_STEPS:]]
+    small = cfg.replace(batch_size=CHAIN_TWIN_B)
+    before = host_params(params)
+    losses, gaps, tols, floors = {"cuda": [], "cpu": []}, [], [], []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for x, y in rows:
+            after = {}
+            runs = [("cuda", plan, small, before), ("cpu", plan, small,
+                                                    before)]
+            if wide_plan is not None:
+                runs.append(("wide", wide_plan,
+                             small.replace(dtype="float32"),
+                             as_float32(torch, before)))
+            for where, pl, c, init in runs:
+                chain = chain_stack(torch, pl, c, init,
+                                    "cpu" if where == "wide" else where)
+                loss = chain[0].step(x, y, 0)
+                chain_close(chain)   # lag 0: every update is applied
+                if where != "wide":
+                    losses[where].append(loss)
+                after[where] = chain_params(chain)
+            gaps.append(update_gap(before, after["cuda"], after["cpu"]))
+            if wide_plan is None:
+                tols.append(IMG_UPDATE_TOL)
+            else:
+                floors.append(update_gap(before, after["cpu"],
+                                         after["wide"]))
+                tols.append(IMG_BF16_UPDATE_FACTOR * floors[-1])
+            before = host_params(after["cuda"])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    rec = twin_check(label, losses, gaps, loss_tol, tols, floors or None)
+    rec.update(steps=CHAIN_TWIN_STEPS, batch=CHAIN_TWIN_B)
+    return rec
+
+
+def chain_dc_twin(torch, plan, cfg, data) -> dict:
+    """The adaptive controller on the topk8 chain, on the card and on the
+    CPU from one init (CHAIN_DC_STEPS at CHAIN_DC_B, a decision every
+    step, deterministic cuDNN): the same decisions and densities."""
+    from split_learning_tpu_torch.transport import DensityController
+    small = cfg.replace(batch_size=CHAIN_DC_B)
+    rows = [(x[:CHAIN_DC_B], y[:CHAIN_DC_B])
+            for x, y in data[:CHAIN_DC_STEPS]]
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for where in ("cuda", "cpu"):
+            dc = DensityController(window=1)
+            chain = chain_stack(torch, plan, small,
+                                torch.Generator().manual_seed(0), where,
+                                "topk8", dc)
+            try:
+                losses = [chain[0].step(x, y, i)
+                          for i, (x, y) in enumerate(rows)]
+            finally:
+                chain_close(chain)
+            out[where] = dict(losses=losses, decisions=[
+                [r["action"], r["wire"], r["densities"]]
+                for r in dc.snapshot()["trajectory"]])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    check(out["cuda"]["decisions"] == out["cpu"]["decisions"],
+          f"the controller's decisions differ: card {out['cuda']}, CPU "
+          f"{out['cpu']}")
+    return dict(out, steps=CHAIN_DC_STEPS, batch=CHAIN_DC_B)
+
+
+def chain_http_cnn(torch, launch_run) -> dict:
+    """``split_cnn_chain3`` over HTTP on ``int8``: two ``serve --role
+    stage`` parties in this process (``launch.run.serve_party``, port 0)
+    and ``launch.run.main(["train", "--stages", "3", ...])`` against
+    them, launch counts reset just before and read just after:
+    :func:`chain_per_step` (S 3) each step, exactly; every loss finite,
+    the loss falling; the ``[pipeline]`` lines."""
+    import contextlib
+    import io
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    data_dir = os.path.join(REPO, "build", "chip_smoke_chain_data")
+    parties = []
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        for i in (1, 2):
+            runtime, server, _ = launch_run.serve_party(launch_run.parse_args(
+                ["serve", "--role", "stage", "--stage-index", str(i),
+                 "--model", "split_cnn_chain3", "--microbatches",
+                 str(CHAIN_M), "--device", "cuda", "--host", "127.0.0.1",
+                 "--port", "0"]))
+            check(runtime is not None, f"serve --role stage {i}: rc {server}")
+            parties.append((runtime, server))
+        argv = ["train", "--device", "cuda", "--model", "split_cnn_chain3",
+                "--stages", "3", "--transport", "http", "--stage-urls",
+                ",".join(srv.url for _, srv in parties), "--microbatches",
+                str(CHAIN_M), "--compress", "int8", "--dataset", "synthetic",
+                "--batch-size", str(CNN_CHAIN_B), "--steps",
+                str(CNN_CHAIN_STEPS), "--tracking", "jsonl", "--data-dir",
+                data_dir, "--wait-server", str(HTTP_TIMEOUT)]
+        LAUNCHES.reset()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = launch_run.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = LAUNCHES.snapshot()
+    finally:
+        for runtime, server in parties:
+            server.stop()
+            runtime.close()
+    lines = [ln for ln in err.getvalue().splitlines()
+             if ln.startswith(("[pipeline]", "[transport]"))]
+    print("\n".join(f"[chain] http {ln}" for ln in lines), flush=True)
+    check(rc == 0, f"the HTTP chain returned {rc}: {err.getvalue()[-2000:]}")
+    per_step = chain_per_step("int8", s=3)
+    want = {k: v * CNN_CHAIN_STEPS for k, v in per_step.items()}
+    check(counts == want, f"HTTP chain launches {counts}, want {want}")
+    losses, ts = _loss_times(data_dir)
+    check(len(losses) == CNN_CHAIN_STEPS and all(map(math.isfinite, losses)),
+          f"HTTP chain losses {losses}")
+    check(statistics.mean(losses[-4:]) < statistics.mean(losses[:4]),
+          f"HTTP chain: the loss did not fall: {losses}")
+    steady = [(b - a) * 1e3 for a, b in zip(ts[2:], ts[3:])]
+    return dict(model="split_cnn_chain3", stages=3, batch=CNN_CHAIN_B,
+                microbatches=CHAIN_M, steps=CNN_CHAIN_STEPS, compress="int8",
+                launches=counts, launches_per_step=per_step,
+                step_ms_median=statistics.median(steady), seconds=secs,
+                loss_first=losses[0], loss_last=losses[-1],
+                pipeline_lines=lines)
+
+
+def chain_runs(torch, launch_run, image_rec) -> tuple:
+    """Phase 27 (see the module docstring). Returns the record and the
+    launch totals of its runs."""
+    from split_learning_tpu_torch.data import batches, synthetic
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.runtime import bubble_fraction
+    from split_learning_tpu_torch.transport import DensityController
+    from split_learning_tpu_torch.utils import Config
+    t0 = time.perf_counter()
+    ds = synthetic("cifar10", n_train=CHAIN_B * (CHAIN_STEPS
+                                                 + CHAIN_PROFILE_STEPS),
+                   n_test=8, seed=0)
+    data = list(batches(ds.train, CHAIN_B, seed=0, drop_remainder=True))
+    kw = dict(model="resnet18_4stage", num_stages=CHAIN_S,
+              microbatches=CHAIN_M, batch_size=CHAIN_B, lr=LR)
+    rec = {"resnet18_4stage": {}, "wires": {},
+           "ideal_bubble": bubble_fraction(CHAIN_M, CHAIN_S)}
+    totals, restore = _phase_totals(LAUNCHES)
+    try:
+        for dtype in ("float32", "bfloat16"):
+            plan = get_plan(model="resnet18_4stage", dtype=dtype)
+            cfg = Config(transport="device", dtype=dtype, **kw)
+            label = f"resnet18_4stage device {dtype}"
+            leg, chain = chain_leg(torch, label, plan, cfg, data,
+                                   profile=True)
+            params = host_params(chain_params(chain))
+            chain_close(chain)
+            fused = image_rec["resnet18_fused"][dtype]["step_ms_median"]
+            leg.update(fused_step_ms_median=fused,
+                       over_fused=leg["step_ms_median"] / fused)
+            leg["schedules"] = chain_schedules_equal(torch, plan, cfg, data)
+            wide = (None if dtype == "float32"
+                    else get_plan(model="resnet18_4stage"))
+            leg["cpu_twin"] = chain_twin(
+                torch, label, plan, cfg, params, data,
+                _f32_twin_tol if wide is None else bf16_loss_tol, wide)
+            rec["resnet18_4stage"][dtype] = leg
+        plan = get_plan(model="resnet18_4stage")
+        cfg = Config(transport="local", **kw)
+        for mode in ("int8", "topk8"):
+            dc = DensityController(window=1) if mode == "topk8" else None
+            leg, chain = chain_leg(torch, f"resnet18_4stage local {mode}",
+                                   plan, cfg, data, mode, dc,
+                                   steps=CHAIN_WIRE_STEPS)
+            chain_close(chain)
+            if dc is not None:
+                leg["densities"] = [r["densities"] for r in
+                                    dc.snapshot()["trajectory"]]
+            rec["wires"][mode if dc is None else "topk8_auto"] = leg
+        rec["wires"]["controller_twin"] = chain_dc_twin(torch, plan, cfg,
+                                                        data)
+        rec["cnn_chain_http"] = chain_http_cnn(torch, launch_run)
+    finally:
+        restore()
+    rec["card_tests"] = card_test_step(CHAIN_CARD_TEST_FILTER)
+    rec["seconds"] = time.perf_counter() - t0
+    for dtype, leg in rec["resnet18_4stage"].items():
+        print(f"[chain] resnet18_4stage {dtype}: {leg['step_ms_median']:.2f}"
+              f" ms a step ({leg['over_fused']:.2f}x the fused step's "
+              f"{leg['fused_step_ms_median']:.2f}), idle "
+              f"{leg['profile']['device_idle_share']}, bubble "
+              f"{[round(b['measured'], 3) for b in leg['bubble']]} (ideal "
+              f"{rec['ideal_bubble']:.3f})", flush=True)
+    print(f"[chain] phase 27: {rec['seconds']:.1f} s", flush=True)
+    return rec, totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5233,6 +5621,9 @@ def main() -> int:
     image_rec, image_counts, vit_fa = image_runs(
         torch, launch_run, dev, gen, (bw, fp32, bf16_peak, flash_peak))
 
+    # ---- 27. the K-stage chain --------------------------------------- #
+    chain_rec, chain_counts = chain_runs(torch, launch_run, image_rec)
+
     for rec in records:
         key = launch_of.get(rec["name"], rec["name"])
         rec["launches_train_lm_bf16"] = bf16_counts.get(key, 0)
@@ -5336,6 +5727,18 @@ def main() -> int:
             rec["vit_shapes_whole_backward"] = {
                 k: dict(r["bwd"], shape=r["shape"], dtype=r["dtype"],
                         causal=False) for k, r in vit_fa.items()}
+    chain_legs = {f"resnet18_4stage_device_{dt}": leg for dt, leg in
+                  chain_rec["resnet18_4stage"].items()}
+    chain_legs.update({f"resnet18_4stage_local_{m}": leg for m, leg in
+                       chain_rec["wires"].items() if "launches_per_step"
+                       in leg})
+    chain_legs["split_cnn_chain3_http_int8"] = chain_rec["cnn_chain_http"]
+    for rec in records:
+        key = launch_of.get(rec["name"], rec["name"])
+        rec["launches_chain"] = chain_counts.get(key, 0)
+        rec["launches_per_step_chain"] = {
+            leg_name: leg["launches_per_step"].get(key, 0)
+            for leg_name, leg in chain_legs.items()}
     two_party_line = dict(two_party=dict(
         model="split_cnn", mode="split", transport="local", batch=BATCH,
         steps=STEPS, density=DENSITY, device=kind, kernel_cases=wire_cases,
@@ -5383,6 +5786,9 @@ def main() -> int:
                                            **many_rec)}))
     print(json.dumps({"image": dict(device=kind, card=smi, batch=IMG_B,
                                     steps=IMG_STEPS, **image_rec)}))
+    print(json.dumps({"chain": dict(
+        device=kind, card=smi, model="resnet18_4stage", batch=CHAIN_B,
+        microbatches=CHAIN_M, stages=CHAIN_S, lr=LR, **chain_rec)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

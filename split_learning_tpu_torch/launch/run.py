@@ -37,17 +37,31 @@ Config resolution is the JAX package's: CLI flags > environment
 ``--device cpu`` is the only way onto the CPU, where the kernels' plain
 versions run. The JAX ``--kernels`` flag does not exist here: the device
 picks the kernel. The image families are the split CNN, ResNet-18
-(``resnet18``; ``resnet18_4stage``, whose K-stage chain waits for
-ROADMAP item 16) and the ViT (``vit``) on ``mnist``, ``cifar10`` or
-``synthetic``. The transformer families and the ViT take the JAX size
+(``resnet18``, and ``resnet18_4stage`` for the K-stage chain) and the
+ViT (``vit``) on ``mnist``, ``cifar10`` or ``synthetic``. The transformer families and the ViT take the JAX size
 flags (``--d-model``, ``--num-heads``, ``--client-depth``,
 ``--server-depth``) and ``--attn``; the token families ``--seq-len``,
 with the JAX command's checks: ``transformer_lm`` needs ``--dataset
 lm``, ``transformer`` needs ``--dataset tokens``, an image model
 refuses token data, and ResNet-18 refuses the size flags (rc 2). On a
 two-party wire ``--compress-density auto`` warns and uses 0.1, as in
-JAX (the adaptive controller drives the K-stage chain's hops only). A ``train`` client whose server reports another mode
-exits 4, as in JAX.
+JAX (the adaptive controller drives the K-stage chain's hops only). A
+``train`` client whose server reports another mode exits 4, as in JAX.
+
+The K-stage chain, as in JAX: ``train --stages S`` (S > 2, mode split,
+a chain plan of S stages: ``split_cnn_chain3``, ``resnet18_4stage``) on
+``--transport local`` (in-process ``StageRuntime`` parties behind
+``LocalTransport``, with ``--compress``), ``device`` (behind
+``DeviceTransport``: CUDA tensors on every hop) or ``http`` (``serve
+--role stage --stage-index i`` parties behind ``--stage-urls``; one of
+another role, index or ``--microbatches`` exits 4), driven by
+``PipelineRunner`` over ``--microbatches`` with ``--schedule
+gpipe|1f1b``; each stage defers its update under ``--apply-lag``.
+``--compress-density auto`` binds one adaptive controller to every hop
+wire, ``--chaos`` wraps every hop wire, ``--gate-dropped-steps`` exits
+1 unless every step's loss is finite and every in-process stage
+acknowledged the last step. Its checkpoints are the ``chain`` layout,
+which ``--resume`` and ``eval`` read.
 
 Training as JAX's command configures it, on every transport and on
 ``serve`` (whose server party builds its own optimizer from them):
@@ -95,8 +109,8 @@ out-of-order steps, and over HTTP a server without
 
 Not ported yet, each exiting 2 with the ROADMAP item it waits for:
 ``--replicas`` above 1 (item 19), the ``train`` flags of
-:data:`TRAIN_NOT_PORTED` and the ``serve`` flags of
-:data:`SERVE_NOT_PORTED`.
+:data:`TRAIN_NOT_PORTED` (``--transport pipeline`` among them) and the
+``serve`` flags of :data:`SERVE_NOT_PORTED`.
 """
 
 from __future__ import annotations
@@ -134,7 +148,7 @@ def _config_from_args(args):
                   "optimizer", "momentum", "weight_decay", "warmup_steps",
                   "decay_steps", "grad_clip_norm", "microbatches", "seed",
                   "data_dir", "tracking", "transport", "server_url", "attn",
-                  "dtype", "checkpoint_dir"):
+                  "dtype", "checkpoint_dir", "num_stages", "schedule"):
         val = getattr(args, field, None)
         if val is not None:
             overrides[field] = val
@@ -283,10 +297,16 @@ def _assemble_full_params(layout: str, raw: Dict[str, Any]):
                 raw["client_c"]["params"][0]]
     if layout == "federated":
         return raw["client"]["params"]
-    if layout in ("chain", "pipeline"):
+    if layout == "chain":
+        # the hub's stage 0, then stage1..stage<S-1> in chain order
+        stages = sorted((k for k in raw if k.startswith("stage")),
+                        key=lambda k: int(k[len("stage"):]))
+        return [raw["client"]["params"][0],
+                *(raw[k]["params"][0] for k in stages)]
+    if layout == "pipeline":
         raise NotImplementedError(
-            f"not ported yet: a {layout!r} checkpoint (the K-stage chain, "
-            "ROADMAP item 16)")
+            "not ported yet: a 'pipeline' checkpoint (the single-program "
+            "pipeline, --transport pipeline: ROADMAP item 16)")
     raise ValueError(
         f"cannot evaluate a {layout!r} checkpoint: the client half alone "
         "does not form the full composition (train with --transport local "
@@ -392,13 +412,10 @@ def _given(v: Any) -> bool:
 # exits 2 naming its item. ``--kernels`` and ``--download`` stay out by
 # design (no kernel fallback knob; no network).
 TRAIN_NOT_PORTED = (
-    ("num_stages", lambda v: v is not None and v > 2,
-     "--stages > 2 (the K-stage chain)", "item 16"),
-    ("stage_urls", _given, "--stage-urls (the K-stage chain)", "item 16"),
-    ("schedule", _given, "--schedule (the K-stage chain)", "item 16"),
+    ("transport", lambda v: v == "pipeline",
+     "--transport pipeline (the single-program pipeline over a pipe mesh)",
+     "item 16"),
     ("remat", bool, "--remat", "item 16"),
-    ("gate_dropped_steps", bool,
-     "--gate-dropped-steps (the K-stage chain)", "item 16"),
     ("num_clients", lambda v: v is not None and v > 1,
      "--num-clients > 1 (a data-parallel mesh)", "item 18"),
     ("model_parallel", lambda v: v is not None and v > 1,
@@ -463,9 +480,312 @@ def _open_checkpoint(cfg, args, size_kw, seq_len):
     return ckptr, size_kw, seq_len
 
 
+def _train_data(args, cfg, seq_len):
+    """The training data of ``cfg.dataset`` (the synthetic fallback
+    announced), or None after the ``--require-real`` refusal."""
+    from split_learning_tpu_torch.data import load_dataset
+    try:
+        ds = load_dataset(cfg.dataset, cfg.data_dir, seq_len=seq_len,
+                          allow_synthetic=not args.require_real)
+    except FileNotFoundError as e:
+        print(f"[error] {e} (--require-real)", file=sys.stderr)
+        return None
+    if ds.synthetic:
+        print(f"[data] using synthetic {ds.name} "
+              f"({len(ds.train)} train examples)", file=sys.stderr)
+    return ds
+
+
+def _data_stream(ds, cfg, steps: int, start_step: int):
+    """``(data_iter, budget, per_epoch)``: each ``data_iter()`` call is
+    one epoch of batches, reshuffled per epoch, at most ``steps`` in all
+    (0: no cap). The stream resumes where ``start_step`` left it: the
+    epoch's shuffle and the batch in it, so a resumed run sees the
+    uninterrupted run's data."""
+    from split_learning_tpu_torch.data import batches
+    per_epoch = max(len(ds.train) // cfg.batch_size, 1)
+    budget = {"n": steps if steps else None,
+              "epoch": start_step // per_epoch,
+              "skip": start_step % per_epoch, "taken": 0}
+
+    def data_iter():
+        epoch_seed = cfg.seed + budget["epoch"]
+        budget["epoch"] += 1
+        skip, budget["skip"] = budget["skip"], 0
+        for i, xy in enumerate(batches(ds.train, cfg.batch_size,
+                                       seed=epoch_seed,
+                                       drop_remainder=True)):
+            if i < skip:
+                continue
+            if budget["n"] is not None:
+                if budget["n"] <= 0:
+                    return
+                budget["n"] -= 1
+            budget["taken"] += 1
+            yield xy
+    return data_iter, budget, per_epoch
+
+
+def _chain_wires(args, cfg, plan, dc, density, compress):
+    """The chain's parties and wires: ``(stage runtimes, transports,
+    rc)``. Over http the stages are ``serve --role stage`` processes
+    behind ``--stage-urls`` (rc 2 on a wrong count, rc 4 on a party of
+    another role, stage index or microbatch count); otherwise in-process
+    ``StageRuntime`` parties from the run's seed behind ``LocalTransport``
+    (the codec's ``--compress``) or ``DeviceTransport``. ``--chaos`` wraps
+    every wire in one seeded policy."""
+    from split_learning_tpu_torch.runtime.stage import StageRuntime
+    from split_learning_tpu_torch.transport import (
+        ChaosPolicy, ChaosTransport, DeviceTransport, HttpTransport,
+        LocalTransport)
+    M = cfg.microbatches
+    stage_rts, transports = [], []
+    if cfg.transport == "http":
+        urls = [u.strip() for u in (args.stage_urls or "").split(",")
+                if u.strip()]
+        if len(urls) != plan.num_stages - 1:
+            print(f"[error] chain over http needs --stage-urls with "
+                  f"{plan.num_stages - 1} URLs (one per remote stage, "
+                  f"chain order; got {len(urls)})", file=sys.stderr)
+            return [], [], 2
+        for i, url in enumerate(urls):
+            t = HttpTransport(url, compress=compress or "none",
+                              density=density, density_controller=dc,
+                              wire_id=f"hop{i + 1}")
+            transports.append(t)
+            info = t.wait_ready(timeout=args.wait_server)
+            want = (("role", "stage", "start it with serve --role stage "
+                     f"--stage-index {i + 1}"),
+                    ("stage_index", i + 1, "start it with serve --role "
+                     f"stage --stage-index {i + 1}"),
+                    ("microbatches", M, f"this client runs --microbatches "
+                     f"{M}; the 1/M loss scaling must agree"))
+            for key, value, hint in want:
+                if info.get(key) != value:
+                    print(f"[error] {url} reports {key}="
+                          f"{info.get(key)!r}, expected {value!r} ({hint})",
+                          file=sys.stderr)
+                    for tr in transports:
+                        tr.close()
+                    return [], [], 4
+    else:
+        ef_mode = "clapping" if compress == "clapping" else "topk8"
+        for i in range(1, plan.num_stages):
+            srt = StageRuntime(plan, i, cfg,
+                               torch.Generator().manual_seed(cfg.seed),
+                               microbatches=M, apply_lag=args.apply_lag,
+                               ef_mode=ef_mode, device=args.device)
+            stage_rts.append(srt)
+            transports.append(
+                DeviceTransport(srt) if cfg.transport == "device"
+                else LocalTransport(srt, compress=compress, density=density,
+                                    density_controller=dc))
+    if args.chaos:
+        policy = ChaosPolicy(args.chaos, seed=args.chaos_seed)
+        # one policy, every hop wire: the draws key on (path, hop_seq)
+        transports = [ChaosTransport(t, policy) for t in transports]
+        print(f"[chaos] injecting {args.chaos!r} (seed {policy.seed}) on "
+              "every hop wire", file=sys.stderr)
+    return stage_rts, transports, 0
+
+
+def _train_chain(args, cfg, plan, ckptr, size_kw, seq_len) -> int:
+    """``train --stages S`` (S > 2, mode split) on the local, device or
+    http transport: stage 0 trains here in a ``PipelineRunner`` (GPipe or
+    1F1B over ``--microbatches``), stages 1..S-1 are ``StageRuntime``
+    parties, each deferring its update under ``--apply-lag``. Prints the
+    wires' ``[transport] hop i`` and ``[pipeline] stage i: bubble=...``
+    lines, the adaptive controller's ``[density]`` line, and with
+    ``--gate-dropped-steps`` the exactly-once gate (rc 1 on a non-finite
+    loss or a stage behind the last step). Checkpoints are the
+    ``chain`` layout: one tree (``client``, ``stage1``...) and each
+    in-process stage's sidecar under ``stage<i>/``."""
+    from split_learning_tpu_torch.runtime.checkpoint import (
+        read_latest_extras, write_extras)
+    from split_learning_tpu_torch.runtime.evaluate import evaluate
+    from split_learning_tpu_torch.runtime.pipeline_runner import (
+        PipelineRunner)
+    from split_learning_tpu_torch.runtime.state import restore_state
+    from split_learning_tpu_torch.tracking import make_logger
+    from split_learning_tpu_torch.transport.chaos import parse_chaos_spec
+    from split_learning_tpu_torch.transport.density import DensityController
+    try:
+        if plan.num_stages != cfg.num_stages:
+            raise ValueError(
+                f"--stages {cfg.num_stages} does not match model "
+                f"{cfg.model!r} ({plan.num_stages} stages); pick a chain "
+                "plan (e.g. split_cnn_chain3, resnet18_4stage)")
+        if args.replicas > 1:
+            raise NotImplementedError(
+                "not ported yet: --replicas > 1 (replicated stage parties: "
+                "ROADMAP item 19)")
+        if args.chaos:
+            parse_chaos_spec(args.chaos)  # a bad spec fails here
+        compress = args.compress
+        if compress and cfg.transport == "device":
+            print("[warn] --compress ignored on --transport device "
+                  "(zero-copy device wire; nothing to compress)",
+                  file=sys.stderr)
+            compress = None
+        density, dc = args.compress_density, None
+        if density == "auto":
+            if compress in ("topk8", "clapping"):
+                dc = DensityController()
+            else:
+                print("[warn] --compress-density auto needs --compress "
+                      "topk8 or clapping; using the fixed default 0.1",
+                      file=sys.stderr)
+            density = 0.1  # the controller drives the wires it is bound to
+        elif not 0.0 < density <= 1.0:
+            raise ValueError(
+                f"--compress-density must be in (0, 1] (got {density})")
+    except (ValueError, NotImplementedError) as e:
+        print(f"[error] {e}", file=sys.stderr)
+        return 2
+    for flag, on in (("--pipeline-depth", args.pipeline_depth > 1),
+                     ("--prefetch", args.prefetch > 0),
+                     ("--decouple-bwd", args.decouple_bwd),
+                     ("--failure-policy", args.failure_policy is not None)):
+        if on:
+            print(f"[warn] {flag} ignored on the K-stage chain (the runner "
+                  "retries hops itself; every stage defers its update "
+                  "under --apply-lag)", file=sys.stderr)
+    stage_rts, transports, rc = _chain_wires(args, cfg, plan, dc, density,
+                                             compress)
+    if rc:
+        return rc
+    ds = _train_data(args, cfg, seq_len)
+    if ds is None:
+        return 2
+    runner = PipelineRunner(plan, cfg, torch.Generator().manual_seed(cfg.seed),
+                            None, transports,
+                            microbatches=cfg.microbatches,
+                            schedule=cfg.schedule, device=args.device)
+    runner.density_controller = dc
+    if compress:
+        print(f"[compress] chain hop wires: {compress} (density "
+              f"{'auto' if dc is not None else density})", file=sys.stderr)
+    logger = make_logger(cfg)
+
+    start_step = 0
+    if ckptr is not None:
+        latest = ckptr.latest_step()
+        if args.resume and latest is not None and stage_rts:
+            raw = ckptr.restore_raw(latest)
+            try:
+                restore_state(runner.state, raw["client"])
+                for srt in stage_rts:
+                    # each stage's sidecar restores (or clears) its own
+                    # replay cache and ledger
+                    srt.resume_from(raw[srt.party], latest,
+                                    extras=read_latest_extras(
+                                        os.path.join(ckptr.directory,
+                                                     srt.party),
+                                        step=latest))
+            except (KeyError, ValueError) as e:
+                print(f"[error] cannot resume from {cfg.checkpoint_dir}: "
+                      f"{e}", file=sys.stderr)
+                return 2
+            start_step = runner.steps_done = latest
+            print(f"[ckpt] chain resumed at step {start_step} from "
+                  f"{cfg.checkpoint_dir}", file=sys.stderr)
+        elif not stage_rts:
+            print("[warn] the chain over http checkpoints no party: the "
+                  "stage processes own their state (JAX's behaviour)",
+                  file=sys.stderr)
+        _write_ckpt_meta(cfg.checkpoint_dir, "chain", cfg, size_kw, seq_len)
+
+    def save_chain(step: int) -> None:
+        if ckptr is None or not stage_rts or ckptr.last_enqueued == step:
+            return
+        # export_state flushes each stage's deferred queue first: the
+        # joint tree never holds a party behind the replies it sent
+        ckptr.save(step, {"client": runner.state,
+                          **{srt.party: srt.export_state()
+                             for srt in stage_rts}})
+        for srt in stage_rts:
+            d = os.path.join(ckptr.directory, srt.party)
+            os.makedirs(d, exist_ok=True)
+            write_extras(d, srt.export_runtime_extras(step))
+
+    data_iter, budget, _ = _data_stream(ds, cfg, args.steps, start_step)
+    step, bad_losses = start_step, 0
+    final_loss = float("nan")
+    t0 = time.time()
+    try:
+        with _ckpt_drain(ckptr):
+            for _ in range(cfg.epochs):
+                for x, y in data_iter():
+                    final_loss = runner.step(x, y, step)
+                    if not np.isfinite(final_loss):
+                        bad_losses += 1
+                    logger.log_metric("loss", final_loss, step=step)
+                    step += 1
+                    if (args.checkpoint_every and (step - start_step)
+                            % args.checkpoint_every == 0):
+                        save_chain(step)
+                save_chain(step)
+    finally:
+        meta = runner.trace_metadata()
+        runner.close()
+        for t in transports:
+            t.close()
+        for srt in stage_rts:
+            srt.close()
+        if ckptr is not None:
+            ckptr.close()
+    dt = time.time() - t0
+    n_steps = budget["taken"]
+    for i, t in enumerate(transports):
+        print(f"[transport] hop {i + 1}: {t.stats.summary()}",
+              file=sys.stderr)
+    for st in meta["stages"]:
+        bf = st["bubble_fraction"]
+        print(f"[pipeline] stage {st['stage']} [{st['schedule']}]: bubble="
+              f"{bf if bf is None else round(bf, 3)} (ideal "
+              f"{st['bubble_theoretical']:.3f}) "
+              f"reply_p50={st['reply_p50_ms']:.1f}ms", file=sys.stderr)
+    if "density" in meta:
+        snap = meta["density"]
+        print(f"[density] adaptive controller: windows="
+              f"{snap['windows_closed']} densities={snap['densities']} "
+              f"(budget {snap['budget_nats']} nats / {snap['window']}-step "
+              "window)", file=sys.stderr)
+    if args.gate_dropped_steps:
+        # every scheduled step produced a finite loss and every stage
+        # party acknowledged the last step
+        want = step - 1
+        lagging = [(srt.stage_index, srt.health()["step"])
+                   for srt in stage_rts if srt.health()["step"] != want]
+        if bad_losses or lagging:
+            print(f"[gate] DROPPED-STEPS GATE FAILED: nonfinite_losses="
+                  f"{bad_losses} lagging_stages={lagging} (want step "
+                  f"{want})", file=sys.stderr)
+            return 1
+        print(f"[gate] ok: {n_steps} steps completed, 0 dropped",
+              file=sys.stderr)
+    if n_steps and dt > 0:
+        logger.log_metric("steps_per_sec", n_steps / dt, step=n_steps)
+    if args.eval:
+        if not stage_rts:
+            print("[eval] full composition unavailable over a remote "
+                  "transport; skipping", file=sys.stderr)
+        else:
+            params = [runner.params] + [srt.params for srt in stage_rts]
+            res = evaluate(plan, params, ds.test, batch_size=cfg.batch_size)
+            logger.log_metric("test_accuracy", res["accuracy"], step=n_steps)
+            logger.log_metric("test_loss", res["loss"], step=n_steps)
+            print(f"[eval] accuracy={res['accuracy']:.4f} "
+                  f"loss={res['loss']:.4f} n={res['predictions']}")
+    logger.close()
+    print(f"[done] mode={cfg.mode} transport={cfg.transport} "
+          f"steps={n_steps} final_loss={final_loss:.4f} "
+          f"({n_steps / dt if dt > 0 else 0.0:.2f} steps/s)")
+    return 0
+
+
 def cmd_train(args) -> int:
     from split_learning_tpu_torch import obs
-    from split_learning_tpu_torch.data import batches, load_dataset
     from split_learning_tpu_torch.models import get_plan
     from split_learning_tpu_torch.runtime import (
         CircuitBreaker, FederatedClientTrainer, FusedSplitTrainer,
@@ -489,7 +809,15 @@ def cmd_train(args) -> int:
             elif cfg.dataset not in _TOKEN_SETS:
                 err = (f"--seq-len applies to the token datasets (got "
                        f"--dataset {cfg.dataset!r})")
-        two_party = cfg.transport in ("local", "http")
+        chain = (cfg.mode == "split" and cfg.num_stages > 2
+                 and cfg.transport in ("local", "http", "device"))
+        if cfg.transport == "device" and not chain:
+            err = err or (
+                "--transport device is the co-located K-stage chain: it "
+                "needs mode=split, a chain plan and --stages > 2 (the "
+                "2-party split has no device-native wire: use --transport "
+                "local)")
+        two_party = cfg.transport in ("local", "http") and not chain
         density = _density_or_default(args) if two_party else None
         if err is None and two_party:
             err = _wire_error(args, density)
@@ -508,7 +836,9 @@ def cmd_train(args) -> int:
                   "(split only)", file=sys.stderr)
             depth = 1
         server = None
-        if cfg.transport == "local":
+        if chain:
+            check_config(cfg)
+        elif cfg.transport == "local":
             # the in-process server from the same seed: each party keeps
             # its own stages of one init, as a fused run would start; a
             # depth-W window's steps arrive out of order
@@ -526,6 +856,8 @@ def cmd_train(args) -> int:
     except (ValueError, NotImplementedError) as e:
         print(f"[error] {e}", file=sys.stderr)
         return 2
+    if chain:
+        return _train_chain(args, cfg, plan, ckptr, size_kw, seq_len)
     if cfg.model not in _ATTENTION_FAMILIES and cfg.attn != "full":
         print(f"[warn] --attn {cfg.attn!r} ignored: model {cfg.model!r} has "
               "no attention (transformer/vit only)", file=sys.stderr)
@@ -564,15 +896,9 @@ def cmd_train(args) -> int:
         transport, rc = _make_transport(args, cfg, density, server, depth)
         if rc:
             return rc
-    try:
-        ds = load_dataset(cfg.dataset, cfg.data_dir, seq_len=seq_len,
-                          allow_synthetic=not args.require_real)
-    except FileNotFoundError as e:
-        print(f"[error] {e} (--require-real)", file=sys.stderr)
+    ds = _train_data(args, cfg, seq_len)
+    if ds is None:
         return 2
-    if ds.synthetic:
-        print(f"[data] using synthetic {ds.name} "
-              f"({len(ds.train)} train examples)", file=sys.stderr)
     sample = ds.train.x[:cfg.batch_size]
     seed_gen = torch.Generator().manual_seed(cfg.seed)
     logger = make_logger(cfg)
@@ -669,29 +995,8 @@ def cmd_train(args) -> int:
     # --trace: per-step spans (obs/), off by default and free when off
     step_tracer = obs.enable() if args.trace else None
 
-    # the data stream resumes where it stopped: the epoch's shuffle and
-    # the batch in it, so a resumed run sees the uninterrupted run's data
-    per_epoch = max(len(ds.train) // cfg.batch_size, 1)
-    budget = {"n": args.steps if args.steps else None,
-              "epoch": start_step // per_epoch,
-              "skip": start_step % per_epoch, "taken": 0}
-
-    def data_iter():
-        # reshuffle per epoch; each call is one epoch
-        epoch_seed = cfg.seed + budget["epoch"]
-        budget["epoch"] += 1
-        skip, budget["skip"] = budget["skip"], 0
-        for i, xy in enumerate(batches(ds.train, cfg.batch_size,
-                                       seed=epoch_seed,
-                                       drop_remainder=True)):
-            if i < skip:
-                continue
-            if budget["n"] is not None:
-                if budget["n"] <= 0:
-                    return
-                budget["n"] -= 1
-            budget["taken"] += 1
-            yield xy
+    data_iter, budget, per_epoch = _data_stream(ds, cfg, args.steps,
+                                                start_step)
 
     def on_epoch_end(epoch: int, next_step: int) -> None:
         save(next_step)
@@ -785,8 +1090,6 @@ def cmd_train(args) -> int:
 # it asks for something unported, the flag, its ROADMAP item). Each
 # exits 2 naming its item.
 SERVE_NOT_PORTED = (
-    ("role", lambda v: v != "server",
-     "--role stage (a stage party of the K-stage chain)", "item 16"),
     ("remat", bool, "--remat", "item 16"),
     ("mesh_data", lambda v: v > 1, "--mesh-data > 1 (a sharded server)",
      "item 18"),
@@ -916,15 +1219,15 @@ def _serve_checkpoint(args, cfg, runtime, size_kw, seq_len):
     return ckptr, None
 
 
-def cmd_serve(args) -> int:
-    """The server party behind ``SplitHTTPServer`` until SIGINT: JAX's
-    ``cmd_serve``, server role, with the same ``[serve]`` line, and its
-    checkpoints (``--checkpoint-dir``, ``--checkpoint-every``,
-    ``--resume``)."""
-    import signal
-
+def serve_party(args):
+    """What ``serve`` builds, started: ``(runtime, server, checkpointer)``
+    (the server listening), or ``(None, rc, None)`` after an ``[error]``
+    refusal. The server role with its checkpoints (``--checkpoint-dir``,
+    ``--checkpoint-every``, ``--resume``), or ``--role stage
+    --stage-index i``, a stage party of the K-stage chain
+    (``StageRuntime``; ``--microbatches`` must be the client's)."""
     from split_learning_tpu_torch.models import get_plan
-    from split_learning_tpu_torch.runtime import ServerRuntime
+    from split_learning_tpu_torch.runtime import ServerRuntime, StageRuntime
     from split_learning_tpu_torch.transport import (
         ChaosPolicy, SplitHTTPServer)
     from split_learning_tpu_torch.utils.device import resolve_device
@@ -950,19 +1253,35 @@ def cmd_serve(args) -> int:
         plan = get_plan(model=cfg.model, mode=cfg.mode, dtype=cfg.dtype,
                         **_plan_kw(cfg.model, cfg.attn, size_kw, seq_len,
                                    cfg.dataset))
-        # the seed's init, of which the server keeps its own stage: a
-        # client started from the same seed holds the other one
-        runtime = ServerRuntime(
-            plan, cfg, torch.Generator().manual_seed(cfg.seed),
-            strict_steps=not args.allow_out_of_order,
-            coalesce_max=args.coalesce_max,
-            coalesce_window_ms=args.coalesce_window_ms,
-            overlap=not args.no_overlap,
-            batching=args.batching,
-            tenants=args.tenants, quota=args.quota, slo_ms=args.slo_ms,
-            decouple_bwd=args.decouple_bwd, apply_lag=args.apply_lag,
-            ef_mode="clapping" if args.compress == "clapping" else "topk8",
-            device=args.device)
+        ef_mode = "clapping" if args.compress == "clapping" else "topk8"
+        if args.role == "stage":
+            # a middle or last party of the K-stage chain: the same HTTP
+            # wire, serving the hop ops; its state is the chain client's
+            # to checkpoint, as in JAX
+            if cfg.checkpoint_dir:
+                print("[warn] stage parties do not own checkpoints; "
+                      "--checkpoint-dir ignored", file=sys.stderr)
+                cfg = cfg.replace(checkpoint_dir=None)
+            runtime = StageRuntime(
+                plan, args.stage_index, cfg,
+                torch.Generator().manual_seed(cfg.seed),
+                strict_steps=not args.allow_out_of_order,
+                microbatches=cfg.microbatches, apply_lag=args.apply_lag,
+                tenants=args.tenants, quota=args.quota, slo_ms=args.slo_ms,
+                ef_mode=ef_mode, device=args.device)
+        else:
+            # the seed's init, of which the server keeps its own stage: a
+            # client started from the same seed holds the other one
+            runtime = ServerRuntime(
+                plan, cfg, torch.Generator().manual_seed(cfg.seed),
+                strict_steps=not args.allow_out_of_order,
+                coalesce_max=args.coalesce_max,
+                coalesce_window_ms=args.coalesce_window_ms,
+                overlap=not args.no_overlap,
+                batching=args.batching,
+                tenants=args.tenants, quota=args.quota, slo_ms=args.slo_ms,
+                decouple_bwd=args.decouple_bwd, apply_lag=args.apply_lag,
+                ef_mode=ef_mode, device=args.device)
         chaos = (ChaosPolicy(args.chaos, seed=args.chaos_seed)
                  if args.chaos else None)
         ckptr = None
@@ -973,7 +1292,7 @@ def cmd_serve(args) -> int:
                 raise ValueError(err)
     except (ValueError, NotImplementedError) as e:
         print(f"[error] {e}", file=sys.stderr)
-        return 2
+        return None, 2, None
     if chaos is not None:
         print(f"[chaos] injecting {args.chaos!r} (seed {chaos.seed}) "
               "server-side", file=sys.stderr)
@@ -981,12 +1300,23 @@ def cmd_serve(args) -> int:
                              compress=args.compress or "none",
                              density=args.compress_density,
                              chaos=chaos).start()
+    return runtime, server, ckptr
+
+
+def cmd_serve(args) -> int:
+    """:func:`serve_party` until SIGINT: JAX's ``cmd_serve`` with the
+    same ``[serve]`` line."""
+    import signal
+
+    runtime, server, ckptr = serve_party(args)
+    if runtime is None:
+        return server
     main_thread = threading.current_thread() is threading.main_thread()
     if main_thread:
         # SIGINT stops the server even where the parent ignored it
         prev = signal.signal(signal.SIGINT, signal.default_int_handler)
-    print(f"[serve] mode={cfg.mode} role=server listening on {server.url}",
-          flush=True)
+    print(f"[serve] mode={runtime.cfg.mode} role={args.role} listening on "
+          f"{server.url}", flush=True)
     try:
         with _ckpt_drain(ckptr):
             while True:
@@ -1358,14 +1688,29 @@ def _add_server_knobs(p: argparse.ArgumentParser, serve: bool) -> None:
                         "updates old; 0 applies each before the next step")
 
 
+def _add_chain_flags(p: argparse.ArgumentParser) -> None:
+    """The K-stage chain's ``train`` flags (``--microbatches`` and
+    ``--apply-lag`` are shared)."""
+    p.add_argument("--stages", dest="num_stages", type=int, default=None,
+                   help="pipeline stages; > 2 with mode split and the "
+                        "local, device or http transport trains the "
+                        "K-stage chain of a chain plan (split_cnn_chain3: "
+                        "3, resnet18_4stage: 4)")
+    p.add_argument("--stage-urls", dest="stage_urls", default=None,
+                   help="the chain over http: the serve --role stage "
+                        "parties' URLs, comma-separated, in chain order")
+    p.add_argument("--schedule", choices=["gpipe", "1f1b"], default=None,
+                   help="the chain's injection schedule (default gpipe)")
+    p.add_argument("--gate-dropped-steps", dest="gate_dropped_steps",
+                   action="store_true",
+                   help="the chain: exit 1 unless every step produced a "
+                        "finite loss and every in-process stage "
+                        "acknowledged the last step")
+
+
 def _add_train_not_ported(p: argparse.ArgumentParser) -> None:
     """JAX's ``train`` flags that exit 2 here (:data:`TRAIN_NOT_PORTED`;
     ``--tracking-uri`` and ``--remat`` are shared)."""
-    p.add_argument("--stages", dest="num_stages", type=int, default=None)
-    p.add_argument("--stage-urls", dest="stage_urls", default=None)
-    p.add_argument("--schedule", choices=["gpipe", "1f1b"], default=None)
-    p.add_argument("--gate-dropped-steps", dest="gate_dropped_steps",
-                   action="store_true")
     p.add_argument("--num-clients", dest="num_clients", type=int,
                    default=None)
     p.add_argument("--model-parallel", dest="model_parallel", type=int,
@@ -1398,8 +1743,6 @@ def _add_train_not_ported(p: argparse.ArgumentParser) -> None:
 
 def _add_serve_not_ported(p: argparse.ArgumentParser) -> None:
     """JAX's ``serve`` flags that exit 2 here (:data:`SERVE_NOT_PORTED`)."""
-    p.add_argument("--role", choices=["server", "stage"], default="server")
-    p.add_argument("--stage-index", dest="stage_index", type=int, default=1)
     p.add_argument("--mesh-data", dest="mesh_data", type=int, default=1)
     p.add_argument("--mesh-model", dest="mesh_model", type=int, default=1)
     p.add_argument("--replicas", type=int, default=1)
@@ -1431,11 +1774,15 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     _add_shared(pt)
     pt.add_argument("--steps", type=int, default=0,
                     help="stop after N steps (0 = full epochs)")
-    pt.add_argument("--transport", choices=["fused", "local", "http"],
+    pt.add_argument("--transport",
+                    choices=["fused", "local", "http", "device", "pipeline"],
                     default="fused",
-                    help="fused (one program), local (the two parties in "
-                         "one process, through the wire codec) or http "
-                         "(this process is the client of a serve party)")
+                    help="fused (one program), local (the parties in one "
+                         "process, through the wire codec), http (this "
+                         "process is the client of serve parties) or "
+                         "device (the K-stage chain's co-located stages, "
+                         "device tensors on every hop); pipeline is not "
+                         "ported")
     pt.add_argument("--server-url", dest="server_url", default=None,
                     help="the serve party's URL (--transport http; "
                          "default SLT_SERVER_URL or http://127.0.0.1:8000)")
@@ -1446,7 +1793,9 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     pt.add_argument("--compress-density", dest="compress_density",
                     type=_density_arg, default=0.1,
                     help="topk8/clapping kept fraction (default 0.1); "
-                         "'auto' warns and uses 0.1 on a two-party wire")
+                         "'auto': the adaptive controller on the K-stage "
+                         "chain's hop wires (a two-party wire warns and "
+                         "uses 0.1)")
     pt.add_argument("--failure-policy", dest="failure_policy",
                     choices=["raise", "retry", "skip"], default=None,
                     help="what the client does when the wire fails: raise "
@@ -1473,7 +1822,8 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
                     help="restore the latest checkpoint before training")
     pt.add_argument("--checkpoint-every", dest="checkpoint_every", type=int,
                     default=0,
-                    help="also checkpoint every N steps (fused transport)")
+                    help="also checkpoint every N steps (the fused "
+                         "transport and the K-stage chain)")
     pt.add_argument("--require-real", dest="require_real",
                     action="store_true",
                     help="fail if real dataset files are absent instead of "
@@ -1486,6 +1836,7 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
                          "trace JSON here on exit (Perfetto-loadable). "
                          "Off = zero overhead")
     _add_server_knobs(pt, serve=False)
+    _add_chain_flags(pt)
     _add_train_not_ported(pt)
     pt.set_defaults(fn=cmd_train)
 
@@ -1508,6 +1859,13 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
                     default=100,
                     help="checkpoint the server half every N acknowledged "
                          "steps (with --checkpoint-dir)")
+    ps.add_argument("--role", choices=["server", "stage"], default="server",
+                    help="server (the two-party server party) or stage (a "
+                         "stage party of the K-stage chain: it serves the "
+                         "hop ops)")
+    ps.add_argument("--stage-index", dest="stage_index", type=int, default=1,
+                    help="--role stage: which stage of the chain plan "
+                         "(1..S-1)")
     _add_server_knobs(ps, serve=True)
     _add_serve_not_ported(ps)
     ps.set_defaults(fn=cmd_serve)

@@ -47,6 +47,21 @@ REPLY_GRAD = "reply_grad"
 # drain runs inside the same lock window
 DEFERRED_APPLY = "deferred_apply"
 
+# -- the K-stage chain (runtime/stage.py, runtime/pipeline_runner.py) -- #
+# metrics-only counter: host copies on the hop path. A hop payload or
+# reply that is a numpy array counts one on ``DeviceTransport``, which
+# must read 0; ``HttpTransport`` counts 2 a hop (the request's encode
+# and the reply's decode)
+HOP_HOST_COPIES = "hop_host_copies"
+# metrics-gauge-only name: the adaptive density controller's current
+# density per wire, ``wire_density_<wire>``, and the flight-recorder
+# event names of a hop: JAX's, for the telemetry ring and the recorder
+# (ROADMAP item 22)
+WIRE_DENSITY = "wire_density"
+FL_HOP_SEND = "fl_hop_send"
+FL_HOP_RECV = "fl_hop_recv"
+FL_STAGE_REPLY = "fl_stage_reply"
+
 # the client-level phases that tile a step: the denominator of the
 # compute-vs-wire fraction (queue_wait/dispatch belong to the server
 # party; counting them would double-book)

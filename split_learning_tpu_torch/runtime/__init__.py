@@ -14,11 +14,16 @@ from split_learning_tpu_torch.runtime.generate import (
 from split_learning_tpu_torch.runtime.multi_client import (
     MultiClientSplitRunner)
 from split_learning_tpu_torch.runtime.party import ProtocolError
+from split_learning_tpu_torch.runtime.pipeline_runner import (
+    SCHEDULES, PipelineRunner, bubble_fraction, onefb_warmup,
+    pipeline_ticks)
 from split_learning_tpu_torch.runtime.pipelined_client import (
     PipelinedSplitClientTrainer)
 from split_learning_tpu_torch.runtime.replay import ReplayCache
 from split_learning_tpu_torch.runtime.server import (
     FedAvgAggregator, ServerRuntime)
+from split_learning_tpu_torch.runtime.stage import (
+    MB_STRIDE, StageRuntime, hop_seq)
 from split_learning_tpu_torch.runtime.checkpoint import (
     Checkpointer, ForeignCheckpointError, read_latest_extras, write_extras)
 from split_learning_tpu_torch.runtime.state import (
@@ -29,13 +34,16 @@ from split_learning_tpu_torch.runtime.state import (
 __all__ = ["AdmissionController", "Checkpointer", "CircuitBreaker",
            "ContinuousBatcher", "FailurePolicy",
            "FedAvgAggregator", "ForeignCheckpointError",
-           "FederatedClientTrainer", "FusedSplitTrainer",
-           "MultiClientSplitRunner", "PipelinedSplitClientTrainer",
-           "ProtocolError", "ReplayCache", "RequestCoalescer", "SGD",
-           "ServerRuntime", "SplitClientTrainer", "StepRecord", "TrainState",
-           "USplitClientTrainer", "check_config", "check_supported",
+           "FederatedClientTrainer", "FusedSplitTrainer", "MB_STRIDE",
+           "MultiClientSplitRunner", "PipelineRunner",
+           "PipelinedSplitClientTrainer",
+           "ProtocolError", "ReplayCache", "RequestCoalescer", "SCHEDULES",
+           "SGD", "ServerRuntime", "SplitClientTrainer", "StageRuntime",
+           "StepRecord", "TrainState", "USplitClientTrainer",
+           "bubble_fraction", "check_config", "check_supported",
            "compressed_sync_contribution", "evaluate", "evaluate_remote",
-           "fedavg_mean", "generate_remote", "greedy_generate",
+           "fedavg_mean", "generate_remote", "greedy_generate", "hop_seq",
            "init_params", "leaves_of", "make_lr", "make_state", "make_tx",
-           "read_latest_extras", "restore_state", "sample_generate", "sgd",
+           "onefb_warmup", "pipeline_ticks", "read_latest_extras",
+           "restore_state", "sample_generate", "sgd",
            "split_client_stages", "state_tree", "write_extras"]

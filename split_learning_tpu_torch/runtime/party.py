@@ -50,6 +50,9 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
+import torch
+
 from split_learning_tpu_torch.obs import locks as obs_locks
 from split_learning_tpu_torch.obs.metrics import Registry
 from split_learning_tpu_torch.runtime import checkpoint as ckpt
@@ -59,7 +62,26 @@ from split_learning_tpu_torch.runtime.state import (
     TrainState, restore_state, state_tree)
 from split_learning_tpu_torch.transport import codec
 from split_learning_tpu_torch.transport.base import not_ported  # noqa: F401
+from split_learning_tpu_torch.utils.arrays import from_host, to_host
 from split_learning_tpu_torch.utils.config import Config
+
+
+def rows_of(x: Any) -> int:
+    """The leading dimension of a numpy array or a tensor (0 for a
+    scalar)."""
+    shape = tuple(np.shape(x)) if not isinstance(x, torch.Tensor) \
+        else tuple(x.shape)
+    return int(shape[0]) if shape else 0
+
+
+def reply_like(value: Any, request: Any) -> Any:
+    """``value`` in the kind of ``request``: numpy for a numpy request, a
+    tensor on the request's device otherwise."""
+    if not isinstance(value, torch.Tensor):
+        return value  # already on the host
+    if isinstance(request, torch.Tensor):
+        return value.to(request.device)
+    return to_host(value)
 
 
 class ProtocolError(RuntimeError):
@@ -115,6 +137,17 @@ class PartyRuntime:
         self.state: Optional[TrainState] = None
         self._ckpt_lineage = 0  # the sidecar's monotonic commit counter
         self.on_reply: Optional[Callable[[int, str, int], None]] = None
+
+    def _to_dev(self, x: Any, dtype: Optional[torch.dtype] = None
+                ) -> torch.Tensor:
+        """``x`` on the party's ``device``, in ``dtype`` (None: a float32
+        or bfloat16 tensor keeps its dtype, another float becomes
+        float32)."""
+        t = from_host(x) if not isinstance(x, torch.Tensor) else x.detach()
+        if dtype is None:
+            dtype = (t.dtype if t.dtype in (torch.float32, torch.bfloat16)
+                     else torch.float32)
+        return t.to(self.device, dtype)
 
     def _check_batch_rows(self, rows: int, label_rows: int) -> None:
         """An incoming batch needs rows, and one label per row: anything

@@ -121,30 +121,13 @@ from split_learning_tpu_torch.ops.cross_entropy import (
 from split_learning_tpu_torch.runtime.coalesce import (
     CoalesceRequest, RequestCoalescer, pow2_bucket)
 from split_learning_tpu_torch.runtime.party import (
-    PartyRuntime, ProtocolError, _DeferredApply)
+    PartyRuntime, ProtocolError, _DeferredApply, reply_like, rows_of)
 from split_learning_tpu_torch.runtime.state import (
     adopt_params, check_config, fedavg_mean, init_params, make_state,
     make_tx)
-from split_learning_tpu_torch.utils.arrays import (
-    from_host, host_tree, to_host, tree_map)
+from split_learning_tpu_torch.utils.arrays import host_tree, tree_map
 from split_learning_tpu_torch.utils.config import Config
 from split_learning_tpu_torch.utils.device import DeviceLike, resolve_device
-
-
-def _rows(x: Any) -> int:
-    shape = tuple(np.shape(x)) if not isinstance(x, torch.Tensor) \
-        else tuple(x.shape)
-    return int(shape[0]) if shape else 0
-
-
-def _reply_like(value: Any, request: Any) -> Any:
-    """``value`` in the kind of ``request``: numpy for a numpy request, a
-    tensor on the request's device otherwise."""
-    if not isinstance(value, torch.Tensor):
-        return value  # already on the host
-    if isinstance(request, torch.Tensor):
-        return value.to(request.device)
-    return to_host(value)
 
 
 def _is_lm(stage: Any) -> bool:
@@ -310,16 +293,6 @@ class ServerRuntime(PartyRuntime):
                                 status=400)
 
     # ------------------------------------------------------------------ #
-    def _to_dev(self, x: Any, dtype: Optional[torch.dtype] = None
-                ) -> torch.Tensor:
-        """``x`` on the device, in ``dtype`` (None: a float32 or bfloat16
-        tensor keeps its dtype, another float becomes float32)."""
-        t = from_host(x) if not isinstance(x, torch.Tensor) else x.detach()
-        if dtype is None:
-            dtype = (t.dtype if t.dtype in (torch.float32, torch.bfloat16)
-                     else torch.float32)
-        return t.to(self.device, dtype)
-
     def _check_step(self, step: int, client_id: int = 0) -> None:
         last = max(self._last_step.get(client_id, -1), self._step_floor)
         if self.strict_steps and step <= last:
@@ -412,7 +385,7 @@ class ServerRuntime(PartyRuntime):
         with self._lock:
             t_d0 = time.perf_counter() if tr is not None else 0.0
             self._check_step(step, client_id)
-            self._check_batch_rows(_rows(activations), _rows(labels))
+            self._check_batch_rows(rows_of(activations), rows_of(labels))
             acts = self._to_dev(activations)
             labels_dev = self._to_dev(labels, torch.int64)
             read = None
@@ -456,10 +429,10 @@ class ServerRuntime(PartyRuntime):
         """The wire reply: the gradient in the request's kind and the loss
         as a float, from ``read`` where the 2BP reply queued one."""
         if read is None:
-            return _reply_like(g_acts, request), float(loss)
+            return reply_like(g_acts, request), float(loss)
         host = read.get()
         g = host[1] if len(host) > 1 else g_acts
-        return _reply_like(g, request), float(host[0])
+        return reply_like(g, request), float(host[0])
 
     def _reply(self, acts: torch.Tensor, labels: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -520,7 +493,7 @@ class ServerRuntime(PartyRuntime):
         The batch moves to the device on the caller's thread, so the
         flusher only launches; the handshake runs at the group's
         dispatch, so a refused step fails its own client only."""
-        self._check_batch_rows(_rows(activations), _rows(labels))
+        self._check_batch_rows(rows_of(activations), rows_of(labels))
         acts = self._to_dev(activations)
         labels_dev = self._to_dev(labels, torch.int64)
         if labels_dev.dim() != 1:
@@ -533,7 +506,7 @@ class ServerRuntime(PartyRuntime):
             trace_id=obs_trace.CTX.trace_id if traced else None,
             t_enqueue=time.perf_counter() if traced else None,
             deadline=deadline)
-        return _reply_like(g, activations), loss
+        return reply_like(g, activations), loss
 
     def _dispatch_group(self, group: List[CoalesceRequest],
                         reason: str) -> None:
@@ -668,7 +641,7 @@ class ServerRuntime(PartyRuntime):
             # update queues behind this forward
             out = self._stage.apply(self.state.params[0],
                                     self._to_dev(activations))
-        return _reply_like(out, activations)
+        return reply_like(out, activations)
 
     # -- the U-shaped split -------------------------------------------- #
     def _keep_residual(self, client_id: int, step: int,
@@ -695,13 +668,13 @@ class ServerRuntime(PartyRuntime):
         def run() -> Any:
             with self._lock:
                 self._check_step(step, client_id)
-                rows = _rows(activations)
+                rows = rows_of(activations)
                 self._check_batch_rows(rows, rows)
                 acts = self._to_dev(activations)
                 with torch.no_grad():
                     feats = self._stage.apply(self.state.params[0], acts)
                 self._keep_residual(client_id, step, acts)
-            return _reply_like(feats, activations)
+            return reply_like(feats, activations)
 
         return self._exactly_once(client_id, "u_forward", step, run)
 
@@ -732,7 +705,7 @@ class ServerRuntime(PartyRuntime):
                     self._last_step.get(client_id, -1), step)
                 if self.on_step is not None:
                     self.on_step(self._last_step[client_id])
-            return _reply_like(g_acts, feat_grads)
+            return reply_like(g_acts, feat_grads)
 
         return self._exactly_once(client_id, "u_backward", step, run)
 

@@ -166,6 +166,11 @@ class TransportStats:
 class Transport(abc.ABC):
     """Client-side handle to the server party."""
 
+    # True only for transports whose pipeline hops take and return
+    # device tensors end to end (``transport/device.py``): no host copy,
+    # no codec. The pipeline runner reads it for its trace metadata.
+    device_native = False
+
     def __init__(self) -> None:
         self.stats = TransportStats()
 
@@ -191,22 +196,21 @@ class Transport(abc.ABC):
         """Hop 2: d(loss)/d(features) -> d(loss)/d(activations)."""
 
     # -- K-stage pipeline hops: per-microbatch exchanges with a stage
-    # party, which the port does not have yet (ROADMAP item 16) -------
+    # party. Non-abstract like predict: only transports with a stage
+    # peer (runtime/stage.py) serve them ------------------------------
     def hop_forward(self, x: np.ndarray, step: int, mb: int = 0,
                     client_id: int = 0) -> np.ndarray:
         """One microbatch forward through the peer stage: acts in,
         next cut's acts out. Keyed (step, mb) for exactly-once."""
         raise NotImplementedError(
-            f"{type(self).__name__} does not serve pipeline hops (the "
-            "K-stage chain is ROADMAP item 16)")
+            f"{type(self).__name__} does not serve pipeline hops")
 
     def hop_backward(self, g_out: np.ndarray, step: int, mb: int = 0,
                      client_id: int = 0) -> np.ndarray:
         """One microbatch cotangent through the peer stage (2BP reply:
         d(loss)/d(x) back immediately, weight update deferred)."""
         raise NotImplementedError(
-            f"{type(self).__name__} does not serve pipeline hops (the "
-            "K-stage chain is ROADMAP item 16)")
+            f"{type(self).__name__} does not serve pipeline hops")
 
     def hop_loss(self, x: np.ndarray, labels: np.ndarray, step: int,
                  mb: int = 0,
@@ -214,8 +218,7 @@ class Transport(abc.ABC):
         """The LAST stage's fused hop: acts + labels in, (scaled cut
         cotangent, microbatch loss) out."""
         raise NotImplementedError(
-            f"{type(self).__name__} does not serve pipeline hops (the "
-            "K-stage chain is ROADMAP item 16)")
+            f"{type(self).__name__} does not serve pipeline hops")
 
     # -- split-party inference: one forward-only round trip --------------
     def predict(self, activations: np.ndarray,

@@ -40,12 +40,15 @@ corrupt     raise before the inner call (the CRC check refuses a
 http500     raise before the inner call (a 5xx before apply).
 ==========  ==========================================================
 
-The flight-recorder events of each injection wait for ROADMAP item 22;
-the pipeline hop ops for item 16 (the base class raises for them).
+The K-stage chain's hop ops are keyed by the composite ``hop_seq(step,
+mb)`` ordinal (the stages' replay key), so a fault of one microbatch's
+hop never aliases another's draw. The flight-recorder events of each
+injection wait for ROADMAP item 22.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 import zlib
 from collections import OrderedDict
@@ -61,7 +64,7 @@ DEFAULT_RATE = 0.05
 DEFAULT_DELAY_MS = 50.0
 # ops that carry a step handshake: chaos targets the step exchange;
 # predict, aggregate and health pass through untouched. The hop ops are
-# keyed by the composite (step, microbatch) ordinal in JAX.
+# keyed by the composite (step, microbatch) ordinal.
 CHAOS_OPS = ("/forward_pass", "/u_forward", "/u_backward",
              "/hop_forward", "/hop_backward", "/hop_loss")
 
@@ -148,13 +151,16 @@ class _AttemptCounter:
     def __init__(self, cap: int = 4096) -> None:
         self._n: "OrderedDict[tuple, int]" = OrderedDict()
         self._cap = cap
+        # a chain wire's forward and backward workers share one counter
+        self._lock = threading.Lock()
 
     def next(self, key: tuple) -> int:
-        n = self._n.get(key, 0)
-        self._n[key] = n + 1
-        while len(self._n) > self._cap:
-            self._n.popitem(last=False)
-        return n
+        with self._lock:
+            n = self._n.get(key, 0)
+            self._n[key] = n + 1
+            while len(self._n) > self._cap:
+                self._n.popitem(last=False)
+            return n
 
 
 class ChaosTransport(Transport):
@@ -208,6 +214,24 @@ class ChaosTransport(Transport):
         return self._do(
             "/u_backward", step,
             lambda: self.inner.u_backward(feat_grads, step, client_id))
+
+    def hop_forward(self, x, step, mb=0, client_id=0):
+        from split_learning_tpu_torch.runtime.stage import hop_seq
+        return self._do(
+            "/hop_forward", hop_seq(step, mb),
+            lambda: self.inner.hop_forward(x, step, mb, client_id))
+
+    def hop_backward(self, g_out, step, mb=0, client_id=0):
+        from split_learning_tpu_torch.runtime.stage import hop_seq
+        return self._do(
+            "/hop_backward", hop_seq(step, mb),
+            lambda: self.inner.hop_backward(g_out, step, mb, client_id))
+
+    def hop_loss(self, x, labels, step, mb=0, client_id=0):
+        from split_learning_tpu_torch.runtime.stage import hop_seq
+        return self._do(
+            "/hop_loss", hop_seq(step, mb),
+            lambda: self.inner.hop_loss(x, labels, step, mb, client_id))
 
     def predict(self, activations, client_id=0):
         return self.inner.predict(activations, client_id)

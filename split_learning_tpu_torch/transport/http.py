@@ -5,10 +5,19 @@ The route layout is the reference server's: ``POST /forward_pass``
 (``src/server_part.py:25``), ``POST /aggregate_weights``
 (``src/server_part.py:60``), ``GET /health`` (``src/server_part.py:95``),
 plus ``POST /predict``, ``POST /u_forward``, ``POST /u_backward`` and
-``GET /metrics``. Bodies are the msgpack frames of ``transport/codec.py``
+``GET /metrics``, and the K-stage chain's ``POST /hop_forward``,
+``/hop_backward`` and ``/hop_loss`` (served by a ``StageRuntime``,
+``runtime/stage.py``; each keyed by ``hop_seq(step, mb)`` in the replay
+cache and the chaos schedule, each reply echoing its ``step`` and
+``mb``). Bodies are the msgpack frames of ``transport/codec.py``
 (never pickle), each with a CRC-32 in the ``X-SLT-CRC32`` header, both
 ways; the frames are JAX's byte for byte, so a JAX client talks to this
-server and this client to a JAX server.
+server and this client to a JAX server. A hop's payload compresses as
+the two-party cut does: the client transport is bound to one stage and
+the stage's reply ledger keys ``(client, path)``, so each hop wire is
+its own error-feedback endpoint; labels travel dense. The client counts
+2 host copies a hop (``spans.HOP_HOST_COPIES``: the request's encode
+and the reply's decode), the contrast of ``DeviceTransport``'s 0.
 
 Status mapping, as in JAX: 400 = a request the server cannot take or a
 bad frame, 409 = a step-handshake violation (both permanent: the client
@@ -67,8 +76,10 @@ COMPRESS_MODES = ("none", "int8", "topk8", "clapping")
 _TRACED_PATHS = ("/forward_pass", "/u_forward", "/u_backward")
 # wire path -> the runtime's replay-cache op (runtime/replay.py)
 _OP_BY_PATH = {"/forward_pass": "split_step", "/u_forward": "u_forward",
-               "/u_backward": "u_backward"}
-# the K-stage chain's hop ops: served by a stage runtime (ROADMAP item 16)
+               "/u_backward": "u_backward", "/hop_forward": "hop_fwd",
+               "/hop_backward": "hop_bwd", "/hop_loss": "hop_loss"}
+# the K-stage chain's hop ops, served by a stage runtime and keyed by the
+# composite hop_seq(step, mb) ordinal
 _HOP_PATHS = ("/hop_forward", "/hop_backward", "/hop_loss")
 _OCTETS = "application/octet-stream"
 
@@ -163,6 +174,17 @@ class SplitHTTPServer:
         if path == "/u_backward":
             return {"grads": pack(rt.u_backward(
                 req["feat_grads"], int(req["step"]), cid))}
+        if path in _HOP_PATHS:
+            step, mb = int(req["step"]), int(req.get("mb", 0))
+            echo = {"step": req["step"], "mb": req.get("mb", 0)}
+            if path == "/hop_forward":
+                return {"y": pack(rt.hop_forward(req["x"], step, mb, cid)),
+                        **echo}
+            if path == "/hop_backward":
+                return {"grads": pack(rt.hop_backward(req["g"], step, mb,
+                                                      cid)), **echo}
+            g, loss = rt.hop_loss(req["x"], req["labels"], step, mb, cid)
+            return {"grads": pack(g), "loss": loss, **echo}
         if path == "/predict":
             return {"outputs": pack(rt.predict(req["activations"], cid))}
         if path == "/aggregate_weights":
@@ -184,6 +206,13 @@ class SplitHTTPServer:
                     "step": req["step"]}
         if op == "u_forward":
             return {"features": pack(cached)}
+        echo = {"step": req.get("step"), "mb": req.get("mb", 0)}
+        if op == "hop_fwd":
+            return {"y": pack(cached), **echo}
+        if op == "hop_loss":
+            return {"grads": pack(cached[0]), "loss": cached[1], **echo}
+        if op == "hop_bwd":
+            return {"grads": pack(cached), **echo}
         return {"grads": pack(cached)}
 
     def _handler(self):
@@ -265,14 +294,16 @@ class SplitHTTPServer:
                         return
                 tid = None
                 try:
-                    if self.path in _HOP_PATHS:
-                        raise not_ported(
-                            f"{self.path} (the K-stage chain's stage "
-                            "party)", "item 16")
                     tree = codec.decode(raw)
                     req = codec.decompress_tree(tree, outer.device)
                     cid = int(req.get("client_id", 0))
+                    # the key of every per-(client, step) mechanism: the
+                    # step, or a hop's composite (step, mb) ordinal
                     key_seq = int(req["step"]) if "step" in req else None
+                    if key_seq is not None and self.path in _HOP_PATHS:
+                        from split_learning_tpu_torch.runtime.stage import (
+                            hop_seq)
+                        key_seq = hop_seq(key_seq, int(req.get("mb", 0)))
                     # pre-apply faults act here; drop_resp and corrupt
                     # ride to _send_200, after the runtime applied
                     fault = outer._draw_fault(self.path, cid, key_seq)
@@ -391,9 +422,9 @@ class HttpTransport(Transport):
     with sender-side error feedback; ``"clapping"`` is topk8 with the
     storage-free ledger. ``pool_maxsize`` is validated and kept for
     JAX's signature: this client holds one connection per calling
-    thread, and the pipelined client that shares one transport across
-    lanes is ROADMAP item 15. The adaptive ``density_controller`` is
-    item 16."""
+    thread. A ``density_controller`` (``transport/density.py``) sets the
+    topk8 density per wire (``wire_id``, by default the URL) and is fed
+    each frame's byte ratio."""
 
     def __init__(self, base_url: str, timeout: float = 60.0,
                  compress: str = "none", density: float = 0.1,
@@ -405,9 +436,6 @@ class HttpTransport(Transport):
             raise ValueError(f"unknown compression {compress!r}")
         if pool_maxsize < 1:
             raise ValueError(f"pool_maxsize must be >= 1 (got {pool_maxsize})")
-        if density_controller is not None:
-            raise not_ported("the adaptive density controller "
-                             "(chain hop wires)", "item 16")
         url = urllib.parse.urlsplit(base_url.rstrip("/"))
         if url.scheme != "http" or not url.hostname:
             raise ValueError(f"not an http URL: {base_url!r}")
@@ -416,6 +444,7 @@ class HttpTransport(Transport):
         self.compress = compress
         self.density = float(density)
         self.pool_maxsize = int(pool_maxsize)
+        self._dc = density_controller
         self.wire_id = wire_id if wire_id is not None else base_url
         self._host, self._port, self._prefix = url.hostname, url.port, url.path
         # up-direction error feedback, keyed per op (one transport = one
@@ -468,6 +497,20 @@ class HttpTransport(Transport):
     def _topk8(self) -> bool:
         return self.compress in ("topk8", "clapping")
 
+    def _density_now(self) -> float:
+        if self._dc is not None:
+            return self._dc.density(self.wire_id)
+        return self.density
+
+    def _note_ratio(self, tree: Dict[str, Any]) -> None:
+        """Count one frame's compressed leaves (logical against wire
+        bytes) in the stats and the density controller."""
+        raw_b, wire_b = codec.compressed_leaf_bytes(tree)
+        if wire_b:
+            self.stats.record_compression(raw_b, wire_b)
+            if self._dc is not None:
+                self._dc.note_ratio(self.wire_id, raw_b, wire_b)
+
     def _pack(self, arr: Any, key: str) -> Any:
         """The wire form of one cut tensor: a CUDA tensor is encoded on
         the card (K3, or the five topk8 select launches) with one host
@@ -478,8 +521,8 @@ class HttpTransport(Transport):
         if self._topk8():
             if key == "predict":
                 # no later step repays an inference residual
-                return codec.topk8_pack(arr, self.density)
-            return self._ef.compress(key, arr, self.density,
+                return codec.topk8_pack(arr, self._density_now())
+            return self._ef.compress(key, arr, self._density_now(),
                                      decay=codec.ef_decay_for(key))
         return arr
 
@@ -506,10 +549,8 @@ class HttpTransport(Transport):
         if self.compress != "none":
             payload = dict(payload, compress=self.compress)
             if self._topk8():
-                payload["density"] = self.density
-            raw_b, wire_b = codec.compressed_leaf_bytes(payload)
-            if wire_b:
-                self.stats.record_compression(raw_b, wire_b)
+                payload["density"] = self._density_now()
+            self._note_ratio(payload)
         t_enc0 = time.perf_counter() if tid is not None else 0.0
         body = codec.encode(payload)
         enc_s = time.perf_counter() - t_enc0 if tid is not None else 0.0
@@ -545,9 +586,7 @@ class HttpTransport(Transport):
         try:
             tree = codec.decode(content)
             if self.compress != "none":
-                raw_b, wire_b = codec.compressed_leaf_bytes(tree)
-                if wire_b:
-                    self.stats.record_compression(raw_b, wire_b)
+                self._note_ratio(tree)
             out = codec.decompress_tree(tree, device)
         except codec.CodecError as exc:
             # a frame that passed the CRC but fails the codec's checks is
@@ -624,6 +663,48 @@ class HttpTransport(Transport):
             except Exception:
                 self._rollback("u_grads")
                 raise
+
+    # -- the K-stage chain's hops (the peer serves a StageRuntime) ------ #
+    def _hop_post(self, path: str, key: str, up: str, payload: Any,
+                  step: int, mb: int, client_id: int,
+                  extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """One hop: ``payload`` packed under ``key`` as field ``up``, the
+        EF rollback on a failed POST (the shipped mass was not
+        delivered), and the reply's ``(step, mb)`` echo checked: a wire
+        multiplexes M exchanges a step."""
+        with timed(self.stats):
+            self.stats.incr(spans.HOP_HOST_COPIES, 2)
+            try:
+                out = self._post(path, {
+                    up: self._pack(payload, key), **(extra or {}),
+                    "step": step, "mb": int(mb), "client_id": client_id,
+                }, device_of(payload))
+            except Exception:
+                self._rollback(key)
+                raise
+        if int(out.get("step", step)) != int(step) or int(
+                out.get("mb", mb)) != int(mb):
+            raise TransportError(
+                f"{path} reply (step={out.get('step')}, mb={out.get('mb')}) "
+                f"does not echo request (step={step}, mb={mb})")
+        return out
+
+    def hop_forward(self, x: Any, step: int, mb: int = 0,
+                    client_id: int = 0) -> Any:
+        return self._hop_post("/hop_forward", "hop_x", "x", x, step, mb,
+                              client_id)["y"]
+
+    def hop_backward(self, g_out: Any, step: int, mb: int = 0,
+                     client_id: int = 0) -> Any:
+        return self._hop_post("/hop_backward", "hop_g", "g", g_out, step,
+                              mb, client_id)["grads"]
+
+    def hop_loss(self, x: Any, labels: Any, step: int, mb: int = 0,
+                 client_id: int = 0) -> Tuple[Any, float]:
+        # labels travel dense: integer classes quantize to garbage
+        out = self._hop_post("/hop_loss", "hop_loss_x", "x", x, step, mb,
+                             client_id, {"labels": _as_leaf(labels)})
+        return out["grads"], float(out["loss"])
 
     def aggregate(self, params: Any, epoch: int, loss: float, step: int,
                   num_examples: Optional[int] = None) -> Any:

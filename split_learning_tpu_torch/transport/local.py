@@ -33,13 +33,20 @@ server propagates as is (permanent, never masked by retry or skip), a
 The U-shaped hops key their error feedback as JAX's do: ``("u_acts",
 cid)`` and ``("u_grads", cid)`` up, ``(cid, "/u_forward")`` and ``(cid,
 "/u_backward")`` down (the gradient roles decay at 1.0,
-``codec.ef_decay_for``). ``aggregate`` (FedAvg) carries weights, which
+``codec.ef_decay_for``).
+
+The K-stage chain's hop ops (the peer is a ``StageRuntime``,
+``runtime/stage.py``): with ``compress=None`` the payload and the reply
+pass untouched (``through_codec`` round-trips them); otherwise each hop
+is the emulated wire, keyed ``("hop_x", cid)``, ``("hop_g", cid)`` and
+``("hop_loss_x", cid)`` up and ``(cid, "/hop_forward")``, ``(cid,
+"/hop_backward")`` and ``(cid, "/hop_loss")`` down; labels travel dense.
+A ``density_controller`` (``transport/density.py``) gives every topk8
+pack its density under this wire's ``wire_id`` and is fed each frame's
+byte ratio. ``aggregate`` (FedAvg) carries weights, which
 always travel dense: with wire emulation on, its payload goes through
 the real frame, uncompressed, and, as in JAX, its bytes are not counted
 in the stats.
-
-Not ported yet: the pipeline hop ops (item 16), the adaptive density
-controller (item 13).
 """
 
 from __future__ import annotations
@@ -51,7 +58,7 @@ import torch
 from split_learning_tpu_torch.obs import trace as obs_trace
 from split_learning_tpu_torch.transport import codec
 from split_learning_tpu_torch.transport.base import (
-    Backpressure, Transport, TransportError, device_of, not_ported, timed)
+    Backpressure, Transport, TransportError, device_of, timed)
 from split_learning_tpu_torch.utils.arrays import host_tree
 
 COMPRESS_MODES = (None, "none", "int8", "topk8", "clapping")
@@ -62,10 +69,10 @@ class LocalTransport(Transport):
     any object with its ``split_step``/``predict``/``health``
     (duck-typed), the JAX ``ServerRuntime`` included.
 
-    ``density`` is topk8's kept fraction. ``ef_mode`` and ``wire_id`` are
-    stored as JAX stores them (the ledgers follow ``compress``, as in
-    JAX); a ``density_controller`` (the adaptive controller) is not
-    ported yet."""
+    ``density`` is topk8's kept fraction, unless a
+    ``density_controller`` sets it per wire (``wire_id``, by default
+    ``hop<i>`` for a stage peer). ``ef_mode`` is stored as JAX stores it
+    (the ledgers follow ``compress``, as in JAX)."""
 
     def __init__(self, server: Any, through_codec: bool = False,
                  compress: Optional[str] = None,
@@ -76,8 +83,6 @@ class LocalTransport(Transport):
         super().__init__()
         if compress not in COMPRESS_MODES:
             raise ValueError(f"unknown compression {compress!r}")
-        if density_controller is not None:
-            raise not_ported("the adaptive density controller", "item 13")
         self.server = server
         self.through_codec = bool(through_codec)
         self.compress = compress
@@ -86,6 +91,7 @@ class LocalTransport(Transport):
         mode = "clapping" if compress == "clapping" else "topk8"
         self._ef = codec.make_wire_ef(mode)       # up (client-owned)
         self._down_ef = codec.make_wire_ef(mode)  # down, servers without one
+        self._dc = density_controller
         stage = getattr(server, "stage_index", None)
         self.wire_id = wire_id if wire_id is not None else (
             f"hop{stage}" if stage is not None else "cut")
@@ -93,12 +99,17 @@ class LocalTransport(Transport):
     def _topk8(self) -> bool:
         return self.compress in ("topk8", "clapping")
 
+    def _density_now(self) -> float:
+        if self._dc is not None:
+            return self._dc.density(self.wire_id)
+        return self.density
+
     # -- wire emulation (compress != None) ------------------------------
     def _pack_up(self, arr: Any, key: Any) -> Any:
         if self.compress == "int8":
             return codec.q8_compress(arr)
         if self._topk8():
-            return self._ef.compress(key, arr, self.density,
+            return self._ef.compress(key, arr, self._density_now(),
                                      decay=codec.ef_decay_for(key[0]))
         return arr
 
@@ -108,14 +119,14 @@ class LocalTransport(Transport):
         if self._topk8():
             # the server's own ledger, keyed (client, op) as over HTTP
             ef = getattr(self.server, "wire_ef", None) or self._down_ef
-            return ef.compress(key, arr, self.density,
+            return ef.compress(key, arr, self._density_now(),
                                decay=codec.ef_decay_for(key[1]))
         return arr
 
     def _pack_stateless(self, arr: Any) -> Any:
         """Inference packing: no error feedback on either end."""
         if self._topk8():
-            return codec.topk8_pack(arr, self.density)
+            return codec.topk8_pack(arr, self._density_now())
         if self.compress == "int8":
             return codec.q8_compress(arr)
         return arr
@@ -128,6 +139,8 @@ class LocalTransport(Transport):
         raw_b, wire_b = codec.compressed_leaf_bytes(payload)
         if wire_b:
             self.stats.record_compression(raw_b, wire_b)
+            if self._dc is not None:
+                self._dc.note_ratio(self.wire_id, raw_b, wire_b)
             # the peer runtime folds the same bytes into its own metrics
             nwc = getattr(self.server, "note_wire_compression", None)
             if nwc is not None:
@@ -256,6 +269,73 @@ class LocalTransport(Transport):
                 self._roundtrip(feat_grads, self._server_device()), step,
                 client_id)
             return self._roundtrip(g, device_of(feat_grads))
+
+    # -- the K-stage chain's hops (the peer is a StageRuntime) ----------
+    def _hop(self, fn, x: Any, step: int, mb: int, client_id: int) -> Any:
+        """A hop with no wire emulation: the payload as it is (or through
+        the codec with ``through_codec``), the reply in the caller's
+        kind."""
+        out = self._call(fn, self._roundtrip(x, self._server_device()),
+                         step, mb, client_id)
+        return self._roundtrip(out, device_of(x))
+
+    def hop_forward(self, x: Any, step: int, mb: int = 0,
+                    client_id: int = 0) -> Any:
+        with timed(self.stats):
+            if self.compress is None:
+                return self._hop(self.server.hop_forward, x, step, mb,
+                                 client_id)
+            # the transport is bound to one stage, so the ledger keys are
+            # effectively (client, stage, op), as on the HTTP chain
+            req, up = self._wire(
+                {"x": self._pack_up(x, ("hop_x", client_id))},
+                self._server_device())
+            y = self._call(self.server.hop_forward, req["x"], step, mb,
+                           client_id)
+            resp, down = self._wire(
+                {"y": self._pack_down(y, (client_id, "/hop_forward"))},
+                device_of(x))
+            self.stats.add_bytes(sent=up, received=down)
+            return resp["y"]
+
+    def hop_backward(self, g_out: Any, step: int, mb: int = 0,
+                     client_id: int = 0) -> Any:
+        with timed(self.stats):
+            if self.compress is None:
+                return self._hop(self.server.hop_backward, g_out, step, mb,
+                                 client_id)
+            req, up = self._wire(
+                {"g": self._pack_up(g_out, ("hop_g", client_id))},
+                self._server_device())
+            g = self._call(self.server.hop_backward, req["g"], step, mb,
+                           client_id)
+            resp, down = self._wire(
+                {"g": self._pack_down(g, (client_id, "/hop_backward"))},
+                device_of(g_out))
+            self.stats.add_bytes(sent=up, received=down)
+            return resp["g"]
+
+    def hop_loss(self, x: Any, labels: Any, step: int, mb: int = 0,
+                 client_id: int = 0) -> Tuple[Any, float]:
+        with timed(self.stats):
+            dev = self._server_device()
+            if self.compress is None:
+                g, loss = self._call(
+                    self.server.hop_loss, self._roundtrip(x, dev),
+                    self._roundtrip(labels, dev), step, mb, client_id)
+                return self._roundtrip(g, device_of(x)), float(loss)
+            # labels travel dense (integer classes quantize to garbage);
+            # the loss scalar is dense by construction
+            req, up = self._wire(
+                {"x": self._pack_up(x, ("hop_loss_x", client_id)),
+                 "labels": labels}, dev)
+            g, loss = self._call(self.server.hop_loss, req["x"],
+                                 req["labels"], step, mb, client_id)
+            resp, down = self._wire(
+                {"g": self._pack_down(g, (client_id, "/hop_loss")),
+                 "loss": float(loss)}, device_of(x))
+            self.stats.add_bytes(sent=up, received=down)
+            return resp["g"], float(resp["loss"])
 
     def aggregate(self, params: Any, epoch: int, loss: float, step: int,
                   num_examples: Optional[int] = None) -> Any:

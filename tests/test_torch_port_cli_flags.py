@@ -53,10 +53,7 @@ def test_every_jax_flag_has_a_port_flag(cmd):
 
 
 _VALUES = {
-    "num_stages": ["--stages", "3"],
-    "stage_urls": ["--stage-urls", "http://a"],
-    "schedule": ["--schedule", "1f1b"], "remat": ["--remat"],
-    "gate_dropped_steps": ["--gate-dropped-steps"],
+    "transport": ["--transport", "pipeline"], "remat": ["--remat"],
     "num_clients": ["--num-clients", "2"],
     "model_parallel": ["--model-parallel", "2"],
     "mesh_data": ["--mesh-data", "2"], "mesh_model": ["--mesh-model", "2"],

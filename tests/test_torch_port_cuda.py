@@ -1260,3 +1260,72 @@ def test_image_vit_flash_fused_steps_on_the_card(dev, mode, dtype):
     for a, b in zip(losses["cuda"], losses["cpu"]):
         tol = 1e-4 if dtype == "float32" else _bf16_loss_tol(b)
         assert abs(a - b) <= tol, losses
+
+
+def _chain3(device, m, schedule="gpipe", compress=None):
+    """``split_cnn_chain3`` at batch 16, ``m`` microbatches, lag 0, from
+    one init: ``DeviceTransport`` wires, or ``LocalTransport`` with
+    ``compress``."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.runtime import PipelineRunner, StageRuntime
+    from split_learning_tpu_torch.transport import (
+        DeviceTransport, LocalTransport)
+    from split_learning_tpu_torch.utils import Config
+    plan = get_plan(model="split_cnn_chain3")
+    cfg = Config(model="split_cnn_chain3", num_stages=3, microbatches=m,
+                 batch_size=16, schedule=schedule)
+    init = plan.init(torch.Generator().manual_seed(0), torch.zeros(1))
+    stages = [StageRuntime(plan, i, cfg, init, microbatches=m,
+                           device=device) for i in (1, 2)]
+    wires = [DeviceTransport(s) if compress is None
+             else LocalTransport(s, compress=compress) for s in stages]
+    return (PipelineRunner(plan, cfg, init, None, wires, microbatches=m,
+                           schedule=schedule, device=device), stages, wires)
+
+
+def _chain_losses(chain, data):
+    runner, stages, _ = chain
+    try:
+        return [runner.step(x, y, i) for i, (x, y) in enumerate(data)]
+    finally:
+        runner.close()
+        for s in stages:
+            s.close()
+
+
+@pytest.mark.parametrize("compress", [None, "int8"])
+def test_chain_steps_on_the_card(dev, compress):
+    """Three steps of the 3-stage chain at M 4 on the card against the
+    CPU from one init (deterministic cuDNN): per step exactly 2M K1
+    pairs (the loss hops and the last stage's recompute), 3 K2 (the hub
+    and one deferred apply a stage) and, on ``int8``, (4S - 6) M packs
+    and decodes; no host copy on the device wire; 1F1B bit-equal to
+    GPipe; losses within 1e-4 (``None``) or 1e-3 (``int8``) of the
+    CPU's."""
+    from split_learning_tpu_torch.obs import spans
+    from split_learning_tpu_torch.ops import quantize as qmod
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    rs = np.random.RandomState(0)
+    data = [(rs.rand(16, 28, 28, 1).astype(np.float32),
+             rs.randint(0, 10, 16).astype(np.int64)) for _ in range(3)]
+    per_step = {FWD: 8, BWD: 8, SGD: 3}
+    if compress == "int8":
+        per_step.update({qmod.QUANT: 24, qmod.DEQUANT: 24})
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        chain = _chain3("cuda", 4, compress=compress)
+        LAUNCHES.reset()
+        card = _chain_losses(chain, data)
+        torch.cuda.synchronize()
+        assert LAUNCHES.snapshot() == {k: 3 * v for k, v in per_step.items()}
+        for t in chain[2]:
+            assert t.stats.counters.get(spans.HOP_HOST_COPIES, 0) == 0
+        if compress is None:
+            assert _chain_losses(_chain3("cuda", 4, "1f1b"), data) == card
+        cpu = _chain_losses(_chain3("cpu", 4, compress=compress), data)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    tol = 1e-4 if compress is None else 1e-3
+    assert max(abs(a - b) for a, b in zip(card, cpu)) <= tol, (card, cpu)

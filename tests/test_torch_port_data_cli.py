@@ -101,14 +101,18 @@ def test_cli_train_on_cpu_prints_done_and_eval(tmp_path, capsys):
 
 
 def test_cli_rejects_unported_model(tmp_path, capsys):
-    """ResNet-18's 4-stage plan builds, but its K-stage chain (``--stages
-    4``) waits for ROADMAP item 16."""
+    """ResNet-18's K-stage chain (``--stages 4``, once refused, ROADMAP
+    item 16) trains on the CPU: the hub's stem and layer1, then three
+    stage parties behind the device wire, two microbatches a step."""
     from split_learning_tpu_torch.launch.run import main
     rc = main(["train", "--device", "cpu", "--model", "resnet18_4stage",
-               "--stages", "4", "--dataset", "cifar10", "--data-dir",
-               str(tmp_path)])
-    assert rc == 2
-    assert "ROADMAP item 16" in capsys.readouterr().err
+               "--stages", "4", "--dataset", "cifar10", "--transport",
+               "device", "--microbatches", "2", "--batch-size", "4",
+               "--steps", "2", "--data-dir", str(tmp_path)])
+    cap = capsys.readouterr()
+    assert rc == 0
+    assert "mode=split transport=device steps=2 final_loss=" in cap.out
+    assert "[pipeline] stage 3 [gpipe]: bubble=" in cap.err
 
 
 def test_cli_trains_resnet18_on_cpu(tmp_path, capsys):

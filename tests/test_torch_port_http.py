@@ -54,8 +54,8 @@ from split_learning_tpu_torch.obs.metrics import render_prometheus
 from split_learning_tpu_torch.runtime import (
     ProtocolError, ServerRuntime, SplitClientTrainer)
 from split_learning_tpu_torch.transport import (
-    Backpressure, HttpTransport, LocalTransport, SplitHTTPServer,
-    TransportError, codec)
+    Backpressure, DensityController, HttpTransport, LocalTransport,
+    SplitHTTPServer, TransportError, codec)
 from split_learning_tpu_torch.transport.http import CRC_HEADER
 from split_learning_tpu_torch.utils.config import Config
 
@@ -286,8 +286,9 @@ def test_status_mapping():
                                match="called in mode 'split'") as exc:
                 call()
             assert exc.value.status == 400
-        # the runtime's not_ported error, as a 500 naming its item
-        with pytest.raises(JaxTransportError, match="item 16"):
+        # a hop op reaches the runtime, which a two-party server is not
+        # (it has no hop ops): a server fault, a 500, as on JAX's server
+        with pytest.raises(JaxTransportError, match="500.*hop_forward"):
             jt.hop_forward(acts, 0)
     finally:
         t.close()
@@ -483,17 +484,19 @@ def test_wait_ready_backoff_schedule(monkeypatch):
 def test_unported_client_ops_and_arguments():
     t = HttpTransport("http://127.0.0.1:9", timeout=5)
     x = np.zeros((1, 4), np.float32)
-    for call, item in ((lambda: t.hop_forward(x, 0), "item 16"),
-                       (lambda: t.hop_loss(x, x, 0), "item 16")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
-    # the U-shaped hops and FedAvg are ported: they reach the socket
-    for call in (lambda: t.u_forward(x, 0), lambda: t.u_backward(x, 0),
+    # the chain's hops, the U-shaped hops and FedAvg are ported: they
+    # reach the socket
+    for call in (lambda: t.hop_forward(x, 0), lambda: t.hop_loss(x, x, 0),
+                 lambda: t.hop_backward(x, 0), lambda: t.u_forward(x, 0),
+                 lambda: t.u_backward(x, 0),
                  lambda: t.aggregate({}, 0, 0.0, 0)):
         with pytest.raises(TransportError):
             call()
-    with pytest.raises(NotImplementedError, match="item 16"):
-        HttpTransport("http://127.0.0.1:9", density_controller=object())
+    # the adaptive controller is ported: it sets the wire's density
+    dc = DensityController()
+    wired = HttpTransport("http://127.0.0.1:9", compress="topk8",
+                          density_controller=dc, wire_id="hop1")
+    assert wired._density_now() == dc.density("hop1") == 0.1
     with pytest.raises(ValueError, match="pool_maxsize"):
         HttpTransport("http://127.0.0.1:9", pool_maxsize=0)
     with pytest.raises(ValueError, match="compression"):

@@ -171,7 +171,6 @@ def test_train_and_serve_without_device_cpu_raise(tmp_path):
 
 
 _FLAG_VALUES = {
-    "role": ["--role", "stage"],
     "remat": ["--remat"],
     "mesh_data": ["--mesh-data", "2"], "mesh_model": ["--mesh-model", "2"],
     "replicas": ["--replicas", "2"],

@@ -47,7 +47,8 @@ from split_learning_tpu_torch.runtime import (
 from split_learning_tpu_torch.runtime.checkpoint import extras_valid
 from split_learning_tpu_torch.runtime.party import _DeferredApply
 from split_learning_tpu_torch.transport import (
-    FaultInjector, FaultyTransport, LocalTransport, TransportError)
+    DensityController, FaultInjector, FaultyTransport, LocalTransport,
+    TransportError)
 from split_learning_tpu_torch.utils.config import Config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -180,8 +181,11 @@ def test_local_transport_takes_jax_arguments(call):
     assert (t.through_codec, t.compress, t.density, t.ef_mode,
             t.wire_id) == (True, "int8", 0.25, "clapping", "w1")
     assert LocalTransport(server).wire_id == JaxLocal(server).wire_id == "cut"
-    with pytest.raises(NotImplementedError, match="item 13"):
-        LocalTransport(server, False, None, 0.1, "topk8", object())
+    # the sixth is the adaptive density controller (ported), which then
+    # gives the wire its density
+    dc = DensityController(start_rung=0)
+    t = LocalTransport(server, False, "topk8", 0.1, "topk8", dc, "hop1")
+    assert t._density_now() == dc.density("hop1") == 0.4
 
 
 def test_through_codec_round_trips_each_payload():
@@ -409,7 +413,10 @@ def test_unported_modes_and_ops_raise():
         with pytest.raises(ProtocolError, match="called in mode") as exc:
             call()
         assert exc.value.status == 400
-    with pytest.raises(NotImplementedError, match="item 16"):
+    # the chain's hop ops are ported; a two-party server has none, and
+    # the transport's lookup of its op fails as JAX's LocalTransport's
+    # does
+    with pytest.raises(AttributeError, match="hop_forward"):
         t.hop_forward(x, 0)
     # the deferred-apply queue of 2BP is ported: FIFO, bounded by its lag
     seen = []
@@ -423,8 +430,10 @@ def test_unported_modes_and_ops_raise():
     assert extras_valid(payload) and payload["step"] == 0
     server.resume_from(server.export_state(), 0, extras=payload)
     assert server.health()["step"] == -1
-    with pytest.raises(NotImplementedError, match="item 13"):
-        LocalTransport(server, density_controller=object())
+    # the adaptive density controller is ported: it sets the density
+    dc = DensityController()
+    assert LocalTransport(server, compress="topk8", density_controller=dc,
+                          wire_id="hop1")._density_now() == 0.1
     breaker = CircuitBreaker(t.health)   # ported: accepted, not refused
     assert SplitClientTrainer(get_plan(), Config(),
                               torch.Generator().manual_seed(0), t,
