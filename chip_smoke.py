@@ -106,9 +106,11 @@ beside this script. Phases, any failure ending the run with a traceback:
    9, 32 and 288 (stage A's leaves, phase 23's bottom sync), 127, 4099,
    the U-shaped CNN's hop 2 ([64, 9216], phase 20), the CNN cut
    (1,384,448), the generate cut ([8, 1040, 256]) and the LM cut ([64,
-   1024, 256]), random, all-equal, all-zero
+   1024, 256]) and phase 27's three ResNet-18 cuts at a microbatch of
+   32 (2,097,152, 1,048,576 and 524,288), random, all-equal, all-zero
    and exact-half inputs, float32 and bf16, densities 0.01 (index form),
-   0.1 (bitmap) and 1.0, without a residual and with one at decay 1.0
+   0.1 (bitmap), 0.2 (phase 27's controller's next rung) and 1.0,
+   without a residual and with one at decay 1.0
    and 0.5: buffers, q, x', x_eff, m, the new residual and the flag
    bit-equal; the codec's frames from the card byte-equal to the host
    codec's numpy path on the same values, the residuals bit-equal; one
@@ -368,6 +370,7 @@ import math
 import os
 import statistics
 import sys
+import threading
 import time
 
 import numpy as np
@@ -433,10 +436,19 @@ GEN_CUT = (DEC_B, DEC_P + DEC_NEW, LM["d_model"])
 # that these are the sizes they launch at
 U_CNN_HOP2 = (BATCH, 9216)
 A_LEAVES = (288, 32)
+# the ResNet-18 chain of phase 27 at a microbatch of CHAIN_B / CHAIN_M:
+# its three cuts (NHWC; stage 0 -> 1, 1 -> 2, and the loss wire 2 -> 3),
+# which phase 27 checks are the shapes its hop wires pack
+CHAIN_B, CHAIN_M, CHAIN_S = 128, 4, 4
+CHAIN_CUT_FEATURES = ((32, 32, 64), (16, 16, 128), (8, 8, 256))
+CHAIN_CUTS = tuple((CHAIN_B // CHAIN_M, *f) for f in CHAIN_CUT_FEATURES)
 WIRE_SIZES = (1, 7, 8, 9, *A_LEAVES, 127, 4099, math.prod(U_CNN_HOP2),
-              math.prod(CNN_CUT), math.prod(GEN_CUT), math.prod(LM_CUT))
+              math.prod(CNN_CUT), math.prod(GEN_CUT), math.prod(LM_CUT),
+              *map(math.prod, CHAIN_CUTS))
 WIRE_INPUTS = ("random", "ties", "zeros", "halves")
-WIRE_DENSITIES = (0.01, 0.1, 1.0)
+# 0.2: the adaptive controller's rung above its start, where phase 27's
+# topk8 chain moves
+WIRE_DENSITIES = (0.01, 0.1, 0.2, 1.0)
 WIRE_MODES, DENSITY, EF_DECAY = ("none", "int8", "topk8"), 0.1, 0.5
 DEC_MODES = (None, "none", "int8", "topk8")
 FRAME_TWIN_STEPS, WIRE_TWIN_STEPS, PROFILE_STEPS = 3, 5, 10
@@ -559,11 +571,11 @@ IMG_CLASSES = {
 # over HTTP (int8): two serve --role stage parties in this process
 # (launch.run.serve_party) and launch.run.main(["train", "--stages",
 # "3", ...]) for CNN_CHAIN_STEPS at CNN_CHAIN_B.
-CHAIN_B, CHAIN_M, CHAIN_S = 128, 4, 4
 CHAIN_STEPS, CHAIN_EQ_STEPS, CHAIN_WIRE_STEPS, CHAIN_PROFILE_STEPS = (
     8, 3, 4, 3)
 CHAIN_TWIN_B, CHAIN_TWIN_STEPS = 16, 2
 CHAIN_DC_B, CHAIN_DC_STEPS = 32, 3
+CHAIN_WIRE_TWIN_PACKS = 2   # twinned packs (and decodes) a wire and key
 CNN_CHAIN_B, CNN_CHAIN_STEPS = 64, 12
 CHAIN_CARD_TEST_FILTER = "chain"
 CHAIN_STEP_TIMEOUT = 120.0   # a step that does not drain fails the phase
@@ -4482,20 +4494,117 @@ def chain_params(chain) -> tuple:
     return (runner.params, *(st.params for st in stages))
 
 
+class ChainWireTwin:
+    """The hop wires' kernels at the chain's own shapes and densities.
+    For the first ``packs`` packs of each wire and EF key, the card's
+    pack (K3q, or K4s's five launches with the key's residual) against
+    the codec on a CPU copy of the same inputs, which runs the kernels'
+    plain versions: frames byte-equal, new residuals bit-equal. For the
+    first ``packs`` decodes of each wire and payload, the card's decode
+    (K3d for int8) against the CPU's decode of the same frame, bit-equal.
+    The plain versions count no launches. Every pack's shape is kept."""
+
+    def __init__(self, torch, codec, mode, packs=CHAIN_WIRE_TWIN_PACKS):
+        self.torch, self.codec, self.mode, self.packs = (
+            torch, codec, mode, packs)
+        self.shapes, self._seen = set(), {}
+        self.frames = self.decodes = self.mismatched = 0
+        self._lock = threading.Lock()
+
+    def _claim(self, key) -> bool:
+        with self._lock:
+            n = self._seen.get(key, 0)
+            self._seen[key] = n + 1
+            return n < self.packs
+
+    def _count(self, what, ok) -> None:
+        with self._lock:
+            setattr(self, what, getattr(self, what) + 1)
+            self.mismatched += int(not ok)
+
+    def _wrap_pack(self, wire, pack, ef_of, role):
+        torch, codec = self.torch, self.codec
+
+        def twin(arr, key):
+            with self._lock:
+                self.shapes.add(tuple(arr.shape))
+            if not self._claim((id(wire), key)):
+                return pack(arr, key)
+            x = arr.detach().cpu()
+            if self.mode == "int8":
+                packed = pack(arr, key)
+                plain, ok = codec.q8_compress(x), True
+            else:
+                density = wire._density_now()
+                prev = ef_of().residual(key)
+                prev = None if prev is None else prev.detach().cpu()
+                packed = pack(arr, key)
+                plain, res = codec.topk8_compress(
+                    x, density, prev, codec.ef_decay_for(key[role]))
+                ok = torch.equal(ef_of().residual(key).cpu(), res)
+            self._count("frames", ok and codec.encode(packed)
+                        == codec.encode(plain))
+            return packed
+        return twin
+
+    def _wrap_decode(self, wire, real):
+        torch, codec = self.torch, self.codec
+        cpu = torch.device("cpu")
+
+        def twin(payload, device):
+            tree, n = real(payload, device)
+            if device is None or not self._claim(
+                    (id(wire), "decode", tuple(sorted(payload)))):
+                return tree, n
+            plain = codec.decompress_tree(
+                codec.decode(codec.encode(payload)), cpu)
+            ok = all(torch.equal(tree[k].cpu(), plain[k]) if isinstance(
+                tree[k], torch.Tensor) else tree[k] == plain[k]
+                for k in payload)
+            self._count("decodes", ok)
+            return tree, n
+        return twin
+
+    def attach(self, wire):
+        """Wrap ``wire``'s two packs (its EF ledgers as it picks them)
+        and its decode."""
+        wire._pack_up = self._wrap_pack(wire, wire._pack_up,
+                                        lambda: wire._ef, 0)
+        wire._pack_down = self._wrap_pack(
+            wire, wire._pack_down,
+            lambda: getattr(wire.server, "wire_ef", None) or wire._down_ef,
+            1)
+        wire._wire = self._wrap_decode(wire, wire._wire)
+        return self
+
+    def summary(self) -> dict:
+        return dict(frames=self.frames, decodes=self.decodes,
+                    mismatched=self.mismatched,
+                    shapes=sorted(map(list, self.shapes)))
+
+
 def chain_leg(torch, label, plan, cfg, data, mode=None, dc=None,
               steps=CHAIN_STEPS, profile=False):
     """One chain on the card from seed 0: ``steps`` steps with launch
     counts reset before and read after (:func:`chain_per_step` each
     step, exactly), ms a step on the host clock (each step ends in a
     synchronise; median from the third step), finite losses, no host
-    copy on a device wire, the wires' bytes a step; with ``profile`` the
-    measured bubble of those steps beside the ideal and a profiler
-    window of CHAIN_PROFILE_STEPS more. Returns the record and the open
-    chain."""
+    copy on a device wire, the wires' bytes a step; on a compressed wire
+    a :class:`ChainWireTwin` (its CPU work falls in the first step, which
+    the median leaves out) and the packs' shapes equal to CHAIN_CUTS at
+    this batch; with ``profile`` the hop workers' busy shares of those
+    steps beside the ideal bubble and a profiler window of
+    CHAIN_PROFILE_STEPS more. Returns the record and the open chain."""
     from split_learning_tpu_torch.obs import spans
     from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.transport import codec
     chain = runner, _, wires = chain_stack(
         torch, plan, cfg, torch.Generator().manual_seed(0), "cuda", mode, dc)
+    twin = None
+    if mode is not None:
+        twin = ChainWireTwin(torch, codec, mode)
+        for w in wires:
+            twin.attach(w)
     LAUNCHES.reset()
     losses, ms = [], []
     for i, (x, y) in enumerate(data[:steps]):
@@ -4515,20 +4624,45 @@ def chain_leg(torch, label, plan, cfg, data, mode=None, dc=None,
     if mode is None:
         check(copies == [0] * len(wires),
               f"{label}: hop payloads fell to the host {copies}")
+    else:
+        # a middle wire packs under four keys (x, g up; y, g_in down),
+        # the loss wire under two
+        keys = 4 * (len(wires) - 1) + 2
+        cuts = {(cfg.batch_size // cfg.microbatches, *f)
+                for f in CHAIN_CUT_FEATURES}
+        tw = twin.summary()
+        print(f"[chain] {label}: wire twin {tw}", flush=True)
+        # and decodes (K3d's on int8) under three payloads (x, y, g) and
+        # two (x with the labels; g with the loss)
+        payloads = 3 * (len(wires) - 1) + 2
+        check(tw["mismatched"] == 0 and tw["frames"] == keys * twin.packs
+              and tw["decodes"] == payloads * twin.packs,
+              f"{label}: the card's hop frames or decodes differ from the "
+              f"plain versions' {tw}")
+        check(twin.shapes == cuts,
+              f"{label}: packed {sorted(twin.shapes)}, not the cuts "
+              f"{sorted(cuts)} that phase 12 checks")
     steady = ms[2:]
     med = statistics.median(steady)
     rec = dict(
         steps=steps, step_ms_median=med, step_ms_min=min(steady),
         step_ms_max=max(steady), images_per_s=CHAIN_B / med * 1e3,
-        losses=losses, launches=counts, launches_per_step=per_step,
-        hop_host_copies=copies,
+        losses=losses, launches=counts,
+        launches_per_step={k: v / steps for k, v in counts.items()},
+        launches_per_step_predicted=per_step, hop_host_copies=copies,
+        wire_twin=None if twin is None else twin.summary(),
         wire_bytes_per_step=[dict(
             up=w.stats.bytes_sent / steps,
             down=w.stats.bytes_received / steps,
             compression_ratio=w.stats.summary().get("compression_ratio"))
             for w in wires])
     if profile:
-        rec["bubble"] = [dict(stage=r["stage"], measured=r["bubble_fraction"],
+        # host time, not the device's: each hop worker's busy share of
+        # the wall (unclipped), and JAX's bubble from their sum, clipped
+        rec["bubble"] = [dict(stage=r["stage"],
+                              busy_share_forward=r["busy_share_forward"],
+                              busy_share_backward=r["busy_share_backward"],
+                              host_bubble_clipped=r["bubble_fraction"],
                               ideal=r["bubble_theoretical"],
                               reply_p50_ms=r["reply_p50_ms"])
                          for r in runner.stage_report()]
@@ -4615,7 +4749,12 @@ def chain_twin(torch, label, plan, cfg, params, data, loss_tol,
 def chain_dc_twin(torch, plan, cfg, data) -> dict:
     """The adaptive controller on the topk8 chain, on the card and on the
     CPU from one init (CHAIN_DC_STEPS at CHAIN_DC_B, a decision every
-    step, deterministic cuDNN): the same decisions and densities."""
+    step, deterministic cuDNN): the same decisions and densities. The
+    losses are recorded, not held: the two runs round their
+    convolutions differently, topk8 then keeps different survivors
+    where magnitudes tie to rounding, and a free-running pair drifts.
+    :func:`chain_twin` holds the chain's losses step by step, and
+    :class:`ChainWireTwin` the wire kernels on this path."""
     from split_learning_tpu_torch.transport import DensityController
     small = cfg.replace(batch_size=CHAIN_DC_B)
     rows = [(x[:CHAIN_DC_B], y[:CHAIN_DC_B])
@@ -4642,7 +4781,10 @@ def chain_dc_twin(torch, plan, cfg, data) -> dict:
     check(out["cuda"]["decisions"] == out["cpu"]["decisions"],
           f"the controller's decisions differ: card {out['cuda']}, CPU "
           f"{out['cpu']}")
-    return dict(out, steps=CHAIN_DC_STEPS, batch=CHAIN_DC_B)
+    gap = max(abs(a - b) for a, b in zip(out["cuda"]["losses"],
+                                         out["cpu"]["losses"]))
+    return dict(out, steps=CHAIN_DC_STEPS, batch=CHAIN_DC_B,
+                loss_gap_max_not_held=gap)
 
 
 def chain_http_cnn(torch, launch_run) -> dict:
@@ -4700,7 +4842,9 @@ def chain_http_cnn(torch, launch_run) -> dict:
     steady = [(b - a) * 1e3 for a, b in zip(ts[2:], ts[3:])]
     return dict(model="split_cnn_chain3", stages=3, batch=CNN_CHAIN_B,
                 microbatches=CHAIN_M, steps=CNN_CHAIN_STEPS, compress="int8",
-                launches=counts, launches_per_step=per_step,
+                launches=counts, launches_per_step={
+                    k: v / CNN_CHAIN_STEPS for k, v in counts.items()},
+                launches_per_step_predicted=per_step,
                 step_ms_median=statistics.median(steady), seconds=secs,
                 loss_first=losses[0], loss_last=losses[-1],
                 pipeline_lines=lines)
@@ -4764,12 +4908,15 @@ def chain_runs(torch, launch_run, image_rec) -> tuple:
     rec["card_tests"] = card_test_step(CHAIN_CARD_TEST_FILTER)
     rec["seconds"] = time.perf_counter() - t0
     for dtype, leg in rec["resnet18_4stage"].items():
+        shares = [(b["busy_share_forward"], b["busy_share_backward"])
+                  for b in leg["bubble"]]
         print(f"[chain] resnet18_4stage {dtype}: {leg['step_ms_median']:.2f}"
               f" ms a step ({leg['over_fused']:.2f}x the fused step's "
-              f"{leg['fused_step_ms_median']:.2f}), idle "
-              f"{leg['profile']['device_idle_share']}, bubble "
-              f"{[round(b['measured'], 3) for b in leg['bubble']]} (ideal "
-              f"{rec['ideal_bubble']:.3f})", flush=True)
+              f"{leg['fused_step_ms_median']:.2f}), device idle "
+              f"{leg['profile']['device_idle_share']}; hop workers' host "
+              f"busy/wall (fwd, bwd) a stage "
+              f"{shares} (ideal bubble {rec['ideal_bubble']:.3f})",
+              flush=True)
     print(f"[chain] phase 27: {rec['seconds']:.1f} s", flush=True)
     return rec, totals
 
@@ -5736,8 +5883,9 @@ def main() -> int:
     for rec in records:
         key = launch_of.get(rec["name"], rec["name"])
         rec["launches_chain"] = chain_counts.get(key, 0)
+        # measured: the leg's counts over its steps
         rec["launches_per_step_chain"] = {
-            leg_name: leg["launches_per_step"].get(key, 0)
+            leg_name: leg["launches"].get(key, 0) / leg["steps"]
             for leg_name, leg in chain_legs.items()}
     two_party_line = dict(two_party=dict(
         model="split_cnn", mode="split", transport="local", batch=BATCH,

@@ -741,9 +741,11 @@ def _train_chain(args, cfg, plan, ckptr, size_kw, seq_len) -> int:
               file=sys.stderr)
     for st in meta["stages"]:
         bf = st["bubble_fraction"]
+        shares = [st["busy_share_forward"], st["busy_share_backward"]]
         print(f"[pipeline] stage {st['stage']} [{st['schedule']}]: bubble="
               f"{bf if bf is None else round(bf, 3)} (ideal "
-              f"{st['bubble_theoretical']:.3f}) "
+              f"{st['bubble_theoretical']:.3f}) host busy/wall fwd, bwd "
+              f"{[v if v is None else round(v, 3) for v in shares]} "
               f"reply_p50={st['reply_p50_ms']:.1f}ms", file=sys.stderr)
     if "density" in meta:
         snap = meta["density"]

@@ -378,11 +378,18 @@ class PipelineRunner:
                 else onefb_warmup(self.microbatches, self.plan.num_stages))
 
     def stage_report(self) -> List[Dict[str, Any]]:
-        """Per remote stage: the measured bubble (1 - the wire's busy time
-        over the hub's wall time), the ideal one, the schedule and its
-        warmup depth, the hop replies' median, the stage's deferred-apply
-        depth (from its health), and a compressed wire's byte ratio and
-        current density."""
+        """Per remote stage: JAX's measured bubble (1 - the wire's busy
+        time over the hub's wall time, clipped at 0), the ideal one, the
+        schedule and its warmup depth, the hop replies' median, the
+        stage's deferred-apply depth (from its health), and a compressed
+        wire's byte ratio and current density.
+
+        The busy time is host time: each hop worker's calls, lock waits
+        and host work included, and the wire's two workers run at once,
+        so their sum can pass the wall time. ``busy_share_forward`` and
+        ``busy_share_backward`` are each worker's busy time over the wall
+        time, unclipped; the device's own idle time is not in this
+        report."""
         theo = bubble_fraction(self.microbatches, self.plan.num_stages)
         out = []
         for i, t in enumerate(self.transports):
@@ -404,6 +411,11 @@ class PipelineRunner:
                 "warmup_depth": self._warmup(),
                 "bubble_fraction": (max(0.0, 1.0 - busy / self._wall_s)
                                     if self._wall_s > 0 else None),
+                "busy_share_forward": (fwd.busy_s / self._wall_s
+                                       if self._wall_s > 0 else None),
+                "busy_share_backward": (
+                    bwd.busy_s / self._wall_s
+                    if bwd is not None and self._wall_s > 0 else None),
                 "bubble_theoretical": theo,
                 "bubble_theoretical_gpipe": theo,
                 "bubble_theoretical_1f1b": theo,

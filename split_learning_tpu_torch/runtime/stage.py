@@ -39,11 +39,12 @@ reply and never queues a second update; below the replay window the
 strict per-``(client, op)`` sequence check raises ``ProtocolError``.
 
 The reply lives where the request lived (numpy for numpy, a tensor on
-the request's device), unless the caller passes ``device=True``
-(``transport/device.py``): then the reply is the stage's own tensor on
-its device, and ``hop_loss``'s loss a device scalar. Every state
-transition and launch runs under the party's reentrant lock; the host
-read of a reply happens after it is released.
+the request's device): a CUDA request on the stage's card gets the
+stage's own tensor back, which is what ``transport/device.py`` relays.
+The hop ops keep JAX's ``device`` keyword for its signature only; it
+changes nothing. Every state transition and launch runs under the
+party's reentrant lock; the host read of a reply happens after it is
+released.
 
 Not ported yet: a ``mesh`` (per-stage sharding, ROADMAP item 18), which
 raises ``NotImplementedError``.
@@ -262,6 +263,7 @@ class StageRuntime(PartyRuntime):
         """Forward one microbatch through this stage; the input is kept
         for the step's backward. On the last stage a plain forward at the
         live parameters, with no residual (the chain's predict path)."""
+        del device   # JAX's keyword: the reply follows the request
         seq = hop_seq(step, mb)
         entry, cached = self._claim(client_id, "hop_fwd", seq)
         if cached is not None:
@@ -287,7 +289,7 @@ class StageRuntime(PartyRuntime):
                     rec["xs"][int(mb)] = x_dev
                 self._last_seq[(client_id, "hop_fwd")] = seq
                 self._hops["hop_fwd"] += 1
-            out = y if device else reply_like(y, x)   # off the lock
+            out = reply_like(y, x)   # off the lock
             if entry is not None:
                 self.replay.resolve(entry, out)
             return out
@@ -304,6 +306,7 @@ class StageRuntime(PartyRuntime):
         """The 2BP reply: ``d(loss)/d(x)`` of one microbatch at once,
         from the pinned residual; the step's update is queued once its
         last cotangent lands."""
+        del device   # JAX's keyword: the reply follows the request
         if self.is_last:
             raise ProtocolError(
                 f"hop_backward on the last stage {self.stage_index}; the "
@@ -335,7 +338,7 @@ class StageRuntime(PartyRuntime):
                 self._maybe_queue_apply(rec, "gs", client_id, step)
                 self._last_seq[(client_id, "hop_bwd")] = seq
                 self._hops["hop_bwd"] += 1
-            out = g_in if device else reply_like(g_in, g_out)
+            out = reply_like(g_in, g_out)
             if tr is not None:
                 rw = time.perf_counter() - t0
                 tr.record(spans.REPLY_GRAD, t0, rw,
@@ -355,9 +358,8 @@ class StageRuntime(PartyRuntime):
                  ) -> Tuple[Any, Any]:
         """The last stage's hop: forward and the microbatch's mean
         cross-entropy; the (1/M-scaled) cut gradient and the loss reply
-        at once, the weight update is deferred. ``device=True`` replies
-        (device gradient, device loss scalar): the caller makes the one
-        host read of the loss."""
+        at once, the weight update is deferred."""
+        del device   # JAX's keyword: the reply follows the request
         if not self.is_last:
             raise ProtocolError(
                 f"hop_loss on non-last stage {self.stage_index}; only "
@@ -394,8 +396,7 @@ class StageRuntime(PartyRuntime):
                 self._last_seq[(client_id, "hop_loss")] = seq
                 self._hops["hop_loss"] += 1
             # off the lock: the loss edge, the chain's one host read
-            res = ((g_x, loss) if device
-                   else (reply_like(g_x, x), float(loss)))
+            res = (reply_like(g_x, x), float(loss))
             if tr is not None:
                 rw = time.perf_counter() - t0
                 tr.record(spans.REPLY_GRAD, t0, rw,

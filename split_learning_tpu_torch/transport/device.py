@@ -3,17 +3,19 @@
 
 When the hub and its ``StageRuntime`` peers share one process, the
 classic hop contract (host numpy in, host numpy out) copies every cut
-tensor through the host twice a microbatch for nothing. This transport
-hands the peer stage the device tensor as it is (the stage's
-``device=True`` calling convention) and relays its device reply back:
-no host copy, no codec. On one card the same CUDA tensors flow through
-the whole chain. The one host read a microbatch is the loss scalar of
-the last stage's hop, made here, at the metrics edge.
+tensor through the host twice a microbatch for nothing. In the port
+``LocalTransport(compress=None)`` already hands the peer stage the
+device tensor as it is and relays its reply in the request's kind, so
+this transport is that wire under JAX's name: no host copy, no codec. On
+one card the same CUDA tensors flow through the whole chain. The one
+host read a microbatch is the loss scalar of the last stage's hop.
 
-Accounting: ``stats.counters["hop_host_copies"]``
-(:data:`~split_learning_tpu_torch.obs.spans.HOP_HOST_COPIES`) counts
-every hop payload or reply that is a numpy array; on the intended path
-it stays 0.
+What it adds: ``device_native`` (the runner keeps a stage-0 payload on
+the card when every wire has it), and the accounting
+``stats.counters["hop_host_copies"]``
+(:data:`~split_learning_tpu_torch.obs.spans.HOP_HOST_COPIES`), which
+counts every hop payload or reply that is a numpy array; on the intended
+path it stays 0.
 
 Scope: the hop ops, ``predict`` and ``health``. The two-party ops
 (``split_step``, ``u_forward``, ``u_backward``, ``aggregate``) raise
@@ -24,37 +26,27 @@ between ranks) is ROADMAP item 18 and raises.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 
 from split_learning_tpu_torch.obs import spans
-from split_learning_tpu_torch.transport.base import (
-    Backpressure, Transport, TransportError, not_ported, timed)
+from split_learning_tpu_torch.transport.base import not_ported
+from split_learning_tpu_torch.transport.local import LocalTransport
 
 
-class DeviceTransport(Transport):
+class DeviceTransport(LocalTransport):
     """In-process wire to one ``StageRuntime``, device tensors end to
-    end."""
+    end: ``LocalTransport`` with no compression, counting host copies."""
 
     device_native = True
 
     def __init__(self, server: Any, mesh: Optional[Any] = None) -> None:
-        super().__init__()
         if mesh is not None:
             raise not_ported("a pipe mesh on the device wire (mesh)",
                              "item 18")
-        self.server = server
+        super().__init__(server)
         self.stage_index = int(getattr(server, "stage_index", -1))
-
-    def _call(self, fn, *args, **kw):
-        from split_learning_tpu_torch.runtime.party import ProtocolError
-        try:
-            return fn(*args, **kw)
-        except (ProtocolError, Backpressure):
-            raise
-        except Exception as exc:
-            raise TransportError(str(exc)) from exc
 
     def _note_host(self, *arrays: Any) -> None:
         """The zero-copy pin: a numpy array on the hop path means some
@@ -63,42 +55,26 @@ class DeviceTransport(Transport):
             if isinstance(a, np.ndarray):
                 self.stats.incr(spans.HOP_HOST_COPIES)
 
-    # -- the three hop ops: device tensors straight through ------------ #
     def hop_forward(self, x: Any, step: int, mb: int = 0,
                     client_id: int = 0) -> Any:
-        with timed(self.stats):
-            self._note_host(x)
-            y = self._call(self.server.hop_forward, x, step, mb, client_id,
-                           device=True)
-            self._note_host(y)
+        y = super().hop_forward(x, step, mb, client_id)
+        self._note_host(x, y)
         return y
 
     def hop_backward(self, g_out: Any, step: int, mb: int = 0,
                      client_id: int = 0) -> Any:
-        with timed(self.stats):
-            self._note_host(g_out)
-            g = self._call(self.server.hop_backward, g_out, step, mb,
-                           client_id, device=True)
-            self._note_host(g)
+        g = super().hop_backward(g_out, step, mb, client_id)
+        self._note_host(g_out, g)
         return g
 
     def hop_loss(self, x: Any, labels: Any, step: int, mb: int = 0,
                  client_id: int = 0) -> Tuple[Any, float]:
         """The runner's reply contract: (the cut gradient, here a device
-        tensor, and the loss as a host float: the chain's one host read
-        a microbatch). Labels ride in as the runner sliced them."""
-        with timed(self.stats):
-            self._note_host(x)
-            g, loss = self._call(self.server.hop_loss, x, labels, step, mb,
-                                 client_id, device=True)
-            self._note_host(g)
-            loss_f = float(loss)
-        return g, loss_f
-
-    # -- the rest of the Transport surface ------------------------------ #
-    def predict(self, activations: Any, client_id: int = 0) -> Any:
-        with timed(self.stats):
-            return self._call(self.server.predict, activations, client_id)
+        tensor, and the loss as a host float). Labels ride in as the
+        runner sliced them."""
+        g, loss = super().hop_loss(x, labels, step, mb, client_id)
+        self._note_host(x, g)
+        return g, loss
 
     def split_step(self, activations, labels, step, client_id=0):
         raise NotImplementedError(
@@ -116,6 +92,3 @@ class DeviceTransport(Transport):
     def aggregate(self, params, epoch, loss, step, num_examples=None):
         raise NotImplementedError(
             "DeviceTransport serves pipeline hops only")
-
-    def health(self) -> Dict[str, Any]:
-        return self.server.health()

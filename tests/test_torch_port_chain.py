@@ -221,6 +221,13 @@ def test_1f1b_is_bit_equal_to_gpipe_and_reports_its_schedule():
     for row in meta["stages"]:
         assert row["bubble_theoretical"] == pytest.approx(2 / 6)
         assert row["schedule"] == "1f1b"
+        # each hop worker's host busy time over the wall, unclipped: one
+        # thread's share; the loss wire has no backward worker
+        assert 0.0 < row["busy_share_forward"] <= 1.0
+        last = row["stage"] == len(meta["stages"])
+        assert (row["busy_share_backward"] is None) == last
+        if not last:
+            assert 0.0 < row["busy_share_backward"] <= 1.0
     plan = get_plan(model="split_cnn_chain3")
     with pytest.raises(ValueError, match="unknown schedule"):
         PipelineRunner(plan, Config(**_kw(2, "gpipe", BATCH)),
@@ -240,14 +247,16 @@ def test_device_transport_is_bit_equal_to_local_with_no_host_copy():
         assert t.stats.counters.get(spans.HOP_HOST_COPIES, 0) == 0
         assert t.stats.round_trips == (4 * 4 if t.stage_index == 2
                                        else 2 * 4 * 4)
-    # a numpy payload on the device wire is counted, not hidden
+    # a numpy payload on the device wire is counted, not hidden: it and
+    # its reply (which follows the request's kind) are two host copies
     plan = get_plan(model="split_cnn_chain3")
     cfg = Config(**_kw(1, "gpipe", BATCH))
     stage = StageRuntime(plan, 1, cfg, torch.Generator().manual_seed(0),
                          device="cpu")
     wire = DeviceTransport(stage)
-    wire.hop_forward(np.zeros((2, 26, 26, 32), np.float32), 0)
-    assert wire.stats.counters[spans.HOP_HOST_COPIES] == 1
+    y = wire.hop_forward(np.zeros((2, 26, 26, 32), np.float32), 0)
+    assert isinstance(y, np.ndarray)
+    assert wire.stats.counters[spans.HOP_HOST_COPIES] == 2
     for call in (lambda: wire.split_step(None, None, 0),
                  lambda: wire.u_forward(None, 0),
                  lambda: wire.u_backward(None, 0),
