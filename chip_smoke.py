@@ -311,7 +311,7 @@ beside this script. Phases, any failure ending the run with a traceback:
    "cifar10", ...])`` at batch 128 for 30 steps, float32 and bf16, SGD:
    exactly one K1 pair and one K2 a step; step ms (median of steps
    6-30, from the loss records' host times), images/s; a trainer of the
-   same config: its FLOPs a step (``torch.utils.flop_counter``) beside
+   same config: its FLOPs a step (``FusedSplitTrainer.step_flops``) beside
    the bound and a profiler window with the device's shares of conv,
    norm and layout-copy kernels; a CPU twin of 3 steps at batch 16 from
    the trained state, each step from one state on both devices (losses
@@ -350,6 +350,30 @@ beside this script. Phases, any failure ending the run with a traceback:
    and ``launch.run.main(["train", "--stages", "3", ...])`` for 12
    steps at batch 64, M 4, with exact launch counts and a falling loss.
    Then the card tests of these pieces.
+28. observability (``obs/``, ``utils/flops.py``, ``utils/profiling.py``,
+   ``tracking/mlflow_rest.py``, the CLI's flags). (a) Phase 18's bf16
+   AdamW LM through ``launch.run train`` for 12 steps a run, every
+   observability flag off, on (``--trace``, ``--profile-dir``,
+   ``--flight``, ``--tracking mlflow`` against a stdlib MLflow stub in
+   a process of its own), on, off, then twice with all but
+   ``--profile-dir``:
+   losses bit-equal and launches equal (phase 18's a step) across the
+   six, one ``loss`` a step and a finished run
+   in the stub, the device trace naming K1, K5 and K6, the flight dump;
+   ``FusedSplitTrainer.step_flops`` (no launch) and the MFU against the
+   card's bf16 peak at the flags-off step time, and the flags' overhead
+   from the pairs, every run timed by the same clock (the loop's loss
+   log, ``_StepClock``). (b) ``serve --trace --flight --telemetry`` as a
+   subprocess and the ``int8`` CNN client with ``--flight --trace``
+   here for 60 steps: ``GET /telemetry`` scraped mid-run until a window
+   holds steps (a rate, dispatch p50/p99), ``GET /debug/flight``, the
+   server's ``fatal:sigterm`` dump and the client's exit dump joined by
+   trace ID step by step, the server's Chrome trace with a non-null
+   ``split_step`` MFU (written on SIGTERM), and both processes'
+   launches (phase 16's a step). (c) ``resnet18_4stage`` on
+   ``DeviceTransport`` for 3 steps through the CLI with
+   ``--telemetry-port 0 --trace``: the fleet view names a bottleneck
+   party, each stage's MFU is non-null, launches as phase 27's.
 
 Output, last lines: one JSON object with a record per kernel, one JSON
 object with the main path's step time, one with the serving path's
@@ -359,8 +383,9 @@ with phases 18-19 (``train_lm_bf16``, ``two_party_lm``), one with
 phases 20-23 (``u_split``, ``u_split_lm``, ``federated``,
 ``multi_client``, ``cli``), one with phase 24 (``checkpoint``), one
 with phase 25 (``many_clients``), one with phase 26 (``image``), one
-with phase 27 (``chain``), the ``nvidia-smi`` name and power limit, and
-``{"ok": true, "device": {...}}``.
+with phase 27 (``chain``), one with phase 28 (``obs``), the
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -579,6 +604,23 @@ CHAIN_WIRE_TWIN_PACKS = 2   # twinned packs (and decodes) a wire and key
 CNN_CHAIN_B, CNN_CHAIN_STEPS = 64, 12
 CHAIN_CARD_TEST_FILTER = "chain"
 CHAIN_STEP_TIMEOUT = 120.0   # a step that does not drain fails the phase
+# phase 28: observability. (a) the bf16 AdamW LM of phase 18 through the
+# CLI for OBS_STEPS steps a run, the runs of OBS_LM_RUNS; (b) the HTTP pair of
+# phase 16 with serve --trace --flight --telemetry (windows of
+# OBS_TEL_INTERVAL_S, latency SLO OBS_SLO_MS) as a subprocess and the
+# int8 client with --flight --trace for OBS_HTTP_STEPS steps; (c) the
+# chain of phase 27 on DeviceTransport for OBS_CHAIN_STEPS steps with
+# --telemetry-port 0. The CUDA kernels a device trace must name
+OBS_STEPS, OBS_HTTP_STEPS, OBS_CHAIN_STEPS = 12, 60, 3
+# (a)'s runs in order: the pairs give the flags' overhead, the last two
+# every flag but --profile-dir
+OBS_LM_RUNS = ("off", "on", "on", "off", "on_no_profiler",
+               "on_no_profiler")
+OBS_TEL_INTERVAL_S, OBS_SLO_MS = 0.5, 1000.0
+OBS_TRACE_KERNELS = {"K1": ("ce_fwd_kernel", "ce_bwd_kernel"),
+                     "K5": ("flash_fwd_kernel",),
+                     "K6": ("flash_bwd_delta_kernel", "flash_bwd_dkv_kernel",
+                            "flash_bwd_dq_kernel")}
 PLANTS = {
     "quantize_roundf": ("quantize.cu", "rintf(", "roundf("),
     "topk_select_ties_high": (
@@ -4116,19 +4158,17 @@ def image_cli_leg(torch, launch_run, label, flags, per_step) -> dict:
 
 def image_trainer_window(torch, plan, cfg, data, peak) -> dict:
     """A fused trainer of the leg's plan and config on the card: the
-    FLOPs of one step (``torch.utils.flop_counter``) beside their bound
-    at ``peak``, and a profiler window of 10 steps with the device's
-    time by kernel class. Returns the record and the trainer's state
-    after the window (``export_states``)."""
-    from torch.utils.flop_counter import FlopCounterMode
+    model FLOPs of one step (``FusedSplitTrainer.step_flops``: K5/K6
+    included, JAX's count) beside their bound at ``peak``, and a
+    profiler window of 10 steps with the device's time by kernel class.
+    Returns the record and the trainer's state after the window
+    (``export_states``)."""
     from split_learning_tpu_torch.runtime import FusedSplitTrainer
     trainer = FusedSplitTrainer(plan, cfg, torch.Generator().manual_seed(0),
                                 data[0][0], device="cuda")
-    for x, y in data[:3]:
+    for x, y in data[:4]:
         trainer.train_step(x, y)
-    with FlopCounterMode(display=False) as fc:
-        trainer.train_step(*data[3])
-    flops = fc.get_total_flops()
+    flops = trainer.step_flops(*data[3])
     b_ms, b_by = bound(0, flops, 1.0, peak)
 
     def run():
@@ -4918,6 +4958,455 @@ def chain_runs(torch, launch_run, image_rec) -> tuple:
               f"{shares} (ideal bubble {rec['ideal_bubble']:.3f})",
               flush=True)
     print(f"[chain] phase 27: {rec['seconds']:.1f} s", flush=True)
+    return rec, totals
+
+
+# --------------------------------------------------------------------- #
+# phase 28: observability
+# --------------------------------------------------------------------- #
+def _mlflow_stub_main() -> int:
+    """``chip_smoke.py --mlflow-stub``: phase 28's stdlib MLflow tracking
+    server on 127.0.0.1, in a process of its own so that its handler
+    threads do not take the trainer's GIL. Serves the REST endpoints the
+    port's logger calls, keeps each run's metrics and final status
+    (``GET /runs``), prints its port, and runs until terminated."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    runs, exps = {}, {}
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_GET(self):
+            if self.path == "/runs":
+                return self._reply(200, runs)
+            self._reply(404, {})
+
+        def do_POST(self):
+            body = json.loads(self.rfile.read(int(
+                self.headers.get("Content-Length", 0))) or b"{}")
+            path = self.path.split("/api/2.0/mlflow/", 1)[-1]
+            out = {}
+            if path == "experiments/get-by-name":
+                if body["experiment_name"] not in exps:
+                    return self._reply(404, {})
+                out = {"experiment": {"experiment_id": exps[
+                    body["experiment_name"]]}}
+            elif path == "experiments/create":
+                exps[body["name"]] = str(len(exps) + 1)
+                out = {"experiment_id": exps[body["name"]]}
+            elif path == "runs/create":
+                rid = f"run{len(runs) + 1}"
+                runs[rid] = {"metrics": [], "status": "RUNNING"}
+                out = {"run": {"info": {"run_id": rid}}}
+            elif path == "runs/log-metric":
+                runs[body["run_id"]]["metrics"].append(
+                    (body["key"], body["value"], body["step"]))
+            elif path == "runs/update":
+                runs[body["run_id"]]["status"] = body["status"]
+            self._reply(200, out)
+
+        def _reply(self, code, payload):
+            data = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    print(srv.server_address[1], flush=True)
+    srv.serve_forever()
+    return 0
+
+
+class _MlflowStub:
+    """:func:`_mlflow_stub_main` as a subprocess: its URL, its runs
+    (``(key, value, step)`` metrics and a status each) and ``close``."""
+
+    def __init__(self):
+        import subprocess
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mlflow-stub"],
+            stdout=subprocess.PIPE, text=True)
+        line = self.proc.stdout.readline()
+        if not line.strip().isdigit():
+            self.close()
+            raise RuntimeError(f"the MLflow stub did not start: {line!r}")
+        self.url = f"http://127.0.0.1:{int(line)}"
+
+    @property
+    def runs(self) -> dict:
+        import urllib.request
+        with urllib.request.urlopen(self.url + "/runs",
+                                    timeout=HTTP_TIMEOUT) as resp:
+            return json.loads(resp.read())
+
+    def close(self):
+        self.proc.terminate()
+        self.proc.wait(timeout=30)
+        self.proc.stdout.close()
+
+
+class _StepClock:
+    """The trainer's own step clock, the same on both sides of (a): the
+    ``perf_counter`` reading each time the training loop logs a step's
+    loss, taken before the run's logger (``tracking.make_logger``) does
+    its own work, whichever logger the flags chose."""
+
+    def __init__(self):
+        import split_learning_tpu_torch.tracking as tracking
+        self._mod, self._make = tracking, tracking.make_logger
+        self.times = []
+
+    def __enter__(self):
+        def make(*args, **kw):
+            logger = self._make(*args, **kw)
+            inner = logger.log_metric
+
+            def log_metric(key, value, step):
+                if key == "loss":
+                    self.times.append(time.perf_counter())
+                return inner(key, value, step)
+            logger.log_metric = log_metric
+            return logger
+        self._mod.make_logger = make
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.make_logger = self._make
+
+
+def _trace_kernels(path) -> dict:
+    """The device trace's kernel events by phase 28's kernel labels: how
+    many events of each, by name fragment."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events
+             if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    return {label: sum(1 for n in names if any(k in n for k in keys))
+            for label, keys in OBS_TRACE_KERNELS.items()}
+
+
+def _steady_ms(times) -> float:
+    return statistics.median((b - a) * 1e3 for a, b in
+                             zip(times[3:], times[4:]))
+
+
+def obs_lm_runs(torch, launch_run, smi) -> tuple:
+    """Phase 28 (a): the bf16 AdamW LM through ``launch.run train``, every
+    observability flag off and on (OBS_LM_RUNS): losses bit-equal,
+    the same launches (exactly phase 18's a step), the MLflow stub's one
+    loss a step and a finished run, the device trace naming K1, K5 and
+    K6, the flight dump, step_flops and the MFU, the flags' overhead."""
+    from split_learning_tpu_torch.data import batches, synthetic_lm
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.runtime import FusedSplitTrainer
+    from split_learning_tpu_torch.utils import Config
+    from split_learning_tpu_torch.utils.flops import device_peak_flops, mfu
+    data_dir = os.path.join(REPO, "build", "chip_smoke_obs_data")
+    out_dir = os.path.join(REPO, "build", "chip_smoke_obs")
+    os.makedirs(out_dir, exist_ok=True)
+    argv = ["train", "--transport", "fused", "--steps", str(OBS_STEPS),
+            *_lm_flags(data_dir)]
+    stub = _MlflowStub()
+    runs = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for i, label in enumerate(OBS_LM_RUNS):
+            files = {k: os.path.join(out_dir, f"lm{i}.{k}")
+                     for k in ("trace.json", "flight.json", "profile")}
+            flags = (["--tracking", "jsonl"] if label == "off" else [
+                "--tracking", "mlflow", "--tracking-uri", stub.url,
+                "--trace", files["trace.json"], "--flight",
+                files["flight.json"]])
+            if label == "on":
+                flags += ["--profile-dir", files["profile"]]
+            n_runs = len(stub.runs)
+            with _StepClock() as clock:
+                rc, counts, _, secs = _cli(torch, launch_run, argv + flags)
+            check(rc == 0, f"obs LM {label} run {i}: rc {rc}")
+            check(len(clock.times) == OBS_STEPS, f"obs LM {label}: "
+                  f"{len(clock.times)} loss logs, want {OBS_STEPS}")
+            if label == "off":
+                losses, _ = _loss_times(data_dir)
+            else:
+                runs_now = stub.runs
+                check(len(runs_now) == n_runs + 1, "one MLflow run a run")
+                run = runs_now[f"run{n_runs + 1}"]
+                recs = [m for m in run["metrics"] if m[0] == "loss"]
+                check([m[2] for m in recs] == list(range(OBS_STEPS))
+                      and run["status"] == "FINISHED",
+                      f"MLflow stub: loss steps {[m[2] for m in recs]}, "
+                      f"status {run['status']}")
+                losses = [m[1] for m in recs]
+            if label == "on":
+                kernels = _trace_kernels(os.path.join(
+                    files["profile"], "device_trace.json"))
+                check(all(v > 0 for v in kernels.values()),
+                      f"device trace kernels {kernels}")
+            if label != "off":
+                with open(files["flight.json"]) as f:
+                    dump = json.load(f)
+                check(dump["kind"] == "slt-flight-dump"
+                      and dump["reason"] == "exit", "the flight exit dump")
+                check(os.path.isfile(files["trace.json"]), "the span trace")
+            runs.append(dict(flags=label, losses=losses, launches=counts,
+                             step_ms_median=_steady_ms(clock.times),
+                             cli_seconds=secs,
+                             **({"trace_kernel_events": kernels}
+                                if label == "on" else {})))
+            print(f"[obs] LM flags {label}: {OBS_STEPS} steps, "
+                  f"{runs[-1]['step_ms_median']:.2f} ms a step, launches "
+                  f"{counts}", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        stub.close()
+    want = lm_train_counts(OBS_STEPS, sgd=False)
+    totals = {}
+    for r in runs:
+        check(r["launches"] == want, f"obs LM {r['flags']} launches "
+                                     f"{r['launches']}, want {want}")
+        for k, v in r["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+        check(r["losses"] == runs[0]["losses"],
+              f"obs LM {r['flags']} losses {r['losses']} != flags off "
+              f"{runs[0]['losses']}")
+        check(all(map(math.isfinite, r["losses"])), "finite losses")
+    # the step's model FLOPs, counted on meta copies: no launch
+    plan = get_plan(dtype="bfloat16", **LM)
+    cfg = Config(transport="fused", model="transformer_lm", attn="flash",
+                 batch_size=TRAIN_B, dtype="bfloat16", **LM_SCHEDULE,
+                 **LM_OPTIMS["adamw"])
+    ds = synthetic_lm(n_train=TRAIN_B, n_test=TRAIN_B, vocab=LM["vocab"],
+                      seq_len=TRAIN_T, seed=0)
+    x, y = next(iter(batches(ds.train, TRAIN_B, seed=0)))
+    trainer = FusedSplitTrainer(plan, cfg, torch.Generator().manual_seed(0),
+                                x, device="cuda")
+    LAUNCHES.reset()
+    flops = trainer.step_flops(x, y)
+    check(LAUNCHES.snapshot() == {}, "step_flops launched a kernel")
+    del trainer
+    off_ms = statistics.median([r["step_ms_median"] for r in runs
+                                if r["flags"] == "off"])
+    on_ms = statistics.median([r["step_ms_median"] for r in runs
+                               if r["flags"] == "on"])
+    noprof_ms = statistics.median([r["step_ms_median"] for r in runs
+                                   if r["flags"] == "on_no_profiler"])
+    peak = device_peak_flops(0)
+    util = mfu(flops / (off_ms / 1e3), peak)
+    check(util is not None and 0.0 < util < 1.0, f"MFU {util}")
+    print(f"[obs] LM step_flops {flops:.6g} a step; MFU {util:.4f} of "
+          f"{peak / 1e12:g} TFLOP/s bf16 at {off_ms:.2f} ms a step ({smi}); "
+          f"flags on {on_ms:.2f} ms (+{(on_ms / off_ms - 1) * 100:.1f}%), "
+          f"all but the profiler {noprof_ms:.2f} ms", flush=True)
+    for r in runs:
+        r["losses"] = r["losses"][:3] + ["..."] + r["losses"][-2:]
+    return dict(model="transformer_lm", dtype="bfloat16", optimizer="adamw",
+                batch=TRAIN_B, seq_len=TRAIN_T, steps=OBS_STEPS,
+                step_flops=flops, peak_flops=peak, mfu=util,
+                step_ms_flags_off=off_ms, step_ms_flags_on=on_ms,
+                step_ms_flags_on_no_profiler=noprof_ms,
+                flags_overhead=on_ms / off_ms - 1.0,
+                losses_bit_equal=True, launches_per_step={
+                    k: v / (OBS_STEPS * len(runs))
+                    for k, v in totals.items()},
+                runs=runs), totals
+
+
+def _join_by_trace(client, server, steps) -> int:
+    """Every step's client send and server receive of ``/forward_pass``
+    carry one trace ID: the (step, trace ID) pairs of the two dumps, one
+    a step, equal. Returns the steps joined."""
+    def pairs(dump, name, party):
+        return sorted((e["step"], e["trace_id"]) for e in dump["events"]
+                      if e["name"] == name and e["party"] == party
+                      and (e["fields"] or {}).get("path") == "/forward_pass")
+    sent = pairs(client, "fl_send", "client")
+    got = pairs(server, "fl_recv", "server")
+    check([s for s, _ in sent] == list(range(steps))
+          and all(t is not None for _, t in sent),
+          f"client sends {sent[:4]}... ({len(sent)})")
+    check(sent == got, f"trace IDs do not join: client {sent[:3]} server "
+                       f"{got[:3]}")
+    return len(sent)
+
+
+def obs_http_runs(torch, launch_run) -> tuple:
+    """Phase 28 (b): ``serve --trace --flight --telemetry`` as a subprocess
+    and the int8 client with ``--flight --trace`` here: ``/telemetry``
+    scraped mid-run until a window holds steps, ``/debug/flight``, the
+    server's ``fatal:sigterm`` dump and the client's exit dump joined by
+    trace ID, the server's trace with a non-null MFU, and the launches
+    of both processes (phase 16's a step)."""
+    import re
+    import signal
+    import urllib.request
+    from split_learning_tpu_torch.ops import quantize as qmod
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    out_dir = os.path.join(REPO, "build", "chip_smoke_obs")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {k: os.path.join(out_dir, k) for k in (
+        "server.trace.json", "server.flight.json", "client.trace.json",
+        "client.flight.json")}
+    srv = _Serve("obs_serve", "--lr", str(CLI_LR), "--trace",
+                 paths["server.trace.json"], "--flight",
+                 paths["server.flight.json"], "--telemetry",
+                 "--telemetry-interval-s", str(OBS_TEL_INTERVAL_S),
+                 "--telemetry-slo-ms", str(OBS_SLO_MS))
+    result = {}
+
+    def client():
+        LAUNCHES.reset()
+        result["rc"] = launch_run.main([
+            "train", "--device", "cuda", "--transport", "http",
+            "--server-url", srv.url, "--compress", "int8", "--steps",
+            str(OBS_HTTP_STEPS), "--lr", str(CLI_LR), "--dataset",
+            "synthetic", "--data-dir",
+            os.path.join(REPO, "build", "chip_smoke_data"), "--tracking",
+            "noop", "--wait-server", "60", "--flight",
+            paths["client.flight.json"], "--trace",
+            paths["client.trace.json"]])
+        result["launches"] = LAUNCHES.snapshot()
+
+    def get(route):
+        with urllib.request.urlopen(srv.url + route,
+                                    timeout=HTTP_TIMEOUT) as resp:
+            return json.loads(resp.read())
+    try:
+        t = threading.Thread(target=client, daemon=True)
+        t0 = time.perf_counter()
+        t.start()
+        scrapes, window, mid_run = 0, None, False
+        while window is None and time.perf_counter() - t0 < 120:
+            time.sleep(0.1)
+            tel = get("/telemetry")
+            scrapes += 1
+            # a window past the first step's (its dispatch carries the
+            # server's first-call set-up)
+            busy = [w for w in tel["windows"]
+                    if w["counters"].get("split_steps_total", 0) >= 2
+                    and "dispatch" in w["percentiles"]]
+            if busy:
+                window, mid_run = busy[-1], t.is_alive()
+        check(window is not None, "no /telemetry window with steps")
+        pct = window["percentiles"]["dispatch"]
+        check(pct["p50"] > 0 and pct["p99"] >= pct["p50"],
+              f"telemetry percentiles {pct}")
+        live = get("/debug/flight")
+        check(live["kind"] == "slt-flight-dump" and live["events"],
+              "GET /debug/flight")
+        t.join(timeout=300)
+        check(result.get("rc") == 0, f"obs client rc {result.get('rc')}")
+        srv.proc.send_signal(signal.SIGTERM)
+        serve_rc = srv.proc.wait(timeout=120)
+    finally:
+        srv.kill()
+    err = open(srv.err_path).read()
+    check(serve_rc == -signal.SIGTERM, f"serve exited {serve_rc} on SIGTERM")
+    m = re.search(r"kernel launches (\{.*\})", err)
+    check(m is not None, f"no server launch line: {err[-1500:]}")
+    server_launches = json.loads(m.group(1))
+    with open(paths["server.flight.json"]) as f:
+        s_dump = json.load(f)
+    with open(paths["client.flight.json"]) as f:
+        c_dump = json.load(f)
+    check(s_dump["reason"] == "fatal:sigterm"
+          and c_dump["reason"] == "exit", "the dumps' reasons")
+    joined = _join_by_trace(c_dump, s_dump, OBS_HTTP_STEPS)
+    with open(paths["server.trace.json"]) as f:
+        meta = [e for e in json.load(f) if e["name"] == "mesh_meta"]
+    prog = meta[0]["args"]["programs"]["split_step"]
+    check(prog["calls"] == OBS_HTTP_STEPS and prog["mfu"] is not None
+          and 0 < prog["mfu"] < 1, f"server MFU sidecar {prog}")
+    n = OBS_HTTP_STEPS
+    check(result["launches"] == {SGD: n, qmod.QUANT: n, qmod.DEQUANT: n},
+          f"obs client launches {result['launches']}")
+    check(server_launches == {FWD: n, BWD: n, SGD: n, qmod.QUANT: n,
+                              qmod.DEQUANT: n},
+          f"obs server launches {server_launches}")
+    both = dict(result["launches"])
+    for k, v in server_launches.items():
+        both[k] = both.get(k, 0) + v
+    per_step = {k: v / n for k, v in both.items()}
+    print(f"[obs] HTTP pair: /telemetry window {window['index']} after "
+          f"{scrapes} scrapes (mid-run {mid_run}): "
+          f"{window['rates']['split_steps_total']:.1f} steps/s, dispatch "
+          f"p50 {pct['p50']:.2f} ms p99 {pct['p99']:.2f} ms; {joined} steps "
+          f"joined by trace ID; server split_step MFU {prog['mfu']}; "
+          f"launches a step {per_step}", flush=True)
+    return dict(steps=n, compress="int8", telemetry_window=window,
+                telemetry_scrapes=scrapes, scraped_mid_run=mid_run,
+                debug_flight_events=len(live["events"]),
+                server_dump_events=len(s_dump["events"]),
+                client_dump_events=len(c_dump["events"]),
+                steps_joined_by_trace_id=joined, server_programs=meta[0][
+                    "args"]["programs"], launches_per_step=per_step,
+                client_launches=result["launches"],
+                server_launches=server_launches), both
+
+
+def obs_chain_run(torch, launch_run) -> tuple:
+    """Phase 28 (c): ``resnet18_4stage`` on DeviceTransport through the
+    CLI with ``--telemetry-port 0 --trace``: the fleet view names a
+    bottleneck party, the chain's trace metadata carries each stage's
+    MFU (non-null), the launches are phase 27's a step."""
+    import contextlib
+    import io
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    out_dir = os.path.join(REPO, "build", "chip_smoke_obs")
+    tr = os.path.join(out_dir, "chain.trace.json")
+    err = io.StringIO()
+    LAUNCHES.reset()
+    with contextlib.redirect_stderr(err):
+        rc, counts, out, secs = _cli(torch, launch_run, [
+            "train", "--device", "cuda", "--model", "resnet18_4stage",
+            "--stages", str(CHAIN_S), "--transport", "device",
+            "--microbatches", str(CHAIN_M), "--dataset", "cifar10",
+            "--data-dir", _img_data_dir(), "--batch-size", str(CHAIN_B),
+            "--steps", str(OBS_CHAIN_STEPS), "--lr", str(LR),
+            "--tracking", "noop", "--telemetry-port", "0", "--trace", tr])
+    text = err.getvalue()
+    print(text[-3000:], end="", flush=True)
+    check(rc == 0, f"obs chain rc {rc}")
+    check("[telemetry] hub /telemetry on port" in text, "the hub's port")
+    fleet = json.loads(text.split("[telemetry] fleet ", 1)[1].splitlines()[0])
+    parties = {"hub"} | {f"stage{i}" for i in range(1, CHAIN_S)}
+    check(fleet["bottlenecks"] and set(fleet["bottlenecks"]) <= parties
+          and fleet["critical_path"], f"fleet view {fleet}")
+    with open(tr) as f:
+        meta = [e for e in json.load(f) if e["name"] == "stage_meta"]
+    stages = meta[0]["args"]["stages"]
+    mfus = {s["stage"]: s["mfu"] for s in stages}
+    check(sorted(mfus) == list(range(1, CHAIN_S))
+          and all(v is not None and 0 < v < 1 for v in mfus.values()),
+          f"per-stage MFU {mfus}")
+    want = {k: v * OBS_CHAIN_STEPS for k, v in chain_per_step().items()}
+    check(counts == want, f"obs chain launches {counts}, want {want}")
+    print(f"[obs] chain: bottlenecks {fleet['bottlenecks']}, per-stage MFU "
+          f"{mfus}", flush=True)
+    return dict(model="resnet18_4stage", steps=OBS_CHAIN_STEPS,
+                batch=CHAIN_B, microbatches=CHAIN_M,
+                bottlenecks=fleet["bottlenecks"],
+                critical_path=fleet["critical_path"], stage_mfu=mfus,
+                cli_seconds=secs), counts
+
+
+def obs_runs(torch, launch_run, smi) -> tuple:
+    """Phase 28: (a), (b) and (c) with their launch totals."""
+    t0 = time.perf_counter()
+    rec, totals = {}, {}
+    rec["lm"], counts_a = obs_lm_runs(torch, launch_run, smi)
+    rec["http"], counts_b = obs_http_runs(torch, launch_run)
+    rec["chain"], counts_c = obs_chain_run(torch, launch_run)
+    for c in (counts_a, counts_b, counts_c):
+        for k, v in c.items():
+            totals[k] = totals.get(k, 0) + v
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[obs] phase 28: {rec['seconds']:.1f} s", flush=True)
     return rec, totals
 
 
@@ -5771,6 +6260,9 @@ def main() -> int:
     # ---- 27. the K-stage chain --------------------------------------- #
     chain_rec, chain_counts = chain_runs(torch, launch_run, image_rec)
 
+    # ---- 28. observability ------------------------------------------ #
+    obs_rec, obs_counts = obs_runs(torch, launch_run, smi)
+
     for rec in records:
         key = launch_of.get(rec["name"], rec["name"])
         rec["launches_train_lm_bf16"] = bf16_counts.get(key, 0)
@@ -5887,6 +6379,12 @@ def main() -> int:
         rec["launches_per_step_chain"] = {
             leg_name: leg["launches"].get(key, 0) / leg["steps"]
             for leg_name, leg in chain_legs.items()}
+        # phase 28: the launches of its three parts (a's six runs, both
+        # processes of b), and a step's of each
+        rec["launches_obs"] = obs_counts.get(key, 0)
+        rec["launches_per_step_obs"] = {
+            part: obs_rec[part]["launches_per_step"].get(key, 0)
+            for part in ("lm", "http")}
     two_party_line = dict(two_party=dict(
         model="split_cnn", mode="split", transport="local", batch=BATCH,
         steps=STEPS, density=DENSITY, device=kind, kernel_cases=wire_cases,
@@ -5937,6 +6435,7 @@ def main() -> int:
     print(json.dumps({"chain": dict(
         device=kind, card=smi, model="resnet18_4stage", batch=CHAIN_B,
         microbatches=CHAIN_M, stages=CHAIN_S, lr=LR, **chain_rec)}))
+    print(json.dumps({"obs": dict(device=kind, card=smi, **obs_rec)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -5945,4 +6444,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--mlflow-stub"]:
+        sys.exit(_mlflow_stub_main())
     sys.exit(main())

@@ -107,6 +107,22 @@ the lock. ``train --transport local`` takes ``--decouple-bwd``,
 out-of-order steps, and over HTTP a server without
 ``--allow-out-of-order`` is refused with rc 5).
 
+Observability, as in JAX, each off (and free) until asked for: ``train
+--trace PATH`` and ``serve --trace PATH`` write the party's spans as a
+Chrome trace, with the in-process server's per-program MFU
+(``trace_metadata``) or the chain's per-stage report as metadata
+events; ``--flight PATH`` (or ``SLT_FLIGHT``) arms the flight recorder
+and dumps it at exit, on SIGTERM (``fatal:sigterm``) and on a fatal
+exception, and ``serve`` answers ``GET /debug/flight``; ``train
+--profile-dir D`` writes a ``torch.profiler`` trace of the run to
+``D/device_trace.json`` and prints the split client's phase summary;
+``serve --telemetry [--telemetry-interval-s S] [--telemetry-slo-ms MS]``
+(or ``SLT_TELEMETRY``) serves the windowed ring on ``GET /telemetry``;
+``train --telemetry-port P`` gives the chain's hub a ``/telemetry`` of
+its own and prints the fleet view (``obs/federate.py``) of the hub and
+its in-process stages; ``--tracking mlflow --tracking-uri URI`` logs to
+an MLflow server (its REST protocol where the package is absent).
+
 Not ported yet, each exiting 2 with the ROADMAP item it waits for:
 ``--replicas`` above 1 (item 19), the ``train`` flags of
 :data:`TRAIN_NOT_PORTED` (``--transport pipeline`` among them) and the
@@ -147,7 +163,8 @@ def _config_from_args(args):
     for field in ("mode", "model", "dataset", "batch_size", "epochs", "lr",
                   "optimizer", "momentum", "weight_decay", "warmup_steps",
                   "decay_steps", "grad_clip_norm", "microbatches", "seed",
-                  "data_dir", "tracking", "transport", "server_url", "attn",
+                  "data_dir", "tracking", "tracking_uri", "transport",
+                  "server_url", "attn",
                   "dtype", "checkpoint_dir", "num_stages", "schedule"):
         val = getattr(args, field, None)
         if val is not None:
@@ -441,12 +458,6 @@ TRAIN_NOT_PORTED = (
      "--autoscale-cooldown-s (elastic replicas)", "item 19"),
     ("seq_parallel", lambda v: v is not None and v > 1,
      "--seq-parallel > 1 (context parallelism)", "item 21"),
-    ("flight", _given, "--flight (the flight recorder)", "item 22"),
-    ("telemetry_port", _given, "--telemetry-port (the telemetry ring)",
-     "item 22"),
-    ("profile_dir", _given, "--profile-dir (the phase profiler)",
-     "item 22"),
-    ("tracking_uri", _given, "--tracking-uri (MLflow)", "item 22"),
     ("scan_steps", lambda v: v > 1,
      "--scan-steps > 1 (steps batched per launch; CUDA graphs)", "item 7"),
 )
@@ -589,6 +600,84 @@ def _chain_wires(args, cfg, plan, dc, density, compress):
     return stage_rts, transports, 0
 
 
+class _ChainFleet:
+    """The chain's telemetry plane (JAX's hub ring): the hub's windowed
+    ring over its own step and hop registry, served on ``GET /telemetry``
+    with ``--telemetry-port``, and one ring a stage over each in-process
+    stage's metrics, so :meth:`close` can fold the whole chain into
+    ``obs/federate.py``'s fleet view (the bottleneck party per window)."""
+
+    def __init__(self, runner, stage_rts, cfg: Dict[str, Any],
+                 port: Optional[int], own_tracer: bool) -> None:
+        from split_learning_tpu_torch.obs import federate as obs_federate
+        from split_learning_tpu_torch.obs import telemetry as obs_telemetry
+        from split_learning_tpu_torch.obs.metrics import Registry
+        self.own_tracer = own_tracer
+        reg = Registry()
+        runner.telemetry_registry = reg
+        self.hub = obs_telemetry.enable(
+            reg.snapshot, party="hub", interval_s=cfg["interval_s"],
+            capacity=cfg["capacity"],
+            slo=obs_telemetry.tracker_from_config(cfg))
+        self.stages = [
+            (srt.stage_index, obs_telemetry.TelemetryRing(
+                srt.metrics, party=srt.party, interval_s=cfg["interval_s"],
+                capacity=cfg["capacity"])) for srt in stage_rts]
+        self.server = None
+        if port is not None:
+            self.server, _ = obs_federate.serve_telemetry(self.hub,
+                                                          port=int(port))
+            print(f"[telemetry] hub /telemetry on port "
+                  f"{self.server.server_address[1]}", file=sys.stderr)
+        self.hub.start_sampler()
+        for _, ring in self.stages:
+            ring.start_sampler()
+
+    def close(self) -> Dict[str, Any]:
+        """Close the last windows, stop serving, and return the fleet
+        view's bottleneck count and critical path."""
+        from split_learning_tpu_torch.obs import telemetry as obs_telemetry
+        from split_learning_tpu_torch.obs.federate import FleetCollector
+        # every ring closes the windows its clock has crossed, then its
+        # partial one, so the rings end on the same window index
+        for ring in [self.hub] + [r for _, r in self.stages]:
+            ring.close()
+            ring.advance()
+            ring.advance(force=True)
+        view = FleetCollector(
+            [{"role": "hub", "dump": self.hub.dump()}]
+            + [{"role": "stage", "stage": i, "dump": ring.dump()}
+               for i, ring in self.stages]).collect()
+        if self.server is not None:
+            self.server.shutdown()
+            self.server.server_close()
+        obs_telemetry.disable()
+        if self.own_tracer:
+            from split_learning_tpu_torch import obs
+            obs.disable()
+        return {"bottlenecks": view["bottlenecks"],
+                "critical_path": view["critical_path"]}
+
+
+def _chain_telemetry(args, runner, stage_rts) -> Optional[_ChainFleet]:
+    """The chain's telemetry, on with ``--telemetry-port`` or
+    ``SLT_TELEMETRY``; None (and nothing built) otherwise. Telemetry
+    implies tracing: the windows read the tracer-gated histograms."""
+    from split_learning_tpu_torch import obs
+    from split_learning_tpu_torch.obs import telemetry as obs_telemetry
+    port = args.telemetry_port
+    cfg = obs_telemetry.env_config()
+    if cfg is None and port is not None:
+        cfg = {"interval_s": obs_telemetry.DEFAULT_INTERVAL_S,
+               "capacity": obs_telemetry.DEFAULT_CAPACITY}
+    if cfg is None:
+        return None
+    own = obs.get_tracer() is None
+    if own:
+        obs.enable()
+    return _ChainFleet(runner, stage_rts, cfg, port, own)
+
+
 def _train_chain(args, cfg, plan, ckptr, size_kw, seq_len) -> int:
     """``train --stages S`` (S > 2, mode split) on the local, device or
     http transport: stage 0 trains here in a ``PipelineRunner`` (GPipe or
@@ -600,6 +689,7 @@ def _train_chain(args, cfg, plan, ckptr, size_kw, seq_len) -> int:
     loss or a stage behind the last step). Checkpoints are the
     ``chain`` layout: one tree (``client``, ``stage1``...) and each
     in-process stage's sidecar under ``stage<i>/``."""
+    from split_learning_tpu_torch import obs
     from split_learning_tpu_torch.runtime.checkpoint import (
         read_latest_extras, write_extras)
     from split_learning_tpu_torch.runtime.evaluate import evaluate
@@ -609,6 +699,7 @@ def _train_chain(args, cfg, plan, ckptr, size_kw, seq_len) -> int:
     from split_learning_tpu_torch.tracking import make_logger
     from split_learning_tpu_torch.transport.chaos import parse_chaos_spec
     from split_learning_tpu_torch.transport.density import DensityController
+    from split_learning_tpu_torch.utils.profiling import device_trace
     try:
         if plan.num_stages != cfg.num_stages:
             raise ValueError(
@@ -666,6 +757,8 @@ def _train_chain(args, cfg, plan, ckptr, size_kw, seq_len) -> int:
         print(f"[compress] chain hop wires: {compress} (density "
               f"{'auto' if dc is not None else density})", file=sys.stderr)
     logger = make_logger(cfg)
+    step_tracer = obs.enable() if args.trace else None
+    fleet = _chain_telemetry(args, runner, stage_rts)
 
     start_step = 0
     if ckptr is not None:
@@ -713,7 +806,7 @@ def _train_chain(args, cfg, plan, ckptr, size_kw, seq_len) -> int:
     final_loss = float("nan")
     t0 = time.time()
     try:
-        with _ckpt_drain(ckptr):
+        with _ckpt_drain(ckptr), device_trace(args.profile_dir):
             for _ in range(cfg.epochs):
                 for x, y in data_iter():
                     final_loss = runner.step(x, y, step)
@@ -727,6 +820,8 @@ def _train_chain(args, cfg, plan, ckptr, size_kw, seq_len) -> int:
                 save_chain(step)
     finally:
         meta = runner.trace_metadata()
+        if fleet is not None:
+            fleet = fleet.close()
         runner.close()
         for t in transports:
             t.close()
@@ -747,6 +842,15 @@ def _train_chain(args, cfg, plan, ckptr, size_kw, seq_len) -> int:
               f"{st['bubble_theoretical']:.3f}) host busy/wall fwd, bwd "
               f"{[v if v is None else round(v, 3) for v in shares]} "
               f"reply_p50={st['reply_p50_ms']:.1f}ms", file=sys.stderr)
+    if fleet is not None:
+        print(f"[telemetry] fleet {json.dumps(fleet)}", file=sys.stderr)
+    _report_profile(None, args.profile_dir)
+    if step_tracer is not None:
+        obs.disable()
+        out_path = step_tracer.export_chrome(args.trace,
+                                             stage_metadata=meta)
+        print(f"[trace] {len(step_tracer.spans())} spans -> {out_path}",
+              file=sys.stderr)
     if "density" in meta:
         snap = meta["density"]
         print(f"[density] adaptive controller: windows="
@@ -786,6 +890,23 @@ def _train_chain(args, cfg, plan, ckptr, size_kw, seq_len) -> int:
     return 0
 
 
+def _report_profile(phase_prof, profile_dir: Optional[str]) -> None:
+    """``--profile-dir``'s report, JAX's lines: the phase summary, the
+    transport fraction, where the device trace went."""
+    if phase_prof is not None and phase_prof.summary():
+        print(f"[profile] {json.dumps(phase_prof.summary())}",
+              file=sys.stderr)
+        frac = phase_prof.fraction("transport")
+        if frac > 0:  # 0.0: no transport phase (the fused step)
+            print(f"[profile] transport fraction: {frac:.3f}",
+                  file=sys.stderr)
+    if profile_dir:
+        from split_learning_tpu_torch.utils.profiling import TRACE_FILE
+        print(f"[profile] device trace written to "
+              f"{os.path.join(profile_dir, TRACE_FILE)} (view in "
+              "Perfetto)", file=sys.stderr)
+
+
 def cmd_train(args) -> int:
     from split_learning_tpu_torch import obs
     from split_learning_tpu_torch.models import get_plan
@@ -799,6 +920,8 @@ def cmd_train(args) -> int:
     from split_learning_tpu_torch.tracking import make_logger
     from split_learning_tpu_torch.transport.chaos import parse_chaos_spec
     from split_learning_tpu_torch.utils.device import resolve_device
+    from split_learning_tpu_torch.utils.profiling import (
+        PhaseProfiler, device_trace)
 
     resolve_device(args.device)  # no GPU for "cuda": raise before any work
     try:
@@ -860,6 +983,9 @@ def cmd_train(args) -> int:
         return 2
     if chain:
         return _train_chain(args, cfg, plan, ckptr, size_kw, seq_len)
+    if args.telemetry_port is not None:
+        print("[warn] --telemetry-port applies to the K-stage chain (the "
+              "hub's ring); ignored", file=sys.stderr)
     if cfg.model not in _ATTENTION_FAMILIES and cfg.attn != "full":
         print(f"[warn] --attn {cfg.attn!r} ignored: model {cfg.model!r} has "
               "no attention (transformer/vit only)", file=sys.stderr)
@@ -904,6 +1030,9 @@ def cmd_train(args) -> int:
     sample = ds.train.x[:cfg.batch_size]
     seed_gen = torch.Generator().manual_seed(cfg.seed)
     logger = make_logger(cfg)
+    # --profile-dir: the phase profiler (the split client's compute vs
+    # transport) and the torch.profiler device trace
+    phase_prof = PhaseProfiler() if args.profile_dir else None
     if two_party and cfg.mode == "u_split":
         trainer = USplitClientTrainer(plan, cfg, seed_gen, transport,
                                       logger=logger, device=args.device)
@@ -913,6 +1042,10 @@ def cmd_train(args) -> int:
                                          device=args.device)
         layout = "federated"
     elif two_party and depth > 1:
+        if phase_prof is not None:
+            print("[warn] --profile-dir phase accounting is not supported "
+                  "with --pipeline-depth > 1 (phases overlap by design); "
+                  "the device trace still records", file=sys.stderr)
         factory = None
         if server is None:
             # one connection and one EF ledger per in-flight lane, as JAX
@@ -933,8 +1066,8 @@ def cmd_train(args) -> int:
         trainer = SplitClientTrainer(plan, cfg, seed_gen, transport,
                                      failure_policy=fail_policy,
                                      max_retries=args.max_retries,
-                                     logger=logger, breaker=breaker,
-                                     device=args.device)
+                                     logger=logger, profiler=phase_prof,
+                                     breaker=breaker, device=args.device)
         layout = "split_local" if server is not None else "client_only"
     else:
         trainer = FusedSplitTrainer(plan, cfg, seed_gen, sample,
@@ -1005,7 +1138,7 @@ def cmd_train(args) -> int:
 
     t0 = time.time()
     final_loss = float("nan")
-    with _ckpt_drain(ckptr):
+    with _ckpt_drain(ckptr), device_trace(args.profile_dir):
         if isinstance(trainer, FederatedClientTrainer):
             # one FedAvg round an epoch; an epoch the step cap leaves
             # empty is not run
@@ -1036,9 +1169,12 @@ def cmd_train(args) -> int:
                 save(step)
     n_steps = budget["taken"]
     dt = time.time() - t0
+    _report_profile(phase_prof, args.profile_dir)
     if step_tracer is not None:
         obs.disable()
-        out_path = step_tracer.export_chrome(args.trace)
+        out_path = step_tracer.export_chrome(
+            args.trace, metadata=(server.trace_metadata()
+                                  if server is not None else None))
         print(f"[trace] {len(step_tracer.spans())} spans -> {out_path}",
               file=sys.stderr)
     if n_steps and dt > 0:
@@ -1110,14 +1246,6 @@ SERVE_NOT_PORTED = (
      "item 19"),
     ("autoscale_cooldown_s", _given,
      "--autoscale-cooldown-s (elastic replicas)", "item 19"),
-    ("trace", _given, "--trace (the server's Chrome trace)", "item 10"),
-    ("flight", _given, "--flight (the flight recorder)", "item 22"),
-    ("telemetry", bool, "--telemetry (the telemetry ring)", "item 22"),
-    ("telemetry_interval_s", _given,
-     "--telemetry-interval-s (the telemetry ring)", "item 22"),
-    ("telemetry_slo_ms", _given, "--telemetry-slo-ms (the telemetry ring)",
-     "item 22"),
-    ("tracking_uri", _given, "--tracking-uri (MLflow)", "item 22"),
 )
 
 
@@ -1310,9 +1438,16 @@ def cmd_serve(args) -> int:
     same ``[serve]`` line."""
     import signal
 
+    from split_learning_tpu_torch import obs
+    from split_learning_tpu_torch.obs import telemetry as obs_telemetry
     runtime, server, ckptr = serve_party(args)
     if runtime is None:
         return server
+    step_tracer, ring = _serve_observability(args, runtime, server)
+    if step_tracer is not None:
+        # cmd_serve runs under _run_with_flight, which set the list up
+        args.sigterm_hooks.append(
+            lambda: _export_serve_trace(step_tracer, args.trace, runtime))
     main_thread = threading.current_thread() is threading.main_thread()
     if main_thread:
         # SIGINT stops the server even where the parent ignored it
@@ -1329,7 +1464,14 @@ def cmd_serve(args) -> int:
         print("[serve] shutting down", flush=True)
         server.stop()
     finally:
+        if ring is not None:
+            ring.advance(force=True)
+            obs_telemetry.disable()
         runtime.close()
+        if step_tracer is not None:
+            _export_serve_trace(step_tracer, args.trace, runtime)
+        elif ring is not None:
+            obs.disable()  # the ring's tracer
         if ckptr is not None:
             # saves are asynchronous: make the newest durable before the
             # process exits, or a resume comes back behind the clients
@@ -1337,6 +1479,59 @@ def cmd_serve(args) -> int:
         if main_thread:
             signal.signal(signal.SIGINT, prev)
     return 0
+
+
+def _export_serve_trace(step_tracer, path: str, runtime) -> None:
+    """``serve --trace``'s last words (at shutdown, or on SIGTERM): the
+    Chrome trace with the per-program MFU sidecar, and this process's
+    kernel launches (``ops.common.LAUNCHES``), which a client in another
+    process cannot count."""
+    from split_learning_tpu_torch import obs
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    obs.disable()
+    step_tracer.export_chrome(path, metadata=runtime.trace_metadata())
+    print(f"[trace] Chrome trace written to {path}; kernel launches "
+          f"{json.dumps(LAUNCHES.snapshot())}", file=sys.stderr, flush=True)
+
+
+def _serve_observability(args, runtime, server):
+    """``serve``'s ``--trace`` (the tracer: live histograms on ``GET
+    /metrics``, the Chrome trace at shutdown) and ``--telemetry`` (or
+    ``SLT_TELEMETRY``; the flags win over the env knobs): a windowed
+    ring over ``runtime.metrics`` behind ``GET /telemetry``, advanced by
+    its sampler thread; telemetry implies tracing. Returns ``(tracer or
+    None, ring or None)``."""
+    from split_learning_tpu_torch import obs
+    from split_learning_tpu_torch.obs import telemetry as obs_telemetry
+    step_tracer = None
+    if args.trace:
+        step_tracer = obs.enable()
+        print(f"[serve] tracing on: /metrics histograms live; Chrome trace "
+              f"-> {args.trace} on shutdown", file=sys.stderr)
+    cfg = obs_telemetry.env_config()
+    if cfg is None and args.telemetry:
+        cfg = {"interval_s": obs_telemetry.DEFAULT_INTERVAL_S,
+               "capacity": obs_telemetry.DEFAULT_CAPACITY}
+    if cfg is None:
+        return step_tracer, None
+    if args.telemetry_interval_s:
+        cfg["interval_s"] = float(args.telemetry_interval_s)
+    if args.telemetry_slo_ms:
+        cfg["slo_ms"] = float(args.telemetry_slo_ms)
+    if obs.get_tracer() is None:
+        obs.enable()  # the windows read the tracer-gated histograms
+    party = (f"stage{args.stage_index}" if args.role == "stage"
+             else "server")
+    ring = obs_telemetry.enable(
+        runtime.metrics, party=party, interval_s=cfg["interval_s"],
+        capacity=cfg["capacity"],
+        slo=obs_telemetry.tracker_from_config(cfg, tenants=args.tenants))
+    ring.start_sampler()
+    server.telemetry = ring
+    print(f"[telemetry] windowed ring on: GET /telemetry (interval "
+          f"{cfg['interval_s']}s, capacity {cfg['capacity']})",
+          file=sys.stderr)
+    return step_tracer, ring
 
 
 def _resolve_checkpoint(args, cfg, cmd: str,
@@ -1605,8 +1800,13 @@ def _add_shared(p: argparse.ArgumentParser) -> None:
                         "precision)")
     p.add_argument("--microbatches", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
-    p.add_argument("--tracking", default=None, help="stdout | jsonl | noop")
-    p.add_argument("--tracking-uri", dest="tracking_uri", default=None)
+    p.add_argument("--tracking", default=None,
+                   help="stdout | jsonl | noop | mlflow (the mlflow package, "
+                        "else its REST protocol for an http(s) "
+                        "--tracking-uri, else stdout)")
+    p.add_argument("--tracking-uri", dest="tracking_uri", default=None,
+                   help="the MLflow tracking server (env "
+                        "MLFLOW_TRACKING_URI)")
     p.add_argument("--remat", action="store_true")
     p.add_argument("--checkpoint-dir", dest="checkpoint_dir", default=None)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -1736,10 +1936,6 @@ def _add_train_not_ported(p: argparse.ArgumentParser) -> None:
                    type=float, default=None)
     p.add_argument("--seq-parallel", dest="seq_parallel", type=int,
                    default=None)
-    p.add_argument("--flight", default=None, metavar="PATH")
-    p.add_argument("--telemetry-port", dest="telemetry_port", type=int,
-                   default=None)
-    p.add_argument("--profile-dir", dest="profile_dir", default=None)
     p.add_argument("--scan-steps", dest="scan_steps", type=int, default=0)
 
 
@@ -1759,13 +1955,16 @@ def _add_serve_not_ported(p: argparse.ArgumentParser) -> None:
                    default=None)
     p.add_argument("--autoscale-cooldown-s", dest="autoscale_cooldown_s",
                    type=float, default=None)
-    p.add_argument("--trace", default=None, metavar="PATH")
-    p.add_argument("--flight", default=None, metavar="PATH")
-    p.add_argument("--telemetry", action="store_true")
-    p.add_argument("--telemetry-interval-s", dest="telemetry_interval_s",
-                   type=float, default=None)
-    p.add_argument("--telemetry-slo-ms", dest="telemetry_slo_ms",
-                   type=float, default=None)
+
+
+def _add_flight(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--flight", default=None, metavar="PATH",
+                   help="flight recorder (obs/flight.py): journal causal "
+                        "runtime events in a bounded ring and dump them "
+                        "here as JSON on exit, SIGTERM, a fatal exception "
+                        "or a watchdog trip (merge with "
+                        "scripts/postmortem.py); serve also answers GET "
+                        "/debug/flight. Off = zero overhead")
 
 
 def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
@@ -1835,8 +2034,24 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
                          "(over HTTP: split-party, evaluate_remote)")
     pt.add_argument("--trace", default=None, metavar="PATH",
                     help="per-step span tracing (obs/): write a Chrome-"
-                         "trace JSON here on exit (Perfetto-loadable). "
-                         "Off = zero overhead")
+                         "trace JSON here on exit (Perfetto-loadable; an "
+                         "in-process server's per-program MFU and the "
+                         "chain's per-stage report ride as metadata "
+                         "events). Off = zero overhead")
+    pt.add_argument("--profile-dir", dest="profile_dir", default=None,
+                    help="write a torch.profiler trace (CPU and CUDA "
+                         "activity, device_trace.json) here and report "
+                         "the per-phase (compute vs transport) wall "
+                         "clock")
+    pt.add_argument("--telemetry-port", dest="telemetry_port", type=int,
+                    default=None,
+                    help="the K-stage chain: serve the hub's windowed "
+                         "telemetry ring on this port's GET /telemetry "
+                         "(0 = ephemeral) and print the fleet view of the "
+                         "hub and its in-process stages at the end; also "
+                         "turns telemetry on (SLT_TELEMETRY=1 does too, "
+                         "without the port)")
+    _add_flight(pt)
     _add_server_knobs(pt, serve=False)
     _add_chain_flags(pt)
     _add_train_not_ported(pt)
@@ -1868,6 +2083,25 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     ps.add_argument("--stage-index", dest="stage_index", type=int, default=1,
                     help="--role stage: which stage of the chain plan "
                          "(1..S-1)")
+    ps.add_argument("--trace", default=None, metavar="PATH",
+                    help="per-step span tracing (obs/): live queue-wait/"
+                         "dispatch histograms on GET /metrics and a Chrome "
+                         "trace here on shutdown, with the per-program MFU "
+                         "as its metadata event. Off = zero overhead")
+    _add_flight(ps)
+    ps.add_argument("--telemetry", action="store_true",
+                    help="telemetry plane (obs/telemetry.py): a windowed "
+                         "rates/percentiles ring on GET /telemetry "
+                         "(implies tracing; env twin SLT_TELEMETRY=1)")
+    ps.add_argument("--telemetry-interval-s", dest="telemetry_interval_s",
+                    type=float, default=None,
+                    help="telemetry window width in seconds (default 1.0; "
+                         "env twin SLT_TELEMETRY_INTERVAL_S)")
+    ps.add_argument("--telemetry-slo-ms", dest="telemetry_slo_ms",
+                    type=float, default=None,
+                    help="per-tenant latency SLO of the burn-rate tracker "
+                         "(slt_slo_burn_rate_* gauges and fl_slo_alert "
+                         "flight events; env twin SLT_TELEMETRY_SLO_MS)")
     _add_server_knobs(ps, serve=True)
     _add_serve_not_ported(ps)
     ps.set_defaults(fn=cmd_serve)
@@ -1910,9 +2144,68 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def _run_with_flight(args) -> int:
+    """Run one subcommand under the flight recorder's process triggers
+    (JAX's): ``--flight PATH`` arms the recorder and dumps the journal at
+    exit; SIGTERM and a fatal exception dump it on the way down. A
+    SIGTERM then runs the callables the command appended to
+    ``args.sigterm_hooks`` (``serve --trace`` writes its trace there;
+    JAX's serve loses it) and the process dies of the signal, as in
+    JAX. With neither the flag nor ``SLT_FLIGHT`` (nor
+    ``serve --trace``) this is ``args.fn(args)``: the recorder stays
+    ``None`` and nothing here allocates."""
+    import signal
+    from split_learning_tpu_torch.obs import flight as obs_flight
+    party = "server" if args.cmd == "serve" else "client"
+    flight_path = getattr(args, "flight", None)
+    was_on = obs_flight.enabled()
+    if flight_path:
+        # the flag is switch and dump path; it wins over SLT_FLIGHT
+        obs_flight.enable(party=party, dump_path=flight_path)
+    else:
+        obs_flight.maybe_enable_from_env(party=party)
+    prev = None
+    args.sigterm_hooks = []
+    if obs_flight.enabled() or (args.cmd == "serve" and args.trace):
+        def _on_sigterm(signum, frame):
+            obs_flight.fatal("sigterm", f"signal {signum}")
+            for hook in list(args.sigterm_hooks):
+                try:
+                    hook()
+                except Exception as exc:  # noqa: BLE001 (dying anyway)
+                    print(f"[warn] SIGTERM hook failed: {exc}",
+                          file=sys.stderr)
+            signal.signal(signal.SIGTERM, signal.SIG_DFL)
+            os.kill(os.getpid(), signal.SIGTERM)
+
+        try:
+            prev = signal.signal(signal.SIGTERM, _on_sigterm)
+        except ValueError:
+            pass  # not the main thread (embedded use): no hook
+    try:
+        rc = args.fn(args)
+    except Exception as exc:
+        # journal what led up to the crash; the exception propagates
+        obs_flight.fatal(type(exc).__name__, str(exc))
+        raise
+    finally:
+        if prev is not None:
+            signal.signal(signal.SIGTERM, prev)
+        fl = obs_flight.get_recorder()
+        if fl is not None and not was_on:
+            # this command armed it: the next command in the process
+            # starts with the recorder off
+            obs_flight.disable()
+    if fl is not None and fl.dump_path:
+        out = fl.dump_json(fl.dump_path, reason="exit")
+        print(f"[flight] {len(fl.events())} events -> {out} (merge with "
+              "scripts/postmortem.py)", file=sys.stderr)
+    return rc
+
+
 def main(argv: Optional[list] = None) -> int:
     args = parse_args(argv)
-    return args.fn(args)
+    return _run_with_flight(args)
 
 
 if __name__ == "__main__":

@@ -43,6 +43,7 @@ from torch import nn
 
 from split_learning_tpu_torch.core.stage import SplitPlan, Stage
 from split_learning_tpu_torch.models.cnn import Dense, _nchw, _nhwc
+from split_learning_tpu_torch.utils.flops import conv_pad
 
 _META = "meta"  # stage modules describe shapes only; params live outside
 NUM_CLASSES = 10
@@ -75,7 +76,9 @@ class Conv(nn.Conv2d):
         if hl == hh and wl == wh:
             return F.conv2d(x, self.weight.to(dt), stride=s,
                             padding=(hl, wl))
-        return F.conv2d(F.pad(x, (wl, wh, hl, hh)), self.weight.to(dt),
+        # JAX pads inside the convolution: conv_pad says so to the
+        # FLOP count
+        return F.conv2d(conv_pad(x, (wl, wh, hl, hh)), self.weight.to(dt),
                         stride=s)
 
 

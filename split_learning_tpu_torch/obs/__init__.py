@@ -10,11 +10,14 @@ cache and the transports call::
     tracer.export_chrome("trace.json")
     obs.disable()
 
-The flight recorder, the dispatch watchdog and the telemetry plane are
-not ported (ROADMAP items 22-23).
+Beside them, as in JAX: the flight recorder (``obs/flight.py``), the
+telemetry ring and SLO tracker (``obs/telemetry.py``) and the fleet
+view (``obs/federate.py``), each off until enabled. The dispatch
+watchdog (``obs/dispatch_debug.py``) is not ported (ROADMAP item 23).
 """
 
 from split_learning_tpu_torch.obs.metrics import (  # noqa: F401
     DEFAULT_BUCKETS, Histogram, Registry, render_prometheus)
 from split_learning_tpu_torch.obs.trace import (  # noqa: F401
-    CLIENT_PHASES, CTX, Tracer, disable, enable, enabled, get_tracer)
+    CLIENT_PHASES, CTX, Tracer, disable, enable, enabled, get_tracer,
+    maybe_enable_from_env)

@@ -6,7 +6,8 @@ With ``SLT_LOCK_DEBUG=1`` the runtime and replay-cache locks become
 stack in a process-wide :class:`LockGraph`, report a lock-order
 inversion the moment an edge ``B -> A`` appears after ``A -> B``, report
 hold times above ``SLT_LOCK_BUDGET_MS`` (off by default), and feed hold
-times into the ``lock_hold`` histogram of a metrics registry. With the
+times into the ``lock_hold`` histogram of a metrics registry; each report
+trips the flight recorder (``obs/flight.py`` :func:`trip`). With the
 variable unset, :func:`make_lock` returns the plain ``threading``
 primitive: zero overhead and identical behaviour.
 """
@@ -84,6 +85,10 @@ class LockGraph:
         # caller holds self._lock
         self.violations.append(violation)
         print(f"[slt-lock] {violation['message']}", file=sys.stderr)
+        # the flight recorder's watchdog trigger: trip() never raises and
+        # takes no lock, so calling it holding self._lock is safe
+        from split_learning_tpu_torch.obs import flight as obs_flight
+        obs_flight.trip("lock", violation["message"])
 
     def clear(self) -> None:
         with self._lock:

@@ -4,7 +4,9 @@
 Spans land in per-phase :class:`Histogram`\\ s inside a
 :class:`Registry`, one registry per party; ``ServerRuntime.metrics()``
 returns its snapshot, and :func:`render_prometheus` turns a snapshot
-into the text ``GET /metrics`` serves, byte for byte JAX's. Buckets
+into the text ``GET /metrics`` serves, byte for byte JAX's;
+:func:`histogram_percentile` and :func:`histogram_delta` read windows
+of them (the telemetry ring's percentiles). Buckets
 are fixed at construction (cumulative counts stay monotone across
 scrapes), spanning 100 us to 10 s.
 Stdlib-only; nothing here runs on the step path unless tracing is on.
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 import bisect
 import threading
-from typing import Any, Dict, Iterable
+from typing import Any, Dict, Iterable, Optional
 
 # upper bounds (``le``) in seconds; +Inf is implicit
 DEFAULT_BUCKETS = (
@@ -103,6 +105,58 @@ class Registry:
         return {"histograms": snap_h, "counters": counters,
                 "gauges": gauges, "phase_fractions": fractions}
 
+
+def histogram_percentile(hist_snapshot: Dict[str, Any], q: float) -> float:
+    """The q-th percentile (0..100) of a :meth:`Histogram.snapshot`, by
+    linear interpolation within the covering bucket (Prometheus's
+    ``histogram_quantile``). 0.0 on an empty histogram; a percentile in
+    the +Inf slot clamps to the last finite bound."""
+    if not 0.0 <= q <= 100.0:
+        raise ValueError(f"percentile must be in [0, 100] (got {q})")
+    total = int(hist_snapshot.get("count", 0))
+    buckets = tuple(hist_snapshot.get("buckets") or ())
+    cumulative = list(hist_snapshot.get("cumulative") or ())
+    # an empty window (obs/telemetry.py's bucket subtraction) reads 0.0,
+    # never NaN
+    if total <= 0 or not buckets or not cumulative:
+        return 0.0
+    rank = q / 100.0 * total
+    prev_cum, prev_le = 0, 0.0
+    for le, cum in zip(buckets, cumulative):
+        if cum >= rank:
+            if cum == prev_cum:
+                return float(le)
+            frac = (rank - prev_cum) / (cum - prev_cum)
+            return prev_le + (float(le) - prev_le) * max(frac, 0.0)
+        prev_cum, prev_le = cum, float(le)
+    return float(buckets[-1])  # +Inf slot: clamp to the last finite bound
+
+
+def histogram_delta(cur: Dict[str, Any],
+                    prev: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """The window between two cumulative snapshots, in the snapshot's
+    shape (feed it to :func:`histogram_percentile`). A counter reset
+    (``cur`` below ``prev`` in the count or any bucket: the party
+    restarted) and a ``prev`` of None give ``cur`` itself, Prometheus's
+    ``rate()`` convention."""
+    cur_cum = list(cur.get("cumulative") or ())
+    if prev is None:
+        return {"buckets": tuple(cur.get("buckets") or ()),
+                "cumulative": cur_cum,
+                "sum": float(cur.get("sum", 0.0)),
+                "count": int(cur.get("count", 0))}
+    prev_cum = list(prev.get("cumulative") or ())
+    d_count = int(cur.get("count", 0)) - int(prev.get("count", 0))
+    reset = (d_count < 0 or len(prev_cum) > len(cur_cum)
+             or any(c < p for c, p in zip(cur_cum, prev_cum)))
+    if reset:
+        return histogram_delta(cur, None)
+    prev_cum += [0] * (len(cur_cum) - len(prev_cum))
+    return {"buckets": tuple(cur.get("buckets") or ()),
+            "cumulative": [c - p for c, p in zip(cur_cum, prev_cum)],
+            "sum": max(float(cur.get("sum", 0.0))
+                       - float(prev.get("sum", 0.0)), 0.0),
+            "count": d_count}
 
 def _sanitize(name: str) -> str:
     out = "".join(c if (c.isalnum() or c in "_:") else "_" for c in name)

@@ -54,13 +54,83 @@ DEFERRED_APPLY = "deferred_apply"
 # and the reply's decode)
 HOP_HOST_COPIES = "hop_host_copies"
 # metrics-gauge-only name: the adaptive density controller's current
-# density per wire, ``wire_density_<wire>``, and the flight-recorder
-# event names of a hop: JAX's, for the telemetry ring and the recorder
-# (ROADMAP item 22)
+# density per wire, ``wire_density_<wire>``
 WIRE_DENSITY = "wire_density"
-FL_HOP_SEND = "fl_hop_send"
-FL_HOP_RECV = "fl_hop_recv"
-FL_STAGE_REPLY = "fl_stage_reply"
+
+# chrome-trace metadata event names (``ph: "M"``, not spans: no duration
+# to tile a timeline with): the party's per-program MFU sidecar
+# (``PartyRuntime.trace_metadata``) and the chain's per-stage sidecar
+# (``PipelineRunner.trace_metadata``), JAX's names
+MESH_META = "mesh_meta"
+STAGE_META = "stage_meta"
+
+# -- flight-recorder events (obs/flight.py) ---------------------------- #
+# Causal runtime events, not spans: a point in a per-process sequence.
+# JAX's names letter for letter, so ``scripts/postmortem.py`` merges a
+# port dump with a JAX one. A call site names one through this module.
+FL_ADMIT = "fl_admit"                    # admission granted (EDF deadline set)
+FL_REJECT = "fl_reject"                  # Backpressure raised (quota/queue)
+FL_CLAIM_BEGIN = "fl_claim_begin"        # replay claim decided (owner or not)
+FL_CLAIM_RESOLVE = "fl_claim_resolve"    # owner published the reply
+FL_CLAIM_FAIL = "fl_claim_fail"          # owner failed; claim removed
+FL_CLAIM_WAIT = "fl_claim_wait"          # non-owner woke on a resolved claim
+FL_REPLAY_HIT = "fl_replay_hit"          # wire-path duplicate served from cache
+FL_GROUP_FORM = "fl_group_form"          # request enqueued at the coalescer
+FL_GROUP_PICKUP = "fl_group_pickup"      # flusher collected a group
+FL_DISPATCH = "fl_dispatch"              # server program launched
+FL_REPLY = "fl_reply"                    # reply handed back to the caller
+FL_DEFER_ENQ = "fl_defer_enqueue"        # deferred weight-apply queued (2BP)
+FL_DEFER_APPLY = "fl_defer_apply"        # one deferred apply launched
+FL_DEFER_FLUSH = "fl_defer_flush"        # deferred queue drained (lag/close)
+FL_BREAKER = "fl_breaker"                # circuit breaker state transition
+FL_CHAOS = "fl_chaos"                    # fault injected by the chaos wire
+FL_CKPT_CAPTURE = "fl_ckpt_capture"      # runtime extras captured (lineage++)
+FL_CKPT_COMMIT = "fl_ckpt_commit"        # extras durably committed (rename)
+FL_CKPT_LINEAGE = "fl_ckpt_lineage"      # lineage adopted on restore/scan
+FL_GATHER = "fl_gather"                  # sharded host-gather (item 18)
+FL_SEND = "fl_send"                      # client posted a request
+FL_RECV = "fl_recv"                      # party received a request/reply
+FL_CLOSE = "fl_close"                    # runtime close entered
+FL_WATCHDOG_TRIP = "fl_watchdog_trip"    # lock watchdog violation
+FL_FATAL = "fl_fatal"                    # SIGTERM / fatal exception dump
+# the K-stage chain's hops: every event carries ``stage``, ``mb`` and
+# ``dir``/``op``, so a merged postmortem orders a microbatch's journey
+FL_HOP_SEND = "fl_hop_send"              # pipeline hop posted toward a stage
+FL_HOP_RECV = "fl_hop_recv"              # pipeline hop delivered/acknowledged
+FL_STAGE_REPLY = "fl_stage_reply"        # stage replied (cut grad / acts)
+# server replicas (item 19): registered, emitted by nothing yet
+FL_ROUTE = "fl_route"                    # client -> replica assignment made
+FL_REPLICA_DEATH = "fl_replica_death"    # replica declared dead (breaker open)
+FL_HANDOFF_BEGIN = "fl_handoff_begin"    # failover handoff started (quiesce)
+FL_HANDOFF_COMMIT = "fl_handoff_commit"  # state merged; clients rerouted
+# the telemetry plane: an SLO burn-rate alert transitioned (``tenant``,
+# ``objective``, ``state``, both window burn rates)
+FL_SLO_ALERT = "fl_slo_alert"            # SLO burn-rate alert fired/cleared
+# elastic autoscaling (item 19): registered, emitted by nothing yet
+FL_SCALE_DECISION = "fl_scale_decision"  # autoscale policy verdict (non-hold)
+FL_SCALE_UP = "fl_scale_up"              # replica spawned and adopted
+FL_SCALE_DOWN = "fl_scale_down"          # replica retired via policy handoff
+
+FLIGHT_EVENTS = (
+    FL_ADMIT, FL_REJECT, FL_CLAIM_BEGIN, FL_CLAIM_RESOLVE, FL_CLAIM_FAIL,
+    FL_CLAIM_WAIT, FL_REPLAY_HIT, FL_GROUP_FORM, FL_GROUP_PICKUP,
+    FL_DISPATCH, FL_REPLY, FL_DEFER_ENQ, FL_DEFER_APPLY, FL_DEFER_FLUSH,
+    FL_BREAKER, FL_CHAOS, FL_CKPT_CAPTURE, FL_CKPT_COMMIT,
+    FL_CKPT_LINEAGE, FL_GATHER, FL_SEND, FL_RECV, FL_CLOSE,
+    FL_WATCHDOG_TRIP, FL_FATAL, FL_HOP_SEND, FL_HOP_RECV,
+    FL_STAGE_REPLY, FL_ROUTE, FL_REPLICA_DEATH, FL_HANDOFF_BEGIN,
+    FL_HANDOFF_COMMIT, FL_SLO_ALERT, FL_SCALE_DECISION, FL_SCALE_UP,
+    FL_SCALE_DOWN)
+
+# -- the telemetry plane (obs/telemetry.py): metrics-gauge-only names,
+# the per-tenant multi-window SLO burn rates (render_prometheus adds the
+# slt_ prefix) ----------------------------------------------------- #
+SLO_BURN_FAST = "slo_burn_rate_fast"
+SLO_BURN_SLOW = "slo_burn_rate_slow"
+# the replica router's live count and the autoscaler's last verdict
+# (item 19): registered, published by nothing yet
+REPLICAS_LIVE = "replicas_live"
+AUTOSCALE_DECISION = "autoscale_decision"
 
 # the client-level phases that tile a step: the denominator of the
 # compute-vs-wire fraction (queue_wait/dispatch belong to the server

@@ -113,14 +113,25 @@ class Tracer:
         denom = sum(totals.get(p, 0.0) for p in CLIENT_PHASES)
         return totals.get(name, 0.0) / denom if denom > 0 else 0.0
 
-    def chrome_events(self) -> List[Dict[str, Any]]:
+    def chrome_events(self, metadata: Optional[Dict[str, Any]] = None,
+                      stage_metadata: Optional[Dict[str, Any]] = None
+                      ) -> List[Dict[str, Any]]:
         """Chrome trace events (``ph: "X"``, microseconds from tracer
-        start, one pid per party)."""
+        start, one pid per party). ``metadata`` (the party's
+        ``trace_metadata()``: per-program MFU) and ``stage_metadata``
+        (the chain's ``PipelineRunner.trace_metadata()``) ride as one
+        ``ph: "M"`` event each, ``spans.MESH_META`` and
+        ``spans.STAGE_META``, as in JAX."""
         events: List[Dict[str, Any]] = [
             {"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
              "args": {"name": f"slt-{party}"}}
             for party, pid in sorted(PARTY_PIDS.items())
         ]
+        for name, args in ((spans.MESH_META, metadata),
+                           (spans.STAGE_META, stage_metadata)):
+            if args is not None:
+                events.append({"name": name, "ph": "M", "pid": 0,
+                               "tid": 0, "args": args})
         for sp in self.spans():
             events.append({
                 "name": sp["name"], "cat": sp["party"], "ph": "X",
@@ -131,11 +142,17 @@ class Tracer:
             })
         return events
 
-    def export_chrome(self, path: str) -> str:
-        """Write the Chrome-trace JSON array, one event per line."""
+    def export_chrome(self, path: str,
+                      metadata: Optional[Dict[str, Any]] = None,
+                      stage_metadata: Optional[Dict[str, Any]] = None
+                      ) -> str:
+        """Write the Chrome-trace JSON array, one event per line, the
+        metadata events of :meth:`chrome_events` among them. Returns
+        ``path``."""
         parent = os.path.dirname(os.path.abspath(path))
         os.makedirs(parent, exist_ok=True)
-        events = self.chrome_events()
+        events = self.chrome_events(metadata=metadata,
+                                    stage_metadata=stage_metadata)
         with open(path, "w") as f:
             f.write("[\n")
             for i, ev in enumerate(events):
@@ -173,3 +190,11 @@ def get_tracer() -> Optional[Tracer]:
 
 def enabled() -> bool:
     return _tracer is not None
+
+
+def maybe_enable_from_env() -> Optional[Tracer]:
+    """Honour ``SLT_TRACE`` (any non-empty value turns tracing on; the
+    caller owns the export)."""
+    if os.environ.get("SLT_TRACE") and not enabled():
+        return enable()
+    return get_tracer()

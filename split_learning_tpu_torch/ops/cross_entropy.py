@@ -148,7 +148,9 @@ def ce_backward_cuda(logits: torch.Tensor, labels: torch.Tensor,
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.is_cuda:
         return True
-    if t.device.type != "cpu":
+    # a meta tensor (a FLOP count's shape pass, utils/flops.step_flops)
+    # takes the plain path, which computes nothing there
+    if t.device.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {t.device} (cuda or cpu)")
     return False
 

@@ -22,7 +22,10 @@ JAX's ``vjp_fwd`` does. On CUDA tensors its forward launches K5 and its
 backward K6, or they raise; on CPU tensors they run
 :func:`flash_attention_with_lse_plain` and
 :func:`flash_attention_bwd_plain`, dense versions of the same math that
-are also the card's yardstick of correctness.
+are also the card's yardstick of correctness. ``meta`` tensors (a
+FLOP count's shape pass, :func:`~split_learning_tpu_torch.utils.flops.
+step_flops`) take the plain versions too, whose T x T x D products (two
+forward, five backward) are the kernels' model FLOPs.
 
 Where the plain versions round. Every product accumulates in float32,
 and the softmax, the LSE, delta and dS = P (dP - delta) are float32. The
@@ -387,7 +390,9 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.is_cuda:
         return True
-    if t.device.type != "cpu":
+    # a meta tensor (a FLOP count's shape pass, utils/flops.step_flops)
+    # takes the plain path, which computes nothing there
+    if t.device.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {t.device} (cuda or cpu)")
     return False
 

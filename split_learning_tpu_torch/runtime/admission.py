@@ -14,8 +14,8 @@
 
 Deterministic: no RNG, every time from one injectable monotonic clock,
 so a virtual clock reproduces an admission sequence exactly. The one
-lock guards bucket arithmetic only. JAX's flight-recorder events are
-left out (``obs/flight.py`` is ROADMAP item 22).
+lock guards bucket arithmetic only. Each admit and reject journals a
+flight event (``FL_ADMIT``, ``FL_REJECT``) when the recorder is on.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
+from split_learning_tpu_torch.obs import flight as obs_flight
 from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.transport.base import Backpressure
 
@@ -121,11 +122,20 @@ class AdmissionController:
             if retry_after is None:
                 self._admitted[t] += 1
                 self._depth[t] += 1
+        fl = obs_flight.get_recorder()
         if retry_after is not None:
+            if fl is not None:
+                fl.record(spans.FL_REJECT, client_id=int(client_id),
+                          party="server", tenant=t,
+                          retry_after_s=retry_after)
             raise Backpressure(
                 f"tenant {t} over quota ({self._quota[t]:g} steps/s): "
                 f"retry in {retry_after:.3f}s", retry_after_s=retry_after)
-        return (now + self._slo_s[t]) if self._slo_s is not None else None
+        deadline = (now + self._slo_s[t]) if self._slo_s is not None else None
+        if fl is not None:
+            fl.record(spans.FL_ADMIT, client_id=int(client_id),
+                      party="server", tenant=t, deadline=deadline)
+        return deadline
 
     def complete(self, client_id: int) -> None:
         """Release the slot an :meth:`admit` charged (on success or

@@ -15,8 +15,8 @@ between the retry loop and the wire with three states:
   Success re-closes the breaker; failure re-opens it.
 
 The breaker never swallows errors and never decides policy: it only
-shapes when the next attempt happens. Its state transitions are not
-journalled until the flight recorder is ported (ROADMAP item 22).
+shapes when the next attempt happens. Each state transition journals
+``FL_BREAKER`` when the flight recorder is on.
 """
 
 from __future__ import annotations
@@ -25,7 +25,9 @@ import random
 import time
 from typing import Callable, Dict, Optional
 
+from split_learning_tpu_torch.obs import flight as obs_flight
 from split_learning_tpu_torch.obs import locks as obs_locks
+from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.transport.base import (
     TransportError, backoff_delays)
 
@@ -72,24 +74,41 @@ class CircuitBreaker:
 
     def record_failure(self) -> None:
         """One transport failure on a real request."""
+        transition = None
         with self._lock:
             self._consecutive_failures += 1
             if self.state == HALF_OPEN:
                 # the trial request failed: the recovery was an illusion
                 self.state = OPEN
                 self.counters["breaker_reopened"] += 1
+                transition = (HALF_OPEN, OPEN, "trial_failed")
             elif (self.state == CLOSED and
                   self._consecutive_failures >= self.failure_threshold):
                 self.state = OPEN
                 self.counters["breaker_opened"] += 1
+                transition = (CLOSED, OPEN, "threshold")
+        self._record_transition(transition)
 
     def record_success(self) -> None:
         """One real request completed: from any state, back to CLOSED."""
+        transition = None
         with self._lock:
             self._consecutive_failures = 0
             if self.state != CLOSED:
+                transition = (self.state, CLOSED, "success")
                 self.state = CLOSED
                 self.counters["breaker_reclosed"] += 1
+        self._record_transition(transition)
+
+    @staticmethod
+    def _record_transition(transition) -> None:
+        if transition is None:
+            return
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            src, dst, why = transition
+            fl.record(spans.FL_BREAKER, party="client",
+                      src=src, dst=dst, why=why)
 
     def backpressure_wait(self, delay_s: float) -> None:
         """Honour an explicit 429 / Retry-After without counting a
@@ -127,7 +146,10 @@ class CircuitBreaker:
                         f"circuit open: health probes failed for "
                         f"{self.max_open_s:.0f}s")
                 continue
+            transition = None
             with self._lock:
                 if self.state == OPEN:
                     self.state = HALF_OPEN
+                    transition = (OPEN, HALF_OPEN, "probe_ok")
+            self._record_transition(transition)
             return

@@ -55,6 +55,8 @@ from typing import Any, Callable, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from split_learning_tpu_torch.obs import flight as obs_flight
+from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.utils.arrays import to_host
 
 STATE_FILE = "state.pt"
@@ -545,6 +547,10 @@ def write_extras(directory: str, payload: Dict[str, Any],
     fs.put(tmp, blob)
     fs.fsync(tmp)
     fs.rename(tmp, final)
+    fl = obs_flight.get_recorder()
+    if fl is not None:
+        fl.record(spans.FL_CKPT_COMMIT, step=int(payload["step"]),
+                  party="server", lineage=int(payload["lineage"]))
     return final
 
 
@@ -570,6 +576,11 @@ def read_latest_extras(directory: str, fs: Any = None,
             continue
         if step is not None and payload["step"] != int(step):
             continue
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            fl.record(spans.FL_CKPT_LINEAGE, step=int(payload["step"]),
+                      party="server", lineage=int(payload["lineage"]),
+                      source=name)
         return payload
     return None
 

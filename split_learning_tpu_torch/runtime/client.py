@@ -170,8 +170,11 @@ class SplitClientTrainer:
     the client keeps stage 0. ``retry_backoff`` is the base of the
     exponential wait between retries (0.5 -> 0.5, 1, 2 s ...).
     ``breaker`` is an optional circuit breaker (``runtime/breaker.py``)
-    in front of every attempt. ``device`` defaults to ``"cuda"`` and
-    raises without a GPU."""
+    in front of every attempt. ``profiler`` is an optional
+    ``utils.profiling.PhaseProfiler``: each step's ``compute_fwd``,
+    ``transport`` and ``compute_bwd`` phases, as JAX's (on the card the
+    compute phases end in a synchronise while it is set). ``device``
+    defaults to ``"cuda"`` and raises without a GPU."""
 
     def __init__(self, plan: SplitPlan, cfg: Config,
                  init: Union[torch.Generator, Sequence[Params]],
@@ -180,6 +183,7 @@ class SplitClientTrainer:
                  max_retries: int = 3,
                  retry_backoff: float = 0.5,
                  logger: Optional[Any] = None,
+                 profiler: Optional[Any] = None,
                  client_id: int = 0,
                  breaker: Optional[Any] = None,
                  device: DeviceLike = "cuda") -> None:
@@ -201,6 +205,9 @@ class SplitClientTrainer:
         self.logger = logger
         self.client_id = client_id
         self.breaker = breaker
+        self.profiler = profiler  # the compute-against-transport split
+        self._phase = (profiler.phase if profiler is not None
+                       else (lambda _name: contextlib.nullcontext()))
         self.dropped_batches = 0
         self.stage = plan.stages[0]
         self._tx = make_tx(cfg)
@@ -241,15 +248,20 @@ class SplitClientTrainer:
         client_bwd, opt_apply and step_total; the synchronisations at
         their edges exist only while tracing."""
         tr = obs_trace.get_tracer()
+        prof = self.profiler
+        phase = self._phase
         self.ensure_init()
         tid = tr.new_trace_id(self.client_id, step) if tr is not None \
             else None
         t_step0 = time.perf_counter() if tr is not None else 0.0
         params = self.state.params[0]
-        with torch.enable_grad():
-            acts = self.stage.apply(params, _input(x, self.device))
-        labels = torch.as_tensor(y)
-        sent = _on_wire(self.transport, acts)
+        with phase("compute_fwd"):
+            with torch.enable_grad():
+                acts = self.stage.apply(params, _input(x, self.device))
+            labels = torch.as_tensor(y)
+            sent = _on_wire(self.transport, acts)
+            if prof is not None:
+                self._sync()
         if tr is not None:
             self._sync()
             tr.record(spans.CLIENT_FWD, t_step0,
@@ -268,8 +280,9 @@ class SplitClientTrainer:
                     obs_trace.CTX.trace_id = tid
                 t_tr0 = time.perf_counter() if tr is not None else 0.0
                 try:
-                    g_acts, loss = self.transport.split_step(
-                        sent, labels, step, self.client_id)
+                    with phase("transport"):
+                        g_acts, loss = self.transport.split_step(
+                            sent, labels, step, self.client_id)
                 finally:
                     if tid is not None:
                         obs_trace.CTX.trace_id = None
@@ -316,19 +329,21 @@ class SplitClientTrainer:
                     return None
                 raise
 
-        t_b0 = time.perf_counter() if tr is not None else 0.0
-        g = _received(g_acts, self.device).to(acts.dtype)
-        grads = torch.autograd.grad(acts, list(params.values()), g)
+        with phase("compute_bwd"):
+            t_b0 = time.perf_counter() if tr is not None else 0.0
+            g = _received(g_acts, self.device).to(acts.dtype)
+            grads = torch.autograd.grad(acts, list(params.values()), g)
+            if tr is not None:
+                self._sync()
+                t_o0 = time.perf_counter()
+                tr.record(spans.CLIENT_BWD, t_b0, t_o0 - t_b0,
+                          trace_id=tid, tid=self.client_id, step=step)
+            # cuDNN may hand conv weight grads back channels-last; K2
+            # walks each leaf in its parameter's (contiguous) order
+            self._tx.update(self.state, [gr.contiguous() for gr in grads])
+            if prof is not None or tr is not None:
+                self._sync()  # only where the timing matters
         if tr is not None:
-            self._sync()
-            t_o0 = time.perf_counter()
-            tr.record(spans.CLIENT_BWD, t_b0, t_o0 - t_b0, trace_id=tid,
-                      tid=self.client_id, step=step)
-        # cuDNN may hand conv weight grads back channels-last; K2 walks
-        # each leaf in its parameter's (contiguous) order
-        self._tx.update(self.state, [gr.contiguous() for gr in grads])
-        if tr is not None:
-            self._sync()
             t_end = time.perf_counter()
             tr.record(spans.OPT_APPLY, t_o0, t_end - t_o0, trace_id=tid,
                       tid=self.client_id, step=step)

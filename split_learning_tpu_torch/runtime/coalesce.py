@@ -46,7 +46,9 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from split_learning_tpu_torch.obs import flight as obs_flight
 from split_learning_tpu_torch.obs import locks as obs_locks
+from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.transport.base import TransportStats
 
 
@@ -154,7 +156,13 @@ class RequestCoalescer:
             req.seq = self._arrivals
             self._arrivals += 1
             self._queue.append(req)
+            depth = len(self._queue)
             self._cond.notify_all()
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            fl.record(spans.FL_GROUP_FORM, step=int(step),
+                      client_id=int(client_id), party="server",
+                      depth=depth)
         if not req.done.wait(timeout=timeout):
             raise TimeoutError(
                 f"coalesced split_step for client {client_id} step {step} "
@@ -234,6 +242,11 @@ class RequestCoalescer:
             if got is None:
                 return
             group, reason = got
+            fl = obs_flight.get_recorder()
+            if fl is not None:
+                fl.record(spans.FL_GROUP_PICKUP, step=int(group[0].step),
+                          client_id=int(group[0].client_id),
+                          party="server", size=len(group), reason=reason)
             t0 = time.perf_counter()
             try:
                 self._dispatch(group, reason)

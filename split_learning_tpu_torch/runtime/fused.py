@@ -91,6 +91,7 @@ class FusedSplitTrainer:
         self._tx = make_tx(cfg)
         self.state: TrainState = make_state(
             init_params(plan, init, self.device), self._tx)
+        self._flops_cache: Dict[Tuple[Any, ...], float] = {}
 
     # ----------------------------------------------------------------- #
     def _to_device(self, x, y) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -145,6 +146,33 @@ class FusedSplitTrainer:
         xs, ys = self._to_device(xs, ys)
         return torch.stack([self.train_step_async(xs[i], ys[i])
                             for i in range(xs.shape[0])])
+
+    def step_flops(self, x, y) -> float:
+        """Model FLOPs of one step on the batch ``(x, y)`` (forward and
+        backward over every microbatch; the update adds none), counted
+        from the step's own loss and gradients on meta copies
+        (:func:`~split_learning_tpu_torch.utils.flops.step_flops`), K5
+        and K6 included; cached per batch shape and dtype."""
+        from split_learning_tpu_torch.utils.flops import step_flops
+        x, y = self._to_device(x, y)
+        key = (tuple(x.shape), str(x.dtype), tuple(y.shape))
+        cache = self._flops_cache
+        if key not in cache:
+            mb = self.cfg.microbatches
+
+            def step(params, xb, yb):
+                leaves = leaves_of(params)
+                xs = xb.reshape((mb, xb.shape[0] // mb) + tuple(xb.shape[1:]))
+                ys = yb.reshape((mb, yb.shape[0] // mb) + tuple(yb.shape[1:]))
+                for i in range(mb):
+                    loss = fused_cross_entropy(self.plan.apply(params, xs[i]),
+                                               ys[i])
+                    torch.autograd.grad(loss, leaves)
+            params = tuple({k: v.detach().requires_grad_(True)
+                            for k, v in st.items()}
+                           for st in self.state.params)
+            cache[key] = step_flops(step, params, x, y)
+        return cache[key]
 
     @property
     def params(self) -> Tuple[Params, ...]:

@@ -29,7 +29,7 @@ from split_learning_tpu_torch.core.stage import Params, SplitPlan
 from split_learning_tpu_torch.runtime.client import SplitClientTrainer
 from split_learning_tpu_torch.runtime.state import (
     adopt_params, compressed_sync_contribution, fedavg_mean)
-from split_learning_tpu_torch.transport.base import Transport, not_ported
+from split_learning_tpu_torch.transport.base import Transport
 from split_learning_tpu_torch.utils.config import Config
 from split_learning_tpu_torch.utils.device import DeviceLike
 
@@ -60,8 +60,8 @@ class MultiClientSplitRunner:
     later sync as topk8 deltas from the last agreed mean, with error
     feedback; the first sync is always dense. Bytes accumulate on
     ``sync_raw_bytes``/``sync_wire_bytes``. ``device`` defaults to
-    ``"cuda"``. A ``profiler`` (the phase profiler, ROADMAP item 22) is
-    not ported."""
+    ``"cuda"``. A ``profiler`` (``utils.profiling.PhaseProfiler``) is
+    shared by every client, as in JAX (it is thread-safe)."""
 
     def __init__(self, plan: SplitPlan, cfg: Config, init: Init,
                  transport_factory: Callable[[int], Transport],
@@ -73,8 +73,6 @@ class MultiClientSplitRunner:
                  sync_compress: Optional[str] = None,
                  sync_density: float = 0.1,
                  device: DeviceLike = "cuda") -> None:
-        if profiler is not None:
-            raise not_ported("the phase profiler (profiler)", "item 22")
         n = num_clients if num_clients is not None else cfg.num_clients
         if n < 1:
             raise ValueError("need at least one client")
@@ -88,8 +86,8 @@ class MultiClientSplitRunner:
         self._pool: Optional[ThreadPoolExecutor] = None
         self.clients: List[SplitClientTrainer] = [
             SplitClientTrainer(plan, cfg, _client_init(init, i, n),
-                               transport_factory(i), client_id=i,
-                               device=device)
+                               transport_factory(i), profiler=profiler,
+                               client_id=i, device=device)
             for i in range(n)]
         self._steps = [0] * n
         self._rounds = 0

@@ -37,7 +37,12 @@ What is here, each as in JAX:
   where ``serve`` checkpoints, so the sidecar of a save holds the reply
   of the step it follows and a retry of that step after a restart gets
   the original frame;
-- the shared health/metrics folds and :meth:`close`.
+- the shared health/metrics folds and :meth:`close`;
+- observability, as in JAX: the flight events of the shared machinery
+  (checkpoint capture and lineage, close, deferred enqueue and flush)
+  and, while tracing is on, the per-program FLOP accounting
+  (:meth:`_note_flops`) behind :meth:`trace_metadata`, the MFU sidecar
+  of the party's Chrome trace.
 
 The protocol ops themselves (the split step, the U-shaped hops,
 FedAvg) live on ``ServerRuntime`` (``runtime/server.py``). A device
@@ -53,7 +58,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from split_learning_tpu_torch.obs import flight as obs_flight
 from split_learning_tpu_torch.obs import locks as obs_locks
+from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.obs.metrics import Registry
 from split_learning_tpu_torch.runtime import checkpoint as ckpt
 from split_learning_tpu_torch.runtime.admission import AdmissionController
@@ -137,6 +144,12 @@ class PartyRuntime:
         self.state: Optional[TrainState] = None
         self._ckpt_lineage = 0  # the sidecar's monotonic commit counter
         self.on_reply: Optional[Callable[[int, str, int], None]] = None
+        # traced-only MFU accounting: model FLOPs per (program, shapes),
+        # counted once; per program [flops, seconds, calls]
+        self._flops_cache: Dict[Tuple[Any, ...], float] = {}
+        self._prog_stats: Dict[str, list] = {}
+        # the card's traced windows whose events are not read yet
+        self._windows: list = []
 
     def _to_dev(self, x: Any, dtype: Optional[torch.dtype] = None
                 ) -> torch.Tensor:
@@ -207,6 +220,10 @@ class PartyRuntime:
             # clapping exports [] -> key omitted: a storage-free party
             # checkpoints no ledger
             wire_ef = self.wire_ef.export_state() or None
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            fl.record(spans.FL_CKPT_CAPTURE, step=int(step),
+                      party=self.party, lineage=lineage)
         return lambda: ckpt.build_extras(step, lineage, replay=replay,
                                          wire_ef=wire_ef)
 
@@ -274,6 +291,11 @@ class PartyRuntime:
                 self._ckpt_lineage = max(self._ckpt_lineage,
                                          int(extras["lineage"]))
             self._post_resume_hook()
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            fl.record(spans.FL_CKPT_LINEAGE, step=int(step),
+                      party=self.party, use_extras=use_extras,
+                      lineage=self._ckpt_lineage)
 
     def _close_hook(self) -> None:
         """Drain party machinery (the server's coalescer) before the
@@ -282,6 +304,9 @@ class PartyRuntime:
     def close(self) -> None:
         """Drain, never drop: the replies of queued steps have left, so a
         clean shutdown lands their updates."""
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            fl.record(spans.FL_CLOSE, party=self.party)
         self._close_hook()
         if self._deferred is not None:
             self._deferred.flush()
@@ -320,6 +345,104 @@ class PartyRuntime:
             self.replay.attach_body(client_id, op, step, body)
         if self.on_reply is not None:
             self.on_reply(client_id, op, step)
+
+    # -- traced-only MFU accounting ------------------------------------- #
+    def _window_open(self) -> Any:
+        """The start of a traced program's window, taken under the lock
+        before its launches: a timing event on the card's stream, or the
+        ``perf_counter`` reading on the CPU."""
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            return start
+        return time.perf_counter()
+
+    def _window_close(self, start: Any) -> Any:
+        """The window's end, taken under the lock right after the
+        program's launches, so work that other clients queue once the
+        lock is free falls outside it: ``(start, end)`` events on the
+        card (read off the step path, :meth:`_fold_windows`), the
+        seconds on the CPU."""
+        if isinstance(start, float):
+            return time.perf_counter() - start
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        return start, end
+
+    def _note_flops(self, name: str, fn: Callable[..., Any],
+                    args: Tuple[Any, ...], window: Any) -> None:
+        """Fold one traced program into :meth:`trace_metadata`: ``fn``
+        is the program's pure form (forward and backward from its
+        arguments, :func:`~split_learning_tpu_torch.utils.flops.
+        step_flops`), counted once per (program, argument shapes) and
+        outside the lock; ``window`` is :meth:`_window_close`'s. On the
+        card the window is the program's device time between its two
+        events (JAX's closes at the dispatch's return). Called only
+        while tracing is on, off the lock."""
+        from split_learning_tpu_torch.utils.flops import step_flops
+        key = (name,) + tuple(
+            (tuple(a.shape), str(a.dtype)) for a in args
+            if isinstance(a, torch.Tensor))
+        with self._lock:
+            flops = self._flops_cache.get(key)
+        if flops is None:
+            flops = step_flops(fn, *args)
+        with self._lock:
+            self._flops_cache[key] = flops
+            st = self._prog_stats.setdefault(name, [0.0, 0.0, 0])
+            st[0] += flops
+            st[2] += 1
+            if isinstance(window, float):
+                st[1] += window
+            else:
+                self._windows.append((name,) + tuple(window))
+        self._fold_windows(wait=False)
+
+    def _fold_windows(self, wait: bool) -> None:
+        """Add the device time of the card's closed windows to their
+        programs: those whose end event has passed, or with ``wait``
+        every one (``trace_metadata``, off the step path)."""
+        with self._lock:
+            pending, self._windows = self._windows, []
+        done, keep = [], []
+        for name, start, end in pending:
+            if wait:
+                end.synchronize()
+            (done if wait or end.query() else keep).append(
+                (name, start, end))
+        with self._lock:
+            self._windows[:0] = keep
+            for name, start, end in done:
+                self._prog_stats[name][1] += start.elapsed_time(end) / 1e3
+
+    def trace_metadata(self) -> Dict[str, Any]:
+        """The MFU sidecar of ``Tracer.export_chrome(metadata=...)``, JAX's
+        keys: the mesh (one device), the programs' model FLOPs over their
+        traced windows, and the MFU where the card's peak is known
+        (``None`` on the CPU, the honest answer, not a zero)."""
+        from split_learning_tpu_torch import __version__
+        from split_learning_tpu_torch.utils.flops import (
+            device_peak_flops, mfu)
+        peak = device_peak_flops(self.device)
+        self._fold_windows(wait=True)
+        with self._lock:
+            stats = {k: tuple(v) for k, v in self._prog_stats.items()}
+        programs = {}
+        for name, (fl, secs, calls) in stats.items():
+            rate = (fl / secs) if secs > 0 else None
+            programs[name] = {
+                "calls": calls,
+                "model_flops": fl,
+                "dispatch_s": secs,
+                "model_flops_per_sec": rate,
+                "mfu": mfu(rate, peak) if (peak and rate) else None,
+            }
+        return {"mesh": {"devices": 1, "data": 1},
+                "gather_bytes": 0,
+                "peak_flops_per_device": peak,
+                "programs": programs,
+                "build": {"version": __version__,
+                          "uptime_seconds": time.monotonic() - self._t_start}}
 
     # -- shared metrics folds ------------------------------------------- #
     def _fold_shared_metrics(self, snap: Dict[str, Any]) -> None:
@@ -375,6 +498,12 @@ class _DeferredApply:
         with self._lock:
             self._q.append(entry)
             self._enqueued += 1
+            depth = len(self._q)
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            fl.record(spans.FL_DEFER_ENQ, step=entry["step"],
+                      client_id=entry["client_id"], party="server",
+                      kind=entry["kind"], depth=depth)
 
     def pending(self) -> list:
         """The queued entries, oldest first (under the caller's lock)."""
@@ -400,6 +529,12 @@ class _DeferredApply:
                 n += 1
             if n:
                 self._flushes += 1
+        if n:
+            fl = obs_flight.get_recorder()
+            if fl is not None:
+                fl.record(spans.FL_DEFER_FLUSH, party="server",
+                          applied=n,
+                          mode=("over_lag" if limit_to_lag else "flush"))
         return n
 
     def clear(self) -> int:

@@ -43,7 +43,12 @@ drain within ``step_timeout_s`` raises ``TransportError``.
 The adaptive density controller (``density_controller``, one
 ``transport.density.DensityController`` shared with the chain's
 transports) gets the step's mean loss between steps, when no hop is in
-flight. The telemetry registry of JAX's runner is ROADMAP item 22.
+flight. ``telemetry_registry`` (None unless the launcher binds a
+``Registry`` for the telemetry ring) gets, as in JAX, each hop call's
+time under ``wire``, each step's under ``step_total``, the
+``hub_steps_total`` counter and the controller's densities; the
+per-stage report carries each in-process stage's MFU from its
+``trace_metadata`` (None off-trace, over HTTP and on the CPU).
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ import numpy as np
 import torch
 
 from split_learning_tpu_torch.core.stage import Params, SplitPlan
+from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.runtime.client import _input, _received
 from split_learning_tpu_torch.runtime.party import ProtocolError
 from split_learning_tpu_torch.runtime.state import (
@@ -128,6 +134,9 @@ class _HopWorker(threading.Thread):
                 self.busy_s += dt
                 self.calls += 1
                 self.durations.append(dt)
+                reg = self._runner.telemetry_registry
+                if reg is not None:
+                    reg.observe(spans.WIRE, dt)
             except BaseException as exc:  # noqa: BLE001 (parked, re-raised)
                 self._runner._park_error(exc)
 
@@ -203,6 +212,9 @@ class PipelineRunner:
         # the adaptive density controller the launcher binds under
         # --compress-density auto; None otherwise
         self.density_controller = None
+        # the telemetry ring's registry (the launcher binds one); None
+        # costs nothing
+        self.telemetry_registry = None
 
     @property
     def params(self) -> Params:
@@ -354,11 +366,20 @@ class PipelineRunner:
         with self._err_lock:
             losses = [self._losses.pop((step_i, m)) for m in range(M)]
         self.steps_done += 1
-        self._wall_s += time.perf_counter() - t_wall0
+        step_wall = time.perf_counter() - t_wall0
+        self._wall_s += step_wall
+        reg = self.telemetry_registry
+        if reg is not None:
+            reg.observe(spans.STEP_TOTAL, step_wall)
+            reg.incr("hub_steps_total")
         loss_mean = float(np.mean(losses))
-        if self.density_controller is not None:
+        dc = self.density_controller
+        if dc is not None:
             # rungs move here, between steps, when no hop reads a density
-            self.density_controller.note_loss(loss_mean)
+            dc.note_loss(loss_mean)
+            if reg is not None:
+                for wire, d in dc.densities().items():
+                    reg.set_gauge(f"{spans.WIRE_DENSITY}_{wire}", d)
         return loss_mean
 
     def predict(self, x: Any) -> np.ndarray:
@@ -405,6 +426,14 @@ class PipelineRunner:
                     "deferred_apply_depth")
             except Exception:  # noqa: BLE001 (the report is best-effort)
                 pass
+            # the stage's MFU: the best of its traced programs'
+            mfu_val = None
+            srv = getattr(t, "server", None)
+            if srv is not None and hasattr(srv, "trace_metadata"):
+                mfus = [p["mfu"] for p in
+                        srv.trace_metadata()["programs"].values()
+                        if p.get("mfu") is not None]
+                mfu_val = max(mfus) if mfus else None
             row = {
                 "stage": i + 1,
                 "schedule": self.schedule,
@@ -423,6 +452,8 @@ class PipelineRunner:
                 * 1e3,
                 "hop_calls": fwd.calls + (bwd.calls if bwd else 0),
                 "deferred_apply_depth": depth,
+                "mesh": {"devices": 1, "data": 1},
+                "mfu": mfu_val,
             }
             summ = t.stats.summary()
             if summ.get("compress_wire_bytes"):

@@ -27,7 +27,9 @@ from __future__ import annotations
 from collections import OrderedDict
 from typing import Any, Dict, Optional, Tuple
 
+from split_learning_tpu_torch.obs import flight as obs_flight
 from split_learning_tpu_torch.obs import locks as obs_locks
+from split_learning_tpu_torch.obs import spans
 
 Key = Tuple[int, str, int]  # (client_id, op, step)
 
@@ -90,6 +92,11 @@ class ReplayCache:
                 owner = True
             else:
                 owner = False
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            fl.record(spans.FL_CLAIM_BEGIN, step=int(step),
+                      client_id=int(client_id), party="server",
+                      op=op, owner=owner)
         return entry, owner
 
     def resolve(self, entry: _Entry, result: Any) -> None:
@@ -101,6 +108,11 @@ class ReplayCache:
             entry.result = result
             entry.done = True
         entry.event.set()
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            cid, op, step = entry.key
+            fl.record(spans.FL_CLAIM_RESOLVE, step=step, client_id=cid,
+                      party="server", op=op)
 
     def fail(self, entry: _Entry, error: BaseException) -> None:
         """Owner's apply never produced a result (admission 409, dispatch
@@ -113,6 +125,11 @@ class ReplayCache:
             if self._entries.get(entry.key) is entry:
                 del self._entries[entry.key]
         entry.event.set()
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            cid, op, step = entry.key
+            fl.record(spans.FL_CLAIM_FAIL, step=step, client_id=cid,
+                      party="server", op=op, error=type(error).__name__)
 
     def wait(self, entry: _Entry, timeout: float = 120.0) -> Any:
         """Block a duplicate on the in-flight future; counts the hit.
@@ -127,6 +144,11 @@ class ReplayCache:
         with self._lock:
             self.hits += 1
             result = entry.result
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            cid, op, step = entry.key
+            fl.record(spans.FL_CLAIM_WAIT, step=step, client_id=cid,
+                      party="server", op=op)
         return result
 
     # -- value-level surface ------------------------------------------- #
@@ -210,6 +232,11 @@ class ReplayCache:
             else:
                 self.hits += 1
                 body, result = None, entry.result
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            fl.record(spans.FL_REPLAY_HIT, step=int(step),
+                      client_id=int(client_id), party="server", op=op,
+                      body=body is not None)
         return body, result
 
     # ------------------------------------------------------------------ #

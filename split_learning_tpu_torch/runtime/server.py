@@ -94,6 +94,13 @@ lock after each op that updates the state, as in JAX; ``resume_from``
 re-arms the handshake so the next accepted op is at the restored step
 or later, and drops the U-shaped residuals and a partial FedAvg round.
 
+Observability, as in JAX: with the flight recorder on, each step
+journals its dispatch and reply (``FL_DISPATCH``, ``FL_REPLY``; a
+coalesced group one ``FL_DISPATCH``) and each deferred apply
+``FL_DEFER_APPLY``; with tracing on, each program's model FLOPs and
+window feed :meth:`~PartyRuntime.trace_metadata` (``split_step``,
+``reply_grad``, ``coalesced_step``, ``group_reply``).
+
 Not ported yet: a ``mesh`` (ROADMAP item 18), which raises
 ``NotImplementedError``.
 """
@@ -113,6 +120,7 @@ from split_learning_tpu_torch import __version__
 from split_learning_tpu_torch.core.stage import (
     Params, SplitPlan, stage_backward)
 from split_learning_tpu_torch.interop import params_from_jax, params_to_jax
+from split_learning_tpu_torch.obs import flight as obs_flight
 from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.obs import trace as obs_trace
 from split_learning_tpu_torch.models.transformer import LMHeadStage
@@ -384,6 +392,7 @@ class ServerRuntime(PartyRuntime):
         t_q0 = time.perf_counter() if tr is not None else 0.0
         with self._lock:
             t_d0 = time.perf_counter() if tr is not None else 0.0
+            win = self._window_open() if tr is not None else None
             self._check_step(step, client_id)
             self._check_batch_rows(rows_of(activations), rows_of(labels))
             acts = self._to_dev(activations)
@@ -391,6 +400,9 @@ class ServerRuntime(PartyRuntime):
             read = None
             if self._deferred is not None:
                 g_acts, loss = self._reply(acts, labels_dev)
+                if win is not None:
+                    # the reply's window: the queued update is not in it
+                    win = self._window_close(win)
                 # the reply's host read is queued before the update's
                 # launches, so reading it never waits for them
                 host = not isinstance(activations, torch.Tensor)
@@ -398,12 +410,14 @@ class ServerRuntime(PartyRuntime):
                 # a replayed duplicate never gets here (the replay claim),
                 # so it never queues a second apply
                 self._deferred.push({
-                    "step": step, "client_id": client_id,
+                    "kind": "single", "step": step, "client_id": client_id,
                     "fwd_params": self.state.params[0], "acts": acts,
                     "labels": labels_dev})
                 self._deferred.drain_over_lag()
             else:
                 g_acts, loss = self._step(acts, labels_dev)
+                if win is not None:
+                    win = self._window_close(win)
             if not self.overlap:
                 # --no-overlap: the host copy and the loss read inside
                 # the lock
@@ -415,12 +429,43 @@ class ServerRuntime(PartyRuntime):
             if self.on_step is not None:
                 self.on_step(self._last_step[client_id])
             t_d1 = time.perf_counter() if tr is not None else 0.0
+        program = "reply_grad" if self._deferred is not None \
+            else "split_step"
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            fl.record(spans.FL_DISPATCH, step=step, client_id=client_id,
+                      party="server", program=program)
+        if tr is not None:
+            self._note_flops(program, self._program_fn(program),
+                             (self.state.params[0], acts, labels_dev), win)
         if self.overlap:
             # off the lock: the loss read waits for the step's kernels
             res = self._reply_of(g_acts, loss, read, activations)
         times[:] = [t_q0, t_d0, t_d1,
                     time.perf_counter() if tr is not None else 0.0]
+        if fl is not None:
+            fl.record(spans.FL_REPLY, step=step, client_id=client_id,
+                      party="server", op="split_step", coalesced=False)
         return res
+
+    def _program_fn(self, program: str) -> Callable[..., Any]:
+        """The pure form of a server program, for its FLOP count
+        (:func:`~split_learning_tpu_torch.utils.flops.step_flops`): the
+        forward, the loss and the gradients the program takes, from
+        ``(params, acts, labels)``; nothing is updated."""
+        rows = program in ("coalesced_step", "group_reply")
+        wrt_params = program in ("split_step", "coalesced_step")
+
+        def fn(params, acts, labels):
+            acts = acts.detach().requires_grad_(True)
+            params = {k: v.detach().requires_grad_(True)
+                      for k, v in params.items()}
+            logits = self._stage.apply(params, acts)
+            loss = (cross_entropy_rows(logits, labels)[0] if rows
+                    else fused_cross_entropy(logits, labels))
+            wrt = (list(params.values()) if wrt_params else []) + [acts]
+            return torch.autograd.grad(loss, wrt)
+        return fn
 
     @staticmethod
     def _reply_of(g_acts: torch.Tensor, loss: torch.Tensor,
@@ -484,6 +529,11 @@ class ServerRuntime(PartyRuntime):
                       trace_id=obs_trace.CTX.trace_id, party="server",
                       tid=entry["client_id"], step=entry["step"])
             self._metrics.observe(spans.DEFERRED_APPLY, dw)
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            fl.record(spans.FL_DEFER_APPLY, step=entry["step"],
+                      client_id=entry["client_id"], party="server",
+                      kind=entry["kind"])
 
     # -- request coalescing ---------------------------------------------- #
     def _coalesced(self, activations: Any, labels: Any, step: int,
@@ -506,6 +556,10 @@ class ServerRuntime(PartyRuntime):
             trace_id=obs_trace.CTX.trace_id if traced else None,
             t_enqueue=time.perf_counter() if traced else None,
             deadline=deadline)
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            fl.record(spans.FL_REPLY, step=step, client_id=client_id,
+                      party="server", op="split_step", coalesced=True)
         return reply_like(g, activations), loss
 
     def _dispatch_group(self, group: List[CoalesceRequest],
@@ -517,7 +571,6 @@ class ServerRuntime(PartyRuntime):
         losses, so a group of one is the serialized step. On a decoupled
         server the group's replies come first and its one update is
         queued behind them."""
-        del reason  # the coalescer counts it
         tr = obs_trace.get_tracer()
         t_pick = time.perf_counter() if tr is not None else 0.0
         with self._lock:
@@ -550,6 +603,7 @@ class ServerRuntime(PartyRuntime):
                 self._coalesce_shapes.add(sig)
                 self._coalescer.stats.incr("compile_count")
             t_d0 = time.perf_counter() if tr is not None else 0.0
+            win = self._window_open() if tr is not None else None
             acts = torch.cat([r.acts.detach() for r in admitted])
             labels = torch.cat([r.labels for r in admitted])
             params = self.state.params[0]
@@ -565,10 +619,22 @@ class ServerRuntime(PartyRuntime):
             if self._deferred is None:
                 self._tx.update(self.state,
                                 [g.contiguous() for g in g_params])
+            if win is not None:
+                win = self._window_close(win)
             pg = _GroupD2H(g_acts, rows, total)
             if not self.overlap:
                 pg.materialize()  # --no-overlap: the host read here
             dw = time.perf_counter() - t_d0 if tr is not None else 0.0
+            program = ("group_reply" if self._deferred is not None
+                       else "coalesced_step")
+            fl = obs_flight.get_recorder()
+            if fl is not None:
+                # one event for the whole group; split_step journals
+                # each member's reply
+                fl.record(spans.FL_DISPATCH,
+                          step=max(r.step for r in admitted),
+                          party="server", program=program,
+                          size=len(admitted), rows=total, reason=reason)
             off = 0
             for r, b in zip(admitted, sizes):
                 thunk = pg.segment(off, b)
@@ -600,13 +666,16 @@ class ServerRuntime(PartyRuntime):
                 # every member holds its reply; only now does the group's
                 # update join the queue, and only the over-lag tail runs
                 self._deferred.push({
-                    "step": max(r.step for r in admitted), "client_id": -1,
-                    "fwd_params": params, "acts": acts.detach(),
-                    "labels": labels})
+                    "kind": "group", "step": max(r.step for r in admitted),
+                    "client_id": -1, "fwd_params": params,
+                    "acts": acts.detach(), "labels": labels})
                 self._deferred.drain_over_lag()
             if tr is not None:
                 self._metrics.observe(spans.LOCK_HOLD,
                                       time.perf_counter() - t_lk0)
+        if tr is not None:
+            self._note_flops(program, self._program_fn(program),
+                             (params, acts.detach(), labels), win)
 
     def _record_server_spans(self, tr, t_q0: float, t_d0: float,
                              t_d1: float, t_end: float, step: int,

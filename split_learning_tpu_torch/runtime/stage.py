@@ -46,6 +46,14 @@ changes nothing. Every state transition and launch runs under the
 party's reentrant lock; the host read of a reply happens after it is
 released.
 
+Observability, as in JAX: with tracing on, the forward hop's window
+feeds the ``dispatch`` histogram and the backward and loss hops'
+``reply_grad`` (the fleet view's compute), and each hop's model FLOPs
+and window feed :meth:`~PartyRuntime.trace_metadata` (programs
+``hop_fwd``, ``hop_bwd``, ``hop_loss``), which the chain's runner reads
+as the stage's MFU; with the flight recorder on, each reply journals
+``FL_STAGE_REPLY`` and each deferred apply ``FL_DEFER_APPLY``.
+
 Not ported yet: a ``mesh`` (per-stage sharding, ROADMAP item 18), which
 raises ``NotImplementedError``.
 """
@@ -60,6 +68,7 @@ import torch
 
 from split_learning_tpu_torch import __version__
 from split_learning_tpu_torch.core.stage import Params, SplitPlan
+from split_learning_tpu_torch.obs import flight as obs_flight
 from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.obs import trace as obs_trace
 from split_learning_tpu_torch.ops.cross_entropy import fused_cross_entropy
@@ -186,7 +195,7 @@ class StageRuntime(PartyRuntime):
         mbs = range(self.microbatches)
         self._recs.pop((int(client_id), int(step)), None)
         self._deferred.push({
-            "step": int(step), "client_id": int(client_id),
+            "kind": "stage", "step": int(step), "client_id": int(client_id),
             "fwd_params": rec["params"],
             "xs": [rec["xs"][m] for m in mbs],
             "cts": [done[m] for m in mbs]})
@@ -246,6 +255,35 @@ class StageRuntime(PartyRuntime):
                       trace_id=obs_trace.CTX.trace_id, party=self.party,
                       tid=entry["client_id"], step=entry["step"])
             self._metrics.observe(spans.DEFERRED_APPLY, dw)
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            fl.record(spans.FL_DEFER_APPLY, step=entry["step"],
+                      client_id=entry["client_id"], party=self.party,
+                      kind=entry["kind"])
+
+    # -- observability ------------------------------------------------- #
+    def _hop_fn(self, op: str):
+        """The pure form of a hop's program, for its FLOP count: the
+        forward, and for ``hop_bwd``/``hop_loss`` the gradient of the
+        input the reply carries, from ``(params, x, ct)``."""
+        def fn(params, x, ct):
+            if op == "hop_fwd":
+                with torch.no_grad():
+                    return self._stage.apply(params, x)
+            x = x.detach().requires_grad_(True)
+            y = self._stage.apply(params, x)
+            if op == "hop_loss":
+                return torch.autograd.grad(fused_cross_entropy(y, ct), [x])
+            return torch.autograd.grad(y, [x], ct.to(y.dtype))
+        return fn
+
+    def _journal_reply(self, op: str, step: int, mb: int,
+                       client_id: int) -> None:
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            fl.record(spans.FL_STAGE_REPLY, step=int(step),
+                      client_id=int(client_id), party=self.party, op=op,
+                      stage=self.stage_index, mb=int(mb))
 
     # -- the three hop ops --------------------------------------------- #
     def _claim(self, client_id: int, op: str, seq: int):
@@ -268,12 +306,15 @@ class StageRuntime(PartyRuntime):
         entry, cached = self._claim(client_id, "hop_fwd", seq)
         if cached is not None:
             return cached[0]
+        tr = obs_trace.get_tracer()
         admitted = False
         try:
             if self._admission is not None:
                 self._admission.admit(client_id)
                 admitted = True
             with self._lock:
+                t0 = time.perf_counter() if tr is not None else 0.0
+                win = self._window_open() if tr is not None else None
                 self._check_seq("hop_fwd", seq, client_id)
                 rows = rows_of(x)
                 self._check_batch_rows(rows, rows)
@@ -285,13 +326,22 @@ class StageRuntime(PartyRuntime):
                     params = self.state.params[0]
                 with torch.no_grad():
                     y = self._stage.apply(params, x_dev)
+                if win is not None:
+                    win = self._window_close(win)
                 if not self.is_last:
                     rec["xs"][int(mb)] = x_dev
                 self._last_seq[(client_id, "hop_fwd")] = seq
                 self._hops["hop_fwd"] += 1
             out = reply_like(y, x)   # off the lock
+            if tr is not None:
+                # the forward's window, the fleet view's compute input
+                self._metrics.observe(spans.DISPATCH,
+                                      time.perf_counter() - t0)
+                self._note_flops("hop_fwd", self._hop_fn("hop_fwd"),
+                                 (params, x_dev, None), win)
             if entry is not None:
                 self.replay.resolve(entry, out)
+            self._journal_reply("hop_fwd", step, mb, client_id)
             return out
         except BaseException as exc:
             if entry is not None:
@@ -319,6 +369,7 @@ class StageRuntime(PartyRuntime):
         try:
             with self._lock:
                 t0 = time.perf_counter() if tr is not None else 0.0
+                win = self._window_open() if tr is not None else None
                 self._check_seq("hop_bwd", seq, client_id)
                 rows = rows_of(g_out)
                 self._check_batch_rows(rows, rows)
@@ -334,6 +385,8 @@ class StageRuntime(PartyRuntime):
                     y = self._stage.apply(rec["params"], x_in)
                     (g_in,) = torch.autograd.grad(y, [x_in],
                                                   g_dev.to(y.dtype))
+                if win is not None:
+                    win = self._window_close(win)
                 rec["gs"][int(mb)] = g_dev
                 self._maybe_queue_apply(rec, "gs", client_id, step)
                 self._last_seq[(client_id, "hop_bwd")] = seq
@@ -345,8 +398,11 @@ class StageRuntime(PartyRuntime):
                           trace_id=obs_trace.CTX.trace_id,
                           party=self.party, tid=client_id, step=step)
                 self._metrics.observe(spans.REPLY_GRAD, rw)
+                self._note_flops("hop_bwd", self._hop_fn("hop_bwd"),
+                                 (rec["params"], x_in, g_dev), win)
             if entry is not None:
                 self.replay.resolve(entry, out)
+            self._journal_reply("hop_bwd", step, mb, client_id)
             return out
         except BaseException as exc:
             if entry is not None:
@@ -377,6 +433,7 @@ class StageRuntime(PartyRuntime):
                 admitted = True
             with self._lock:
                 t0 = time.perf_counter() if tr is not None else 0.0
+                win = self._window_open() if tr is not None else None
                 self._check_seq("hop_loss", seq, client_id)
                 self._check_batch_rows(rows_of(x), rows_of(labels))
                 rec = self._rec_for(client_id, step)
@@ -389,6 +446,8 @@ class StageRuntime(PartyRuntime):
                     (g_x,) = torch.autograd.grad(loss, [x_in])
                 if self.microbatches > 1:
                     g_x = g_x * (1.0 / self.microbatches)
+                if win is not None:
+                    win = self._window_close(win)
                 loss = loss.detach()
                 rec["xs"][int(mb)] = x_dev
                 rec["ys"][int(mb)] = y_dev
@@ -403,8 +462,11 @@ class StageRuntime(PartyRuntime):
                           trace_id=obs_trace.CTX.trace_id,
                           party=self.party, tid=client_id, step=step)
                 self._metrics.observe(spans.REPLY_GRAD, rw)
+                self._note_flops("hop_loss", self._hop_fn("hop_loss"),
+                                 (rec["params"], x_dev, y_dev), win)
             if entry is not None:
                 self.replay.resolve(entry, res)
+            self._journal_reply("hop_loss", step, mb, client_id)
             return res
         except BaseException as exc:
             if entry is not None:

@@ -42,8 +42,8 @@ http500     raise before the inner call (a 5xx before apply).
 
 The K-stage chain's hop ops are keyed by the composite ``hop_seq(step,
 mb)`` ordinal (the stages' replay key), so a fault of one microbatch's
-hop never aliases another's draw. The flight-recorder events of each
-injection wait for ROADMAP item 22.
+hop never aliases another's draw. Each injection journals ``FL_CHAOS``
+when the flight recorder is on.
 """
 
 from __future__ import annotations
@@ -56,6 +56,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from split_learning_tpu_torch.obs import flight as obs_flight
+from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.transport.base import Transport, TransportError
 
 FAULT_KINDS = ("drop_req", "drop_resp", "dup", "delay", "corrupt",
@@ -184,6 +186,10 @@ class ChaosTransport(Transport):
         kind, arg = fault
         self.policy.count(kind)
         self.stats.incr(f"chaos_{kind}")
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            fl.record(spans.FL_CHAOS, step=int(step), party="client",
+                      kind=kind, path=path, attempt=attempt)
         if kind == "delay":
             time.sleep(arg / 1e3)
             return call()

@@ -15,7 +15,9 @@ the card when every wire has it), and the accounting
 ``stats.counters["hop_host_copies"]``
 (:data:`~split_learning_tpu_torch.obs.spans.HOP_HOST_COPIES`), which
 counts every hop payload or reply that is a numpy array; on the intended
-path it stays 0.
+path it stays 0. Each hop journals ``FL_HOP_SEND``/``FL_HOP_RECV``
+(with the stage's index) through ``LocalTransport`` when the flight
+recorder is on.
 
 Scope: the hop ops, ``predict`` and ``health``. The two-party ops
 (``split_step``, ``u_forward``, ``u_backward``, ``aggregate``) raise

@@ -43,14 +43,19 @@ caller). A runtime without ``device`` (JAX's) gets numpy.
 
 Server requests run on the handler threads of ``ThreadingHTTPServer``,
 all on the default CUDA stream: the kernels' per-stream scratch buffers
-(K1, K4) rely on that. The flight recorder (``/debug/flight``) and the
-telemetry ring (``/telemetry``) answer 404 with JAX's off-path bodies
-until ROADMAP item 22.
+(K1, K4) rely on that. ``GET /debug/flight`` serves the flight
+recorder's ring as JSON and ``GET /telemetry`` the telemetry ring's
+windows (JAX's schemas); each answers 404 with JAX's off-path body while
+its recorder is off. With the recorder on, the server journals each
+request (``FL_RECV``, with the client's trace ID) and each injected
+fault (``FL_CHAOS``), the client each post and reply (``FL_SEND``,
+``FL_RECV``) and each hop (``FL_HOP_SEND``, ``FL_HOP_RECV``).
 """
 
 from __future__ import annotations
 
 import http.client
+import json
 import threading
 import time
 import urllib.parse
@@ -61,13 +66,14 @@ import numpy as np
 import torch
 
 from split_learning_tpu_torch import __version__
+from split_learning_tpu_torch.obs import flight as obs_flight
 from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.obs import trace as obs_trace
 from split_learning_tpu_torch.obs.metrics import render_prometheus
 from split_learning_tpu_torch.transport import codec
 from split_learning_tpu_torch.transport.base import (
     Backpressure, Transport, TransportError, backoff_delays, device_of,
-    not_ported, timed)
+    timed)
 from split_learning_tpu_torch.transport.chaos import CHAOS_OPS, _AttemptCounter
 
 CRC_HEADER = "X-SLT-CRC32"
@@ -99,8 +105,9 @@ class SplitHTTPServer:
     optional :class:`~.chaos.ChaosPolicy` injecting server-side faults on
     the seeded schedule: http500 and drop_req before the runtime applies
     anything, drop_resp (reply discarded after apply) and corrupt (bad
-    reply CRC) after, delay before; dup passes (a client act). The
-    telemetry ring (``telemetry``) waits for ROADMAP item 22."""
+    reply CRC) after, delay before; dup passes (a client act).
+    ``telemetry`` is the ``obs/telemetry.py`` ring behind this server's
+    ``GET /telemetry`` (default: the process's global ring)."""
 
     def __init__(self, runtime: Any, host: str = "127.0.0.1",
                  port: int = 0, compress: str = "none",
@@ -108,10 +115,8 @@ class SplitHTTPServer:
                  telemetry: Optional[Any] = None) -> None:
         if compress not in COMPRESS_MODES:
             raise ValueError(f"unknown compression {compress!r}")
-        if telemetry is not None:
-            raise not_ported("the telemetry ring (GET /telemetry)",
-                             "item 22")
         self.runtime = runtime
+        self.telemetry = telemetry
         self.chaos = chaos
         self._chaos_attempts = _AttemptCounter()
         self.default_compress = compress
@@ -267,13 +272,33 @@ class SplitHTTPServer:
                         200, text.encode("utf-8"),
                         ctype="text/plain; version=0.0.4; charset=utf-8")
                 elif self.path == "/debug/flight":
-                    self._reply(404, codec.encode(
-                        {"error": "flight recorder off "
-                                  "(SLT_FLIGHT/--flight)"}))
+                    # the live ring as JSON: event metadata (steps, ids,
+                    # names), never tensors
+                    fl = obs_flight.get_recorder()
+                    if fl is None:
+                        self._reply(404, codec.encode(
+                            {"error": "flight recorder off "
+                                      "(SLT_FLIGHT/--flight)"}))
+                    else:
+                        self._reply(200, json.dumps(
+                            fl.dump(reason="http")).encode("utf-8"),
+                            ctype="application/json")
                 elif self.path == "/telemetry":
-                    self._reply(404, codec.encode(
-                        {"error": "telemetry off "
-                                  "(SLT_TELEMETRY/--telemetry)"}))
+                    # advance the ring (one snapshot per elapsed window,
+                    # through the runtime's own metrics()) and serialise
+                    # here, outside any runtime lock
+                    from split_learning_tpu_torch.obs import (
+                        telemetry as obs_telemetry)
+                    ring = outer.telemetry or obs_telemetry.get_ring()
+                    if ring is None:
+                        self._reply(404, codec.encode(
+                            {"error": "telemetry off "
+                                      "(SLT_TELEMETRY/--telemetry)"}))
+                    else:
+                        ring.advance()
+                        self._reply(200, json.dumps(
+                            ring.dump()).encode("utf-8"),
+                            ctype="application/json")
                 else:
                     self._reply(404, codec.encode({"error": "not found"}))
 
@@ -307,8 +332,24 @@ class SplitHTTPServer:
                     # pre-apply faults act here; drop_resp and corrupt
                     # ride to _send_200, after the runtime applied
                     fault = outer._draw_fault(self.path, cid, key_seq)
+                    fl = obs_flight.get_recorder()
+                    if fl is not None:
+                        # the client's trace id, explicitly: CTX adopts
+                        # it only below
+                        _tid = req.get("trace_id")
+                        fl.record(spans.FL_RECV,
+                                  step=int(req.get("step", -1)),
+                                  client_id=cid, party="server",
+                                  trace_id=(str(_tid) if _tid is not None
+                                            else None),
+                                  path=self.path)
                     if fault is not None:
                         kind, arg = fault
+                        if fl is not None:
+                            fl.record(spans.FL_CHAOS,
+                                      step=int(req.get("step", -1)),
+                                      client_id=cid, party="server",
+                                      kind=kind, path=self.path)
                         if kind == "delay":
                             time.sleep(arg / 1e3)
                             fault = None
@@ -551,6 +592,11 @@ class HttpTransport(Transport):
             if self._topk8():
                 payload["density"] = self._density_now()
             self._note_ratio(payload)
+        fl = obs_flight.get_recorder()
+        if fl is not None and path in _TRACED_PATHS:
+            fl.record(spans.FL_SEND, step=int(payload.get("step", -1)),
+                      client_id=int(payload.get("client_id", 0)),
+                      party="client", trace_id=tid, path=path)
         t_enc0 = time.perf_counter() if tid is not None else 0.0
         body = codec.encode(payload)
         enc_s = time.perf_counter() - t_enc0 if tid is not None else 0.0
@@ -582,6 +628,10 @@ class HttpTransport(Transport):
         if resp.status != 200:
             raise TransportError(
                 f"POST {path} -> {resp.status}: {content[:200]!r}")
+        if fl is not None and path in _TRACED_PATHS:
+            fl.record(spans.FL_RECV, step=int(payload.get("step", -1)),
+                      client_id=int(payload.get("client_id", 0)),
+                      party="client", trace_id=tid, path=path)
         t_dec0 = time.perf_counter() if tid is not None else 0.0
         try:
             tree = codec.decode(content)
@@ -671,7 +721,10 @@ class HttpTransport(Transport):
         """One hop: ``payload`` packed under ``key`` as field ``up``, the
         EF rollback on a failed POST (the shipped mass was not
         delivered), and the reply's ``(step, mb)`` echo checked: a wire
-        multiplexes M exchanges a step."""
+        multiplexes M exchanges a step. With the flight recorder on, the
+        hop journals ``FL_HOP_SEND`` and, on its reply, ``FL_HOP_RECV``."""
+        op = _OP_BY_PATH[path]
+        self._hop_flight(spans.FL_HOP_SEND, op, step, mb, client_id)
         with timed(self.stats):
             self.stats.incr(spans.HOP_HOST_COPIES, 2)
             try:
@@ -687,7 +740,16 @@ class HttpTransport(Transport):
             raise TransportError(
                 f"{path} reply (step={out.get('step')}, mb={out.get('mb')}) "
                 f"does not echo request (step={step}, mb={mb})")
+        self._hop_flight(spans.FL_HOP_RECV, op, step, mb, client_id)
         return out
+
+    @staticmethod
+    def _hop_flight(name: str, op: str, step: int, mb: int,
+                    client_id: int) -> None:
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            fl.record(name, step=int(step), client_id=int(client_id),
+                      party="client", op=op, mb=int(mb), stage=-1)
 
     def hop_forward(self, x: Any, step: int, mb: int = 0,
                     client_id: int = 0) -> Any:

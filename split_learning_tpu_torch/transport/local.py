@@ -46,7 +46,9 @@ pack its density under this wire's ``wire_id`` and is fed each frame's
 byte ratio. ``aggregate`` (FedAvg) carries weights, which
 always travel dense: with wire emulation on, its payload goes through
 the real frame, uncompressed, and, as in JAX, its bytes are not counted
-in the stats.
+in the stats. With the flight recorder on, ``split_step`` journals
+``FL_SEND``/``FL_RECV`` and each hop ``FL_HOP_SEND``/``FL_HOP_RECV``
+(party ``client``; the server's own events tag themselves).
 """
 
 from __future__ import annotations
@@ -55,6 +57,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from split_learning_tpu_torch.obs import flight as obs_flight
+from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.obs import trace as obs_trace
 from split_learning_tpu_torch.transport import codec
 from split_learning_tpu_torch.transport.base import (
@@ -172,6 +176,11 @@ class LocalTransport(Transport):
     # -- ops -------------------------------------------------------------
     def split_step(self, activations: Any, labels: Any, step: int,
                    client_id: int = 0) -> Tuple[Any, float]:
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            fl.record(spans.FL_SEND, step=int(step),
+                      client_id=int(client_id), party="client",
+                      op="split_step")
         tr = obs_trace.get_tracer()
         if tr is not None:
             obs_trace.CTX.server_spans = None
@@ -191,6 +200,10 @@ class LocalTransport(Transport):
             # the server's span times, handed back through CTX
             for name, secs in (obs_trace.CTX.server_spans or {}).items():
                 self.stats.record_span(str(name), float(secs))
+        if fl is not None:
+            fl.record(spans.FL_RECV, step=int(step),
+                      client_id=int(client_id), party="client",
+                      op="split_step")
         return res
 
     def _split_step_wire(self, activations, labels, step, client_id):
@@ -279,8 +292,40 @@ class LocalTransport(Transport):
                          step, mb, client_id)
         return self._roundtrip(out, device_of(x))
 
+    def _hop_flight(self, name: str, op: str, step: int, mb: int,
+                    client_id: int) -> None:
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            fl.record(name, step=int(step), client_id=int(client_id),
+                      party="client", op=op, mb=int(mb),
+                      stage=getattr(self.server, "stage_index", -1))
+
+    def _journaled(self, op: str, fn, step: int, mb: int, client_id: int,
+                   *args: Any) -> Any:
+        """``fn(*args, step, mb, client_id)`` between the hop's send and
+        receive events."""
+        self._hop_flight(spans.FL_HOP_SEND, op, step, mb, client_id)
+        out = fn(*args, step, mb, client_id)
+        self._hop_flight(spans.FL_HOP_RECV, op, step, mb, client_id)
+        return out
+
     def hop_forward(self, x: Any, step: int, mb: int = 0,
                     client_id: int = 0) -> Any:
+        return self._journaled("hop_fwd", self._hop_forward, step, mb,
+                               client_id, x)
+
+    def hop_backward(self, g_out: Any, step: int, mb: int = 0,
+                     client_id: int = 0) -> Any:
+        return self._journaled("hop_bwd", self._hop_backward, step, mb,
+                               client_id, g_out)
+
+    def hop_loss(self, x: Any, labels: Any, step: int, mb: int = 0,
+                 client_id: int = 0) -> Tuple[Any, float]:
+        return self._journaled("hop_loss", self._hop_loss, step, mb,
+                               client_id, x, labels)
+
+    def _hop_forward(self, x: Any, step: int, mb: int,
+                     client_id: int) -> Any:
         with timed(self.stats):
             if self.compress is None:
                 return self._hop(self.server.hop_forward, x, step, mb,
@@ -298,8 +343,8 @@ class LocalTransport(Transport):
             self.stats.add_bytes(sent=up, received=down)
             return resp["y"]
 
-    def hop_backward(self, g_out: Any, step: int, mb: int = 0,
-                     client_id: int = 0) -> Any:
+    def _hop_backward(self, g_out: Any, step: int, mb: int,
+                      client_id: int) -> Any:
         with timed(self.stats):
             if self.compress is None:
                 return self._hop(self.server.hop_backward, g_out, step, mb,
@@ -315,8 +360,8 @@ class LocalTransport(Transport):
             self.stats.add_bytes(sent=up, received=down)
             return resp["g"]
 
-    def hop_loss(self, x: Any, labels: Any, step: int, mb: int = 0,
-                 client_id: int = 0) -> Tuple[Any, float]:
+    def _hop_loss(self, x: Any, labels: Any, step: int, mb: int,
+                  client_id: int) -> Tuple[Any, float]:
         with timed(self.stats):
             dev = self._server_device()
             if self.compress is None:

@@ -6,12 +6,16 @@
   fallback knob) and ``--download`` (no network) stay out by design.
 - Each ``train`` flag the port does not run yet
   (:data:`TRAIN_NOT_PORTED`) exits 2 with ``[error] not ported yet:``
-  and its ROADMAP item, before touching data.
+  and its ROADMAP item, before touching data; the observability flags
+  (``--flight``, ``--telemetry-port``, ``--profile-dir``,
+  ``--tracking-uri``) run and do what JAX's do.
 - ``--require-real`` runs: with no real files it refuses the synthetic
   fallback (rc 2), with the real cache present it trains.
 """
 
 import argparse
+import json
+import os
 
 import numpy as np
 import pytest
@@ -65,10 +69,7 @@ _VALUES = {
     "autoscale_min": ["--autoscale-min", "1"],
     "autoscale_max": ["--autoscale-max", "3"],
     "autoscale_cooldown_s": ["--autoscale-cooldown-s", "1"],
-    "seq_parallel": ["--seq-parallel", "2"], "flight": ["--flight", "f"],
-    "telemetry_port": ["--telemetry-port", "0"],
-    "profile_dir": ["--profile-dir", "p"],
-    "tracking_uri": ["--tracking-uri", "http://mlflow:5000"],
+    "seq_parallel": ["--seq-parallel", "2"],
     "scan_steps": ["--scan-steps", "4"],
 }
 
@@ -84,6 +85,38 @@ def test_unported_train_flags_exit_2(attr, item, tmp_path, capsys):
     assert err.startswith("[error] not ported yet: ")
     assert f"(ROADMAP {item})" in err
     assert not any(tmp_path.iterdir())   # refused before touching data
+
+
+@pytest.mark.parametrize("attr", ["flight", "telemetry_port", "profile_dir",
+                                  "tracking_uri"])
+def test_ported_train_flags_run(attr, tmp_path, capsys):
+    """The observability flags that exited 2 before they were ported:
+    each trains, with JAX's effect (the fused transport: ``--flight``
+    dumps the journal at exit, ``--profile-dir`` writes the device
+    trace, ``--telemetry-port`` warns that it serves the chain's hub,
+    an unreachable ``--tracking-uri`` degrades to stdout)."""
+    from split_learning_tpu_torch.obs import flight
+    path = str(tmp_path / "out")
+    flags = {"flight": ["--flight", path],
+             "telemetry_port": ["--telemetry-port", "0"],
+             "profile_dir": ["--profile-dir", path],
+             "tracking_uri": ["--tracking", "mlflow", "--tracking-uri",
+                              "http://127.0.0.1:9"]}[attr]
+    rc = main(["train", "--device", "cpu", "--steps", "2", "--dataset",
+               "synthetic", "--data-dir", str(tmp_path / "d"), *flags])
+    err = capsys.readouterr().err
+    assert rc == 0 and "not ported yet" not in err
+    if attr == "flight":
+        dump = json.load(open(path))
+        assert dump["kind"] == "slt-flight-dump" and dump["reason"] == "exit"
+        assert not flight.enabled()
+    elif attr == "profile_dir":
+        assert os.path.isfile(os.path.join(path, "device_trace.json"))
+        assert "[profile] device trace written to" in err
+    elif attr == "telemetry_port":
+        assert "--telemetry-port applies to the K-stage chain" in err
+    else:
+        assert "unusable" in err and "falling back to stdout" in err
 
 
 def test_defaults_of_the_refused_flags_train(tmp_path, capsys):

@@ -388,8 +388,13 @@ def test_unported_runner_arguments_raise():
     losses = [make(1)[1].train_rounds([[batches(1, 0)[0]]], prefetch=p)
               for p in (0, 2)]
     assert losses[0] == losses[1] and len(losses[0]) == 1
-    with pytest.raises(NotImplementedError, match="item 22"):
-        make(1, profiler=object())
+    # a profiler is shared by every client: each step's three phases
+    from split_learning_tpu_torch.utils.profiling import PhaseProfiler
+    prof = PhaseProfiler()
+    _, runner = make(2, profiler=prof)
+    runner.train_rounds([[batches(2, 0)[0]], [batches(2, 0)[1]]])
+    assert {k: v["count"] for k, v in prof.summary().items()} == {
+        "compute_fwd": 2, "transport": 2, "compute_bwd": 2}
     with pytest.raises(ValueError, match="sync compression"):
         make(1, sync_compress="int8")
     # train_rounds stops when a client's iterator drains

@@ -9,7 +9,9 @@
 - ``train`` and ``serve`` without ``--device cpu`` raise before touching
   data (no GPU here, no fallback);
 - each JAX ``serve`` flag the port does not run exits 2 naming its
-  ROADMAP item; a server in another mode makes the client exit 4;
+  ROADMAP item, and the observability flags (``--trace``, ``--flight``,
+  ``--telemetry`` and its interval and SLO, ``--tracking-uri``) serve;
+  a server in another mode makes the client exit 4;
 - ``--compress-density auto`` on a two-party wire warns and trains at
   density 0.1, as JAX's ``_density_or_default`` does (fault 7).
 
@@ -179,11 +181,6 @@ _FLAG_VALUES = {
     "autoscale_min": ["--autoscale-min", "1"],
     "autoscale_max": ["--autoscale-max", "3"],
     "autoscale_cooldown_s": ["--autoscale-cooldown-s", "1"],
-    "trace": ["--trace", "t.json"], "flight": ["--flight", "f.json"],
-    "telemetry": ["--telemetry"],
-    "telemetry_interval_s": ["--telemetry-interval-s", "0.5"],
-    "telemetry_slo_ms": ["--telemetry-slo-ms", "100"],
-    "tracking_uri": ["--tracking-uri", "http://mlflow:5000"],
 }
 
 
@@ -197,6 +194,69 @@ def test_unported_serve_flags_exit_2(attr, item, capsys):
     assert rc == 2
     assert err.startswith("[error] not ported yet: ")
     assert f"(ROADMAP {item})" in err
+
+
+@pytest.mark.parametrize("attr", ["trace", "flight", "telemetry",
+                                  "telemetry_interval_s",
+                                  "telemetry_slo_ms", "tracking_uri"])
+def test_ported_serve_flags_run(attr, tmp_path, monkeypatch, capsys):
+    """The observability flags that exited 2 before they were ported:
+    ``serve`` comes up and answers with JAX's effect (the interval and
+    the SLO ride with ``--telemetry``, as in JAX, where they refine the
+    ring it turns on), then stops on the interrupt with rc 0."""
+    import json
+    import time
+    import urllib.request
+    from split_learning_tpu_torch.launch import run
+    path = str(tmp_path / "out.json")
+    flags = {"trace": ["--trace", path], "flight": ["--flight", path],
+             "telemetry": ["--telemetry"],
+             "telemetry_interval_s": ["--telemetry",
+                                      "--telemetry-interval-s", "0.5"],
+             "telemetry_slo_ms": ["--telemetry", "--telemetry-slo-ms",
+                                  "100"],
+             "tracking_uri": ["--tracking-uri", "http://mlflow:5000"]}[attr]
+    got = {}
+    real = run.serve_party
+
+    def serve_party(args):
+        out = real(args)
+        got["url"] = out[1].url
+        return out
+
+    class Clock:
+        def sleep(self, _):
+            for route in ("/telemetry", "/debug/flight", "/health"):
+                try:
+                    with urllib.request.urlopen(got["url"] + route,
+                                                timeout=10) as r:
+                        got[route] = r.read()
+                except urllib.error.HTTPError as e:
+                    got[route] = e.code
+            raise KeyboardInterrupt
+
+        def __getattr__(self, name):
+            return getattr(time, name)
+    monkeypatch.setattr(run, "serve_party", serve_party)
+    monkeypatch.setattr(run, "time", Clock())
+    rc = main(["serve", "--device", "cpu", "--port", "0", "--host",
+               "127.0.0.1", *flags])
+    assert rc == 0 and "not ported yet" not in capsys.readouterr().err
+    on = {"flight": "/debug/flight"}.get(attr, "/telemetry"
+                                         if "telemetry" in attr else None)
+    for route in ("/telemetry", "/debug/flight"):
+        assert (got[route] != 404) == (route == on), (route, got[route])
+    if attr == "trace":
+        events = json.load(open(path))
+        assert any(e["name"] == "mesh_meta" for e in events)
+    elif attr == "flight":
+        assert json.load(open(path))["reason"] == "exit"
+    elif on == "/telemetry":
+        dump = json.loads(got["/telemetry"])
+        assert dump["interval_s"] == (0.5 if attr == "telemetry_interval_s"
+                                      else 1.0)
+        slo = dump["slo"]
+        assert (slo is not None) == (attr == "telemetry_slo_ms")
 
 
 @pytest.mark.parametrize("flags,msg", [
