@@ -374,6 +374,37 @@ beside this script. Phases, any failure ending the run with a traceback:
    ``DeviceTransport`` for 3 steps through the CLI with
    ``--telemetry-port 0 --trace``: the fleet view names a bottleneck
    party, each stage's MFU is non-null, launches as phase 27's.
+29. the fused trainer's ``--scan-steps`` and ``--remat``, server
+   replicas and autoscaling (``runtime/fused.py``, ``core/stage.py``,
+   ``runtime/replica.py``, ``runtime/autoscale.py``,
+   ``runtime/fleet.py``, ``obs/dispatch_debug.py``). (a) Phase 18's bf16
+   AdamW LM through ``launch.run train`` for 12 steps stepwise and with
+   ``--scan-steps 4``, the dispatch watchdog on: losses bit-equal,
+   launches phase 18's a step both ways, one sanctioned host read a
+   step stepwise and one a chunk scanned, no watchdog violation; then
+   ``--scan-steps 8 --checkpoint-every 6``: JAX's cap warning and saves
+   at steps 6 and 12. (b) The same LM with ``--remat`` (losses within
+   1e-6 relative, K5 6 launches a step against 3) and ResNet-18 fused in
+   float32 at batch 128 for 10 steps with and without ``--remat``: peak
+   memory (``max_memory_allocated``) and step ms both ways. (c) ``serve
+   --replicas 2 --replica-sync-every 5 --compress int8`` built by the
+   CLI in this process, 4 ``int8`` HTTP clients on threads for 10 steps:
+   after the first 5 (20 group steps, a sync) the replicas' parameters
+   are bit-equal; in the second half the replica of client 0 is killed
+   mid-run, once with ``--handoff live`` and once ``checkpoint``: every
+   (client, step) applied once group-wide, a re-sent request of a dead
+   replica's client served its original reply byte for byte, every
+   client's 10 losses finite, phase 16's launches a client step, the
+   flight recorder holding ``fl_route``, ``fl_replica_death`` and
+   ``fl_handoff_*``. (d) The fleet harness (``runtime/fleet.py``'s
+   runnable face, FLEET_ARGS): 64 clients, 4 tenants, burst arrivals,
+   continuous batching, against a group under ``--autoscale`` (min 1,
+   max 3): at least one scale-up and one scale-down, no dropped step,
+   no scale event failed (the pump's and the per-step hook's fault
+   counts 0), the per-tenant p99s, no watchdog violation. (e) The
+   watchdog itself: the CNN's fused trainer bit-equal with it off and
+   on, and a host sync planted in the step scope and one in a custom
+   ``autograd.Function``'s backward each counted as unexpected.
 
 Output, last lines: one JSON object with a record per kernel, one JSON
 object with the main path's step time, one with the serving path's
@@ -383,8 +414,8 @@ with phases 18-19 (``train_lm_bf16``, ``two_party_lm``), one with
 phases 20-23 (``u_split``, ``u_split_lm``, ``federated``,
 ``multi_client``, ``cli``), one with phase 24 (``checkpoint``), one
 with phase 25 (``many_clients``), one with phase 26 (``image``), one
-with phase 27 (``chain``), one with phase 28 (``obs``), the
-``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
+with phase 27 (``chain``), one with phase 28 (``obs``), one with
+phase 29 (``fleet``), the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -621,6 +652,31 @@ OBS_TRACE_KERNELS = {"K1": ("ce_fwd_kernel", "ce_bwd_kernel"),
                      "K5": ("flash_fwd_kernel",),
                      "K6": ("flash_bwd_delta_kernel", "flash_bwd_dkv_kernel",
                             "flash_bwd_dq_kernel")}
+# phase 29: this slice. (a) phase 18's bf16 AdamW LM through the CLI for
+# FLEET_LM_STEPS steps stepwise and with --scan-steps SCAN_N (the cap:
+# --scan-steps SCAN_CAP[0] --checkpoint-every SCAN_CAP[1]); (b) the LM
+# and ResNet-18 (fused, float32, batch IMG_B, REMAT_IMG_STEPS steps) with
+# and without --remat; (c) serve --replicas 2 --replica-sync-every
+# REPL_SYNC in this process, REPL_CLIENTS int8 HTTP clients on threads
+# (REPL_STEPS steps each, a kill of one replica after REPL_KILL_AT
+# steps of the second half), once per handoff mode; (d) the fleet
+# harness's burst fleet against a group under --autoscale; (e) host
+# syncs planted under the dispatch watchdog
+FLEET_LM_STEPS, SCAN_N, SCAN_CAP = 12, 4, (8, 6)
+REMAT_IMG_STEPS = 10
+REMAT_REL_TOL = 1e-6   # the LM's losses: bit-equal, or within this
+REPL_CLIENTS, REPL_STEPS, REPL_SYNC, REPL_KILL_AT = 4, 10, 5, 4
+# (d): fleet_sim's batch of 8 rows a client: a handoff carries each moved
+# client's replay entries through the sidecar (base64 JSON), about 1 MB
+# an entry at 8 rows of the CNN cut, 7 MB at 64
+FLEET_ARGS = ["--clients", "64", "--tenants", "4", "--steps", "4",
+              "--arrival", "burst", "--rate", "0.5", "--burst-size", "2",
+              "--batching", "continuous", "--coalesce-max", "4",
+              "--batch", "8", "--workers", "16", "--autoscale",
+              "--autoscale-min", "1", "--autoscale-max", "3",
+              "--autoscale-cooldown-s", "0.2", "--telemetry-interval-s",
+              "0.3", "--slo-ms", "5", "--gate-dropped-steps",
+              "--gate-autoscale"]
 PLANTS = {
     "quantize_roundf": ("quantize.cu", "rintf(", "roundf("),
     "topk_select_ties_high": (
@@ -5410,6 +5466,558 @@ def obs_runs(torch, launch_run, smi) -> tuple:
     return rec, totals
 
 
+# phase 29: scan-steps, remat, replicas, autoscaling
+
+def _cli_err(torch, launch_run, argv):
+    """:func:`_cli` with the run's stderr captured too: ``(rc, counts,
+    stdout, stderr, seconds)``."""
+    import contextlib
+    import io
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc, counts, out, secs = _cli(torch, launch_run, argv)
+    return rc, counts, out, err.getvalue(), secs
+
+
+def _watchdog(dd):
+    """The dispatch watchdog on and cleared for one run; the run's
+    gauges and violations come from its tracker."""
+    dd.force(True)
+    dd.install()
+    dd.tracker().clear()
+    return dd.tracker()
+
+
+def scan_remat_lm_runs(torch, launch_run) -> tuple:
+    """Phase 29 (a) and the LM of (b): the bf16 AdamW LM through the CLI
+    stepwise, with ``--scan-steps SCAN_N`` and with ``--remat``, each
+    under the dispatch watchdog (a sanctioned host read is counted), and
+    the cap of ``--scan-steps`` under ``--checkpoint-every``."""
+    from split_learning_tpu_torch.obs import dispatch_debug as dd
+    from split_learning_tpu_torch.ops.flash_attention import NAME as FA
+    from split_learning_tpu_torch.runtime import checkpoint as ckmod
+    data_dir = os.path.join(REPO, "build", "chip_smoke_obs_data")
+    argv = ["train", "--transport", "fused", "--steps", str(FLEET_LM_STEPS),
+            "--tracking", "jsonl", *_lm_flags(data_dir)]
+    n = FLEET_LM_STEPS
+    runs = {}
+    totals = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, extra in (("stepwise", []),
+                             ("scan", ["--scan-steps", str(SCAN_N)]),
+                             ("remat", ["--remat"])):
+            tracker = _watchdog(dd)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with _StepClock() as clock:
+                rc, counts, _, secs = _cli(torch, launch_run, argv + extra)
+            peak = torch.cuda.max_memory_allocated()
+            gauges, violations = tracker.gauges(), list(tracker.violations)
+            dd.force(False)
+            check(rc == 0, f"fleet LM {label}: rc {rc}")
+            losses, _ = _loss_times(data_dir)
+            check(len(losses) == n and all(map(math.isfinite, losses)),
+                  f"fleet LM {label}: losses {losses}")
+            # steps 4..n-1, whole chunks either way: a scanned chunk's
+            # losses are logged together after its one read, so its
+            # median is a chunk's time over SCAN_N
+            every = SCAN_N if label == "scan" else 1
+            ts = clock.times[3::every]
+            ms = (clock.times[-1] - clock.times[3]) * 1e3 / (n - 4)
+            med = statistics.median((b - a) * 1e3 / every
+                                    for a, b in zip(ts, ts[1:]))
+            runs[label] = dict(losses=losses, launches=counts,
+                               step_ms=ms, step_ms_median=med,
+                               peak_memory_bytes=peak,
+                               cli_seconds=secs, watchdog=gauges,
+                               violations=violations)
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            print(f"[fleet] LM {label}: {n} steps, {ms:.3f} ms a step (median "
+                  f"{med:.3f}), peak "
+                  f"memory {peak / 2**20:.1f} MiB, launches {counts}, "
+                  f"watchdog {gauges}", flush=True)
+        # the cap: saves on the --checkpoint-every boundaries
+        saves = []
+        real_save = ckmod.Checkpointer.save
+
+        def save(self, step, *a, **kw):
+            saves.append(step)
+            return real_save(self, step, *a, **kw)
+        ckmod.Checkpointer.save = save
+        try:
+            rc, counts, _, err, _ = _cli_err(torch, launch_run, argv + [
+                "--scan-steps", str(SCAN_CAP[0]), "--checkpoint-every",
+                str(SCAN_CAP[1]), "--checkpoint-dir",
+                _ckpt_dir("fleet_scan_cap")])
+        finally:
+            ckmod.Checkpointer.save = real_save
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        capped = _loss_times(data_dir)[0]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dd.force(False)
+        dd.uninstall()
+    warning = (f"[warn] --scan-steps {SCAN_CAP[0]} capped to "
+               f"--checkpoint-every {SCAN_CAP[1]} so checkpoint cadence is "
+               "preserved")
+    cap_line = next((ln for ln in err.splitlines() if "capped" in ln), None)
+    print(f"[fleet] {cap_line}; saved steps {saves}", flush=True)
+    check(rc == 0 and cap_line == warning, f"the cap: rc {rc}, {cap_line!r}")
+    check(saves == list(range(SCAN_CAP[1], n + 1, SCAN_CAP[1])),
+          f"the capped run saved at {saves}")
+    check(capped == runs["stepwise"]["losses"],
+          "the capped scanned run's losses differ from the stepwise run's")
+    want = lm_train_counts(n, sgd=False)
+    want_remat = dict(want, **{FA: 2 * want[FA]})
+    step, scan, remat = runs["stepwise"], runs["scan"], runs["remat"]
+    check(step["launches"] == want and scan["launches"] == want,
+          f"launches stepwise {step['launches']}, scanned "
+          f"{scan['launches']}, want {want}")
+    check(remat["launches"] == want_remat,
+          f"remat launches {remat['launches']}, want {want_remat}")
+    check(scan["losses"] == step["losses"],
+          f"scanned losses {scan['losses']} != stepwise {step['losses']}")
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(remat["losses"], step["losses"]))
+    check(rel <= REMAT_REL_TOL, f"remat losses {remat['losses']} against "
+                                f"{step['losses']}: {rel:.3g} relative")
+    for label, r in runs.items():
+        check(r["violations"] == [], f"watchdog on LM {label}: "
+                                     f"{r['violations']}")
+    reads = {k: runs[k]["watchdog"]["expected_d2h_total"] for k in runs}
+    check(reads == {"stepwise": n, "scan": n // SCAN_N, "remat": n},
+          f"sanctioned host reads {reads}: one a step stepwise, one a "
+          f"chunk of {SCAN_N} scanned")
+    for r in runs.values():
+        r["losses"] = r["losses"][:2] + ["..."] + r["losses"][-2:]
+    return dict(
+        model="transformer_lm", dtype="bfloat16", optimizer="adamw",
+        batch=TRAIN_B, seq_len=TRAIN_T, steps=n, scan_steps=SCAN_N,
+        runs=runs, losses_bit_equal_scan=True,
+        remat_max_rel_loss_diff=rel, host_reads=reads,
+        cap=dict(flags=list(SCAN_CAP), warning=cap_line, saved_steps=saves),
+        launches_per_step={label: {k: v / n for k, v in r["launches"].items()}
+                           for label, r in runs.items()}), totals
+
+
+def remat_resnet_runs(torch, launch_run) -> tuple:
+    """Phase 29 (b)'s ResNet-18: fused, float32, batch IMG_B, with and
+    without ``--remat``: peak memory, step ms, launches and losses."""
+    data_dir = _img_data_dir()
+    runs, totals = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, extra in (("plain", []), ("remat", ["--remat"])):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rc, counts, _, secs = _cli(torch, launch_run, [
+                "train", "--device", "cuda", "--model", "resnet18",
+                "--dataset", "cifar10", "--transport", "fused",
+                "--batch-size", str(IMG_B), "--steps", str(REMAT_IMG_STEPS),
+                "--tracking", "jsonl", "--data-dir", data_dir, *extra])
+            peak = torch.cuda.max_memory_allocated()
+            check(rc == 0, f"resnet18 {label}: rc {rc}")
+            losses, ts = _loss_times(data_dir)
+            check(len(losses) == REMAT_IMG_STEPS
+                  and all(map(math.isfinite, losses)),
+                  f"resnet18 {label}: losses {losses}")
+            ms = statistics.median((b - a) * 1e3
+                                   for a, b in zip(ts[3:], ts[4:]))
+            runs[label] = dict(losses=losses, launches=counts, step_ms=ms,
+                               peak_memory_bytes=peak, cli_seconds=secs)
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            print(f"[fleet] ResNet-18 {label}: {ms:.3f} ms a step, peak "
+                  f"memory {peak / 2**20:.1f} MiB, launches {counts}",
+                  flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    plain, remat = runs["plain"], runs["remat"]
+    check(plain["launches"] == remat["launches"],
+          f"resnet18 launches {plain['launches']} vs remat "
+          f"{remat['launches']}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(remat["losses"],
+                                                  plain["losses"]))
+    check(rel <= 1e-4, f"resnet18 remat losses {rel:.3g} relative apart")
+    check(remat["peak_memory_bytes"] < plain["peak_memory_bytes"],
+          "remat did not lower ResNet-18's peak memory")
+    for r in runs.values():
+        r["losses"] = r["losses"][:2] + ["..."] + r["losses"][-2:]
+    return dict(model="resnet18", dtype="float32", batch=IMG_B,
+                steps=REMAT_IMG_STEPS, runs=runs,
+                max_rel_loss_diff=rel), totals
+
+
+def replica_http_run(torch, launch_run, handoff: str) -> tuple:
+    """Phase 29 (c) in one handoff mode: ``serve --replicas 2
+    --replica-sync-every REPL_SYNC`` built by the CLI's ``serve_party``
+    in this process (its HTTP server on a thread), REPL_CLIENTS int8
+    clients on threads. The first half of the steps, then the replicas
+    are bit-equal after the sync; in the second half one replica is
+    killed mid-run. Every (client, step) is applied once group-wide, a
+    duplicate of a dead replica's client is served the original reply
+    byte for byte, and the launches a client step are phase 16's."""
+    import threading
+    from split_learning_tpu_torch.data import batches, synthetic
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.obs import dispatch_debug as dd
+    from split_learning_tpu_torch.obs import flight as obs_flight
+    from split_learning_tpu_torch.obs import spans
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    from split_learning_tpu_torch.runtime import (
+        ServerRuntime, SplitClientTrainer)
+    from split_learning_tpu_torch.transport import HttpTransport, codec
+    from split_learning_tpu_torch.utils import Config
+    applied = []
+    real_serialized = ServerRuntime._serialized
+
+    def serialized(self, activations, labels, step, client_id, *a):
+        # only the owner of a step's replay claim gets here: an apply
+        applied.append((id(self), client_id, step))
+        return real_serialized(self, activations, labels, step, client_id,
+                               *a)
+    ServerRuntime._serialized = serialized
+    tracker = _watchdog(dd)
+    rec = obs_flight.enable("chip_smoke")
+    seen, undo = _capture_requests()
+    runtime = server = None
+    try:
+        runtime, server, _ = launch_run.serve_party(launch_run.parse_args([
+            "serve", "--device", "cuda", "--host", "127.0.0.1", "--port",
+            "0", "--lr", str(LR), "--compress", "int8", "--replicas", "2",
+            "--replica-sync-every", str(REPL_SYNC), "--handoff", handoff]))
+        if handoff == "checkpoint":
+            runtime._ckpt_dir = _ckpt_dir(f"fleet_handoff_{handoff}")
+        ds = synthetic("mnist", n_train=BATCH * REPL_STEPS, n_test=8, seed=0)
+        data = list(batches(ds.train, BATCH, seed=0, drop_remainder=True))
+        cfg = Config(transport="http", batch_size=BATCH, lr=LR)
+        clients = [SplitClientTrainer(
+            get_plan(), cfg, torch.Generator().manual_seed(0),
+            HttpTransport(server.url, timeout=HTTP_TIMEOUT,
+                          compress="int8"), client_id=c, device="cuda")
+            for c in range(REPL_CLIENTS)]
+        losses = {c: [] for c in range(REPL_CLIENTS)}
+        done = [0]
+        done_lock = threading.Lock()
+
+        def drive(steps):
+            def one(c):
+                for i in steps:
+                    x, y = data[(i + c) % len(data)]
+                    losses[c].append(clients[c].train_step(x, y, i))
+                    with done_lock:
+                        done[0] += 1
+            threads = [threading.Thread(target=one, args=(c,))
+                       for c in range(REPL_CLIENTS)]
+            for t in threads:
+                t.start()
+            return threads
+
+        half = REPL_STEPS // 2
+        LAUNCHES.reset()
+        for t in drive(range(half)):
+            t.join()
+        # REPL_CLIENTS * half group steps: the last one synced
+        p0, p1 = (r.params for r in runtime.replicas)
+        synced = all(torch.equal(p0[k], p1[k]) for k in p0)
+        check(synced and runtime.counters()["replica_syncs"]
+              == REPL_CLIENTS * half // REPL_SYNC,
+              f"replicas not bit-equal after the sync ({handoff})")
+        victim = runtime.assignment(0)
+        orphans = [c for c in range(REPL_CLIENTS)
+                   if runtime.assignment(c) == victim]
+        done[0] = 0
+        threads = drive(range(half, REPL_STEPS))
+        while done[0] < REPL_KILL_AT:
+            time.sleep(0.001)
+        t_kill = time.perf_counter()
+        runtime.kill(victim)
+        kill_ms = (time.perf_counter() - t_kill) * 1e3
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        counts = LAUNCHES.snapshot()
+        # a duplicate of a dead replica's client, after the handoff: its
+        # last step before the kill, re-sent as it was
+        dup = None
+        on_victim = {(c, st) for rid, c, st in applied
+                     if rid == id(runtime.replicas[victim])}
+        for path, body, reply in seen:
+            req = codec.decode(body)
+            if path == "/forward_pass" and (req["client_id"],
+                                            req["step"]) in on_victim:
+                dup = (path, body, reply, req["client_id"], req["step"])
+        check(dup is not None, f"no applied step of the victim's clients "
+                               f"{orphans} to re-send")
+        n_applied = len(applied)
+        status, again = _post(server.url, dup[0], dup[1])
+        check(status == 200 and again == dup[2],
+              f"the duplicate of client {dup[3]} step {dup[4]} was not "
+              f"served the original reply byte for byte ({handoff})")
+        check(len(applied) == n_applied, "the duplicate was applied again")
+        keys = [(c, s) for _, c, s in applied]
+        check(len(keys) == len(set(keys)) == REPL_CLIENTS * REPL_STEPS,
+              f"applies {len(keys)} ({len(set(keys))} distinct), want "
+              f"{REPL_CLIENTS * REPL_STEPS} once each ({handoff})")
+        for c, ls in losses.items():
+            check(len(ls) == REPL_STEPS and all(map(math.isfinite, ls)),
+                  f"client {c} losses {ls} ({handoff})")
+        per_step = {FWD: 1, BWD: 1, SGD: 2, **wire_launches("int8", 2)}
+        want = {k: v * REPL_CLIENTS * REPL_STEPS for k, v in per_step.items()}
+        check(counts == want, f"replicas {handoff}: launches {counts}, "
+                              f"want {want}")
+        names = {e["name"] for e in rec.events()}
+        need = {spans.FL_ROUTE, spans.FL_REPLICA_DEATH,
+                spans.FL_HANDOFF_BEGIN, spans.FL_HANDOFF_COMMIT}
+        check(need <= names, f"flight events {sorted(need - names)} missing")
+        health = runtime.health()["replicas"]
+        ctr = runtime.counters()
+        check(ctr["replica_handoffs"] == 1 and ctr["replica_deaths"] == 1
+              and health["live"] == [1 - victim],
+              f"group after the kill: {health}")
+        check(tracker.violations == [],
+              f"watchdog on replicas {handoff}: {tracker.violations}")
+        out = dict(
+            handoff=handoff, clients=REPL_CLIENTS, steps=REPL_STEPS,
+            batch=BATCH, compress="int8", sync_every=REPL_SYNC,
+            victim=victim, victim_clients=orphans, kill_ms=kill_ms,
+            bit_equal_after_sync=synced, duplicate=dict(
+                client=dup[3], step=dup[4], byte_equal=True),
+            applies=len(keys), launches=counts,
+            # measured: the run's counts over its client steps
+            launches_per_client_step={
+                k: v / (REPL_CLIENTS * REPL_STEPS)
+                for k, v in counts.items()},
+            launches_per_client_step_predicted=per_step, counters=ctr,
+            health_replicas=health, watchdog=tracker.gauges(),
+            losses={c: [ls[0], ls[-1]] for c, ls in losses.items()})
+        print(f"[fleet] replicas {handoff}: {REPL_CLIENTS} int8 clients x "
+              f"{REPL_STEPS} steps over {server.url}, replica {victim} "
+              f"killed ({kill_ms:.1f} ms), {ctr['handoff_replay_entries']:.0f}"
+              f" replay entries handed off, {ctr['replica_fenced_waits']:.0f}"
+              f" fenced waits, {len(keys)} applies, launches {counts}",
+              flush=True)
+        return out, counts
+    finally:
+        ServerRuntime._serialized = real_serialized
+        undo()
+        obs_flight.disable()
+        dd.force(False)
+        dd.uninstall()
+        if server is not None:
+            server.stop()
+        if runtime is not None:
+            runtime.close()
+
+
+def autoscale_fleet_run(torch) -> tuple:
+    """Phase 29 (d): the fleet harness (``runtime/fleet.py``'s runnable
+    face) with FLEET_ARGS on the card: at least one scale-up and one
+    scale-down, no dropped step, the per-tenant p99s, the watchdog's
+    counts (the harness forces it on)."""
+    from split_learning_tpu_torch.obs import dispatch_debug as dd
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.runtime import fleet
+    LAUNCHES.reset()
+    dd.tracker().clear()
+    try:
+        rc, summary = fleet.run_sim(fleet.parse_args(
+            ["--device", "cuda", *FLEET_ARGS]))
+    finally:
+        dd.uninstall()
+    torch.cuda.synchronize()
+    counts = LAUNCHES.snapshot()
+    block = summary["autoscale"]
+    check(rc == 0 and block["scale_ups"] >= 1 and block["scale_downs"] >= 1
+          and summary["dropped_steps"] == 0,
+          f"fleet: rc {rc}, ups {block['scale_ups']}, downs "
+          f"{block['scale_downs']}, dropped {summary['dropped_steps']}")
+    # a scale event that raised was counted, not raised, by the pump or
+    # the harness's per-step hook: none may have
+    check(block["pump_errors"] == 0 and block["step_hook_errors"] == 0,
+          f"fleet: failed scale events: pump {block['pump_errors']}, "
+          f"step hook {block['step_hook_errors']} "
+          f"({block['last_error']})")
+    check(summary["dispatch"]["unexpected_d2h_total"] == 0
+          and summary["dispatch"]["steady_state_recompiles"] == 0,
+          f"watchdog on the fleet: {summary['dispatch']}")
+    p99 = {t: row.get("step_p99_ms") for t, row in
+           summary["per_tenant"].items()}
+    print(f"[fleet] autoscale: {summary['steps_completed']}/"
+          f"{summary['steps_expected']} steps, {block['scale_ups']} up / "
+          f"{block['scale_downs']} down, peak {block['peak_replicas']} "
+          f"replicas, per-tenant step p99 ms {p99}, pooled "
+          f"{summary['overall']}", flush=True)
+    keep = {k: summary[k] for k in (
+        "wall_s", "steps_expected", "steps_completed", "dropped_steps",
+        "backpressure_total", "overall", "per_tenant", "utilization",
+        "autoscale", "dispatch", "warm_rounds", "compiles_in_run")}
+    keep["replication"] = {k: summary["replication"][k] for k in (
+        "replica_seconds", "live_replicas", "handoff")}
+    keep["flags"] = FLEET_ARGS
+    return keep, counts
+
+
+def watchdog_planted_syncs(torch) -> tuple:
+    """Phase 29 (e): the dispatch watchdog on the card. The CNN's fused
+    trainer at batch BATCH, 3 steps twice with the watchdog off and once
+    on: losses bit-equal and nothing flagged. Then a host sync (``.item()``)
+    planted (1) in the trainer's step scope and (2) in a custom
+    ``autograd.Function``'s backward between the logits and the loss,
+    which PyTorch runs on its autograd device thread unless the scope
+    keeps the backward on its own thread: each must count into
+    ``unexpected_d2h_total``. The control, recorded and not held: (2)
+    again with autograd's multithreading turned back on inside the
+    scope."""
+    import contextlib
+    from split_learning_tpu_torch.data import batches, synthetic
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.obs import dispatch_debug as dd
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.runtime import FusedSplitTrainer
+    from split_learning_tpu_torch.utils import Config
+
+    class SyncInBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            g.abs().sum().item()  # the planted sync
+            return g
+
+    class PlantedPlan:
+        def __init__(self, plan):
+            self._plan = plan
+
+        def apply(self, params, x):
+            return SyncInBackward.apply(self._plan.apply(params, x))
+
+        def __getattr__(self, name):
+            return getattr(self._plan, name)
+
+    ds = synthetic("mnist", n_train=BATCH * 3, n_test=8, seed=0)
+    data = list(batches(ds.train, BATCH, seed=0, drop_remainder=True))
+    cfg = Config(transport="fused", batch_size=BATCH, lr=LR)
+
+    def trainer():
+        return FusedSplitTrainer(get_plan(), cfg,
+                                 torch.Generator().manual_seed(0), None,
+                                 device="cuda")
+    LAUNCHES.reset()
+    deterministic = torch.backends.cudnn.deterministic
+    # cuDNN's weight-gradient algorithms may sum in any order: without
+    # this two identical runs part in the last bits
+    torch.backends.cudnn.deterministic = True
+    try:
+        dd.force(False)
+        off, off2 = trainer(), trainer()
+        losses_off = [off.train_step(x, y) for x, y in data]
+        losses_off2 = [off2.train_step(x, y) for x, y in data]
+        check(losses_off2 == losses_off,
+              f"two watchdog-off runs: {losses_off2} != {losses_off}")
+        tracker = _watchdog(dd)
+        on = trainer()
+        losses_on = [on.train_step(x, y) for x, y in data]
+        check(losses_on == losses_off,
+              f"watchdog on/off losses {losses_on} != {losses_off}")
+        clean = tracker.gauges()
+        check(clean["unexpected_d2h_total"] == 0 and not tracker.violations,
+              f"watchdog on the clean fused run: {tracker.violations}")
+        x, y = data[0]
+
+        def caught(step) -> int:
+            before = tracker.unexpected_d2h
+            step()
+            torch.cuda.synchronize()
+            return tracker.unexpected_d2h - before
+
+        real = on._loss_and_grads
+
+        def planted_step(xb, yb):
+            loss, grads = real(xb, yb)
+            loss.item()  # the planted sync
+            return loss, grads
+        on._loss_and_grads = planted_step
+        in_step = caught(lambda: on.train_step(x, y))
+        on._loss_and_grads = real
+        plain_plan = on.plan
+        on.plan = PlantedPlan(plain_plan)
+        in_backward = caught(lambda: on.train_step(x, y))
+        real_scope = tracker.scope
+
+        @contextlib.contextmanager
+        def scope_device_thread(*a, **kw):
+            with real_scope(*a, **kw) as rec:
+                with torch.autograd.set_multithreading_enabled(True):
+                    yield rec
+        tracker.scope = scope_device_thread
+        n_flagged = len(tracker.violations)
+        try:
+            control = caught(lambda: on.train_step(x, y))
+            # what else the control's scope saw: K1b left it with the
+            # backward, a launch change from the previous step
+            control_flags = [v["kind"]
+                             for v in tracker.violations[n_flagged:]]
+        finally:
+            del tracker.scope
+            on.plan = plain_plan
+        check(in_step >= 1, f"a sync planted in the fused step scope was "
+                            f"counted {in_step} times")
+        check(in_backward >= 1, f"a sync planted in a custom backward was "
+                                f"counted {in_backward} times")
+        torch.cuda.synchronize()
+        counts = LAUNCHES.snapshot()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dd.force(False)
+        dd.uninstall()
+        dd.tracker().clear()
+    out = dict(model="split_cnn", batch=BATCH, steps=len(data),
+               losses_bit_equal_on_off=True, clean_run=clean,
+               caught_in_step_scope=in_step,
+               caught_in_custom_backward=in_backward,
+               control_backward_on_autograd_device_thread=control,
+               control_flags=control_flags)
+    print(f"[fleet] watchdog: losses bit-equal on/off, planted syncs "
+          f"caught {in_step} in the step scope and {in_backward} in a "
+          f"custom backward; control (backward on the autograd device "
+          f"thread): {control}, flags {control_flags}", flush=True)
+    return out, counts
+
+
+def fleet_runs(torch, launch_run, smi) -> tuple:
+    """Phase 29: (a) to (e) with their launch totals."""
+    t0 = time.perf_counter()
+    rec, totals = {"card": smi}, {}
+    rec["lm"], c_lm = scan_remat_lm_runs(torch, launch_run)
+    rec["resnet18_remat"], c_img = remat_resnet_runs(torch, launch_run)
+    rec["replicas"] = {}
+    parts = [c_lm, c_img]
+    for handoff in ("live", "checkpoint"):
+        rec["replicas"][handoff], c = replica_http_run(torch, launch_run,
+                                                       handoff)
+        parts.append(c)
+    rec["autoscale"], c_fleet = autoscale_fleet_run(torch)
+    parts.append(c_fleet)
+    rec["watchdog"], c_dd = watchdog_planted_syncs(torch)
+    parts.append(c_dd)
+    for c in parts:
+        for k, v in c.items():
+            totals[k] = totals.get(k, 0) + v
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[fleet] phase 29: {rec['seconds']:.1f} s", flush=True)
+    return rec, totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6263,6 +6871,9 @@ def main() -> int:
     # ---- 28. observability ------------------------------------------ #
     obs_rec, obs_counts = obs_runs(torch, launch_run, smi)
 
+    # ---- 29. scan-steps, remat, replicas, autoscaling ---------------- #
+    fleet_rec, fleet_counts = fleet_runs(torch, launch_run, smi)
+
     for rec in records:
         key = launch_of.get(rec["name"], rec["name"])
         rec["launches_train_lm_bf16"] = bf16_counts.get(key, 0)
@@ -6385,6 +6996,20 @@ def main() -> int:
         rec["launches_per_step_obs"] = {
             part: obs_rec[part]["launches_per_step"].get(key, 0)
             for part in ("lm", "http")}
+        # phase 29: every run of its five parts, and a step's of (a), (b)
+        # and (c), measured (the fleet's coalesced groups have no fixed
+        # count a client step)
+        rec["launches_fleet"] = fleet_counts.get(key, 0)
+        per_step = {f"lm_{label}": n.get(key, 0) for label, n in
+                    fleet_rec["lm"]["launches_per_step"].items()}
+        per_step.update({
+            f"resnet18_{label}": r["launches"].get(key, 0) / REMAT_IMG_STEPS
+            for label, r in fleet_rec["resnet18_remat"]["runs"].items()})
+        per_step.update({
+            f"replicas_{mode}_per_client_step": r[
+                "launches_per_client_step"].get(key, 0)
+            for mode, r in fleet_rec["replicas"].items()})
+        rec["launches_per_step_fleet"] = per_step
     two_party_line = dict(two_party=dict(
         model="split_cnn", mode="split", transport="local", batch=BATCH,
         steps=STEPS, density=DENSITY, device=kind, kernel_cases=wire_cases,
@@ -6436,6 +7061,7 @@ def main() -> int:
         device=kind, card=smi, model="resnet18_4stage", batch=CHAIN_B,
         microbatches=CHAIN_M, stages=CHAIN_S, lr=LR, **chain_rec)}))
     print(json.dumps({"obs": dict(device=kind, card=smi, **obs_rec)}))
+    print(json.dumps({"fleet": dict(device=kind, **fleet_rec)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -86,6 +86,8 @@ class Stage:
     module: nn.Module  # architecture only (meta device); params live outside
     _lock: threading.RLock = dataclasses.field(
         default_factory=threading.RLock, repr=False, compare=False)
+    # rematerialise under autograd (:func:`remat_plan`)
+    remat: bool = False
 
     def init(self, generator: torch.Generator, sample: torch.Tensor
              ) -> Params:
@@ -97,7 +99,18 @@ class Stage:
         """Run the module with ``params``. Keyword arguments pass through
         to its ``forward``, as ``from_flax`` passes them to
         ``module.apply``: the transformer stages take their KV-cache
-        modes this way (``cache_len=``/``decode_cache=``/``pos=``)."""
+        modes this way (``cache_len=``/``decode_cache=``/``pos=``).
+
+        A ``remat`` stage runs under ``torch.utils.checkpoint`` while
+        autograd records: the backward recomputes the forward instead of
+        keeping its activations, so kernels of the forward (K5) launch
+        again in the backward."""
+        if self.remat and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(
+                self._call, params, x, use_reentrant=False, **kw)
+        return self._call(params, x, **kw)
+
+    def _call(self, params: Params, x: torch.Tensor, **kw):
         with self._lock:
             return torch.func.functional_call(self.module, params, (x,), kw)
 
@@ -119,6 +132,20 @@ def stage_backward(stage: Stage, params: Params, x: torch.Tensor,
         torch.autograd.backward(y, g_out)
     grads = {k: v.grad for k, v in leaves.items()}
     return (grads, x_in.grad) if input_grad else grads
+
+
+def remat_plan(plan: "SplitPlan") -> "SplitPlan":
+    """A plan whose stages rematerialise under autograd (JAX's
+    ``remat_plan``, which wraps each stage's ``apply`` in
+    ``jax.checkpoint``): each stage's ``apply`` runs under
+    ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, so a
+    backward recomputes the stage forwards instead of storing their
+    activations. The stages share the original modules and locks; the
+    recompute reads the same parameter and input tensors, which nothing
+    mutates before the backward has run."""
+    stages = tuple(dataclasses.replace(s, remat=True, _lock=s._lock)
+                   for s in plan.stages)
+    return dataclasses.replace(plan, stages=stages)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -123,10 +123,27 @@ its own and prints the fleet view (``obs/federate.py``) of the hub and
 its in-process stages; ``--tracking mlflow --tracking-uri URI`` logs to
 an MLflow server (its REST protocol where the package is absent).
 
-Not ported yet, each exiting 2 with the ROADMAP item it waits for:
-``--replicas`` above 1 (item 19), the ``train`` flags of
-:data:`TRAIN_NOT_PORTED` (``--transport pipeline`` among them) and the
-``serve`` flags of :data:`SERVE_NOT_PORTED`.
+Server replicas, as in JAX: ``serve --replicas N`` (the server role),
+``train --transport local --replicas N`` (the in-process server) and
+``train --stages S --transport local --replicas N`` (each chain stage)
+put N same-seed runtimes behind a ``ReplicaGroup``'s sticky router, with
+``--replica-sync-every K`` (FedAvg of the replicas every K group steps)
+and ``--handoff live|checkpoint``; ``--autoscale [--autoscale-min/-max/
+-cooldown-s]`` (or ``SLT_AUTOSCALE``) drives the replica count from the
+telemetry ring's windows (and turns telemetry on). JAX's refusals hold:
+replicas or autoscaling with ``serve --checkpoint-dir`` and replicas on
+a chain off ``--transport local`` or with ``--checkpoint-dir`` exit 2.
+``/health`` of a group carries its ``replicas`` block.
+
+``train --scan-steps N`` (the fused transport) runs N steps as one chunk
+and reads their N losses once; N is capped to ``--checkpoint-every``
+when saving, with JAX's warning, and other transports warn and ignore
+it. ``--remat`` rematerialises the stage forwards in the backward (the
+fused trainer and the served party).
+
+Not ported yet, each exiting 2 with the ROADMAP item it waits for: the
+``train`` flags of :data:`TRAIN_NOT_PORTED` (``--transport pipeline``
+among them) and the ``serve`` flags of :data:`SERVE_NOT_PORTED`.
 """
 
 from __future__ import annotations
@@ -164,7 +181,7 @@ def _config_from_args(args):
                   "optimizer", "momentum", "weight_decay", "warmup_steps",
                   "decay_steps", "grad_clip_norm", "microbatches", "seed",
                   "data_dir", "tracking", "tracking_uri", "transport",
-                  "server_url", "attn",
+                  "server_url", "attn", "remat",
                   "dtype", "checkpoint_dir", "num_stages", "schedule"):
         val = getattr(args, field, None)
         if val is not None:
@@ -364,11 +381,7 @@ def _density_or_default(args) -> float:
 
 
 def _wire_error(args, density: float) -> Optional[str]:
-    """The two-party flags' checks; raises NotImplementedError for what
-    is not ported yet."""
-    if args.replicas > 1:
-        raise NotImplementedError(
-            "not ported yet: --replicas > 1 (ROADMAP item 19)")
+    """The two-party flags' checks."""
     if args.pipeline_depth < 1:
         return f"--pipeline-depth must be >= 1 (got {args.pipeline_depth})"
     if not 0.0 < density <= 1.0:
@@ -432,7 +445,6 @@ TRAIN_NOT_PORTED = (
     ("transport", lambda v: v == "pipeline",
      "--transport pipeline (the single-program pipeline over a pipe mesh)",
      "item 16"),
-    ("remat", bool, "--remat", "item 16"),
     ("num_clients", lambda v: v is not None and v > 1,
      "--num-clients > 1 (a data-parallel mesh)", "item 18"),
     ("model_parallel", lambda v: v is not None and v > 1,
@@ -445,22 +457,72 @@ TRAIN_NOT_PORTED = (
     ("num_processes", _given, "--num-processes (multi-host runs)",
      "item 18"),
     ("process_id", _given, "--process-id (multi-host runs)", "item 18"),
-    ("replica_sync_every", bool, "--replica-sync-every (server replicas)",
-     "item 19"),
-    ("handoff", lambda v: v != "live",
-     "--handoff checkpoint (server replicas)", "item 19"),
-    ("autoscale", bool, "--autoscale (elastic replicas)", "item 19"),
-    ("autoscale_min", _given, "--autoscale-min (elastic replicas)",
-     "item 19"),
-    ("autoscale_max", _given, "--autoscale-max (elastic replicas)",
-     "item 19"),
-    ("autoscale_cooldown_s", _given,
-     "--autoscale-cooldown-s (elastic replicas)", "item 19"),
     ("seq_parallel", lambda v: v is not None and v > 1,
      "--seq-parallel > 1 (context parallelism)", "item 21"),
-    ("scan_steps", lambda v: v > 1,
-     "--scan-steps > 1 (steps batched per launch; CUDA graphs)", "item 7"),
 )
+
+
+# --------------------------------------------------------------------- #
+# server replicas and elastic autoscaling (runtime/replica.py,
+# runtime/autoscale.py)
+
+def _group_kw(args, cfg, density: float,
+              as_cfg: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """``maybe_replicate``'s knobs from the flags, as JAX reads them: the
+    sync compression rides the wire's (topk8/clapping; int8 and none
+    keep the dense sync); under ``--autoscale`` (``as_cfg``) always a
+    group, from ``--autoscale-min`` replicas up."""
+    return dict(sync_every=args.replica_sync_every or 0,
+                handoff=args.handoff or "live", seed=cfg.seed,
+                sync_compress=(args.compress if args.compress in
+                               ("topk8", "clapping") else None),
+                sync_density=float(density),
+                min_replicas=(None if as_cfg is None
+                              else as_cfg["min_replicas"]))
+
+
+def _start_autoscaler(group, make_replica, as_cfg: Dict[str, Any], ring,
+                      coalesce_max: int = 1, slo_ms: Optional[float] = None):
+    """The autoscaler over ``group``, fed by ``ring``'s windows, its pump
+    started at the ring's interval; prints JAX's banner."""
+    from split_learning_tpu_torch.runtime.autoscale import (
+        Autoscaler, policy_from_config)
+    autoscaler = Autoscaler(group, make_replica, policy_from_config(as_cfg),
+                            ring, coalesce_max=coalesce_max, slo_ms=slo_ms)
+    autoscaler.start(ring.interval_s)
+    print(f"[autoscale] policy on: min={as_cfg['min_replicas']} "
+          f"max={as_cfg['max_replicas']} cooldown={as_cfg['cooldown_s']}s",
+          file=sys.stderr)
+    return autoscaler
+
+
+class _TrainElastic:
+    """``train --autoscale``'s control loop over the in-process group: a
+    telemetry ring over the group's metrics (the policy's signals) and
+    the autoscaler's pump. :meth:`close` stops both."""
+
+    def __init__(self, group, make_replica, as_cfg: Dict[str, Any]) -> None:
+        from split_learning_tpu_torch.obs import telemetry as obs_telemetry
+        self.ring = obs_telemetry.start(group.metrics, force=True)
+        self.autoscaler = _start_autoscaler(group, make_replica, as_cfg,
+                                            self.ring,
+                                            slo_ms=self.ring.slo_ms)
+
+    def close(self) -> None:
+        from split_learning_tpu_torch.obs import telemetry as obs_telemetry
+        # the pump first: no scale event races the run's teardown
+        self.autoscaler.close()
+        obs_telemetry.stop()
+
+
+def _stage_step(srt) -> int:
+    """A chain stage's acknowledged step; a replicated stage's is the
+    group-wide furthest (the trained state may sit on any replica)."""
+    h = srt.health()
+    grp = h.get("replicas")
+    if grp is not None and "step_max" in grp:
+        return int(grp["step_max"])
+    return int(h.get("step", -1))
 
 
 def _refuse_unported(table, args) -> None:
@@ -543,7 +605,9 @@ def _chain_wires(args, cfg, plan, dc, density, compress):
     behind ``--stage-urls`` (rc 2 on a wrong count, rc 4 on a party of
     another role, stage index or microbatch count); otherwise in-process
     ``StageRuntime`` parties from the run's seed behind ``LocalTransport``
-    (the codec's ``--compress``) or ``DeviceTransport``. ``--chaos`` wraps
+    (the codec's ``--compress``) or ``DeviceTransport``; with
+    ``--replicas N`` each stage is N same-seed replicas behind a
+    ``ReplicaGroup`` (``--transport local`` only). ``--chaos`` wraps
     every wire in one seeded policy."""
     from split_learning_tpu_torch.runtime.stage import StageRuntime
     from split_learning_tpu_torch.transport import (
@@ -580,12 +644,17 @@ def _chain_wires(args, cfg, plan, dc, density, compress):
                         tr.close()
                     return [], [], 4
     else:
+        from split_learning_tpu_torch.runtime.replica import maybe_replicate
         ef_mode = "clapping" if compress == "clapping" else "topk8"
+        group_kw = _group_kw(args, cfg, density)
         for i in range(1, plan.num_stages):
-            srt = StageRuntime(plan, i, cfg,
-                               torch.Generator().manual_seed(cfg.seed),
-                               microbatches=M, apply_lag=args.apply_lag,
-                               ef_mode=ef_mode, device=args.device)
+            def make_stage(_ridx: int, _i: int = i) -> StageRuntime:
+                # one seed for every replica: one stage model, N parties
+                return StageRuntime(plan, _i, cfg,
+                                    torch.Generator().manual_seed(cfg.seed),
+                                    microbatches=M, apply_lag=args.apply_lag,
+                                    ef_mode=ef_mode, device=args.device)
+            srt = maybe_replicate(make_stage, args.replicas, **group_kw)
             stage_rts.append(srt)
             transports.append(
                 DeviceTransport(srt) if cfg.transport == "device"
@@ -706,10 +775,18 @@ def _train_chain(args, cfg, plan, ckptr, size_kw, seq_len) -> int:
                 f"--stages {cfg.num_stages} does not match model "
                 f"{cfg.model!r} ({plan.num_stages} stages); pick a chain "
                 "plan (e.g. split_cnn_chain3, resnet18_4stage)")
-        if args.replicas > 1:
-            raise NotImplementedError(
-                "not ported yet: --replicas > 1 (replicated stage parties: "
-                "ROADMAP item 19)")
+        if args.replicas > 1 and cfg.transport != "local":
+            raise ValueError(
+                "--replicas > 1 on the chain composes in-process stage "
+                "parties behind the group router and needs --transport "
+                "local (http stages are their own processes; the device "
+                "wire's replay entries are device-resident and die with "
+                "the replica)")
+        if args.replicas > 1 and cfg.checkpoint_dir:
+            raise ValueError(
+                "--replicas > 1 does not compose with --checkpoint-dir yet "
+                "(per-replica save/resume layout is ambiguous); drop one "
+                "of them")
         if args.chaos:
             parse_chaos_spec(args.chaos)  # a bad spec fails here
         compress = args.compress
@@ -733,6 +810,9 @@ def _train_chain(args, cfg, plan, ckptr, size_kw, seq_len) -> int:
     except (ValueError, NotImplementedError) as e:
         print(f"[error] {e}", file=sys.stderr)
         return 2
+    if args.autoscale:
+        print("[warn] --autoscale applies to the replicated server role "
+              "only; ignored on the K-stage chain", file=sys.stderr)
     for flag, on in (("--pipeline-depth", args.pipeline_depth > 1),
                      ("--prefetch", args.prefetch > 0),
                      ("--decouple-bwd", args.decouple_bwd),
@@ -861,14 +941,17 @@ def _train_chain(args, cfg, plan, ckptr, size_kw, seq_len) -> int:
         # every scheduled step produced a finite loss and every stage
         # party acknowledged the last step
         want = step - 1
-        lagging = [(srt.stage_index, srt.health()["step"])
-                   for srt in stage_rts if srt.health()["step"] != want]
+        lagging = [(srt.stage_index, _stage_step(srt))
+                   for srt in stage_rts if _stage_step(srt) != want]
         if bad_losses or lagging:
             print(f"[gate] DROPPED-STEPS GATE FAILED: nonfinite_losses="
                   f"{bad_losses} lagging_stages={lagging} (want step "
                   f"{want})", file=sys.stderr)
             return 1
-        print(f"[gate] ok: {n_steps} steps completed, 0 dropped",
+        handoffs = sum(int(srt.counters().get("replica_handoffs", 0))
+                       for srt in stage_rts)
+        print(f"[gate] ok: {n_steps} steps completed, 0 dropped"
+              + (f" ({handoffs} replica handoff(s))" if handoffs else ""),
               file=sys.stderr)
     if n_steps and dt > 0:
         logger.log_metric("steps_per_sec", n_steps / dt, step=n_steps)
@@ -888,6 +971,76 @@ def _train_chain(args, cfg, plan, ckptr, size_kw, seq_len) -> int:
           f"steps={n_steps} final_loss={final_loss:.4f} "
           f"({n_steps / dt if dt > 0 else 0.0:.2f} steps/s)")
     return 0
+
+
+def _scan_chunk(args, saving: bool) -> int:
+    """``--scan-steps``'s chunk, JAX's rule: with saves every
+    ``--checkpoint-every`` steps a chunk is capped to that many (saves
+    land on chunk boundaries), and a cap to 1 is the stepwise loop."""
+    scan = args.scan_steps or 0
+    if scan > 1 and saving and args.checkpoint_every \
+            and scan > args.checkpoint_every:
+        print(f"[warn] --scan-steps {scan} capped to --checkpoint-every "
+              f"{args.checkpoint_every} so checkpoint cadence is preserved",
+              file=sys.stderr)
+        scan = args.checkpoint_every
+    return scan if scan > 1 else 0
+
+
+def _train_fused(args, cfg, trainer, data_iter, logger, save,
+                 start_step: int, saving: bool) -> float:
+    """The fused transport's loop: stepwise, or with ``--scan-steps N``
+    chunks of N batches through ``train_epoch`` (the N steps launched
+    back to back, their N losses read in one host read) and the tail of
+    an epoch (fewer than N batches) stepwise. Each step's loss, and the
+    lr where a schedule is on (``make_lr`` on the host), is logged under
+    its step's number; saves land on the ``--checkpoint-every``
+    boundaries and at each epoch's end, as JAX's. Returns the last
+    loss."""
+    from split_learning_tpu_torch.obs import dispatch_debug as obs_dispatch
+    from split_learning_tpu_torch.runtime.state import make_lr
+    scan = _scan_chunk(args, saving)
+    lr_fn = make_lr(cfg)
+    if not callable(lr_fn):   # a constant lr is not logged
+        lr_fn = None
+    every = args.checkpoint_every
+    step, final_loss = start_step, float("nan")
+
+    def log(loss: float) -> None:
+        logger.log_metric("loss", loss, step=step)
+        if lr_fn is not None:
+            logger.log_metric("lr", float(lr_fn(step)), step=step)
+
+    for _ in range(cfg.epochs):  # data_iter enforces the step cap
+        if not scan:
+            tail = data_iter()
+        else:
+            buf_x, buf_y = [], []
+            for x, y in data_iter():
+                buf_x.append(x)
+                buf_y.append(y)
+                if len(buf_x) < scan:
+                    continue
+                series = trainer.train_epoch(np.stack(buf_x),
+                                             np.stack(buf_y))
+                buf_x, buf_y = [], []
+                with obs_dispatch.expected_d2h(trainer._dd):
+                    losses = series.tolist()   # the chunk's one host read
+                for final_loss in losses:
+                    log(final_loss)
+                    step += 1
+                if every and ((step - start_step) // every
+                              != (step - start_step - len(losses)) // every):
+                    save(step)
+            tail = zip(buf_x, buf_y)
+        for x, y in tail:
+            final_loss = trainer.train_step(x, y)
+            log(final_loss)
+            step += 1
+            if every and (step - start_step) % every == 0:
+                save(step)
+        save(step)
+    return final_loss
 
 
 def _report_profile(phase_prof, profile_dir: Optional[str]) -> None:
@@ -914,8 +1067,10 @@ def cmd_train(args) -> int:
         CircuitBreaker, FederatedClientTrainer, FusedSplitTrainer,
         PipelinedSplitClientTrainer, ServerRuntime, SplitClientTrainer,
         USplitClientTrainer, check_config, check_supported)
+    from split_learning_tpu_torch.runtime import autoscale as rt_autoscale
     from split_learning_tpu_torch.runtime.checkpoint import (
         read_latest_extras)
+    from split_learning_tpu_torch.runtime.replica import maybe_replicate
     from split_learning_tpu_torch.runtime.state import state_tree
     from split_learning_tpu_torch.tracking import make_logger
     from split_learning_tpu_torch.transport.chaos import parse_chaos_spec
@@ -960,20 +1115,26 @@ def cmd_train(args) -> int:
             print(f"[warn] --pipeline-depth ignored in mode {cfg.mode!r} "
                   "(split only)", file=sys.stderr)
             depth = 1
-        server = None
+        server = make_replica = as_cfg = None
         if chain:
             check_config(cfg)
         elif cfg.transport == "local":
             # the in-process server from the same seed: each party keeps
             # its own stages of one init, as a fused run would start; a
             # depth-W window's steps arrive out of order
-            server = ServerRuntime(plan, cfg,
-                                   torch.Generator().manual_seed(cfg.seed),
-                                   strict_steps=depth <= 1,
-                                   overlap=not args.no_overlap,
-                                   decouple_bwd=args.decouple_bwd,
-                                   apply_lag=args.apply_lag,
-                                   device=args.device)
+            def make_replica(_idx: int) -> ServerRuntime:
+                # every replica from the same seed: the group starts as
+                # one model, and the FedAvg sync keeps it one
+                return ServerRuntime(plan, cfg,
+                                     torch.Generator().manual_seed(cfg.seed),
+                                     strict_steps=depth <= 1,
+                                     overlap=not args.no_overlap,
+                                     decouple_bwd=args.decouple_bwd,
+                                     apply_lag=args.apply_lag,
+                                     device=args.device)
+            as_cfg = rt_autoscale.args_config(args)
+            server = maybe_replicate(make_replica, args.replicas,
+                                     **_group_kw(args, cfg, density, as_cfg))
         elif two_party:
             check_config(cfg)
         else:
@@ -981,8 +1142,16 @@ def cmd_train(args) -> int:
     except (ValueError, NotImplementedError) as e:
         print(f"[error] {e}", file=sys.stderr)
         return 2
+    if cfg.transport != "fused" and args.scan_steps > 1:
+        print(f"[warn] --scan-steps ignored on transport="
+              f"{cfg.transport!r} (only the fused transport scans steps)",
+              file=sys.stderr)
     if chain:
         return _train_chain(args, cfg, plan, ckptr, size_kw, seq_len)
+    if server is None and (args.replicas > 1 or args.autoscale):
+        print(f"[warn] --replicas/--autoscale ignored on transport="
+              f"{cfg.transport!r} (they replicate the in-process server of "
+              "--transport local and serve's server role)", file=sys.stderr)
     if args.telemetry_port is not None:
         print("[warn] --telemetry-port applies to the K-stage chain (the "
               "hub's ring); ignored", file=sys.stderr)
@@ -1129,6 +1298,9 @@ def cmd_train(args) -> int:
         _write_ckpt_meta(cfg.checkpoint_dir, layout, cfg, size_kw, seq_len)
     # --trace: per-step spans (obs/), off by default and free when off
     step_tracer = obs.enable() if args.trace else None
+    # --autoscale: the policy over the in-process group's telemetry
+    elastic = (_TrainElastic(server, make_replica, as_cfg)
+               if as_cfg is not None else None)
 
     data_iter, budget, per_epoch = _data_stream(ds, cfg, args.steps,
                                                 start_step)
@@ -1138,7 +1310,9 @@ def cmd_train(args) -> int:
 
     t0 = time.time()
     final_loss = float("nan")
-    with _ckpt_drain(ckptr), device_trace(args.profile_dir):
+    with _ckpt_drain(ckptr), device_trace(args.profile_dir), \
+            (contextlib.closing(elastic) if elastic is not None
+             else contextlib.nullcontext()):
         if isinstance(trainer, FederatedClientTrainer):
             # one FedAvg round an epoch; an epoch the step cap leaves
             # empty is not run
@@ -1157,16 +1331,8 @@ def cmd_train(args) -> int:
             if records:
                 final_loss = records[-1].loss
         else:
-            step = start_step
-            for _ in range(cfg.epochs):  # data_iter enforces the step cap
-                for x, y in data_iter():
-                    final_loss = trainer.train_step(x, y)
-                    logger.log_metric("loss", final_loss, step=step)
-                    step += 1
-                    if (args.checkpoint_every and (step - start_step)
-                            % args.checkpoint_every == 0):
-                        save(step)
-                save(step)
+            final_loss = _train_fused(args, cfg, trainer, data_iter, logger,
+                                      save, start_step, ckptr is not None)
     n_steps = budget["taken"]
     dt = time.time() - t0
     _report_profile(phase_prof, args.profile_dir)
@@ -1228,24 +1394,10 @@ def cmd_train(args) -> int:
 # it asks for something unported, the flag, its ROADMAP item). Each
 # exits 2 naming its item.
 SERVE_NOT_PORTED = (
-    ("remat", bool, "--remat", "item 16"),
     ("mesh_data", lambda v: v > 1, "--mesh-data > 1 (a sharded server)",
      "item 18"),
     ("mesh_model", lambda v: v > 1, "--mesh-model > 1 (a sharded server)",
      "item 18"),
-    ("replicas", lambda v: v > 1, "--replicas > 1 (server replicas)",
-     "item 19"),
-    ("replica_sync_every", bool, "--replica-sync-every (server replicas)",
-     "item 19"),
-    ("handoff", lambda v: v != "live",
-     "--handoff checkpoint (server replicas)", "item 19"),
-    ("autoscale", bool, "--autoscale (elastic replicas)", "item 19"),
-    ("autoscale_min", _given, "--autoscale-min (elastic replicas)",
-     "item 19"),
-    ("autoscale_max", _given, "--autoscale-max (elastic replicas)",
-     "item 19"),
-    ("autoscale_cooldown_s", _given,
-     "--autoscale-cooldown-s (elastic replicas)", "item 19"),
 )
 
 
@@ -1355,9 +1507,15 @@ def serve_party(args):
     refusal. The server role with its checkpoints (``--checkpoint-dir``,
     ``--checkpoint-every``, ``--resume``), or ``--role stage
     --stage-index i``, a stage party of the K-stage chain
-    (``StageRuntime``; ``--microbatches`` must be the client's)."""
+    (``StageRuntime``; ``--microbatches`` must be the client's). The
+    server role with ``--replicas N`` (or ``--autoscale``) is a
+    ``ReplicaGroup`` of same-seed replicas; its replica factory and the
+    autoscale config ride on ``args`` (``replica_factory``,
+    ``autoscale_cfg``) for :func:`cmd_serve`."""
     from split_learning_tpu_torch.models import get_plan
     from split_learning_tpu_torch.runtime import ServerRuntime, StageRuntime
+    from split_learning_tpu_torch.runtime import autoscale as rt_autoscale
+    from split_learning_tpu_torch.runtime.replica import maybe_replicate
     from split_learning_tpu_torch.transport import (
         ChaosPolicy, SplitHTTPServer)
     from split_learning_tpu_torch.utils.device import resolve_device
@@ -1384,10 +1542,14 @@ def serve_party(args):
                         **_plan_kw(cfg.model, cfg.attn, size_kw, seq_len,
                                    cfg.dataset))
         ef_mode = "clapping" if args.compress == "clapping" else "topk8"
+        args.replica_factory = args.autoscale_cfg = None
         if args.role == "stage":
             # a middle or last party of the K-stage chain: the same HTTP
             # wire, serving the hop ops; its state is the chain client's
             # to checkpoint, as in JAX
+            if args.autoscale:
+                print("[warn] --autoscale applies to the replicated server "
+                      "role only; ignored for --role stage", file=sys.stderr)
             if cfg.checkpoint_dir:
                 print("[warn] stage parties do not own checkpoints; "
                       "--checkpoint-dir ignored", file=sys.stderr)
@@ -1400,18 +1562,35 @@ def serve_party(args):
                 tenants=args.tenants, quota=args.quota, slo_ms=args.slo_ms,
                 ef_mode=ef_mode, device=args.device)
         else:
-            # the seed's init, of which the server keeps its own stage: a
-            # client started from the same seed holds the other one
-            runtime = ServerRuntime(
-                plan, cfg, torch.Generator().manual_seed(cfg.seed),
-                strict_steps=not args.allow_out_of_order,
-                coalesce_max=args.coalesce_max,
-                coalesce_window_ms=args.coalesce_window_ms,
-                overlap=not args.no_overlap,
-                batching=args.batching,
-                tenants=args.tenants, quota=args.quota, slo_ms=args.slo_ms,
-                decouple_bwd=args.decouple_bwd, apply_lag=args.apply_lag,
-                ef_mode=ef_mode, device=args.device)
+            as_cfg = rt_autoscale.args_config(args)
+            if (args.replicas > 1 or as_cfg is not None) \
+                    and cfg.checkpoint_dir:
+                # the group's checkpoint story is the handoff sidecar,
+                # not N interleaved trees in one directory (JAX's rule)
+                raise ValueError(
+                    "--replicas > 1 / --autoscale does not compose with "
+                    "--checkpoint-dir yet (per-replica save/resume layout "
+                    "is ambiguous); drop one of them")
+
+            def make_replica(_idx: int) -> ServerRuntime:
+                # the seed's init, of which the server keeps its own
+                # stage (a client from the same seed holds the other);
+                # every replica the same: one model, N servers
+                return ServerRuntime(
+                    plan, cfg, torch.Generator().manual_seed(cfg.seed),
+                    strict_steps=not args.allow_out_of_order,
+                    coalesce_max=args.coalesce_max,
+                    coalesce_window_ms=args.coalesce_window_ms,
+                    overlap=not args.no_overlap,
+                    batching=args.batching,
+                    tenants=args.tenants, quota=args.quota,
+                    slo_ms=args.slo_ms,
+                    decouple_bwd=args.decouple_bwd, apply_lag=args.apply_lag,
+                    ef_mode=ef_mode, device=args.device)
+            runtime = maybe_replicate(
+                make_replica, args.replicas,
+                **_group_kw(args, cfg, args.compress_density, as_cfg))
+            args.replica_factory, args.autoscale_cfg = make_replica, as_cfg
         chaos = (ChaosPolicy(args.chaos, seed=args.chaos_seed)
                  if args.chaos else None)
         ckptr = None
@@ -1438,12 +1617,19 @@ def cmd_serve(args) -> int:
     same ``[serve]`` line."""
     import signal
 
-    from split_learning_tpu_torch import obs
     from split_learning_tpu_torch.obs import telemetry as obs_telemetry
     runtime, server, ckptr = serve_party(args)
     if runtime is None:
         return server
     step_tracer, ring = _serve_observability(args, runtime, server)
+    autoscaler = None
+    if getattr(args, "autoscale_cfg", None) is not None:
+        # scale-up spawns through the group's own factory; scale-down
+        # drives the exactly-once handoff
+        autoscaler = _start_autoscaler(
+            runtime, args.replica_factory, args.autoscale_cfg, ring,
+            coalesce_max=args.coalesce_max,
+            slo_ms=(args.telemetry_slo_ms or args.slo_ms or None))
     if step_tracer is not None:
         # cmd_serve runs under _run_with_flight, which set the list up
         args.sigterm_hooks.append(
@@ -1464,14 +1650,15 @@ def cmd_serve(args) -> int:
         print("[serve] shutting down", flush=True)
         server.stop()
     finally:
+        if autoscaler is not None:
+            # the pump first: a scale event must not race the teardown
+            autoscaler.close()
         if ring is not None:
             ring.advance(force=True)
-            obs_telemetry.disable()
+            obs_telemetry.stop()  # and the tracer, if the ring turned it on
         runtime.close()
         if step_tracer is not None:
             _export_serve_trace(step_tracer, args.trace, runtime)
-        elif ring is not None:
-            obs.disable()  # the ring's tracer
         if ckptr is not None:
             # saves are asynchronous: make the newest durable before the
             # process exits, or a resume comes back behind the clients
@@ -1508,28 +1695,20 @@ def _serve_observability(args, runtime, server):
         step_tracer = obs.enable()
         print(f"[serve] tracing on: /metrics histograms live; Chrome trace "
               f"-> {args.trace} on shutdown", file=sys.stderr)
-    cfg = obs_telemetry.env_config()
-    if cfg is None and args.telemetry:
-        cfg = {"interval_s": obs_telemetry.DEFAULT_INTERVAL_S,
-               "capacity": obs_telemetry.DEFAULT_CAPACITY}
-    if cfg is None:
-        return step_tracer, None
-    if args.telemetry_interval_s:
-        cfg["interval_s"] = float(args.telemetry_interval_s)
-    if args.telemetry_slo_ms:
-        cfg["slo_ms"] = float(args.telemetry_slo_ms)
-    if obs.get_tracer() is None:
-        obs.enable()  # the windows read the tracer-gated histograms
     party = (f"stage{args.stage_index}" if args.role == "stage"
              else "server")
-    ring = obs_telemetry.enable(
-        runtime.metrics, party=party, interval_s=cfg["interval_s"],
-        capacity=cfg["capacity"],
-        slo=obs_telemetry.tracker_from_config(cfg, tenants=args.tenants))
-    ring.start_sampler()
+    # --autoscale implies telemetry: the policy reads its windows
+    ring = obs_telemetry.start(
+        runtime.metrics, party=party,
+        force=(args.telemetry
+               or getattr(args, "autoscale_cfg", None) is not None),
+        interval_s=args.telemetry_interval_s,
+        slo_ms=args.telemetry_slo_ms, tenants=args.tenants)
+    if ring is None:
+        return step_tracer, None
     server.telemetry = ring
     print(f"[telemetry] windowed ring on: GET /telemetry (interval "
-          f"{cfg['interval_s']}s, capacity {cfg['capacity']})",
+          f"{ring.interval_s}s, capacity {ring.capacity})",
           file=sys.stderr)
     return step_tracer, ring
 
@@ -1807,7 +1986,10 @@ def _add_shared(p: argparse.ArgumentParser) -> None:
     p.add_argument("--tracking-uri", dest="tracking_uri", default=None,
                    help="the MLflow tracking server (env "
                         "MLFLOW_TRACKING_URI)")
-    p.add_argument("--remat", action="store_true")
+    p.add_argument("--remat", action="store_const", const=True, default=None,
+                   help="rematerialise each stage's forward in the backward "
+                        "(torch.utils.checkpoint): activation memory for "
+                        "recompute; the fused trainer and the served party")
     p.add_argument("--checkpoint-dir", dest="checkpoint_dir", default=None)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda (default; raises without a GPU) or cpu "
@@ -1923,38 +2105,44 @@ def _add_train_not_ported(p: argparse.ArgumentParser) -> None:
     p.add_argument("--num-processes", dest="num_processes", type=int,
                    default=None)
     p.add_argument("--process-id", dest="process_id", type=int, default=None)
-    p.add_argument("--replica-sync-every", dest="replica_sync_every",
-                   type=int, default=0)
-    p.add_argument("--handoff", choices=["live", "checkpoint"],
-                   default="live")
-    p.add_argument("--autoscale", action="store_true")
-    p.add_argument("--autoscale-min", dest="autoscale_min", type=int,
-                   default=None)
-    p.add_argument("--autoscale-max", dest="autoscale_max", type=int,
-                   default=None)
-    p.add_argument("--autoscale-cooldown-s", dest="autoscale_cooldown_s",
-                   type=float, default=None)
     p.add_argument("--seq-parallel", dest="seq_parallel", type=int,
                    default=None)
-    p.add_argument("--scan-steps", dest="scan_steps", type=int, default=0)
 
 
 def _add_serve_not_ported(p: argparse.ArgumentParser) -> None:
     """JAX's ``serve`` flags that exit 2 here (:data:`SERVE_NOT_PORTED`)."""
     p.add_argument("--mesh-data", dest="mesh_data", type=int, default=1)
     p.add_argument("--mesh-model", dest="mesh_model", type=int, default=1)
-    p.add_argument("--replicas", type=int, default=1)
+
+
+def _add_replica_flags(p: argparse.ArgumentParser) -> None:
+    """Server replicas and elastic autoscaling (``runtime/replica.py``,
+    ``runtime/autoscale.py``), on ``serve`` and ``train``'s in-process
+    server or chain stages."""
+    p.add_argument("--replicas", type=int, default=1,
+                   help="same-init server replicas behind the sticky "
+                        "failover router (1 = the bare server)")
     p.add_argument("--replica-sync-every", dest="replica_sync_every",
-                   type=int, default=0)
+                   type=int, default=0,
+                   help="FedAvg the replicas' parameters every K group "
+                        "steps (0 = never)")
     p.add_argument("--handoff", choices=["live", "checkpoint"],
-                   default="live")
-    p.add_argument("--autoscale", action="store_true")
+                   default="live",
+                   help="how a dead replica's step state reaches its "
+                        "successors: in memory, or through the durable "
+                        "extras sidecar")
+    p.add_argument("--autoscale", action="store_true",
+                   help="policy-driven replica count over the telemetry "
+                        "ring's windows (implies telemetry; env twin "
+                        "SLT_AUTOSCALE=1)")
     p.add_argument("--autoscale-min", dest="autoscale_min", type=int,
-                   default=None)
+                   default=None, help="floor on live replicas (default 1)")
     p.add_argument("--autoscale-max", dest="autoscale_max", type=int,
-                   default=None)
+                   default=None, help="ceiling on live replicas (default 4)")
     p.add_argument("--autoscale-cooldown-s", dest="autoscale_cooldown_s",
-                   type=float, default=None)
+                   type=float, default=None,
+                   help="scale-up cooldown; scale-down's is twice it "
+                        "(default 5)")
 
 
 def _add_flight(p: argparse.ArgumentParser) -> None:
@@ -2006,8 +2194,10 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     pt.add_argument("--max-retries", dest="max_retries", type=int,
                     default=3,
                     help="retries per step with --failure-policy retry")
-    pt.add_argument("--replicas", type=int, default=1,
-                    help="server replicas (only 1 is ported)")
+    pt.add_argument("--scan-steps", dest="scan_steps", type=int, default=0,
+                    help="the fused transport: run N steps as one chunk "
+                         "and read their N losses once (capped to "
+                         "--checkpoint-every; no CUDA graph yet)")
     pt.add_argument("--pipeline-depth", dest="pipeline_depth", type=int,
                     default=1,
                     help="split mode, local/http transports: keep up to N "
@@ -2055,6 +2245,7 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     _add_server_knobs(pt, serve=False)
     _add_chain_flags(pt)
     _add_train_not_ported(pt)
+    _add_replica_flags(pt)
     pt.set_defaults(fn=cmd_train)
 
     ps = sub.add_parser("serve", help="serve the server party over HTTP")
@@ -2104,6 +2295,7 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
                          "flight events; env twin SLT_TELEMETRY_SLO_MS)")
     _add_server_knobs(ps, serve=True)
     _add_serve_not_ported(ps)
+    _add_replica_flags(ps)
     ps.set_defaults(fn=cmd_serve)
 
     pe = sub.add_parser("eval", help="evaluate a checkpoint on the test split")

@@ -12,8 +12,10 @@ cache and the transports call::
 
 Beside them, as in JAX: the flight recorder (``obs/flight.py``), the
 telemetry ring and SLO tracker (``obs/telemetry.py``) and the fleet
-view (``obs/federate.py``), each off until enabled. The dispatch
-watchdog (``obs/dispatch_debug.py``) is not ported (ROADMAP item 23).
+view (``obs/federate.py``), and the dispatch watchdog
+(``obs/dispatch_debug.py``: kernel builds, per-scope launches and host
+syncs inside step scopes, on with ``SLT_DISPATCH_DEBUG=1``), each off
+until enabled.
 """
 
 from split_learning_tpu_torch.obs.metrics import (  # noqa: F401

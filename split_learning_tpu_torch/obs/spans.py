@@ -98,7 +98,7 @@ FL_FATAL = "fl_fatal"                    # SIGTERM / fatal exception dump
 FL_HOP_SEND = "fl_hop_send"              # pipeline hop posted toward a stage
 FL_HOP_RECV = "fl_hop_recv"              # pipeline hop delivered/acknowledged
 FL_STAGE_REPLY = "fl_stage_reply"        # stage replied (cut grad / acts)
-# server replicas (item 19): registered, emitted by nothing yet
+# server replicas (runtime/replica.py)
 FL_ROUTE = "fl_route"                    # client -> replica assignment made
 FL_REPLICA_DEATH = "fl_replica_death"    # replica declared dead (breaker open)
 FL_HANDOFF_BEGIN = "fl_handoff_begin"    # failover handoff started (quiesce)
@@ -106,7 +106,7 @@ FL_HANDOFF_COMMIT = "fl_handoff_commit"  # state merged; clients rerouted
 # the telemetry plane: an SLO burn-rate alert transitioned (``tenant``,
 # ``objective``, ``state``, both window burn rates)
 FL_SLO_ALERT = "fl_slo_alert"            # SLO burn-rate alert fired/cleared
-# elastic autoscaling (item 19): registered, emitted by nothing yet
+# elastic autoscaling (runtime/autoscale.py)
 FL_SCALE_DECISION = "fl_scale_decision"  # autoscale policy verdict (non-hold)
 FL_SCALE_UP = "fl_scale_up"              # replica spawned and adopted
 FL_SCALE_DOWN = "fl_scale_down"          # replica retired via policy handoff
@@ -128,9 +128,13 @@ FLIGHT_EVENTS = (
 SLO_BURN_FAST = "slo_burn_rate_fast"
 SLO_BURN_SLOW = "slo_burn_rate_slow"
 # the replica router's live count and the autoscaler's last verdict
-# (item 19): registered, published by nothing yet
+# (runtime/replica.py, runtime/autoscale.py)
 REPLICAS_LIVE = "replicas_live"
 AUTOSCALE_DECISION = "autoscale_decision"
+# the replica router's histograms: a fenced client's wait for the
+# handoff commit, and the handoff itself (quiesce to commit)
+REPLICA_REROUTE_WAIT = "replica_reroute_wait"
+REPLICA_HANDOFF_LATENCY = "replica_handoff_latency"
 
 # the client-level phases that tile a step: the denominator of the
 # compute-vs-wire fraction (queue_wait/dispatch belong to the server

@@ -298,6 +298,10 @@ class TelemetryRing:
         self._prev: Optional[Dict[str, Any]] = None
         self._sampler: Optional[threading.Thread] = None
         self._stop = threading.Event()
+        # set by start(): the SLO its windows are held to, and whether
+        # it turned the tracer on
+        self.slo_ms: Optional[float] = None
+        self.own_tracer = False
 
     # -------------------------------------------------------------- #
     def _empty_window(self, index: int) -> Dict[str, Any]:
@@ -484,3 +488,50 @@ def maybe_enable_from_env(snapshot_fn: Callable[[], Dict[str, Any]],
     return enable(snapshot_fn, party=party,
                   interval_s=cfg["interval_s"], capacity=cfg["capacity"],
                   slo=tracker_from_config(cfg, tenants=tenants))
+
+
+def start(snapshot_fn: Callable[[], Dict[str, Any]], *,
+          party: str = "server", force: bool = False,
+          interval_s: Optional[float] = None,
+          slo_ms: Optional[float] = None,
+          default_slo_ms: Optional[float] = None,
+          tenants: int = 1) -> Optional[TelemetryRing]:
+    """The ring behind ``--telemetry``, ``SLT_TELEMETRY`` and
+    ``--autoscale`` (``force``: the policy reads its windows): None when
+    none of them asks. ``interval_s`` and ``slo_ms`` (flags) win over
+    the env knobs; ``default_slo_ms`` applies only where neither set an
+    SLO. Telemetry implies tracing: the tracer is turned on when off,
+    and :func:`stop` turns it off again. The sampler is started."""
+    from split_learning_tpu_torch.obs import trace as obs_trace
+    cfg = env_config()
+    if cfg is None and not force:
+        return None
+    if cfg is None:
+        cfg = {"interval_s": DEFAULT_INTERVAL_S,
+               "capacity": DEFAULT_CAPACITY}
+    if interval_s:
+        cfg["interval_s"] = float(interval_s)
+    if slo_ms:
+        cfg["slo_ms"] = float(slo_ms)
+    elif default_slo_ms and "slo_ms" not in cfg:
+        cfg["slo_ms"] = float(default_slo_ms)
+    own_tracer = obs_trace.get_tracer() is None
+    if own_tracer:
+        obs_trace.enable()  # the windows read the tracer-gated histograms
+    ring = enable(snapshot_fn, party=party, interval_s=cfg["interval_s"],
+                  capacity=cfg["capacity"],
+                  slo=tracker_from_config(cfg, tenants=tenants))
+    ring.slo_ms = cfg.get("slo_ms")
+    ring.own_tracer = own_tracer
+    ring.start_sampler()
+    return ring
+
+
+def stop() -> None:
+    """Close the ring :func:`start` installed, and the tracer if it
+    turned it on."""
+    from split_learning_tpu_torch.obs import trace as obs_trace
+    ring = _RING
+    disable()
+    if ring is not None and ring.own_tracer:
+        obs_trace.disable()

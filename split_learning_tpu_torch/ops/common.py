@@ -8,14 +8,18 @@ place:
   kernels, copied from the JAX package.
 - :data:`LAUNCHES`, the launch-count registry. Each kernel wrapper adds
   one to its name where it launches its kernel, and nowhere else, so a
-  run can show that its main path went through the kernels.
+  run can show that its main path went through the kernels. Its
+  ``hook`` (None unless the dispatch watchdog, ``obs/dispatch_debug.py``,
+  is installed) sees each launch on the launching thread.
 - :func:`load_kernels`, which compiles ``csrc/*.cu`` with ``nvcc`` into
   shared libraries with a plain C interface and loads them with
   ``ctypes``. The build runs at first use, one ``nvcc`` per source, all
   started together, into ``build/torch_kernels/`` beside the package;
   each file name carries a hash of the sources and flags, so a changed
   source is rebuilt and an unchanged one is reused. A missing ``nvcc``
-  or a failed build raises.
+  or a failed build raises. :data:`BUILD_HOOK` (None unless the
+  dispatch watchdog is installed) is told how many ``nvcc`` runs a build
+  made, on the building thread.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -57,10 +61,13 @@ class LaunchCounts:
     def __init__(self) -> None:
         self._counts: Dict[str, int] = {}
         self._lock = threading.Lock()
+        self.hook: Optional[Callable[[str], None]] = None
 
     def add(self, name: str) -> None:
         with self._lock:
             self._counts[name] = self._counts.get(name, 0) + 1
+        if self.hook is not None:
+            self.hook(name)
 
     def reset(self) -> None:
         with self._lock:
@@ -72,6 +79,9 @@ class LaunchCounts:
 
 
 LAUNCHES = LaunchCounts()
+
+# the dispatch watchdog's build hook: called with the number of nvcc runs
+BUILD_HOOK: Optional[Callable[[int], None]] = None
 
 _LOADED: Dict[str, Dict[str, ctypes.CDLL]] = {}
 _LOAD_LOCK = threading.Lock()
@@ -119,6 +129,8 @@ def _load_kernels() -> Dict[str, ctypes.CDLL]:
     pending = [(src, targets[src.stem]) for src in sources
                if not targets[src.stem].exists()]
     if pending:
+        if BUILD_HOOK is not None:
+            BUILD_HOOK(len(pending))
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = []

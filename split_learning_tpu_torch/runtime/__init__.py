@@ -20,6 +20,8 @@ from split_learning_tpu_torch.runtime.pipeline_runner import (
 from split_learning_tpu_torch.runtime.pipelined_client import (
     PipelinedSplitClientTrainer)
 from split_learning_tpu_torch.runtime.replay import ReplayCache
+from split_learning_tpu_torch.runtime.replica import (
+    ReplicaGroup, maybe_replicate, rendezvous_pick)
 from split_learning_tpu_torch.runtime.server import (
     FedAvgAggregator, ServerRuntime)
 from split_learning_tpu_torch.runtime.stage import (
@@ -37,13 +39,15 @@ __all__ = ["AdmissionController", "Checkpointer", "CircuitBreaker",
            "FederatedClientTrainer", "FusedSplitTrainer", "MB_STRIDE",
            "MultiClientSplitRunner", "PipelineRunner",
            "PipelinedSplitClientTrainer",
-           "ProtocolError", "ReplayCache", "RequestCoalescer", "SCHEDULES",
+           "ProtocolError", "ReplayCache", "ReplicaGroup",
+           "RequestCoalescer", "SCHEDULES",
            "SGD", "ServerRuntime", "SplitClientTrainer", "StageRuntime",
            "StepRecord", "TrainState", "USplitClientTrainer",
            "bubble_fraction", "check_config", "check_supported",
            "compressed_sync_contribution", "evaluate", "evaluate_remote",
            "fedavg_mean", "generate_remote", "greedy_generate", "hop_seq",
            "init_params", "leaves_of", "make_lr", "make_state", "make_tx",
+           "maybe_replicate", "rendezvous_pick",
            "onefb_warmup", "pipeline_ticks", "read_latest_extras",
            "restore_state", "sample_generate", "sgd",
            "split_client_stages", "state_tree", "write_extras"]

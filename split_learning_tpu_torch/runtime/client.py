@@ -70,6 +70,7 @@ import torch
 
 from split_learning_tpu_torch.core.stage import Params, SplitPlan
 from split_learning_tpu_torch.interop import params_from_jax, params_to_jax
+from split_learning_tpu_torch.obs import dispatch_debug as obs_dispatch
 from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.obs import trace as obs_trace
 from split_learning_tpu_torch.ops.cross_entropy import fused_cross_entropy
@@ -213,6 +214,9 @@ class SplitClientTrainer:
         self._tx = make_tx(cfg)
         self._init = init
         self.state: Optional[TrainState] = None
+        # dispatch watchdog: None unless SLT_DISPATCH_DEBUG / force()
+        self._dd = obs_dispatch.attach()
+        self._ddtok = obs_dispatch.token()
 
     @property
     def wire_ef(self) -> Optional[Any]:
@@ -256,10 +260,15 @@ class SplitClientTrainer:
         t_step0 = time.perf_counter() if tr is not None else 0.0
         params = self.state.params[0]
         with phase("compute_fwd"):
-            with torch.enable_grad():
-                acts = self.stage.apply(params, _input(x, self.device))
+            xin = _input(x, self.device)
+            with obs_dispatch.step_scope(
+                    self._dd, (self._ddtok, "client_fwd"),
+                    sig_fn=lambda: obs_dispatch.signature(xin)), \
+                    torch.enable_grad():
+                acts = self.stage.apply(params, xin)
             labels = torch.as_tensor(y)
-            sent = _on_wire(self.transport, acts)
+            with obs_dispatch.expected_d2h(self._dd):
+                sent = _on_wire(self.transport, acts)
             if prof is not None:
                 self._sync()
         if tr is not None:
@@ -332,7 +341,10 @@ class SplitClientTrainer:
         with phase("compute_bwd"):
             t_b0 = time.perf_counter() if tr is not None else 0.0
             g = _received(g_acts, self.device).to(acts.dtype)
-            grads = torch.autograd.grad(acts, list(params.values()), g)
+            with obs_dispatch.step_scope(
+                    self._dd, (self._ddtok, "client_bwd"),
+                    sig_fn=lambda: obs_dispatch.signature(g)):
+                grads = torch.autograd.grad(acts, list(params.values()), g)
             if tr is not None:
                 self._sync()
                 t_o0 = time.perf_counter()
@@ -340,7 +352,11 @@ class SplitClientTrainer:
                           trace_id=tid, tid=self.client_id, step=step)
             # cuDNN may hand conv weight grads back channels-last; K2
             # walks each leaf in its parameter's (contiguous) order
-            self._tx.update(self.state, [gr.contiguous() for gr in grads])
+            with obs_dispatch.step_scope(
+                    self._dd, (self._ddtok, "client_apply"),
+                    sig_fn=lambda: len(grads)):
+                self._tx.update(self.state,
+                                [gr.contiguous() for gr in grads])
             if prof is not None or tr is not None:
                 self._sync()  # only where the timing matters
         if tr is not None:

@@ -27,10 +27,23 @@ integers they are; floating inputs are cast to float32.
 
 Where the JAX trainer compiles one XLA program per step (and a
 ``lax.scan`` per epoch), this one runs eagerly: ``train_epoch`` is a
-Python loop over the leading step axis. CUDA graphs over the step come
-later. The state is updated in place; :meth:`FusedSplitTrainer.
-export_states` and :meth:`~FusedSplitTrainer.restore_states` carry it
-through a checkpoint.
+Python loop over the leading step axis that launches the steps back to
+back and stacks their device losses, with no host sync; ``train
+--scan-steps N`` hands it N batches a chunk and reads the N losses once.
+It captures no CUDA graph: a graph of the chunk replayed N times is a
+later performance change (ROADMAP P2). The state is updated in place;
+:meth:`FusedSplitTrainer.export_states` and
+:meth:`~FusedSplitTrainer.restore_states` carry it through a checkpoint.
+
+``cfg.remat`` trains through :func:`~split_learning_tpu_torch.core.
+stage.remat_plan`: each stage's forward runs again in the backward
+(under a flash-attention plan K5 launches twice a block a step; the
+loss, K1, lies outside every stage and launches once). :meth:`step_flops`
+counts the plan without the recompute, as JAX's count does.
+
+The dispatch watchdog (``obs/dispatch_debug.py``), when on, scopes each
+step (``fused_step``) and each chunk (``fused_epoch``); the loss read of
+:meth:`train_step` is its sanctioned host read.
 
 Config values the port cannot run yet raise ``NotImplementedError``
 naming the ROADMAP item that brings them (:func:`check_supported`).
@@ -43,7 +56,8 @@ from typing import Any, Dict, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from split_learning_tpu_torch.core.stage import Params, SplitPlan
+from split_learning_tpu_torch.core.stage import Params, SplitPlan, remat_plan
+from split_learning_tpu_torch.obs import dispatch_debug as obs_dispatch
 from split_learning_tpu_torch.ops.cross_entropy import fused_cross_entropy
 from split_learning_tpu_torch.runtime.state import (
     TrainState, check_config, init_params, leaves_of, make_state, make_tx,
@@ -86,12 +100,18 @@ class FusedSplitTrainer:
                  device: DeviceLike = "cuda") -> None:
         check_supported(cfg)
         self.device = resolve_device(device)
-        self.plan = plan
+        # grads recompute the stage forwards under remat; the FLOP count
+        # reads the plan as written
+        self._flops_plan = plan
+        self.plan = remat_plan(plan) if cfg.remat else plan
         self.cfg = cfg
         self._tx = make_tx(cfg)
         self.state: TrainState = make_state(
             init_params(plan, init, self.device), self._tx)
         self._flops_cache: Dict[Tuple[Any, ...], float] = {}
+        # dispatch watchdog: None unless SLT_DISPATCH_DEBUG / force()
+        self._dd = obs_dispatch.attach()
+        self._ddtok = obs_dispatch.token()
 
     # ----------------------------------------------------------------- #
     def _to_device(self, x, y) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -126,9 +146,7 @@ class FusedSplitTrainer:
             l_sum = l_sum + loss
         return l_sum / mb, [g / mb for g in g_sum]
 
-    def train_step_async(self, x, y) -> torch.Tensor:
-        """One step; returns the loss as a device scalar, with no host sync."""
-        x, y = self._to_device(x, y)
+    def _step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         loss, grads = self._loss_and_grads(x, y)
         # cuDNN returns the conv weight grads in channels_last when its input
         # is channels_last; the SGD kernel walks each leaf in its params'
@@ -136,16 +154,30 @@ class FusedSplitTrainer:
         self._tx.update(self.state, [g.contiguous() for g in grads])
         return loss
 
+    def train_step_async(self, x, y) -> torch.Tensor:
+        """One step; returns the loss as a device scalar, with no host sync."""
+        x, y = self._to_device(x, y)
+        with obs_dispatch.step_scope(
+                self._dd, (self._ddtok, "fused_step"),
+                sig_fn=lambda: obs_dispatch.signature(x, y)):
+            return self._step(x, y)
+
     def train_step(self, x, y) -> float:
         """One step on the batch; returns the loss as a Python float."""
-        return float(self.train_step_async(x, y))
+        loss = self.train_step_async(x, y)
+        with obs_dispatch.expected_d2h(self._dd):
+            return float(loss)
 
     def train_epoch(self, xs, ys) -> torch.Tensor:
-        """Run ``xs.shape[0]`` steps; returns the per-step loss series
-        (a device tensor, not synchronised)."""
+        """Run ``xs.shape[0]`` steps back to back; returns the per-step
+        loss series (a device tensor, not synchronised)."""
         xs, ys = self._to_device(xs, ys)
-        return torch.stack([self.train_step_async(xs[i], ys[i])
-                            for i in range(xs.shape[0])])
+        pairs = [(xs[i], ys[i]) for i in range(xs.shape[0])]
+        with obs_dispatch.step_scope(
+                self._dd, (self._ddtok, "fused_epoch"),
+                sig_fn=lambda: (len(pairs),)
+                + obs_dispatch.signature(*pairs[0])):
+            return torch.stack([self._step(x, y) for x, y in pairs])
 
     def step_flops(self, x, y) -> float:
         """Model FLOPs of one step on the batch ``(x, y)`` (forward and
@@ -165,8 +197,8 @@ class FusedSplitTrainer:
                 xs = xb.reshape((mb, xb.shape[0] // mb) + tuple(xb.shape[1:]))
                 ys = yb.reshape((mb, yb.shape[0] // mb) + tuple(yb.shape[1:]))
                 for i in range(mb):
-                    loss = fused_cross_entropy(self.plan.apply(params, xs[i]),
-                                               ys[i])
+                    loss = fused_cross_entropy(
+                        self._flops_plan.apply(params, xs[i]), ys[i])
                     torch.autograd.grad(loss, leaves)
             params = tuple({k: v.detach().requires_grad_(True)
                             for k, v in st.items()}

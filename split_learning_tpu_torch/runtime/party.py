@@ -38,6 +38,8 @@ What is here, each as in JAX:
   of the step it follows and a retry of that step after a restart gets
   the original frame;
 - the shared health/metrics folds and :meth:`close`;
+- the dispatch watchdog's tracker (``obs/dispatch_debug.py``, None
+  unless on), whose gauges join :meth:`_fold_shared_metrics`;
 - observability, as in JAX: the flight events of the shared machinery
   (checkpoint capture and lineage, close, deferred enqueue and flush)
   and, while tracing is on, the per-program FLOP accounting
@@ -58,6 +60,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from split_learning_tpu_torch.obs import dispatch_debug as obs_dispatch
 from split_learning_tpu_torch.obs import flight as obs_flight
 from split_learning_tpu_torch.obs import locks as obs_locks
 from split_learning_tpu_torch.obs import spans
@@ -150,6 +153,9 @@ class PartyRuntime:
         self._prog_stats: Dict[str, list] = {}
         # the card's traced windows whose events are not read yet
         self._windows: list = []
+        # dispatch watchdog: None unless SLT_DISPATCH_DEBUG / force()
+        self._dd = obs_dispatch.attach()
+        self._ddtok = obs_dispatch.token()
 
     def _to_dev(self, x: Any, dtype: Optional[torch.dtype] = None
                 ) -> torch.Tensor:
@@ -464,6 +470,9 @@ class PartyRuntime:
                 rc.pop("replay_cache_size"))
             for k, v in rc.items():
                 snap["counters"][f"{k}_total"] = float(v)
+        if self._dd is not None:
+            # the watchdog's gauges (render_prometheus prefixes slt_)
+            snap["gauges"].update(self._dd.gauges())
 
 
 class _DeferredApply:

@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from split_learning_tpu_torch.core.stage import Params, SplitPlan
+from split_learning_tpu_torch.obs import dispatch_debug as obs_dispatch
 from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.runtime.client import _input, _received
 from split_learning_tpu_torch.runtime.party import ProtocolError
@@ -197,6 +198,9 @@ class PipelineRunner:
             isinstance(t, Transport) for t in self.transports)
         self._stage0 = plan.stages[0]
         self._tx = make_tx(cfg)
+        # dispatch watchdog: None unless SLT_DISPATCH_DEBUG / force()
+        self._dd = obs_dispatch.attach()
+        self._ddtok = obs_dispatch.token()
         self.state: TrainState = make_state(
             init_params(plan, init, self.device, (0,)), self._tx)
 
@@ -257,7 +261,9 @@ class PipelineRunner:
                 def last_hop(step, mb, x, labels):
                     g, loss = self._wire(t.hop_loss, x, labels, step, mb,
                                          self.client_id)
-                    loss_host = float(loss)  # the host read, off the lock
+                    # the host read, off the lock
+                    with obs_dispatch.expected_d2h(self._dd):
+                        loss_host = float(loss)
                     with self._err_lock:
                         self._losses[(step, mb)] = loss_host
                     if W == 1:
@@ -318,12 +324,17 @@ class PipelineRunner:
             """Stage 0's forward of microbatch m (its graph kept for the
             backward), its payload onto wire 0. Every injection of a step
             sees the same parameters: the update follows the drain."""
-            with torch.enable_grad():
-                a = self._stage0.apply(params,
-                                       x_dev[m * mbsz:(m + 1) * mbsz])
+            xm = x_dev[m * mbsz:(m + 1) * mbsz]
+            with obs_dispatch.step_scope(
+                    self._dd, (self._ddtok, "pipe_fwd0"),
+                    sig_fn=lambda: obs_dispatch.signature(xm)), \
+                    torch.enable_grad():
+                a = self._stage0.apply(params, xm)
             acts[m] = a
+            with obs_dispatch.expected_d2h(self._dd):
+                payload = self._payload(a)
             self._fwd_workers[0].q.put(
-                (step_i, m, self._payload(a), y[m * mbsz:(m + 1) * mbsz]))
+                (step_i, m, payload, y[m * mbsz:(m + 1) * mbsz]))
 
         # GPipe streams all M forwards out up front; 1F1B stops at the
         # warmup depth and injects one forward per drained cotangent
@@ -357,12 +368,17 @@ class PipelineRunner:
         acc: Optional[List[torch.Tensor]] = None
         for m in range(M):
             g = _received(cts[m], self.device).to(acts[m].dtype)
-            gp = torch.autograd.grad(acts[m], leaves, g)
-            acc = list(gp) if acc is None else [
-                a + b for a, b in zip(acc, gp)]
+            with obs_dispatch.step_scope(
+                    self._dd, (self._ddtok, "pipe_bwd0"),
+                    sig_fn=lambda: obs_dispatch.signature(g)):
+                gp = torch.autograd.grad(acts[m], leaves, g)
+                acc = list(gp) if acc is None else [
+                    a + b for a, b in zip(acc, gp)]
         # cuDNN may hand conv weight grads back channels-last; K2 walks
         # each leaf in its parameter's (contiguous) order
-        self._tx.update(self.state, [a.contiguous() for a in acc])
+        with obs_dispatch.step_scope(self._dd, (self._ddtok, "pipe_apply0"),
+                                     sig_fn=lambda: len(acc)):
+            self._tx.update(self.state, [a.contiguous() for a in acc])
         with self._err_lock:
             losses = [self._losses.pop((step_i, m)) for m in range(M)]
         self.steps_done += 1

@@ -118,8 +118,9 @@ import torch
 
 from split_learning_tpu_torch import __version__
 from split_learning_tpu_torch.core.stage import (
-    Params, SplitPlan, stage_backward)
+    Params, SplitPlan, remat_plan, stage_backward)
 from split_learning_tpu_torch.interop import params_from_jax, params_to_jax
+from split_learning_tpu_torch.obs import dispatch_debug as obs_dispatch
 from split_learning_tpu_torch.obs import flight as obs_flight
 from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.obs import trace as obs_trace
@@ -218,6 +219,13 @@ class ServerRuntime(PartyRuntime):
         self.batching = batching
         self.decouple_bwd = bool(decouple_bwd)
         self.apply_lag = int(apply_lag)
+        # the FLOP count of a traced program reads the plan as written;
+        # under remat the served stage recomputes its forward in the
+        # backward (core/stage.py remat_plan)
+        self._flops_plan = plan
+        if cfg.remat:
+            plan = remat_plan(plan)
+            self.plan = plan
         if self.apply_lag < 0:
             raise ValueError(f"apply_lag must be >= 0 (got {apply_lag})")
         if self.apply_lag > 0 and not self.decouple_bwd:
@@ -399,7 +407,11 @@ class ServerRuntime(PartyRuntime):
             labels_dev = self._to_dev(labels, torch.int64)
             read = None
             if self._deferred is not None:
-                g_acts, loss = self._reply(acts, labels_dev)
+                with obs_dispatch.step_scope(
+                        self._dd, (self._ddtok, "reply_grad"),
+                        sig_fn=lambda: obs_dispatch.signature(
+                            acts, labels_dev)):
+                    g_acts, loss = self._reply(acts, labels_dev)
                 if win is not None:
                     # the reply's window: the queued update is not in it
                     win = self._window_close(win)
@@ -415,13 +427,18 @@ class ServerRuntime(PartyRuntime):
                     "labels": labels_dev})
                 self._deferred.drain_over_lag()
             else:
-                g_acts, loss = self._step(acts, labels_dev)
+                with obs_dispatch.step_scope(
+                        self._dd, (self._ddtok, "split_step"),
+                        sig_fn=lambda: obs_dispatch.signature(
+                            acts, labels_dev)):
+                    g_acts, loss = self._step(acts, labels_dev)
                 if win is not None:
                     win = self._window_close(win)
             if not self.overlap:
                 # --no-overlap: the host copy and the loss read inside
                 # the lock
-                res = self._reply_of(g_acts, loss, read, activations)
+                with obs_dispatch.expected_d2h(self._dd):
+                    res = self._reply_of(g_acts, loss, read, activations)
             # max(): with strict_steps off steps may arrive out of
             # order; the acknowledged step never regresses
             self._last_step[client_id] = max(
@@ -440,7 +457,8 @@ class ServerRuntime(PartyRuntime):
                              (self.state.params[0], acts, labels_dev), win)
         if self.overlap:
             # off the lock: the loss read waits for the step's kernels
-            res = self._reply_of(g_acts, loss, read, activations)
+            with obs_dispatch.expected_d2h(self._dd):
+                res = self._reply_of(g_acts, loss, read, activations)
         times[:] = [t_q0, t_d0, t_d1,
                     time.perf_counter() if tr is not None else 0.0]
         if fl is not None:
@@ -460,7 +478,8 @@ class ServerRuntime(PartyRuntime):
             acts = acts.detach().requires_grad_(True)
             params = {k: v.detach().requires_grad_(True)
                       for k, v in params.items()}
-            logits = self._stage.apply(params, acts)
+            logits = self._flops_plan.stages[self.server_stage].apply(
+                params, acts)
             loss = (cross_entropy_rows(logits, labels)[0] if rows
                     else fused_cross_entropy(logits, labels))
             wrt = (list(params.values()) if wrt_params else []) + [acts]
@@ -608,20 +627,23 @@ class ServerRuntime(PartyRuntime):
             labels = torch.cat([r.labels for r in admitted])
             params = self.state.params[0]
             acts.requires_grad_(True)
-            with torch.enable_grad():
-                loss, rows = cross_entropy_rows(
-                    self._stage.apply(params, acts), labels)
-                if self._deferred is not None:
-                    (g_acts,) = torch.autograd.grad(loss, [acts])
-                else:
-                    *g_params, g_acts = torch.autograd.grad(
-                        loss, list(params.values()) + [acts])
-            if self._deferred is None:
-                self._tx.update(self.state,
-                                [g.contiguous() for g in g_params])
+            with obs_dispatch.step_scope(
+                    self._dd, (self._ddtok, "coalesced_step"),
+                    sig_fn=lambda: sig):
+                with torch.enable_grad():
+                    loss, rows = cross_entropy_rows(
+                        self._stage.apply(params, acts), labels)
+                    if self._deferred is not None:
+                        (g_acts,) = torch.autograd.grad(loss, [acts])
+                    else:
+                        *g_params, g_acts = torch.autograd.grad(
+                            loss, list(params.values()) + [acts])
+                if self._deferred is None:
+                    self._tx.update(self.state,
+                                    [g.contiguous() for g in g_params])
             if win is not None:
                 win = self._window_close(win)
-            pg = _GroupD2H(g_acts, rows, total)
+            pg = _GroupD2H(g_acts, rows, total, self._dd)
             if not self.overlap:
                 pg.materialize()  # --no-overlap: the host read here
             dw = time.perf_counter() - t_d0 if tr is not None else 0.0
@@ -921,20 +943,22 @@ class _GroupD2H:
     stays where the group's gradient is (on the card for a card request)
     and is rescaled to its own rows' mean there."""
 
-    __slots__ = ("_g", "_read", "_total", "_lock", "rows")
+    __slots__ = ("_g", "_read", "_total", "_lock", "rows", "_dd")
 
     def __init__(self, g_acts: torch.Tensor, rows: torch.Tensor,
-                 total: int) -> None:
+                 total: int, dd: Any = None) -> None:
         self._g = g_acts
         self._read: Optional[_HostRead] = _HostRead(rows)
         self._total = total
         self._lock = threading.Lock()
         self.rows: Optional[np.ndarray] = None
+        self._dd = dd  # the dispatch watchdog, None when off
 
     def materialize(self) -> None:
         with self._lock:
             if self.rows is None:
-                self.rows = self._read.get()[0].numpy()
+                with obs_dispatch.expected_d2h(self._dd):
+                    self.rows = self._read.get()[0].numpy()
                 self._read = None
 
     def segment(self, off: int, b: int) -> Callable[[], Tuple[Any, float]]:

@@ -68,6 +68,7 @@ import torch
 
 from split_learning_tpu_torch import __version__
 from split_learning_tpu_torch.core.stage import Params, SplitPlan
+from split_learning_tpu_torch.obs import dispatch_debug as obs_dispatch
 from split_learning_tpu_torch.obs import flight as obs_flight
 from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.obs import trace as obs_trace
@@ -324,7 +325,10 @@ class StageRuntime(PartyRuntime):
                     params = rec["params"]
                 else:
                     params = self.state.params[0]
-                with torch.no_grad():
+                with obs_dispatch.step_scope(
+                        self._dd, (self._ddtok, "hop_fwd"),
+                        sig_fn=lambda: obs_dispatch.signature(x_dev)), \
+                        torch.no_grad():
                     y = self._stage.apply(params, x_dev)
                 if win is not None:
                     win = self._window_close(win)
@@ -332,7 +336,8 @@ class StageRuntime(PartyRuntime):
                     rec["xs"][int(mb)] = x_dev
                 self._last_seq[(client_id, "hop_fwd")] = seq
                 self._hops["hop_fwd"] += 1
-            out = reply_like(y, x)   # off the lock
+            with obs_dispatch.expected_d2h(self._dd):
+                out = reply_like(y, x)   # off the lock
             if tr is not None:
                 # the forward's window, the fleet view's compute input
                 self._metrics.observe(spans.DISPATCH,
@@ -381,7 +386,10 @@ class StageRuntime(PartyRuntime):
                         "never forwarded)")
                 g_dev = self._to_dev(g_out)
                 x_in = rec["xs"][int(mb)].detach().requires_grad_(True)
-                with torch.enable_grad():
+                with obs_dispatch.step_scope(
+                        self._dd, (self._ddtok, "hop_bwd"),
+                        sig_fn=lambda: obs_dispatch.signature(g_dev)), \
+                        torch.enable_grad():
                     y = self._stage.apply(rec["params"], x_in)
                     (g_in,) = torch.autograd.grad(y, [x_in],
                                                   g_dev.to(y.dtype))
@@ -391,7 +399,8 @@ class StageRuntime(PartyRuntime):
                 self._maybe_queue_apply(rec, "gs", client_id, step)
                 self._last_seq[(client_id, "hop_bwd")] = seq
                 self._hops["hop_bwd"] += 1
-            out = reply_like(g_in, g_out)
+            with obs_dispatch.expected_d2h(self._dd):
+                out = reply_like(g_in, g_out)
             if tr is not None:
                 rw = time.perf_counter() - t0
                 tr.record(spans.REPLY_GRAD, t0, rw,
@@ -440,7 +449,10 @@ class StageRuntime(PartyRuntime):
                 x_dev = self._to_dev(x)
                 y_dev = self._to_dev(labels, torch.int64)
                 x_in = x_dev.detach().requires_grad_(True)
-                with torch.enable_grad():
+                with obs_dispatch.step_scope(
+                        self._dd, (self._ddtok, "hop_loss"),
+                        sig_fn=lambda: obs_dispatch.signature(
+                            x_in, y_dev)), torch.enable_grad():
                     loss = fused_cross_entropy(
                         self._stage.apply(rec["params"], x_in), y_dev)
                     (g_x,) = torch.autograd.grad(loss, [x_in])
@@ -455,7 +467,8 @@ class StageRuntime(PartyRuntime):
                 self._last_seq[(client_id, "hop_loss")] = seq
                 self._hops["hop_loss"] += 1
             # off the lock: the loss edge, the chain's one host read
-            res = (reply_like(g_x, x), float(loss))
+            with obs_dispatch.expected_d2h(self._dd):
+                res = (reply_like(g_x, x), float(loss))
             if tr is not None:
                 rw = time.perf_counter() - t0
                 tr.record(spans.REPLY_GRAD, t0, rw,

@@ -435,7 +435,6 @@ def check_config(cfg) -> None:
          "model_parallel > 1 (tensor parallelism: ROADMAP item 18)"),
         (cfg.seq_parallel > 1,
          "seq_parallel > 1 (context parallelism: ROADMAP item 21)"),
-        (cfg.remat, "remat (ROADMAP item 16)"),
     ]
     for bad, what in unsupported:
         if bad:

@@ -119,6 +119,37 @@ def test_ported_train_flags_run(attr, tmp_path, capsys):
         assert "unusable" in err and "falling back to stdout" in err
 
 
+_PORTED_TRAIN_FLAGS = {
+    "remat": ["--remat"],
+    "replica_sync_every": ["--transport", "local", "--replicas", "2",
+                           "--replica-sync-every", "1"],
+    "handoff": ["--transport", "local", "--replicas", "2", "--handoff",
+                "checkpoint"],
+    "autoscale": ["--transport", "local", "--autoscale"],
+    "autoscale_min": ["--transport", "local", "--autoscale",
+                      "--autoscale-min", "2"],
+    "autoscale_max": ["--transport", "local", "--autoscale",
+                      "--autoscale-max", "2"],
+    "autoscale_cooldown_s": ["--transport", "local", "--autoscale",
+                             "--autoscale-cooldown-s", "0.5"],
+    "scan_steps": ["--scan-steps", "2"],
+}
+
+
+@pytest.mark.parametrize("attr", sorted(_PORTED_TRAIN_FLAGS))
+def test_replica_scan_remat_train_flags_run(attr, tmp_path, capsys):
+    """The train flags that exited 2 before they were ported train: the
+    in-process server replicated (``--replicas``, the sync and the
+    handoff), elastic (``--autoscale``, its banner), ``--scan-steps`` on
+    the fused transport, ``--remat``."""
+    rc = main(["train", "--device", "cpu", "--steps", "2", "--dataset",
+               "synthetic", "--data-dir", str(tmp_path),
+               *_PORTED_TRAIN_FLAGS[attr]])
+    err = capsys.readouterr().err
+    assert rc == 0 and "not ported yet" not in err and "[warn]" not in err
+    assert ("[autoscale] policy on:" in err) == attr.startswith("autoscale")
+
+
 def test_defaults_of_the_refused_flags_train(tmp_path, capsys):
     """The values that ask for nothing unported (``--stages 2``,
     ``--num-clients 1``, ``--scan-steps 1``, ``--handoff live``) train."""

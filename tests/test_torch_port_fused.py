@@ -88,9 +88,19 @@ def test_train_epoch_equals_train_steps():
     (dict(num_clients=2), "item 18"),
     (dict(model_parallel=2), "item 18"),
     (dict(seq_parallel=2), "item 21"),
-    (dict(remat=True), "item 16"),
 ])
 def test_unported_config_values_raise(kw, item):
     cfg = Config(**{"transport": "fused", **kw})
     with pytest.raises(NotImplementedError, match=item):
         check_supported(cfg)
+
+
+def test_remat_config_is_accepted():
+    """``remat`` trains through ``remat_plan`` (the recompute's numbers
+    are tests/test_torch_port_scan_remat.py's)."""
+    cfg = Config(transport="fused", remat=True)
+    check_supported(cfg)
+    trainer = FusedSplitTrainer(get_plan(), cfg,
+                                torch.Generator().manual_seed(0), None,
+                                device="cpu")
+    assert all(s.remat for s in trainer.plan.stages)

@@ -31,7 +31,7 @@ import torch
 from split_learning_tpu_torch.launch.run import SERVE_NOT_PORTED, main
 from split_learning_tpu_torch.models import get_plan
 from split_learning_tpu_torch.runtime import ServerRuntime
-from split_learning_tpu_torch.transport import SplitHTTPServer
+from split_learning_tpu_torch.transport import SplitHTTPServer, codec
 from split_learning_tpu_torch.utils.config import Config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -257,6 +257,74 @@ def test_ported_serve_flags_run(attr, tmp_path, monkeypatch, capsys):
                                       else 1.0)
         slo = dump["slo"]
         assert (slo is not None) == (attr == "telemetry_slo_ms")
+
+
+_PORTED_SERVE_FLAGS = {
+    "remat": ["--remat"], "replicas": ["--replicas", "2"],
+    "replica_sync_every": ["--replicas", "2", "--replica-sync-every", "4"],
+    "handoff": ["--replicas", "2", "--handoff", "checkpoint"],
+    "autoscale": ["--autoscale"],
+    "autoscale_min": ["--autoscale", "--autoscale-min", "2"],
+    "autoscale_max": ["--autoscale", "--autoscale-max", "3"],
+    "autoscale_cooldown_s": ["--autoscale", "--autoscale-cooldown-s", "1"],
+}
+
+
+@pytest.mark.parametrize("attr", sorted(_PORTED_SERVE_FLAGS))
+def test_replica_and_remat_serve_flags_run(attr, monkeypatch, capsys):
+    """The serve flags that exited 2 before they were ported: ``serve``
+    comes up; ``/health`` carries the group's ``replicas`` block (JAX's
+    keys) for a replicated or elastic server, and ``--autoscale`` turns
+    the telemetry ring on and prints the policy banner."""
+    import time
+    import urllib.error
+    import urllib.request
+    from split_learning_tpu_torch.launch import run
+    got = {}
+    real = run.serve_party
+
+    def serve_party(args):
+        out = real(args)
+        got["url"], got["runtime"] = out[1].url, out[0]
+        return out
+
+    class Clock:
+        def sleep(self, _):
+            for route in ("/health", "/telemetry"):
+                try:
+                    with urllib.request.urlopen(got["url"] + route,
+                                                timeout=10) as r:
+                        got[route] = r.read()
+                except urllib.error.HTTPError as e:
+                    got[route] = e.code
+            raise KeyboardInterrupt
+
+        def __getattr__(self, name):
+            return getattr(time, name)
+    monkeypatch.setattr(run, "serve_party", serve_party)
+    monkeypatch.setattr(run, "time", Clock())
+    flags = _PORTED_SERVE_FLAGS[attr]
+    rc = main(["serve", "--device", "cpu", "--port", "0", "--host",
+               "127.0.0.1", *flags])
+    err = capsys.readouterr().err
+    assert rc == 0 and "not ported yet" not in err
+    health = codec.decode(got["/health"])
+    grouped = attr != "remat"
+    assert ("replicas" in health) == grouped
+    if grouped:
+        block = health["replicas"]
+        want_n = {"autoscale_min": 2}.get(
+            attr, 2 if "--replicas" in flags else 1)
+        assert block["n"] == want_n and block["live"] == list(range(want_n))
+        assert block["handoff"] == ("checkpoint" if attr == "handoff"
+                                    else "live")
+        assert block["sync_every"] == (4 if attr == "replica_sync_every"
+                                       else 0)
+    elastic = "--autoscale" in flags
+    assert ("[autoscale] policy on:" in err) == elastic
+    assert (got["/telemetry"] != 404) == elastic
+    if attr == "remat":
+        assert got["runtime"]._stage.remat
 
 
 @pytest.mark.parametrize("flags,msg", [

@@ -481,7 +481,7 @@ def test_cli_without_device_cpu_raises(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--replicas", "2"], "item 19"),
+    (["--num-clients", "2"], "item 18"),
 ])
 def test_cli_unported_flags_refuse(flags, item, tmp_path):
     out = _cli("--transport", "local", "--steps", "1", "--dataset",
