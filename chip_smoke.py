@@ -405,6 +405,27 @@ beside this script. Phases, any failure ending the run with a traceback:
    watchdog itself: the CNN's fused trainer bit-equal with it off and
    on, and a host sync planted in the step scope and one in a custom
    ``autograd.Function``'s backward each counted as unexpected.
+30. the device mesh (``parallel/``), n ranks virtual on card 0 (and on
+   distinct cards where there are n; the phase prints which). First K5
+   and K6 (with an LSE cotangent) at the ring block [64, 256, 2, 128]
+   (causal, strict causal, non-causal) and the Ulysses shape [64, 1024,
+   1, 128], bf16, against their plain versions, timed beside SDPA. (a)
+   Phase 18's bf16 AdamW LM with ``attn="ring_flash"`` through
+   ``FusedSplitTrainer`` on a ``seq 4`` mesh: 5 steps, each from its
+   state on it and on the unsharded ``attn="flash"`` trainer, losses
+   within two bf16 ulps, launches a step K5 48 and each K6 launch 48
+   (striped: 3 blocks x 4 ranks x 4 hops), K1f 1, K1b 1; a CPU twin on 2
+   rows; one causal ring call at the contiguous layout (10 of each) and
+   the striped (16). (b) The same LM with ``attn="ulysses"`` at ``seq
+   2`` on K5/K6 (6 of each a step). (c) The fused CNN on a ``data 4``
+   mesh, 12 steps, each from one state against the unsharded step
+   (within 1e-4 relative), the replicas bit-equal after every step, K1
+   and K2 4 a step. (d) ``PipelinedTrainer`` with ``resnet18_4stage``,
+   batch 128, M 4, 4 pipe ranks, float32, 3 steps each from one state
+   against ``FusedSplitTrainer`` at 4 microbatches (rtol 1e-4, atol
+   1e-5). (e) ``train --attn ring_flash`` without ``--seq-parallel``:
+   JAX's warning, K5 3 a step; ``--seq-parallel 4`` on fewer than 4
+   cards exits 2 with the mesh message.
 
 Output, last lines: one JSON object with a record per kernel, one JSON
 object with the main path's step time, one with the serving path's
@@ -415,8 +436,8 @@ phases 20-23 (``u_split``, ``u_split_lm``, ``federated``,
 ``multi_client``, ``cli``), one with phase 24 (``checkpoint``), one
 with phase 25 (``many_clients``), one with phase 26 (``image``), one
 with phase 27 (``chain``), one with phase 28 (``obs``), one with
-phase 29 (``fleet``), the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
-{...}}``.
+phase 29 (``fleet``), one with phase 30 (``mesh``), the ``nvidia-smi``
+name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -677,6 +698,28 @@ FLEET_ARGS = ["--clients", "64", "--tenants", "4", "--steps", "4",
               "--autoscale-cooldown-s", "0.2", "--telemetry-interval-s",
               "0.3", "--slo-ms", "5", "--gate-dropped-steps",
               "--gate-autoscale"]
+# phase 30: the device mesh, n ranks virtual on card 0 (and on distinct
+# cards where the machine has n). (a) phase 18's bf16 AdamW LM with
+# attn="ring_flash" on a seq MESH_SEQ mesh, MESH_LM_STEPS steps each from
+# its state on it and on the unsharded flash trainer (losses within two
+# bf16 ulps), a CPU twin of MESH_TWIN_STEPS steps on TWIN_ROWS rows, one
+# attention call per layout; (b) the same LM with attn="ulysses" at seq
+# MESH_ULY on K5/K6; (c) the fused CNN on a data MESH_DATA mesh,
+# MESH_CNN_STEPS steps; (d) PipelinedTrainer, resnet18_4stage, batch
+# MESH_PIPE_B, M MESH_PIPE_M, MESH_STAGES pipe ranks, MESH_PIPE_STEPS
+# steps against the fused trainer (JAX's bar, tests/test_pipeline.py:45);
+# (e) the CLI. MESH_FA_SHAPES: K5/K6 at the ring block and Ulysses shapes
+MESH_SEQ, MESH_ULY, MESH_DATA, MESH_STAGES = 4, 2, 4, 4
+MESH_LM_STEPS, MESH_TWIN_STEPS, MESH_CLI_STEPS = 5, 2, 3
+MESH_CNN_STEPS, MESH_CNN_RTOL = 12, 1e-4
+MESH_PIPE_B, MESH_PIPE_M, MESH_PIPE_STEPS = 128, 4, 3
+MESH_PIPE_TOL = (1e-4, 1e-5)   # (rtol, atol)
+_RING_BLOCK = (TRAIN_B, TRAIN_T // MESH_SEQ, 2, 128)
+MESH_FA_SHAPES = (   # label, shape, causal, strict, an LSE cotangent
+    ("ring block causal", _RING_BLOCK, True, False, True),
+    ("ring block strict", _RING_BLOCK, True, True, True),
+    ("ring block non-causal", _RING_BLOCK, False, False, True),
+    ("ulysses causal", (TRAIN_B, TRAIN_T, 1, 128), True, False, False))
 PLANTS = {
     "quantize_roundf": ("quantize.cu", "rintf(", "roundf("),
     "topk_select_ties_high": (
@@ -5942,8 +5985,8 @@ def watchdog_planted_syncs(torch) -> tuple:
 
         real = on._loss_and_grads
 
-        def planted_step(xb, yb):
-            loss, grads = real(xb, yb)
+        def planted_step(*args):
+            loss, grads = real(*args)
             loss.item()  # the planted sync
             return loss, grads
         on._loss_and_grads = planted_step
@@ -6015,6 +6058,464 @@ def fleet_runs(torch, launch_run, smi) -> tuple:
             totals[k] = totals.get(k, 0) + v
     rec["seconds"] = time.perf_counter() - t0
     print(f"[fleet] phase 29: {rec['seconds']:.1f} s", flush=True)
+    return rec, totals
+
+
+# --------------------------------------------------------------------- #
+# phase 30: the device mesh
+
+def mesh_devices(torch, n: int) -> list:
+    """The placements of an n-rank mesh this machine offers: n virtual
+    ranks on card 0 always, and n distinct cards where it has them."""
+    out = [("virtual", [torch.device("cuda", 0)] * n)]
+    if torch.cuda.device_count() >= n:
+        out.append(("distinct", [torch.device("cuda", i) for i in range(n)]))
+    return out
+
+
+def _live_pairs(t: int, causal: bool, strict: bool) -> int:
+    """(query, key) pairs a block computes: its work on this data."""
+    if not causal:
+        return t * t
+    return t * (t - 1) // 2 if strict else t * (t + 1) // 2
+
+
+def mesh_flash_checks(torch, dev, gen, bw, flash_peak) -> dict:
+    """Phase 30's kernel rows: K5 and K6 (with an LSE cotangent, as the
+    ring's merge gives them) at :data:`MESH_FA_SHAPES` in bf16 against
+    their plain versions (phase 6's and 9's tolerances), with their
+    device ms beside the plain versions', SDPA's (a boolean mask for the
+    strict block; its backward through autograd) and the bound (the
+    live pairs: 4 T x T x D products a forward, 10 a backward)."""
+    import torch.nn.functional as F
+    from split_learning_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_with_lse_plain,
+        flash_bwd_cuda, flash_fwd_cuda)
+    out = {}
+    name = "bfloat16"
+    for label, shape, causal, strict, with_g_lse in MESH_FA_SHAPES:
+        b, t, h, d = shape
+        n, rows = math.prod(shape), b * t * h
+        pairs = b * h * _live_pairs(t, causal, strict)
+        q, k, v, do = (torch.randn(shape, device=dev, generator=gen)
+                       .to(torch.bfloat16) for _ in range(4))
+        g_lse = (torch.randn((b, t, h), device=dev, generator=gen)
+                 if with_g_lse else None)
+        o, lse = flash_fwd_cuda(q, k, v, causal, strict)
+        grads = flash_bwd_cuda(q, k, v, o, lse, do, g_lse, causal, strict)
+        torch.cuda.synchronize()
+        o_p, lse_p = flash_attention_with_lse_plain(q, k, v, causal, strict)
+        e_o = (o.float() - o_p.float()).abs().max().item()
+        e_l = (lse - lse_p).abs().max().item()
+        tol_o, tol_l = FA_TOL[name]
+        check(e_o <= tol_o and e_l <= tol_l,
+              f"K5 at {label}: O err {e_o}, LSE err {e_l}")
+        e_g = 0.0
+        for got, want in zip(grads, flash_attention_bwd_plain(
+                q, k, v, o, lse, do, g_lse, causal, strict)):
+            err = (got.float() - want.float()).abs().max().item()
+            scale = max(1.0, want.float().abs().max().item())
+            check(got.dtype == want.dtype and err <= FA_BWD_TOL[name] * scale,
+                  f"K6 at {label}: err {err} (scale {scale})")
+            e_g = max(e_g, err)
+        f_ms, f_by = bound(4 * n * 2 + 4 * rows, 4 * pairs * d, bw,
+                           flash_peak[name])
+        b_ms, b_by = bound(8 * n * 2 + 8 * rows, 10 * pairs * d, bw,
+                           flash_peak[name])
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        sdpa_kw = {}
+        if strict:
+            ar = torch.arange(t, device=dev)
+            sdpa_kw["attn_mask"] = ar[:, None] > ar[None, :]
+        elif causal:
+            sdpa_kw["is_causal"] = True
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+        do_t = do.transpose(1, 2)
+        out[label] = dict(
+            shape=list(shape), dtype=name, causal=causal, strict=strict,
+            g_lse=with_g_lse, live_pairs=pairs,
+            fwd=dict(
+                ms=device_ms(torch, lambda: flash_fwd_cuda(q, k, v, causal,
+                                                           strict)),
+                plain_ms=device_ms(
+                    torch, lambda: flash_attention_with_lse_plain(
+                        q, k, v, causal, strict), reps=20),
+                library_ms=device_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, **sdpa_kw)),
+                bound_ms=f_ms, bound_by=f_by, max_abs_err=e_o,
+                max_abs_err_lse=e_l),
+            bwd=dict(
+                ms=device_ms(torch, lambda: flash_bwd_cuda(
+                    q, k, v, o, lse, do, g_lse, causal, strict), reps=50),
+                plain_ms=device_ms(
+                    torch, lambda: flash_attention_bwd_plain(
+                        q, k, v, o, lse, do, g_lse, causal, strict),
+                    reps=20),
+                library_ms=device_ms(
+                    torch, lambda: torch.autograd.grad(
+                        lib_out, (qt, kt, vt), do_t, retain_graph=True),
+                    reps=50),
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=e_g))
+        del q, k, v, do, o, lse, grads, qt, kt, vt, lib_out, do_t, o_p
+    print("[k5/k6] at the mesh's shapes (bf16), ms kernel / SDPA: "
+          + "; ".join(f"{key} fwd {r['fwd']['ms']:.4f} / "
+                      f"{r['fwd']['library_ms']:.4f}, bwd "
+                      f"{r['bwd']['ms']:.4f} / {r['bwd']['library_ms']:.4f}"
+                      for key, r in out.items()), flush=True)
+    return out
+
+
+def _lm_mesh_cfg():
+    from split_learning_tpu_torch.utils import Config
+    return Config(transport="fused", model="transformer_lm",
+                  batch_size=TRAIN_B, dtype="bfloat16", **LM_SCHEDULE,
+                  **LM_OPTIMS["adamw"])
+
+
+def mesh_lm_leg(torch, label, attn, n, devices, tr_data, init,
+                ref) -> tuple:
+    """One LM run on an n-rank seq mesh: MESH_LM_STEPS steps, each from
+    the meshed trainer's state on both it and the unsharded flash
+    trainer ``ref`` (one state, two step functions): losses within two
+    bf16 ulps, launches a step, step ms both ways. Returns the record,
+    the trainer and its mesh."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.parallel.mesh import make_mesh
+    from split_learning_tpu_torch.runtime import FusedSplitTrainer
+    mesh = make_mesh(seq_parallel=n, devices=devices)
+    plan = get_plan(dtype="bfloat16", mesh=mesh, **dict(LM, attn=attn))
+    cfg = _lm_mesh_cfg().replace(seq_parallel=n)
+    trainer = FusedSplitTrainer(plan, cfg, init, tr_data[0][0], mesh=mesh)
+    losses, ref_losses, ms, ref_ms, per_step = [], [], [], [], []
+    for x, y in tr_data[:MESH_LM_STEPS]:
+        ref.restore_states(trainer.export_states())
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        t = time.perf_counter()
+        losses.append(trainer.train_step(x, y))
+        ms.append((time.perf_counter() - t) * 1e3)
+        per_step.append(LAUNCHES.snapshot())
+        LAUNCHES.reset()
+        t = time.perf_counter()
+        ref_losses.append(ref.train_step(x, y))
+        ref_ms.append((time.perf_counter() - t) * 1e3)
+    gaps = [abs(a - b) for a, b in zip(losses, ref_losses)]
+    tols = [bf16_loss_tol(b) for b in ref_losses]
+    print(f"[mesh] {label}: losses {losses} against unsharded flash "
+          f"{ref_losses} (gaps {gaps}, tolerance two bf16 ulps {tols}); "
+          f"launches a step {per_step[-1]}; step {statistics.median(ms[1:]):.3f}"
+          f" ms against {statistics.median(ref_ms[1:]):.3f}", flush=True)
+    check(all(g <= tol for g, tol in zip(gaps, tols)),
+          f"{label}: losses {losses} against {ref_losses}")
+    check(all(math.isfinite(v) for v in losses), f"{label}: finite losses")
+    return dict(attn=attn, seq=n, placement=sorted({str(d) for d in
+                                                    devices}),
+                losses=losses, ref_losses=ref_losses, loss_gaps=gaps,
+                loss_tol=tols, launches_per_step=per_step,
+                step_ms_median=statistics.median(ms[1:]),
+                ref_step_ms_median=statistics.median(ref_ms[1:]),
+                step_ms=ms, ref_step_ms=ref_ms), trainer, mesh
+
+
+def mesh_lm_runs(torch, tr_data) -> dict:
+    """Phase 30 (a) and (b): ring_flash on a seq MESH_SEQ mesh (striped:
+    the launches a step of 3 blocks x n ranks x n hops) and Ulysses at
+    seq MESH_ULY on K5/K6 (SLT_FLASH_AUTO_T 1024: JAX's TPU speed rule,
+    which the port leaves out, would pick flash at this T; the memory
+    rule alone keeps dense), each against the unsharded flash trainer;
+    ring_flash's CPU twin; one attention call at the contiguous layout
+    (3 x 10 launches a step) and at the striped."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.flash_attention import (
+        BWD_NAMES, NAME as FA)
+    from split_learning_tpu_torch.ops.ring_attention import ring_attention
+    from split_learning_tpu_torch.parallel.mesh import make_mesh
+    from split_learning_tpu_torch.runtime import FusedSplitTrainer
+    init = get_plan(dtype="bfloat16", **LM).init(
+        torch.Generator().manual_seed(0), torch.zeros(1))
+    ref = FusedSplitTrainer(get_plan(dtype="bfloat16", **LM), _lm_mesh_cfg(),
+                            init, tr_data[0][0], device="cuda")
+    rec = {"ring_flash": {}, "ulysses": {}}
+
+    def want(k5):
+        return {FA: k5, **{nm: k5 for nm in BWD_NAMES}, FWD: 1, BWD: 1}
+
+    for placement, devs in mesh_devices(torch, MESH_SEQ):
+        leg, trainer, mesh = mesh_lm_leg(
+            torch, f"ring_flash seq {MESH_SEQ} ({placement})", "ring_flash",
+            MESH_SEQ, devs, tr_data, init, ref)
+        w = want(N_BLOCKS * MESH_SEQ * MESH_SEQ)
+        check(all(c == w for c in leg["launches_per_step"]),
+              f"ring_flash launches {leg['launches_per_step']}, want {w}")
+        rec["ring_flash"][placement] = leg
+        if placement == "virtual":
+            ring_trainer, ring_mesh = trainer, mesh
+    # the CPU twin: TWIN_ROWS rows, each step from the card's state
+    rows = [(x[:TWIN_ROWS], y[:TWIN_ROWS]) for x, y in tr_data[:MESH_TWIN_STEPS]]
+    cpu_mesh = make_mesh(seq_parallel=MESH_SEQ, device="cpu")
+    twin_cfg = _lm_mesh_cfg().replace(batch_size=TWIN_ROWS,
+                                      seq_parallel=MESH_SEQ)
+    card = FusedSplitTrainer(get_plan(dtype="bfloat16", mesh=ring_mesh,
+                                      **dict(LM, attn="ring_flash")),
+                             twin_cfg, init, rows[0][0], mesh=ring_mesh)
+    cpu = FusedSplitTrainer(get_plan(dtype="bfloat16", mesh=cpu_mesh,
+                                     **dict(LM, attn="ring_flash")),
+                            twin_cfg, init, rows[0][0], mesh=cpu_mesh)
+    card_l, cpu_l = [], []
+    for x, y in rows:
+        cpu.restore_states(card.export_states())
+        card_l.append(card.train_step(x, y))
+        cpu_l.append(cpu.train_step(x, y))
+    gaps = [abs(a - b) for a, b in zip(card_l, cpu_l)]
+    tols = [bf16_loss_tol(b) for b in cpu_l]
+    check(all(g <= t for g, t in zip(gaps, tols)),
+          f"ring_flash CPU twin: card {card_l} vs cpu {cpu_l}")
+    print(f"[mesh] ring_flash CPU twin on {TWIN_ROWS} rows x "
+          f"{len(rows)} steps: card {card_l}, cpu {cpu_l} (gaps {gaps}, "
+          f"tolerance {tols})", flush=True)
+    rec["ring_flash"]["cpu_twin"] = dict(card=card_l, cpu=cpu_l, gaps=gaps,
+                                         tol=tols, rows=TWIN_ROWS)
+    del card, cpu, ring_trainer
+    # one attention call at the LM's shapes: contiguous and striped
+    q, k, v = (torch.randn((TRAIN_B, TRAIN_T, LM["num_heads"],
+                            LM["d_model"] // LM["num_heads"]),
+                           device=ring_mesh.device(),
+                           dtype=torch.bfloat16).requires_grad_(True)
+               for _ in range(3))
+    calls = {}
+    for layout in ("contiguous", "striped"):
+        def call():
+            o = ring_attention(q, k, v, mesh=ring_mesh, causal=True,
+                               block_impl="flash", layout=layout)
+            torch.autograd.grad(o.float().sum(), (q, k, v))
+        call()
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        call()
+        torch.cuda.synchronize()
+        counts = LAUNCHES.snapshot()
+        calls[layout] = dict(launches_per_call=counts,
+                             host_ms=host_ms(torch, call, reps=5))
+    n = MESH_SEQ
+    for layout, k5 in (("contiguous", n * (n + 1) // 2),
+                       ("striped", n * n)):
+        got = calls[layout]["launches_per_call"]
+        check(got == {FA: k5, **{nm: k5 for nm in BWD_NAMES}},
+              f"{layout} ring call launches {got}, want {k5} of each")
+    print(f"[mesh] one causal ring_flash call at seq {n}, [{TRAIN_B}, "
+          f"{TRAIN_T}, {LM['num_heads']}, {LM['d_model'] // LM['num_heads']}]"
+          f" bf16, forward and backward: {calls}", flush=True)
+    rec["ring_flash"]["one_call"] = calls
+    del q, k, v
+    # (b) Ulysses on K5/K6 at seq MESH_ULY
+    prev = os.environ.get("SLT_FLASH_AUTO_T")
+    os.environ["SLT_FLASH_AUTO_T"] = str(TRAIN_T)
+    try:
+        for placement, devs in mesh_devices(torch, MESH_ULY):
+            leg, _, _ = mesh_lm_leg(
+                torch, f"ulysses seq {MESH_ULY} ({placement})", "ulysses",
+                MESH_ULY, devs, tr_data, init, ref)
+            w = want(N_BLOCKS * MESH_ULY)
+            check(all(c == w for c in leg["launches_per_step"]),
+                  f"ulysses launches {leg['launches_per_step']}, want {w}")
+            rec["ulysses"][placement] = dict(leg, flash_auto_t=TRAIN_T)
+    finally:
+        if prev is None:
+            os.environ.pop("SLT_FLASH_AUTO_T", None)
+        else:
+            os.environ["SLT_FLASH_AUTO_T"] = prev
+    return rec
+
+
+def mesh_cnn_runs(torch) -> dict:
+    """Phase 30 (c): the fused CNN at batch BATCH on a data MESH_DATA
+    mesh for MESH_CNN_STEPS steps, each from the meshed trainer's state
+    on both it and the unsharded trainer: losses within MESH_CNN_RTOL,
+    the replicas bit-equal after every step, K1 and K2 a step."""
+    from split_learning_tpu_torch.data import batches, synthetic
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.parallel.mesh import make_mesh
+    from split_learning_tpu_torch.runtime import FusedSplitTrainer
+    from split_learning_tpu_torch.utils import Config
+    ds = synthetic("mnist", n_train=BATCH * MESH_CNN_STEPS, n_test=8, seed=1)
+    data = list(batches(ds.train, BATCH, seed=1, drop_remainder=True))
+    init = get_plan().init(torch.Generator().manual_seed(0), torch.zeros(1))
+    cfg = Config(transport="fused", batch_size=BATCH, lr=LR)
+    rec = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for placement, devs in mesh_devices(torch, MESH_DATA):
+            mesh = make_mesh(num_clients=MESH_DATA, devices=devs)
+            trainer = FusedSplitTrainer(
+                get_plan(), cfg.replace(num_clients=MESH_DATA), init,
+                data[0][0], mesh=mesh)
+            ref = FusedSplitTrainer(get_plan(), cfg, init, data[0][0],
+                                    device="cuda")
+            losses, ref_losses, per_step, ms = [], [], [], []
+            for x, y in data:
+                ref.restore_states(trainer.export_states())
+                torch.cuda.synchronize()
+                LAUNCHES.reset()
+                t = time.perf_counter()
+                losses.append(trainer.train_step(x, y))
+                ms.append((time.perf_counter() - t) * 1e3)
+                per_step.append(LAUNCHES.snapshot())
+                LAUNCHES.reset()
+                ref_losses.append(ref.train_step(x, y))
+                first = trainer.states[0].params
+                for d in trainer.rows[1:]:
+                    for a, b in zip(first, trainer.states[d].params):
+                        check(all(torch.equal(a[k], b[k]) for k in a),
+                              f"data replica {d} differs from replica 0")
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+            print(f"[mesh] CNN data {MESH_DATA} ({placement}): "
+                  f"{len(data)} steps, losses {losses[0]:.6f} -> "
+                  f"{losses[-1]:.6f}, max relative gap to the unsharded "
+                  f"step {rel:.3g}, replicas bit-equal after every step, "
+                  f"launches a step {per_step[-1]}, step "
+                  f"{statistics.median(ms[1:]):.3f} ms", flush=True)
+            check(rel <= MESH_CNN_RTOL, f"CNN data axis: {losses} against "
+                                        f"{ref_losses}")
+            rec[placement] = dict(
+                data=MESH_DATA, steps=len(data), losses=losses,
+                ref_losses=ref_losses, max_rel_gap=rel,
+                replicas_bit_equal=True, launches_per_step=per_step[-1],
+                step_ms_median=statistics.median(ms[1:]),
+                placement=sorted({str(d) for d in devs}))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return rec
+
+
+def mesh_pipeline_runs(torch) -> dict:
+    """Phase 30 (d): ``PipelinedTrainer`` with resnet18_4stage at batch
+    MESH_PIPE_B, M MESH_PIPE_M, on MESH_STAGES pipe ranks, float32; each
+    step from its state on it and on ``FusedSplitTrainer`` at the same
+    microbatches: losses within JAX's bar (MESH_PIPE_TOL)."""
+    from split_learning_tpu_torch.data import batches, synthetic
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.parallel.mesh import make_mesh
+    from split_learning_tpu_torch.parallel.pipeline import PipelinedTrainer
+    from split_learning_tpu_torch.runtime import FusedSplitTrainer
+    from split_learning_tpu_torch.utils import Config
+    ds = synthetic("cifar10", n_train=MESH_PIPE_B * MESH_PIPE_STEPS,
+                   n_test=8, seed=2)
+    data = list(batches(ds.train, MESH_PIPE_B, seed=2, drop_remainder=True))
+    plan = get_plan(model="resnet18_4stage")
+    init = plan.init(torch.Generator().manual_seed(0), torch.zeros(1))
+    cfg = Config(transport="fused", model="resnet18_4stage",
+                 batch_size=MESH_PIPE_B, microbatches=MESH_PIPE_M, lr=LR)
+    rec = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for placement, devs in mesh_devices(torch, MESH_STAGES):
+            pipe = PipelinedTrainer(plan, cfg.replace(transport="pipeline"),
+                                    init, data[0][0],
+                                    make_mesh(num_stages=MESH_STAGES,
+                                              devices=devs))
+            fused = FusedSplitTrainer(plan, cfg, init, data[0][0],
+                                      device="cuda")
+            losses, ref, ms, ref_ms, per_step = [], [], [], [], []
+            for x, y in data:
+                fused.restore_states(pipe.export_states())
+                torch.cuda.synchronize()
+                LAUNCHES.reset()
+                t = time.perf_counter()
+                losses.append(pipe.train_step(x, y))
+                ms.append((time.perf_counter() - t) * 1e3)
+                per_step.append(LAUNCHES.snapshot())
+                LAUNCHES.reset()
+                t = time.perf_counter()
+                ref.append(fused.train_step(x, y))
+                ref_ms.append((time.perf_counter() - t) * 1e3)
+            rtol, atol = MESH_PIPE_TOL
+            ok = all(abs(a - b) <= atol + rtol * abs(b)
+                     for a, b in zip(losses, ref))
+            print(f"[mesh] resnet18_4stage GPipe, {MESH_STAGES} pipe ranks "
+                  f"({placement}), batch {MESH_PIPE_B}, M {MESH_PIPE_M}: "
+                  f"losses {losses} against the fused trainer's {ref}; "
+                  f"launches a step {per_step[-1]}; step "
+                  f"{statistics.median(ms[1:]):.3f} ms against "
+                  f"{statistics.median(ref_ms[1:]):.3f}", flush=True)
+            check(ok, f"pipeline losses {losses} against fused {ref} "
+                      f"(rtol {rtol}, atol {atol})")
+            rec[placement] = dict(
+                losses=losses, fused_losses=ref, tol=list(MESH_PIPE_TOL),
+                launches_per_step=per_step[-1],
+                step_ms_median=statistics.median(ms[1:]),
+                fused_step_ms_median=statistics.median(ref_ms[1:]),
+                placement=sorted({str(d) for d in devs}))
+            del pipe, fused
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return rec
+
+
+def mesh_cli_runs(torch, launch_run) -> dict:
+    """Phase 30 (e): ``train --attn ring_flash`` with no seq axis warns
+    as JAX does and runs K5/K6 once a block; ``--seq-parallel MESH_SEQ``
+    with fewer cards than that exits 2 with the mesh message."""
+    data_dir = os.path.join(REPO, "build", "chip_smoke_obs_data")
+    flags = _lm_flags(data_dir)
+    flags[flags.index("--attn") + 1] = "ring_flash"
+    argv = ["train", "--transport", "fused", "--steps", str(MESH_CLI_STEPS),
+            "--tracking", "noop", *flags]
+    rc, counts, _, err, secs = _cli_err(torch, launch_run, argv)
+    warning = ("[warn] --attn 'ring_flash' runs as the single-device flash "
+               "kernel: no 'seq' mesh axis (pass --seq-parallel > 1 to "
+               "shard the sequence)")
+    check(rc == 0 and warning in err.splitlines(),
+          f"ring_flash without a seq axis: rc {rc}, stderr {err[-600:]}")
+    want = lm_train_counts(MESH_CLI_STEPS, sgd=False)
+    check(counts == want, f"ring_flash CLI launches {counts}, want {want}")
+    rc2, counts2, _, err2, _ = _cli_err(torch, launch_run,
+                                        argv + ["--seq-parallel",
+                                                str(MESH_SEQ)])
+    cards = torch.cuda.device_count()
+    if cards < MESH_SEQ:
+        msg = (f"[error] mesh needs {MESH_SEQ} devices (1 clients x 1 "
+               f"stages x 1 model shards x {MESH_SEQ} seq shards), only "
+               f"{cards} available")
+        check(rc2 == 2 and msg in err2.splitlines(),
+              f"--seq-parallel {MESH_SEQ} on {cards} card(s): rc {rc2}, "
+              f"{err2[-600:]}")
+    else:
+        check(rc2 == 0, f"--seq-parallel {MESH_SEQ}: rc {rc2}")
+    print(f"[mesh] CLI: {warning!r}, launches {counts} in "
+          f"{MESH_CLI_STEPS} steps; --seq-parallel {MESH_SEQ} on {cards} "
+          f"card(s): rc {rc2}", flush=True)
+    return dict(warning=warning, launches=counts, steps=MESH_CLI_STEPS,
+                cli_seconds=secs, seq_parallel_rc=rc2, cards=cards)
+
+
+def mesh_runs(torch, launch_run, smi, tr_data) -> tuple:
+    """Phase 30: (a) to (e) with their launch totals."""
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    t0 = time.perf_counter()
+    rec = {"card": smi, "cards": torch.cuda.device_count()}
+    LAUNCHES.reset()   # the kernel checks' launches stay out of the totals
+    totals, restore = _phase_totals(LAUNCHES)
+    try:
+        rec["lm"] = mesh_lm_runs(torch, tr_data)
+        rec["cnn_data"] = mesh_cnn_runs(torch)
+        rec["pipeline"] = mesh_pipeline_runs(torch)
+        rec["cli"] = mesh_cli_runs(torch, launch_run)
+    finally:
+        restore()
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[mesh] placements: virtual ranks on cuda:0"
+          + (" and distinct cards" if rec["cards"] >= MESH_SEQ else
+             f" only ({rec['cards']} card)"), flush=True)
+    print(f"[mesh] phase 30: {rec['seconds']:.1f} s", flush=True)
     return rec, totals
 
 
@@ -6874,6 +7375,13 @@ def main() -> int:
     # ---- 29. scan-steps, remat, replicas, autoscaling ---------------- #
     fleet_rec, fleet_counts = fleet_runs(torch, launch_run, smi)
 
+    # ---- 30. the device mesh ----------------------------------------- #
+    mesh_fa = mesh_flash_checks(torch, dev, gen, bw, flash_peak)
+    mesh_rec, mesh_counts = mesh_runs(torch, launch_run, smi, tr_data)
+    for name in (FA, *BWD_NAMES, FWD, BWD, SGD):
+        check(mesh_counts.get(name, 0) > 0,
+              f"phase 30's runs launched {name} no time: {mesh_counts}")
+
     for rec in records:
         key = launch_of.get(rec["name"], rec["name"])
         rec["launches_train_lm_bf16"] = bf16_counts.get(key, 0)
@@ -7010,6 +7518,28 @@ def main() -> int:
                 "launches_per_client_step"].get(key, 0)
             for mode, r in fleet_rec["replicas"].items()})
         rec["launches_per_step_fleet"] = per_step
+        # phase 30: every run of its five parts, and a step's of each leg
+        rec["launches_mesh"] = mesh_counts.get(key, 0)
+        lm = mesh_rec["lm"]
+        rec["launches_per_step_mesh"] = dict(
+            ring_flash_seq4=lm["ring_flash"]["virtual"][
+                "launches_per_step"][-1].get(key, 0),
+            ulysses_seq2=lm["ulysses"]["virtual"][
+                "launches_per_step"][-1].get(key, 0),
+            cnn_data4=mesh_rec["cnn_data"]["virtual"][
+                "launches_per_step"].get(key, 0),
+            pipeline_resnet18_4stage=mesh_rec["pipeline"]["virtual"][
+                "launches_per_step"].get(key, 0))
+        if rec["name"] == FA:
+            rec["mesh_shapes"] = {k: dict(r["fwd"], shape=r["shape"],
+                                          causal=r["causal"],
+                                          strict=r["strict"])
+                                  for k, r in mesh_fa.items()}
+        if rec["name"] == BWD_DKV:
+            rec["mesh_shapes_whole_backward"] = {
+                k: dict(r["bwd"], shape=r["shape"], causal=r["causal"],
+                        strict=r["strict"], g_lse=r["g_lse"])
+                for k, r in mesh_fa.items()}
     two_party_line = dict(two_party=dict(
         model="split_cnn", mode="split", transport="local", batch=BATCH,
         steps=STEPS, density=DENSITY, device=kind, kernel_cases=wire_cases,
@@ -7062,6 +7592,9 @@ def main() -> int:
         microbatches=CHAIN_M, stages=CHAIN_S, lr=LR, **chain_rec)}))
     print(json.dumps({"obs": dict(device=kind, card=smi, **obs_rec)}))
     print(json.dumps({"fleet": dict(device=kind, **fleet_rec)}))
+    print(json.dumps({"mesh": dict(device=kind, model="transformer_lm",
+                                   batch=TRAIN_B, seq_len=TRAIN_T,
+                                   kernels=mesh_fa, **mesh_rec)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

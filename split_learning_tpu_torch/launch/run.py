@@ -181,7 +181,8 @@ def _config_from_args(args):
                   "optimizer", "momentum", "weight_decay", "warmup_steps",
                   "decay_steps", "grad_clip_norm", "microbatches", "seed",
                   "data_dir", "tracking", "tracking_uri", "transport",
-                  "server_url", "attn", "remat",
+                  "server_url", "attn", "remat", "num_clients",
+                  "model_parallel", "seq_parallel",
                   "dtype", "checkpoint_dir", "num_stages", "schedule"):
         val = getattr(args, field, None)
         if val is not None:
@@ -322,7 +323,7 @@ def _read_ckpt_meta(directory: str) -> Dict[str, Any]:
 
 def _assemble_full_params(layout: str, raw: Dict[str, Any]):
     """Per-stage params for ``plan.apply`` from a saved tree."""
-    if layout == "fused":
+    if layout in ("fused", "pipeline"):
         return raw["trainer"]["params"]
     if layout == "split_local":
         return [raw["client"]["params"][0], raw["server"]["params"][0]]
@@ -337,10 +338,6 @@ def _assemble_full_params(layout: str, raw: Dict[str, Any]):
                         key=lambda k: int(k[len("stage"):]))
         return [raw["client"]["params"][0],
                 *(raw[k]["params"][0] for k in stages)]
-    if layout == "pipeline":
-        raise NotImplementedError(
-            "not ported yet: a 'pipeline' checkpoint (the single-program "
-            "pipeline, --transport pipeline: ROADMAP item 16)")
     raise ValueError(
         f"cannot evaluate a {layout!r} checkpoint: the client half alone "
         "does not form the full composition (train with --transport local "
@@ -433,32 +430,17 @@ def _make_transport(args, cfg, density: float, server: Any,
     return transport, 0
 
 
-def _given(v: Any) -> bool:
-    return v is not None
-
-
 # the JAX ``train`` flags the port does not run yet: (attribute, whether
 # it asks for something unported, the flag, its ROADMAP item). Each
 # exits 2 naming its item. ``--kernels`` and ``--download`` stay out by
 # design (no kernel fallback knob; no network).
 TRAIN_NOT_PORTED = (
-    ("transport", lambda v: v == "pipeline",
-     "--transport pipeline (the single-program pipeline over a pipe mesh)",
-     "item 16"),
-    ("num_clients", lambda v: v is not None and v > 1,
-     "--num-clients > 1 (a data-parallel mesh)", "item 18"),
     ("model_parallel", lambda v: v is not None and v > 1,
      "--model-parallel > 1 (tensor parallelism)", "item 18"),
     ("mesh_data", lambda v: v > 1, "--mesh-data > 1 (a sharded server)",
      "item 18"),
     ("mesh_model", lambda v: v > 1, "--mesh-model > 1 (a sharded server)",
      "item 18"),
-    ("coordinator", _given, "--coordinator (multi-host runs)", "item 18"),
-    ("num_processes", _given, "--num-processes (multi-host runs)",
-     "item 18"),
-    ("process_id", _given, "--process-id (multi-host runs)", "item 18"),
-    ("seq_parallel", lambda v: v is not None and v > 1,
-     "--seq-parallel > 1 (context parallelism)", "item 21"),
 )
 
 
@@ -987,6 +969,51 @@ def _scan_chunk(args, saving: bool) -> int:
     return scan if scan > 1 else 0
 
 
+def _fused_mesh(cfg, plan, sample, size_kw, seq_len, multi_host: bool,
+                device: str):
+    """The fused transport's mesh, JAX's rules: ``--seq-parallel`` is
+    ignored (with a warning) for a model without a sequence axis or a
+    ViT whose patch tokens do not divide over it; a mesh is built for
+    ``--num-clients`` > 1, ``--seq-parallel`` > 1 or a multi-host run
+    (too few devices raise ``ValueError``); a ring form with no ``seq``
+    axis warns that it runs the single-device math; an attention plan is
+    rebuilt with the mesh. Returns ``(cfg, mesh, plan)``."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.parallel import global_mesh
+    from split_learning_tpu_torch.parallel.mesh import SEQ_AXIS
+    attention_family = cfg.model in _ATTENTION_FAMILIES
+    if cfg.seq_parallel > 1 and not attention_family:
+        print(f"[warn] --seq-parallel ignored: model {cfg.model!r} "
+              "has no sequence axis (transformer/vit only)", file=sys.stderr)
+        cfg = cfg.replace(seq_parallel=1)
+    if cfg.seq_parallel > 1 and cfg.model == "vit":
+        from split_learning_tpu_torch.models.vit import vit_plan
+        patch = inspect.signature(vit_plan).parameters["patch"].default
+        h, w = sample.shape[1:3]
+        t_tokens = (h // patch) * (w // patch)
+        if t_tokens % cfg.seq_parallel:
+            print(f"[warn] --seq-parallel {cfg.seq_parallel} ignored: "
+                  f"{t_tokens} patch tokens ({h}x{w}, patch {patch}) do not "
+                  "divide across it", file=sys.stderr)
+            cfg = cfg.replace(seq_parallel=1)
+    mesh = None
+    if cfg.num_clients > 1 or cfg.seq_parallel > 1 or multi_host:
+        mesh = global_mesh(num_clients=cfg.num_clients, num_stages=1,
+                           seq_parallel=cfg.seq_parallel, device=device)
+    if attention_family and cfg.attn in ("ring", "ring_flash", "ulysses") \
+            and (mesh is None or SEQ_AXIS not in mesh.axis_names):
+        fallback = ("the single-device flash kernel"
+                    if cfg.attn == "ring_flash" else "dense attention")
+        print(f"[warn] --attn {cfg.attn!r} runs as {fallback}: no 'seq' "
+              "mesh axis (pass --seq-parallel > 1 to shard the sequence)",
+              file=sys.stderr)
+    if attention_family and mesh is not None:
+        plan = get_plan(model=cfg.model, mode=cfg.mode, dtype=cfg.dtype,
+                        mesh=mesh, **_plan_kw(cfg.model, cfg.attn, size_kw,
+                                              seq_len, cfg.dataset))
+    return cfg, mesh, plan
+
+
 def _train_fused(args, cfg, trainer, data_iter, logger, save,
                  start_step: int, saving: bool) -> float:
     """The fused transport's loop: stepwise, or with ``--scan-steps N``
@@ -999,7 +1026,7 @@ def _train_fused(args, cfg, trainer, data_iter, logger, save,
     loss."""
     from split_learning_tpu_torch.obs import dispatch_debug as obs_dispatch
     from split_learning_tpu_torch.runtime.state import make_lr
-    scan = _scan_chunk(args, saving)
+    scan = _scan_chunk(args, saving) if cfg.transport == "fused" else 0
     lr_fn = make_lr(cfg)
     if not callable(lr_fn):   # a constant lr is not logged
         lr_fn = None
@@ -1061,8 +1088,18 @@ def _report_profile(phase_prof, profile_dir: Optional[str]) -> None:
 
 
 def cmd_train(args) -> int:
+    from split_learning_tpu_torch.parallel.distributed import shutdown
+    try:
+        return _train(args)
+    finally:
+        shutdown()   # a multi-host run leaves its process group
+
+
+def _train(args) -> int:
     from split_learning_tpu_torch import obs
     from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.parallel.distributed import (
+        init_multi_host, is_coordinator)
     from split_learning_tpu_torch.runtime import (
         CircuitBreaker, FederatedClientTrainer, FusedSplitTrainer,
         PipelinedSplitClientTrainer, ServerRuntime, SplitClientTrainer,
@@ -1081,6 +1118,10 @@ def cmd_train(args) -> int:
     resolve_device(args.device)  # no GPU for "cuda": raise before any work
     try:
         _refuse_unported(TRAIN_NOT_PORTED, args)
+        # a multi-host run joins its process group before any work (a
+        # no-op for one process)
+        multi_host = init_multi_host(args.coordinator, args.num_processes,
+                                     args.process_id, device=args.device)
         cfg = _config_from_args(args)
         err = _pairing_error(cfg)
         if err is None and args.seq_len is not None:
@@ -1135,13 +1176,17 @@ def cmd_train(args) -> int:
             as_cfg = rt_autoscale.args_config(args)
             server = maybe_replicate(make_replica, args.replicas,
                                      **_group_kw(args, cfg, density, as_cfg))
-        elif two_party:
+        elif two_party or cfg.transport == "pipeline":
             check_config(cfg)
         else:
             check_supported(cfg)
     except (ValueError, NotImplementedError) as e:
         print(f"[error] {e}", file=sys.stderr)
         return 2
+    if cfg.transport not in ("fused", "pipeline") and cfg.seq_parallel > 1:
+        print(f"[warn] --seq-parallel ignored on transport="
+              f"{cfg.transport!r} (context parallelism requires the fused "
+              "transport)", file=sys.stderr)
     if cfg.transport != "fused" and args.scan_steps > 1:
         print(f"[warn] --scan-steps ignored on transport="
               f"{cfg.transport!r} (only the fused transport scans steps)",
@@ -1198,6 +1243,22 @@ def cmd_train(args) -> int:
         return 2
     sample = ds.train.x[:cfg.batch_size]
     seed_gen = torch.Generator().manual_seed(cfg.seed)
+    mesh = None
+    try:
+        if cfg.transport == "fused":
+            cfg, mesh, plan = _fused_mesh(cfg, plan, sample, size_kw,
+                                          seq_len, multi_host, args.device)
+        elif cfg.transport == "pipeline":
+            from split_learning_tpu_torch.parallel import global_mesh
+            mesh = global_mesh(num_clients=cfg.num_clients,
+                               num_stages=plan.num_stages,
+                               device=args.device)
+    except (ValueError, NotImplementedError) as e:
+        print(f"[error] {e}", file=sys.stderr)
+        return 2
+    if multi_host and not is_coordinator():
+        # one metrics stream a job: the other processes stay silent
+        cfg = cfg.replace(tracking="noop")
     logger = make_logger(cfg)
     # --profile-dir: the phase profiler (the split client's compute vs
     # transport) and the torch.profiler device trace
@@ -1238,9 +1299,14 @@ def cmd_train(args) -> int:
                                      logger=logger, profiler=phase_prof,
                                      breaker=breaker, device=args.device)
         layout = "split_local" if server is not None else "client_only"
+    elif cfg.transport == "pipeline":
+        from split_learning_tpu_torch.parallel.pipeline import (
+            PipelinedTrainer)
+        trainer = PipelinedTrainer(plan, cfg, seed_gen, sample, mesh)
+        layout = "fused"   # JAX's meta.json names both programs "fused"
     else:
         trainer = FusedSplitTrainer(plan, cfg, seed_gen, sample,
-                                    device=args.device)
+                                    device=args.device, mesh=mesh)
         layout = "fused"
 
     def party_tree() -> Dict[str, Any]:
@@ -1250,7 +1316,9 @@ def cmd_train(args) -> int:
         return tree
 
     def save(step: int) -> None:
-        if ckptr is None or ckptr.last_enqueued == step:
+        # one replica a job: the coordinator's
+        if ckptr is None or ckptr.last_enqueued == step \
+                or not is_coordinator():
             return
         ckptr.save(step, party_tree(), extras=(
             server.capture_runtime_extras(step) if server is not None

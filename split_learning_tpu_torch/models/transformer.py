@@ -29,9 +29,14 @@ Where flax and PyTorch defaults differ, the port follows flax:
 
 Attention: ``"full"`` is the dense :func:`ops.ring_attention.full_attention`
 and ``"flash"`` the hand-written kernels, K5 forward and K6 backward
-(:func:`ops.flash_attention.flash_attention`). ``"auto"`` waits for the
-crossover measured on the H100, and ``"ring"``, ``"ring_flash"`` and
-``"ulysses"`` for context parallelism (ROADMAP item 21); they raise.
+(:func:`ops.flash_attention.flash_attention`). ``"ring"``,
+``"ring_flash"`` and ``"ulysses"`` are the sequence-parallel forms over
+``mesh``'s ``seq`` axis (:func:`ops.ring_attention.ring_attention`, its
+blocks dense or chosen per shape for ``"ring"`` and on K5/K6 for
+``"ring_flash"``; :func:`ops.ring_attention.ulysses_attention`); with no
+``seq`` axis they run the single-device math, as JAX's do. ``"auto"``
+waits for the crossover measured on the H100 and raises, as does a mesh
+with a ``model`` axis (tensor parallelism).
 
 KV-cache decode (:mod:`runtime.generate`): ``cache_len=L`` (prefill)
 also returns per-block ``{"k", "v"}`` buffers of length ``L``;
@@ -51,7 +56,9 @@ from torch import nn
 
 from split_learning_tpu_torch.core.stage import SplitPlan, Stage
 from split_learning_tpu_torch.ops.flash_attention import flash_attention
-from split_learning_tpu_torch.ops.ring_attention import full_attention
+from split_learning_tpu_torch.ops.ring_attention import (
+    full_attention, ring_attention, ulysses_attention)
+from split_learning_tpu_torch.parallel.mesh import MODEL_AXIS
 
 _META = "meta"  # stage modules describe shapes only; params live outside
 _ATTN_IMPLS = ("full", "flash", "auto", "ring", "ring_flash", "ulysses")
@@ -126,9 +133,10 @@ class MultiHeadAttention(nn.Module):
     KV-cache modes."""
 
     def __init__(self, d_model: int, num_heads: int, attn: str, causal: bool,
-                 dtype: torch.dtype) -> None:
+                 dtype: torch.dtype, mesh: Any = None) -> None:
         super().__init__()
         self.num_heads, self.attn, self.causal = num_heads, attn, causal
+        self.mesh = mesh
         self.q = Dense(d_model, d_model, dtype)
         self.k = Dense(d_model, d_model, dtype)
         self.v = Dense(d_model, d_model, dtype)
@@ -154,7 +162,15 @@ class MultiHeadAttention(nn.Module):
             o = _decode_attention(q, ck[:, :pos + 1], cv[:, :pos + 1],
                                   d ** -0.5)
             return self.out(o.reshape(b, t, e)), {"k": ck, "v": cv}
-        if self.attn == "flash":
+        if self.attn == "ring":
+            o = ring_attention(q, k, v, mesh=self.mesh, causal=self.causal)
+        elif self.attn == "ring_flash":
+            o = ring_attention(q, k, v, mesh=self.mesh, causal=self.causal,
+                               block_impl="flash")
+        elif self.attn == "ulysses":
+            o = ulysses_attention(q, k, v, mesh=self.mesh,
+                                  causal=self.causal)
+        elif self.attn == "flash":
             o = flash_attention(q, k, v, causal=self.causal)
         else:
             o = full_attention(q, k, v, causal=self.causal)
@@ -174,9 +190,11 @@ class Block(nn.Module):
     """Pre-LN transformer block: x + MHA(LN(x)); x + MLP(LN(x))."""
 
     def __init__(self, d_model: int, num_heads: int, attn: str, causal: bool,
-                 dtype: torch.dtype, mlp_ratio: int = 4) -> None:
+                 dtype: torch.dtype, mlp_ratio: int = 4,
+                 mesh: Any = None) -> None:
         super().__init__()
-        self.mha = MultiHeadAttention(d_model, num_heads, attn, causal, dtype)
+        self.mha = MultiHeadAttention(d_model, num_heads, attn, causal, dtype,
+                                      mesh)
         self.ln1 = LayerNorm(d_model, dtype)
         self.ln2 = LayerNorm(d_model, dtype)
         self.up = Dense(d_model, mlp_ratio * d_model, dtype)
@@ -226,14 +244,14 @@ class EmbedStage(nn.Module):
 
     def __init__(self, vocab: int, d_model: int, num_heads: int, depth: int,
                  max_len: int, attn: str, causal: bool,
-                 dtype: torch.dtype) -> None:
+                 dtype: torch.dtype, mesh: Any = None) -> None:
         super().__init__()
         self.depth, self.max_len, self.d_model = depth, max_len, d_model
         self.tok = Embed(vocab, d_model, dtype)
         self.pos = nn.Parameter(torch.empty(max_len, d_model, dtype=dtype,
                                             device=_META))
         _make_blocks(self, depth, d_model=d_model, num_heads=num_heads,
-                     attn=attn, causal=causal, dtype=dtype)
+                     attn=attn, causal=causal, dtype=dtype, mesh=mesh)
 
     def forward(self, tokens: torch.Tensor, *, cache_len: int = 0,
                 decode_cache: Optional[Sequence[dict]] = None,
@@ -257,11 +275,11 @@ class TrunkStage(nn.Module):
     """Server middle stage: ``depth`` blocks, ``[B, T, E] -> [B, T, E]``."""
 
     def __init__(self, d_model: int, num_heads: int, depth: int, attn: str,
-                 causal: bool, dtype: torch.dtype) -> None:
+                 causal: bool, dtype: torch.dtype, mesh: Any = None) -> None:
         super().__init__()
         self.depth = depth
         _make_blocks(self, depth, d_model=d_model, num_heads=num_heads,
-                     attn=attn, causal=causal, dtype=dtype)
+                     attn=attn, causal=causal, dtype=dtype, mesh=mesh)
 
     def forward(self, x: torch.Tensor, *, cache_len: int = 0,
                 decode_cache: Optional[Sequence[dict]] = None,
@@ -304,11 +322,11 @@ class TrunkAndHead(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, depth: int,
                  num_classes: int, attn: str, causal: bool, lm_vocab: int,
-                 dtype: torch.dtype) -> None:
+                 dtype: torch.dtype, mesh: Any = None) -> None:
         super().__init__()
         self.lm_vocab = lm_vocab
         self.trunk = TrunkStage(d_model, num_heads, depth, attn, causal,
-                                dtype)
+                                dtype, mesh)
         self.head = (LMHeadStage(d_model, lm_vocab, dtype) if lm_vocab
                      else HeadStage(d_model, num_classes, dtype))
 
@@ -326,9 +344,9 @@ class TrunkAndHead(nn.Module):
 
 
 def check_attn(attn: str, mesh: Any = None) -> None:
-    """The attention forms the port runs: ``"full"`` and ``"flash"``. An
-    unknown name raises ``ValueError`` (JAX's); ``"auto"`` and the
-    context-parallel forms raise ``NotImplementedError``."""
+    """Every attention form but ``"auto"`` runs. An unknown name raises
+    ``ValueError`` (JAX's); ``"auto"`` and a mesh with a ``model`` axis
+    raise ``NotImplementedError``."""
     if attn not in _ATTN_IMPLS:
         raise ValueError(
             f"Unknown attn impl: {attn!r} (expected {_ATTN_IMPLS})")
@@ -337,10 +355,10 @@ def check_attn(attn: str, mesh: Any = None) -> None:
             "attn='auto' picks dense or flash by a crossover measured on the "
             "card; the H100 crossover is not measured yet (ROADMAP), so "
             "choose 'full' or 'flash'")
-    if attn in ("ring", "ring_flash", "ulysses") or mesh is not None:
+    if mesh is not None and MODEL_AXIS in mesh.axis_names:
         raise NotImplementedError(
-            f"attn={attn!r} / mesh: context parallelism is not ported yet "
-            "(ROADMAP item 21)")
+            "not ported yet: a model axis (tensor parallelism, ROADMAP "
+            "item 18)")
 
 
 def transformer_plan(mode: str = "split", dtype: torch.dtype = torch.float32,
@@ -352,11 +370,12 @@ def transformer_plan(mode: str = "split", dtype: torch.dtype = torch.float32,
                      lm: bool = False) -> SplitPlan:
     """Build the split-transformer :class:`SplitPlan` for ``mode``.
 
-    ``dtype`` is ``torch.float32`` or ``torch.bfloat16``. ``mesh`` must
-    stay None: the sequence-parallel forms wait for ROADMAP item 21."""
+    ``dtype`` is ``torch.float32`` or ``torch.bfloat16``. ``mesh`` is
+    the device mesh whose ``seq`` axis the ring and Ulysses forms shard
+    over."""
     check_attn(attn, mesh)
     causal = causal or lm
-    common = dict(attn=attn, causal=causal, dtype=dtype)
+    common = dict(attn=attn, causal=causal, dtype=dtype, mesh=mesh)
     embed = Stage("embed", EmbedStage(vocab, d_model, num_heads,
                                       client_depth, max_len, **common))
     if mode == "u_split":

@@ -27,9 +27,11 @@ synthetic set, 3 for CIFAR-10; ``launch.run`` derives it from the
 dataset). It sizes only the init: a plan applies parameters of any
 channel count.
 
-``attn`` is ``"full"`` (dense) or ``"flash"`` (the K5/K6 kernels);
-``"auto"``, ``"ring"``, ``"ring_flash"`` and ``"ulysses"`` raise as the
-transformer's do (:func:`models.transformer.check_attn`).
+``attn`` is ``"full"`` (dense), ``"flash"`` (the K5/K6 kernels) or a
+sequence-parallel form over ``mesh``'s ``seq`` axis (``"ring"``,
+``"ring_flash"``, ``"ulysses"``; the patch tokens are the sequence);
+``"auto"`` raises as the transformer's does
+(:func:`models.transformer.check_attn`).
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ class PatchEmbedStage(nn.Module):
     def __init__(self, d_model: int, num_heads: int, depth: int,
                  patch: int = 4, max_tokens: int = 256, attn: str = "full",
                  dtype: torch.dtype = torch.float32,
-                 channels: int = 1) -> None:
+                 channels: int = 1, mesh: Any = None) -> None:
         super().__init__()
         self.depth, self.max_tokens, self.d_model = depth, max_tokens, d_model
         self.patch_size = patch
@@ -85,7 +87,7 @@ class PatchEmbedStage(nn.Module):
         self.pos = nn.Parameter(torch.empty(max_tokens, d_model, dtype=dtype,
                                             device=_META))
         _make_blocks(self, depth, d_model=d_model, num_heads=num_heads,
-                     attn=attn, causal=False, dtype=dtype)
+                     attn=attn, causal=False, dtype=dtype, mesh=mesh)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, _ = x.shape
@@ -113,10 +115,10 @@ def vit_plan(mode: str = "split", dtype: torch.dtype = torch.float32, *,
     signature, plus ``channels``, the image's channel count the patch
     conv's init is drawn for)."""
     check_attn(attn, mesh)
-    common = dict(attn=attn, causal=False, dtype=dtype)
+    common = dict(attn=attn, causal=False, dtype=dtype, mesh=mesh)
     embed = Stage("patch_embed", PatchEmbedStage(
         d_model, num_heads, client_depth, patch=patch, max_tokens=max_tokens,
-        attn=attn, dtype=dtype, channels=channels))
+        attn=attn, dtype=dtype, channels=channels, mesh=mesh))
     if mode == "u_split":
         return SplitPlan(
             stages=(embed,

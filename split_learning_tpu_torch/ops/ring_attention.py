@@ -2,16 +2,51 @@
 (counterpart of ``split_learning_tpu/ops/ring_attention.py``).
 
 :func:`full_attention` is the JAX package's single-device reference
-semantics in plain PyTorch, computed in the input dtype as there. The
-ring and Ulysses forms shard the sequence over devices; they come with
-context parallelism (ROADMAP item 21) and raise until then.
+semantics in plain PyTorch, computed in the input dtype as there.
+
+The two parallel forms shard the sequence of ``[B, T, H, D]`` over the
+``seq`` axis of a :class:`~split_learning_tpu_torch.parallel.mesh.Mesh`
+(the batch over its ``data`` rows), run each rank's share on the rank's
+device, and gather the output back to the caller's device. JAX's
+``shard_map`` bodies become loops over the ranks:
+
+- **Ring attention** (:func:`ring_attention`): each rank keeps its
+  query block and the K/V blocks rotate around the ring, one hop a step
+  (JAX's ``ppermute`` is a ``.to`` of each block onto the next rank's
+  device). The per-block math is the dense online softmax
+  (``block_impl="dense"``) or the flash kernels (``"flash"``: K5 on
+  every (query block, rotated K/V block) pair, merged in log space, and
+  K6 in the backward with the LSE's cotangent).
+- **Ulysses attention** (:func:`ulysses_attention`): two all-to-all
+  transposes (a split and a ``torch.cat`` across ranks) turn sequence
+  shards into head shards and back; each rank attends over the whole
+  sequence for ``H / n`` heads, dense or on K5/K6.
+
+Autograd differentiates through the device copies and the merge, as
+JAX's transpose does. Called inside :func:`~split_learning_tpu_torch.
+parallel.mesh.data_row`, a form takes its inputs as that data row's and
+uses that row's ``seq`` devices only (the fused trainer's data
+replicas); otherwise it splits the batch over the data rows as JAX's
+``shard_map`` does. With virtual ranks on one card every rank is the
+same device and the copies are no-ops; the launches are those of n
+ranks.
 """
 
 from __future__ import annotations
 
+import os
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
 import torch
 
 from split_learning_tpu_torch.ops.common import NEG_BIG
+from split_learning_tpu_torch.parallel.mesh import (
+    DATA_AXIS, SEQ_AXIS, Mesh, active_row)
+
+# JAX's default memory budget where the backend reports none (its CPU
+# test meshes): keeps the CPU resolution equal to JAX's
+_DEFAULT_MEMORY_BYTES = 16 * 1024 ** 3
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -28,14 +63,312 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
-def _not_ported(name: str):
-    def attention(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} (context parallelism over a device mesh) is not ported "
-            "yet (ROADMAP item 21)")
-    attention.__name__ = name
-    return attention
+# --------------------------------------------------------------------- #
+# per-rank bodies: lists of one tensor a seq rank, each on its device
+
+Blocks = List[torch.Tensor]
 
 
-ring_attention = _not_ported("ring_attention")
-ulysses_attention = _not_ported("ulysses_attention")
+def _rotate(blocks: Blocks, devs: Sequence[torch.device]) -> Blocks:
+    """One ring hop: rank r's block moves to rank r + 1 (JAX's
+    ``ppermute`` with ``perm = [(j, (j + 1) % n)]``)."""
+    n = len(blocks)
+    return [blocks[(r - 1) % n].to(devs[r]) for r in range(n)]
+
+
+def _ring_dense(qs: Blocks, ks: Blocks, vs: Blocks,
+                devs: Sequence[torch.device], causal: bool,
+                striped: bool) -> Blocks:
+    """JAX's ``_ring_attention_local`` on every rank: the online softmax
+    (running max ``m``, denominator ``l``, accumulator ``o``) in float32
+    over the n rotated K/V blocks; the output cast to the input dtype.
+
+    ``striped``: token j of rank r is global position ``j*n + r``
+    (:func:`stripe_permutation`), else ``r*t_local + j``."""
+    n = len(qs)
+    b, t_local, h, d = qs[0].shape
+    scale = d ** -0.5
+
+    def positions(r: int, dev: torch.device) -> torch.Tensor:
+        idx = torch.arange(t_local, device=dev)
+        return idx * n + r if striped else r * t_local + idx
+
+    state = []
+    for r in range(n):
+        dev = qs[r].device
+        state.append([torch.zeros((b, h, t_local, d), device=dev),
+                      torch.zeros((b, h, t_local), device=dev),
+                      torch.full((b, h, t_local), NEG_BIG, device=dev)])
+    kb, vb = list(ks), list(vs)
+    for i in range(n):
+        for r in range(n):
+            o, l, m = state[r]
+            q = qs[r]
+            src = (r - i) % n
+            s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                             kb[r].float()) * scale
+            mask = None
+            if causal:
+                mask = (positions(r, q.device)[:, None]
+                        >= positions(src, q.device)[None, :])
+                s = torch.where(mask, s, torch.full_like(s, NEG_BIG))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # masked entries are re-zeroed after the exp:
+            # exp(NEG_BIG - NEG_BIG) would be 1
+            p = torch.exp(s - m_new[..., None])
+            if causal:
+                p = torch.where(mask, p, torch.zeros_like(p))
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            o = o * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p, vb[r].float())
+            state[r] = [o, l, m_new]
+        if i < n - 1:   # n - 1 hops; a 1-rank ring never moves
+            kb, vb = _rotate(kb, devs), _rotate(vb, devs)
+    return [(o / l[..., None]).permute(0, 2, 1, 3).to(q.dtype)
+            for (o, l, _), q in zip(state, qs)]
+
+
+def _merge(o1: torch.Tensor, lse1: torch.Tensor, o2: torch.Tensor,
+           lse2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two normalized partials ``(o, lse)`` merged exactly in log space,
+    in float32 (``o2`` arrives in the input dtype)."""
+    m = torch.maximum(lse1, lse2)
+    a1 = torch.exp(lse1 - m)
+    a2 = torch.exp(lse2 - m)
+    denom = a1 + a2
+    o = (o1 * a1[..., None] + o2.float() * a2[..., None]) / denom[..., None]
+    return o, m + torch.log(denom)
+
+
+def _ring_flash(qs: Blocks, ks: Blocks, vs: Blocks,
+                devs: Sequence[torch.device], causal: bool,
+                striped: bool) -> Blocks:
+    """JAX's ``_ring_flash_local`` on every rank: each (query block,
+    rotated K/V block) pair runs :func:`~split_learning_tpu_torch.ops.
+    flash_attention.flash_attention_with_lse` (K5 on the card, K6 in its
+    backward), the partials merged by :func:`_merge`.
+
+    Masks of a causal hop from source rank ``src``: striped, ``src <=
+    rank`` is causal and ``src > rank`` strict causal (the diagonal too);
+    contiguous, past ranks are unmasked, the diagonal block causal, and
+    future blocks contribute ``(0, NEG_BIG)`` with no launch."""
+    from split_learning_tpu_torch.ops.flash_attention import (
+        flash_attention_with_lse)
+
+    n = len(qs)
+    b, t_local, h, d = qs[0].shape
+
+    def block(r: int, kb: torch.Tensor, vb: torch.Tensor, i: int):
+        q = qs[r]
+        if not causal:
+            return flash_attention_with_lse(q, kb, vb, causal=False)
+        src = (r - i) % n
+        if striped:
+            return flash_attention_with_lse(q, kb, vb, causal=True,
+                                            strict=src > r)
+        if src < r:
+            return flash_attention_with_lse(q, kb, vb, causal=False)
+        if src == r:
+            return flash_attention_with_lse(q, kb, vb, causal=True)
+        return (torch.zeros((b, t_local, h, d), dtype=q.dtype,
+                            device=q.device),
+                torch.full((b, t_local, h), NEG_BIG, device=q.device))
+
+    state = [(torch.zeros((b, t_local, h, d), device=q.device),
+              torch.full((b, t_local, h), NEG_BIG, device=q.device))
+             for q in qs]
+    kb, vb = list(ks), list(vs)
+    for i in range(n):
+        for r in range(n):
+            state[r] = _merge(*state[r], *block(r, kb[r], vb[r], i))
+        if i < n - 1:
+            kb, vb = _rotate(kb, devs), _rotate(vb, devs)
+    return [o.to(q.dtype) for (o, _), q in zip(state, qs)]
+
+
+def _ulysses(qs: Blocks, ks: Blocks, vs: Blocks,
+             devs: Sequence[torch.device], causal: bool,
+             use_flash: bool) -> Blocks:
+    """JAX's ``_ulysses_local`` on every rank: all-to-all sequence ->
+    heads, attention over the whole sequence for ``H / n`` heads (dense
+    or K5/K6), heads -> sequence."""
+    n = len(qs)
+    h = qs[0].shape[2]
+    if h % n != 0:
+        raise ValueError(
+            f"ulysses needs heads ({h}) divisible by the seq axis size "
+            f"({n}); use ring_attention for odd head counts")
+    hn = h // n
+
+    def gather(xs: Blocks) -> Blocks:
+        # rank r: every rank's sequence shard of head group r
+        return [torch.cat([x[:, :, r * hn:(r + 1) * hn].to(devs[r])
+                           for x in xs], dim=1) for r in range(n)]
+
+    qg, kg, vg = gather(qs), gather(ks), gather(vs)
+    if use_flash:
+        from split_learning_tpu_torch.ops.flash_attention import (
+            flash_attention)
+        attend: Callable = flash_attention
+    else:
+        attend = full_attention
+    og = [attend(q, k, v, causal=causal) for q, k, v in zip(qg, kg, vg)]
+    t_local = qs[0].shape[1]
+    # rank s: its sequence shard of every head group
+    return [torch.cat([o[:, s * t_local:(s + 1) * t_local].to(devs[s])
+                       for o in og], dim=2) for s in range(n)]
+
+
+def _sharded(mesh: Mesh, axis_name: str, body: Callable, q: torch.Tensor,
+             k: torch.Tensor, v: torch.Tensor, causal: bool,
+             **body_kw) -> torch.Tensor:
+    """JAX's ``shard_map`` of ``body`` with specs ``[data, axis, -, -]``:
+    the batch over the data rows (only the active row's, inside
+    :func:`~split_learning_tpu_torch.parallel.mesh.data_row`), the
+    sequence over ``axis_name``; the output on ``q``'s device."""
+    row = active_row(mesh)
+    n_data = mesh.shape.get(DATA_AXIS, 1)
+    rows = [row] if row is not None else list(range(n_data))
+    n = mesh.shape[axis_name]
+    if q.shape[1] % n:
+        raise ValueError(f"sequence length {q.shape[1]} does not divide "
+                         f"over the {axis_name!r} axis ({n})")
+    if q.shape[0] % len(rows):
+        raise ValueError(f"batch {q.shape[0]} does not divide over "
+                         f"{len(rows)} data rows")
+    outs = []
+    for d, qb, kb, vb in zip(rows, *(x.chunk(len(rows), 0)
+                                     for x in (q, k, v))):
+        coords = {DATA_AXIS: d} if DATA_AXIS in mesh.axis_names else {}
+        devs = mesh.axis_devices(axis_name, **coords)
+        if q.is_meta:   # a FLOP count's shape pass stays on meta
+            devs = [q.device] * n
+        split = [[c.to(dev) for c, dev in zip(x.chunk(n, 1), devs)]
+                 for x in (qb, kb, vb)]
+        parts = body(*split, devs, causal, **body_kw)
+        outs.append(torch.cat([p.to(q.device) for p in parts], dim=1))
+    return torch.cat(outs, 0) if len(outs) > 1 else outs[0]
+
+
+# --------------------------------------------------------------------- #
+# block_impl="auto": JAX's memory rule and its override
+
+def _memory_bytes(device: torch.device) -> int:
+    if device.type == "cuda":
+        return int(torch.cuda.get_device_properties(device).total_memory)
+    return _DEFAULT_MEMORY_BYTES
+
+
+def _resolve_block_impl(block_impl: str, b: int, t_q: int, t_kv: int,
+                        h: int, itemsize: int,
+                        device: torch.device = torch.device("cpu")) -> str:
+    """``"auto"``: flash when the dense backward's residuals (3 buffers
+    of ``[b, h, t_q, t_kv]``) outgrow half the device's memory, or when
+    ``SLT_FLASH_AUTO_T`` is set and ``max(t_q, t_kv)`` reaches it. JAX's
+    speed rule is measured on the TPU and left out (JAX skips it on the
+    CPU too, so the CPU resolves as JAX does)."""
+    if block_impl != "auto":
+        return block_impl
+    env = os.environ.get("SLT_FLASH_AUTO_T")
+    if env:
+        return "flash" if max(t_q, t_kv) >= int(env) else "dense"
+    dense_resident = 3 * b * h * t_q * t_kv * itemsize
+    return ("flash" if dense_resident > _memory_bytes(device) // 2
+            else "dense")
+
+
+def _check_impl(form: str, block_impl: str) -> None:
+    if block_impl not in ("dense", "flash", "auto"):
+        raise ValueError(f"Unknown {form} block_impl: {block_impl!r} "
+                         "(expected 'dense', 'flash' or 'auto')")
+
+
+def _single_device(q, k, v, causal, block_impl) -> torch.Tensor:
+    """No ``seq`` axis: the single-device math ``block_impl`` picks."""
+    b, t, h, _ = q.shape
+    impl = _resolve_block_impl(block_impl, b, t, t, h, q.element_size(),
+                               q.device)
+    if impl == "flash":
+        from split_learning_tpu_torch.ops.flash_attention import (
+            flash_attention)
+        return flash_attention(q, k, v, causal=causal)
+    return full_attention(q, k, v, causal=causal)
+
+
+def _rows_batch(mesh: Mesh, b: int) -> int:
+    """The batch one rank sees: all of ``b`` inside a data row, else its
+    share of the data rows (JAX's ``b // data or 1``)."""
+    if active_row(mesh) is not None:
+        return b
+    return b // mesh.shape.get(DATA_AXIS, 1) or 1
+
+
+def stripe_permutation(t: int, n: int) -> np.ndarray:
+    """Index permutation from natural token order to the striped ring
+    layout: shard r's contiguous slot holds tokens r, r+n, ...
+    ``x[:, stripe_permutation(T, n)]`` stripes; ``np.argsort`` of it
+    un-stripes."""
+    return np.concatenate([np.arange(r, t, n) for r in range(n)])
+
+
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mesh: Optional[Mesh] = None, causal: bool = False,
+                   axis_name: str = SEQ_AXIS, block_impl: str = "auto",
+                   layout: str = "auto") -> torch.Tensor:
+    """Sequence-parallel attention over ``mesh``'s ``seq`` axis.
+
+    ``q/k/v``: global ``[B, T, H, D]``; T must divide by the seq axis
+    size. With no mesh, or no ``seq`` axis, the single-device math runs
+    (dense, or the flash kernels when ``block_impl`` resolves so).
+
+    ``block_impl``: ``"dense"`` (each rank's O(T_local^2) scores in
+    float32), ``"flash"`` (K5/K6 on every block) or ``"auto"``
+    (:func:`_resolve_block_impl` on one rank's shapes). ``layout``:
+    ``"contiguous"`` blocks, ``"striped"`` (token g on rank g % n, every
+    causal hop about half masked) or ``"auto"``, which stripes exactly
+    a causal flash ring; without ``causal`` a striped request runs
+    contiguous."""
+    _check_impl("ring", block_impl)
+    if layout not in ("auto", "contiguous", "striped"):
+        raise ValueError(f"Unknown ring layout: {layout!r} "
+                         "(expected 'auto', 'contiguous' or 'striped')")
+    if mesh is None or axis_name not in mesh.axis_names:
+        return _single_device(q, k, v, causal, block_impl)
+    b, t, h, _ = q.shape
+    n = mesh.shape[axis_name]
+    # the dense body's residuals are float32 whatever the input dtype
+    impl = _resolve_block_impl(block_impl, _rows_batch(mesh, b), t // n, t,
+                               h, 4, q.device)
+    if layout == "auto":
+        layout = "striped" if causal and impl == "flash" else "contiguous"
+    if layout == "striped" and not causal:
+        layout = "contiguous"
+    body = _ring_flash if impl == "flash" else _ring_dense
+    if layout == "striped":
+        perm_np = stripe_permutation(t, n)
+        perm = torch.as_tensor(perm_np, device=q.device)
+        inv = torch.as_tensor(np.argsort(perm_np), device=q.device)
+        o = _sharded(mesh, axis_name, body, q[:, perm], k[:, perm],
+                     v[:, perm], causal, striped=True)
+        return o[:, inv]
+    return _sharded(mesh, axis_name, body, q, k, v, causal, striped=False)
+
+
+def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      mesh: Optional[Mesh] = None, causal: bool = False,
+                      axis_name: str = SEQ_AXIS,
+                      block_impl: str = "auto") -> torch.Tensor:
+    """All-to-all (DeepSpeed-Ulysses) sequence-parallel attention; needs
+    ``H`` divisible by the seq axis size. ``block_impl`` picks each
+    rank's full-sequence math over its ``H / n`` heads (dense, flash, or
+    ``"auto"``). With no ``seq`` axis, the single-device math."""
+    _check_impl("ulysses", block_impl)
+    if mesh is None or axis_name not in mesh.axis_names:
+        return _single_device(q, k, v, causal, block_impl)
+    b, t, h, _ = q.shape
+    n = mesh.shape[axis_name]
+    impl = _resolve_block_impl(block_impl, _rows_batch(mesh, b), t, t,
+                               max(h // n, 1), q.element_size(), q.device)
+    return _sharded(mesh, axis_name, _ulysses, q, k, v, causal,
+                    use_flash=impl == "flash")

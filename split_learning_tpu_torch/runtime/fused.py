@@ -1,6 +1,7 @@
 """Fused split trainer (counterpart of ``split_learning_tpu/runtime/fused.py``).
 
-The whole split step runs in one process on one device: client stage
+The whole split step runs in one process, on one device or over a
+mesh (below): client stage
 forward, the cut tensor handed on as a tensor, server stage forward, the
 fused cross-entropy, backward, and one update of ``make_tx``'s optimizer
 over both halves (``runtime/state.py``: SGD with momentum, coupled L2,
@@ -45,13 +46,30 @@ The dispatch watchdog (``obs/dispatch_debug.py``), when on, scopes each
 step (``fused_step``) and each chunk (``fused_epoch``); the loss read of
 :meth:`train_step` is its sanctioned host read.
 
+The mesh (``mesh=``, :mod:`split_learning_tpu_torch.parallel.mesh`),
+as JAX's ``data`` and ``seq`` axes. Each ``data`` row holds a replica of
+the state on its first device and takes its equal shard of the global
+batch; its loss and gradients are its shard's mean, the rows' gradients
+are averaged (summed in row order on the first row's device, then
+across processes: :func:`~split_learning_tpu_torch.parallel.
+distributed.sum_over_rows`) and every row applies the same update, so
+the replicas stay bit-equal and the step is JAX's global-batch mean.
+K1 launches once per row and microbatch, K2 once per row (under SGD).
+The ``seq`` axis is the plan's: a transformer or ViT built with
+``attn="ring"|"ring_flash"|"ulysses"`` and the mesh shards each
+attention over the row's ``seq`` ranks (``ops/ring_attention.py``) and
+gathers its output; the rest of the step runs on the row's tensors
+whole (JAX also partitions that along T). A checkpoint saves one
+replica and restores into every row.
+
 Config values the port cannot run yet raise ``NotImplementedError``
 naming the ROADMAP item that brings them (:func:`check_supported`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Tuple, Union
+import contextlib
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -59,6 +77,10 @@ import torch
 from split_learning_tpu_torch.core.stage import Params, SplitPlan, remat_plan
 from split_learning_tpu_torch.obs import dispatch_debug as obs_dispatch
 from split_learning_tpu_torch.ops.cross_entropy import fused_cross_entropy
+from split_learning_tpu_torch.parallel.distributed import (
+    process_index, sum_over_rows)
+from split_learning_tpu_torch.parallel.mesh import (
+    DATA_AXIS, MODEL_AXIS, Mesh, data_row)
 from split_learning_tpu_torch.runtime.state import (
     TrainState, check_config, init_params, leaves_of, make_state, make_tx,
     restore_state, state_tree)
@@ -69,62 +91,85 @@ from split_learning_tpu_torch.utils.device import DeviceLike, resolve_device
 def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for every value the fused trainer
     cannot run: a transport other than ``fused`` (the two-party path is
-    ``SplitClientTrainer`` over ``LocalTransport`` or ``HttpTransport``),
-    ``num_clients > 1`` (JAX's fused trainer reads it as the ``data``
-    axis of a device mesh), and
-    :func:`~split_learning_tpu_torch.runtime.state.check_config`."""
+    ``SplitClientTrainer`` over ``LocalTransport`` or ``HttpTransport``)
+    and :func:`~split_learning_tpu_torch.runtime.state.check_config`.
+    ``num_clients`` is the ``data`` axis of the mesh the caller builds."""
     if cfg.transport != "fused":
         raise NotImplementedError(
             f"not ported yet: transport {cfg.transport!r} in the fused "
             "trainer (the two-party path, ROADMAP items 8-12, is "
             "SplitClientTrainer over LocalTransport or HttpTransport)")
-    if cfg.num_clients > 1:
-        raise NotImplementedError(
-            "not ported yet: num_clients > 1 in the fused trainer "
-            "(data-parallel mesh: ROADMAP item 18)")
     check_config(cfg)
 
 
 class FusedSplitTrainer:
-    """Single-process split training on one device.
+    """Split training in one process, on one device or over a mesh.
 
     ``init`` is a ``torch.Generator`` (fresh flax-style init, drawn on the
     CPU) or per-stage parameter dicts to start from, e.g. carried over
     from the JAX package with :mod:`split_learning_tpu_torch.interop`.
     ``sample_input`` keeps the JAX signature; a flax-style init needs no
-    sample. ``device`` defaults to ``"cuda"`` and raises without a GPU."""
+    sample. ``device`` defaults to ``"cuda"`` and raises without a GPU;
+    with a ``mesh`` each data row runs on its own first device and
+    ``device`` is not used."""
 
     def __init__(self, plan: SplitPlan, cfg: Config,
                  init: Union[torch.Generator, Sequence[Params]],
                  sample_input: np.ndarray,
-                 device: DeviceLike = "cuda") -> None:
+                 device: DeviceLike = "cuda",
+                 mesh: Optional[Mesh] = None) -> None:
         check_supported(cfg)
-        self.device = resolve_device(device)
+        if mesh is not None and MODEL_AXIS in mesh.axis_names:
+            raise NotImplementedError(
+                "not ported yet: a model axis (tensor parallelism, ROADMAP "
+                "item 18)")
+        self.mesh = mesh
+        if mesh is None:
+            self.rows: List[int] = [0]
+            self._devs = {0: resolve_device(device)}
+        else:
+            self.rows = mesh.local_rows(process_index())
+            self._devs = {d: mesh.device(**{DATA_AXIS: d})
+                          for d in self.rows}
+            for dev in self._devs.values():
+                resolve_device(dev)
+        self.device = self._devs[self.rows[0]]
         # grads recompute the stage forwards under remat; the FLOP count
         # reads the plan as written
         self._flops_plan = plan
         self.plan = remat_plan(plan) if cfg.remat else plan
         self.cfg = cfg
         self._tx = make_tx(cfg)
-        self.state: TrainState = make_state(
-            init_params(plan, init, self.device), self._tx)
+        if isinstance(init, torch.Generator) and mesh is not None:
+            init = plan.init(init, torch.zeros(1))   # one draw, every row
+        self.states: Dict[int, TrainState] = {
+            d: make_state(init_params(plan, init, dev), self._tx)
+            for d, dev in self._devs.items()}
         self._flops_cache: Dict[Tuple[Any, ...], float] = {}
         # dispatch watchdog: None unless SLT_DISPATCH_DEBUG / force()
         self._dd = obs_dispatch.attach()
         self._ddtok = obs_dispatch.token()
 
+    @property
+    def state(self) -> TrainState:
+        """The state (the first local row's replica on a mesh)."""
+        return self.states[self.rows[0]]
+
     # ----------------------------------------------------------------- #
     def _to_device(self, x, y) -> Tuple[torch.Tensor, torch.Tensor]:
         """Floating inputs as float32, token ids as they are (JAX's
-        ``train_step`` passes ``x`` unchanged); labels as int64."""
-        x = torch.as_tensor(x).to(self.device)
+        ``train_step`` passes ``x`` unchanged); labels as int64. On a
+        mesh they stay on the host until :meth:`_step` shards them."""
+        dev = self.device if self.mesh is None else "cpu"
+        x = torch.as_tensor(x).to(dev)
         if x.is_floating_point():
             x = x.float()
-        y = torch.as_tensor(y).to(self.device, torch.int64)
+        y = torch.as_tensor(y).to(dev, torch.int64)
         return x, y
 
-    def _loss_and_grads(self, x: torch.Tensor, y: torch.Tensor):
-        params = self.state.params
+    def _loss_and_grads(self, state: TrainState, x: torch.Tensor,
+                        y: torch.Tensor):
+        params = state.params
         leaves = leaves_of(params)
 
         def value_and_grad(xb, yb):
@@ -139,7 +184,7 @@ class FusedSplitTrainer:
         xs = x.reshape((mb, x.shape[0] // mb) + tuple(x.shape[1:]))
         ys = y.reshape((mb, y.shape[0] // mb) + tuple(y.shape[1:]))
         g_sum = [torch.zeros_like(t) for t in leaves]
-        l_sum = torch.zeros((), device=self.device)
+        l_sum = torch.zeros((), device=x.device)
         for i in range(mb):
             loss, grads = value_and_grad(xs[i], ys[i])
             g_sum = [a + g for a, g in zip(g_sum, grads)]
@@ -147,12 +192,34 @@ class FusedSplitTrainer:
         return l_sum / mb, [g / mb for g in g_sum]
 
     def _step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        loss, grads = self._loss_and_grads(x, y)
         # cuDNN returns the conv weight grads in channels_last when its input
         # is channels_last; the SGD kernel walks each leaf in its params'
         # (contiguous) order
-        self._tx.update(self.state, [g.contiguous() for g in grads])
-        return loss
+        if self.mesh is None:
+            loss, grads = self._loss_and_grads(self.state, x, y)
+            self._tx.update(self.state, [g.contiguous() for g in grads])
+            return loss
+        n = self.mesh.shape.get(DATA_AXIS, 1)
+        if x.shape[0] % n:
+            raise ValueError(f"batch {x.shape[0]} does not divide over "
+                             f"{n} data rows")
+        xs, ys = x.chunk(n, 0), y.chunk(n, 0)
+        losses, grads = [], []
+        for d in self.rows:
+            dev = self._devs[d]
+            with data_row(self.mesh, d):
+                loss, g = self._loss_and_grads(
+                    self.states[d], xs[d].to(dev), ys[d].to(dev))
+            losses.append([loss.reshape(1)])
+            grads.append(list(g))
+        # the mean over equal shards, computed once and copied to every
+        # row: the replicas take the same update
+        mean = [g / n for g in sum_over_rows(grads)]
+        for d in self.rows:
+            dev = self._devs[d]
+            self._tx.update(self.states[d],
+                            [g.to(dev).contiguous() for g in mean])
+        return (sum_over_rows(losses)[0] / n)[0]
 
     def train_step_async(self, x, y) -> torch.Tensor:
         """One step; returns the loss as a device scalar, with no host sync."""
@@ -187,6 +254,9 @@ class FusedSplitTrainer:
         and K6 included; cached per batch shape and dtype."""
         from split_learning_tpu_torch.utils.flops import step_flops
         x, y = self._to_device(x, y)
+        if self.mesh is not None:   # one row's share of the global batch
+            n = self.mesh.shape.get(DATA_AXIS, 1)
+            x, y = x.chunk(n, 0)[0], y.chunk(n, 0)[0]
         key = (tuple(x.shape), str(x.dtype), tuple(y.shape))
         cache = self._flops_cache
         if key not in cache:
@@ -203,7 +273,9 @@ class FusedSplitTrainer:
             params = tuple({k: v.detach().requires_grad_(True)
                             for k, v in st.items()}
                            for st in self.state.params)
-            cache[key] = step_flops(step, params, x, y)
+            with (data_row(self.mesh, self.rows[0]) if self.mesh is not None
+                  else contextlib.nullcontext()):
+                cache[key] = step_flops(step, params, x, y)
         return cache[key]
 
     @property
@@ -217,5 +289,6 @@ class FusedSplitTrainer:
 
     def restore_states(self, tree: Dict[str, Any]) -> None:
         """Restore :meth:`export_states`'s tree in place (each leaf in its
-        saved dtype, the schedule's count with it)."""
-        restore_state(self.state, tree["trainer"])
+        saved dtype, the schedule's count with it), into every row."""
+        for st in self.states.values():
+            restore_state(st, tree["trainer"])

@@ -164,23 +164,27 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> None:
     gradient becomes ``g / norm * max_norm`` when the global norm is not
     below ``max_norm``, else stays as it is (a division and a product by
     1). Each leaf's sum of squares is rounded to its dtype, as optax's
-    ``jnp.sum`` of a bfloat16 leaf is, and the sums add in float32."""
-    groups = _by_dtype(grads)
+    ``jnp.sum`` of a bfloat16 leaf is, and the sums add in float32.
+    Gradients may lie on several devices (the stages of a pipeline):
+    the sums add on the first one's."""
+    groups: Dict[Tuple[torch.device, torch.dtype], List[int]] = {}
+    for i, g in enumerate(grads):
+        groups.setdefault((g.device, g.dtype), []).append(i)
     total = None
-    for dtype, idx in groups.items():
+    for (_, dtype), idx in groups.items():
         norms = torch._foreach_norm(_pick(grads, idx), 2,
                                     dtype=torch.float32)
         sq = torch.stack(norms).square().to(dtype).float().sum()
-        total = sq if total is None else total + sq
+        total = sq if total is None else total + sq.to(total.device)
     norm = total.sqrt()
     keep = norm < max_norm
     one = torch.ones_like(norm)
     den = torch.where(keep, one, norm)
     mul = torch.where(keep, one, torch.full_like(norm, max_norm))
-    for dtype, idx in groups.items():
+    for (dev, dtype), idx in groups.items():
         part = _pick(grads, idx)
-        torch._foreach_div_(part, den.to(dtype))
-        torch._foreach_mul_(part, mul.to(dtype))
+        torch._foreach_div_(part, den.to(dev, dtype))
+        torch._foreach_mul_(part, mul.to(dev, dtype))
 
 
 class _Optimizer:
@@ -426,19 +430,15 @@ def adopt_params(state: TrainState, params: Sequence[Params],
 
 def check_config(cfg) -> None:
     """Raise ``NotImplementedError`` for every Config value (other than
-    the transport and ``num_clients``, which each trainer checks) the
-    port cannot run. ``num_clients`` is the federated server's round
-    size and the multi-client runner's client count; only the fused
-    trainer's data-parallel mesh refuses it (``runtime/fused.py``)."""
-    unsupported = [
-        (cfg.model_parallel > 1,
-         "model_parallel > 1 (tensor parallelism: ROADMAP item 18)"),
-        (cfg.seq_parallel > 1,
-         "seq_parallel > 1 (context parallelism: ROADMAP item 21)"),
-    ]
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(f"not ported yet: {what}")
+    the transport, which each trainer checks) the port cannot run:
+    ``model_parallel > 1``. ``num_clients`` is the federated server's
+    round size, the multi-client runner's client count and the fused
+    trainer's ``data`` axis; ``seq_parallel`` the fused trainer's
+    ``seq`` axis."""
+    if cfg.model_parallel > 1:
+        raise NotImplementedError(
+            "not ported yet: model_parallel > 1 (tensor parallelism: "
+            "ROADMAP item 18)")
     make_tx(cfg)
 
 

@@ -99,9 +99,15 @@ def test_head_dim_above_256_raises():
 
 @pytest.mark.parametrize("fn", [ring_attention, ulysses_attention])
 def test_sequence_parallel_forms_raise(fn):
-    x = torch.zeros(1, 2, 1, 4)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        fn(x, x, x)
+    """The sequence-parallel forms (refused before the mesh slice) run;
+    what they still refuse is JAX's: an unknown ``block_impl``. Without
+    a ``seq`` axis they are dense attention (their numbers against JAX
+    are tests/test_torch_port_ring_attention.py's)."""
+    x = torch.randn(1, 2, 1, 4, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="block_impl"):
+        fn(x, x, x, block_impl="bogus")
+    torch.testing.assert_close(fn(x, x, x), full_attention(x, x, x),
+                               rtol=0, atol=0)
 
 
 @pytest.fixture()

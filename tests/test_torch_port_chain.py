@@ -263,6 +263,15 @@ def test_device_transport_is_bit_equal_to_local_with_no_host_copy():
                  lambda: wire.aggregate(None, 0, 0.0, 0)):
         with pytest.raises(NotImplementedError, match="pipeline hops"):
             call()
-    with pytest.raises(NotImplementedError, match="item 18"):
-        DeviceTransport(stage, mesh=object())
+    # a pipe mesh (refused before the mesh slice): the payload moves to
+    # the stage's pipe rank (all CPU ranks here) and the reply is the same
+    from split_learning_tpu_torch.parallel.mesh import Mesh, make_mesh
+    with pytest.raises(ValueError, match="'pipe' axis"):
+        DeviceTransport(stage, mesh=Mesh([torch.device("cpu")], ("data",)))
+    with pytest.raises(ValueError, match="< 3 stages"):
+        DeviceTransport(stage, mesh=make_mesh(num_stages=2, device="cpu"))
+    meshed = DeviceTransport(stage, mesh=make_mesh(num_stages=3,
+                                                   device="cpu"))
+    x = torch.randn(2, 26, 26, 32, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(meshed.hop_forward(x, 1), wire.hop_forward(x, 2))
     stage.close()

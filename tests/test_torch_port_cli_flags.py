@@ -8,7 +8,9 @@
   (:data:`TRAIN_NOT_PORTED`) exits 2 with ``[error] not ported yet:``
   and its ROADMAP item, before touching data; the observability flags
   (``--flight``, ``--telemetry-port``, ``--profile-dir``,
-  ``--tracking-uri``) run and do what JAX's do.
+  ``--tracking-uri``) run and do what JAX's do, and so do the mesh
+  flags (``--transport pipeline``, ``--num-clients``,
+  ``--seq-parallel``, the multi-host flags).
 - ``--require-real`` runs: with no real files it refuses the synthetic
   fallback (rc 2), with the real cache present it trains.
 """
@@ -57,20 +59,8 @@ def test_every_jax_flag_has_a_port_flag(cmd):
 
 
 _VALUES = {
-    "transport": ["--transport", "pipeline"], "remat": ["--remat"],
-    "num_clients": ["--num-clients", "2"],
     "model_parallel": ["--model-parallel", "2"],
     "mesh_data": ["--mesh-data", "2"], "mesh_model": ["--mesh-model", "2"],
-    "coordinator": ["--coordinator", "h:1"],
-    "num_processes": ["--num-processes", "2"],
-    "process_id": ["--process-id", "0"],
-    "replica_sync_every": ["--replica-sync-every", "2"],
-    "handoff": ["--handoff", "checkpoint"], "autoscale": ["--autoscale"],
-    "autoscale_min": ["--autoscale-min", "1"],
-    "autoscale_max": ["--autoscale-max", "3"],
-    "autoscale_cooldown_s": ["--autoscale-cooldown-s", "1"],
-    "seq_parallel": ["--seq-parallel", "2"],
-    "scan_steps": ["--scan-steps", "4"],
 }
 
 
@@ -148,6 +138,36 @@ def test_replica_scan_remat_train_flags_run(attr, tmp_path, capsys):
     err = capsys.readouterr().err
     assert rc == 0 and "not ported yet" not in err and "[warn]" not in err
     assert ("[autoscale] policy on:" in err) == attr.startswith("autoscale")
+
+
+_MESH_TRAIN_FLAGS = {
+    "transport": ["--transport", "pipeline", "--microbatches", "2"],
+    "num_clients": ["--num-clients", "2"],
+    "coordinator": ["--coordinator", "127.0.0.1:1"],
+    "num_processes": ["--num-processes", "1"],
+    "process_id": ["--process-id", "0"],
+    "seq_parallel": ["--model", "transformer_lm", "--dataset", "lm",
+                     "--seq-len", "16", "--d-model", "16", "--num-heads",
+                     "2", "--attn", "ring", "--seq-parallel", "2"],
+}
+
+
+@pytest.mark.parametrize("attr", sorted(_MESH_TRAIN_FLAGS))
+def test_mesh_train_flags_run(attr, tmp_path, capsys):
+    """The mesh flags that exited 2 before the mesh slice train:
+    ``--transport pipeline`` (GPipe over a pipe mesh), ``--num-clients``
+    (the fused trainer's data axis), ``--seq-parallel`` (ring attention
+    over a seq axis), and the multi-host flags, which alone (no second
+    process) leave the run single-process, as JAX's do."""
+    argv = ["train", "--device", "cpu", "--steps", "2", "--data-dir",
+            str(tmp_path), "--batch-size", "8",
+            *_MESH_TRAIN_FLAGS[attr]]
+    if "--dataset" not in argv:
+        argv += ["--dataset", "synthetic"]
+    rc = main(argv)
+    out, err = capsys.readouterr()
+    assert rc == 0 and "not ported yet" not in err and "[warn]" not in err
+    assert "steps=2 final_loss=" in out
 
 
 def test_defaults_of_the_refused_flags_train(tmp_path, capsys):

@@ -31,6 +31,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 
 import jax
 import numpy as np
@@ -223,19 +224,21 @@ def test_eval_refuses_what_it_cannot_read(checkpoints, tmp_path, capsys):
     assert "d_model: saved 32 != requested 64" in capsys.readouterr().err
     assert main(["eval", "--device", "cpu", "--data-dir", data]) == 2
     assert "eval requires --checkpoint-dir" in capsys.readouterr().err
-    # a K-stage chain checkpoint evaluates (the test below); the
-    # single-program pipeline's is not ported yet
-    for meta, item in (({"layout": "pipeline", "model": "resnet18_4stage",
-                         "dataset": "cifar10"}, "ROADMAP item 16"),):
-        ck = _meta_dir(tmp_path / meta["model"], **meta)
-        saver = Checkpointer(ck)
-        saver.save(1, {"trainer": {"params": []}})
-        saver.close()
-        assert main(["eval", "--device", "cpu", "--checkpoint-dir", ck,
-                     "--data-dir", data]) == 2
-        err = capsys.readouterr().err
-        assert err.startswith("[error] ") and "not ported" in err
-        assert item in err
+    # a K-stage chain checkpoint evaluates (the test below), and so does
+    # the single-program pipeline's layout (the trainer's tree, as the
+    # fused layout's): the same record from the same tree
+    ck = str(tmp_path / "pipeline_ck")
+    shutil.copytree(pdir, ck)
+    with open(os.path.join(ck, "meta.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(ck, "meta.json"), "w") as f:
+        json.dump({**meta, "layout": "pipeline"}, f)
+    records = []
+    for d in (pdir, ck):
+        assert main(["eval", "--device", "cpu", "--checkpoint-dir", d,
+                     "--data-dir", data]) == 0
+        records.append(capsys.readouterr().out)
+    assert records[0] == records[1] and "accuracy" in records[0]
 
 
 def test_eval_of_a_jax_chain_checkpoint_matches_jax(tmp_path):

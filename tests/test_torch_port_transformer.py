@@ -194,12 +194,25 @@ def test_get_plan_dtypes():
 
 @pytest.mark.parametrize("attn,exc,match", [
     ("auto", NotImplementedError, "crossover"),
-    ("ring", NotImplementedError, "item 21"),
-    ("ring_flash", NotImplementedError, "item 21"),
-    ("ulysses", NotImplementedError, "item 21"),
+    ("ring", None, "full"),
+    ("ring_flash", None, "flash"),
+    ("ulysses", None, "full"),
     ("bogus", ValueError, "Unknown attn"),
 ])
 def test_attention_choices(attn, exc, match):
+    """``auto`` and an unknown name raise; the sequence-parallel forms
+    build, and with no ``seq`` axis run the single-device math ``match``
+    names, as JAX's do (their meshed numbers are
+    tests/test_torch_port_ring_attention.py's)."""
+    if exc is None:
+        ref = get_plan(model="transformer_lm", attn=match, **SIZE)
+        params = ref.init(torch.Generator().manual_seed(0), torch.zeros(1))
+        tokens = torch.from_numpy(_tokens())
+        with torch.no_grad():
+            got = get_plan(model="transformer_lm", attn=attn,
+                           **SIZE).apply(params, tokens)
+            assert torch.equal(got, ref.apply(params, tokens))
+        return
     with pytest.raises(exc, match=match):
         get_plan(model="transformer_lm", attn=attn)
     if exc is ValueError:

@@ -481,10 +481,20 @@ def test_cli_without_device_cpu_raises(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--num-clients", "2"], "item 18"),
+    (["--model-parallel", "2"], "item 18"),
 ])
 def test_cli_unported_flags_refuse(flags, item, tmp_path):
+    """What the port still refuses on the local wire: the ``model`` axis
+    (``--num-clients 2``, refused here before the mesh slice, runs: the
+    test below)."""
     out = _cli("--transport", "local", "--steps", "1", "--dataset",
                "synthetic", "--data-dir", str(tmp_path), *flags)
     assert out.returncode == 2
     assert item in out.stderr
+
+
+def test_cli_num_clients_runs_on_the_local_wire(tmp_path):
+    out = _cli("--transport", "local", "--steps", "1", "--dataset",
+               "synthetic", "--data-dir", str(tmp_path), "--num-clients", "2")
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "[error]" not in out.stderr
