@@ -426,6 +426,27 @@ beside this script. Phases, any failure ending the run with a traceback:
    1e-5). (e) ``train --attn ring_flash`` without ``--seq-parallel``:
    JAX's warning, K5 3 a step; ``--seq-parallel 4`` on fewer than 4
    cards exits 2 with the mesh message.
+31. the model axis (tensor parallelism: ``parallel/tensor.py``, the
+   sharded parties), every mesh of virtual ranks on card 0. First K5 and
+   K6 at a model rank's shape [64, 1024, 1, 128] (bf16, causal) against
+   their plain versions, timed beside SDPA. (a) Phase 18's bf16 AdamW LM
+   through ``train --model-parallel 2`` (``SLT_CUDA_RANKS=2``) for 3
+   steps: K5 and each K6 launch 6, K1f 1, K1b 1, K2 0 a step; then 4
+   steps in this process, each from the sharded trainer's state on it
+   and on the unsharded one (losses within two bf16 ulps), a rank's
+   parameter bytes at most 0.75 of the whole, a CPU twin. (b) The fused
+   CNN at batch 64 at ``model 2``, ``model 4`` (the fc row parallel) and
+   ``data 2 x model 2`` against the unsharded step from one state (rtol
+   1e-4, atol 1e-5): K1 once a data row, K2 once a rank a step;
+   ResNet-18 at batch 128, ``model 2``: at most 0.6 of the bytes a rank,
+   its steps against the unsharded ones. (c) ``serve --mesh-data 2
+   --mesh-model 2`` over HTTP (``none``) against a CNN client at batch
+   64, against the unsharded server (rtol 1e-4, atol 5e-4), its /health
+   ``mesh`` and its ``gather_bytes``; ``train --transport local
+   --mesh-data 2 --mesh-model 2`` paired with the flat run; a coalesced
+   group padded to the ``data`` multiple. (d) ``split_cnn_chain3`` on the
+   device wire, its middle stage at ``data 2 x model 2``, against the
+   flat chain, with no host copy on a hop.
 
 Output, last lines: one JSON object with a record per kernel, one JSON
 object with the main path's step time, one with the serving path's
@@ -436,8 +457,9 @@ phases 20-23 (``u_split``, ``u_split_lm``, ``federated``,
 ``multi_client``, ``cli``), one with phase 24 (``checkpoint``), one
 with phase 25 (``many_clients``), one with phase 26 (``image``), one
 with phase 27 (``chain``), one with phase 28 (``obs``), one with
-phase 29 (``fleet``), one with phase 30 (``mesh``), the ``nvidia-smi``
-name and power limit, and ``{"ok": true, "device": {...}}``.
+phase 29 (``fleet``), one with phase 30 (``mesh``), one with phase 31
+(``model_axis``), the ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -720,6 +742,26 @@ MESH_FA_SHAPES = (   # label, shape, causal, strict, an LSE cotangent
     ("ring block strict", _RING_BLOCK, True, True, True),
     ("ring block non-causal", _RING_BLOCK, False, False, True),
     ("ulysses causal", (TRAIN_B, TRAIN_T, 1, 128), True, False, False))
+# phase 31: the model axis (tensor parallelism), ranks virtual on card 0.
+# (a) phase 18's bf16 AdamW LM at model TP_MODEL through the CLI for
+# TP_CLI_STEPS steps, then TP_LM_STEPS steps each from the sharded
+# trainer's state on it and on the unsharded one, a CPU twin of
+# TP_TWIN_STEPS steps on TWIN_ROWS rows; (b) the fused CNN at the
+# (data, model) shapes of TP_CNN_SHAPES for TP_CNN_STEPS steps, and
+# ResNet-18 at batch IMG_B at model 2; (c) the sharded server (serve over
+# HTTP and train --transport local at data 2 x model 2, TP_SERVER_STEPS
+# steps; a coalesced group of TP_PAD_B rows on a data TP_PAD_DATA mesh);
+# (d) split_cnn_chain3 on the device wire, its middle stage at data 2 x
+# model 2, TP_CHAIN_STEPS steps. TP_FA_SHAPES: K5/K6 where a model rank
+# attends its one head of the LM's two
+TP_MODEL, TP_CLI_STEPS, TP_LM_STEPS, TP_TWIN_STEPS = 2, 3, 4, 2
+TP_CNN_SHAPES, TP_CNN_STEPS = ((1, 2), (1, 4), (2, 2)), 5
+TP_FUSED_TOL, TP_SERVER_TOL = (1e-4, 1e-5), (1e-4, 5e-4)   # (rtol, atol)
+TP_LM_BYTES_BAR, TP_IMG_BYTES_BAR = 0.75, 0.6
+TP_SERVER_STEPS, TP_PAD_DATA, TP_PAD_B, TP_CHAIN_STEPS = 5, 4, 2, 4
+TP_FA_SHAPES = (("model rank causal",
+                 (TRAIN_B, TRAIN_T, LM["num_heads"] // TP_MODEL,
+                  LM["d_model"] // LM["num_heads"]), True, False, False),)
 PLANTS = {
     "quantize_roundf": ("quantize.cu", "rintf(", "roundf("),
     "topk_select_ties_high": (
@@ -6080,9 +6122,11 @@ def _live_pairs(t: int, causal: bool, strict: bool) -> int:
     return t * (t - 1) // 2 if strict else t * (t + 1) // 2
 
 
-def mesh_flash_checks(torch, dev, gen, bw, flash_peak) -> dict:
-    """Phase 30's kernel rows: K5 and K6 (with an LSE cotangent, as the
-    ring's merge gives them) at :data:`MESH_FA_SHAPES` in bf16 against
+def mesh_flash_checks(torch, dev, gen, bw, flash_peak,
+                      shapes=MESH_FA_SHAPES) -> dict:
+    """Phase 30's kernel rows (and phase 31's, at :data:`TP_FA_SHAPES`):
+    K5 and K6 (with an LSE cotangent, as the ring's merge gives them) at
+    ``shapes`` (default :data:`MESH_FA_SHAPES`) in bf16 against
     their plain versions (phase 6's and 9's tolerances), with their
     device ms beside the plain versions', SDPA's (a boolean mask for the
     strict block; its backward through autograd) and the bound (the
@@ -6093,7 +6137,7 @@ def mesh_flash_checks(torch, dev, gen, bw, flash_peak) -> dict:
         flash_bwd_cuda, flash_fwd_cuda)
     out = {}
     name = "bfloat16"
-    for label, shape, causal, strict, with_g_lse in MESH_FA_SHAPES:
+    for label, shape, causal, strict, with_g_lse in shapes:
         b, t, h, d = shape
         n, rows = math.prod(shape), b * t * h
         pairs = b * h * _live_pairs(t, causal, strict)
@@ -6159,7 +6203,7 @@ def mesh_flash_checks(torch, dev, gen, bw, flash_peak) -> dict:
                     reps=50),
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=e_g))
         del q, k, v, do, o, lse, grads, qt, kt, vt, lib_out, do_t, o_p
-    print("[k5/k6] at the mesh's shapes (bf16), ms kernel / SDPA: "
+    print("[k5/k6] at these shapes (bf16), ms kernel / SDPA: "
           + "; ".join(f"{key} fwd {r['fwd']['ms']:.4f} / "
                       f"{r['fwd']['library_ms']:.4f}, bwd "
                       f"{r['bwd']['ms']:.4f} / {r['bwd']['library_ms']:.4f}"
@@ -6516,6 +6560,493 @@ def mesh_runs(torch, launch_run, smi, tr_data) -> tuple:
           + (" and distinct cards" if rec["cards"] >= MESH_SEQ else
              f" only ({rec['cards']} card)"), flush=True)
     print(f"[mesh] phase 30: {rec['seconds']:.1f} s", flush=True)
+    return rec, totals
+
+
+# --------------------------------------------------------------------- #
+# phase 31: the model axis (tensor parallelism)
+
+def _tp_devices(torch, n: int) -> list:
+    """n virtual ranks on card 0 (the machine reports one card)."""
+    return [torch.device("cuda", 0)] * n
+
+
+class _CudaRanks:
+    """``SLT_CUDA_RANKS`` set for a command-line run (``parallel/mesh.py``:
+    the ranks a process offers over its cards), restored after."""
+
+    def __init__(self, n: int) -> None:
+        self.n = n
+
+    def __enter__(self):
+        self.prev = os.environ.get("SLT_CUDA_RANKS")
+        os.environ["SLT_CUDA_RANKS"] = str(self.n)
+        return self
+
+    def __exit__(self, *exc):
+        if self.prev is None:
+            os.environ.pop("SLT_CUDA_RANKS", None)
+        else:
+            os.environ["SLT_CUDA_RANKS"] = self.prev
+        return False
+
+
+def _whole_bytes(params) -> int:
+    return sum(v.numel() * v.element_size() for st in params
+               for v in st.values())
+
+
+def _tp_want(k5: int, rows: int = 1, sgd: int = 0) -> dict:
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.flash_attention import (
+        BWD_NAMES, NAME as FA)
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    want = {FWD: rows, BWD: rows}
+    if k5:
+        want.update({FA: k5, **{nm: k5 for nm in BWD_NAMES}})
+    if sgd:
+        want[SGD] = sgd
+    return want
+
+
+def tp_lm_runs(torch, launch_run, tr_data) -> dict:
+    """Phase 31 (a): the bf16 AdamW LM at ``model`` TP_MODEL. Through
+    ``train --model-parallel`` (the user's entry point) for TP_CLI_STEPS
+    steps: K5 and each K6 launch once a rank and block, K1 once, K2 none,
+    a step. Then in this process TP_LM_STEPS steps, each from the sharded
+    trainer's state on it and on the unsharded trainer (losses within two
+    bf16 ulps, step ms both ways), per-rank parameter bytes against the
+    whole, and the CPU twin."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.parallel.mesh import make_mesh
+    from split_learning_tpu_torch.runtime import FusedSplitTrainer
+    want = _tp_want(N_BLOCKS * TP_MODEL)
+    data_dir = os.path.join(REPO, "build", "chip_smoke_obs_data")
+    argv = ["train", "--transport", "fused", "--steps", str(TP_CLI_STEPS),
+            "--tracking", "noop", *_lm_flags(data_dir), "--model-parallel",
+            str(TP_MODEL)]
+    with _CudaRanks(TP_MODEL):
+        rc, counts, _, err, secs = _cli_err(torch, launch_run, argv)
+    check(rc == 0, f"train --model-parallel {TP_MODEL}: rc {rc}, "
+                   f"{err[-1500:]}")
+    want_cli = {k: v * TP_CLI_STEPS for k, v in want.items()}
+    check(counts == want_cli,
+          f"--model-parallel CLI launches {counts}, want {want_cli}")
+    print(f"[tp] train --model-parallel {TP_MODEL} (CLI, bf16 AdamW LM): "
+          f"rc 0, launches {counts} in {TP_CLI_STEPS} steps, {secs:.1f} s",
+          flush=True)
+    rec = dict(cli=dict(rc=rc, launches=counts, steps=TP_CLI_STEPS,
+                        seconds=secs))
+    plan = get_plan(dtype="bfloat16", **LM)
+    init = plan.init(torch.Generator().manual_seed(0), torch.zeros(1))
+    cfg = _lm_mesh_cfg()
+    ref = FusedSplitTrainer(plan, cfg, init, tr_data[0][0], device="cuda")
+    mesh = make_mesh(model_parallel=TP_MODEL,
+                     devices=_tp_devices(torch, TP_MODEL))
+    trainer = FusedSplitTrainer(plan, cfg.replace(model_parallel=TP_MODEL),
+                                init, tr_data[0][0], mesh=mesh)
+    losses, ref_losses, ms, ref_ms, per_step = [], [], [], [], []
+    for x, y in tr_data[:TP_LM_STEPS]:
+        ref.restore_states(trainer.export_states())
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        t = time.perf_counter()
+        losses.append(trainer.train_step(x, y))
+        ms.append((time.perf_counter() - t) * 1e3)
+        per_step.append(LAUNCHES.snapshot())
+        LAUNCHES.reset()
+        t = time.perf_counter()
+        ref_losses.append(ref.train_step(x, y))
+        ref_ms.append((time.perf_counter() - t) * 1e3)
+    gaps = [abs(a - b) for a, b in zip(losses, ref_losses)]
+    tols = [bf16_loss_tol(b) for b in ref_losses]
+    rank_bytes = trainer.state.rank_bytes()[0]
+    whole = _whole_bytes(init)
+    share = max(rank_bytes) / whole
+    print(f"[tp] LM model {TP_MODEL} (virtual ranks): losses {losses} "
+          f"against unsharded {ref_losses} (gaps {gaps}, tolerance {tols}); "
+          f"launches a step {per_step[-1]}; per-rank param bytes "
+          f"{rank_bytes} of {whole} ({share:.4f}); step "
+          f"{statistics.median(ms[1:]):.3f} ms against "
+          f"{statistics.median(ref_ms[1:]):.3f}", flush=True)
+    check(all(g <= tol for g, tol in zip(gaps, tols)),
+          f"TP LM: losses {losses} against {ref_losses}")
+    check(all(c == want for c in per_step),
+          f"TP LM launches {per_step}, want {want}")
+    check(share <= TP_LM_BYTES_BAR, f"TP LM per-rank bytes {share}")
+    # the CPU twin: TWIN_ROWS rows, each step from the card's state
+    rows = [(x[:TWIN_ROWS], y[:TWIN_ROWS])
+            for x, y in tr_data[:TP_TWIN_STEPS]]
+    twin_cfg = cfg.replace(batch_size=TWIN_ROWS, model_parallel=TP_MODEL)
+    card = FusedSplitTrainer(plan, twin_cfg, init, rows[0][0], mesh=mesh)
+    cpu = FusedSplitTrainer(plan, twin_cfg, init, rows[0][0],
+                            mesh=make_mesh(model_parallel=TP_MODEL,
+                                           device="cpu"))
+    card_l, cpu_l = [], []
+    for x, y in rows:
+        cpu.restore_states(card.export_states())
+        card_l.append(card.train_step(x, y))
+        cpu_l.append(cpu.train_step(x, y))
+    twin_gaps = [abs(a - b) for a, b in zip(card_l, cpu_l)]
+    twin_tols = [bf16_loss_tol(b) for b in cpu_l]
+    check(all(g <= t for g, t in zip(twin_gaps, twin_tols)),
+          f"TP LM CPU twin: card {card_l} vs cpu {cpu_l}")
+    print(f"[tp] LM CPU twin on {TWIN_ROWS} rows x {len(rows)} steps: card "
+          f"{card_l}, cpu {cpu_l} (gaps {twin_gaps})", flush=True)
+    rec.update(
+        model=TP_MODEL, placement=sorted({str(d) for d in
+                                          mesh.devices.flat}),
+        losses=losses, ref_losses=ref_losses, loss_gaps=gaps,
+        loss_tol=tols, launches_per_step=per_step[-1], step_ms=ms,
+        ref_step_ms=ref_ms, step_ms_median=statistics.median(ms[1:]),
+        ref_step_ms_median=statistics.median(ref_ms[1:]),
+        rank_param_bytes=rank_bytes, whole_param_bytes=whole,
+        rank_share=share,
+        cpu_twin=dict(card=card_l, cpu=cpu_l, gaps=twin_gaps,
+                      tol=twin_tols, rows=TWIN_ROWS))
+    return rec
+
+
+def _tp_pair(torch, trainer, ref, data):
+    """Each step from ``trainer``'s state on it and on ``ref``: the
+    losses, the launches of each sharded step, and both step ms."""
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    losses, ref_losses, per_step, ms, ref_ms = [], [], [], [], []
+    for x, y in data:
+        ref.restore_states(trainer.export_states())
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        t = time.perf_counter()
+        losses.append(trainer.train_step(x, y))
+        ms.append((time.perf_counter() - t) * 1e3)
+        per_step.append(LAUNCHES.snapshot())
+        LAUNCHES.reset()
+        t = time.perf_counter()
+        ref_losses.append(ref.train_step(x, y))
+        ref_ms.append((time.perf_counter() - t) * 1e3)
+    return losses, ref_losses, per_step, ms, ref_ms
+
+
+def tp_image_runs(torch) -> dict:
+    """Phase 31 (b): the fused CNN at batch BATCH on each (data, model)
+    of TP_CNN_SHAPES (model 4 puts the 9216x10 fc row parallel), each
+    step from one state against the unsharded trainer (JAX's bar), K1
+    once a data row and K2 once a rank; ResNet-18 at batch IMG_B at
+    model 2: per-rank parameter bytes and its steps against the
+    unsharded ones."""
+    from split_learning_tpu_torch.data import batches, synthetic
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.parallel.mesh import make_mesh
+    from split_learning_tpu_torch.runtime import FusedSplitTrainer
+    from split_learning_tpu_torch.utils import Config
+    ds = synthetic("mnist", n_train=BATCH * TP_CNN_STEPS, n_test=8, seed=1)
+    data = list(batches(ds.train, BATCH, seed=1, drop_remainder=True))
+    init = get_plan().init(torch.Generator().manual_seed(0), torch.zeros(1))
+    cfg = Config(transport="fused", batch_size=BATCH, lr=LR)
+    rtol, atol = TP_FUSED_TOL
+    rec = {"cnn": {}}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = FusedSplitTrainer(get_plan(), cfg, init, data[0][0],
+                                device="cuda")
+        for d, m in TP_CNN_SHAPES:
+            mesh = make_mesh(num_clients=d, model_parallel=m,
+                             devices=_tp_devices(torch, d * m))
+            trainer = FusedSplitTrainer(
+                get_plan(), cfg.replace(num_clients=d, model_parallel=m),
+                init, data[0][0], mesh=mesh)
+            losses, ref_losses, per_step, ms, ref_ms = _tp_pair(
+                torch, trainer, ref, data)
+            want = _tp_want(0, rows=d, sgd=d * m)
+            label = f"data{d}_model{m}"
+            print(f"[tp] CNN {label}: losses {losses[0]:.6f} -> "
+                  f"{losses[-1]:.6f}, max gap to the unsharded step "
+                  f"{max(abs(a - b) for a, b in zip(losses, ref_losses)):.3g}"
+                  f", launches a step {per_step[-1]}, step "
+                  f"{statistics.median(ms[1:]):.3f} ms against "
+                  f"{statistics.median(ref_ms[1:]):.3f}", flush=True)
+            check(np.allclose(losses, ref_losses, rtol=rtol, atol=atol),
+                  f"CNN {label}: {losses} against {ref_losses}")
+            check(all(c == want for c in per_step),
+                  f"CNN {label} launches {per_step}, want {want}")
+            rec["cnn"][label] = dict(
+                data=d, model=m, losses=losses, ref_losses=ref_losses,
+                launches_per_step=per_step[-1],
+                step_ms_median=statistics.median(ms[1:]),
+                ref_step_ms_median=statistics.median(ref_ms[1:]),
+                rank_param_bytes=trainer.state.rank_bytes()[0],
+                fc_split_dim=trainer.state.dims[1]["fc.weight"])
+        check(rec["cnn"]["data1_model4"]["fc_split_dim"] == 1,
+              "model 4: the fc is not row parallel")
+        # ResNet-18 at batch IMG_B, model 2
+        img = synthetic("cifar10", n_train=IMG_B * 3, n_test=8, seed=0)
+        img_data = list(batches(img.train, IMG_B, seed=0,
+                                drop_remainder=True))
+        plan = get_plan(model="resnet18")
+        rinit = plan.init(torch.Generator().manual_seed(0), torch.zeros(1))
+        rcfg = Config(transport="fused", model="resnet18",
+                      batch_size=IMG_B, lr=LR)
+        rref = FusedSplitTrainer(plan, rcfg, rinit, img_data[0][0],
+                                 device="cuda")
+        mesh = make_mesh(model_parallel=TP_MODEL,
+                         devices=_tp_devices(torch, TP_MODEL))
+        rtr = FusedSplitTrainer(plan, rcfg.replace(model_parallel=TP_MODEL),
+                                rinit, img_data[0][0], mesh=mesh)
+        losses, ref_losses, per_step, ms, ref_ms = _tp_pair(
+            torch, rtr, rref, img_data)
+        rank_bytes = rtr.state.rank_bytes()[0]
+        share = max(rank_bytes) / _whole_bytes(rinit)
+        print(f"[tp] ResNet-18 model {TP_MODEL}, batch {IMG_B}: losses "
+              f"{losses} against {ref_losses}, per-rank param bytes "
+              f"{share:.4f} of the whole, launches a step {per_step[-1]}, "
+              f"step {statistics.median(ms[1:]):.3f} ms against "
+              f"{statistics.median(ref_ms[1:]):.3f}", flush=True)
+        check(np.allclose(losses, ref_losses, rtol=rtol, atol=atol),
+              f"ResNet-18 model {TP_MODEL}: {losses} against {ref_losses}")
+        check(share <= TP_IMG_BYTES_BAR, f"ResNet-18 per-rank bytes {share}")
+        check(all(c == _tp_want(0, sgd=TP_MODEL) for c in per_step),
+              f"ResNet-18 TP launches {per_step}")
+        rec["resnet18"] = dict(
+            model=TP_MODEL, batch=IMG_B, losses=losses,
+            ref_losses=ref_losses, launches_per_step=per_step[-1],
+            rank_param_bytes=rank_bytes, rank_share=share,
+            step_ms_median=statistics.median(ms[1:]),
+            ref_step_ms_median=statistics.median(ref_ms[1:]))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return rec
+
+
+def _done_line(out: str) -> dict:
+    """The CLI's ``[done]`` line: its final loss and steps/s."""
+    line = next(ln for ln in out.splitlines() if ln.startswith("[done]"))
+    loss = float(line.split("final_loss=")[1].split()[0])
+    rate = float(line.split("(")[-1].split()[0])
+    return dict(final_loss=loss, steps_per_s=rate, line=line)
+
+
+def tp_server_runs(torch, launch_run) -> dict:
+    """Phase 31 (c): the sharded server. ``serve --mesh-data 2
+    --mesh-model 2`` over HTTP against a CNN client at batch BATCH on the
+    ``none`` wire, TP_SERVER_STEPS steps against ``serve`` unsharded from
+    the same seeds (JAX's bar; the step ms of both), /health's mesh and
+    /metrics' gather bytes; ``train --transport local --mesh-data 2
+    --mesh-model 2`` against the flags' absence (the final loss and the
+    rate, paired); a coalesced group of TP_PAD_B rows padded to the data
+    TP_PAD_DATA multiple."""
+    import urllib.request
+    from split_learning_tpu_torch.data import batches, synthetic
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.parallel.mesh import make_mesh
+    from split_learning_tpu_torch.runtime import (
+        ServerRuntime, SplitClientTrainer)
+    from split_learning_tpu_torch.transport import (
+        HttpTransport, LocalTransport, codec)
+    from split_learning_tpu_torch.utils import Config
+    rtol, atol = TP_SERVER_TOL
+    ds = synthetic("mnist", n_train=BATCH * TP_SERVER_STEPS, n_test=8,
+                   seed=2)
+    data = list(batches(ds.train, BATCH, seed=2, drop_remainder=True))
+    cfg = Config(transport="http", batch_size=BATCH, lr=LR)
+
+    def client(transport):
+        return SplitClientTrainer(get_plan(), cfg,
+                                  torch.Generator().manual_seed(0),
+                                  transport, device="cuda")
+
+    def series(c):
+        out, ms = [], []
+        for i, (x, y) in enumerate(data):
+            t = time.perf_counter()
+            out.append(c.train_step(x, y, i))
+            ms.append((time.perf_counter() - t) * 1e3)
+        return out, ms
+
+    rec = {}
+    http = {}
+    for label, flags in (("flat", ()), ("mesh", ("--mesh-data", "2",
+                                                  "--mesh-model", "2"))):
+        with _CudaRanks(4):
+            srv = _Serve(f"tp_server_{label}", *flags, "--lr", str(LR))
+        try:
+            transport = HttpTransport(srv.url, timeout=HTTP_TIMEOUT,
+                                      compress="none")
+            losses, ms = series(client(transport))
+            with urllib.request.urlopen(srv.url + "/health",
+                                        timeout=HTTP_TIMEOUT) as r:
+                health = codec.decode(r.read())
+            with urllib.request.urlopen(srv.url + "/metrics",
+                                        timeout=HTTP_TIMEOUT) as r:
+                metrics = r.read().decode()
+            transport.close()
+        finally:
+            srv.stop()
+        gather = [float(ln.split()[-1]) for ln in metrics.splitlines()
+                  if ln.startswith("slt_gather_bytes")]
+        http[label] = dict(losses=losses, step_ms=ms,
+                           step_ms_median=statistics.median(ms[1:]),
+                           mesh=health.get("mesh"),
+                           gather_bytes=gather[0] if gather else 0.0)
+    got, flat = http["mesh"], http["flat"]
+    print(f"[tp] serve --mesh-data 2 --mesh-model 2 over HTTP (none): "
+          f"losses {got['losses']} against the unsharded server "
+          f"{flat['losses']}; health mesh {got['mesh']}; gather bytes "
+          f"{got['gather_bytes']} (unsharded {flat['gather_bytes']}); step "
+          f"{got['step_ms_median']:.3f} ms against "
+          f"{flat['step_ms_median']:.3f}", flush=True)
+    check(np.allclose(got["losses"], flat["losses"], rtol=rtol, atol=atol),
+          f"sharded HTTP server: {got['losses']} against {flat['losses']}")
+    check(got["mesh"] == {"devices": 4, "data": 2, "pipe": 1, "model": 2}
+          and flat["mesh"] is None, f"health meshes {http}")
+    check(got["gather_bytes"] > 0 and flat["gather_bytes"] == 0,
+          f"gather bytes {http}")
+    rec["http"] = http
+    # the in-process server of the local wire, through the CLI, paired
+    data_dir = os.path.join(REPO, "build", "chip_smoke_data")
+    argv = ["train", "--device", "cuda", "--transport", "local", "--steps",
+            str(TP_SERVER_STEPS * 2), "--dataset", "synthetic",
+            "--data-dir", data_dir, "--tracking", "noop", "--lr", str(LR)]
+    runs = {}
+    for label, extra in (("flat", []),
+                         ("mesh", ["--mesh-data", "2", "--mesh-model", "2"]),
+                         ("mesh_again", ["--mesh-data", "2",
+                                         "--mesh-model", "2"]),
+                         ("flat_again", [])):
+        with _CudaRanks(4):
+            rc, counts, out, err, secs = _cli_err(torch, launch_run,
+                                                  argv + extra)
+        check(rc == 0, f"train --transport local {extra}: rc {rc}, "
+                       f"{err[-1500:]}")
+        runs[label] = dict(_done_line(out), launches=counts, seconds=secs)
+    steps = TP_SERVER_STEPS * 2
+    want_mesh = _tp_want(0, sgd=1 + 2 * 2)
+    check(runs["mesh"]["launches"] == {k: v * steps for k, v in
+                                       want_mesh.items()},
+          f"local mesh launches {runs['mesh']['launches']}")
+    a, b = runs["mesh"]["final_loss"], runs["flat"]["final_loss"]
+    check(abs(a - b) <= atol + rtol * abs(b),
+          f"local mesh final loss {a} against {b}")
+    print(f"[tp] train --transport local --mesh-data 2 --mesh-model 2: "
+          f"final loss {a} against {b}; steps/s flat "
+          f"{runs['flat']['steps_per_s']}, {runs['flat_again']['steps_per_s']}"
+          f", mesh {runs['mesh']['steps_per_s']}, "
+          f"{runs['mesh_again']['steps_per_s']}; launches "
+          f"{runs['mesh']['launches']} in {steps} steps", flush=True)
+    rec["local_cli"] = runs
+    # a coalesced group pads to the data axis
+    pad_srv = ServerRuntime(
+        get_plan(), cfg, torch.Generator().manual_seed(0),
+        coalesce_max=4, coalesce_window_ms=5.0,
+        mesh=make_mesh(num_clients=TP_PAD_DATA,
+                       devices=_tp_devices(torch, TP_PAD_DATA)))
+    ref_srv = ServerRuntime(get_plan(), cfg,
+                            torch.Generator().manual_seed(0), device="cuda")
+    small = [(x[:TP_PAD_B], y[:TP_PAD_B]) for x, y in data]
+    try:
+        pc = client(LocalTransport(pad_srv))
+        rc_ = client(LocalTransport(ref_srv))
+        padded = [pc.train_step(x, y, i) for i, (x, y) in enumerate(small)]
+        plain = [rc_.train_step(x, y, i) for i, (x, y) in enumerate(small)]
+        sigs = sorted(pad_srv._coalesce_shapes)
+    finally:
+        pad_srv.close()
+        ref_srv.close()
+    print(f"[tp] coalesced groups of {TP_PAD_B} rows on data {TP_PAD_DATA}:"
+          f" signatures {sigs}, losses {padded} against {plain}", flush=True)
+    check(sigs and all(sh[0] % TP_PAD_DATA == 0 for sh, _, _ in sigs),
+          f"group signatures {sigs}")
+    check(np.allclose(padded, plain, rtol=rtol, atol=atol),
+          f"padded groups: {padded} against {plain}")
+    rec["coalesced_pad"] = dict(data=TP_PAD_DATA, rows=TP_PAD_B,
+                                signatures=[list(sh) for sh, _, _ in sigs],
+                                losses=padded, ref_losses=plain)
+    return rec
+
+
+def tp_chain_runs(torch) -> dict:
+    """Phase 31 (d): ``split_cnn_chain3`` on the device wire at batch
+    BATCH, M 2, its middle stage at data 2 x model 2: the flat chain's
+    series (the sharded server's bar), no host copy on a hop, the step
+    ms of both."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.obs import spans
+    from split_learning_tpu_torch.parallel.mesh import make_mesh
+    from split_learning_tpu_torch.runtime import (
+        PipelineRunner, StageRuntime)
+    from split_learning_tpu_torch.transport import DeviceTransport
+    from split_learning_tpu_torch.utils import Config
+    rtol, atol = TP_SERVER_TOL
+    plan = get_plan(model="split_cnn_chain3")
+    cfg = Config(transport="device", model="split_cnn_chain3",
+                 batch_size=BATCH, num_stages=3, microbatches=2, lr=LR)
+    init = plan.init(torch.Generator().manual_seed(0), torch.zeros(1))
+    rs = np.random.RandomState(3)
+    data = [(rs.randn(BATCH, 28, 28, 1).astype(np.float32),
+             rs.randint(0, 10, BATCH).astype(np.int64))
+            for _ in range(TP_CHAIN_STEPS)]
+    rec = {}
+    for label, mesh in (("flat", None), ("middle_data2_model2", make_mesh(
+            num_clients=2, model_parallel=2,
+            devices=_tp_devices(torch, 4)))):
+        stages = [StageRuntime(plan, i, cfg, init, microbatches=2,
+                               mesh=mesh if i == 1 else None,
+                               device="cuda") for i in (1, 2)]
+        wires = [DeviceTransport(st) for st in stages]
+        runner = PipelineRunner(plan, cfg, init, None, wires,
+                                microbatches=2, device="cuda",
+                                step_timeout_s=CHAIN_STEP_TIMEOUT)
+        try:
+            losses, ms = [], []
+            for s_, (x, y) in enumerate(data):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                losses.append(runner.step(x, y, step=s_))
+                ms.append((time.perf_counter() - t) * 1e3)
+            report = runner.stage_report()
+        finally:
+            runner.close()
+            for st in stages:
+                st.close()
+        copies = [w.stats.counters.get(spans.HOP_HOST_COPIES, 0)
+                  for w in wires]
+        rec[label] = dict(losses=losses, step_ms=ms,
+                          step_ms_median=statistics.median(ms[1:]),
+                          hop_host_copies=copies,
+                          mesh=[r["mesh"] for r in report])
+    got, ref = rec["middle_data2_model2"], rec["flat"]
+    print(f"[tp] split_cnn_chain3 device wire, middle stage data 2 x model "
+          f"2: losses {got['losses']} against flat {ref['losses']}, "
+          f"hop_host_copies {got['hop_host_copies']}, meshes {got['mesh']},"
+          f" step {got['step_ms_median']:.3f} ms against "
+          f"{ref['step_ms_median']:.3f}", flush=True)
+    check(np.allclose(got["losses"], ref["losses"], rtol=rtol, atol=atol),
+          f"sharded chain: {got['losses']} against {ref['losses']}")
+    check(got["hop_host_copies"] == [0, 0],
+          f"host copies on the device wire {got['hop_host_copies']}")
+    check(got["mesh"][0].get("model") == 2, f"stage meshes {got['mesh']}")
+    return rec
+
+
+def model_axis_runs(torch, launch_run, smi, tr_data) -> tuple:
+    """Phase 31: (a) to (d) with their launch totals."""
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    t0 = time.perf_counter()
+    rec = {"card": smi, "cards": torch.cuda.device_count(),
+           "placement": "virtual ranks on cuda:0"}
+    LAUNCHES.reset()   # the kernel checks' launches stay out of the totals
+    totals, restore = _phase_totals(LAUNCHES)
+    try:
+        rec["lm"] = tp_lm_runs(torch, launch_run, tr_data)
+        rec["image"] = tp_image_runs(torch)
+        rec["server"] = tp_server_runs(torch, launch_run)
+        rec["chain"] = tp_chain_runs(torch)
+    finally:
+        restore()
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[tp] phase 31: {rec['seconds']:.1f} s, every mesh on virtual "
+          f"ranks of card 0 ({rec['cards']} card)", flush=True)
     return rec, totals
 
 
@@ -7382,6 +7913,13 @@ def main() -> int:
         check(mesh_counts.get(name, 0) > 0,
               f"phase 30's runs launched {name} no time: {mesh_counts}")
 
+    # ---- 31. the model axis ------------------------------------------ #
+    tp_fa = mesh_flash_checks(torch, dev, gen, bw, flash_peak, TP_FA_SHAPES)
+    tp_rec, tp_counts = model_axis_runs(torch, launch_run, smi, tr_data)
+    for name in (FA, *BWD_NAMES, FWD, BWD, SGD):
+        check(tp_counts.get(name, 0) > 0,
+              f"phase 31's runs launched {name} no time: {tp_counts}")
+
     for rec in records:
         key = launch_of.get(rec["name"], rec["name"])
         rec["launches_train_lm_bf16"] = bf16_counts.get(key, 0)
@@ -7540,6 +8078,22 @@ def main() -> int:
                 k: dict(r["bwd"], shape=r["shape"], causal=r["causal"],
                         strict=r["strict"], g_lse=r["g_lse"])
                 for k, r in mesh_fa.items()}
+        # phase 31: every run of its four parts, and a step's of each leg
+        rec["launches_model_axis"] = tp_counts.get(key, 0)
+        per_step = {"lm_model2": tp_rec["lm"]["launches_per_step"].get(key, 0),
+                    "resnet18_model2": tp_rec["image"]["resnet18"][
+                        "launches_per_step"].get(key, 0)}
+        per_step.update({f"cnn_{label}": r["launches_per_step"].get(key, 0)
+                         for label, r in tp_rec["image"]["cnn"].items()})
+        rec["launches_per_step_model_axis"] = per_step
+        if rec["name"] == FA:
+            rec["tp_shapes"] = {k: dict(r["fwd"], shape=r["shape"],
+                                        causal=r["causal"])
+                                for k, r in tp_fa.items()}
+        if rec["name"] == BWD_DKV:
+            rec["tp_shapes_whole_backward"] = {
+                k: dict(r["bwd"], shape=r["shape"], causal=r["causal"])
+                for k, r in tp_fa.items()}
     two_party_line = dict(two_party=dict(
         model="split_cnn", mode="split", transport="local", batch=BATCH,
         steps=STEPS, density=DENSITY, device=kind, kernel_cases=wire_cases,
@@ -7595,6 +8149,8 @@ def main() -> int:
     print(json.dumps({"mesh": dict(device=kind, model="transformer_lm",
                                    batch=TRAIN_B, seq_len=TRAIN_T,
                                    kernels=mesh_fa, **mesh_rec)}))
+    print(json.dumps({"model_axis": dict(device=kind, kernels=tp_fa,
+                                         **tp_rec)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -62,21 +62,45 @@ from split_learning_tpu_torch.utils.arrays import to_host
 _RAW_LEAVES = ("pos",)
 
 
+# a kernel's transposes, by rank: torch dim i of a weight is dim
+# _KERNEL_TO_WEIGHT[ndim][i] of the flax kernel, and flax dim j of a
+# kernel is dim _WEIGHT_TO_KERNEL[ndim][j] of the weight
+_KERNEL_TO_WEIGHT = {4: (3, 2, 0, 1),   # HWIO -> OIHW
+                     2: (1, 0)}         # [in, out] -> [out, in]
+_WEIGHT_TO_KERNEL = {4: (2, 3, 1, 0),   # OIHW -> HWIO
+                     2: (1, 0)}
+
+
 def _kernel_to_weight(k: Any) -> Any:
-    if k.ndim == 4:   # HWIO -> OIHW
-        return (k.permute(3, 2, 0, 1) if isinstance(k, torch.Tensor)
-                else k.transpose(3, 2, 0, 1))
-    if k.ndim == 2:   # [in, out] -> [out, in]
-        return k.T
-    raise ValueError(f"unsupported kernel rank {k.ndim}")
+    if k.ndim not in _KERNEL_TO_WEIGHT:
+        raise ValueError(f"unsupported kernel rank {k.ndim}")
+    perm = _KERNEL_TO_WEIGHT[k.ndim]
+    return (k.permute(*perm) if isinstance(k, torch.Tensor)
+            else k.transpose(*perm))
 
 
 def _weight_to_kernel(w: np.ndarray) -> np.ndarray:
-    if w.ndim == 4:   # OIHW -> HWIO
-        return w.transpose(2, 3, 1, 0)
-    if w.ndim == 2:
-        return w.T
-    raise ValueError(f"unsupported weight rank {w.ndim}")
+    if w.ndim not in _WEIGHT_TO_KERNEL:
+        raise ValueError(f"unsupported weight rank {w.ndim}")
+    return w.transpose(*_WEIGHT_TO_KERNEL[w.ndim])
+
+
+def is_kernel(name: str, ndim: int) -> bool:
+    """Whether the port's leaf ``name`` of rank ``ndim`` is a flax
+    ``kernel`` (transposed on the way across): a conv or dense
+    ``weight``, not a LayerNorm scale, an embedding table or ``pos``."""
+    *path, kind = name.split(".")
+    return (kind == "weight" and ndim in _WEIGHT_TO_KERNEL
+            and not (ndim == 2 and path and path[-1] in EMBED_LAYERS))
+
+
+def torch_dim(name: str, ndim: int, jax_dim: int) -> int:
+    """The torch dim of the port's leaf ``name`` that holds dim
+    ``jax_dim`` (negative counts from the end) of the same leaf in the
+    JAX tree: the transposes above for a kernel, the identity for every
+    other leaf."""
+    j = jax_dim % ndim
+    return _WEIGHT_TO_KERNEL[ndim][j] if is_kernel(name, ndim) else j
 
 
 def _leaf_to_torch(value: Any, transform=None) -> torch.Tensor:

@@ -141,9 +141,18 @@ when saving, with JAX's warning, and other transports warn and ignore
 it. ``--remat`` rematerialises the stage forwards in the backward (the
 fused trainer and the served party).
 
-Not ported yet, each exiting 2 with the ROADMAP item it waits for: the
-``train`` flags of :data:`TRAIN_NOT_PORTED` (``--transport pipeline``
-among them) and the ``serve`` flags of :data:`SERVE_NOT_PORTED`.
+The ``model`` mesh axis, as JAX's: ``train --model-parallel N`` on the
+fused transport trains over ``global_mesh(num_clients, model_parallel,
+seq_parallel)`` (tensor parallelism, ``parallel/tensor.py``; with
+``--seq-parallel`` too it exits 2, ROADMAP item 18.2); another
+transport warns as JAX does and trains without it. ``--mesh-data`` and
+``--mesh-model`` shard the served party (``serve``), the in-process
+server of ``train --transport local`` and the chain's in-process
+stages (``train --stages S``, whose per-microbatch rows must tile
+``--mesh-data``; over http each stage takes its own at ``serve``). On
+the CPU a mesh takes ``SLT_HOST_DEVICES`` ranks; on the card one a card,
+or ``SLT_CUDA_RANKS`` ranks over the cards (virtual ranks on one card).
+A mesh larger than that exits 2.
 """
 
 from __future__ import annotations
@@ -430,18 +439,27 @@ def _make_transport(args, cfg, density: float, server: Any,
     return transport, 0
 
 
-# the JAX ``train`` flags the port does not run yet: (attribute, whether
-# it asks for something unported, the flag, its ROADMAP item). Each
-# exits 2 naming its item. ``--kernels`` and ``--download`` stay out by
-# design (no kernel fallback knob; no network).
-TRAIN_NOT_PORTED = (
-    ("model_parallel", lambda v: v is not None and v > 1,
-     "--model-parallel > 1 (tensor parallelism)", "item 18"),
-    ("mesh_data", lambda v: v > 1, "--mesh-data > 1 (a sharded server)",
-     "item 18"),
-    ("mesh_model", lambda v: v > 1, "--mesh-model > 1 (a sharded server)",
-     "item 18"),
-)
+def _server_mesh(args):
+    """The sharded server's mesh from ``--mesh-data``/``--mesh-model``
+    (``serve``, the in-process server of ``train --transport local`` and
+    the chain's in-process stages), JAX's: 1x1, the default, is None. A
+    mesh larger than the devices raises ``ValueError`` (exit 2): on the
+    CPU ``SLT_HOST_DEVICES`` ranks, with the remedy in the message; on
+    the card one rank a card, or ``SLT_CUDA_RANKS`` ranks
+    (``parallel/mesh.py``)."""
+    from split_learning_tpu_torch.parallel.mesh import (
+        make_host_mesh, make_mesh)
+    data = int(getattr(args, "mesh_data", 1) or 1)
+    model = int(getattr(args, "mesh_model", 1) or 1)
+    if data * model <= 1:
+        return None
+    if torch.device(args.device).type == "cpu":
+        try:
+            return make_host_mesh(data=data, model=model)
+        except RuntimeError as e:
+            raise ValueError(str(e)) from e
+    return make_mesh(num_clients=data, model_parallel=model,
+                     device=args.device)
 
 
 # --------------------------------------------------------------------- #
@@ -505,13 +523,6 @@ def _stage_step(srt) -> int:
     if grp is not None and "step_max" in grp:
         return int(grp["step_max"])
     return int(h.get("step", -1))
-
-
-def _refuse_unported(table, args) -> None:
-    for attr, is_set, what, item in table:
-        if is_set(getattr(args, attr)):
-            raise NotImplementedError(
-                f"not ported yet: {what} (ROADMAP {item})")
 
 
 def _open_checkpoint(cfg, args, size_kw, seq_len):
@@ -635,6 +646,7 @@ def _chain_wires(args, cfg, plan, dc, density, compress):
                 return StageRuntime(plan, _i, cfg,
                                     torch.Generator().manual_seed(cfg.seed),
                                     microbatches=M, apply_lag=args.apply_lag,
+                                    mesh=_server_mesh(args),
                                     ef_mode=ef_mode, device=args.device)
             srt = maybe_replicate(make_stage, args.replicas, **group_kw)
             stage_rts.append(srt)
@@ -771,6 +783,26 @@ def _train_chain(args, cfg, plan, ckptr, size_kw, seq_len) -> int:
                 "of them")
         if args.chaos:
             parse_chaos_spec(args.chaos)  # a bad spec fails here
+        # --mesh-data/--mesh-model shard the in-process stage parties;
+        # a stage scatters each microbatch over 'data', so the rows of a
+        # microbatch must tile it (the sharded server's rule)
+        mesh_data = int(args.mesh_data or 1)
+        if cfg.transport != "http":
+            _server_mesh(args)   # a mesh larger than the devices fails here
+        if mesh_data * int(args.mesh_model or 1) > 1 \
+                and cfg.transport == "http":
+            print("[warn] --mesh-data/--mesh-model shard in-process "
+                  "stage parties; remote http stages take their own "
+                  "mesh flags at serve time — ignored here",
+                  file=sys.stderr)
+        elif mesh_data > 1 and (
+                cfg.batch_size % cfg.microbatches
+                or (cfg.batch_size // cfg.microbatches) % mesh_data):
+            raise ValueError(
+                f"--mesh-data {mesh_data} needs the per-microbatch rows "
+                f"(batch_size/microbatches = {cfg.batch_size}/"
+                f"{cfg.microbatches}) divisible by the data axis — the "
+                "same rule as the sharded server role")
         compress = args.compress
         if compress and cfg.transport == "device":
             print("[warn] --compress ignored on --transport device "
@@ -974,10 +1006,12 @@ def _fused_mesh(cfg, plan, sample, size_kw, seq_len, multi_host: bool,
     """The fused transport's mesh, JAX's rules: ``--seq-parallel`` is
     ignored (with a warning) for a model without a sequence axis or a
     ViT whose patch tokens do not divide over it; a mesh is built for
-    ``--num-clients`` > 1, ``--seq-parallel`` > 1 or a multi-host run
-    (too few devices raise ``ValueError``); a ring form with no ``seq``
-    axis warns that it runs the single-device math; an attention plan is
-    rebuilt with the mesh. Returns ``(cfg, mesh, plan)``."""
+    ``--num-clients`` > 1, ``--model-parallel`` > 1, ``--seq-parallel`` >
+    1 or a multi-host run (too few devices raise ``ValueError``; a
+    ``model`` with a ``seq`` axis ``NotImplementedError``); a ring form
+    with no ``seq`` axis warns that it runs the single-device math; an
+    attention plan is rebuilt with the mesh. Returns ``(cfg, mesh,
+    plan)``."""
     from split_learning_tpu_torch.models import get_plan
     from split_learning_tpu_torch.parallel import global_mesh
     from split_learning_tpu_torch.parallel.mesh import SEQ_AXIS
@@ -996,9 +1030,15 @@ def _fused_mesh(cfg, plan, sample, size_kw, seq_len, multi_host: bool,
                   f"{t_tokens} patch tokens ({h}x{w}, patch {patch}) do not "
                   "divide across it", file=sys.stderr)
             cfg = cfg.replace(seq_parallel=1)
+    if cfg.model_parallel > 1 and cfg.seq_parallel > 1:
+        raise NotImplementedError(
+            "not ported yet: --model-parallel with --seq-parallel (tensor "
+            "with context parallelism, ROADMAP item 18.2)")
     mesh = None
-    if cfg.num_clients > 1 or cfg.seq_parallel > 1 or multi_host:
+    if (cfg.num_clients > 1 or cfg.model_parallel > 1
+            or cfg.seq_parallel > 1 or multi_host):
         mesh = global_mesh(num_clients=cfg.num_clients, num_stages=1,
+                           model_parallel=cfg.model_parallel,
                            seq_parallel=cfg.seq_parallel, device=device)
     if attention_family and cfg.attn in ("ring", "ring_flash", "ulysses") \
             and (mesh is None or SEQ_AXIS not in mesh.axis_names):
@@ -1117,7 +1157,6 @@ def _train(args) -> int:
 
     resolve_device(args.device)  # no GPU for "cuda": raise before any work
     try:
-        _refuse_unported(TRAIN_NOT_PORTED, args)
         # a multi-host run joins its process group before any work (a
         # no-op for one process)
         multi_host = init_multi_host(args.coordinator, args.num_processes,
@@ -1172,6 +1211,7 @@ def _train(args) -> int:
                                      overlap=not args.no_overlap,
                                      decouple_bwd=args.decouple_bwd,
                                      apply_lag=args.apply_lag,
+                                     mesh=_server_mesh(args),
                                      device=args.device)
             as_cfg = rt_autoscale.args_config(args)
             server = maybe_replicate(make_replica, args.replicas,
@@ -1183,6 +1223,11 @@ def _train(args) -> int:
     except (ValueError, NotImplementedError) as e:
         print(f"[error] {e}", file=sys.stderr)
         return 2
+    if cfg.transport != "fused" and cfg.model_parallel > 1:
+        print(f"[warn] --model-parallel ignored on transport="
+              f"{cfg.transport!r} (tensor parallelism requires the "
+              f"fused transport)", file=sys.stderr)
+        cfg = cfg.replace(model_parallel=1)
     if cfg.transport not in ("fused", "pipeline") and cfg.seq_parallel > 1:
         print(f"[warn] --seq-parallel ignored on transport="
               f"{cfg.transport!r} (context parallelism requires the fused "
@@ -1461,14 +1506,6 @@ def _train(args) -> int:
 # the JAX ``serve`` flags the port does not run yet: (attribute, whether
 # it asks for something unported, the flag, its ROADMAP item). Each
 # exits 2 naming its item.
-SERVE_NOT_PORTED = (
-    ("mesh_data", lambda v: v > 1, "--mesh-data > 1 (a sharded server)",
-     "item 18"),
-    ("mesh_model", lambda v: v > 1, "--mesh-model > 1 (a sharded server)",
-     "item 18"),
-)
-
-
 def _serve_checkpoint(args, cfg, runtime, size_kw, seq_len):
     """``serve``'s checkpointing (JAX's): the server half's saves and its
     resume. A joint directory (written by a local or fused ``train``)
@@ -1590,7 +1627,6 @@ def serve_party(args):
 
     resolve_device(args.device)  # no GPU for "cuda": raise before any work
     try:
-        _refuse_unported(SERVE_NOT_PORTED, args)
         if not 0.0 < args.compress_density <= 1.0:
             raise ValueError(f"--compress-density must be in (0, 1] (got "
                              f"{args.compress_density})")
@@ -1628,7 +1664,8 @@ def serve_party(args):
                 strict_steps=not args.allow_out_of_order,
                 microbatches=cfg.microbatches, apply_lag=args.apply_lag,
                 tenants=args.tenants, quota=args.quota, slo_ms=args.slo_ms,
-                ef_mode=ef_mode, device=args.device)
+                mesh=_server_mesh(args), ef_mode=ef_mode,
+                device=args.device)
         else:
             as_cfg = rt_autoscale.args_config(args)
             if (args.replicas > 1 or as_cfg is not None) \
@@ -1654,7 +1691,8 @@ def serve_party(args):
                     tenants=args.tenants, quota=args.quota,
                     slo_ms=args.slo_ms,
                     decouple_bwd=args.decouple_bwd, apply_lag=args.apply_lag,
-                    ef_mode=ef_mode, device=args.device)
+                    mesh=_server_mesh(args), ef_mode=ef_mode,
+                    device=args.device)
             runtime = maybe_replicate(
                 make_replica, args.replicas,
                 **_group_kw(args, cfg, args.compress_density, as_cfg))
@@ -2160,9 +2198,9 @@ def _add_chain_flags(p: argparse.ArgumentParser) -> None:
                         "acknowledged the last step")
 
 
-def _add_train_not_ported(p: argparse.ArgumentParser) -> None:
-    """JAX's ``train`` flags that exit 2 here (:data:`TRAIN_NOT_PORTED`;
-    ``--tracking-uri`` and ``--remat`` are shared)."""
+def _add_mesh_flags(p: argparse.ArgumentParser) -> None:
+    """JAX's ``train`` mesh and multi-host flags (``--tracking-uri`` and
+    ``--remat`` are shared)."""
     p.add_argument("--num-clients", dest="num_clients", type=int,
                    default=None)
     p.add_argument("--model-parallel", dest="model_parallel", type=int,
@@ -2177,8 +2215,9 @@ def _add_train_not_ported(p: argparse.ArgumentParser) -> None:
                    default=None)
 
 
-def _add_serve_not_ported(p: argparse.ArgumentParser) -> None:
-    """JAX's ``serve`` flags that exit 2 here (:data:`SERVE_NOT_PORTED`)."""
+def _add_serve_mesh_flags(p: argparse.ArgumentParser) -> None:
+    """JAX's ``serve`` mesh flags: the served party's ``data`` and
+    ``model`` axes."""
     p.add_argument("--mesh-data", dest="mesh_data", type=int, default=1)
     p.add_argument("--mesh-model", dest="mesh_model", type=int, default=1)
 
@@ -2312,7 +2351,7 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     _add_flight(pt)
     _add_server_knobs(pt, serve=False)
     _add_chain_flags(pt)
-    _add_train_not_ported(pt)
+    _add_mesh_flags(pt)
     _add_replica_flags(pt)
     pt.set_defaults(fn=cmd_train)
 
@@ -2362,7 +2401,7 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
                          "(slt_slo_burn_rate_* gauges and fl_slo_alert "
                          "flight events; env twin SLT_TELEMETRY_SLO_MS)")
     _add_server_knobs(ps, serve=True)
-    _add_serve_not_ported(ps)
+    _add_serve_mesh_flags(ps)
     _add_replica_flags(ps)
     ps.set_defaults(fn=cmd_serve)
 

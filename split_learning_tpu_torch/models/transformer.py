@@ -35,8 +35,18 @@ and ``"flash"`` the hand-written kernels, K5 forward and K6 backward
 blocks dense or chosen per shape for ``"ring"`` and on K5/K6 for
 ``"ring_flash"``; :func:`ops.ring_attention.ulysses_attention`); with no
 ``seq`` axis they run the single-device math, as JAX's do. ``"auto"``
-waits for the crossover measured on the H100 and raises, as does a mesh
-with a ``model`` axis (tensor parallelism).
+waits for the crossover measured on the H100 and raises.
+
+Tensor parallelism (a ``model`` axis) needs nothing of the plan: the
+parameters it runs are laid out on the mesh
+(:class:`~split_learning_tpu_torch.parallel.tensor.ShardedParam`) and
+each op runs per rank. On such parameters the attention runs
+:func:`~split_learning_tpu_torch.parallel.tensor.head_parallel_attention`:
+each model rank its own heads when the ranks divide them, K5 and K6
+once a rank and block. ``"full"`` and ``"flash"`` take a ``model``
+axis; the sequence-parallel forms do not (a ``model`` and a ``seq``
+axis together: ROADMAP item 18.2). :data:`TP_HEAVY_PARAMS` names the
+layers whose weights the rule must shard, as JAX's does.
 
 KV-cache decode (:mod:`runtime.generate`): ``cache_len=L`` (prefill)
 also returns per-block ``{"k", "v"}`` buffers of length ``L``;
@@ -58,12 +68,17 @@ from split_learning_tpu_torch.core.stage import SplitPlan, Stage
 from split_learning_tpu_torch.ops.flash_attention import flash_attention
 from split_learning_tpu_torch.ops.ring_attention import (
     full_attention, ring_attention, ulysses_attention)
-from split_learning_tpu_torch.parallel.mesh import MODEL_AXIS
+from split_learning_tpu_torch.parallel.mesh import MODEL_AXIS, SEQ_AXIS
+from split_learning_tpu_torch.parallel.tensor import (
+    head_parallel_attention, is_sharded)
 
 _META = "meta"  # stage modules describe shapes only; params live outside
 _ATTN_IMPLS = ("full", "flash", "auto", "ring", "ring_flash", "ulysses")
 LN_EPS = 1e-6   # flax nn.LayerNorm's epsilon
 EMBED_LAYERS = ("tok",)  # interop: these layers' 2-D ``weight`` is a table
+# the layers whose weights tensor parallelism must shard (JAX's list): a
+# layout that leaves one of them replicated fails the layout test
+TP_HEAVY_PARAMS = ("q", "k", "v", "out", "up", "down", "fc", "lm_head")
 
 Cache = Optional[dict]
 
@@ -142,6 +157,22 @@ class MultiHeadAttention(nn.Module):
         self.v = Dense(d_model, d_model, dtype)
         self.out = Dense(d_model, d_model, dtype)
 
+    def _attend(self, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+        """The attention of ``[B, T, H, D]`` heads, by ``attn``."""
+        if self.attn == "ring":
+            return ring_attention(q, k, v, mesh=self.mesh,
+                                  causal=self.causal)
+        if self.attn == "ring_flash":
+            return ring_attention(q, k, v, mesh=self.mesh,
+                                  causal=self.causal, block_impl="flash")
+        if self.attn == "ulysses":
+            return ulysses_attention(q, k, v, mesh=self.mesh,
+                                     causal=self.causal)
+        if self.attn == "flash":
+            return flash_attention(q, k, v, causal=self.causal)
+        return full_attention(q, k, v, causal=self.causal)
+
     def forward(self, x: torch.Tensor, *, cache_len: int = 0,
                 decode_cache: Cache = None, pos: Optional[int] = None):
         b, t, e = x.shape
@@ -149,6 +180,11 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"d_model {e} % heads {self.num_heads} != 0")
         d = e // self.num_heads
         heads = (b, t, self.num_heads, d)
+        if (is_sharded(self.q.weight) and not cache_len
+                and decode_cache is None):
+            o = head_parallel_attention(x, (self.q, self.k, self.v),
+                                        self.num_heads, self._attend)
+            return self.out(o.reshape(b, t, e))
         q = self.q(x).reshape(heads)
         k = self.k(x).reshape(heads)
         v = self.v(x).reshape(heads)
@@ -162,19 +198,7 @@ class MultiHeadAttention(nn.Module):
             o = _decode_attention(q, ck[:, :pos + 1], cv[:, :pos + 1],
                                   d ** -0.5)
             return self.out(o.reshape(b, t, e)), {"k": ck, "v": cv}
-        if self.attn == "ring":
-            o = ring_attention(q, k, v, mesh=self.mesh, causal=self.causal)
-        elif self.attn == "ring_flash":
-            o = ring_attention(q, k, v, mesh=self.mesh, causal=self.causal,
-                               block_impl="flash")
-        elif self.attn == "ulysses":
-            o = ulysses_attention(q, k, v, mesh=self.mesh,
-                                  causal=self.causal)
-        elif self.attn == "flash":
-            o = flash_attention(q, k, v, causal=self.causal)
-        else:
-            o = full_attention(q, k, v, causal=self.causal)
-        out = self.out(o.reshape(b, t, e))
+        out = self.out(self._attend(q, k, v).reshape(b, t, e))
         if cache_len:
             if cache_len < t:
                 raise ValueError(f"cache_len {cache_len} < sequence {t}")
@@ -345,7 +369,8 @@ class TrunkAndHead(nn.Module):
 
 def check_attn(attn: str, mesh: Any = None) -> None:
     """Every attention form but ``"auto"`` runs. An unknown name raises
-    ``ValueError`` (JAX's); ``"auto"`` and a mesh with a ``model`` axis
+    ``ValueError`` (JAX's); ``"auto"``, a mesh with both a ``model`` and
+    a ``seq`` axis, and a sequence-parallel form on a ``model`` axis
     raise ``NotImplementedError``."""
     if attn not in _ATTN_IMPLS:
         raise ValueError(
@@ -355,10 +380,11 @@ def check_attn(attn: str, mesh: Any = None) -> None:
             "attn='auto' picks dense or flash by a crossover measured on the "
             "card; the H100 crossover is not measured yet (ROADMAP), so "
             "choose 'full' or 'flash'")
-    if mesh is not None and MODEL_AXIS in mesh.axis_names:
+    if mesh is not None and MODEL_AXIS in mesh.axis_names and (
+            SEQ_AXIS in mesh.axis_names or attn not in ("full", "flash")):
         raise NotImplementedError(
-            "not ported yet: a model axis (tensor parallelism, ROADMAP "
-            "item 18)")
+            "not ported yet: a model axis with context parallelism (a "
+            "seq axis or a sequence-parallel attn; ROADMAP item 18.2)")
 
 
 def transformer_plan(mode: str = "split", dtype: torch.dtype = torch.float32,

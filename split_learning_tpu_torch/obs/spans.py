@@ -24,6 +24,10 @@ QUEUE_WAIT = "queue_wait"
 DISPATCH = "dispatch"
 D2H = "d2h"
 
+# metrics-only counter: cumulative bytes a sharded party's sanctioned
+# device-to-host gather moved (runtime/party.py ``_host_gather``)
+GATHER_BYTES = "gather_bytes"
+
 # metrics-histogram-only name (never a trace span: it would double-cover
 # ``dispatch`` on a timeline); fed by the traced server and, under
 # SLT_LOCK_DEBUG=1, by obs/locks.py InstrumentedLock
@@ -87,7 +91,7 @@ FL_CHAOS = "fl_chaos"                    # fault injected by the chaos wire
 FL_CKPT_CAPTURE = "fl_ckpt_capture"      # runtime extras captured (lineage++)
 FL_CKPT_COMMIT = "fl_ckpt_commit"        # extras durably committed (rename)
 FL_CKPT_LINEAGE = "fl_ckpt_lineage"      # lineage adopted on restore/scan
-FL_GATHER = "fl_gather"                  # sharded host-gather (item 18)
+FL_GATHER = "fl_gather"                  # sanctioned sharded host-gather
 FL_SEND = "fl_send"                      # client posted a request
 FL_RECV = "fl_recv"                      # party received a request/reply
 FL_CLOSE = "fl_close"                    # runtime close entered

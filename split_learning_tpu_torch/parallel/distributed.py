@@ -16,7 +16,8 @@ axes across processes are refused with JAX's messages, as is a
 Coordinator discovery: ``SLT_COORDINATOR`` (``host:port`` of process 0),
 ``SLT_NUM_PROCESSES`` and ``SLT_PROCESS_ID``, or the arguments. Every
 process builds the identical global batch (same data, same seed) and
-takes its rows of it.
+takes its rows of it. :class:`SpecLayout` is one party's placement
+table, JAX's.
 
 NCCL refuses two ranks on one card, so a multi-process run on one
 machine with one card runs on the CPU (gloo).
@@ -33,7 +34,7 @@ import torch
 
 from split_learning_tpu_torch.parallel.mesh import (
     DATA_AXIS, MODEL_AXIS, PIPE_AXIS, Mesh, Sharding, batch_sharding,
-    local_devices, make_mesh, replicated)
+    local_devices, make_mesh, replicated, tp_leaf_sharding)
 from split_learning_tpu_torch.utils.device import DeviceLike
 
 _ENV_COORDINATOR = "SLT_COORDINATOR"      # host:port of process 0
@@ -188,9 +189,11 @@ def sum_over_rows(per_row: Sequence[Sequence[torch.Tensor]]
 
 @dataclasses.dataclass(frozen=True)
 class SpecLayout:
-    """Placement table of one party on a mesh: batches split over
-    ``data``, state replicated. The ``model`` part (tensor parallelism)
-    raises until its slice."""
+    """Placement table of one party on a mesh (JAX's): batches split over
+    ``data``, weight leaves by JAX's column-then-row ``model`` rule
+    (:func:`~.mesh.tp_leaf_sharding`), everything else replicated.
+    Optimizer mirrors share their weights' shapes and names, so they
+    shard with them; step counters replicate."""
 
     mesh: Mesh
 
@@ -198,16 +201,9 @@ class SpecLayout:
     def data(self) -> int:
         return int(self.mesh.shape.get(DATA_AXIS, 1))
 
-    def _no_model(self) -> None:
-        if MODEL_AXIS in self.mesh.axis_names:
-            raise NotImplementedError(
-                "not ported yet: a model axis (tensor parallelism, ROADMAP "
-                "item 18)")
-
     @property
     def model(self) -> int:
-        self._no_model()
-        return 1
+        return int(self.mesh.shape.get(MODEL_AXIS, 1))
 
     def batch(self) -> Sharding:
         return batch_sharding(self.mesh)
@@ -215,12 +211,26 @@ class SpecLayout:
     def replicated(self) -> Sharding:
         return replicated(self.mesh)
 
-    def param(self, leaf: Any) -> Sharding:
-        self._no_model()
-        return replicated(self.mesh)
+    def param(self, leaf: Any, name: str = "weight") -> Sharding:
+        """The placement of the port's leaf ``name`` (default: a kernel)."""
+        return tp_leaf_sharding(self.mesh, leaf, name)
 
     def state(self, state: Any) -> Dict[str, Sharding]:
-        """One placement per parameter leaf, ``"stage/key"``: replicated."""
-        self._no_model()
-        return {f"{i}/{k}": replicated(self.mesh)
-                for i, stage in enumerate(state.params) for k in stage}
+        """One placement per parameter leaf, ``"stage/key"``; the state's
+        optimizer mirrors and its step follow (above)."""
+        return {f"{i}/{k}": self.param(v, k)
+                for i, stage in enumerate(state.params)
+                for k, v in stage.items()}
+
+    def describe(self, params: Any) -> Dict[str, str]:
+        """``"stage/key"`` -> its partition spec over the torch dims, for
+        layout introspection and tests."""
+        return {f"{i}/{k}": str(self.param(v, k).spec)
+                for i, stage in enumerate(params)
+                for k, v in stage.items()}
+
+
+def server_state_layout(mesh: Mesh) -> SpecLayout:
+    """The server half's layout table (JAX's; each chain stage has its
+    own mesh and so its own table)."""
+    return SpecLayout(mesh=mesh)

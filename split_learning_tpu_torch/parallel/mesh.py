@@ -16,16 +16,27 @@ Axes:
   ``num_clients``), each with its batch shard; gradients are averaged
   over them;
 - ``pipe``: pipeline stages (:mod:`.pipeline`);
-- ``model``: tensor parallelism, which raises until its slice (ROADMAP);
-- ``seq``: context parallelism (``ops/ring_attention.py``).
+- ``model``: tensor parallelism. JAX's whole feature is one placement
+  rule, :func:`tp_leaf_sharding` (column, then row, then replicated),
+  from which GSPMD partitions the programs. The port keeps the rule on
+  JAX's axes and partitions the compute itself: a parameter leaf laid
+  out on the ranks is a :class:`~split_learning_tpu_torch.parallel.
+  tensor.ShardedParam`, whose ``F.linear``, ``F.conv2d``, embedding
+  gather and positional add run per rank on its shard
+  (:mod:`.tensor`);
+- ``seq``: context parallelism (``ops/ring_attention.py``). A mesh with
+  both ``model`` and ``seq`` is not ported (ROADMAP item 18.2).
 
 Devices. :func:`make_mesh` takes distinct CUDA cards by default and
 raises JAX's ``ValueError`` when too few are visible; it never shrinks
 the mesh. On the CPU every rank is ``cpu``: the counterpart of JAX's
 forced host devices, whose count :func:`host_device_count` reads from
-``SLT_HOST_DEVICES`` (default 8). A caller may ask for virtual ranks on
-one card with ``devices=[torch.device("cuda:0")] * n``; that is never a
-fallback.
+``SLT_HOST_DEVICES`` (default 8). On the card a process offers one rank a
+visible card, or, when ``SLT_CUDA_RANKS`` asks for n, n ranks laid over
+the cards in turn: virtual ranks where n exceeds the cards (the way a
+command-line run meshes on one card). A caller may also ask for virtual
+ranks with ``devices=[torch.device("cuda:0")] * n``. Neither is ever a
+fallback: without the ask, a mesh larger than the devices raises.
 
 Across processes (``parallel/distributed.py``) each mesh entry also
 carries the process that owns it; a process runs the ranks it owns and
@@ -52,6 +63,8 @@ SEQ_AXIS = "seq"
 
 # how many CPU ranks a process offers (JAX: the forced host device count)
 HOST_DEVICES_ENV = "SLT_HOST_DEVICES"
+# how many ranks a process offers over its cards (unset: one a card)
+CUDA_RANKS_ENV = "SLT_CUDA_RANKS"
 _DEFAULT_HOST_DEVICES = 8
 
 
@@ -79,6 +92,11 @@ class Mesh:
     @property
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        """The number of ranks (JAX's ``Mesh.size``)."""
+        return int(self.devices.size)
 
     def _index(self, coords: Dict[str, int]) -> tuple:
         bad = set(coords) - set(self.axis_names)
@@ -142,12 +160,14 @@ def ensure_host_device_count(n: Optional[int] = None) -> int:
 
 def local_devices(device: DeviceLike = "cuda") -> List[torch.device]:
     """The devices this process offers a mesh: every visible card for
-    ``cuda`` (raising without one), :func:`host_device_count` CPU ranks
-    for ``cpu``."""
+    ``cuda`` (raising without one), or ``SLT_CUDA_RANKS`` ranks laid over
+    the cards in turn; :func:`host_device_count` CPU ranks for
+    ``cpu``."""
     dev = resolve_device(device)
     if dev.type == "cuda":
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
+        cards = torch.cuda.device_count()
+        ranks = int(os.environ.get(CUDA_RANKS_ENV) or cards)
+        return [torch.device("cuda", i % cards) for i in range(ranks)]
     return [torch.device("cpu")] * host_device_count()
 
 
@@ -184,30 +204,36 @@ def make_mesh(num_clients: int = 1, num_stages: int = 1,
 def make_host_mesh(data: int = 1, model: int = 1) -> Mesh:
     """A (data x 1[, model]) mesh of CPU ranks, for tests and local runs.
 
-    Too few ranks raises with the remedy, as JAX's does; ``model`` > 1
-    raises until tensor parallelism is ported."""
-    if model > 1:
-        raise NotImplementedError(
-            "not ported yet: a model axis (tensor parallelism, ROADMAP "
-            "item 18)")
+    Too few ranks raises with the remedy, as JAX's does."""
     n = host_device_count()
-    if n < data:
+    if n < data * model:
         raise RuntimeError(
-            f"host mesh needs {data} devices but the process offers {n}. "
-            f"Set {HOST_DEVICES_ENV}={max(data, 8)} (or call "
-            "parallel.mesh.ensure_host_device_count())")
-    return make_mesh(num_clients=data, device="cpu")
+            f"host mesh needs {data * model} devices but the process "
+            f"offers {n}. Set {HOST_DEVICES_ENV}={max(data * model, 8)} "
+            "(or call parallel.mesh.ensure_host_device_count())")
+    return make_mesh(num_clients=data, model_parallel=model, device="cpu")
 
 
 @dataclasses.dataclass(frozen=True)
 class Sharding:
     """Where a tensor lives on a mesh (JAX's ``NamedSharding``, reduced
-    to the two placements the port uses): split along dim 0 over the
-    ``data`` rows (``axis`` ``"data"``), or a copy on every row
-    (``axis`` None). A row's tensor lives on the row's first device."""
+    to the placements the port uses): split along dim 0 over the
+    ``data`` rows (``axis`` ``"data"``), or a copy on every row (``axis``
+    None). A row's tensor lives on the row's first device. ``dim`` is a
+    parameter's placement on the ``model`` axis: the torch dim split
+    over the row's model ranks, or None for a copy on each."""
 
     mesh: Mesh
     axis: Optional[str] = None
+    dim: Optional[int] = None
+
+    @property
+    def spec(self) -> tuple:
+        """The partition spec over the torch dims, as JAX writes one:
+        ``()`` replicated, else one entry a dim up to the sharded one."""
+        if self.dim is not None:
+            return (None,) * self.dim + (MODEL_AXIS,)
+        return (DATA_AXIS,) if self.axis == DATA_AXIS else ()
 
     def _rows(self) -> List[torch.device]:
         return self.mesh.axis_devices(DATA_AXIS)
@@ -228,6 +254,42 @@ class Sharding:
         if self.axis is None:
             return parts[0].to(first)
         return torch.cat([p.to(first) for p in parts], 0)
+
+
+def tp_leaf_sharding(mesh: Mesh, leaf: Any, name: str = "weight"
+                     ) -> Sharding:
+    """JAX's placement rule for one parameter leaf (``tp_leaf_sharding``,
+    ``split_learning_tpu/parallel/mesh.py``), on the port's leaf ``name``
+    of ``leaf``'s shape. On the JAX leaf, a leaf of rank >= 2 splits its
+    last dim over ``model`` when the axis size divides it (column
+    parallel), else its second-to-last (row parallel), else replicates;
+    biases, norm scales and scalars replicate. The rule reads the JAX
+    leaf's axes: a flax dense kernel is ``[in, out]`` and a conv kernel
+    HWIO where torch keeps ``[out, in]`` and OIHW, so JAX's last dim is
+    torch dim 0 there (:func:`~split_learning_tpu_torch.interop.
+    torch_dim`); an embedding table and ``pos`` are not transposed.
+    ``name`` defaults to a kernel's. Optimizer mirrors share their
+    weights' shapes and names, so they shard with them."""
+    if MODEL_AXIS not in mesh.axis_names:
+        return replicated(mesh)
+    from split_learning_tpu_torch.interop import torch_dim
+    n_model = mesh.shape[MODEL_AXIS]
+    shape = tuple(getattr(leaf, "shape", ()))
+    nd = len(shape)
+    if nd >= 2:
+        for jax_dim in (-1, -2):
+            dim = torch_dim(name, nd, jax_dim)
+            if shape[dim] % n_model == 0:
+                return Sharding(mesh, None, dim)
+    return replicated(mesh)
+
+
+def tp_param_sharding(mesh: Mesh, params: Sequence[Dict[str, Any]]
+                      ) -> List[Dict[str, Sharding]]:
+    """:func:`tp_leaf_sharding` of every leaf of per-stage ``{name:
+    tensor}`` dicts, keyed as they are (JAX's ``tp_param_sharding``)."""
+    return [{k: tp_leaf_sharding(mesh, v, k) for k, v in stage.items()}
+            for stage in params]
 
 
 def batch_sharding(mesh: Mesh) -> Sharding:

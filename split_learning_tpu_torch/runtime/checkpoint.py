@@ -24,6 +24,11 @@ and renames. Every read (:meth:`~Checkpointer.latest_step`,
 first, and :meth:`~Checkpointer.close` drains them; the launcher's
 ``_ckpt_drain`` drains on every exit path.
 
+A state laid out on a mesh (``runtime/state.py`` ``ShardedState``)
+saves as whole leaves, its shards concatenated as the unsharded state
+holds them, and restores onto any mesh or none: the restore cuts each
+leaf to the slices of the template's ranks.
+
 A JAX checkpoint directory (Orbax step directories) cannot be read
 without Orbax: the checkpointer refuses it with
 :class:`ForeignCheckpointError`, before reading any of it.
@@ -175,12 +180,13 @@ class Checkpointer:
         builds one on the writer thread) is written beside the step once
         the step is committed."""
         from split_learning_tpu_torch.runtime.state import (
-            TrainState, state_tree)
+            ShardedState, TrainState, state_tree)
         t0 = time.perf_counter()
-        if isinstance(tree, TrainState):
+        states = (TrainState, ShardedState)
+        if isinstance(tree, states):
             tree = state_tree(tree)
         elif isinstance(tree, dict):
-            tree = {k: state_tree(v) if isinstance(v, TrainState) else v
+            tree = {k: state_tree(v) if isinstance(v, states) else v
                     for k, v in tree.items()}
         snap = _map(lambda t: t.detach().clone(), tree)
         event = None
@@ -345,10 +351,11 @@ class Checkpointer:
         (:func:`~split_learning_tpu_torch.runtime.state.restore_state`)
         and returned; other keys come back as saved."""
         from split_learning_tpu_torch.runtime.state import (
-            TrainState, restore_state)
+            ShardedState, TrainState, restore_state)
+        states = (TrainState, ShardedState)
         raw = self.restore_raw(step)
         t0 = time.perf_counter()
-        if isinstance(template, TrainState):
+        if isinstance(template, states):
             restore_state(template, raw)
             out: Any = template
         else:
@@ -356,7 +363,7 @@ class Checkpointer:
             for key, value in raw.items():
                 live = template.get(key) if isinstance(template, dict) \
                     else None
-                if isinstance(live, TrainState):
+                if isinstance(live, states):
                     restore_state(live, value)
                     out[key] = live
                 else:

@@ -59,8 +59,16 @@ The ``seq`` axis is the plan's: a transformer or ViT built with
 ``attn="ring"|"ring_flash"|"ulysses"`` and the mesh shards each
 attention over the row's ``seq`` ranks (``ops/ring_attention.py``) and
 gathers its output; the rest of the step runs on the row's tensors
-whole (JAX also partitions that along T). A checkpoint saves one
-replica and restores into every row.
+whole (JAX also partitions that along T). The ``model`` axis is tensor
+parallelism (JAX's ``tp_leaf_sharding`` placement): each row's replica
+is a :class:`~split_learning_tpu_torch.runtime.state.ShardedState` over
+the row's model ranks, whose ops run per rank on each rank's shard
+(``parallel/tensor.py``); the logits are gathered to the row's first
+rank, where K1 runs once per row and microbatch, and K2 updates each
+rank's own leaves in one launch a rank (``data x model`` a step under
+SGD). A mesh with both a ``model`` and a ``seq`` axis raises
+``NotImplementedError`` (ROADMAP item 18.2). A checkpoint saves one
+replica's whole leaves and restores into every row, on any mesh.
 
 Config values the port cannot run yet raise ``NotImplementedError``
 naming the ROADMAP item that brings them (:func:`check_supported`).
@@ -80,10 +88,10 @@ from split_learning_tpu_torch.ops.cross_entropy import fused_cross_entropy
 from split_learning_tpu_torch.parallel.distributed import (
     process_index, sum_over_rows)
 from split_learning_tpu_torch.parallel.mesh import (
-    DATA_AXIS, MODEL_AXIS, Mesh, data_row)
+    DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh, data_row)
 from split_learning_tpu_torch.runtime.state import (
-    TrainState, check_config, init_params, leaves_of, make_state, make_tx,
-    restore_state, state_tree)
+    ShardedState, TrainState, check_config, init_params, leaves_of,
+    make_state, make_tx, restore_state, state_tree)
 from split_learning_tpu_torch.utils.config import Config
 from split_learning_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -119,10 +127,11 @@ class FusedSplitTrainer:
                  device: DeviceLike = "cuda",
                  mesh: Optional[Mesh] = None) -> None:
         check_supported(cfg)
-        if mesh is not None and MODEL_AXIS in mesh.axis_names:
+        tp = mesh is not None and MODEL_AXIS in mesh.axis_names
+        if tp and SEQ_AXIS in mesh.axis_names:
             raise NotImplementedError(
-                "not ported yet: a model axis (tensor parallelism, ROADMAP "
-                "item 18)")
+                "not ported yet: a mesh with both a model and a seq axis "
+                "(tensor with context parallelism, ROADMAP item 18.2)")
         self.mesh = mesh
         if mesh is None:
             self.rows: List[int] = [0]
@@ -142,16 +151,24 @@ class FusedSplitTrainer:
         self._tx = make_tx(cfg)
         if isinstance(init, torch.Generator) and mesh is not None:
             init = plan.init(init, torch.zeros(1))   # one draw, every row
-        self.states: Dict[int, TrainState] = {
-            d: make_state(init_params(plan, init, dev), self._tx)
-            for d, dev in self._devs.items()}
+        if tp:
+            # each rank takes its slice from the host: no rank holds a
+            # whole split leaf
+            whole = init_params(plan, init, torch.device("cpu"))
+            self.states: Dict[int, Any] = {
+                d: ShardedState(whole, self._tx, mesh, rows=[d])
+                for d in self.rows}
+        else:
+            self.states = {
+                d: make_state(init_params(plan, init, dev), self._tx)
+                for d, dev in self._devs.items()}
         self._flops_cache: Dict[Tuple[Any, ...], float] = {}
         # dispatch watchdog: None unless SLT_DISPATCH_DEBUG / force()
         self._dd = obs_dispatch.attach()
         self._ddtok = obs_dispatch.token()
 
     @property
-    def state(self) -> TrainState:
+    def state(self) -> Union[TrainState, ShardedState]:
         """The state (the first local row's replica on a mesh)."""
         return self.states[self.rows[0]]
 
@@ -216,9 +233,10 @@ class FusedSplitTrainer:
         # row: the replicas take the same update
         mean = [g / n for g in sum_over_rows(grads)]
         for d in self.rows:
-            dev = self._devs[d]
+            live = leaves_of(self.states[d].params)
             self._tx.update(self.states[d],
-                            [g.to(dev).contiguous() for g in mean])
+                            [g.to(t.device).contiguous()
+                             for g, t in zip(mean, live)])
         return (sum_over_rows(losses)[0] / n)[0]
 
     def train_step_async(self, x, y) -> torch.Tensor:

@@ -46,9 +46,25 @@ What is here, each as in JAX:
   (:meth:`_note_flops`) behind :meth:`trace_metadata`, the MFU sidecar
   of the party's Chrome trace.
 
+- the mesh (``mesh=``), as in JAX: a mesh of one device is ``None``,
+  so the unsharded path runs bit for bit; a federated party refuses one
+  (``ValueError``). :meth:`_new_state` lays the state out by the
+  party's :class:`~split_learning_tpu_torch.parallel.distributed.
+  SpecLayout` (weights by the ``model`` rule, a copy per ``data`` row:
+  :class:`~split_learning_tpu_torch.runtime.state.ShardedState`, whose
+  ops scatter a batch over the ``data`` rows and each row over its
+  ``model`` ranks); :meth:`_to_dev` puts a batch where the scatter
+  starts, the first row's first rank; :meth:`_check_batch_rows` refuses
+  (400) a serialized batch that does not tile ``data``;
+  :meth:`_host_gather` is the one device-to-host read of a meshed
+  output, trimmed to the rows asked for, counting ``gather_bytes`` and
+  journalling ``FL_GATHER`` on a mesh only; ``mesh_axes`` goes into
+  /health, the metrics gauges and :meth:`trace_metadata`, whose MFU
+  counts the mesh's devices; :meth:`resume_from` lays a restored tree
+  (whole leaves, from any mesh or none) out on this party's mesh.
+
 The protocol ops themselves (the split step, the U-shaped hops,
-FedAvg) live on ``ServerRuntime`` (``runtime/server.py``). A device
-mesh (ROADMAP item 18) raises ``NotImplementedError``.
+FedAvg) live on ``ServerRuntime`` (``runtime/server.py``).
 """
 
 from __future__ import annotations
@@ -65,15 +81,19 @@ from split_learning_tpu_torch.obs import flight as obs_flight
 from split_learning_tpu_torch.obs import locks as obs_locks
 from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.obs.metrics import Registry
+from split_learning_tpu_torch.parallel.distributed import (
+    SpecLayout, server_state_layout)
+from split_learning_tpu_torch.parallel.mesh import host_gather
 from split_learning_tpu_torch.runtime import checkpoint as ckpt
 from split_learning_tpu_torch.runtime.admission import AdmissionController
 from split_learning_tpu_torch.runtime.replay import ReplayCache
 from split_learning_tpu_torch.runtime.state import (
-    TrainState, restore_state, state_tree)
+    ShardedState, TrainState, init_params, make_state, restore_state,
+    state_tree)
 from split_learning_tpu_torch.transport import codec
-from split_learning_tpu_torch.transport.base import not_ported  # noqa: F401
 from split_learning_tpu_torch.utils.arrays import from_host, to_host
 from split_learning_tpu_torch.utils.config import Config
+from split_learning_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
 def rows_of(x: Any) -> int:
@@ -82,6 +102,16 @@ def rows_of(x: Any) -> int:
     shape = tuple(np.shape(x)) if not isinstance(x, torch.Tensor) \
         else tuple(x.shape)
     return int(shape[0]) if shape else 0
+
+
+def mesh_axes(mesh: Optional[Any]) -> Dict[str, int]:
+    """``{"devices": n, axis: size, ...}``, the form /health, /metrics
+    and :meth:`PartyRuntime.trace_metadata` describe a mesh in (JAX's);
+    without a mesh the one-device layout."""
+    if mesh is None:
+        return {"devices": 1, "data": 1}
+    return {"devices": int(mesh.size),
+            **{str(k): int(v) for k, v in mesh.shape.items()}}
 
 
 def reply_like(value: Any, request: Any) -> Any:
@@ -116,8 +146,18 @@ class PartyRuntime:
                  quota: Optional[Any] = None,
                  slo_ms: Optional[Any] = None,
                  ef_mode: str = "topk8") -> None:
-        if mesh is not None:
-            raise not_ported("a sharded party (mesh)", "item 18")
+        # a one-device mesh is the unsharded layout: never branch on it
+        if mesh is not None and mesh.size <= 1:
+            mesh = None
+        if mesh is not None and cfg.mode == "federated":
+            raise ValueError(
+                "mesh sharding applies to the jitted split/u_split server "
+                "stage; the federated server holds plain param trees")
+        self._mesh = mesh
+        self._layout: Optional[SpecLayout] = (
+            server_state_layout(mesh) if mesh is not None else None)
+        self._mesh_data = (self._layout.data if self._layout is not None
+                           else 1)
         self.cfg = cfg
         self.party = str(party)
         self._metrics = Registry()
@@ -157,24 +197,84 @@ class PartyRuntime:
         self._dd = obs_dispatch.attach()
         self._ddtok = obs_dispatch.token()
 
+    def _place(self, device: DeviceLike) -> torch.device:
+        """The party's ``device``: on a mesh its first rank's (every rank
+        checked), else ``device``."""
+        if self._mesh is None:
+            return resolve_device(device)
+        for dev in self._mesh.devices.flat:
+            resolve_device(dev)
+        return self._mesh.device()
+
+    def _new_state(self, plan: Any, init: Any,
+                   stages: Optional[Tuple[int, ...]] = None) -> Any:
+        """The state of ``stages`` of ``plan``: on a mesh laid out by
+        the party's layout (each rank takes its slices from the host, so
+        none holds a whole split leaf), else on ``device``."""
+        if self._mesh is None:
+            return make_state(init_params(plan, init, self.device, stages),
+                              self._tx)
+        return ShardedState(init_params(plan, init, torch.device("cpu"),
+                                        stages), self._tx, self._mesh)
+
     def _to_dev(self, x: Any, dtype: Optional[torch.dtype] = None
                 ) -> torch.Tensor:
         """``x`` on the party's ``device``, in ``dtype`` (None: a float32
         or bfloat16 tensor keeps its dtype, another float becomes
-        float32)."""
+        float32). On a mesh that is the first row's first rank, where
+        the ops of the sharded state scatter it over the rows."""
         t = from_host(x) if not isinstance(x, torch.Tensor) else x.detach()
         if dtype is None:
             dtype = (t.dtype if t.dtype in (torch.float32, torch.bfloat16)
                      else torch.float32)
         return t.to(self.device, dtype)
 
-    def _check_batch_rows(self, rows: int, label_rows: int) -> None:
+    def _check_batch_rows(self, rows: int, label_rows: int,
+                          tile: bool = True) -> None:
         """An incoming batch needs rows, and one label per row: anything
-        else is a malformed request (400), not a transient failure."""
+        else is a malformed request (400), not a transient failure. On a
+        mesh a serialized batch (``tile``) must also tile the ``data``
+        axis (a coalesced group pads instead)."""
         if rows < 1 or rows != label_rows:
             raise ProtocolError(
                 f"batch of {rows} activation rows and {label_rows} labels; "
                 "send at least one row and one label per row", status=400)
+        if tile and self._mesh is not None and rows % self._mesh_data:
+            raise ProtocolError(
+                f"batch of {rows} rows cannot shard over the mesh 'data' "
+                f"axis of size {self._mesh_data}; send a multiple of "
+                f"{self._mesh_data} (coalesced groups pad automatically)",
+                status=400)
+
+    def _host_gather(self, x: Any, rows: Optional[int] = None
+                     ) -> np.ndarray:
+        """The sanctioned device-to-host read of a program's output:
+        trimmed to its first ``rows`` rows on a mesh, where the bytes are
+        counted (``gather_bytes``) and journalled (``FL_GATHER``); the
+        plain host copy otherwise (bit for bit the unsharded reply)."""
+        if isinstance(x, torch.Tensor):
+            out = to_host(x[:rows] if rows is not None else x)
+        else:
+            out = host_gather(x, rows=rows)
+        if self._mesh is None:
+            return out
+        self._metrics.incr(spans.GATHER_BYTES, float(out.nbytes))
+        fl = obs_flight.get_recorder()
+        if fl is not None:
+            fl.record(spans.FL_GATHER, party=self.party,
+                      nbytes=int(out.nbytes))
+        return out
+
+    def _reply_value(self, value: Any, request: Any,
+                     rows: Optional[int] = None) -> Any:
+        """``value`` (trimmed to ``rows``) in the kind of ``request``
+        (:func:`reply_like`), a host reply through :meth:`_host_gather`."""
+        if rows is not None and isinstance(value, torch.Tensor):
+            value = value[:rows]
+        if (self._mesh is not None and isinstance(value, torch.Tensor)
+                and not isinstance(request, torch.Tensor)):
+            return self._host_gather(value)
+        return reply_like(value, request)
 
     # -- protocol hooks (a resume calls them under the lock) ------------ #
     def _reset_protocol_state(self, step: int) -> None:
@@ -423,16 +523,21 @@ class PartyRuntime:
 
     def trace_metadata(self) -> Dict[str, Any]:
         """The MFU sidecar of ``Tracer.export_chrome(metadata=...)``, JAX's
-        keys: the mesh (one device), the programs' model FLOPs over their
-        traced windows, and the MFU where the card's peak is known
-        (``None`` on the CPU, the honest answer, not a zero)."""
+        keys: the mesh (:func:`mesh_axes`), the bytes of the sanctioned
+        gathers, the programs' model FLOPs over their traced windows, and
+        the MFU against the peak of the mesh's devices where the card's
+        peak is known (``None`` on the CPU, the honest answer, not a
+        zero)."""
         from split_learning_tpu_torch import __version__
         from split_learning_tpu_torch.utils.flops import (
             device_peak_flops, mfu)
         peak = device_peak_flops(self.device)
+        mesh_info = mesh_axes(self._mesh)
         self._fold_windows(wait=True)
         with self._lock:
             stats = {k: tuple(v) for k, v in self._prog_stats.items()}
+            gather = self._metrics.snapshot()["counters"].get(
+                spans.GATHER_BYTES, 0.0)
         programs = {}
         for name, (fl, secs, calls) in stats.items():
             rate = (fl / secs) if secs > 0 else None
@@ -441,10 +546,11 @@ class PartyRuntime:
                 "model_flops": fl,
                 "dispatch_s": secs,
                 "model_flops_per_sec": rate,
-                "mfu": mfu(rate, peak) if (peak and rate) else None,
+                "mfu": (mfu(rate, peak * mesh_info["devices"])
+                        if (peak and rate) else None),
             }
-        return {"mesh": {"devices": 1, "data": 1},
-                "gather_bytes": 0,
+        return {"mesh": mesh_info,
+                "gather_bytes": int(gather),
                 "peak_flops_per_device": peak,
                 "programs": programs,
                 "build": {"version": __version__,
@@ -473,6 +579,9 @@ class PartyRuntime:
         if self._dd is not None:
             # the watchdog's gauges (render_prometheus prefixes slt_)
             snap["gauges"].update(self._dd.gauges())
+        if self._mesh is not None:
+            for k, v in mesh_axes(self._mesh).items():
+                snap["gauges"][f"mesh_{k}"] = float(v)
 
 
 class _DeferredApply:

@@ -436,10 +436,11 @@ class PipelineRunner:
             busy = fwd.busy_s + (bwd.busy_s if bwd is not None else 0.0)
             durs = sorted(fwd.durations
                           + (bwd.durations if bwd is not None else []))
-            depth = None
+            depth, mesh_info = None, None
             try:
-                depth = t.health().get("counters", {}).get(
-                    "deferred_apply_depth")
+                h = t.health()
+                depth = h.get("counters", {}).get("deferred_apply_depth")
+                mesh_info = h.get("mesh")
             except Exception:  # noqa: BLE001 (the report is best-effort)
                 pass
             # the stage's MFU: the best of its traced programs'
@@ -468,7 +469,9 @@ class PipelineRunner:
                 * 1e3,
                 "hop_calls": fwd.calls + (bwd.calls if bwd else 0),
                 "deferred_apply_depth": depth,
-                "mesh": {"devices": 1, "data": 1},
+                # the stage's mesh; a meshless stage the one-device
+                # layout, as mesh_axes(None)
+                "mesh": mesh_info or {"devices": 1, "data": 1},
                 "mfu": mfu_val,
             }
             summ = t.stats.summary()

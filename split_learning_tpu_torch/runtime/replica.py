@@ -60,7 +60,7 @@ from split_learning_tpu_torch.obs.metrics import Registry
 from split_learning_tpu_torch.runtime import checkpoint as ckpt
 from split_learning_tpu_torch.runtime.breaker import OPEN, CircuitBreaker
 from split_learning_tpu_torch.runtime.state import (
-    adopt_params, compressed_sync_contribution, fedavg_mean)
+    ShardedState, adopt_params, compressed_sync_contribution, fedavg_mean)
 from split_learning_tpu_torch.transport import codec
 from split_learning_tpu_torch.transport.base import TransportError
 
@@ -889,6 +889,9 @@ class ReplicaGroup:
         # under the replica's lock, since its steps update in place
         with runtime._lock:
             state = runtime.export_state()
+            if isinstance(state, ShardedState):
+                # a sharded replica's whole leaves, gathered to the host
+                return state.whole().params
             with torch.no_grad():
                 return tuple({k: v.detach().clone() for k, v in st.items()}
                              for st in state.params)

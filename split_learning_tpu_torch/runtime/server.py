@@ -101,8 +101,20 @@ coalesced group one ``FL_DISPATCH``) and each deferred apply
 window feed :meth:`~PartyRuntime.trace_metadata` (``split_step``,
 ``reply_grad``, ``coalesced_step``, ``group_reply``).
 
-Not ported yet: a ``mesh`` (ROADMAP item 18), which raises
-``NotImplementedError``.
+The mesh (``mesh=``, :class:`~split_learning_tpu_torch.runtime.party.
+PartyRuntime`), as JAX's sharded server: the server stage's state is laid
+out by the party's ``SpecLayout`` (a
+:class:`~split_learning_tpu_torch.runtime.state.ShardedState`), and
+every server program runs on it unchanged: the stage's ops scatter the
+batch over the ``data`` rows and each row's work over its ``model``
+ranks (``parallel/tensor.py``), and gather the logits to the first
+rank, where the loss (K1) runs once a step on the whole batch; the
+update sums each leaf's gradient over the rows and updates every row
+and rank (K2 ``data x model`` launches under SGD). A serialized batch
+must tile ``data`` (400 otherwise); a coalesced group pads to a multiple
+of ``data`` with rows the loss leaves out (JAX's zero weights);
+``predict`` pads and trims; host replies leave through the party's
+``_host_gather``. A mesh of one device is ``mesh=None``, bit for bit.
 """
 
 from __future__ import annotations
@@ -118,7 +130,7 @@ import torch
 
 from split_learning_tpu_torch import __version__
 from split_learning_tpu_torch.core.stage import (
-    Params, SplitPlan, remat_plan, stage_backward)
+    Params, SplitPlan, remat_plan)
 from split_learning_tpu_torch.interop import params_from_jax, params_to_jax
 from split_learning_tpu_torch.obs import dispatch_debug as obs_dispatch
 from split_learning_tpu_torch.obs import flight as obs_flight
@@ -130,13 +142,13 @@ from split_learning_tpu_torch.ops.cross_entropy import (
 from split_learning_tpu_torch.runtime.coalesce import (
     CoalesceRequest, RequestCoalescer, pow2_bucket)
 from split_learning_tpu_torch.runtime.party import (
-    PartyRuntime, ProtocolError, _DeferredApply, reply_like, rows_of)
+    PartyRuntime, ProtocolError, _DeferredApply, mesh_axes, rows_of)
 from split_learning_tpu_torch.runtime.state import (
-    adopt_params, check_config, fedavg_mean, init_params, make_state,
-    make_tx)
+    adopt_params, check_config, fedavg_mean, init_params, leaves_of,
+    make_state, make_tx)
 from split_learning_tpu_torch.utils.arrays import host_tree, tree_map
 from split_learning_tpu_torch.utils.config import Config
-from split_learning_tpu_torch.utils.device import DeviceLike, resolve_device
+from split_learning_tpu_torch.utils.device import DeviceLike
 
 
 def _is_lm(stage: Any) -> bool:
@@ -198,7 +210,7 @@ class ServerRuntime(PartyRuntime):
                          quota=quota, slo_ms=slo_ms, ef_mode=ef_mode)
         check_config(cfg)
         del sample_input  # a flax-style init needs no sample
-        self.device = resolve_device(device)
+        self.device = self._place(device)
         self.plan = plan
         self.mode = cfg.mode
         self.strict_steps = strict_steps
@@ -265,9 +277,7 @@ class ServerRuntime(PartyRuntime):
                     f"last (mode {cfg.mode!r}, plan owners {plan.owners})")
             self.server_stage = server_idx[0]
             self._stage = plan.stages[self.server_stage]
-            self.state = make_state(
-                init_params(plan, init, self.device, (self.server_stage,)),
-                self._tx)
+            self.state = self._new_state(plan, init, (self.server_stage,))
             if coalesce_max > 1 and _is_lm(self._stage):
                 raise ValueError(
                     "request coalescing takes classifier plans only: the "
@@ -295,8 +305,9 @@ class ServerRuntime(PartyRuntime):
 
     @property
     def params(self) -> Any:
-        """The server stage's parameters (live tensors); in federated
-        mode the whole composition, one dict per stage."""
+        """The server stage's parameters (live tensors; on a mesh the
+        ``ShardedParam`` view); in federated mode the whole composition,
+        one dict per stage."""
         if self.mode == "federated":
             return self.state.params
         return self.state.params[0]
@@ -322,7 +333,7 @@ class ServerRuntime(PartyRuntime):
         """Forward, loss, backward and the update, in place; returns the
         cut gradient and the loss, on the device, unsynchronised."""
         params = self.state.params[0]
-        leaves = list(params.values())
+        leaves = leaves_of((params,))
         acts = acts.requires_grad_(True)
         with torch.enable_grad():
             loss = fused_cross_entropy(self._stage.apply(params, acts),
@@ -486,17 +497,16 @@ class ServerRuntime(PartyRuntime):
             return torch.autograd.grad(loss, wrt)
         return fn
 
-    @staticmethod
-    def _reply_of(g_acts: torch.Tensor, loss: torch.Tensor,
+    def _reply_of(self, g_acts: torch.Tensor, loss: torch.Tensor,
                   read: Optional["_HostRead"], request: Any
                   ) -> Tuple[Any, float]:
         """The wire reply: the gradient in the request's kind and the loss
         as a float, from ``read`` where the 2BP reply queued one."""
         if read is None:
-            return reply_like(g_acts, request), float(loss)
+            return self._reply_value(g_acts, request), float(loss)
         host = read.get()
         g = host[1] if len(host) > 1 else g_acts
-        return reply_like(g, request), float(host[0])
+        return self._reply_value(g, request), float(host[0])
 
     def _reply(self, acts: torch.Tensor, labels: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -536,10 +546,12 @@ class ServerRuntime(PartyRuntime):
         t0 = time.perf_counter() if tr is not None else 0.0
         params = entry["fwd_params"]
         with torch.enable_grad():
+            labels = entry["labels"]
+            # a padded group's extra rows stay out of the loss
             loss = fused_cross_entropy(
-                self._stage.apply(params, entry["acts"].detach()),
-                entry["labels"])
-            g_params = torch.autograd.grad(loss, list(params.values()))
+                self._stage.apply(params, entry["acts"].detach())[
+                    :labels.shape[0]], labels)
+            g_params = torch.autograd.grad(loss, leaves_of((params,)))
         self._protect_queued()
         self._tx.update(self.state, [g.contiguous() for g in g_params])
         if tr is not None:
@@ -562,7 +574,8 @@ class ServerRuntime(PartyRuntime):
         The batch moves to the device on the caller's thread, so the
         flusher only launches; the handshake runs at the group's
         dispatch, so a refused step fails its own client only."""
-        self._check_batch_rows(rows_of(activations), rows_of(labels))
+        self._check_batch_rows(rows_of(activations), rows_of(labels),
+                               tile=False)
         acts = self._to_dev(activations)
         labels_dev = self._to_dev(labels, torch.int64)
         if labels_dev.dim() != 1:
@@ -579,7 +592,7 @@ class ServerRuntime(PartyRuntime):
         if fl is not None:
             fl.record(spans.FL_REPLY, step=step, client_id=client_id,
                       party="server", op="split_step", coalesced=True)
-        return reply_like(g, activations), loss
+        return self._reply_value(g, activations), loss
 
     def _dispatch_group(self, group: List[CoalesceRequest],
                         reason: str) -> None:
@@ -616,7 +629,13 @@ class ServerRuntime(PartyRuntime):
             sizes = [int(r.acts.shape[0]) for r in admitted]
             total = sum(sizes)
             head = admitted[0]
-            sig = ((pow2_bucket(total),) + tuple(head.acts.shape[1:]),
+            # on a mesh the group pads to tile the data axis, as JAX's
+            # pads its pow2 bucket; the padding rows stay out of the loss
+            padded = pow2_bucket(total)
+            if self._mesh_data > 1:
+                padded = -(-max(padded, self._mesh_data)
+                           // self._mesh_data) * self._mesh_data
+            sig = ((padded,) + tuple(head.acts.shape[1:]),
                    str(head.acts.dtype), str(head.labels.dtype))
             if sig not in self._coalesce_shapes:
                 self._coalesce_shapes.add(sig)
@@ -626,18 +645,23 @@ class ServerRuntime(PartyRuntime):
             acts = torch.cat([r.acts.detach() for r in admitted])
             labels = torch.cat([r.labels for r in admitted])
             params = self.state.params[0]
+            pad = padded - total if self._mesh_data > 1 else 0
+            if pad:
+                acts = torch.cat([acts, acts.new_zeros(
+                    (pad,) + tuple(acts.shape[1:]))])
             acts.requires_grad_(True)
             with obs_dispatch.step_scope(
                     self._dd, (self._ddtok, "coalesced_step"),
                     sig_fn=lambda: sig):
                 with torch.enable_grad():
+                    logits = self._stage.apply(params, acts)
                     loss, rows = cross_entropy_rows(
-                        self._stage.apply(params, acts), labels)
+                        logits[:total] if pad else logits, labels)
                     if self._deferred is not None:
                         (g_acts,) = torch.autograd.grad(loss, [acts])
                     else:
                         *g_params, g_acts = torch.autograd.grad(
-                            loss, list(params.values()) + [acts])
+                            loss, leaves_of((params,)) + [acts])
                 if self._deferred is None:
                     self._tx.update(self.state,
                                     [g.contiguous() for g in g_params])
@@ -728,11 +752,17 @@ class ServerRuntime(PartyRuntime):
             if self._deferred is not None:
                 # inference sees every update whose reply has left
                 self._deferred.flush()
+            x = self._to_dev(activations)
+            n = int(x.shape[0])
+            pad = (-n) % self._mesh_data
+            if pad:
+                # forward only, so padding is exact: rows to tile the
+                # data axis, and only the real ones come back
+                x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
             # launched under the lock: a concurrent step's in-place
             # update queues behind this forward
-            out = self._stage.apply(self.state.params[0],
-                                    self._to_dev(activations))
-        return reply_like(out, activations)
+            out = self._stage.apply(self.state.params[0], x)
+        return self._reply_value(out, activations, rows=n if pad else None)
 
     # -- the U-shaped split -------------------------------------------- #
     def _keep_residual(self, client_id: int, step: int,
@@ -765,7 +795,7 @@ class ServerRuntime(PartyRuntime):
                 with torch.no_grad():
                     feats = self._stage.apply(self.state.params[0], acts)
                 self._keep_residual(client_id, step, acts)
-            return reply_like(feats, activations)
+            return self._reply_value(feats, activations)
 
         return self._exactly_once(client_id, "u_forward", step, run)
 
@@ -786,17 +816,20 @@ class ServerRuntime(PartyRuntime):
                         f"u_backward for unknown step {step} "
                         f"(client {client_id})")
                 params = self.state.params[0]
-                g_params, g_acts = stage_backward(
-                    self._stage, params, acts,
-                    self._to_dev(feat_grads, acts.dtype), input_grad=True)
+                x_in = acts.detach().requires_grad_(True)
+                with torch.enable_grad():
+                    y = self._stage.apply(params, x_in)
+                    *g_params, g_acts = torch.autograd.grad(
+                        y, leaves_of((params,)) + [x_in],
+                        self._to_dev(feat_grads, acts.dtype))
                 # cuDNN may hand conv weight grads back channels-last
-                self._tx.update(self.state, [g_params[k].contiguous()
-                                             for k in params])
+                self._tx.update(self.state,
+                                [g.contiguous() for g in g_params])
                 self._last_step[client_id] = max(
                     self._last_step.get(client_id, -1), step)
                 if self.on_step is not None:
                     self.on_step(self._last_step[client_id])
-            return reply_like(g_acts, feat_grads)
+            return self._reply_value(g_acts, feat_grads)
 
         return self._exactly_once(client_id, "u_backward", step, run)
 
@@ -891,6 +924,8 @@ class ServerRuntime(PartyRuntime):
             info["decoupled_bwd"] = {
                 "apply_lag": self.apply_lag,
                 **self._deferred.counters()}
+        if self._mesh is not None:
+            info["mesh"] = mesh_axes(self._mesh)
         return info
 
     def metrics(self) -> Dict[str, Any]:

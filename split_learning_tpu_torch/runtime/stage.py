@@ -54,8 +54,17 @@ and window feed :meth:`~PartyRuntime.trace_metadata` (programs
 as the stage's MFU; with the flight recorder on, each reply journals
 ``FL_STAGE_REPLY`` and each deferred apply ``FL_DEFER_APPLY``.
 
-Not ported yet: a ``mesh`` (per-stage sharding, ROADMAP item 18), which
-raises ``NotImplementedError``.
+The mesh (``mesh=``), as in JAX: each stage has its own, and a hop's
+payload moves from one stage's layout onto the next's at the next
+stage's :meth:`~PartyRuntime._to_dev` (on the device wire a move
+between the ranks' devices, never through the host). The stage's state
+is laid out by its ``SpecLayout``
+(:class:`~split_learning_tpu_torch.runtime.state.ShardedState`): its
+ops scatter a microbatch over the ``data`` rows and each row over the
+``model`` ranks, and its deferred apply updates every row and rank. A
+hop's microbatch must tile ``data`` (400 otherwise); ``predict`` pads
+its rows to the ``data`` multiple and trims them. /health carries the
+mesh (``mesh_axes``), which the runner's ``stage_report`` shows.
 """
 
 from __future__ import annotations
@@ -74,11 +83,11 @@ from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.obs import trace as obs_trace
 from split_learning_tpu_torch.ops.cross_entropy import fused_cross_entropy
 from split_learning_tpu_torch.runtime.party import (
-    PartyRuntime, ProtocolError, _DeferredApply, reply_like, rows_of)
+    PartyRuntime, ProtocolError, _DeferredApply, mesh_axes, rows_of)
 from split_learning_tpu_torch.runtime.state import (
-    check_config, init_params, make_state, make_tx)
+    check_config, leaves_of, make_tx)
 from split_learning_tpu_torch.utils.config import Config
-from split_learning_tpu_torch.utils.device import DeviceLike, resolve_device
+from split_learning_tpu_torch.utils.device import DeviceLike
 
 # the composite replay/chaos key: one monotonic sequence per (step, mb)
 MB_STRIDE = 1 << 16
@@ -128,7 +137,7 @@ class StageRuntime(PartyRuntime):
                          quota=quota, slo_ms=slo_ms, ef_mode=ef_mode)
         check_config(cfg)
         del sample_input  # a flax-style init needs no sample
-        self.device = resolve_device(device)
+        self.device = self._place(device)
         self.plan = plan
         self.stage_index = int(stage_index)
         self.strict_steps = strict_steps
@@ -142,9 +151,7 @@ class StageRuntime(PartyRuntime):
         self.is_last = self.stage_index == plan.num_stages - 1
         self._stage = plan.stages[self.stage_index]
         self._tx = make_tx(cfg)
-        self.state = make_state(
-            init_params(plan, init, self.device, (self.stage_index,)),
-            self._tx)
+        self.state = self._new_state(plan, init, (self.stage_index,))
         self._deferred = _DeferredApply(
             self._apply_deferred_entry, self.apply_lag, self._lock)
         # per-(client, step) residual records: the pinned parameters and
@@ -223,7 +230,7 @@ class StageRuntime(PartyRuntime):
         forward recomputed under autograd, then the loss (last stage,
         times 1/M for M > 1) or the stored cotangent pulled through."""
         params = entry["fwd_params"]
-        leaves = list(params.values())
+        leaves = leaves_of((params,))
         m = self.microbatches
         g_sum: Optional[List[torch.Tensor]] = None
         for x, ct in zip(entry["xs"], entry["cts"]):
@@ -337,7 +344,7 @@ class StageRuntime(PartyRuntime):
                 self._last_seq[(client_id, "hop_fwd")] = seq
                 self._hops["hop_fwd"] += 1
             with obs_dispatch.expected_d2h(self._dd):
-                out = reply_like(y, x)   # off the lock
+                out = self._reply_value(y, x)   # off the lock
             if tr is not None:
                 # the forward's window, the fleet view's compute input
                 self._metrics.observe(spans.DISPATCH,
@@ -400,7 +407,7 @@ class StageRuntime(PartyRuntime):
                 self._last_seq[(client_id, "hop_bwd")] = seq
                 self._hops["hop_bwd"] += 1
             with obs_dispatch.expected_d2h(self._dd):
-                out = reply_like(g_in, g_out)
+                out = self._reply_value(g_in, g_out)
             if tr is not None:
                 rw = time.perf_counter() - t0
                 tr.record(spans.REPLY_GRAD, t0, rw,
@@ -468,7 +475,7 @@ class StageRuntime(PartyRuntime):
                 self._hops["hop_loss"] += 1
             # off the lock: the loss edge, the chain's one host read
             with obs_dispatch.expected_d2h(self._dd):
-                res = (reply_like(g_x, x), float(loss))
+                res = (self._reply_value(g_x, x), float(loss))
             if tr is not None:
                 rw = time.perf_counter() - t0
                 tr.record(spans.REPLY_GRAD, t0, rw,
@@ -496,8 +503,16 @@ class StageRuntime(PartyRuntime):
         del client_id
         with self._lock, torch.no_grad():
             self._deferred.flush()
-            out = self._stage.apply(self.state.params[0], self._to_dev(x))
-        return reply_like(out, x)
+            x_dev = self._to_dev(x)
+            n = int(x_dev.shape[0])
+            pad = (-n) % self._mesh_data
+            if pad:
+                # forward only, so padding is exact: rows to tile the
+                # data axis, and only the real ones come back
+                x_dev = torch.cat([x_dev, x_dev.new_zeros(
+                    (pad,) + tuple(x_dev.shape[1:]))])
+            out = self._stage.apply(self.state.params[0], x_dev)
+        return self._reply_value(out, x, rows=n if pad else None)
 
     # -- PartyRuntime hooks --------------------------------------------- #
     def _reset_protocol_state(self, step: int) -> None:
@@ -523,7 +538,7 @@ class StageRuntime(PartyRuntime):
         with self._lock:
             seq = max(max(self._last_seq.values(), default=-1),
                       self._seq_floor)
-        return {
+        info = {
             "status": "ok",
             "role": "stage",
             "stage_index": self.stage_index,
@@ -537,6 +552,9 @@ class StageRuntime(PartyRuntime):
             "version": __version__,
             "counters": self.counters(),
         }
+        if self._mesh is not None:
+            info["mesh"] = mesh_axes(self._mesh)
+        return info
 
     def metrics(self) -> Dict[str, Any]:
         """The metrics snapshot: hop, deferred and replay counts as

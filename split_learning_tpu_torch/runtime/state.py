@@ -61,6 +61,9 @@ import torch
 
 from split_learning_tpu_torch.core.stage import Params, SplitPlan
 from split_learning_tpu_torch.ops.sgd import fused_sgd_step, init_trace
+from split_learning_tpu_torch.parallel.mesh import (
+    DATA_AXIS, MODEL_AXIS, Mesh, tp_leaf_sharding)
+from split_learning_tpu_torch.parallel.tensor import ShardedParam
 from split_learning_tpu_torch.utils.arrays import from_host, tree_map
 
 _F32 = np.float32
@@ -68,8 +71,17 @@ LR = Union[float, Callable[[int], float]]
 
 
 def leaves_of(params: Sequence[Params]) -> List[torch.Tensor]:
-    """Every parameter tensor, in stage order then dict order."""
-    return [t for stage in params for t in stage.values()]
+    """Every parameter tensor, in stage order then dict order; a leaf on
+    a mesh (:class:`~split_learning_tpu_torch.parallel.tensor.
+    ShardedParam`) gives the tensors its ops read, its shards."""
+    out: List[torch.Tensor] = []
+    for stage in params:
+        for t in stage.values():
+            if isinstance(t, ShardedParam):
+                out.extend(t.leaves())
+            else:
+                out.append(t)
+    return out
 
 
 @dataclasses.dataclass
@@ -206,15 +218,20 @@ class _Optimizer:
         raise NotImplementedError
 
     @torch.no_grad()
-    def update(self, state: TrainState,
-               grads: Sequence[torch.Tensor]) -> None:
+    def update(self, state: Union[TrainState, "ShardedState"],
+               grads: Sequence[torch.Tensor], clip: bool = True) -> None:
         """Apply ``grads`` to ``state`` in place and count the step. The
-        gradients are this step's own: clipping scales them in place."""
+        gradients are this step's own: clipping scales them in place.
+        A :class:`ShardedState` takes gradients in ``leaves_of`` order of
+        its parameters (:meth:`ShardedState.update`)."""
+        if isinstance(state, ShardedState):
+            state.update(self, grads)
+            return
         leaves = leaves_of(state.params)
         grads = list(grads)
         if len(grads) != len(leaves):
             raise ValueError("one gradient per parameter leaf")
-        if self.grad_clip_norm:
+        if clip and self.grad_clip_norm:
             clip_by_global_norm(grads, self.grad_clip_norm)
         self._apply(state, leaves, grads, self.lr_at(state.step))
         state.step += 1
@@ -327,6 +344,185 @@ def make_state(params: Sequence[Params], tx: _Optimizer) -> TrainState:
     return TrainState(params=params, opt_state=tx.init(leaves_of(params)))
 
 
+class ShardedState:
+    """A training state laid out on a mesh (JAX's ``SpecLayout.state``
+    placement of a ``TrainState``): per ``data`` row in ``rows`` and
+    ``model`` rank, a :class:`TrainState` of that rank's own leaves on
+    its device. A leaf :func:`~split_learning_tpu_torch.parallel.mesh.
+    tp_leaf_sharding` splits is a slice there, every other leaf a whole
+    copy; the optimizer's state (momentum trace, Adam moments) is made
+    from those leaves, so it shards with its weights, and every rank
+    counts the step.
+
+    :attr:`params` is the view the models run: per stage ``{name:
+    ShardedParam}`` (:mod:`split_learning_tpu_torch.parallel.tensor`),
+    whose ops run on each rank's leaves; ``leaves_of`` of it gives the
+    tensors to differentiate. :meth:`update` takes their gradients in
+    that order and updates each rank in place, one optimizer call (one
+    K2 launch under SGD) a rank. :meth:`whole` and :meth:`load` carry the
+    state through a checkpoint as whole leaves, so a save restores onto
+    any mesh."""
+
+    def __init__(self, params: Sequence[Params], tx: "_Optimizer",
+                 mesh: Mesh, rows: Optional[Sequence[int]] = None) -> None:
+        self.mesh = mesh
+        self.rows = (list(range(mesh.shape.get(DATA_AXIS, 1)))
+                     if rows is None else [int(r) for r in rows])
+        self.n_model = int(mesh.shape.get(MODEL_AXIS, 1))
+        self.devices = [mesh.axis_devices(MODEL_AXIS, **{DATA_AXIS: d})
+                        for d in self.rows]
+        self.dims = tuple({k: tp_leaf_sharding(mesh, v, k).dim
+                           for k, v in stage.items()} for stage in params)
+        self.ranks: List[List[TrainState]] = [
+            [make_state(tuple(
+                {k: self._piece(v, dims[k], m).detach().to(dev).clone()
+                 .requires_grad_(True) for k, v in stage.items()}
+                for stage, dims in zip(params, self.dims)), tx)
+             for m, dev in enumerate(devs)]
+            for devs in self.devices]
+        self._view: Optional[Tuple[Dict[str, ShardedParam], ...]] = None
+
+    def _piece(self, t: Any, dim: Optional[int], m: int) -> torch.Tensor:
+        t = torch.as_tensor(t)
+        return t if dim is None else t.chunk(self.n_model, dim)[m]
+
+    @property
+    def _flat_dims(self) -> List[Optional[int]]:
+        return [d for stage in self.dims for d in stage.values()]
+
+    @property
+    def params(self) -> Tuple[Dict[str, ShardedParam], ...]:
+        """Per stage ``{name: ShardedParam}`` over the ranks' live
+        leaves; the same objects until :meth:`load` replaces leaves."""
+        if self._view is None:
+            self._view = tuple(
+                {k: ShardedParam([[st.params[i][k] for st in row]
+                                  for row in self.ranks], dims[k])
+                 for k in dims}
+                for i, dims in enumerate(self.dims))
+        return self._view
+
+    @property
+    def step(self) -> int:
+        return self.ranks[0][0].step
+
+    @step.setter
+    def step(self, value: int) -> None:
+        for row in self.ranks:
+            for st in row:
+                st.step = int(value)
+
+    @torch.no_grad()
+    def update(self, tx: "_Optimizer", grads: Sequence[torch.Tensor]
+               ) -> None:
+        """One update from ``grads`` (``leaves_of(self.params)`` order):
+        each leaf's gradient summed over the ``data`` rows (each row's
+        share of the batch's loss), clipped over the global norm with
+        every split leaf and every replicated leaf counted once, then
+        applied on every row and rank to its own leaves. A replicated
+        leaf's copies take the same gradient, so they stay equal."""
+        it = iter(grads)
+        n_rows = len(self.rows)
+        per_leaf: List[List[torch.Tensor]] = []   # per leaf, per rank
+        for dim in self._flat_dims:
+            width = 1 if dim is None else self.n_model
+            gs = [[next(it) for _ in range(width)] for _ in range(n_rows)]
+            summed = []
+            for m in range(width):
+                acc = gs[0][m]
+                for row in gs[1:]:
+                    acc = acc + row[m].to(acc.device)
+                summed.append(acc)
+            per_leaf.append(summed)
+        if next(it, None) is not None:
+            raise ValueError("one gradient per sharded parameter leaf")
+        if tx.grad_clip_norm:
+            clip_by_global_norm([g for gs in per_leaf for g in gs],
+                                tx.grad_clip_norm)
+        for ri, row in enumerate(self.ranks):
+            for m, st in enumerate(row):
+                g_rm = []
+                for gs, live in zip(per_leaf, leaves_of(st.params)):
+                    g = gs[m] if len(gs) > 1 else gs[0]
+                    # a copy for every rank but the gradient's own, so
+                    # no two ranks' updates share a tensor
+                    own = ri == 0 and (len(gs) > 1 or m == 0)
+                    g_rm.append(g.contiguous() if own
+                                else g.to(live.device, copy=True))
+                tx.update(st, g_rm, clip=False)
+
+    def whole(self) -> TrainState:
+        """The first row's state with whole leaves on the host: each
+        split leaf's shards (and its optimizer mirrors') concatenated in
+        rank order, a replicated leaf's first copy."""
+        ranks = self.ranks[0]
+        flat = self._flat_dims
+
+        def cat(ts: Sequence[torch.Tensor], dim: Optional[int]
+                ) -> torch.Tensor:
+            ts = [t.detach().cpu() for t in ts]
+            return ts[0].clone() if dim is None else torch.cat(ts, dim)
+
+        params = tuple(
+            {k: cat([st.params[i][k] for st in ranks], dims[k])
+             for k in dims} for i, dims in enumerate(self.dims))
+        opt = ranks[0].opt_state
+
+        def mirrors(pick: Callable[[TrainState], List[torch.Tensor]]
+                    ) -> List[torch.Tensor]:
+            return [cat([pick(st)[idx] for st in ranks], dim)
+                    for idx, dim in enumerate(flat)]
+
+        if opt is None:
+            whole_opt = None
+        elif isinstance(opt, tuple):
+            whole_opt = (mirrors(lambda st: st.opt_state[0]),
+                         mirrors(lambda st: st.opt_state[1]))
+        else:
+            whole_opt = mirrors(lambda st: st.opt_state)
+        return TrainState(params=params, opt_state=whole_opt,
+                          step=ranks[0].step)
+
+    def load(self, tree: Dict[str, Any]) -> None:
+        """Restore a whole :func:`state_tree` onto every row and rank: each
+        split leaf and mirror cut to the rank's slice."""
+        def cut(stages: Sequence[Dict[str, Any]], m: int
+                ) -> List[Dict[str, torch.Tensor]]:
+            return [{k: self._piece(v, dims[k], m) for k, v in st.items()}
+                    for st, dims in zip(stages, self.dims)]
+
+        opt = tree["opt_state"]
+        for row in self.ranks:
+            for m, st in enumerate(row):
+                sub_opt = (None if opt is None else
+                           {key: cut(val, m) for key, val in opt.items()})
+                restore_state(st, {"params": cut(tree["params"], m),
+                                   "opt_state": sub_opt,
+                                   "step": tree["step"]})
+        self._view = None
+
+    def adopt(self, params: Sequence[Params]) -> None:
+        """Make the whole ``params`` (a FedAvg mean) the live leaves of
+        every row and rank, each rank its slice (see
+        :func:`adopt_params`)."""
+        for devs, row in zip(self.devices, self.ranks):
+            for m, (dev, st) in enumerate(zip(devs, row)):
+                st.params = tuple(
+                    {k: self._piece(_as_leaf_tensor(new[k]), dims[k], m)
+                     .to(dev, copy=True).requires_grad_(True)
+                     for k in live}
+                    for live, new, dims in zip(st.params, params,
+                                               self.dims))
+        self._view = None
+
+    def rank_bytes(self) -> List[List[int]]:
+        """Parameter bytes held by each row's ranks (by rank, not by
+        device: virtual ranks share one)."""
+        return [[sum(t.numel() * t.element_size()
+                     for t in leaves_of(st.params)) for st in row]
+                for row in self.ranks]
+
+
 def _per_stage(params: Sequence[Params], flat: Sequence[torch.Tensor]
                ) -> List[Dict[str, torch.Tensor]]:
     """A list in ``leaves_of(params)`` order as one dict per stage,
@@ -335,14 +531,18 @@ def _per_stage(params: Sequence[Params], flat: Sequence[torch.Tensor]
     return [{k: next(it) for k in stage} for stage in params]
 
 
-def state_tree(state: TrainState) -> Dict[str, Any]:
+def state_tree(state: Union[TrainState, "ShardedState"]
+               ) -> Dict[str, Any]:
     """``state`` as a tree ``torch.load(weights_only=True)`` reads back:
     ``{"params": [one dict per stage], "opt_state": ..., "step": int}``.
     The optimizer's state is None (SGD without momentum), ``{"trace":
     [...]}`` (the momentum trace) or ``{"mu": [...], "nu": [...]}``
     (adam/adamw), each a dict per stage keyed by parameter name. The
     tensors are the live ones: :class:`~split_learning_tpu_torch.runtime.
-    checkpoint.Checkpointer` snapshots them."""
+    checkpoint.Checkpointer` snapshots them. A :class:`ShardedState`
+    gives its whole leaves (:meth:`ShardedState.whole`)."""
+    if isinstance(state, ShardedState):
+        state = state.whole()
     params = [dict(stage) for stage in state.params]
     opt = state.opt_state
     if opt is None:
@@ -371,12 +571,17 @@ def _restore_leaf(live: torch.Tensor, saved: torch.Tensor, what: str,
     return saved.to(live.device).clone().requires_grad_(grad)
 
 
-def restore_state(state: TrainState, tree: Dict[str, Any]) -> None:
+def restore_state(state: Union[TrainState, "ShardedState"],
+                  tree: Dict[str, Any]) -> None:
     """Restore a :func:`state_tree` into ``state`` in place: every
     parameter and moment keeps the dtype it was saved in, and the step
     count (optax's count, which the lr schedule and Adam's bias
     correction read) comes back with them. A tree of another model or
-    optimizer raises ``ValueError``."""
+    optimizer raises ``ValueError``. A :class:`ShardedState` takes the
+    whole tree and splits it onto its ranks (:meth:`ShardedState.load`)."""
+    if isinstance(state, ShardedState):
+        state.load(tree)
+        return
     saved_params = list(tree["params"])
     if len(saved_params) != len(state.params) or any(
             set(s) != set(live)
@@ -421,7 +626,12 @@ def adopt_params(state: TrainState, params: Sequence[Params],
     mean, or a compressed sync's, turns a bfloat16 leaf into float32; see
     :func:`fedavg_mean`). The optimizer state stays; :class:`Adam`'s
     moments follow a leaf whose dtype changed at the next update. Each
-    stage keeps its own key order, the order of the optimizer's state."""
+    stage keeps its own key order, the order of the optimizer's state.
+    A :class:`ShardedState` takes the whole mean onto each of its ranks,
+    cut as its leaves are (``device`` is then unused)."""
+    if isinstance(state, ShardedState):
+        state.adopt(params)
+        return
     state.params = tuple(
         {k: _as_leaf_tensor(new[k]).to(device, copy=True)
          .requires_grad_(True) for k in live}
@@ -429,16 +639,11 @@ def adopt_params(state: TrainState, params: Sequence[Params],
 
 
 def check_config(cfg) -> None:
-    """Raise ``NotImplementedError`` for every Config value (other than
-    the transport, which each trainer checks) the port cannot run:
-    ``model_parallel > 1``. ``num_clients`` is the federated server's
-    round size, the multi-client runner's client count and the fused
-    trainer's ``data`` axis; ``seq_parallel`` the fused trainer's
-    ``seq`` axis."""
-    if cfg.model_parallel > 1:
-        raise NotImplementedError(
-            "not ported yet: model_parallel > 1 (tensor parallelism: "
-            "ROADMAP item 18)")
+    """Raise for a Config the optimizer cannot build (an unknown
+    optimizer). ``num_clients`` is the federated server's round size,
+    the multi-client runner's client count and the fused trainer's
+    ``data`` axis; ``model_parallel`` and ``seq_parallel`` the fused
+    trainer's ``model`` and ``seq`` axes."""
     make_tx(cfg)
 
 

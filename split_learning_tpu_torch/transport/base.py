@@ -31,12 +31,6 @@ import torch
 Params = Any
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error an argument or op of the JAX package that the port does
-    not run yet raises, naming its ROADMAP item."""
-    return NotImplementedError(f"not ported yet: {what} (ROADMAP {item})")
-
-
 def device_of(x: Any) -> Optional["torch.device"]:
     """Where a reply to ``x`` is decoded: its device, or None (numpy)."""
     return x.device if isinstance(x, torch.Tensor) else None

@@ -28,6 +28,11 @@ device-to-device copy where JAX runs a ``ppermute``; stage 1's replies
 move on to the hub's rank-0 device. Each stage's runtime is built on
 its pipe rank's device.
 
+A stage on a mesh of its own (``StageRuntime(mesh=)``, the ``model``
+and ``data`` axes) takes a payload from the previous stage's layout
+onto its own at its ``_to_dev``: a move between the two stages' devices,
+never through the host, so ``hop_host_copies`` stays 0.
+
 Scope: the hop ops, ``predict`` and ``health``. The two-party ops
 (``split_step``, ``u_forward``, ``u_backward``, ``aggregate``) raise
 ``NotImplementedError`` as JAX's do: ``LocalTransport`` serves them.

@@ -121,9 +121,13 @@ class SplitHTTPServer:
         self._chaos_attempts = _AttemptCounter()
         self.default_compress = compress
         self.default_density = float(density)
-        # where requests are decoded: the runtime's device, or numpy
-        self.device: Optional[torch.device] = getattr(runtime, "device",
-                                                      None)
+        # where requests are decoded: the runtime's device, or numpy. A
+        # party on a mesh takes host arrays, as JAX's does: its _to_dev
+        # places them on the mesh and its replies leave through its
+        # sanctioned gather (runtime/party.py)
+        self.device: Optional[torch.device] = (
+            None if getattr(runtime, "_mesh", None) is not None
+            else getattr(runtime, "device", None))
         # reply-direction error feedback: the runtime's ledger when it
         # has one; this one serves bare runtimes
         self._wire_ef = codec.make_wire_ef(

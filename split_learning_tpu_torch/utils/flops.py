@@ -72,6 +72,10 @@ def conv_pad(x: torch.Tensor, pads: Sequence[int]) -> torch.Tensor:
 
 
 def _to_meta(x: Any) -> Any:
+    if hasattr(x, "whole_meta"):
+        # a leaf on a mesh (parallel/tensor.py) counts as the whole leaf:
+        # the model's FLOPs, however the ranks split them
+        return x.whole_meta().requires_grad_(True)
     if isinstance(x, torch.Tensor):
         m = x.detach().to("meta")
         return m.requires_grad_(True) if x.requires_grad else m

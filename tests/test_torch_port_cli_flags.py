@@ -4,13 +4,12 @@
   parsers exists in the port's (the two argparse trees diffed), so no
   JAX command line meets argparse's bare rc 2. ``--kernels`` (no kernel
   fallback knob) and ``--download`` (no network) stay out by design.
-- Each ``train`` flag the port does not run yet
-  (:data:`TRAIN_NOT_PORTED`) exits 2 with ``[error] not ported yet:``
-  and its ROADMAP item, before touching data; the observability flags
-  (``--flight``, ``--telemetry-port``, ``--profile-dir``,
-  ``--tracking-uri``) run and do what JAX's do, and so do the mesh
-  flags (``--transport pipeline``, ``--num-clients``,
-  ``--seq-parallel``, the multi-host flags).
+- The ``train`` flags that exited 2 until the ``model`` mesh axis was
+  ported (``--model-parallel``, ``--mesh-data``, ``--mesh-model``) train;
+  the observability flags (``--flight``, ``--telemetry-port``,
+  ``--profile-dir``, ``--tracking-uri``) run and do what JAX's do, and
+  so do the other mesh flags (``--transport pipeline``,
+  ``--num-clients``, ``--seq-parallel``, the multi-host flags).
 - ``--require-real`` runs: with no real files it refuses the synthetic
   fallback (rc 2), with the real cache present it trains.
 """
@@ -26,7 +25,7 @@ from split_learning_tpu.launch import run as jax_run
 from split_learning_tpu_torch.data.datasets import (
     Dataset, LocalStore, Split, _to_blob)
 from split_learning_tpu_torch.launch import run
-from split_learning_tpu_torch.launch.run import TRAIN_NOT_PORTED, main
+from split_learning_tpu_torch.launch.run import main
 
 BY_DESIGN = {"--kernels", "--download"}
 
@@ -60,21 +59,25 @@ def test_every_jax_flag_has_a_port_flag(cmd):
 
 _VALUES = {
     "model_parallel": ["--model-parallel", "2"],
-    "mesh_data": ["--mesh-data", "2"], "mesh_model": ["--mesh-model", "2"],
+    "mesh_data": ["--transport", "local", "--mesh-data", "2"],
+    "mesh_model": ["--transport", "local", "--mesh-model", "2"],
 }
 
 
-@pytest.mark.parametrize("attr,item", [(a, i) for a, _, _, i in
-                                       TRAIN_NOT_PORTED],
-                         ids=[a for a, *_ in TRAIN_NOT_PORTED])
+@pytest.mark.parametrize("attr,item", [(a, "item 18") for a in _VALUES],
+                         ids=list(_VALUES))
 def test_unported_train_flags_exit_2(attr, item, tmp_path, capsys):
-    rc = main(["train", "--device", "cpu", "--steps", "1", "--dataset",
-               "synthetic", "--data-dir", str(tmp_path), *_VALUES[attr]])
+    """The flags that exited 2 naming ROADMAP item 18 until the ``model``
+    axis was ported: each trains now (the fused trainer on a ``model 2``
+    mesh, the in-process server of the local wire on a ``data 2`` or
+    ``model 2`` one), with no refusal."""
+    rc = main(["train", "--device", "cpu", "--steps", "2", "--dataset",
+               "synthetic", "--data-dir", str(tmp_path), "--batch-size",
+               "8", *_VALUES[attr]])
     err = capsys.readouterr().err
-    assert rc == 2
-    assert err.startswith("[error] not ported yet: ")
-    assert f"(ROADMAP {item})" in err
-    assert not any(tmp_path.iterdir())   # refused before touching data
+    assert rc == 0, err[-2000:]
+    assert "not ported yet" not in err and f"ROADMAP {item}" not in err
+    assert any(tmp_path.iterdir())   # it trained on the data
 
 
 @pytest.mark.parametrize("attr", ["flight", "telemetry_port", "profile_dir",

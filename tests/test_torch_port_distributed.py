@@ -4,9 +4,10 @@ In one process, against JAX's module where it has the same contract:
 the single-process no-op of ``init_multi_host`` and its missing process
 id, the grid rule that keeps a pipe chain within one process (JAX's
 ``_grid_rows`` cases), ``global_mesh`` equal to ``make_mesh``, and
-``SpecLayout``'s data half. Across processes: two OS processes join a
-gloo group through the ``SLT_*`` variables (one CPU rank each, or two
-for the pipeline), build the global mesh, check JAX's refusals, and
+``SpecLayout``'s data and model halves. Across processes: two OS
+processes join a gloo group through the ``SLT_*`` variables (one CPU
+rank each, or two for the pipeline), build the global mesh, check JAX's
+refusals, and
 train the fused trainer (data 2) and the GPipe pipeline (data 2 x pipe
 2); their losses and final parameters equal those of one process with
 the same mesh of CPU ranks, bit for bit (two rows add in one order
@@ -107,11 +108,15 @@ def test_spec_layout_and_placements():
                              torch.zeros(1))
     spec = layout.state(make_state(params, sgd(0.1)))
     assert len(spec) == 6 and all(s.axis is None for s in spec.values())
+    # the model half (JAX's rule; tests/test_torch_port_tensor_parallel.py
+    # holds it to JAX's leaf by leaf)
     tp = SpecLayout(make_mesh(model_parallel=2, device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tp.model
-    with pytest.raises(NotImplementedError, match="item 18"):
-        make_host_mesh(data=1, model=2)
+    assert tp.model == 2 and tp.data == 1
+    tp_spec = tp.state(make_state(params, sgd(0.1)))
+    assert {k: s.dim for k, s in tp_spec.items()} == {
+        "0/conv1.weight": 0, "0/conv1.bias": None, "1/conv2.weight": 0,
+        "1/conv2.bias": None, "1/fc.weight": 0, "1/fc.bias": None}
+    assert make_host_mesh(data=1, model=2).shape["model"] == 2
 
 
 _WORKER = r"""

@@ -158,7 +158,76 @@ def test_fleet_sim_face_replicas_and_kill(capsys):
     assert summary["dispatch"]["steady_state_recompiles"] == 0
 
 
-def test_fleet_sim_face_autoscale_gate(capsys):
+def _scripted_load(monkeypatch, slow_s=0.08, hold_timeout_s=60.0):
+    """A load that holds for the windows each scale event needs, so that
+    neither event waits on how fast this machine runs the steps.
+
+    - Pressure, from the autoscaler's start to its first scale-up: every
+      server step's loss takes ``slow_s`` more inside the dispatch span,
+      well over the 30 ms SLO, so the first window with traffic reads p99
+      over the SLO.
+    - Hold, from that scale-up to the first scale-down: new requests wait
+      at the group's door (before any replica takes them), so the pump's
+      windows are idle until the policy retires a replica.
+    - Then the remaining steps run as they come. A hold that outlasts
+      ``hold_timeout_s`` lets the requests through, so a policy that never
+      scales down fails the assertions instead of hanging."""
+    import threading
+    import time as _time
+
+    from split_learning_tpu_torch.runtime import autoscale as rt_autoscale
+    from split_learning_tpu_torch.runtime import server as server_mod
+    phase = {"now": "off"}
+    released = threading.Event()
+
+    def slowed(fn):
+        def call(*args, **kw):
+            if phase["now"] == "pressure":
+                _time.sleep(slow_s)
+            return fn(*args, **kw)
+        return call
+    for name in ("fused_cross_entropy", "cross_entropy_rows"):
+        monkeypatch.setattr(server_mod, name,
+                            slowed(getattr(server_mod, name)))
+
+    start = rt_autoscale.Autoscaler.start
+    scale_up = rt_autoscale.Autoscaler._scale_up
+    scale_down = rt_autoscale.Autoscaler._scale_down
+    group_step = ReplicaGroup.split_step
+
+    def start_(self, *a, **kw):
+        phase["now"] = "pressure"
+        return start(self, *a, **kw)
+
+    def scale_up_(self, decision):
+        scale_up(self, decision)
+        if decision.executed and phase["now"] == "pressure":
+            phase["now"] = "hold"
+
+    def scale_down_(self, decision):
+        scale_down(self, decision)
+        if decision.executed:
+            phase["now"] = "free"
+            released.set()
+
+    def split_step_(self, *a, **kw):
+        if phase["now"] == "hold":
+            released.wait(hold_timeout_s)
+        return group_step(self, *a, **kw)
+    monkeypatch.setattr(rt_autoscale.Autoscaler, "start", start_)
+    monkeypatch.setattr(rt_autoscale.Autoscaler, "_scale_up", scale_up_)
+    monkeypatch.setattr(rt_autoscale.Autoscaler, "_scale_down",
+                        scale_down_)
+    monkeypatch.setattr(ReplicaGroup, "split_step", split_step_)
+
+
+def test_fleet_sim_face_autoscale_gate(capsys, monkeypatch):
+    """The CLI face with ``--gate-autoscale``: a scale-up under pressure
+    and a scale-down when the load lets go, with no step dropped. The
+    load is scripted (:func:`_scripted_load`): both events followed the
+    machine's speed before (a loaded run's first burst ran into the
+    second, leaving no idle windows after the scale-up)."""
+    _scripted_load(monkeypatch)
     rc, summary, err = _sim(
         capsys, "--steps", "6", "--rate", "1.0", "--burst-size", "3",
         "--autoscale", "--autoscale-min", "1", "--autoscale-max", "3",

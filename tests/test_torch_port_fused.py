@@ -85,7 +85,6 @@ def test_train_epoch_equals_train_steps():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(transport="local"), "items 8-12"),
-    (dict(model_parallel=2), "item 18"),
 ])
 def test_unported_config_values_raise(kw, item):
     cfg = Config(**{"transport": "fused", **kw})
@@ -93,18 +92,20 @@ def test_unported_config_values_raise(kw, item):
         check_supported(cfg)
 
 
-@pytest.mark.parametrize("field", ["num_clients", "seq_parallel"])
+@pytest.mark.parametrize("field", ["num_clients", "seq_parallel",
+                                   "model_parallel"])
 def test_mesh_config_values_are_accepted(field):
-    """``num_clients`` and ``seq_parallel`` (refused before the mesh
-    slice) are the axes of the mesh the caller builds: accepted, and a
-    step on a 2-rank CPU mesh of that axis trains (the numbers are
-    tests/test_torch_port_mesh_fused.py's)."""
+    """``num_clients``, ``seq_parallel`` and ``model_parallel`` (refused
+    before the mesh slices) are the axes of the mesh the caller builds:
+    accepted, and a step on a 2-rank CPU mesh of that axis trains (the
+    numbers are tests/test_torch_port_mesh_fused.py's and
+    tests/test_torch_port_tensor_parallel.py's)."""
     from split_learning_tpu_torch.parallel.mesh import make_mesh
     cfg = Config(transport="fused", batch_size=4, **{field: 2})
     check_supported(cfg)
     gen = torch.Generator().manual_seed(0)
-    if field == "num_clients":
-        mesh = make_mesh(num_clients=2, device="cpu")
+    if field in ("num_clients", "model_parallel"):
+        mesh = make_mesh(**{field: 2}, device="cpu")
         plan, x = get_plan(), np.zeros((4, 28, 28, 1), np.float32)
         y = np.zeros(4, np.int64)
     else:

@@ -8,9 +8,10 @@
   retry`` (the breaker) completes every step;
 - ``train`` and ``serve`` without ``--device cpu`` raise before touching
   data (no GPU here, no fallback);
-- each JAX ``serve`` flag the port does not run exits 2 naming its
-  ROADMAP item, and the observability flags (``--trace``, ``--flight``,
-  ``--telemetry`` and its interval and SLO, ``--tracking-uri``) serve;
+- the mesh flags (``--mesh-data``, ``--mesh-model``), which exited 2
+  until the sharded server was ported, serve on their mesh, and the
+  observability flags (``--trace``, ``--flight``, ``--telemetry`` and
+  its interval and SLO, ``--tracking-uri``) serve;
   a server in another mode makes the client exit 4;
 - ``--compress-density auto`` on a two-party wire warns and trains at
   density 0.1, as JAX's ``_density_or_default`` does (fault 7).
@@ -28,7 +29,7 @@ import threading
 import pytest
 import torch
 
-from split_learning_tpu_torch.launch.run import SERVE_NOT_PORTED, main
+from split_learning_tpu_torch.launch.run import main
 from split_learning_tpu_torch.models import get_plan
 from split_learning_tpu_torch.runtime import ServerRuntime
 from split_learning_tpu_torch.transport import SplitHTTPServer, codec
@@ -184,16 +185,44 @@ _FLAG_VALUES = {
 }
 
 
-@pytest.mark.parametrize("attr,item", [(a, i) for a, _, _, i in
-                                       SERVE_NOT_PORTED],
-                         ids=[a for a, *_ in SERVE_NOT_PORTED])
-def test_unported_serve_flags_exit_2(attr, item, capsys):
-    rc = main(["serve", "--device", "cpu", "--port", "0",
-               *_FLAG_VALUES[attr]])
+@pytest.mark.parametrize("attr,item", [("mesh_data", "item 18"),
+                                       ("mesh_model", "item 18")],
+                         ids=["mesh_data", "mesh_model"])
+def test_unported_serve_flags_exit_2(attr, item, monkeypatch, capsys):
+    """``--mesh-data`` and ``--mesh-model`` exited 2 naming ROADMAP item
+    18 until the sharded server was ported: ``serve`` now comes up on
+    the mesh, its /health carries it, and it stops on the interrupt with
+    rc 0."""
+    import time
+    import urllib.request
+    from split_learning_tpu_torch.launch import run
+    got = {}
+    real = run.serve_party
+
+    def serve_party(args):
+        out = real(args)
+        got["url"] = out[1].url
+        return out
+
+    class Clock:
+        def sleep(self, _):
+            with urllib.request.urlopen(got["url"] + "/health",
+                                        timeout=10) as r:
+                got["health"] = codec.decode(r.read())
+            raise KeyboardInterrupt
+
+        def __getattr__(self, name):
+            return getattr(time, name)
+    monkeypatch.setattr(run, "serve_party", serve_party)
+    monkeypatch.setattr(run, "time", Clock())
+    rc = main(["serve", "--device", "cpu", "--port", "0", "--host",
+               "127.0.0.1", *_FLAG_VALUES[attr]])
     err = capsys.readouterr().err
-    assert rc == 2
-    assert err.startswith("[error] not ported yet: ")
-    assert f"(ROADMAP {item})" in err
+    assert rc == 0 and "not ported yet" not in err
+    assert f"ROADMAP {item}" not in err
+    axis = {"mesh_data": "data", "mesh_model": "model"}[attr]
+    assert got["health"]["mesh"]["devices"] == 2
+    assert got["health"]["mesh"][axis] == 2
 
 
 @pytest.mark.parametrize("attr", ["trace", "flight", "telemetry",

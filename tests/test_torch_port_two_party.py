@@ -369,13 +369,19 @@ def test_lock_watchdog_instruments_the_runtime(monkeypatch):
     assert [v["kind"] for v in graph.violations] == ["lock-order-inversion"]
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "item 18"),
-])
-def test_unported_server_arguments_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ServerRuntime(get_plan(), Config(), torch.Generator().manual_seed(0),
-                      device="cpu", **kw)
+def test_server_mesh_argument_builds():
+    """``mesh=`` (refused until the sharded server was ported, ROADMAP
+    item 18) builds a party laid out on the mesh; /health reports it
+    (the numbers are tests/test_torch_port_sharded_server.py's)."""
+    from split_learning_tpu_torch.parallel.mesh import make_host_mesh
+    server = ServerRuntime(get_plan(), Config(),
+                           torch.Generator().manual_seed(0), device="cpu",
+                           mesh=make_host_mesh(data=2, model=2))
+    try:
+        assert server.health()["mesh"] == {"devices": 4, "data": 2,
+                                           "pipe": 1, "model": 2}
+    finally:
+        server.close()
 
 
 @pytest.mark.parametrize("kw,block", [
@@ -480,17 +486,24 @@ def test_cli_without_device_cpu_raises(tmp_path):
     assert not any(tmp_path.iterdir())  # raised before touching data
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--model-parallel", "2"], "item 18"),
-])
-def test_cli_unported_flags_refuse(flags, item, tmp_path):
-    """What the port still refuses on the local wire: the ``model`` axis
-    (``--num-clients 2``, refused here before the mesh slice, runs: the
-    test below)."""
-    out = _cli("--transport", "local", "--steps", "1", "--dataset",
-               "synthetic", "--data-dir", str(tmp_path), *flags)
-    assert out.returncode == 2
-    assert item in out.stderr
+def test_cli_model_parallel_warns_on_the_local_wire(tmp_path, capsys):
+    """``--model-parallel 2`` on the local wire exited 2 until the model
+    axis was ported; JAX warns that tensor parallelism needs the fused
+    transport and trains (fault 12): the port prints JAX's line word for
+    word and trains."""
+    from split_learning_tpu.launch.run import main as jax_main
+    from split_learning_tpu_torch.launch.run import main
+    argv = ["train", "--transport", "local", "--steps", "1", "--dataset",
+            "synthetic", "--model-parallel", "2", "--tracking", "noop"]
+    assert jax_main(argv + ["--data-dir", str(tmp_path / "jax")]) == 0
+    jax_err = capsys.readouterr().err
+    assert main(argv + ["--data-dir", str(tmp_path / "port"),
+                        "--device", "cpu"]) == 0
+    err = capsys.readouterr().err
+    line = ("[warn] --model-parallel ignored on transport='local' (tensor "
+            "parallelism requires the fused transport)")
+    assert line in jax_err.splitlines()
+    assert line in err.splitlines()
 
 
 def test_cli_num_clients_runs_on_the_local_wire(tmp_path):
