@@ -4,6 +4,11 @@ plain versions.
 
     python3 chip_smoke.py
 
+``--phase 32`` runs phase 32 alone, ``--native-ops`` times the native
+codec's ops by thread count against numpy's, ``--host-line [ROOT]``
+times a numpy-input party's steps on the native codec and on numpy, or
+on the package of the checkout at ROOT (all three below).
+
 Needs one CUDA card and ``nvcc``; exits non-zero, with no result line,
 when ``torch.cuda.is_available()`` is false or the port's package is not
 beside this script. Phases, any failure ending the run with a traceback:
@@ -447,6 +452,28 @@ beside this script. Phases, any failure ending the run with a traceback:
    group padded to the ``data`` multiple. (d) ``split_cnn_chain3`` on the
    device wire, its middle stage at ``data 2 x model 2``, against the
    flat chain, with no host copy on a hop.
+32. the native host codec (``native/``) and the concurrency checker
+   (``analysis/``). (a) ``native/slt_codec.cc`` built from nothing with
+   this machine's g++ (seconds printed); the frames of the CNN cut [64,
+   26, 26, 32] and the LM cut [64, 1024, 256] (float32, seeded) in
+   ``int8`` and ``topk8`` at 0.1 without and with EF (two steps) from
+   the native codec, the ``SLT_NO_NATIVE=1`` numpy line and the card
+   (K3; K4s's five launches), and their decodes (the card's on the
+   card), byte-equal; host ms per MB to encode and to decode, native
+   against numpy, the median of 20, with ``os.cpu_count()``. (b)
+   ``python -m split_learning_tpu_torch.analysis`` over the port and
+   this script, one sweep of every ``--check`` scenario cut to 20
+   schedules each (the CPU tests sweep each at its own budget) and
+   every ``--crash`` scenario at its own budget, five subprocesses at
+   once: rc 0, no finding, the schedules explored and the sweeps the
+   cut stopped short, seconds. (c) phase 25's coalesced 4-client CNN
+   round (``coalesce_max`` 4, an SLO, the clients enqueued in a fixed
+   order so every group is the same) for 4 rounds in two subprocesses
+   at once, ``SLT_LOCK_DEBUG=1`` and unset: the loss series bit-equal,
+   no watchdog violation, ``RequestCoalescer._cond``,
+   ``AdmissionController._lock`` and ``_GroupD2H._lock`` instrumented
+   (none with the watchdog off), K1 and K2 each round as phase 25's
+   coalesced round. Each part prints its line with the card.
 
 Output, last lines: one JSON object with a record per kernel, one JSON
 object with the main path's step time, one with the serving path's
@@ -458,8 +485,9 @@ phases 20-23 (``u_split``, ``u_split_lm``, ``federated``,
 with phase 25 (``many_clients``), one with phase 26 (``image``), one
 with phase 27 (``chain``), one with phase 28 (``obs``), one with
 phase 29 (``fleet``), one with phase 30 (``mesh``), one with phase 31
-(``model_axis``), the ``nvidia-smi`` name and power limit, and
-``{"ok": true, "device": {...}}``.
+(``model_axis``), one with phase 32 (``analysis_native``), the
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -762,6 +790,25 @@ TP_SERVER_STEPS, TP_PAD_DATA, TP_PAD_B, TP_CHAIN_STEPS = 5, 4, 2, 4
 TP_FA_SHAPES = (("model rank causal",
                  (TRAIN_B, TRAIN_T, LM["num_heads"] // TP_MODEL,
                   LM["d_model"] // LM["num_heads"]), True, False, False),)
+# phase 32: the native host codec and the concurrency checker. (a) the
+# frames of NATIVE_CUTS (float32, seeded) in int8 and topk8 at DENSITY
+# (without and with EF, NATIVE_EF_STEPS steps) from the native codec, the
+# SLT_NO_NATIVE numpy line and the card (K3, K4s), byte-equal; host ms
+# per MB, native against numpy, the median of NATIVE_REPS. (b) the lint
+# over the port, one sweep of every --check scenario cut to
+# ANALYSIS_CHECK_BUDGET schedules (the CPU tests sweep each at its own
+# budget) and every --crash scenario at its own budget, five
+# subprocesses at once, within ANALYSIS_TIMEOUT_S. (c)
+# phase 25's coalesced MANY_CLIENTS-client CNN round for WATCHDOG_ROUNDS
+# rounds in two subprocesses, SLT_LOCK_DEBUG=1 and unset, the clients
+# enqueued in a fixed order (a group fills before WATCHDOG_WINDOW_MS)
+NATIVE_CUTS = (("cnn_cut", CNN_CUT), ("lm_cut", LM_CUT))
+NATIVE_REPS, NATIVE_EF_STEPS = 20, 2
+HOST_LINE_WARM, HOST_LINE_STEPS = 2, 20
+ANALYSIS_TIMEOUT_S, ANALYSIS_CHECK_BUDGET = 400, 20
+WATCHDOG_ROUNDS, WATCHDOG_WINDOW_MS, WATCHDOG_SLO_MS = 4, 60_000.0, 60_000.0
+WATCHDOG_LOCKS = ("RequestCoalescer._cond", "AdmissionController._lock",
+                  "_GroupD2H._lock")
 PLANTS = {
     "quantize_roundf": ("quantize.cu", "rintf(", "roundf("),
     "topk_select_ties_high": (
@@ -7050,6 +7097,397 @@ def model_axis_runs(torch, launch_run, smi, tr_data) -> tuple:
     return rec, totals
 
 
+# --------------------------------------------------------------------- #
+# phase 32: the native host codec and the concurrency checker
+
+def _native_line(on: bool) -> None:
+    """Send the host codec to the native library (``on``) or to its
+    numpy line (``SLT_NO_NATIVE=1``)."""
+    if on:
+        os.environ.pop("SLT_NO_NATIVE", None)
+    else:
+        os.environ["SLT_NO_NATIVE"] = "1"
+
+
+def _codec_frames(codec, kind, xs, device=None):
+    """Frame bytes, decoded bytes and the final residual of ``xs`` (numpy
+    arrays or tensors, one a step) in ``kind``: int8, topk8 (one step, no
+    EF) or topk8_ef (the EF ledger over every step). ``device`` decodes
+    there (None: on the host)."""
+    frames, decoded = [], []
+    ef = codec.TopK8EF() if kind == "topk8_ef" else None
+    for x in xs:
+        if kind == "int8":
+            d = codec.q8_compress(x)
+        elif kind == "topk8":
+            d = codec.topk8_compress(x, DENSITY)[0]
+        else:
+            d = ef.compress("g", x, DENSITY)
+        frames.append(codec.encode(d))
+        out = codec.decompress_tree(codec.decode(frames[-1]), device)
+        if device is not None:
+            out = out.cpu().numpy()
+        decoded.append(np.ascontiguousarray(out).tobytes())
+    res = None
+    if ef is not None:
+        r = ef.residual("g")
+        res = (r.detach().cpu().numpy() if hasattr(r, "detach")
+               else np.asarray(r)).tobytes()
+    return frames, decoded, res
+
+
+def native_codec_runs(torch, dev):
+    """Phase 32 (a): the native build, three-way byte-equal frames at
+    both cuts, host ms per MB native against numpy."""
+    from split_learning_tpu_torch import native
+    from split_learning_tpu_torch.native import codec as ncodec
+    from split_learning_tpu_torch.ops import quantize as qmod
+    from split_learning_tpu_torch.ops import topk as kmod
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.transport import codec
+    _native_line(True)
+    t = time.perf_counter()
+    check(native.available(), f"native codec: {native.build_error()}")
+    first_call_s = time.perf_counter() - t
+    # one build from nothing with this machine's g++, timed (the codec's
+    # own library may have come from an earlier phase's cache)
+    fresh = os.path.join(REPO, "build", "chip_smoke_native", str(os.getpid()))
+    prev = os.environ.get("SLT_NATIVE_CACHE")
+    os.environ["SLT_NATIVE_CACHE"] = fresh
+    try:
+        t = time.perf_counter()
+        built = ncodec._build()
+        build_s = time.perf_counter() - t
+    finally:
+        if prev is None:
+            os.environ.pop("SLT_NATIVE_CACHE")
+        else:
+            os.environ["SLT_NATIVE_CACHE"] = prev
+    check(os.path.exists(built), f"native build: no {built}")
+    rec = dict(build_s=build_s, first_call_s=first_call_s,
+               library=os.path.relpath(ncodec.library_path(), REPO),
+               cpu_count=os.cpu_count(), reps=NATIVE_REPS, frames={},
+               host={})
+    kinds = ("int8", "topk8", "topk8_ef")
+    for ci, (cut, shape) in enumerate(NATIVE_CUTS):
+        steps = [(np.random.RandomState(320 + 10 * ci + s).randn(*shape)
+                  * 3.0).astype(np.float32) for s in range(NATIVE_EF_STEPS)]
+        for kind in kinds:
+            xs = steps if kind == "topk8_ef" else steps[:1]
+            _native_line(True)
+            nat = _codec_frames(codec, kind, xs)
+            _native_line(False)
+            ref = _codec_frames(codec, kind, xs)
+            _native_line(True)
+            LAUNCHES.reset()
+            card = _codec_frames(codec, kind,
+                                 [torch.from_numpy(x).to(dev) for x in xs],
+                                 dev)
+            torch.cuda.synchronize()
+            counts = LAUNCHES.snapshot()
+            # the encode on the card (K3, or K4s's five launches), and
+            # for int8 the dequantize of the card's decode
+            want = ({qmod.QUANT: len(xs), qmod.DEQUANT: len(xs)}
+                    if kind == "int8" else
+                    {n: len(xs) for n in kmod.SELECT_LAUNCHES})
+            check(counts == want, f"native {cut} {kind}: card launches "
+                                  f"{counts}, want {want}")
+            for what, i in (("frames", 0), ("decoded", 1), ("residual", 2)):
+                check(nat[i] == ref[i] == card[i],
+                      f"native {cut} {kind}: {what} differ between the "
+                      f"native codec, the numpy line and the card")
+            rec["frames"][f"{cut} {kind}"] = dict(
+                shape=list(shape), steps=len(xs), byte_equal=True,
+                frame_bytes=[len(f) for f in nat[0]], card_launches=counts)
+        x = steps[0]
+        mb = x.nbytes / 1e6
+        for kind in ("int8", "topk8"):
+            enc = ((lambda: codec.q8_compress(x)) if kind == "int8"
+                   else (lambda: codec.topk8_compress(x, DENSITY)))
+            times = {"native": ([], []), "numpy": ([], [])}
+            # native, numpy, numpy, native: half the reps each time, so
+            # neither line always runs first
+            for line in ("native", "numpy", "numpy", "native"):
+                _native_line(line == "native")
+                d = enc() if kind == "int8" else enc()[0]
+                times[line][0].extend(_host_reps(enc, NATIVE_REPS // 2))
+                times[line][1].extend(_host_reps(
+                    lambda: codec.decompress_tree(d), NATIVE_REPS // 2))
+            row = {}
+            for line, (e, dd) in times.items():
+                e_ms, d_ms = statistics.median(e), statistics.median(dd)
+                row[line] = dict(encode_ms=e_ms, decode_ms=d_ms,
+                                 encode_ms_per_mb=e_ms / mb,
+                                 decode_ms_per_mb=d_ms / mb)
+            row["mb"] = mb
+            rec["host"][f"{cut} {kind}"] = row
+    _native_line(True)
+    return rec
+
+
+def _host_reps(fn, reps):
+    out = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def analysis_runs():
+    """Phase 32 (b), five subprocesses at once, each within
+    ANALYSIS_TIMEOUT_S: the lint over the port and chip_smoke.py, every
+    slt-check scenario in one sweep cut to ANALYSIS_CHECK_BUDGET
+    schedules each, and each slt-crash scenario at its own budget. rc 0
+    each, no finding, the schedules each scenario explored against its
+    own budget, seconds. (The interpreter's start dominates a short
+    sweep, so fewer processes finish sooner.)"""
+    import re
+    import subprocess
+    from split_learning_tpu_torch.analysis.scenarios import (
+        CRASH_SCENARIOS, SCENARIOS)
+    out_dir = os.path.join(REPO, "build", "chip_smoke_analysis")
+    os.makedirs(out_dir, exist_ok=True)
+    mod = [sys.executable, "-m", "split_learning_tpu_torch.analysis"]
+    jobs = [(n, mod + ["--check", "--crash", "--scenario", n])
+            for n in CRASH_SCENARIOS]
+    jobs += [("lint", mod + ["split_learning_tpu_torch/", "chip_smoke.py"]),
+             ("check", mod + ["--check", "--budget",
+                              str(ANALYSIS_CHECK_BUDGET)])]
+    # the sweeps run tiny CPU tensors: one intra-op thread a process
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SLT_LOCK_DEBUG", "SLT_NO_NATIVE")}
+    env["OMP_NUM_THREADS"] = "1"
+    t0 = time.perf_counter()
+    running = {}
+    for name, cmd in jobs:
+        fh = open(os.path.join(out_dir, f"{name}.txt"), "w")
+        running[name] = (subprocess.Popen(
+            cmd, cwd=REPO, env=env, stdout=fh, stderr=subprocess.STDOUT,
+            text=True), fh)
+    seconds, texts = {}, {}
+    while running:
+        for name, (proc, fh) in list(running.items()):
+            if proc.poll() is None:
+                if time.perf_counter() - t0 <= ANALYSIS_TIMEOUT_S:
+                    continue
+                proc.kill()
+                proc.wait()
+            fh.close()
+            del running[name]
+            seconds[name] = time.perf_counter() - t0
+            with open(fh.name) as f:
+                texts[name] = f.read()
+            check(proc.returncode == 0 and "0 unwaived finding(s)"
+                  in texts[name], f"analysis {name}: rc "
+                  f"{proc.returncode}: {texts[name][-1500:]}")
+        time.sleep(0.05)
+    runs = {}
+    for name in list(SCENARIOS) + list(CRASH_SCENARIOS):
+        text = texts["check" if name in SCENARIOS else name]
+        m = re.search(rf"{re.escape(name)}: (\d+) schedules", text)
+        check(m is not None and int(m.group(1)) > 0,
+              f"analysis {name}: no schedules explored: {text[-1500:]}")
+        runs[name] = dict(schedules=int(m.group(1)))
+        if name in SCENARIOS:
+            runs[name].update(budget=ANALYSIS_CHECK_BUDGET,
+                              own_budget=SCENARIOS[name].budget)
+    rec = dict(python=sys.version.split()[0], seconds=seconds,
+               check_budget=ANALYSIS_CHECK_BUDGET,
+               # the sweeps the cut stopped short of their own budget
+               cut=sorted(n for n in SCENARIOS
+                          if runs[n]["schedules"] >= ANALYSIS_CHECK_BUDGET
+                          and ANALYSIS_CHECK_BUDGET < SCENARIOS[n].budget),
+               runs=runs, wall_s=time.perf_counter() - t0,
+               schedules_check=sum(runs[n]["schedules"] for n in SCENARIOS),
+               schedules_crash=sum(runs[n]["schedules"]
+                                   for n in CRASH_SCENARIOS),
+               scenarios=len(SCENARIOS), crash_scenarios=len(CRASH_SCENARIOS))
+    return rec
+
+
+def watchdog_round(device="cuda", rounds=WATCHDOG_ROUNDS):
+    """Phase 32 (c), one process: phase 25's coalesced MANY_CLIENTS-client
+    CNN (local wire, ``none``, coalesce_max MANY_CLIENTS, an SLO so the
+    admission layer is built) for ``rounds`` rounds, the clients enqueued
+    in client order each round (each starts once the previous one's
+    request has arrived), so every group is the same. Returns the loss
+    series (float.hex), the names of the instrumented locks built, the
+    watchdog's violations and the launches. Deterministic cuDNN."""
+    import torch
+    from split_learning_tpu_torch.data import batches, synthetic
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.obs import locks
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.runtime import (
+        ServerRuntime, SplitClientTrainer)
+    from split_learning_tpu_torch.transport import LocalTransport
+    n = MANY_CLIENTS
+    ds = synthetic("mnist", n_train=BATCH * n * rounds, n_test=8, seed=2)
+    data = list(batches(ds.train, BATCH, seed=2, drop_remainder=True))
+    names = []
+    orig_init = locks.InstrumentedLock.__init__
+
+    def init(self, name, **kw):
+        names.append(name)
+        orig_init(self, name, **kw)
+
+    locks.InstrumentedLock.__init__ = init
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = _many_cfg()
+        server = ServerRuntime(get_plan(), cfg,
+                               torch.Generator().manual_seed(0),
+                               coalesce_max=n,
+                               coalesce_window_ms=WATCHDOG_WINDOW_MS,
+                               slo_ms=WATCHDOG_SLO_MS, device=device)
+        clients = [SplitClientTrainer(
+            get_plan(), cfg, torch.Generator().manual_seed(1 + i),
+            LocalTransport(server), client_id=i, device=device)
+            for i in range(n)]
+        LAUNCHES.reset()
+        losses, errors = [], []
+        try:
+            for r in range(rounds):
+                out = [None] * n
+
+                def run(i, r=r, out=out):
+                    try:
+                        out[i] = clients[i].train_step(*data[r * n + i],
+                                                       step=r)
+                    except Exception as exc:   # reported below
+                        errors.append(exc)
+
+                threads = []
+                for i in range(n):
+                    th = threading.Thread(target=run, args=(i,))
+                    th.start()
+                    threads.append(th)
+                    deadline = time.monotonic() + 60.0
+                    # the coalescer's arrival count: this client's
+                    # request is queued before the next one starts
+                    while (i < n - 1 and not errors
+                           and server._coalescer._arrivals < r * n + i + 1):
+                        check(time.monotonic() < deadline,
+                              f"watchdog round {r}: client {i} never "
+                              f"enqueued")
+                        time.sleep(0.001)
+                for th in threads:
+                    th.join(timeout=120.0)
+                check(not errors, f"watchdog round {r}: {errors}")
+                losses.append([float(v).hex() for v in out])
+            if device != "cpu":
+                torch.cuda.synchronize()
+            counts = LAUNCHES.snapshot()
+        finally:
+            server.close()
+        health = server.health()["coalescing"]
+    finally:
+        locks.InstrumentedLock.__init__ = orig_init
+        torch.backends.cudnn.deterministic = deterministic
+    return dict(losses=losses, locks=sorted(set(names)),
+                violations=[v["message"]
+                            for v in locks.default_graph().violations],
+                launches=counts, rounds=rounds,
+                groups=int(health.get("groups_flushed", 0)),
+                mean_occupancy=health.get("mean_occupancy", 0.0))
+
+
+def watchdog_runs(torch, per_round):
+    """Phase 32 (c): :func:`watchdog_round` in two subprocesses on the
+    card, ``SLT_LOCK_DEBUG=1`` and unset, at once: the loss series
+    bit-equal, no violation, the named locks instrumented (and none with
+    the watchdog off), K1 and K2 each round as phase 25's coalesced
+    round (``per_round``)."""
+    import subprocess
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke as cs; "
+            "print('WATCHDOG ' + json.dumps(cs.watchdog_round('cuda')))")
+    t0 = time.perf_counter()
+    procs = {}
+    for debug in (True, False):
+        env = {k: v for k, v in os.environ.items() if k != "SLT_LOCK_DEBUG"}
+        if debug:
+            env["SLT_LOCK_DEBUG"] = "1"
+        procs[debug] = subprocess.Popen(
+            [sys.executable, "-c", code, REPO], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    runs = {}
+    for debug, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        check(proc.returncode == 0,
+              f"watchdog run (debug {debug}): rc {proc.returncode}: "
+              f"{err[-2000:]}")
+        line = [ln for ln in out.splitlines() if ln.startswith("WATCHDOG ")]
+        check(len(line) == 1, f"watchdog run (debug {debug}): {out[-800:]}")
+        runs[debug] = json.loads(line[0][len("WATCHDOG "):])
+    on, off = runs[True], runs[False]
+    check(on["losses"] == off["losses"],
+          f"watchdog: loss series differ on and off: {on['losses']} vs "
+          f"{off['losses']}")
+    check(on["violations"] == [] and off["violations"] == [],
+          f"watchdog: violations {on['violations']} {off['violations']}")
+    check(set(WATCHDOG_LOCKS) <= set(on["locks"]),
+          f"watchdog: instrumented locks {on['locks']}")
+    check(off["locks"] == [], f"watchdog off built {off['locks']}")
+    want = {k: v * WATCHDOG_ROUNDS for k, v in per_round.items()}
+    for label, run in (("on", on), ("off", off)):
+        check(run["launches"] == want,
+              f"watchdog {label}: launches {run['launches']}, want {want} "
+              f"(phase 25's coalesced round x {WATCHDOG_ROUNDS})")
+        check(run["groups"] == WATCHDOG_ROUNDS,
+              f"watchdog {label}: {run['groups']} groups")
+    return dict(seconds=time.perf_counter() - t0, rounds=WATCHDOG_ROUNDS,
+                clients=MANY_CLIENTS, losses_bit_equal=True,
+                losses=[[float.fromhex(v) for v in r] for r in on["losses"]],
+                instrumented_locks=on["locks"], violations=0,
+                launches=on["launches"], launches_per_round=per_round)
+
+
+def analysis_native_runs(torch, dev, smi, many_rec):
+    """Phase 32: (b), (c), then (a) on a quiet host (its timings); each
+    prints its own line with the card."""
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    t0 = time.perf_counter()
+    rec = {"card": smi}
+    group = many_rec["coalescing"]["runs"]["local none window"][
+        "server_launches_per_group"]
+    per_round = {k: group.get(k, 0) for k in (FWD, BWD, SGD)}
+    per_round[SGD] += MANY_CLIENTS   # each client's own step
+    rec["checker"] = c = analysis_runs()
+    print(f"[analysis] {smi} | lint rc 0; slt-check {c['scenarios']} "
+          f"scenarios, {c['schedules_check']} schedules (at most "
+          f"{c['check_budget']} each; {len(c['cut'])} cut from their own "
+          f"budget); slt-crash "
+          f"{c['crash_scenarios']} scenarios, {c['schedules_crash']} "
+          f"schedules; 0 violations; {c['wall_s']:.1f} s in 5 "
+          f"processes, Python {c['python']}", flush=True)
+    rec["watchdog"] = w = watchdog_runs(torch, per_round)
+    print(f"[watchdog] {smi} | {w['clients']} clients x {w['rounds']} "
+          f"coalesced rounds, SLT_LOCK_DEBUG=1 and off: loss series "
+          f"bit-equal, 0 violations, instrumented "
+          f"{', '.join(w['instrumented_locks'])}; launches a round "
+          f"{w['launches_per_round']}; {w['seconds']:.1f} s", flush=True)
+    rec["native"] = native_codec_runs(torch, dev)
+    nat = rec["native"]
+    host = "; ".join(
+        f"{k}: enc {r['native']['encode_ms_per_mb']:.3f} vs "
+        f"{r['numpy']['encode_ms_per_mb']:.3f}, dec "
+        f"{r['native']['decode_ms_per_mb']:.3f} vs "
+        f"{r['numpy']['decode_ms_per_mb']:.3f}"
+        for k, r in nat["host"].items())
+    print(f"[native] {smi} | g++ build {nat['build_s']:.2f} s (first call "
+          f"{nat['first_call_s']:.2f} s); frames byte-equal native / numpy "
+          f"/ card on {len(nat['frames'])} cases; host ms per MB native vs "
+          f"numpy (median of {nat['reps']}, {nat['cpu_count']} CPUs): "
+          f"{host}", flush=True)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[analysis] phase 32: {rec['seconds']:.1f} s", flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7920,6 +8358,9 @@ def main() -> int:
         check(tp_counts.get(name, 0) > 0,
               f"phase 31's runs launched {name} no time: {tp_counts}")
 
+    # ---- 32. the native host codec and the concurrency checker ------- #
+    an_rec = analysis_native_runs(torch, dev, smi, many_rec)
+
     for rec in records:
         key = launch_of.get(rec["name"], rec["name"])
         rec["launches_train_lm_bf16"] = bf16_counts.get(key, 0)
@@ -8151,6 +8592,7 @@ def main() -> int:
                                    kernels=mesh_fa, **mesh_rec)}))
     print(json.dumps({"model_axis": dict(device=kind, kernels=tp_fa,
                                          **tp_rec)}))
+    print(json.dumps({"analysis_native": dict(device=kind, **an_rec)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -8158,7 +8600,135 @@ def main() -> int:
     return 0
 
 
+def phase32_main() -> int:
+    """``chip_smoke.py --phase 32``: phase 32 alone on the card, its watchdog
+    round held to phase 25's group launches (K1f 1, K1b 1, K2 1 a
+    coalesced group in every run of phase 25 on the card). Writes
+    ``chiprun_out/p32.json``."""
+    sys.path.insert(0, REPO)
+    import torch
+    from split_learning_tpu_torch.ops.common import load_kernels
+    from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
+    from split_learning_tpu_torch.ops.sgd import NAME as SGD
+    from split_learning_tpu_torch.utils import (
+        gpu_name_and_power_limit, resolve_device)
+    t0 = time.perf_counter()
+    dev = resolve_device("cuda")
+    smi = gpu_name_and_power_limit().splitlines()[0]
+    print(smi, sys.version.split()[0], torch.__version__, flush=True)
+    load_kernels()
+    print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+    many = {"coalescing": {"runs": {"local none window": {
+        "server_launches_per_group": {FWD: 1, BWD: 1, SGD: 1}}}}}
+    rec = analysis_native_runs(torch, dev, smi, many)
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "p32.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    print(f"[analysis] phase 32 alone: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def native_ops_main() -> int:
+    """``chip_smoke.py --native-ops``: what phase 32 (a)'s host ms per MB
+    are made of. At both of its cuts, the median ms of 20 calls (10 for
+    the selects) of the native codec's quantize, dequantize, topk8 select
+    (density 0.1) and scatter at 1, 2, 4 and 8 threads, beside numpy's
+    quantize, absmax, dequantize and select; one JSON object."""
+    sys.path.insert(0, REPO)
+    from split_learning_tpu_torch import native
+    from split_learning_tpu_torch.transport import codec
+    _native_line(True)
+    check(native.available(), f"native codec: {native.build_error()}")
+
+    def med(fn, reps=NATIVE_REPS):
+        return statistics.median(_host_reps(fn, reps))
+
+    res = {"cpu_count": os.cpu_count()}
+    for cut, shape in NATIVE_CUTS:
+        x = (np.random.RandomState(0).randn(*shape) * 3.0).astype(np.float32)
+        flat = x.reshape(-1)
+        n, k = flat.size, math.ceil(DENSITY * flat.size)
+        q, s = native.q8_quantize(x)
+        idx, _ = native.topk8_select(flat, k)
+        r = {}
+        for t in (1, 2, 4, 8):
+            r[f"q8_quantize_t{t}"] = med(
+                lambda: native.q8_quantize(x, n_threads=t))
+            r[f"q8_dequantize_t{t}"] = med(
+                lambda: native.q8_dequantize(q, s, n_threads=t))
+            r[f"topk8_select_t{t}"] = med(
+                lambda: native.topk8_select(flat, k, n_threads=t), 10)
+            r[f"topk8_scatter_t{t}"] = med(
+                lambda: native.topk8_scatter(idx, q.reshape(-1)[idx], s, n,
+                                             n_threads=t))
+        r["np_q8_quantize"] = med(
+            lambda: np.clip(np.round(x / s), -127, 127).astype(np.int8))
+        r["np_absmax"] = med(lambda: float(np.max(np.abs(x))))
+        r["np_q8_dequantize"] = med(lambda: q.astype(np.float32) * s)
+        r["np_topk8_select"] = med(
+            lambda: codec._topk8_select_numpy(flat, k), 10)
+        res[cut] = r
+    print(json.dumps(res, indent=1))
+    return 0
+
+
+def host_line_main(root: str) -> int:
+    """``chip_smoke.py --host-line [ROOT]``: the codec's numpy line end to
+    end. A party that hands numpy arrays to ``LocalTransport`` (int8 and
+    topk8 at DENSITY) takes split steps at the CNN cut against a
+    ``ServerRuntime`` on the CPU: both wire directions encode and decode
+    numpy, on the native codec or, with ``SLT_NO_NATIVE=1``, on numpy.
+    The median ms of HOST_LINE_STEPS steps after HOST_LINE_WARM, each
+    line in turn, twice; ``ROOT`` runs the package of another checkout
+    (a commit before the native codec has only the numpy line). One
+    JSON object."""
+    sys.path.insert(0, os.path.abspath(root or REPO))
+    import torch
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.runtime import ServerRuntime
+    from split_learning_tpu_torch.transport import LocalTransport
+    import split_learning_tpu_torch as pkg
+    try:
+        from split_learning_tpu_torch import native
+    except ImportError:
+        native = None
+    rng = np.random.RandomState(0)
+    acts = (rng.randn(*CNN_CUT) * 3.0).astype(np.float32)
+    labels = rng.randint(0, 10, size=CNN_CUT[0]).astype(np.int32)
+    lines = ("native", "numpy") if native is not None else ("numpy",)
+    res = {"package": os.path.dirname(pkg.__file__),
+           "cpu_count": os.cpu_count(), "steps": HOST_LINE_STEPS}
+    for kind in ("int8", "topk8"):
+        row = {}
+        for line in lines * 2:
+            _native_line(line == "native")
+            server = ServerRuntime(get_plan(), _many_cfg(),
+                                   torch.Generator().manual_seed(0),
+                                   device="cpu")
+            wire = LocalTransport(server, compress=kind, density=DENSITY)
+            ms = []
+            for step in range(HOST_LINE_WARM + HOST_LINE_STEPS):
+                t = time.perf_counter()
+                g, _ = wire.split_step(acts, labels, step)
+                ms.append((time.perf_counter() - t) * 1e3)
+            check(isinstance(g, np.ndarray) and g.shape == acts.shape,
+                  f"host line {kind}: reply {type(g)}")
+            server.close()
+            row.setdefault(line, []).append(
+                statistics.median(ms[HOST_LINE_WARM:]))
+        res[kind] = row
+    _native_line(True)
+    print(json.dumps(res))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--mlflow-stub"]:
         sys.exit(_mlflow_stub_main())
+    if sys.argv[1:] == ["--phase", "32"]:
+        sys.exit(phase32_main())
+    if sys.argv[1:] == ["--native-ops"]:
+        sys.exit(native_ops_main())
+    if sys.argv[1:2] == ["--host-line"] and len(sys.argv) <= 3:
+        sys.exit(host_line_main(sys.argv[2] if len(sys.argv) == 3 else ""))
     sys.exit(main())

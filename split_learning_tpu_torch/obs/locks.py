@@ -1,15 +1,33 @@
-"""Lock-discipline watchdog (counterpart of
-``split_learning_tpu/obs/locks.py``, less the model checker's seam).
+"""Lock-discipline watchdog, the dynamic half of slt-lint (counterpart
+of ``split_learning_tpu/obs/locks.py``).
 
-With ``SLT_LOCK_DEBUG=1`` the runtime and replay-cache locks become
-:class:`InstrumentedLock`\\ s that record the per-thread acquisition
-stack in a process-wide :class:`LockGraph`, report a lock-order
-inversion the moment an edge ``B -> A`` appears after ``A -> B``, report
-hold times above ``SLT_LOCK_BUDGET_MS`` (off by default), and feed hold
-times into the ``lock_hold`` histogram of a metrics registry; each report
-trips the flight recorder (``obs/flight.py`` :func:`trip`). With the
-variable unset, :func:`make_lock` returns the plain ``threading``
-primitive: zero overhead and identical behaviour.
+The static rules (``split_learning_tpu_torch/analysis/``) prove what they
+can at the AST level; this module checks the rest at runtime. With
+``SLT_LOCK_DEBUG=1`` the runtime, coalescer, admission, fleet and
+replay-cache locks become :class:`InstrumentedLock`\\ s that
+
+* record the per-thread acquisition stack and register every observed
+  nested-acquisition pair in a process-wide :class:`LockGraph`,
+* report a **lock-order inversion** the moment an edge ``B -> A``
+  appears after ``A -> B`` was ever observed (the two orders need not
+  race: seeing both on any schedule is a deadlock waiting for the
+  interleaving),
+* report **hold-time budget** violations when ``SLT_LOCK_BUDGET_MS`` is
+  set (off by default: a first step's kernel build runs under the
+  runtime lock for seconds),
+* feed hold times into the ``lock_hold`` histogram of a metrics
+  registry.
+
+Each report trips the flight recorder (``obs/flight.py`` :func:`trip`).
+With the variable unset :func:`make_lock` returns the plain
+``threading`` primitive: zero overhead and identical behaviour.
+
+The same constructors are the model checker's seam
+(``analysis/sched.py``): while slt-check explores a schedule it installs
+a factory (:func:`install_checker`) and every lock, event, condition
+and thread the runtime builds through :func:`make_lock`,
+:func:`make_event`, :func:`make_condition` and :func:`make_thread` is a
+cooperative, scheduler-controlled one.
 """
 
 from __future__ import annotations
@@ -24,8 +42,8 @@ from split_learning_tpu_torch.obs import spans
 
 
 def enabled() -> bool:
-    """Whether lock instrumentation is on (read per call; locks bind at
-    construction)."""
+    """Whether lock instrumentation is on (read per call so tests can
+    flip the env var; locks themselves bind at construction)."""
     return os.environ.get("SLT_LOCK_DEBUG", "") not in ("", "0")
 
 
@@ -35,9 +53,12 @@ def _env_budget_s() -> Optional[float]:
 
 
 class LockGraph:
-    """Acquisition-order edges and violation reports. Edges are keyed
-    ``(outer, inner)`` ("``inner`` was acquired while ``outer`` was
-    held") and remember the thread that first showed them."""
+    """Acquisition-order edges + violation reports, shared across all
+    instrumented locks that point at it.
+
+    Edges are keyed ``(outer, inner)`` — "``inner`` was acquired while
+    ``outer`` was held" — and remember the thread that first exhibited
+    them, so an inversion report names both witnesses."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -56,6 +77,8 @@ class LockGraph:
                     self._report({
                         "kind": "lock-order-inversion",
                         "locks": (outer, name),
+                        "forward_thread": rev,
+                        "reverse_thread": thread,
                         "message": (
                             f"lock-order inversion: {name!r} -> {outer!r} "
                             f"(thread {rev}) vs {outer!r} -> {name!r} "
@@ -68,8 +91,10 @@ class LockGraph:
             return
         with self._lock:
             self._report({
-                "kind": "hold-budget", "locks": (name,),
-                "seconds": seconds, "budget_s": budget_s,
+                "kind": "hold-budget",
+                "locks": (name,),
+                "seconds": seconds,
+                "budget_s": budget_s,
                 "message": (f"hold-budget violation: {name!r} held "
                             f"{seconds * 1e3:.1f} ms > budget "
                             f"{budget_s * 1e3:.1f} ms"),
@@ -104,7 +129,8 @@ def default_graph() -> LockGraph:
     return _default_graph
 
 
-# every InstrumentedLock held by the current thread, outermost first
+# every InstrumentedLock held by the current thread, outermost first;
+# module-global so ordering is seen across *different* graphs' locks too
 _held = threading.local()
 
 
@@ -117,7 +143,10 @@ def _held_stack() -> List[str]:
 
 class InstrumentedLock:
     """Drop-in for ``threading.Lock``/``RLock`` with acquisition-stack
-    bookkeeping."""
+    bookkeeping. Works as the lock of a ``threading.Condition`` (it
+    implements the ``_release_save``/``_acquire_restore``/``_is_owned``
+    protocol), which is how the coalescer's condition variable gets
+    instrumented without touching its wait logic."""
 
     def __init__(self, name: str, *, reentrant: bool = True,
                  graph: Optional[LockGraph] = None,
@@ -130,22 +159,21 @@ class InstrumentedLock:
         self._budget_s = _env_budget_s() if budget_s == "env" else budget_s
         self._tl = threading.local()
 
+    # -- bookkeeping ---------------------------------------------------- #
+
     def _depth(self) -> int:
         return getattr(self._tl, "depth", 0)
 
-    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
-        got = self._inner.acquire(blocking, timeout)
-        if got:
-            d = self._depth()
-            if d == 0:
-                stack = _held_stack()
-                self._graph.note_acquire(self.name, list(stack))
-                stack.append(self.name)
-                self._tl.t0 = time.perf_counter()
-            self._tl.depth = d + 1
-        return got
+    def _note_acquired(self) -> None:
+        d = self._depth()
+        if d == 0:
+            stack = _held_stack()
+            self._graph.note_acquire(self.name, list(stack))
+            stack.append(self.name)
+            self._tl.t0 = time.perf_counter()
+        self._tl.depth = d + 1
 
-    def release(self) -> None:
+    def _note_released(self) -> None:
         d = self._depth()
         if d == 1:
             seconds = time.perf_counter() - getattr(self._tl, "t0", 0.0)
@@ -158,6 +186,17 @@ class InstrumentedLock:
             if self._registry is not None:
                 self._registry.observe(spans.LOCK_HOLD, seconds)
         self._tl.depth = max(d - 1, 0)
+
+    # -- lock protocol --------------------------------------------------- #
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        got = self._inner.acquire(blocking, timeout)
+        if got:
+            self._note_acquired()
+        return got
+
+    def release(self) -> None:
+        self._note_released()
         self._inner.release()
 
     __enter__ = acquire
@@ -165,25 +204,118 @@ class InstrumentedLock:
     def __exit__(self, *exc: Any) -> None:
         self.release()
 
+    def locked(self) -> bool:
+        locked = getattr(self._inner, "locked", None)
+        return locked() if locked is not None else self._depth() > 0
+
     def __repr__(self) -> str:
         return f"<InstrumentedLock {self.name!r} depth={self._depth()}>"
+
+    # -- threading.Condition protocol ------------------------------------ #
+
+    def _is_owned(self) -> bool:
+        return self._depth() > 0
+
+    def _release_save(self) -> Tuple[Any, int]:
+        # Condition.wait fully releases regardless of recursion depth;
+        # account it as a complete release so hold time and the held
+        # stack stay truthful across the wait
+        d = self._depth()
+        if d > 0:
+            self._tl.depth = 1
+            self._note_released()
+        self._tl.depth = 0
+        saver = getattr(self._inner, "_release_save", None)
+        if saver is not None:
+            return saver(), d
+        self._inner.release()
+        return None, d
+
+    def _acquire_restore(self, saved: Tuple[Any, int]) -> None:
+        state, d = saved
+        restorer = getattr(self._inner, "_acquire_restore", None)
+        if restorer is not None:
+            restorer(state)
+        else:
+            self._inner.acquire()
+        self._tl.depth = 0
+        self._note_acquired()
+        self._tl.depth = max(d, 1)
+
+
+# --------------------------------------------------------------------- #
+# model-checker interposition (analysis/sched.py)
+#
+# slt-check installs a factory here for the duration of one explored
+# schedule; every primitive the runtime constructs through the seam
+# below becomes a cooperative, scheduler-controlled object, so each
+# acquire/release/wait/notify/set is a yield point the explorer can
+# branch on. With no factory installed the functions return the plain
+# ``threading`` primitives (or InstrumentedLock under SLT_LOCK_DEBUG=1)
+# — zero overhead on the production path, same off-path convention as
+# chaos and tracing.
+
+_checker: Optional[Any] = None
+
+
+def install_checker(factory: Optional[Any]) -> Optional[Any]:
+    """Install (or, with ``None``, remove) the cooperative-scheduler
+    primitive factory. Returns the previous factory so callers can
+    restore it; analysis/sched.py wraps this in a try/finally."""
+    global _checker
+    prev = _checker
+    _checker = factory
+    return prev
+
+
+def checker_installed() -> bool:
+    return _checker is not None
 
 
 def make_lock(name: str, *, reentrant: bool = True,
               registry: Optional[Any] = None,
               graph: Optional[LockGraph] = None) -> Any:
-    """The lock a runtime component should use: the plain ``threading``
-    primitive when the watchdog is off, an :class:`InstrumentedLock`
-    when ``SLT_LOCK_DEBUG=1``."""
+    """Construct the lock a runtime component should use: the plain
+    ``threading`` primitive when the watchdog is off (zero overhead —
+    the wire and the numerics cannot change), an
+    :class:`InstrumentedLock` reporting into ``graph`` (default: the
+    process-wide graph) when ``SLT_LOCK_DEBUG=1``, or the
+    model checker's cooperative lock while slt-check is exploring."""
+    if _checker is not None:
+        return _checker.lock(name, reentrant=reentrant)
     if not enabled():
         return threading.RLock() if reentrant else threading.Lock()
     return InstrumentedLock(name, reentrant=reentrant, registry=registry,
                             graph=graph)
 
 
-def make_event(name: str = "event") -> threading.Event:
-    """Event twin of :func:`make_lock`: a plain ``threading.Event`` (the
-    future-completion latch of a replay entry). ``name`` documents the
+def make_event(name: str = "event") -> Any:
+    """Event twin of :func:`make_lock`: a plain ``threading.Event``
+    normally, the model checker's cooperative event while slt-check is
+    exploring. Events are future-completion latches (replay entries,
+    coalesce request ``done``), so they carry no ordering graph and the
+    SLT_LOCK_DEBUG watchdog leaves them plain. ``name`` documents the
     call site."""
-    del name
+    if _checker is not None:
+        return _checker.event(name)
     return threading.Event()
+
+
+def make_condition(name: str) -> Any:
+    """Condition twin of :func:`make_lock`: a ``threading.Condition``
+    over a reentrant :func:`make_lock` lock (so the watchdog instruments
+    the underlying mutex via the ``_release_save`` protocol), or the
+    model checker's cooperative condition while slt-check is exploring."""
+    if _checker is not None:
+        return _checker.condition(name)
+    return threading.Condition(make_lock(name))
+
+
+def make_thread(target: Any, *, name: str, daemon: bool = True) -> Any:
+    """Thread twin of :func:`make_lock`: a plain ``threading.Thread``
+    normally, a scheduler-managed thread while slt-check is exploring
+    (spawn/join become yield points and the explorer serializes it with
+    every other managed thread)."""
+    if _checker is not None:
+        return _checker.thread(target, name=name, daemon=daemon)
+    return threading.Thread(target=target, name=name, daemon=daemon)

@@ -20,11 +20,11 @@ flight event (``FL_ADMIT``, ``FL_REJECT``) when the recorder is on.
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
 from split_learning_tpu_torch.obs import flight as obs_flight
+from split_learning_tpu_torch.obs import locks as obs_locks
 from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.transport.base import Backpressure
 
@@ -81,7 +81,7 @@ class AdmissionController:
         self._slo_s = None if slo is None else [v / 1e3 for v in slo]
         self._tenant_of = tenant_of
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = obs_locks.make_lock("AdmissionController._lock")
         # buckets start full: a fresh server admits an opening burst
         self._tokens = (list(self._burst) if self._burst is not None
                         else None)

@@ -132,10 +132,10 @@ class RequestCoalescer:
         self.stats = TransportStats()
         self._queue: List[CoalesceRequest] = []
         self._arrivals = 0  # next CoalesceRequest.seq
-        self._cond = threading.Condition(threading.Lock())
+        self._cond = obs_locks.make_condition("RequestCoalescer._cond")
         self._closed = False
-        self._thread = threading.Thread(target=self._run,
-                                        name="slt-coalescer", daemon=True)
+        self._thread = obs_locks.make_thread(
+            self._run, name="slt-coalescer", daemon=True)
         self._thread.start()
 
     # ------------------------------------------------------------------ #

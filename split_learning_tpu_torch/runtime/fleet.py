@@ -32,12 +32,12 @@ import dataclasses
 import heapq
 import math
 import random
-import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from split_learning_tpu_torch.obs import locks as obs_locks
 from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.obs import trace as obs_trace
 from split_learning_tpu_torch.obs.metrics import (
@@ -169,7 +169,7 @@ class FleetHarness:
         rs = np.random.RandomState(cfg.seed)
         self._acts = rs.randn(cfg.batch, *CUT_SHAPE).astype(np.float32)
         self._labels = rs.randint(0, 10, (cfg.batch,)).astype(np.int64)
-        self._cond = threading.Condition()
+        self._cond = obs_locks.make_condition("FleetHarness._cond")
         # (due, seq, client_id, step) — seq breaks due-time ties FIFO
         self._heap: List[Tuple[float, int, int, int]] = []
         self._seq = 0
@@ -333,8 +333,8 @@ class FleetHarness:
         self._t_start = time.monotonic()
         for c in self._schedules:
             self._push(self._t_start + self._schedules[c][0], c, 0)
-        threads = [threading.Thread(target=self._worker,
-                                    name=f"slt-fleet-{i}", daemon=True)
+        threads = [obs_locks.make_thread(self._worker,
+                                         name=f"slt-fleet-{i}", daemon=True)
                    for i in range(cfg.workers)]
         for th in threads:
             th.start()

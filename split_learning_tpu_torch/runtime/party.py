@@ -196,6 +196,10 @@ class PartyRuntime:
         # dispatch watchdog: None unless SLT_DISPATCH_DEBUG / force()
         self._dd = obs_dispatch.attach()
         self._ddtok = obs_dispatch.token()
+        # the synthetic transfer cost of every host read (a server sets
+        # it, see ServerRuntime); 0 is no cost and no code on the path
+        self._d2h_delay_s = 0.0
+        self._d2h_single = False
 
     def _place(self, device: DeviceLike) -> torch.device:
         """The party's ``device``: on a mesh its first rank's (every rank
@@ -264,6 +268,27 @@ class PartyRuntime:
             fl.record(spans.FL_GATHER, party=self.party,
                       nbytes=int(out.nbytes))
         return out
+
+    def _sleep_d2h(self) -> None:
+        # the synthetic transfer cost of a host read (ServerRuntime's
+        # d2h_delay_s); nothing at the default 0
+        if self._d2h_delay_s <= 0.0:
+            return
+        if not self._d2h_single:
+            time.sleep(self._d2h_delay_s)
+            return
+        # single-channel model: reserve the next free window under the
+        # leaf lock, then sleep out the reservation off it (monotonic, so
+        # a wall-clock step never hands out a negative wait)
+        with self._d2h_chan_lock:
+            start = max(time.monotonic(), self._d2h_chan_free_at)
+            end = start + self._d2h_delay_s
+            self._d2h_chan_free_at = end
+        while True:
+            remaining = end - time.monotonic()
+            if remaining <= 0.0:
+                return
+            time.sleep(remaining)
 
     def _reply_value(self, value: Any, request: Any,
                      rows: Optional[int] = None) -> Any:

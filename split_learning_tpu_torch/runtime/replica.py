@@ -925,9 +925,10 @@ class ReplicaGroup:
                 wire_b += wb
                 contribs.append(rec)
             mean = fedavg_mean(contribs)
+            raw_f, wire_f = float(raw_b), float(wire_b)
             with self._lock:
-                self._counters["sync_raw_bytes"] += float(raw_b)
-                self._counters["sync_wire_bytes"] += float(wire_b)
+                self._counters["sync_raw_bytes"] += raw_f
+                self._counters["sync_wire_bytes"] += wire_f
         else:
             mean = fedavg_mean(params)
         if self._sync_ef is not None:

@@ -120,7 +120,6 @@ of ``data`` with rows the loss leaves out (JAX's zero weights);
 from __future__ import annotations
 
 import sys
-import threading
 import time
 from typing import (
     Any, Callable, Dict, List, Optional, Sequence, Tuple, Union)
@@ -134,6 +133,7 @@ from split_learning_tpu_torch.core.stage import (
 from split_learning_tpu_torch.interop import params_from_jax, params_to_jax
 from split_learning_tpu_torch.obs import dispatch_debug as obs_dispatch
 from split_learning_tpu_torch.obs import flight as obs_flight
+from split_learning_tpu_torch.obs import locks as obs_locks
 from split_learning_tpu_torch.obs import spans
 from split_learning_tpu_torch.obs import trace as obs_trace
 from split_learning_tpu_torch.models.transformer import LMHeadStage
@@ -179,7 +179,13 @@ class ServerRuntime(PartyRuntime):
     classifier plans), ``coalesce_window_ms``, ``batching`` (``"window"``
     or ``"continuous"``, which needs ``coalesce_max >= 2``), ``tenants``,
     ``quota``, ``slo_ms``, ``decouple_bwd`` (split mode), ``apply_lag``
-    (>= 0, > 0 only with ``decouple_bwd``) and ``overlap``."""
+    (>= 0, > 0 only with ``decouple_bwd``) and ``overlap``.
+
+    ``d2h_delay_s`` (JAX's synthetic transfer-cost knob, default 0: no
+    cost) adds a pause before every host read of a reply;
+    ``d2h_single_channel`` queues those pauses FIFO on one simulated
+    host DMA channel (``ServerRuntime._d2h_chan``), so N reads cost N
+    windows of wall clock, instead of letting them overlap."""
 
     # bounds on residuals awaiting their hop-2 u_backward: per client
     # (FIFO: one client's backlog never evicts another's live residual)
@@ -203,6 +209,8 @@ class ServerRuntime(PartyRuntime):
                  apply_lag: int = 0,
                  mesh: Optional[Any] = None,
                  ef_mode: str = "topk8",
+                 d2h_delay_s: float = 0.0,
+                 d2h_single_channel: bool = False,
                  device: DeviceLike = "cuda") -> None:
         super().__init__(cfg, party="server",
                          lock_name="ServerRuntime._lock", mesh=mesh,
@@ -215,6 +223,14 @@ class ServerRuntime(PartyRuntime):
         self.mode = cfg.mode
         self.strict_steps = strict_steps
         self.overlap = bool(overlap)
+        self._d2h_delay_s = float(d2h_delay_s)
+        # single-channel contention model: reservations are booked under
+        # this leaf lock (it never wraps another acquire); the wait itself
+        # runs unlocked
+        self._d2h_single = bool(d2h_single_channel)
+        self._d2h_chan_lock = obs_locks.make_lock(
+            "ServerRuntime._d2h_chan", reentrant=False)
+        self._d2h_chan_free_at = 0.0
         if coalesce_max > 1 and cfg.mode != "split":
             raise ValueError(
                 f"coalesce_max={coalesce_max} is split-mode only (the "
@@ -260,13 +276,13 @@ class ServerRuntime(PartyRuntime):
             # (ref src/model_def.py:56-57)
             self.server_stage = None
             self._stage = None
-            self.state = make_state(init_params(plan, init, self.device),
-                                    self._tx)
+            fed_params = init_params(plan, init, self.device)
+            self.state = make_state(fed_params, self._tx)
             self._agg = FedAvgAggregator(cfg.num_clients)
             # the shapes of JAX's tree of this composition: a submission
             # of another layout is refused before it joins a round
             self._fed_shapes = tree_map(_shape_key,
-                                        params_to_jax(self.state.params))
+                                        params_to_jax(fed_params))
         else:
             server_idx = plan.stages_of("server")
             if len(server_idx) != 1 or (
@@ -307,10 +323,12 @@ class ServerRuntime(PartyRuntime):
     def params(self) -> Any:
         """The server stage's parameters (live tensors; on a mesh the
         ``ShardedParam`` view); in federated mode the whole composition,
-        one dict per stage."""
-        if self.mode == "federated":
-            return self.state.params
-        return self.state.params[0]
+        one dict per stage. Read under the lock: on a decoupled server
+        this is the live state the queued updates land on."""
+        with self._lock:
+            if self.mode == "federated":
+                return self.state.params
+            return self.state.params[0]
 
     def _mode_guard(self, op: str, mode: str) -> None:
         """An op of another mode is a request this server cannot take
@@ -328,11 +346,12 @@ class ServerRuntime(PartyRuntime):
                 f"(last seen {last}); client restarted or replayed: "
                 "refusing to desync")
 
-    def _step(self, acts: torch.Tensor, labels: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Forward, loss, backward and the update, in place; returns the
-        cut gradient and the loss, on the device, unsynchronised."""
-        params = self.state.params[0]
+    def _step(self, params: Params, acts: torch.Tensor,
+              labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Forward, loss, backward and the update, in place, at
+        ``params`` (the live stage, read by the caller under the lock);
+        returns the cut gradient and the loss, on the device,
+        unsynchronised."""
         leaves = leaves_of((params,))
         acts = acts.requires_grad_(True)
         with torch.enable_grad():
@@ -416,13 +435,15 @@ class ServerRuntime(PartyRuntime):
             self._check_batch_rows(rows_of(activations), rows_of(labels))
             acts = self._to_dev(activations)
             labels_dev = self._to_dev(labels, torch.int64)
+            fwd_params = self.state.params[0]
             read = None
             if self._deferred is not None:
                 with obs_dispatch.step_scope(
                         self._dd, (self._ddtok, "reply_grad"),
                         sig_fn=lambda: obs_dispatch.signature(
                             acts, labels_dev)):
-                    g_acts, loss = self._reply(acts, labels_dev)
+                    g_acts, loss = self._reply(fwd_params, acts,
+                                               labels_dev)
                 if win is not None:
                     # the reply's window: the queued update is not in it
                     win = self._window_close(win)
@@ -434,7 +455,7 @@ class ServerRuntime(PartyRuntime):
                 # so it never queues a second apply
                 self._deferred.push({
                     "kind": "single", "step": step, "client_id": client_id,
-                    "fwd_params": self.state.params[0], "acts": acts,
+                    "fwd_params": fwd_params, "acts": acts,
                     "labels": labels_dev})
                 self._deferred.drain_over_lag()
             else:
@@ -442,12 +463,14 @@ class ServerRuntime(PartyRuntime):
                         self._dd, (self._ddtok, "split_step"),
                         sig_fn=lambda: obs_dispatch.signature(
                             acts, labels_dev)):
-                    g_acts, loss = self._step(acts, labels_dev)
+                    g_acts, loss = self._step(fwd_params, acts,
+                                              labels_dev)
                 if win is not None:
                     win = self._window_close(win)
             if not self.overlap:
                 # --no-overlap: the host copy and the loss read inside
                 # the lock
+                self._sleep_d2h()
                 with obs_dispatch.expected_d2h(self._dd):
                     res = self._reply_of(g_acts, loss, read, activations)
             # max(): with strict_steps off steps may arrive out of
@@ -464,10 +487,12 @@ class ServerRuntime(PartyRuntime):
             fl.record(spans.FL_DISPATCH, step=step, client_id=client_id,
                       party="server", program=program)
         if tr is not None:
+            # shapes only: step_flops runs the program on meta copies
             self._note_flops(program, self._program_fn(program),
-                             (self.state.params[0], acts, labels_dev), win)
+                             (fwd_params, acts, labels_dev), win)
         if self.overlap:
             # off the lock: the loss read waits for the step's kernels
+            self._sleep_d2h()
             with obs_dispatch.expected_d2h(self._dd):
                 res = self._reply_of(g_acts, loss, read, activations)
         times[:] = [t_q0, t_d0, t_d1,
@@ -508,15 +533,16 @@ class ServerRuntime(PartyRuntime):
         g = host[1] if len(host) > 1 else g_acts
         return self._reply_value(g, request), float(host[0])
 
-    def _reply(self, acts: torch.Tensor, labels: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _reply(self, params: Params, acts: torch.Tensor,
+               labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The 2BP reply: forward, loss and the gradient of the
-        activations only, at the live parameters; the weight gradient
-        is left to the deferred apply."""
+        activations only, at ``params`` (the live parameters, read by
+        the caller under the lock); the weight gradient is left to the
+        deferred apply."""
         acts = acts.detach().requires_grad_(True)
         with torch.enable_grad():
             loss = fused_cross_entropy(
-                self._stage.apply(self.state.params[0], acts), labels)
+                self._stage.apply(params, acts), labels)
             (g_acts,) = torch.autograd.grad(loss, [acts])
         return g_acts, loss.detach()
 
@@ -525,16 +551,18 @@ class ServerRuntime(PartyRuntime):
         references the live parameters gets a clone of them before an
         update mutates them in place, so its apply differentiates at the
         parameters its reply used. One clone serves every such entry
-        (they all saw the same weights)."""
-        live = self.state.params[0]
-        snap = None
-        for entry in self._deferred.pending():
-            if entry["fwd_params"] is live:
-                if snap is None:
-                    with torch.no_grad():
-                        snap = {k: v.detach().clone().requires_grad_(True)
-                                for k, v in live.items()}
-                entry["fwd_params"] = snap
+        (they all saw the same weights). Under the (reentrant) lock, as
+        every update it guards."""
+        with self._lock:
+            live = self.state.params[0]
+            snap = None
+            for entry in self._deferred.pending():
+                if entry["fwd_params"] is live:
+                    if snap is None:
+                        with torch.no_grad():
+                            snap = {k: v.detach().clone().requires_grad_(
+                                True) for k, v in live.items()}
+                    entry["fwd_params"] = snap
 
     def _apply_deferred_entry(self, entry: Dict[str, Any]) -> None:
         """One queued update (``_DeferredApply``'s drain, under the lock):
@@ -667,7 +695,7 @@ class ServerRuntime(PartyRuntime):
                                     [g.contiguous() for g in g_params])
             if win is not None:
                 win = self._window_close(win)
-            pg = _GroupD2H(g_acts, rows, total, self._dd)
+            pg = _GroupD2H(g_acts, rows, total, self._dd, self._sleep_d2h)
             if not self.overlap:
                 pg.materialize()  # --no-overlap: the host read here
             dw = time.perf_counter() - t_d0 if tr is not None else 0.0
@@ -720,6 +748,7 @@ class ServerRuntime(PartyRuntime):
                 self._metrics.observe(spans.LOCK_HOLD,
                                       time.perf_counter() - t_lk0)
         if tr is not None:
+            # slt-lint: disable=SLT006 (shapes only: step_flops runs the program on meta copies, never these values)
             self._note_flops(program, self._program_fn(program),
                              (params, acts.detach(), labels), win)
 
@@ -795,6 +824,7 @@ class ServerRuntime(PartyRuntime):
                 with torch.no_grad():
                     feats = self._stage.apply(self.state.params[0], acts)
                 self._keep_residual(client_id, step, acts)
+            self._sleep_d2h()
             return self._reply_value(feats, activations)
 
         return self._exactly_once(client_id, "u_forward", step, run)
@@ -829,6 +859,7 @@ class ServerRuntime(PartyRuntime):
                     self._last_step.get(client_id, -1), step)
                 if self.on_step is not None:
                     self.on_step(self._last_step[client_id])
+            self._sleep_d2h()
             return self._reply_value(g_acts, feat_grads)
 
         return self._exactly_once(client_id, "u_backward", step, run)
@@ -978,20 +1009,25 @@ class _GroupD2H:
     stays where the group's gradient is (on the card for a card request)
     and is rescaled to its own rows' mean there."""
 
-    __slots__ = ("_g", "_read", "_total", "_lock", "rows", "_dd")
+    __slots__ = ("_g", "_read", "_total", "_lock", "rows", "_dd",
+                 "_sleep_d2h")
 
     def __init__(self, g_acts: torch.Tensor, rows: torch.Tensor,
-                 total: int, dd: Any = None) -> None:
+                 total: int, dd: Any = None,
+                 sleep_d2h: Optional[Callable[[], None]] = None) -> None:
         self._g = g_acts
         self._read: Optional[_HostRead] = _HostRead(rows)
         self._total = total
-        self._lock = threading.Lock()
+        self._lock = obs_locks.make_lock("_GroupD2H._lock", reentrant=False)
         self.rows: Optional[np.ndarray] = None
         self._dd = dd  # the dispatch watchdog, None when off
+        self._sleep_d2h = sleep_d2h  # the runtime's synthetic D2H cost
 
     def materialize(self) -> None:
         with self._lock:
             if self.rows is None:
+                if self._sleep_d2h is not None:
+                    self._sleep_d2h()
                 with obs_dispatch.expected_d2h(self._dd):
                     self.rows = self._read.get()[0].numpy()
                 self._read = None
@@ -1025,7 +1061,7 @@ class FedAvgAggregator:
         self._pending: list = []
         self._results: Dict[int, list] = {}  # round -> [mean, reads_left]
         self._round = 0
-        self._cond = threading.Condition(threading.Lock())
+        self._cond = obs_locks.make_condition("FedAvgAggregator._cond")
 
     def _read_result(self, round_id: int) -> Any:
         slot = self._results[round_id]

@@ -166,8 +166,9 @@ class StageRuntime(PartyRuntime):
 
     @property
     def params(self) -> Params:
-        """The stage's parameters (live tensors)."""
-        return self.state.params[0]
+        """The stage's parameters (live tensors), read under the lock."""
+        with self._lock:
+            return self.state.params[0]
 
     # ------------------------------------------------------------------ #
     def _check_seq(self, op: str, seq: int, client_id: int) -> None:
@@ -184,14 +185,15 @@ class StageRuntime(PartyRuntime):
         """The step's residual record, pinning the live parameters on its
         first hop (every microbatch of a step runs on the same weights)."""
         key = (int(client_id), int(step))
-        rec = self._recs.get(key)
-        if rec is None:
-            rec = {"params": self.state.params[0], "xs": {}, "gs": {},
-                   "ys": {}}
-            self._recs[key] = rec
-            while len(self._recs) > MAX_PENDING_STEPS:
-                self._recs.popitem(last=False)
-        return rec
+        with self._lock:
+            rec = self._recs.get(key)
+            if rec is None:
+                rec = {"params": self.state.params[0], "xs": {}, "gs": {},
+                       "ys": {}}
+                self._recs[key] = rec
+                while len(self._recs) > MAX_PENDING_STEPS:
+                    self._recs.popitem(last=False)
+            return rec
 
     def _maybe_queue_apply(self, rec: Dict[str, Any], key_done: str,
                            client_id: int, step: int) -> None:
@@ -213,16 +215,18 @@ class StageRuntime(PartyRuntime):
         """Copy-on-write: queued entries and pending steps that reference
         the live parameters get one clone of them before an update
         mutates them in place."""
-        live = self.state.params[0]
-        holders = ([(e, "fwd_params") for e in self._deferred.pending()]
-                   + [(r, "params") for r in self._recs.values()])
-        pinned = [(box, key) for box, key in holders if box[key] is live]
-        if pinned:
-            with torch.no_grad():
-                snap = {k: v.detach().clone().requires_grad_(True)
-                        for k, v in live.items()}
-            for box, key in pinned:
-                box[key] = snap
+        with self._lock:
+            live = self.state.params[0]
+            holders = ([(e, "fwd_params") for e in self._deferred.pending()]
+                       + [(r, "params") for r in self._recs.values()])
+            pinned = [(box, key) for box, key in holders
+                      if box[key] is live]
+            if pinned:
+                with torch.no_grad():
+                    snap = {k: v.detach().clone().requires_grad_(True)
+                            for k, v in live.items()}
+                for box, key in pinned:
+                    box[key] = snap
 
     def _weight_grads(self, entry: Dict[str, Any]) -> List[torch.Tensor]:
         """The sum over the entry's microbatches, in microbatch order, of
@@ -294,16 +298,6 @@ class StageRuntime(PartyRuntime):
                       stage=self.stage_index, mb=int(mb))
 
     # -- the three hop ops --------------------------------------------- #
-    def _claim(self, client_id: int, op: str, seq: int):
-        """The replay claim of one hop: ``(entry, cached)``; ``cached`` is
-        the one reply when this is a duplicate delivery."""
-        if self.replay is None:
-            return None, None
-        entry, owner = self.replay.begin(client_id, op, seq)
-        if not owner:
-            return None, (self.replay.wait(entry),)
-        return entry, None
-
     def hop_forward(self, x: Any, step: int, mb: int = 0,
                     client_id: int = 0, *, device: bool = False) -> Any:
         """Forward one microbatch through this stage; the input is kept
@@ -311,9 +305,11 @@ class StageRuntime(PartyRuntime):
         live parameters, with no residual (the chain's predict path)."""
         del device   # JAX's keyword: the reply follows the request
         seq = hop_seq(step, mb)
-        entry, cached = self._claim(client_id, "hop_fwd", seq)
-        if cached is not None:
-            return cached[0]
+        entry = None
+        if self.replay is not None:
+            entry, owner = self.replay.begin(client_id, "hop_fwd", seq)
+            if not owner:
+                return self.replay.wait(entry)
         tr = obs_trace.get_tracer()
         admitted = False
         try:
@@ -353,15 +349,19 @@ class StageRuntime(PartyRuntime):
                                  (params, x_dev, None), win)
             if entry is not None:
                 self.replay.resolve(entry, out)
+            if admitted:
+                admitted = False
+                self._admission.complete(client_id)
             self._journal_reply("hop_fwd", step, mb, client_id)
             return out
         except BaseException as exc:
+            # pair the admit before releasing the claim: fail() is the
+            # last replay-visible act on the path (SLT002)
+            if admitted:
+                self._admission.complete(client_id)
             if entry is not None:
                 self.replay.fail(entry, exc)
             raise
-        finally:
-            if admitted:
-                self._admission.complete(client_id)
 
     def hop_backward(self, g_out: Any, step: int, mb: int = 0,
                      client_id: int = 0, *, device: bool = False) -> Any:
@@ -374,9 +374,11 @@ class StageRuntime(PartyRuntime):
                 f"hop_backward on the last stage {self.stage_index}; the "
                 "loss hop already returned its cotangent", status=400)
         seq = hop_seq(step, mb)
-        entry, cached = self._claim(client_id, "hop_bwd", seq)
-        if cached is not None:
-            return cached[0]
+        entry = None
+        if self.replay is not None:
+            entry, owner = self.replay.begin(client_id, "hop_bwd", seq)
+            if not owner:
+                return self.replay.wait(entry)
         tr = obs_trace.get_tracer()
         try:
             with self._lock:
@@ -438,9 +440,11 @@ class StageRuntime(PartyRuntime):
                 f"stage {self.plan.num_stages - 1} owns the loss",
                 status=400)
         seq = hop_seq(step, mb)
-        entry, cached = self._claim(client_id, "hop_loss", seq)
-        if cached is not None:
-            return cached[0]
+        entry = None
+        if self.replay is not None:
+            entry, owner = self.replay.begin(client_id, "hop_loss", seq)
+            if not owner:
+                return self.replay.wait(entry)
         tr = obs_trace.get_tracer()
         admitted = False
         try:
@@ -486,15 +490,19 @@ class StageRuntime(PartyRuntime):
                                  (rec["params"], x_dev, y_dev), win)
             if entry is not None:
                 self.replay.resolve(entry, res)
+            if admitted:
+                admitted = False
+                self._admission.complete(client_id)
             self._journal_reply("hop_loss", step, mb, client_id)
             return res
         except BaseException as exc:
+            # pair the admit before releasing the claim: fail() is the
+            # last replay-visible act on the path (SLT002)
+            if admitted:
+                self._admission.complete(client_id)
             if entry is not None:
                 self.replay.fail(entry, exc)
             raise
-        finally:
-            if admitted:
-                self._admission.complete(client_id)
 
     def predict(self, x: Any, client_id: int = 0) -> Any:
         """Forward only, no residual, no handshake, behind the flush

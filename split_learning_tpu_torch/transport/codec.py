@@ -10,9 +10,11 @@ either package decode in the other.
 What the port adds is where the arithmetic runs. ``q8_compress``,
 ``topk8_compress`` and ``TopK8EF.compress`` take either
 
-- a numpy array: the host path, JAX's numpy codec line for line (the
-  bit-identical twin of its ``native/slt_codec.cc``, which is not
-  ported); or
+- a numpy array: the host path, JAX's numpy codec line for line. As in
+  JAX, its hot ops (the q8 quantize and dequantize, the topk8 select,
+  the survivors' quantize and the scatter) run in the native C++ codec
+  (``native/slt_codec.cc``, built at first use); a failed build raises,
+  and ``SLT_NO_NATIVE=1`` computes the same bytes in numpy; or
 - a tensor: the device path. On a CUDA tensor the whole encode runs on
   the card through the hand-written kernels (``ops/quantize.py`` K3, one
   launch; ``ops/topk.py`` K4, five launches), which leave a header (the
@@ -41,6 +43,7 @@ import msgpack
 import numpy as np
 import torch
 
+from split_learning_tpu_torch import native
 from split_learning_tpu_torch.ops.quantize import (
     EPS as _Q8_EPS, q8_dequantize, q8_encode, split_q8)
 from split_learning_tpu_torch.ops.topk import (
@@ -186,9 +189,13 @@ def q8_compress(arr: Any) -> dict:
                 "shape": list(x.shape), "dtype": _dtype_name(arr)}
     a = np.ascontiguousarray(arr, dtype=np.float32)
     _ensure_finite(a, np.asarray(arr).dtype)
-    scale = max(float(np.max(np.abs(a))) / 127.0, _Q8_EPS) if a.size \
-        else _Q8_EPS
-    q = np.clip(np.round(a / scale), -127, 127).astype(np.int8)
+    nat = native.q8_quantize(a)
+    if nat is not None:
+        q, scale = nat
+    else:
+        scale = max(float(np.max(np.abs(a))) / 127.0, _Q8_EPS) if a.size \
+            else _Q8_EPS
+        q = np.clip(np.round(a / scale), -127, 127).astype(np.int8)
     return {_Q8_KEY: True, "q": q, "scale": scale,
             "shape": list(a.shape), "dtype": str(np.asarray(arr).dtype)}
 
@@ -211,7 +218,11 @@ def q8_decompress(d: dict, device: Optional[torch.device] = None) -> Any:
         q = torch.tensor(q8, device=device)
         x = q8_dequantize(q, float(d["scale"])).reshape(d["shape"])
         return x.to(_torch_dtype(d["dtype"]))
-    x = (q8.astype(np.float32) * d["scale"]).reshape(d["shape"])
+    nat = native.q8_dequantize(q8, float(d["scale"]))
+    if nat is not None:
+        x = nat.reshape(d["shape"])
+    else:
+        x = (q8.astype(np.float32) * d["scale"]).reshape(d["shape"])
     return _host_result(x, d["dtype"])
 
 
@@ -326,9 +337,15 @@ def topk8_compress(arr: Any, density: float, residual: Any = None,
                  scale=_Q8_EPS)
         return d, flat.reshape(a.shape)
     k = _k_of(density, n)
-    idx, vals = _topk8_select_numpy(flat, k)
-    scale = max(float(np.max(np.abs(vals))) / 127.0, _Q8_EPS)
-    q = np.clip(np.round(vals / scale), -127, 127).astype(np.int8)
+    nat = native.topk8_select(flat, k)
+    idx, vals = nat if nat is not None else _topk8_select_numpy(flat, k)
+    # the q8 scale math on the survivors (the global |max| is among them)
+    natq = native.q8_quantize(vals)
+    if natq is not None:
+        q, scale = natq
+    else:
+        scale = max(float(np.max(np.abs(vals))) / 127.0, _Q8_EPS)
+        q = np.clip(np.round(vals / scale), -127, 127).astype(np.int8)
     flat[idx] -= q.astype(np.float32) * np.float32(scale)
     if n < 32 * k:  # bitmap (n/8 B) beats int32 indices (4k B)
         mask = np.zeros(n, np.bool_)
@@ -391,8 +408,10 @@ def topk8_decompress(d: dict, device: Optional[torch.device] = None) -> Any:
         flat_t = torch.zeros(n, dtype=torch.float32, device=device)
         flat_t[idx_t] = vals
         return flat_t.reshape(d["shape"]).to(_torch_dtype(d["dtype"]))
-    flat = np.zeros(n, np.float32)
-    flat[idx] = q.astype(np.float32) * np.float32(scale)
+    flat = native.topk8_scatter(idx, q, scale, n)
+    if flat is None:
+        flat = np.zeros(n, np.float32)
+        flat[idx] = q.astype(np.float32) * np.float32(scale)
     return _host_result(flat.reshape(d["shape"]), d["dtype"])
 
 
