@@ -4,10 +4,11 @@ plain versions.
 
     python3 chip_smoke.py
 
-``--phase 32`` runs phase 32 alone, ``--native-ops`` times the native
-codec's ops by thread count against numpy's, ``--host-line [ROOT]``
-times a numpy-input party's steps on the native codec and on numpy, or
-on the package of the checkout at ROOT (all three below).
+``--phase 32`` and ``--phase 33`` run that phase alone, ``--native-ops``
+times the native codec's ops by thread count against numpy's,
+``--host-line [ROOT]`` times a numpy-input party's steps on the native
+codec and on numpy, or on the package of the checkout at ROOT (all
+three below).
 
 Needs one CUDA card and ``nvcc``; exits non-zero, with no result line,
 when ``torch.cuda.is_available()`` is false or the port's package is not
@@ -142,7 +143,7 @@ beside this script. Phases, any failure ending the run with a traceback:
    K3, scatter) and ``torch.topk`` alone, K4's five launches by name
    from a profiler window, each beside its bound; K2 at the LM's 54
    leaves (one launch); the two-party step's median ms (steps 6-30), wire bytes per
-   step and a profiler window of 10 steps per mode;
+   step and a profiler window of 5 steps per mode;
 15. split-party LM decode at full width: ``generate_remote`` on ``cuda``
    with the split causal LM (float32, d_model 256, 2 heads, vocab 256,
    depths 1 + 2, max_len 2048, attn="flash") at batch 8, prompt 1024,
@@ -163,7 +164,7 @@ beside this script. Phases, any failure ending the run with a traceback:
    1-3; the frame bytes of each direction phase 13's plus the HTTP
    frame's own keys (step, client id, wire mode; the echoed step), to
    the byte; the first 5 losses within 1e-4 of phase 13's. Median step
-   ms beside phase 13's and a profiler window of 10 steps per mode
+   ms beside phase 13's and a profiler window of 5 steps per mode
    (idle share, memcpy). Then the chaos twin in ``int8`` and ``topk8``:
    server-side ``drop_resp=0.2,corrupt=0.1,http500=0.1,drop_req=0.1``
    at seed 0, the client retrying behind a circuit breaker: no batch
@@ -205,7 +206,7 @@ beside this script. Phases, any failure ending the run with a traceback:
    rows' losses within two bf16 ulps at the loss's magnitude
    (:func:`bf16_loss_tol` derives it). Median step ms over steps 6-30
    and tokens/s beside phase 10's float32 step, and a profiler window
-   of 10 steps per optimizer;
+   of 5 steps per optimizer;
 19. the two-party LM at full width: ``SplitClientTrainer`` over
    ``LocalTransport(ServerRuntime)`` with phase 18's LM (the client owns
    the embedding and block 0, the server blocks 1-2 and the head; the
@@ -218,7 +219,7 @@ beside this script. Phases, any failure ending the run with a traceback:
    encode; the bf16 frame twin at steps 1-3 of int8 and topk8 (the host
    codec on the same values, widened); a float32 ``none`` CPU twin on
    the first 2 rows of 5 batches within 1e-4. Median step ms, tokens/s,
-   frame bytes per step and a profiler window of 10 steps per run. Then
+   frame bytes per step and a profiler window of 5 steps per run. Then
    ``launch.run serve --dtype bfloat16 --optimizer adamw ... --device
    cuda`` as a subprocess, and ``train --transport http`` with the same
    flags (warmup 2, decay 10, clip 1.0, lr 3e-3, int8) for 5 steps
@@ -419,10 +420,11 @@ beside this script. Phases, any failure ending the run with a traceback:
    ``FusedSplitTrainer`` on a ``seq 4`` mesh: 5 steps, each from its
    state on it and on the unsharded ``attn="flash"`` trainer, losses
    within two bf16 ulps, launches a step K5 48 and each K6 launch 48
-   (striped: 3 blocks x 4 ranks x 4 hops), K1f 1, K1b 1; a CPU twin on 2
+   (striped: 3 blocks x 4 ranks x 4 hops), K1f 4, K1b 4 (once a seq
+   rank, on its rows: the step is T-partitioned); a CPU twin on 2
    rows; one causal ring call at the contiguous layout (10 of each) and
    the striped (16). (b) The same LM with ``attn="ulysses"`` at ``seq
-   2`` on K5/K6 (6 of each a step). (c) The fused CNN on a ``data 4``
+   2`` on K5/K6 (6 of each a step, K1 2). (c) The fused CNN on a ``data 4``
    mesh, 12 steps, each from one state against the unsharded step
    (within 1e-4 relative), the replicas bit-equal after every step, K1
    and K2 4 a step. (d) ``PipelinedTrainer`` with ``resnet18_4stage``,
@@ -474,6 +476,28 @@ beside this script. Phases, any failure ending the run with a traceback:
    ``AdmissionController._lock`` and ``_GroupD2H._lock`` instrumented
    (none with the watchdog off), K1 and K2 each round as phase 25's
    coalesced round. Each part prints its line with the card.
+33. the ``seq`` axis as JAX lays it out (``parallel/tensor.py``
+   ``SeqBlocks``: every op of the step but the attention on a rank's T/n
+   tokens) composed with the ``model`` axis, ``model 2 x seq 2`` on
+   virtual ranks of card 0. (a) K5 and K6 (with an LSE cotangent) on a
+   ring block of one model rank's head, [64, 512, 1, 128] bf16, causal,
+   strict and non-causal, and K1 on one seq rank's rows, [32768, 256]
+   bf16, against their plain versions, timed beside SDPA and
+   ``F.cross_entropy``. (b) Phase 18's bf16 AdamW LM with ``ring_flash``
+   and ``ulysses`` through ``train --model-parallel 2 --seq-parallel 2``
+   (``SLT_CUDA_RANKS=4``, 2 steps) and through ``FusedSplitTrainer`` (3
+   steps, each from its state on it and on the unsharded flash trainer:
+   losses within 1e-4, step ms paired): launches a step as
+   ``PERF.md`` predicts them (striped ``ring_flash``: K5 and each K6
+   launch 24, 3 blocks x 2 model x 2 seq ranks x 2 hops; K1f and K1b 2);
+   forward hooks on the first step: every Dense and LayerNorm call, and
+   the cut tensor's blocks, hold T/2 tokens; an SGD leg (K2 once a
+   model rank a step); ``ring_flash``'s CPU twin. (c) The crossover:
+   dense ``full_attention`` against K5+K6, forward and backward, causal,
+   H 2, D 128, T 16 to 4096 with B*T 65536, bf16 and float32; the T
+   from which flash wins beside ``FLASH_SPEED_T``; ``attn="auto"`` on
+   the LM launches K5/K6 at that T and none below it.
+   ``--phase 33`` runs it alone (``chiprun_out/p33.json``).
 
 Output, last lines: one JSON object with a record per kernel, one JSON
 object with the main path's step time, one with the serving path's
@@ -485,7 +509,8 @@ phases 20-23 (``u_split``, ``u_split_lm``, ``federated``,
 with phase 25 (``many_clients``), one with phase 26 (``image``), one
 with phase 27 (``chain``), one with phase 28 (``obs``), one with
 phase 29 (``fleet``), one with phase 30 (``mesh``), one with phase 31
-(``model_axis``), one with phase 32 (``analysis_native``), the
+(``model_axis``), one with phase 32 (``analysis_native``), one with
+phase 33 (``seq_model``), the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``.
 """
@@ -578,7 +603,7 @@ WIRE_INPUTS = ("random", "ties", "zeros", "halves")
 WIRE_DENSITIES = (0.01, 0.1, 0.2, 1.0)
 WIRE_MODES, DENSITY, EF_DECAY = ("none", "int8", "topk8"), 0.1, 0.5
 DEC_MODES = (None, "none", "int8", "topk8")
-FRAME_TWIN_STEPS, WIRE_TWIN_STEPS, PROFILE_STEPS = 3, 5, 10
+FRAME_TWIN_STEPS, WIRE_TWIN_STEPS, PROFILE_STEPS = 3, 5, 5
 # the HTTP wire (phases 16-17): every socket wait has this timeout; the
 # chaos twin's server-side faults, at a fixed seed, in these modes, and
 # its losses against the clean HTTP run's; evaluate_remote against
@@ -809,6 +834,32 @@ ANALYSIS_TIMEOUT_S, ANALYSIS_CHECK_BUDGET = 400, 20
 WATCHDOG_ROUNDS, WATCHDOG_WINDOW_MS, WATCHDOG_SLO_MS = 4, 60_000.0, 60_000.0
 WATCHDOG_LOCKS = ("RequestCoalescer._cond", "AdmissionController._lock",
                   "_GroupD2H._lock")
+# phase 33: the seq axis as JAX lays it out (T-partitioned activations
+# through the whole step), composed with the model axis: model SM_MODEL x
+# seq SM_SEQ, ranks virtual on card 0. (a) K5/K6 on a ring block of one
+# model rank's heads (SM_FA_SHAPES) and K1 on one seq rank's rows
+# (SM_CE), against their plain versions; (b) phase 18's bf16 AdamW LM
+# with ring_flash and with ulysses, through the CLI for SM_CLI_STEPS
+# steps and through FusedSplitTrainer for SM_LM_STEPS steps each from the
+# sharded trainer's state on it and on the unsharded flash trainer
+# (losses within SM_LOSS_TOL), forward hooks on the first step; an SGD
+# leg of SM_SGD_STEPS steps (K2); ring_flash's CPU twin; (c) the
+# crossover: dense full_attention against K5+K6, forward and backward,
+# causal, at SM_CROSS_T with B*T = SM_CROSS_TOKENS in bf16 and float32,
+# then attn="auto" on both sides of FLASH_SPEED_T (launches counted)
+SM_MODEL, SM_SEQ = 2, 2
+SM_CLI_STEPS, SM_LM_STEPS, SM_SGD_STEPS, SM_TWIN_STEPS = 2, 3, 2, 1
+SM_LOSS_TOL = 1e-4
+_SM_BLOCK = (TRAIN_B, TRAIN_T // SM_SEQ, LM["num_heads"] // SM_MODEL,
+             LM["d_model"] // LM["num_heads"])
+SM_FA_SHAPES = (   # label, shape, causal, strict, an LSE cotangent
+    ("seq x model block causal", _SM_BLOCK, True, False, True),
+    ("seq x model block strict", _SM_BLOCK, True, True, True),
+    ("seq x model block non-causal", _SM_BLOCK, False, False, True))
+SM_CE = (TRAIN_B * TRAIN_T // SM_SEQ, LM["vocab"])
+SM_CROSS_T, SM_CROSS_TOKENS, SM_CROSS_REPS = (16, 32, 64, 128, 256, 512,
+                                              1024, 2048, 4096), 65536, 10
+SM_AUTO_B = 2
 PLANTS = {
     "quantize_roundf": ("quantize.cu", "rintf(", "roundf("),
     "topk_select_ties_high": (
@@ -1097,8 +1148,10 @@ def ce_times(torch, dev, gen, bw, fp32) -> dict:
                 # an idle device when tracing starts: a first kernel that
                 # raced the profiler's start went unrecorded once. A window
                 # in which the profiler traced no device activity at all
-                # (it happened once, on the third window of a run) measured
-                # nothing: it is taken again, at most twice, and counted
+                # (it happened once, on the third window of a run), or
+                # fewer kernels than the calls launched (one of ten, once),
+                # measured nothing whole: it is taken again, at most twice,
+                # and counted; the check below holds the window used
                 for attempt in range(3):
                     torch.cuda.synchronize()
                     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1111,17 +1164,18 @@ def ce_times(torch, dev, gen, bw, fp32) -> dict:
                         if e.device_type == torch.autograd.DeviceType.CUDA:
                             kernels[e.name] = kernels.get(e.name, 0) + 1
                             busy_us += e.time_range.end - e.time_range.start
-                    if kernels:
+                    if sum(kernels.values()) >= CE_PROFILE_CALLS:
                         break
                     print(f"[k1] {part} {cut} {name}: the profiler traced "
-                          "no device activity; window taken again",
+                          f"{sum(kernels.values())} kernels of "
+                          f"{CE_PROFILE_CALLS} calls; window taken again",
                           flush=True)
                 check(sum(kernels.values()) == CE_PROFILE_CALLS and
                       all(kernel in k for k in kernels),
                       f"K1 {part} {cut} {name}: {CE_PROFILE_CALLS} calls "
                       f"ran the device kernels {kernels}")
                 prof_of[part] = dict(
-                    profiler_empty_windows=attempt,
+                    profiler_windows_retaken=attempt,
                     device_kernels_per_call=sum(kernels.values())
                     / CE_PROFILE_CALLS,
                     kernel_ms_profiler=busy_us / 1e3 / CE_PROFILE_CALLS)
@@ -1969,7 +2023,8 @@ def http_serving(torch, launch_run, ds, keep, dec_ctx, decode):
             same = np.array_equal(toks, dec_ctx["tokens"][mode])
             print(f"[http] generate_remote {mode}: {DEC_NEW} tokens in "
                   f"{secs * 1e3:.1f} ms, launches {counts}, phase 15's "
-                  f"tokens: {same}", flush=True)
+                  f"tokens: {same}, stalled handshakes retried "
+                  f"{t.connect_retries}", flush=True)
             check(counts == want, f"http decode {mode} launches {counts}, "
                                   f"want {want}")
             check(same, f"http decode {mode}: tokens differ from phase 15's")
@@ -1979,6 +2034,7 @@ def http_serving(torch, launch_run, ds, keep, dec_ctx, decode):
                 ms_per_token_step=secs * 1e3 / DEC_NEW, launches=counts,
                 wire_bytes_per_token=(stats["bytes_sent"]
                                       + stats["bytes_received"]) / DEC_NEW,
+                connect_retries=t.connect_retries,
                 tokens_equal_local_wire=True)
             for k, v in counts.items():
                 totals[k] = totals.get(k, 0) + v
@@ -4348,7 +4404,7 @@ def image_trainer_window(torch, plan, cfg, data, peak) -> dict:
     """A fused trainer of the leg's plan and config on the card: the
     model FLOPs of one step (``FusedSplitTrainer.step_flops``: K5/K6
     included, JAX's count) beside their bound at ``peak``, and a
-    profiler window of 10 steps with the device's time by kernel class.
+    profiler window of 5 steps with the device's time by kernel class.
     Returns the record and the trainer's state after the window
     (``export_states``)."""
     from split_learning_tpu_torch.runtime import FusedSplitTrainer
@@ -4596,8 +4652,10 @@ def image_runs(torch, launch_run, dev, gen, peaks) -> tuple:
     bw, fp32, bf16_peak, flash_peak = peaks
     t0 = time.perf_counter()
     vit_fa = vit_flash_checks(torch, dev, gen, bw, flash_peak)
-    ds = synthetic("cifar10", n_train=IMG_B * (4 + PROFILE_STEPS), n_test=8,
-                   seed=0)
+    # batches for the trainer windows (4 warm + PROFILE_STEPS) and the
+    # two-party legs (IMG_TP_STEPS)
+    n_batches = max(4 + PROFILE_STEPS, IMG_TP_STEPS)
+    ds = synthetic("cifar10", n_train=IMG_B * n_batches, n_test=8, seed=0)
     data = list(batches(ds.train, IMG_B, seed=0, drop_remainder=True))
     totals, restore = _phase_totals(LAUNCHES)
     rec = {"resnet18_fused": {}}
@@ -6314,16 +6372,16 @@ def mesh_lm_leg(torch, label, attn, n, devices, tr_data, init,
 def mesh_lm_runs(torch, tr_data) -> dict:
     """Phase 30 (a) and (b): ring_flash on a seq MESH_SEQ mesh (striped:
     the launches a step of 3 blocks x n ranks x n hops) and Ulysses at
-    seq MESH_ULY on K5/K6 (SLT_FLASH_AUTO_T 1024: JAX's TPU speed rule,
-    which the port leaves out, would pick flash at this T; the memory
-    rule alone keeps dense), each against the unsharded flash trainer;
+    seq MESH_ULY on K5/K6 (``block_impl="auto"``: the H100 speed rule,
+    ``FLASH_SPEED_T``, picks flash at this T), each against the
+    unsharded flash trainer; K1 once a seq rank;
     ring_flash's CPU twin; one attention call at the contiguous layout
     (3 x 10 launches a step) and at the striped."""
     from split_learning_tpu_torch.models import get_plan
     from split_learning_tpu_torch.ops.common import LAUNCHES
     from split_learning_tpu_torch.ops.cross_entropy import BWD, FWD
     from split_learning_tpu_torch.ops.flash_attention import (
-        BWD_NAMES, NAME as FA)
+        BWD_NAMES, FLASH_SPEED_T, NAME as FA)
     from split_learning_tpu_torch.ops.ring_attention import ring_attention
     from split_learning_tpu_torch.parallel.mesh import make_mesh
     from split_learning_tpu_torch.runtime import FusedSplitTrainer
@@ -6333,14 +6391,15 @@ def mesh_lm_runs(torch, tr_data) -> dict:
                             init, tr_data[0][0], device="cuda")
     rec = {"ring_flash": {}, "ulysses": {}}
 
-    def want(k5):
-        return {FA: k5, **{nm: k5 for nm in BWD_NAMES}, FWD: 1, BWD: 1}
+    def want(k5, n):
+        # K1 once a seq rank, on its B*T/n rows
+        return {FA: k5, **{nm: k5 for nm in BWD_NAMES}, FWD: n, BWD: n}
 
     for placement, devs in mesh_devices(torch, MESH_SEQ):
         leg, trainer, mesh = mesh_lm_leg(
             torch, f"ring_flash seq {MESH_SEQ} ({placement})", "ring_flash",
             MESH_SEQ, devs, tr_data, init, ref)
-        w = want(N_BLOCKS * MESH_SEQ * MESH_SEQ)
+        w = want(N_BLOCKS * MESH_SEQ * MESH_SEQ, MESH_SEQ)
         check(all(c == w for c in leg["launches_per_step"]),
               f"ring_flash launches {leg['launches_per_step']}, want {w}")
         rec["ring_flash"][placement] = leg
@@ -6403,23 +6462,15 @@ def mesh_lm_runs(torch, tr_data) -> dict:
           f" bf16, forward and backward: {calls}", flush=True)
     rec["ring_flash"]["one_call"] = calls
     del q, k, v
-    # (b) Ulysses on K5/K6 at seq MESH_ULY
-    prev = os.environ.get("SLT_FLASH_AUTO_T")
-    os.environ["SLT_FLASH_AUTO_T"] = str(TRAIN_T)
-    try:
-        for placement, devs in mesh_devices(torch, MESH_ULY):
-            leg, _, _ = mesh_lm_leg(
-                torch, f"ulysses seq {MESH_ULY} ({placement})", "ulysses",
-                MESH_ULY, devs, tr_data, init, ref)
-            w = want(N_BLOCKS * MESH_ULY)
-            check(all(c == w for c in leg["launches_per_step"]),
-                  f"ulysses launches {leg['launches_per_step']}, want {w}")
-            rec["ulysses"][placement] = dict(leg, flash_auto_t=TRAIN_T)
-    finally:
-        if prev is None:
-            os.environ.pop("SLT_FLASH_AUTO_T", None)
-        else:
-            os.environ["SLT_FLASH_AUTO_T"] = prev
+    # (b) Ulysses on K5/K6 at seq MESH_ULY: the speed rule picks flash
+    for placement, devs in mesh_devices(torch, MESH_ULY):
+        leg, _, _ = mesh_lm_leg(
+            torch, f"ulysses seq {MESH_ULY} ({placement})", "ulysses",
+            MESH_ULY, devs, tr_data, init, ref)
+        w = want(N_BLOCKS * MESH_ULY, MESH_ULY)
+        check(all(c == w for c in leg["launches_per_step"]),
+              f"ulysses launches {leg['launches_per_step']}, want {w}")
+        rec["ulysses"][placement] = dict(leg, flash_speed_t=FLASH_SPEED_T)
     return rec
 
 
@@ -7488,6 +7539,377 @@ def analysis_native_runs(torch, dev, smi, many_rec):
     return rec
 
 
+# --------------------------------------------------------------------- #
+# phase 33: the seq axis as JAX lays it out, with the model axis
+
+def ce_row_checks(torch, dev, gen, bw, fp32, n: int, c: int) -> dict:
+    """Phase 33 (a), K1 at one seq rank's ``[n, c]`` bf16 rows: forward
+    and backward against the plain versions (the loss within
+    CE_LOSS_RTOL, the gradient within one bf16 ulp), device ms beside
+    the plain versions' and ``F.cross_entropy``'s (its backward through
+    autograd), and the bound (logits read once, the gradient written
+    once)."""
+    import torch.nn.functional as F
+    from split_learning_tpu_torch.ops.cross_entropy import (
+        ce_backward_cuda, ce_backward_plain, ce_forward_cuda,
+        ce_forward_plain)
+    g_one = torch.ones((), device=dev)
+    x, y = ce_inputs(torch, dev, gen, n, c, torch.bfloat16)
+    loss, lse = ce_forward_cuda(x, y)
+    grad = ce_backward_cuda(x, y, lse, g_one)
+    loss_p, lse_p = ce_forward_plain(x, y)
+    grad_p = ce_backward_plain(x, y, lse_p, g_one)
+    d = abs(loss.item() - loss_p.item())
+    ulps = bf16_ulps(torch, grad, grad_p)
+    check(d <= CE_LOSS_RTOL * abs(loss_p.item()) and ulps <= 1,
+          f"K1 at [{n}, {c}] bf16: loss {loss.item()} vs {loss_p.item()}, "
+          f"grad {ulps} ulps")
+    xr = x.clone().requires_grad_(True)
+    lib_loss = F.cross_entropy(xr, y)
+    logits_b = n * c * x.element_size()
+    f_ms, f_by = bound(logits_b + n * 8 + n * 4 + 4, 4 * n * c, bw, fp32)
+    b_ms, b_by = bound(2 * logits_b + n * 8 + n * 4 + 4, 4 * n * c, bw,
+                       fp32)
+    rec = dict(shape=[n, c], dtype="bfloat16", fwd=dict(
+        ms=device_ms(torch, lambda: ce_forward_cuda(x, y)),
+        plain_ms=device_ms(torch, lambda: ce_forward_plain(x, y), reps=20),
+        library_ms=device_ms(torch, lambda: F.cross_entropy(x, y)),
+        bound_ms=f_ms, bound_by=f_by, max_abs_err=d), bwd=dict(
+        ms=device_ms(torch, lambda: ce_backward_cuda(x, y, lse, g_one)),
+        plain_ms=device_ms(torch, lambda: ce_backward_plain(
+            x, y, lse, g_one), reps=20),
+        library_ms=device_ms(torch, lambda: torch.autograd.grad(
+            lib_loss, xr, retain_graph=True)),
+        bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=(grad.float() - grad_p.float()).abs().max().item(),
+        grad_ulps=ulps))
+    print(f"[seq] K1 at one seq rank's rows [{n}, {c}] bf16: fwd "
+          f"{rec['fwd']['ms']:.5f} ms (bound {f_ms:.5f}, F.cross_entropy "
+          f"{rec['fwd']['library_ms']:.5f}), bwd {rec['bwd']['ms']:.5f} "
+          f"(bound {b_ms:.5f}, autograd {rec['bwd']['library_ms']:.5f})",
+          flush=True)
+    return rec
+
+
+def sm_want(torch, attn: str, sgd: bool = False) -> dict:
+    """The launches a step of the LM at ``model`` SM_MODEL x ``seq``
+    SM_SEQ, as the code implies them. ``ring_flash`` (causal, so
+    striped): K5 and each K6 launch once a block, model rank, seq rank
+    and hop. ``ulysses``: a model rank's one head does not divide over
+    the seq ranks, so the heads are gathered and Ulysses runs on both
+    over the seq ranks: K5 and K6 once a block and seq rank where
+    ``select_attention`` picks flash at one rank's shape (T 1024, one
+    head, bf16), else none. K1f and K1b once a seq rank; K2 under SGD
+    once a model rank (the state lives on seq rank 0; the other seq
+    ranks' copies come from a broadcast each step)."""
+    from split_learning_tpu_torch.ops.flash_attention import (
+        select_attention)
+    if attn == "ring_flash":
+        k5 = N_BLOCKS * SM_MODEL * SM_SEQ * SM_SEQ
+    else:
+        pick = select_attention(TRAIN_B, TRAIN_T,
+                                LM["num_heads"] // SM_SEQ, 2,
+                                device=torch.device("cuda", 0))
+        k5 = N_BLOCKS * SM_SEQ if pick == "flash" else 0
+    return _tp_want(k5, rows=SM_SEQ, sgd=SM_MODEL if sgd else 0)
+
+
+def _sm_hooks(plan):
+    """Forward hooks on every Dense and LayerNorm (the token extents
+    their inputs hold) and on the first stage (its output's blocks)."""
+    from split_learning_tpu_torch.models.transformer import Dense, LayerNorm
+    seen, cuts, handles = {}, [], []
+    for st in plan.stages:
+        for name, mod in st.module.named_modules():
+            if isinstance(mod, (Dense, LayerNorm)):
+                handles.append(mod.register_forward_hook(
+                    lambda m, a, o, key=f"{st.name}.{name}":
+                    seen.setdefault(key, []).append(int(a[0].shape[1]))))
+    handles.append(plan.stages[0].module.register_forward_hook(
+        lambda m, a, o: cuts.append(
+            [tuple(b.shape) for b in getattr(o, "blocks", [o])])))
+    return seen, cuts, handles
+
+
+def seq_model_lm_runs(torch, launch_run, tr_data) -> dict:
+    """Phase 33 (b), see the module docstring."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.parallel.mesh import make_mesh
+    from split_learning_tpu_torch.runtime import FusedSplitTrainer
+    from split_learning_tpu_torch.utils import Config
+    n = SM_MODEL * SM_SEQ
+    t_rank = TRAIN_T // SM_SEQ
+    plan0 = get_plan(dtype="bfloat16", **LM)
+    init = plan0.init(torch.Generator().manual_seed(0), torch.zeros(1))
+    cfg = _lm_mesh_cfg()
+    ref = FusedSplitTrainer(plan0, cfg, init, tr_data[0][0], device="cuda")
+    mesh = make_mesh(model_parallel=SM_MODEL, seq_parallel=SM_SEQ,
+                     devices=_tp_devices(torch, n))
+    mcfg = cfg.replace(model_parallel=SM_MODEL, seq_parallel=SM_SEQ)
+    data_dir = os.path.join(REPO, "build", "chip_smoke_obs_data")
+    rec = {}
+    for attn in ("ring_flash", "ulysses"):
+        want = sm_want(torch, attn)
+        flags = _lm_flags(data_dir)
+        flags[flags.index("--attn") + 1] = attn
+        argv = ["train", "--transport", "fused", "--steps",
+                str(SM_CLI_STEPS), "--tracking", "noop", *flags,
+                "--model-parallel", str(SM_MODEL), "--seq-parallel",
+                str(SM_SEQ)]
+        with _CudaRanks(n):
+            rc, counts, _, err, secs = _cli_err(torch, launch_run, argv)
+        check(rc == 0, f"train --model-parallel {SM_MODEL} --seq-parallel "
+                       f"{SM_SEQ} --attn {attn}: rc {rc}, {err[-1500:]}")
+        want_cli = {k: v * SM_CLI_STEPS for k, v in want.items()}
+        check(counts == want_cli,
+              f"{attn} model x seq CLI launches {counts}, want {want_cli}")
+        plan = get_plan(dtype="bfloat16", mesh=mesh, **dict(LM, attn=attn))
+        trainer = FusedSplitTrainer(plan, mcfg, init, tr_data[0][0],
+                                    mesh=mesh)
+        seen, cuts, handles = _sm_hooks(plan)
+        losses, ref_losses, ms, ref_ms, per_step = [], [], [], [], []
+        for i, (x, y) in enumerate(tr_data[:SM_LM_STEPS]):
+            ref.restore_states(trainer.export_states())
+            torch.cuda.synchronize()
+            LAUNCHES.reset()
+            t = time.perf_counter()
+            losses.append(trainer.train_step(x, y))
+            ms.append((time.perf_counter() - t) * 1e3)
+            per_step.append(LAUNCHES.snapshot())
+            if i == 0:
+                for h in handles:
+                    h.remove()
+            LAUNCHES.reset()
+            t = time.perf_counter()
+            ref_losses.append(ref.train_step(x, y))
+            ref_ms.append((time.perf_counter() - t) * 1e3)
+        gaps = [abs(a - b) for a, b in zip(losses, ref_losses)]
+        extents = sorted({e for v in seen.values() for e in v})
+        print(f"[seq] {attn} model {SM_MODEL} x seq {SM_SEQ}: CLI rc 0, "
+              f"launches {counts} in {SM_CLI_STEPS} steps ({secs:.1f} s); "
+              f"losses {losses} against unsharded {ref_losses} (gaps "
+              f"{gaps}); launches a step {per_step[-1]} (want {want}); "
+              f"step {statistics.median(ms[1:]):.3f} ms against "
+              f"{statistics.median(ref_ms[1:]):.3f}; {len(seen)} Dense and "
+              f"LayerNorm modules saw token extents {extents}, the cut "
+              f"{cuts}", flush=True)
+        check(all(g <= SM_LOSS_TOL for g in gaps),
+              f"{attn} model x seq: losses {losses} against {ref_losses}")
+        check(all(c == want for c in per_step),
+              f"{attn} model x seq launches {per_step}, want {want}")
+        check(extents == [t_rank] and len(seen) == 8 * N_BLOCKS + 2,
+              f"{attn}: Dense/LayerNorm token extents {seen}")
+        check(cuts == [[(TRAIN_B, t_rank, LM["d_model"])] * SM_SEQ],
+              f"{attn}: the cut tensor's blocks {cuts}")
+        rec[attn] = dict(
+            cli=dict(rc=rc, launches=counts, steps=SM_CLI_STEPS,
+                     seconds=secs),
+            losses=losses, ref_losses=ref_losses, loss_gaps=gaps,
+            loss_tol=SM_LOSS_TOL, launches_per_step=per_step[-1],
+            want_per_step=want, step_ms=ms, ref_step_ms=ref_ms,
+            step_ms_median=statistics.median(ms[1:]),
+            ref_step_ms_median=statistics.median(ref_ms[1:]),
+            token_extents=extents, modules_hooked=len(seen), cut=cuts[0])
+        del trainer
+    # K2: the same mesh under SGD
+    sgd_cfg = Config(transport="fused", model="transformer_lm",
+                     batch_size=TRAIN_B, dtype="bfloat16",
+                     model_parallel=SM_MODEL, seq_parallel=SM_SEQ,
+                     **LM_OPTIMS["sgd"])
+    plan = get_plan(dtype="bfloat16", mesh=mesh,
+                    **dict(LM, attn="ring_flash"))
+    trainer = FusedSplitTrainer(plan, sgd_cfg, init, tr_data[0][0],
+                                mesh=mesh)
+    want = sm_want(torch, "ring_flash", sgd=True)
+    sgd_l, sgd_counts = [], []
+    for x, y in tr_data[:SM_SGD_STEPS]:
+        LAUNCHES.reset()
+        sgd_l.append(trainer.train_step(x, y))
+        sgd_counts.append(LAUNCHES.snapshot())
+    check(all(c == want for c in sgd_counts) and all(
+        math.isfinite(v) for v in sgd_l),
+        f"SGD model x seq: launches {sgd_counts}, want {want}; {sgd_l}")
+    print(f"[seq] ring_flash under SGD: losses {sgd_l}, launches a step "
+          f"{sgd_counts[-1]}", flush=True)
+    rec["sgd"] = dict(losses=sgd_l, launches_per_step=sgd_counts[-1],
+                      steps=SM_SGD_STEPS)
+    del trainer
+    # the CPU twin: TWIN_ROWS rows, each step from the card's state
+    rows = [(x[:TWIN_ROWS], y[:TWIN_ROWS])
+            for x, y in tr_data[:SM_TWIN_STEPS]]
+    twin_cfg = mcfg.replace(batch_size=TWIN_ROWS)
+    cpu_mesh = make_mesh(model_parallel=SM_MODEL, seq_parallel=SM_SEQ,
+                         device="cpu")
+    card = FusedSplitTrainer(plan, twin_cfg, init, rows[0][0], mesh=mesh)
+    cpu = FusedSplitTrainer(
+        get_plan(dtype="bfloat16", mesh=cpu_mesh,
+                 **dict(LM, attn="ring_flash")),
+        twin_cfg, init, rows[0][0], mesh=cpu_mesh)
+    card_l, cpu_l = [], []
+    for x, y in rows:
+        cpu.restore_states(card.export_states())
+        card_l.append(card.train_step(x, y))
+        cpu_l.append(cpu.train_step(x, y))
+    twin_gaps = [abs(a - b) for a, b in zip(card_l, cpu_l)]
+    twin_tols = [bf16_loss_tol(b) for b in cpu_l]
+    check(all(g <= t for g, t in zip(twin_gaps, twin_tols)),
+          f"model x seq CPU twin: card {card_l} vs cpu {cpu_l}")
+    print(f"[seq] CPU twin on {TWIN_ROWS} rows x {len(rows)} steps: card "
+          f"{card_l}, cpu {cpu_l} (gaps {twin_gaps})", flush=True)
+    rec["cpu_twin"] = dict(card=card_l, cpu=cpu_l, gaps=twin_gaps,
+                           tol=twin_tols, rows=TWIN_ROWS)
+    return rec
+
+
+def crossover_runs(torch, dev, gen) -> dict:
+    """Phase 33 (c): dense ``full_attention`` against K5+K6, forward and
+    backward, causal, at SM_CROSS_T with B*T SM_CROSS_TOKENS, bf16 and
+    float32 (device ms, the median of SM_CROSS_REPS calls); the smallest
+    T from which flash wins at every larger T measured, beside
+    ``FLASH_SPEED_T``; ``select_attention``'s picks; then ``attn="auto"``
+    on the LM (forward and backward at batch SM_AUTO_B) at the constant's
+    T and the measured T below it: K5 and each K6 launch once a block at
+    the one, none at the other."""
+    from split_learning_tpu_torch.models import get_plan
+    from split_learning_tpu_torch.ops import flash_attention as fa
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    from split_learning_tpu_torch.ops.ring_attention import full_attention
+    heads, d = LM["num_heads"], LM["d_model"] // LM["num_heads"]
+    rec = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        itemsize = torch.tensor([], dtype=dtype).element_size()
+        rows = {}
+        for t in SM_CROSS_T:
+            b = SM_CROSS_TOKENS // t
+            shape = (b, t, heads, d)
+            q, k, v = (torch.randn(shape, device=dev, generator=gen)
+                       .to(dtype).requires_grad_(True) for _ in range(3))
+            do = torch.randn(shape, device=dev, generator=gen).to(dtype)
+
+            def run(attend):
+                o = attend(q, k, v, causal=True)
+                torch.autograd.grad(o, (q, k, v), do)
+
+            rows[t] = dict(batch=b, dense_ms=device_ms(
+                torch, lambda: run(full_attention), SM_CROSS_REPS),
+                flash_ms=device_ms(torch, lambda: run(fa.flash_attention),
+                                   SM_CROSS_REPS))
+            del q, k, v, do
+            torch.cuda.empty_cache()
+        wins = {t for t in SM_CROSS_T
+                if rows[t]["flash_ms"] < rows[t]["dense_ms"]}
+        measured = next((t for t in SM_CROSS_T
+                         if all(u in wins for u in SM_CROSS_T if u >= t)),
+                        None)
+        const = fa.FLASH_SPEED_T[itemsize]
+        picks = {t: fa.select_attention(SM_CROSS_TOKENS // t, t, heads,
+                                        itemsize, device=dev)
+                 for t in SM_CROSS_T}
+        print(f"[seq] crossover {name}: ms dense / flash (fwd+bwd) "
+              + ", ".join(f"T {t}: {r['dense_ms']:.4f} / "
+                          f"{r['flash_ms']:.4f}" for t, r in rows.items())
+              + f"; flash wins from T {measured}, FLASH_SPEED_T {const}; "
+              f"auto picks {picks}", flush=True)
+        rec[name] = dict(times=rows, measured_crossover=measured,
+                         constant=const, agrees=measured == const,
+                         picks=picks)
+    # attn="auto" on the LM on both sides of the constant
+    for name, itemsize in (("bfloat16", 2), ("float32", 4)):
+        cross = fa.FLASH_SPEED_T[itemsize]
+        ts = [max([t for t in SM_CROSS_T if t < cross], default=cross // 2),
+              cross]
+        plan = get_plan(dtype=name, **dict(LM, attn="auto",
+                                           max_len=max(SM_CROSS_T)))
+        params = tuple({k: v.to(dev).requires_grad_(True)
+                        for k, v in st.items()}
+                       for st in plan.init(torch.Generator().manual_seed(0),
+                                           torch.zeros(1)))
+        leaves = [v for st in params for v in st.values()]
+        launches = {}
+        for t in ts:
+            x = torch.randint(0, LM["vocab"], (SM_AUTO_B, t), device=dev)
+            LAUNCHES.reset()
+            out = plan.apply(params, x)
+            torch.autograd.grad(out.float().sum(), leaves)
+            torch.cuda.synchronize()
+            counts = LAUNCHES.snapshot()
+            k = N_BLOCKS if t >= cross else 0
+            want = ({fa.NAME: k, **{nm: k for nm in fa.BWD_NAMES}}
+                    if k else {})
+            check(counts == want,
+                  f"attn='auto' {name} at T {t}: launches {counts}, "
+                  f"want {want} (FLASH_SPEED_T {cross})")
+            launches[t] = counts
+        print(f"[seq] attn='auto' {name} (FLASH_SPEED_T {cross}): launches "
+              f"a forward and backward {launches}", flush=True)
+        rec[name]["auto_launches"] = launches
+    return rec
+
+
+def seq_model_runs(torch, launch_run, dev, gen, bw, fp32, flash_peak,
+                   tr_data) -> tuple:
+    """Phase 33: (a) the kernel checks, (b) with its launch totals, (c).
+    Returns the record, (b)'s totals, and (a)'s K5/K6 and K1 rows."""
+    from split_learning_tpu_torch.ops.common import LAUNCHES
+    t0 = time.perf_counter()
+    fa_rec = mesh_flash_checks(torch, dev, gen, bw, flash_peak,
+                               SM_FA_SHAPES)
+    ce_rec = ce_row_checks(torch, dev, gen, bw, fp32, *SM_CE)
+    rec = {"model": SM_MODEL, "seq": SM_SEQ, "placement": "virtual ranks "
+           "on cuda:0", "batch": TRAIN_B, "seq_len": TRAIN_T}
+    LAUNCHES.reset()   # the kernel checks' launches stay out of the totals
+    totals, restore = _phase_totals(LAUNCHES)
+    try:
+        rec["lm"] = seq_model_lm_runs(torch, launch_run, tr_data)
+    finally:
+        restore()
+    rec["crossover"] = crossover_runs(torch, dev, gen)
+    LAUNCHES.reset()
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[seq] phase 33: {rec['seconds']:.1f} s", flush=True)
+    return rec, totals, fa_rec, ce_rec
+
+
+def phase33_main() -> int:
+    """``chip_smoke.py --phase 33``: phase 33 alone on the card, with
+    phase 10's training batches. Writes ``chiprun_out/p33.json``."""
+    sys.path.insert(0, REPO)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs "
+              "a CUDA card", file=sys.stderr)
+        return 1
+    from split_learning_tpu_torch.data import batches, synthetic_lm
+    from split_learning_tpu_torch.launch import run as launch_run
+    from split_learning_tpu_torch.ops.common import load_kernels
+    from split_learning_tpu_torch.utils import (
+        gpu_name_and_power_limit, resolve_device)
+    t0 = time.perf_counter()
+    dev = resolve_device("cuda")
+    smi = gpu_name_and_power_limit().splitlines()[0]
+    print(smi, sys.version.split()[0], torch.__version__, flush=True)
+    bw, fp32, bf16_peak, tf32_peak, _ = card_peaks(
+        torch.cuda.get_device_name(0))
+    load_kernels()
+    print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
+    lm = synthetic_lm(n_train=TRAIN_B * SM_LM_STEPS, n_test=TRAIN_B,
+                      vocab=LM["vocab"], seq_len=TRAIN_T, seed=0)
+    tr_data = list(batches(lm.train, TRAIN_B, seed=0, drop_remainder=True))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rec, totals, fa_rec, ce_rec = seq_model_runs(
+        torch, launch_run, dev, gen, bw, fp32,
+        {"bfloat16": bf16_peak, "float32": tf32_peak / 3}, tr_data)
+    out = dict(card=smi, launches=totals, kernels=fa_rec, k1=ce_rec, **rec)
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "p33.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    print(json.dumps({"seq_model": out}, default=str))
+    print(f"[seq] phase 33 alone: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7518,6 +7940,14 @@ def main() -> int:
         Config, gpu_name_and_power_limit, resolve_device)
 
     # ---- 1. device and build ---------------------------------------- #
+    t_script = time.perf_counter()
+
+    def clock(n: int) -> None:
+        """Print when phase ``n`` starts, in seconds since the imports
+        (where the time limit goes)."""
+        print(f"[clock] phase {n} at {time.perf_counter() - t_script:.1f} s",
+              flush=True)
+
     dev = resolve_device("cuda")
     smi = gpu_name_and_power_limit().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
@@ -7539,6 +7969,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
 
     # ---- 2. cross-entropy kernels vs plain -------------------------- #
+    clock(2)
     ce_err = ce_checks(torch, dev, gen)
     print(f"[k1] cross-entropy matches its plain version on "
           f"{ce_err['cases']} cases (N x C grid and {list(CE_LM)}, f32 and "
@@ -7550,6 +7981,7 @@ def main() -> int:
           f"{ce_err['bfloat16']['grad_ulps']} ulp", flush=True)
 
     # ---- 3. SGD kernel vs plain ------------------------------------- #
+    clock(3)
     lm_shapes = [tuple(t.shape) for st in get_plan(dtype="float32", **LM).init(
         torch.Generator().manual_seed(0), torch.zeros(1)) for t in st.values()]
     check(len(lm_shapes) == LM_LEAVES, f"LM leaves: {len(lm_shapes)}")
@@ -7559,6 +7991,7 @@ def main() -> int:
           f"mixed leaves, each step one launch)", flush=True)
 
     # ---- 4. the main path ------------------------------------------- #
+    clock(4)
     ds = synthetic("mnist", n_train=BATCH * STEPS, n_test=512, seed=0)
     data = list(batches(ds.train, BATCH, seed=0, drop_remainder=True))
     check(len(data) == STEPS, "batch count")
@@ -7608,6 +8041,7 @@ def main() -> int:
           f"CLI launches {cli_counts}")
 
     # ---- 5. times ---------------------------------------------------- #
+    clock(5)
     k1 = ce_times(torch, dev, gen, bw, fp32)
     ce_common = dict(route="cuda",
                      source="split_learning_tpu_torch/csrc/cross_entropy.cu",
@@ -7677,6 +8111,7 @@ def main() -> int:
         profile=profile_steps(torch, trainer, data[:20])))
 
     # ---- 6. flash attention kernel vs plain ------------------------- #
+    clock(6)
     fa_err = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
     fa_err_train = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
     n_cases = 0
@@ -7729,6 +8164,7 @@ def main() -> int:
           f"{fa_err_train})", flush=True)
 
     # ---- 7. the serving path at full width -------------------------- #
+    clock(7)
     plan_lm = get_plan(dtype="bfloat16", **LM)
     on_card = torch.zeros(1, device=dev)
     params_lm = plan_lm.init(torch.Generator().manual_seed(0), on_card)
@@ -7822,6 +8258,7 @@ def main() -> int:
           "row max", flush=True)
 
     # ---- 8. times ---------------------------------------------------- #
+    clock(8)
     prefill_shape = (SERVE_B, SERVE_P, LM["num_heads"],
                      LM["d_model"] // LM["num_heads"])
     fa_rec = {"prefill": {}, "train": {}}
@@ -7901,6 +8338,7 @@ def main() -> int:
             per="generate")))
 
     # ---- 9. flash backward kernels vs plain ------------------------- #
+    clock(9)
     bwd_err, bwd_err_train = ({dt: {n: 0.0 for n in BWD_NAMES}
                                for dt in ("float32", "bfloat16")}
                               for _ in range(2))
@@ -8006,6 +8444,7 @@ def main() -> int:
           f"{autograd_err:.3g}; two runs bit-identical", flush=True)
 
     # ---- 10. the training path at full width ------------------------ #
+    clock(10)
     plan_tr = get_plan(dtype="float32", **LM)
     lm_train = synthetic_lm(n_train=TRAIN_B * TRAIN_STEPS, n_test=TRAIN_B,
                             vocab=LM["vocab"], seq_len=TRAIN_T, seed=0)
@@ -8124,6 +8563,7 @@ def main() -> int:
           f"(launches {cli_runs})", flush=True)
 
     # ---- 11. times ---------------------------------------------------- #
+    clock(11)
     shape = TRAIN_SHAPE
     head_dim = shape[3]
     n_rows, n_el = math.prod(shape[:3]), math.prod(shape)
@@ -8244,6 +8684,7 @@ def main() -> int:
         profile=profile_steps(torch, trainer_lm, tr_data[:10])))
 
     # ---- 12. wire kernels vs plain ----------------------------------- #
+    clock(12)
     from split_learning_tpu_torch.ops import quantize as qmod
     from split_learning_tpu_torch.ops import topk as kmod
     wire_err, wire_cases, wire_frames, ties_changed = wire_kernel_checks(
@@ -8254,9 +8695,11 @@ def main() -> int:
           f"changes {ties_changed} of 2 all-equal frames", flush=True)
 
     # ---- 13. the two-party path at full width ---------------------- #
+    clock(13)
     two_party, tp_counts = two_party_runs(torch, dev, data, planted_builds)
 
     # ---- 14. times ---------------------------------------------------- #
+    clock(14)
     wire_rec, encode_times = wire_times(torch, dev, gen, bw, fp32)
     # K2 at the LM's 54 leaves (one launch a step)
     p_lm = [torch.randn(s_, device=dev, generator=gen) for s_ in lm_shapes]
@@ -8283,16 +8726,20 @@ def main() -> int:
     del p_lm, g_lm, m_lm, opt_p, opt
 
     # ---- 15. split-party LM decode at full width ------------------- #
+    clock(15)
     decode, dec_counts, dec_ctx = decode_runs(torch, dev)
 
     # ---- 16. the two-party path over HTTP --------------------------- #
+    clock(16)
     http_rec, http_counts, http_keep = http_runs(torch, dev, data, two_party)
 
     # ---- 17. split-party inference and the CLI over HTTP ------------ #
+    clock(17)
     http_serving_rec, http_dec_counts = http_serving(
         torch, launch_run, ds, http_keep, dec_ctx, decode)
 
     # ---- 18. K2 on bf16 leaves; the fused LM in bf16 ----------------- #
+    clock(18)
     lm_bf16_leaves = [(tuple(t.shape), t.dtype) for st in get_plan(
         dtype="bfloat16", **LM).init(torch.Generator().manual_seed(0),
                                      torch.zeros(1)) for t in st.values()]
@@ -8309,42 +8756,54 @@ def main() -> int:
     bf16_runs, bf16_counts = lm_bf16_runs(torch, tr_data)
 
     # ---- 19. the two-party LM: local wire, then the CLI over HTTP ---- #
+    clock(19)
     tp_lm, tp_lm_counts = two_party_lm_runs(torch, tr_data)
     tp_lm["cli_http"] = lm_cli_http(torch, launch_run)
 
     # ---- 20. the U-shaped CNN ---------------------------------------- #
+    clock(20)
     u_cnn, u_cnn_counts = u_cnn_runs(torch, data)
 
     # ---- 21. the U-shaped LM at full width, bf16 --------------------- #
+    clock(21)
     u_lm, u_lm_counts = u_lm_runs(torch, tr_data)
 
     # ---- 22. federated training over HTTP ---------------------------- #
+    clock(22)
     fed, fed_counts = federated_http_runs(torch)
 
     # ---- 23. the multi-client runner, then the CLI of 20-23 --------- #
+    clock(23)
     mc, mc_counts = multi_client_runs(torch)
     cli_u_fed = u_fed_cli(torch, launch_run)
 
     # ---- 24. checkpoints and what loads them ------------------------- #
+    clock(24)
     ckpt_rec, ckpt_counts = checkpoint_runs(torch, launch_run)
 
     # ---- 25. the server under many clients --------------------------- #
+    clock(25)
     many_rec, many_counts = many_clients_runs(torch, tr_data)
 
     # ---- 26. the image families: ResNet-18 and the ViT --------------- #
+    clock(26)
     image_rec, image_counts, vit_fa = image_runs(
         torch, launch_run, dev, gen, (bw, fp32, bf16_peak, flash_peak))
 
     # ---- 27. the K-stage chain --------------------------------------- #
+    clock(27)
     chain_rec, chain_counts = chain_runs(torch, launch_run, image_rec)
 
     # ---- 28. observability ------------------------------------------ #
+    clock(28)
     obs_rec, obs_counts = obs_runs(torch, launch_run, smi)
 
     # ---- 29. scan-steps, remat, replicas, autoscaling ---------------- #
+    clock(29)
     fleet_rec, fleet_counts = fleet_runs(torch, launch_run, smi)
 
     # ---- 30. the device mesh ----------------------------------------- #
+    clock(30)
     mesh_fa = mesh_flash_checks(torch, dev, gen, bw, flash_peak)
     mesh_rec, mesh_counts = mesh_runs(torch, launch_run, smi, tr_data)
     for name in (FA, *BWD_NAMES, FWD, BWD, SGD):
@@ -8352,6 +8811,7 @@ def main() -> int:
               f"phase 30's runs launched {name} no time: {mesh_counts}")
 
     # ---- 31. the model axis ------------------------------------------ #
+    clock(31)
     tp_fa = mesh_flash_checks(torch, dev, gen, bw, flash_peak, TP_FA_SHAPES)
     tp_rec, tp_counts = model_axis_runs(torch, launch_run, smi, tr_data)
     for name in (FA, *BWD_NAMES, FWD, BWD, SGD):
@@ -8359,7 +8819,16 @@ def main() -> int:
               f"phase 31's runs launched {name} no time: {tp_counts}")
 
     # ---- 32. the native host codec and the concurrency checker ------- #
+    clock(32)
     an_rec = analysis_native_runs(torch, dev, smi, many_rec)
+
+    # ---- 33. the seq axis with the model axis; attn="auto" ----------- #
+    clock(33)
+    sm_rec, sm_counts, sm_fa, sm_ce = seq_model_runs(
+        torch, launch_run, dev, gen, bw, fp32, flash_peak, tr_data)
+    for name in (FA, *BWD_NAMES, FWD, BWD, SGD):
+        check(sm_counts.get(name, 0) > 0,
+              f"phase 33's runs launched {name} no time: {sm_counts}")
 
     for rec in records:
         key = launch_of.get(rec["name"], rec["name"])
@@ -8535,6 +9004,26 @@ def main() -> int:
             rec["tp_shapes_whole_backward"] = {
                 k: dict(r["bwd"], shape=r["shape"], causal=r["causal"])
                 for k, r in tp_fa.items()}
+        # phase 33: (b)'s runs, and a step's of each leg
+        rec["launches_seq_model"] = sm_counts.get(key, 0)
+        sm_lm = sm_rec["lm"]
+        rec["launches_per_step_seq_model"] = {
+            f"{leg}_model{SM_MODEL}_seq{SM_SEQ}": sm_lm[leg][
+                "launches_per_step"].get(key, 0)
+            for leg in ("ring_flash", "ulysses", "sgd")}
+        if rec["name"] == FA:
+            rec["seq_model_shapes"] = {
+                k: dict(r["fwd"], shape=r["shape"], causal=r["causal"],
+                        strict=r["strict"]) for k, r in sm_fa.items()}
+        if rec["name"] == BWD_DKV:
+            rec["seq_model_shapes_whole_backward"] = {
+                k: dict(r["bwd"], shape=r["shape"], causal=r["causal"],
+                        strict=r["strict"], g_lse=r["g_lse"])
+                for k, r in sm_fa.items()}
+        if key in (FWD, BWD):
+            rec["seq_model_shape"] = dict(
+                sm_ce["fwd" if key == FWD else "bwd"], shape=sm_ce["shape"],
+                dtype=sm_ce["dtype"])
     two_party_line = dict(two_party=dict(
         model="split_cnn", mode="split", transport="local", batch=BATCH,
         steps=STEPS, density=DENSITY, device=kind, kernel_cases=wire_cases,
@@ -8558,6 +9047,8 @@ def main() -> int:
         batch=TRAIN_B, seq_len=TRAIN_T, cut=list(LM_CUT), steps=TRAIN_STEPS,
         density=DENSITY, optimizer="adamw", device=kind, card=smi, **tp_lm))
 
+    print(f"[clock] all phases at {time.perf_counter() - t_script:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps(step))
     print(json.dumps(serving))
@@ -8593,6 +9084,9 @@ def main() -> int:
     print(json.dumps({"model_axis": dict(device=kind, kernels=tp_fa,
                                          **tp_rec)}))
     print(json.dumps({"analysis_native": dict(device=kind, **an_rec)}))
+    print(json.dumps({"seq_model": dict(device=kind, card=smi,
+                                        kernels=sm_fa, k1=sm_ce,
+                                        **sm_rec)}, default=str))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -8727,6 +9221,8 @@ if __name__ == "__main__":
         sys.exit(_mlflow_stub_main())
     if sys.argv[1:] == ["--phase", "32"]:
         sys.exit(phase32_main())
+    if sys.argv[1:] == ["--phase", "33"]:
+        sys.exit(phase33_main())
     if sys.argv[1:] == ["--native-ops"]:
         sys.exit(native_ops_main())
     if sys.argv[1:2] == ["--host-line"] and len(sys.argv) <= 3:

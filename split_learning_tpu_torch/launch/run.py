@@ -143,8 +143,8 @@ fused trainer and the served party).
 
 The ``model`` mesh axis, as JAX's: ``train --model-parallel N`` on the
 fused transport trains over ``global_mesh(num_clients, model_parallel,
-seq_parallel)`` (tensor parallelism, ``parallel/tensor.py``; with
-``--seq-parallel`` too it exits 2, ROADMAP item 18.2); another
+seq_parallel)`` (tensor parallelism, ``parallel/tensor.py``, composed
+with ``--seq-parallel``'s T-partitioned step); another
 transport warns as JAX does and trains without it. ``--mesh-data`` and
 ``--mesh-model`` shard the served party (``serve``), the in-process
 server of ``train --transport local`` and the chain's in-process
@@ -1007,8 +1007,7 @@ def _fused_mesh(cfg, plan, sample, size_kw, seq_len, multi_host: bool,
     ignored (with a warning) for a model without a sequence axis or a
     ViT whose patch tokens do not divide over it; a mesh is built for
     ``--num-clients`` > 1, ``--model-parallel`` > 1, ``--seq-parallel`` >
-    1 or a multi-host run (too few devices raise ``ValueError``; a
-    ``model`` with a ``seq`` axis ``NotImplementedError``); a ring form
+    1 or a multi-host run (too few devices raise ``ValueError``); a ring form
     with no ``seq`` axis warns that it runs the single-device math; an
     attention plan is rebuilt with the mesh. Returns ``(cfg, mesh,
     plan)``."""
@@ -1030,10 +1029,6 @@ def _fused_mesh(cfg, plan, sample, size_kw, seq_len, multi_host: bool,
                   f"{t_tokens} patch tokens ({h}x{w}, patch {patch}) do not "
                   "divide across it", file=sys.stderr)
             cfg = cfg.replace(seq_parallel=1)
-    if cfg.model_parallel > 1 and cfg.seq_parallel > 1:
-        raise NotImplementedError(
-            "not ported yet: --model-parallel with --seq-parallel (tensor "
-            "with context parallelism, ROADMAP item 18.2)")
     mesh = None
     if (cfg.num_clients > 1 or cfg.model_parallel > 1
             or cfg.seq_parallel > 1 or multi_host):

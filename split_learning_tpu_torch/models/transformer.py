@@ -35,18 +35,34 @@ and ``"flash"`` the hand-written kernels, K5 forward and K6 backward
 blocks dense or chosen per shape for ``"ring"`` and on K5/K6 for
 ``"ring_flash"``; :func:`ops.ring_attention.ulysses_attention`); with no
 ``seq`` axis they run the single-device math, as JAX's do. ``"auto"``
-waits for the crossover measured on the H100 and raises.
+resolves per call to ``"full"`` or ``"flash"`` by
+:func:`~split_learning_tpu_torch.ops.flash_attention.select_attention`
+on the call's batch, whole T, heads and dtype, as JAX's does (the
+speed rule's crossover measured on the H100).
 
 Tensor parallelism (a ``model`` axis) needs nothing of the plan: the
 parameters it runs are laid out on the mesh
 (:class:`~split_learning_tpu_torch.parallel.tensor.ShardedParam`) and
 each op runs per rank. On such parameters the attention runs
 :func:`~split_learning_tpu_torch.parallel.tensor.head_parallel_attention`:
-each model rank its own heads when the ranks divide them, K5 and K6
-once a rank and block. ``"full"`` and ``"flash"`` take a ``model``
-axis; the sequence-parallel forms do not (a ``model`` and a ``seq``
-axis together: ROADMAP item 18.2). :data:`TP_HEAVY_PARAMS` names the
-layers whose weights the rule must shard, as JAX's does.
+each model rank its own heads when the ranks divide them (and, for
+Ulysses over a ``seq`` axis, a rank's heads divide over it), K5 and K6
+once a rank and block; else the heads gather and attend whole.
+:data:`TP_HEAVY_PARAMS` names the layers whose weights the rule must
+shard, as JAX's does.
+
+The ``seq`` axis (the fused trainer's step): the first stage takes a
+:class:`~split_learning_tpu_torch.parallel.tensor.SeqInput` and every
+stage after it :class:`~split_learning_tpu_torch.parallel.tensor.
+SeqBlocks`, a block of T/n tokens a seq rank. Each block embeds its
+ids and adds its slice of ``pos``, every Dense, LayerNorm and residual
+runs on each block, the attention takes the blocks
+(``"full"``/``"flash"`` through
+:func:`~split_learning_tpu_torch.ops.ring_attention.seq_local_attention`),
+the LM head gives logits blocks and the classifier head's mean over T is
+a float32 sum a rank, summed across the ranks onto the first and divided
+by T. A ``model`` axis composes with it: each seq rank's ops run on its
+model ranks. The KV-cache modes take whole sequences.
 
 KV-cache decode (:mod:`runtime.generate`): ``cache_len=L`` (prefill)
 also returns per-block ``{"k", "v"}`` buffers of length ``L``;
@@ -65,12 +81,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from split_learning_tpu_torch.core.stage import SplitPlan, Stage
-from split_learning_tpu_torch.ops.flash_attention import flash_attention
+from split_learning_tpu_torch.ops.flash_attention import (
+    flash_attention, select_attention)
 from split_learning_tpu_torch.ops.ring_attention import (
-    full_attention, ring_attention, ulysses_attention)
-from split_learning_tpu_torch.parallel.mesh import MODEL_AXIS, SEQ_AXIS
+    full_attention, ring_attention, seq_local_attention, ulysses_attention)
+from split_learning_tpu_torch.parallel.mesh import SEQ_AXIS
 from split_learning_tpu_torch.parallel.tensor import (
-    head_parallel_attention, is_sharded)
+    SeqBlocks, SeqInput, head_parallel_attention, is_sharded, on_block,
+    reduce_sum)
 
 _META = "meta"  # stage modules describe shapes only; params live outside
 _ATTN_IMPLS = ("full", "flash", "auto", "ring", "ring_flash", "ulysses")
@@ -157,24 +175,61 @@ class MultiHeadAttention(nn.Module):
         self.v = Dense(d_model, d_model, dtype)
         self.out = Dense(d_model, d_model, dtype)
 
-    def _attend(self, q: torch.Tensor, k: torch.Tensor,
-                v: torch.Tensor) -> torch.Tensor:
-        """The attention of ``[B, T, H, D]`` heads, by ``attn``."""
-        if self.attn == "ring":
+    def _impl(self, q: Any) -> str:
+        """``attn``, with ``"auto"`` resolved for this call's shape as
+        JAX's does (its batch, the whole T, every head)."""
+        if self.attn != "auto":
+            return self.attn
+        one = q.blocks[0] if isinstance(q, SeqBlocks) else q
+        t = q.t if isinstance(q, SeqBlocks) else one.shape[1]
+        return select_attention(one.shape[0], t, self.num_heads,
+                                one.element_size(), device=one.device)
+
+    def _attend(self, q: Any, k: Any, v: Any) -> Any:
+        """The attention of ``[B, T, H, D]`` heads (tensors, or
+        :class:`SeqBlocks` of a seq-partitioned step), by ``attn``."""
+        impl = self._impl(q)
+        if impl == "ring":
             return ring_attention(q, k, v, mesh=self.mesh,
                                   causal=self.causal)
-        if self.attn == "ring_flash":
+        if impl == "ring_flash":
             return ring_attention(q, k, v, mesh=self.mesh,
                                   causal=self.causal, block_impl="flash")
-        if self.attn == "ulysses":
+        if impl == "ulysses":
             return ulysses_attention(q, k, v, mesh=self.mesh,
                                      causal=self.causal)
-        if self.attn == "flash":
+        if isinstance(q, SeqBlocks):
+            return seq_local_attention(q, k, v, causal=self.causal,
+                                       use_flash=impl == "flash")
+        if impl == "flash":
             return flash_attention(q, k, v, causal=self.causal)
         return full_attention(q, k, v, causal=self.causal)
 
+    def _head_multiple(self) -> int:
+        """What a model rank's head count must be a multiple of for the
+        rank to attend its own heads: Ulysses splits them over a ``seq``
+        axis (else the heads are gathered and attend whole, as JAX's
+        shard_map over ``(data, seq)`` attends every head)."""
+        if self.attn != "ulysses" or self.mesh is None \
+                or SEQ_AXIS not in self.mesh.axis_names:
+            return 1
+        return self.mesh.shape[SEQ_AXIS]
+
+    def _forward_blocks(self, x: SeqBlocks) -> SeqBlocks:
+        b, t_local, e = x.blocks[0].shape
+        if e % self.num_heads != 0:
+            raise ValueError(f"d_model {e} % heads {self.num_heads} != 0")
+        o = head_parallel_attention(x, (self.q, self.k, self.v),
+                                    self.num_heads, self._attend,
+                                    self._head_multiple())
+        return o.map(lambda ob: self.out(ob.reshape(b, t_local, e)))
+
     def forward(self, x: torch.Tensor, *, cache_len: int = 0,
                 decode_cache: Cache = None, pos: Optional[int] = None):
+        if isinstance(x, SeqBlocks):
+            if cache_len or decode_cache is not None:
+                raise ValueError("KV-cache modes take whole sequences")
+            return self._forward_blocks(x)
         b, t, e = x.shape
         if e % self.num_heads != 0:
             raise ValueError(f"d_model {e} % heads {self.num_heads} != 0")
@@ -183,7 +238,8 @@ class MultiHeadAttention(nn.Module):
         if (is_sharded(self.q.weight) and not cache_len
                 and decode_cache is None):
             o = head_parallel_attention(x, (self.q, self.k, self.v),
-                                        self.num_heads, self._attend)
+                                        self.num_heads, self._attend,
+                                        self._head_multiple())
             return self.out(o.reshape(b, t, e))
         q = self.q(x).reshape(heads)
         k = self.k(x).reshape(heads)
@@ -224,17 +280,24 @@ class Block(nn.Module):
         self.up = Dense(d_model, mlp_ratio * d_model, dtype)
         self.down = Dense(mlp_ratio * d_model, d_model, dtype)
 
+    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down(F.gelu(self.up(self.ln2(x)), approximate="tanh"))
+
     def forward(self, x: torch.Tensor, *, cache_len: int = 0,
                 decode_cache: Cache = None, pos: Optional[int] = None):
         caching = bool(cache_len) or decode_cache is not None
+        if isinstance(x, SeqBlocks):
+            if caching:
+                raise ValueError("KV-cache modes take whole sequences")
+            x = x + self.mha(x.map(self.ln1))
+            return x + x.map(self._mlp)
         if caching:
             h, cache = self.mha(self.ln1(x), cache_len=cache_len,
                                 decode_cache=decode_cache, pos=pos)
         else:
             h = self.mha(self.ln1(x))
         x = x + h
-        y = F.gelu(self.up(self.ln2(x)), approximate="tanh")
-        out = x + self.down(y)
+        out = x + self._mlp(x)
         return (out, cache) if caching else out
 
 
@@ -266,6 +329,8 @@ class EmbedStage(nn.Module):
     """Client bottom stage: token + learned positional embeddings, then
     ``depth`` blocks. ``[B, T] int -> [B, T, d_model]`` (the cut tensor)."""
 
+    takes_seq_input = True   # a seq-partitioned step starts here
+
     def __init__(self, vocab: int, d_model: int, num_heads: int, depth: int,
                  max_len: int, attn: str, causal: bool,
                  dtype: torch.dtype, mesh: Any = None) -> None:
@@ -277,9 +342,28 @@ class EmbedStage(nn.Module):
         _make_blocks(self, depth, d_model=d_model, num_heads=num_heads,
                      attn=attn, causal=causal, dtype=dtype, mesh=mesh)
 
+    def _forward_blocks(self, tokens: SeqInput) -> SeqBlocks:
+        """Each seq rank embeds its slice of the ids and adds its slice
+        of ``pos``: ``[B, T] -> SeqBlocks of [B, T/n, d_model]``."""
+        ids = SeqBlocks.split(tokens.x, tokens.devs)
+        if ids.t > self.max_len:
+            raise ValueError(f"sequence length {ids.t} > max_len "
+                             f"{self.max_len}")
+        tl = ids.t_local
+        out = []
+        for s, blk in enumerate(ids.blocks):
+            with on_block(s):
+                out.append(self.tok(blk) + self.pos[s * tl:(s + 1) * tl][None])
+        return _thread_blocks(self, self.depth, SeqBlocks(out, ids.devs), 0,
+                              None, None)
+
     def forward(self, tokens: torch.Tensor, *, cache_len: int = 0,
                 decode_cache: Optional[Sequence[dict]] = None,
                 pos: Optional[int] = None):
+        if isinstance(tokens, SeqInput):
+            if cache_len or decode_cache is not None:
+                raise ValueError("KV-cache modes take whole sequences")
+            return self._forward_blocks(tokens)
         t = tokens.shape[1]
         if t > self.max_len:
             raise ValueError(f"sequence length {t} > max_len {self.max_len}")
@@ -313,7 +397,10 @@ class TrunkStage(nn.Module):
 
 
 class HeadStage(nn.Module):
-    """Final LN -> mean-pool over T -> Dense(num_classes)."""
+    """Final LN -> mean-pool over T -> Dense(num_classes). On
+    :class:`SeqBlocks` the mean is each seq rank's float32 sum over its
+    tokens, summed across the ranks onto the first and divided by T; the
+    Dense runs there."""
 
     def __init__(self, d_model: int, num_classes: int,
                  dtype: torch.dtype) -> None:
@@ -322,6 +409,11 @@ class HeadStage(nn.Module):
         self.fc = Dense(d_model, num_classes, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(x, SeqBlocks):
+            sums = x.map(lambda xb: self.ln_f(xb).float().sum(dim=1))
+            pooled = reduce_sum(sums.blocks, x.devs[0]) / x.t
+            with on_block(0):
+                return self.fc(pooled.to(self.ln_f.compute_dtype))
         return self.fc(self.ln_f(x).mean(dim=1))
 
 
@@ -337,6 +429,8 @@ class LMHeadStage(nn.Module):
 
     def forward(self, x: torch.Tensor, *, cache_len: int = 0,
                 decode_cache: Any = None, pos: Optional[int] = None):
+        if isinstance(x, SeqBlocks):
+            return x.map(lambda xb: self.lm_head(self.ln_f(xb)))
         y = self.lm_head(self.ln_f(x))
         return (y, ()) if (cache_len or decode_cache is not None) else y
 
@@ -367,24 +461,12 @@ class TrunkAndHead(nn.Module):
         return self.head(self.trunk(x))
 
 
-def check_attn(attn: str, mesh: Any = None) -> None:
-    """Every attention form but ``"auto"`` runs. An unknown name raises
-    ``ValueError`` (JAX's); ``"auto"``, a mesh with both a ``model`` and
-    a ``seq`` axis, and a sequence-parallel form on a ``model`` axis
-    raise ``NotImplementedError``."""
+def check_attn(attn: str) -> None:
+    """Every attention form runs, on any mesh; an unknown name raises
+    ``ValueError`` (JAX's)."""
     if attn not in _ATTN_IMPLS:
         raise ValueError(
             f"Unknown attn impl: {attn!r} (expected {_ATTN_IMPLS})")
-    if attn == "auto":
-        raise NotImplementedError(
-            "attn='auto' picks dense or flash by a crossover measured on the "
-            "card; the H100 crossover is not measured yet (ROADMAP), so "
-            "choose 'full' or 'flash'")
-    if mesh is not None and MODEL_AXIS in mesh.axis_names and (
-            SEQ_AXIS in mesh.axis_names or attn not in ("full", "flash")):
-        raise NotImplementedError(
-            "not ported yet: a model axis with context parallelism (a "
-            "seq axis or a sequence-parallel attn; ROADMAP item 18.2)")
 
 
 def transformer_plan(mode: str = "split", dtype: torch.dtype = torch.float32,
@@ -399,7 +481,7 @@ def transformer_plan(mode: str = "split", dtype: torch.dtype = torch.float32,
     ``dtype`` is ``torch.float32`` or ``torch.bfloat16``. ``mesh`` is
     the device mesh whose ``seq`` axis the ring and Ulysses forms shard
     over."""
-    check_attn(attn, mesh)
+    check_attn(attn)
     causal = causal or lm
     common = dict(attn=attn, causal=causal, dtype=dtype, mesh=mesh)
     embed = Stage("embed", EmbedStage(vocab, d_model, num_heads,

@@ -27,11 +27,13 @@ synthetic set, 3 for CIFAR-10; ``launch.run`` derives it from the
 dataset). It sizes only the init: a plan applies parameters of any
 channel count.
 
-``attn`` is ``"full"`` (dense), ``"flash"`` (the K5/K6 kernels) or a
+``attn`` is ``"full"`` (dense), ``"flash"`` (the K5/K6 kernels),
+``"auto"`` (one of the two per shape, as the transformer's) or a
 sequence-parallel form over ``mesh``'s ``seq`` axis (``"ring"``,
-``"ring_flash"``, ``"ulysses"``; the patch tokens are the sequence);
-``"auto"`` raises as the transformer's does
-(:func:`models.transformer.check_attn`).
+``"ring_flash"``, ``"ulysses"``; the patch tokens are the sequence). On
+a ``seq`` axis the fused trainer's step partitions the patch tokens:
+seq rank s runs the stem on the image rows that hold its T/n tokens
+and keeps those (``PatchEmbedStage._forward_blocks``).
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ from split_learning_tpu_torch.models.cnn import _nchw
 from split_learning_tpu_torch.models.transformer import (
     HeadStage, TrunkAndHead, TrunkStage, _make_blocks, _thread_blocks,
     check_attn)
+from split_learning_tpu_torch.parallel.tensor import (
+    SeqBlocks, SeqInput, on_block)
 
 _META = "meta"  # stage modules describe shapes only; params live outside
 
@@ -76,6 +80,8 @@ class PatchEmbedStage(nn.Module):
     transformer blocks. H and W must divide by ``patch`` and T must not
     exceed ``max_tokens`` (``ValueError`` otherwise, as in JAX)."""
 
+    takes_seq_input = True   # a seq-partitioned step starts here
+
     def __init__(self, d_model: int, num_heads: int, depth: int,
                  patch: int = 4, max_tokens: int = 256, attn: str = "full",
                  dtype: torch.dtype = torch.float32,
@@ -89,7 +95,7 @@ class PatchEmbedStage(nn.Module):
         _make_blocks(self, depth, d_model=d_model, num_heads=num_heads,
                      attn=attn, causal=False, dtype=dtype, mesh=mesh)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _grid(self, x: torch.Tensor) -> tuple:
         b, h, w, _ = x.shape
         p = self.patch_size
         if h % p or w % p:
@@ -99,6 +105,36 @@ class PatchEmbedStage(nn.Module):
         if t > self.max_tokens:
             raise ValueError(f"{t} patch tokens > max_tokens "
                              f"{self.max_tokens}")
+        return b, w // p, t
+
+    def _forward_blocks(self, inp: SeqInput) -> SeqBlocks:
+        """Seq rank s takes the image rows that hold its T/n patch tokens
+        (whole patch rows; a row its neighbour shares is computed on
+        both), runs the stem on them and keeps its tokens and its slice
+        of ``pos``."""
+        x, p = inp.x, self.patch_size
+        b, gw, t = self._grid(x)
+        if t % inp.n:
+            raise ValueError(f"{t} patch tokens do not divide over the "
+                             f"'seq' axis ({inp.n})")
+        tl = t // inp.n
+        out = []
+        for s, dev in enumerate(inp.devs):
+            lo, hi = s * tl, (s + 1) * tl
+            r0, r1 = lo // gw, -(-hi // gw)
+            with on_block(s):
+                y = self.patch(_nchw(x[:, r0 * p:r1 * p].to(dev)))
+                y = y.permute(0, 2, 3, 1).reshape(b, (r1 - r0) * gw,
+                                                  self.d_model)
+                out.append(y[:, lo - r0 * gw:hi - r0 * gw]
+                           + self.pos[lo:hi][None])
+        return _thread_blocks(self, self.depth, SeqBlocks(out, inp.devs), 0,
+                              None, None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(x, SeqInput):
+            return self._forward_blocks(x)
+        b, _, t = self._grid(x)
         y = self.patch(_nchw(x))                          # [B, d, H/p, W/p]
         y = y.permute(0, 2, 3, 1).reshape(b, t, self.d_model)
         y = y + self.pos[None, :t]
@@ -114,7 +150,7 @@ def vit_plan(mode: str = "split", dtype: torch.dtype = torch.float32, *,
     """Build the split-ViT :class:`SplitPlan` for ``mode`` (JAX's
     signature, plus ``channels``, the image's channel count the patch
     conv's init is drawn for)."""
-    check_attn(attn, mesh)
+    check_attn(attn)
     common = dict(attn=attn, causal=False, dtype=dtype, mesh=mesh)
     embed = Stage("patch_embed", PatchEmbedStage(
         d_model, num_heads, client_depth, patch=patch, max_tokens=max_tokens,

@@ -112,11 +112,12 @@ def ce_forward_cuda(logits: torch.Tensor, labels: torch.Tensor
     lse = torch.empty(n, device=logits.device, dtype=torch.float32)
     loss = torch.empty((), device=logits.device, dtype=torch.float32)
     stream = current_stream_handle(logits.device)
-    rc = _lib().slt_ce_fwd(logits.data_ptr(), labels.data_ptr(),
-                           lse.data_ptr(),
-                           _scratch(logits.device, stream.value).data_ptr(),
-                           loss.data_ptr(), n, c,
-                           int(logits.dtype == torch.bfloat16), stream)
+    with torch.cuda.device(logits.device):
+        rc = _lib().slt_ce_fwd(
+            logits.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+            _scratch(logits.device, stream.value).data_ptr(),
+            loss.data_ptr(), n, c, int(logits.dtype == torch.bfloat16),
+            stream)
     check_launch(rc, FWD)
     LAUNCHES.add(FWD)
     return loss, lse
@@ -136,10 +137,12 @@ def ce_backward_cuda(logits: torch.Tensor, labels: torch.Tensor,
     if g.numel() != 1:
         raise ValueError("the loss cotangent must be a scalar")
     grad = torch.empty_like(logits)
-    rc = _lib().slt_ce_bwd(logits.data_ptr(), labels.data_ptr(),
-                           lse.data_ptr(), g.data_ptr(), grad.data_ptr(), n,
-                           c, int(logits.dtype == torch.bfloat16),
-                           current_stream_handle(logits.device))
+    with torch.cuda.device(logits.device):
+        rc = _lib().slt_ce_bwd(
+            logits.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+            g.data_ptr(), grad.data_ptr(), n, c,
+            int(logits.dtype == torch.bfloat16),
+            current_stream_handle(logits.device))
     check_launch(rc, BWD)
     LAUNCHES.add(BWD)
     return grad

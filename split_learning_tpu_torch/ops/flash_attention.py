@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -262,11 +263,12 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty((b, t, h, d), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, t, h), device=q.device, dtype=torch.float32)
     strides = _strides(q, k, v)
-    rc = _lib().slt_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b, t, h, d, d ** -0.5,
-        ctypes.cast(strides, ctypes.c_void_p), int(causal), int(strict),
-        int(q.dtype == torch.bfloat16), current_stream_handle(q.device))
+    with torch.cuda.device(q.device):
+        rc = _lib().slt_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, t, h, d, d ** -0.5,
+            ctypes.cast(strides, ctypes.c_void_p), int(causal), int(strict),
+            int(q.dtype == torch.bfloat16), current_stream_handle(q.device))
     check_launch(rc, NAME)
     LAUNCHES.add(NAME)
     return o, lse
@@ -303,11 +305,12 @@ def _launch_delta(o: torch.Tensor, do: torch.Tensor,
     b, t, h, d = o.shape
     delta = torch.empty((b, t, h), device=o.device, dtype=torch.float32)
     strides = _strides(o, do)
-    rc = _bwd_lib().slt_flash_bwd_delta(
-        o.data_ptr(), do.data_ptr(),
-        None if g_lse is None else g_lse.data_ptr(), delta.data_ptr(),
-        b, t, h, d, ctypes.cast(strides, ctypes.c_void_p),
-        int(o.dtype == torch.bfloat16), current_stream_handle(o.device))
+    with torch.cuda.device(o.device):
+        rc = _bwd_lib().slt_flash_bwd_delta(
+            o.data_ptr(), do.data_ptr(),
+            None if g_lse is None else g_lse.data_ptr(), delta.data_ptr(),
+            b, t, h, d, ctypes.cast(strides, ctypes.c_void_p),
+            int(o.dtype == torch.bfloat16), current_stream_handle(o.device))
     check_launch(rc, BWD_DELTA)
     LAUNCHES.add(BWD_DELTA)
     return delta
@@ -323,11 +326,13 @@ def _launch_grads(name: str, q, k, v, do, lse, delta, causal,
                  for _ in range(2 if name == BWD_DKV else 1))
     b, t, h, d = q.shape
     strides = _strides(q, k, v, do)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in outs),
-            b, t, h, d, d ** -0.5, ctypes.cast(strides, ctypes.c_void_p),
-            int(causal), int(strict), int(q.dtype == torch.bfloat16),
-            current_stream_handle(q.device))
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(),
+                *(x.data_ptr() for x in outs), b, t, h, d, d ** -0.5,
+                ctypes.cast(strides, ctypes.c_void_p), int(causal),
+                int(strict), int(q.dtype == torch.bfloat16),
+                current_stream_handle(q.device))
     check_launch(rc, name)
     LAUNCHES.add(name)
     return outs
@@ -448,3 +453,63 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for :func:`split_learning_tpu_torch.ops.ring_attention.full_attention`
     with the hand-written kernels on the card."""
     return flash_attention_with_lse(q, k, v, causal)[0]
+
+
+# --------------------------------------------------------------------- #
+# attn="auto": dense or flash per shape (JAX's select_attention)
+
+# The H100 speed crossover by operand size in bytes (2: bfloat16, 4:
+# float32): the smallest T at which K5+K6 (forward and backward, causal,
+# H 2, D 128, B*T = 65536) beat dense full_attention there and at every
+# larger T measured (T 16 to 4096), from chip_smoke.py phase 33 (c)
+# (PERF.md, Findings; H100 80GB HBM3, 700.00 W). Dense / flash ms:
+# bf16 T 16 0.4734 / 0.4656, T 32 0.5188 / 0.2879, T 1024 3.3667 /
+# 0.7833 (flash won at every T measured; at T 16 by 2%, and below 16 is
+# not measured); float32 T 64 1.0004 / 1.3914, T 128 1.5649 / 1.4211,
+# T 1024 8.4750 / 4.3446 (dense won at T 16-64). JAX's own constant
+# (1024) was measured on a TPU and is not ported.
+FLASH_SPEED_T: Dict[int, int] = {2: 16, 4: 128}
+FLASH_AUTO_T_ENV = "SLT_FLASH_AUTO_T"
+# JAX's memory budget where the device reports none (its CPU test
+# meshes): keeps the CPU resolution equal to JAX's
+_DEFAULT_MEMORY_BYTES = 16 * 1024 ** 3
+
+
+def _device_memory_bytes(device: Optional[torch.device]) -> int:
+    """The card's memory, or 16 GiB where the device does not say (JAX's
+    ``_device_hbm_bytes``)."""
+    if device is not None and torch.device(device).type == "cuda":
+        return int(torch.cuda.get_device_properties(device).total_memory)
+    return _DEFAULT_MEMORY_BYTES
+
+
+def select_attention(b: int, t: int, h: int, itemsize: int,
+                     hbm_bytes: Optional[int] = None,
+                     t_kv: Optional[int] = None,
+                     device: Optional[torch.device] = None) -> str:
+    """``attn="auto"``: ``"full"`` or ``"flash"`` for one shape, by JAX's
+    two rules, the one home of both (``ops/ring_attention.py`` resolves
+    its ``block_impl`` here too):
+
+    1. speed: on the card (``device`` a CUDA device), flash at or past
+       :data:`FLASH_SPEED_T` for the operand size. It is off where the
+       plain versions run (CPU tensors), as JAX's is off under the
+       Pallas interpreter;
+    2. memory: flash when dense attention's backward residuals, 3
+       buffers of ``[b, h, t, t_kv]``, outgrow half the device's memory
+       (``hbm_bytes``; the card's, else 16 GiB, JAX's default).
+
+    ``SLT_FLASH_AUTO_T`` overrides both: flash at or past that T."""
+    if t_kv is None:
+        t_kv = t
+    env = os.environ.get(FLASH_AUTO_T_ENV)
+    if env:
+        return "flash" if max(t, t_kv) >= int(env) else "full"
+    on_card = device is not None and torch.device(device).type == "cuda"
+    if on_card and itemsize in FLASH_SPEED_T \
+            and max(t, t_kv) >= FLASH_SPEED_T[itemsize]:
+        return "flash"
+    if hbm_bytes is None:
+        hbm_bytes = _device_memory_bytes(device)
+    dense_resident = 3 * b * h * t * t_kv * itemsize
+    return "flash" if dense_resident > hbm_bytes // 2 else "full"

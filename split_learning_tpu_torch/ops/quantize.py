@@ -160,9 +160,10 @@ def q8_encode_cuda(x: torch.Tensor, n_out: int) -> torch.Tensor:
     grid = lib.slt_q8_amax_quantize_grid(n, n_out, cap)
     partials = torch.empty(grid, device=x.device, dtype=torch.float32)
     buf = torch.empty(HEADER + n_out, device=x.device, dtype=torch.uint8)
-    rc = lib.slt_q8_amax_quantize(x.data_ptr(), n, n_out, is_bf16,
-                                  partials.data_ptr(), grid, buf.data_ptr(),
-                                  current_stream_handle(x.device))
+    with torch.cuda.device(x.device):
+        rc = lib.slt_q8_amax_quantize(
+            x.data_ptr(), n, n_out, is_bf16, partials.data_ptr(), grid,
+            buf.data_ptr(), current_stream_handle(x.device))
     check_launch(rc, QUANT)
     LAUNCHES.add(QUANT)
     return buf
@@ -174,9 +175,10 @@ def dequantize_cuda(q: torch.Tensor, scale: float) -> torch.Tensor:
     out = torch.empty(q.shape, device=q.device, dtype=torch.float32)
     if q.numel() == 0:
         return out
-    rc = _lib().slt_q8_dequantize(q.data_ptr(), q.numel(), float(scale),
-                                  out.data_ptr(),
-                                  current_stream_handle(q.device))
+    with torch.cuda.device(q.device):
+        rc = _lib().slt_q8_dequantize(q.data_ptr(), q.numel(), float(scale),
+                                      out.data_ptr(),
+                                      current_stream_handle(q.device))
     check_launch(rc, DEQUANT)
     LAUNCHES.add(DEQUANT)
     return out

@@ -23,13 +23,19 @@ device, and gather the output back to the caller's device. JAX's
   sequence for ``H / n`` heads, dense or on K5/K6.
 
 Autograd differentiates through the device copies and the merge, as
-JAX's transpose does. Called inside :func:`~split_learning_tpu_torch.
-parallel.mesh.data_row`, a form takes its inputs as that data row's and
-uses that row's ``seq`` devices only (the fused trainer's data
-replicas); otherwise it splits the batch over the data rows as JAX's
-``shard_map`` does. With virtual ranks on one card every rank is the
-same device and the copies are no-ops; the launches are those of n
-ranks.
+JAX's transpose does. The fused trainer's step hands the forms
+:class:`~split_learning_tpu_torch.parallel.tensor.SeqBlocks`, its
+activations already partitioned along T, and they run on the blocks
+where they lie and return blocks. A plain tensor, called outside such a
+step, is scattered over the ranks and gathered back (``_sharded``):
+inside :func:`~split_learning_tpu_torch.parallel.mesh.data_row` as that
+data row's, over that row's ``seq`` devices only; otherwise its batch
+split over the data rows as JAX's ``shard_map`` does.
+:func:`seq_local_attention` is ``"full"`` and ``"flash"`` on blocks.
+``block_impl="auto"`` resolves through the port's
+:func:`~split_learning_tpu_torch.ops.flash_attention.select_attention`.
+With virtual ranks on one card every rank is the same device and the
+copies are no-ops; the launches are those of n ranks.
 """
 
 from __future__ import annotations
@@ -43,20 +49,21 @@ import torch
 from split_learning_tpu_torch.ops.common import NEG_BIG
 from split_learning_tpu_torch.parallel.mesh import (
     DATA_AXIS, SEQ_AXIS, Mesh, active_row)
-
-# JAX's default memory budget where the backend reports none (its CPU
-# test meshes): keeps the CPU resolution equal to JAX's
-_DEFAULT_MEMORY_BYTES = 16 * 1024 ** 3
+from split_learning_tpu_torch.parallel.tensor import (
+    SeqBlocks, gather, restripe, scatter)
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   causal: bool = False) -> torch.Tensor:
-    """Plain dense softmax attention, ``[B, T, H, D] -> [B, T, H, D]``."""
+                   causal: bool = False, q_offset: int = 0) -> torch.Tensor:
+    """Plain dense softmax attention, ``[B, T, H, D] -> [B, T, H, D]``.
+    ``q_offset``: the queries' first position among the keys' (a causal
+    query block of a longer sequence)."""
     scale = q.shape[-1] ** -0.5
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     if causal:
         tq, tk = q.shape[1], k.shape[1]
-        mask = (torch.arange(tq, device=q.device)[:, None]
+        mask = (torch.arange(q_offset, q_offset + tq,
+                             device=q.device)[:, None]
                 >= torch.arange(tk, device=q.device)[None, :])
         s = s.masked_fill(~mask, NEG_BIG)
     p = torch.softmax(s, dim=-1)
@@ -251,31 +258,55 @@ def _sharded(mesh: Mesh, axis_name: str, body: Callable, q: torch.Tensor,
     return torch.cat(outs, 0) if len(outs) > 1 else outs[0]
 
 
+def _on_blocks(body: Callable, q: SeqBlocks, k: SeqBlocks, v: SeqBlocks,
+               causal: bool, **body_kw) -> SeqBlocks:
+    """``body`` on T-partitioned blocks where they already lie: no
+    scatter before and no gather after."""
+    return SeqBlocks(body(q.blocks, k.blocks, v.blocks, q.devs, causal,
+                          **body_kw), q.devs)
+
+
+def seq_local_attention(q: SeqBlocks, k: SeqBlocks, v: SeqBlocks,
+                        causal: bool = False,
+                        use_flash: bool = False) -> SeqBlocks:
+    """``"full"`` or ``"flash"`` attention on T-partitioned blocks (a
+    plan built with a ``seq`` mesh and no sequence-parallel form), as
+    JAX's GSPMD partitions them. Dense: every rank gathers the whole K
+    and V and attends its own queries (:func:`full_attention` with the
+    block's offset). Flash: q, k and v are gathered onto the first rank,
+    K5/K6 run once over the whole T and the output is scattered back (a
+    Pallas call is one op GSPMD does not partition either)."""
+    if use_flash:
+        from split_learning_tpu_torch.ops.flash_attention import (
+            flash_attention)
+        whole = [gather(x.blocks, 1, q.devs[0]) for x in (q, k, v)]
+        o = flash_attention(*whole, causal=causal)
+        return SeqBlocks(scatter(o, 1, q.devs), q.devs)
+    out = []
+    for r, (qb, dev) in enumerate(zip(q.blocks, q.devs)):
+        kw = torch.cat([b.to(dev) for b in k.blocks], 1)
+        vw = torch.cat([b.to(dev) for b in v.blocks], 1)
+        out.append(full_attention(qb, kw, vw, causal=causal,
+                                  q_offset=r * q.t_local))
+    return SeqBlocks(out, q.devs)
+
+
 # --------------------------------------------------------------------- #
-# block_impl="auto": JAX's memory rule and its override
-
-def _memory_bytes(device: torch.device) -> int:
-    if device.type == "cuda":
-        return int(torch.cuda.get_device_properties(device).total_memory)
-    return _DEFAULT_MEMORY_BYTES
-
+# block_impl="auto": the port's select_attention (ops/flash_attention.py)
 
 def _resolve_block_impl(block_impl: str, b: int, t_q: int, t_kv: int,
                         h: int, itemsize: int,
                         device: torch.device = torch.device("cpu")) -> str:
-    """``"auto"``: flash when the dense backward's residuals (3 buffers
-    of ``[b, h, t_q, t_kv]``) outgrow half the device's memory, or when
-    ``SLT_FLASH_AUTO_T`` is set and ``max(t_q, t_kv)`` reaches it. JAX's
-    speed rule is measured on the TPU and left out (JAX skips it on the
-    CPU too, so the CPU resolves as JAX does)."""
+    """``"auto"``: :func:`~split_learning_tpu_torch.ops.flash_attention.
+    select_attention` on one rank's shapes (its speed rule on the card,
+    its memory rule, ``SLT_FLASH_AUTO_T``), as JAX's resolves through
+    its own ``select_attention``."""
     if block_impl != "auto":
         return block_impl
-    env = os.environ.get("SLT_FLASH_AUTO_T")
-    if env:
-        return "flash" if max(t_q, t_kv) >= int(env) else "dense"
-    dense_resident = 3 * b * h * t_q * t_kv * itemsize
-    return ("flash" if dense_resident > _memory_bytes(device) // 2
-            else "dense")
+    from split_learning_tpu_torch.ops.flash_attention import (
+        select_attention)
+    choice = select_attention(b, t_q, h, itemsize, t_kv=t_kv, device=device)
+    return "flash" if choice == "flash" else "dense"
 
 
 def _check_impl(form: str, block_impl: str) -> None:
@@ -312,15 +343,19 @@ def stripe_permutation(t: int, n: int) -> np.ndarray:
     return np.concatenate([np.arange(r, t, n) for r in range(n)])
 
 
-def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   mesh: Optional[Mesh] = None, causal: bool = False,
-                   axis_name: str = SEQ_AXIS, block_impl: str = "auto",
-                   layout: str = "auto") -> torch.Tensor:
+def ring_attention(q, k, v, mesh: Optional[Mesh] = None,
+                   causal: bool = False, axis_name: str = SEQ_AXIS,
+                   block_impl: str = "auto", layout: str = "auto"):
     """Sequence-parallel attention over ``mesh``'s ``seq`` axis.
 
-    ``q/k/v``: global ``[B, T, H, D]``; T must divide by the seq axis
-    size. With no mesh, or no ``seq`` axis, the single-device math runs
-    (dense, or the flash kernels when ``block_impl`` resolves so).
+    ``q/k/v``: global ``[B, T, H, D]`` tensors, or
+    :class:`~split_learning_tpu_torch.parallel.tensor.SeqBlocks` of a
+    data row's T-partitioned blocks (the fused trainer's step), which
+    the ring runs where they lie and returns as blocks. A tensor's T must
+    divide by the seq axis size; it is scattered over the ranks and the
+    output gathered back. With no mesh, or no ``seq`` axis, the
+    single-device math runs (dense, or the flash kernels when
+    ``block_impl`` resolves so).
 
     ``block_impl``: ``"dense"`` (each rank's O(T_local^2) scores in
     float32), ``"flash"`` (K5/K6 on every block) or ``"auto"``
@@ -328,24 +363,37 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``"contiguous"`` blocks, ``"striped"`` (token g on rank g % n, every
     causal hop about half masked) or ``"auto"``, which stripes exactly
     a causal flash ring; without ``causal`` a striped request runs
-    contiguous."""
+    contiguous. Striping blocks is a cross-rank exchange each way
+    (:func:`~split_learning_tpu_torch.parallel.tensor.restripe`)."""
     _check_impl("ring", block_impl)
     if layout not in ("auto", "contiguous", "striped"):
         raise ValueError(f"Unknown ring layout: {layout!r} "
                          "(expected 'auto', 'contiguous' or 'striped')")
-    if mesh is None or axis_name not in mesh.axis_names:
+    blocks = isinstance(q, SeqBlocks)
+    if not blocks and (mesh is None or axis_name not in mesh.axis_names):
         return _single_device(q, k, v, causal, block_impl)
-    b, t, h, _ = q.shape
-    n = mesh.shape[axis_name]
+    if blocks:
+        b, t_local, h, _ = q.blocks[0].shape
+        n, t, dev = q.n, q.t, q.devs[0]
+    else:
+        b, t, h, _ = q.shape
+        n, dev = mesh.shape[axis_name], q.device
+        b, t_local = _rows_batch(mesh, b), t // n
     # the dense body's residuals are float32 whatever the input dtype
-    impl = _resolve_block_impl(block_impl, _rows_batch(mesh, b), t // n, t,
-                               h, 4, q.device)
+    impl = _resolve_block_impl(block_impl, b, t_local, t, h, 4, dev)
     if layout == "auto":
         layout = "striped" if causal and impl == "flash" else "contiguous"
     if layout == "striped" and not causal:
         layout = "contiguous"
     body = _ring_flash if impl == "flash" else _ring_dense
-    if layout == "striped":
+    striped = layout == "striped"
+    if blocks:
+        if not striped:
+            return _on_blocks(body, q, k, v, causal, striped=False)
+        o = _on_blocks(body, *(restripe(x, True) for x in (q, k, v)),
+                       causal, striped=True)
+        return restripe(o, False)
+    if striped:
         perm_np = stripe_permutation(t, n)
         perm = torch.as_tensor(perm_np, device=q.device)
         inv = torch.as_tensor(np.argsort(perm_np), device=q.device)
@@ -355,15 +403,24 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _sharded(mesh, axis_name, body, q, k, v, causal, striped=False)
 
 
-def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      mesh: Optional[Mesh] = None, causal: bool = False,
-                      axis_name: str = SEQ_AXIS,
-                      block_impl: str = "auto") -> torch.Tensor:
+def ulysses_attention(q, k, v, mesh: Optional[Mesh] = None,
+                      causal: bool = False, axis_name: str = SEQ_AXIS,
+                      block_impl: str = "auto"):
     """All-to-all (DeepSpeed-Ulysses) sequence-parallel attention; needs
     ``H`` divisible by the seq axis size. ``block_impl`` picks each
     rank's full-sequence math over its ``H / n`` heads (dense, flash, or
-    ``"auto"``). With no ``seq`` axis, the single-device math."""
+    ``"auto"``). ``q/k/v`` are tensors or
+    :class:`~split_learning_tpu_torch.parallel.tensor.SeqBlocks`, as
+    :func:`ring_attention` takes them. With no ``seq`` axis, the
+    single-device math."""
     _check_impl("ulysses", block_impl)
+    if isinstance(q, SeqBlocks):
+        b, _, h, _ = q.blocks[0].shape
+        impl = _resolve_block_impl(block_impl, b, q.t, q.t,
+                                   max(h // q.n, 1),
+                                   q.blocks[0].element_size(), q.devs[0])
+        return _on_blocks(_ulysses, q, k, v, causal,
+                          use_flash=impl == "flash")
     if mesh is None or axis_name not in mesh.axis_names:
         return _single_device(q, k, v, causal, block_impl)
     b, t, h, _ = q.shape

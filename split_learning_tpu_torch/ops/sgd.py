@@ -129,9 +129,10 @@ def sgd_step_cuda(params: Sequence[torch.Tensor],
                        for _, _, m in part]
         table.numel[:k] = [p.numel() for p, _, _ in part]
         table.bf16[:k] = [p.dtype == torch.bfloat16 for p, _, _ in part]
-        rc = _lib().slt_sgd_step(k, table.p, table.g, table.m, table.numel,
-                                 table.bf16, lr, momentum,
-                                 current_stream_handle(part[0][0].device))
+        with torch.cuda.device(part[0][0].device):
+            rc = _lib().slt_sgd_step(
+                k, table.p, table.g, table.m, table.numel, table.bf16, lr,
+                momentum, current_stream_handle(part[0][0].device))
         check_launch(rc, NAME)
         LAUNCHES.add(NAME)
 

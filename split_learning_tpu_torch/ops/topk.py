@@ -115,11 +115,12 @@ def fold_magnitudes_cuda(x: torch.Tensor, res: Optional[torch.Tensor] = None,
     x_eff = torch.empty_like(m) if want_x_eff else None
     bad = torch.zeros(1, device=x.device, dtype=torch.int32)
     if n:
-        rc = _lib().slt_topk_magnitudes(
-            x.data_ptr(), res.data_ptr() if res is not None else None,
-            float(decay), n, int(x.dtype == torch.bfloat16),
-            x_eff.data_ptr() if x_eff is not None else None, m.data_ptr(),
-            bad.data_ptr(), current_stream_handle(x.device))
+        with torch.cuda.device(x.device):
+            rc = _lib().slt_topk_magnitudes(
+                x.data_ptr(), res.data_ptr() if res is not None else None,
+                float(decay), n, int(x.dtype == torch.bfloat16),
+                x_eff.data_ptr() if x_eff is not None else None,
+                m.data_ptr(), bad.data_ptr(), current_stream_handle(x.device))
         check_launch(rc, NAME)
         LAUNCHES.add(NAME)
     return x_eff, m, bad
@@ -238,11 +239,13 @@ def topk8_select_cuda(x: torch.Tensor, res: Optional[torch.Tensor],
     stream = current_stream_handle(x.device)
     scratch = _scratch(x.device, stream.value)
     with _ENCODE_LOCK:
-        rc = _select_lib().slt_topk8_encode(
-            x.data_ptr(), int(x.dtype == torch.bfloat16),
-            res.data_ptr() if res is not None else None, float(decay), n,
-            k, int(bitmap), x_eff.data_ptr() if x_eff is not None else None,
-            scratch.data_ptr(), buf.data_ptr(), stream)
+        with torch.cuda.device(x.device):
+            rc = _select_lib().slt_topk8_encode(
+                x.data_ptr(), int(x.dtype == torch.bfloat16),
+                res.data_ptr() if res is not None else None, float(decay),
+                n, k, int(bitmap),
+                x_eff.data_ptr() if x_eff is not None else None,
+                scratch.data_ptr(), buf.data_ptr(), stream)
     check_launch(rc, SELECT_LAUNCHES[0])
     for name in SELECT_LAUNCHES:
         LAUNCHES.add(name)

@@ -24,8 +24,15 @@ Axes:
   tensor.ShardedParam`, whose ``F.linear``, ``F.conv2d``, embedding
   gather and positional add run per rank on its shard
   (:mod:`.tensor`);
-- ``seq``: context parallelism (``ops/ring_attention.py``). A mesh with
-  both ``model`` and ``seq`` is not ported (ROADMAP item 18.2).
+- ``seq``: context parallelism, JAX's activation placement ``P(data,
+  seq)``: a step's activations ``[B, T, ...]`` split their T over the
+  seq ranks (:func:`seq_devices`; ``parallel/tensor.py`` ``SeqBlocks``),
+  so every op but the attention runs on a rank's T/n tokens, and the
+  attention forms (``ops/ring_attention.py``) exchange blocks. The
+  parameters are replicated over ``seq``: each seq coordinate's model
+  ranks hold their :func:`tp_leaf_sharding` shards, and with no
+  ``model`` axis each seq rank a whole copy. It composes with
+  ``model``.
 
 Devices. :func:`make_mesh` takes distinct CUDA cards by default and
 raises JAX's ``ValueError`` when too few are visible; it never shrinks
@@ -254,6 +261,18 @@ class Sharding:
         if self.axis is None:
             return parts[0].to(first)
         return torch.cat([p.to(first) for p in parts], 0)
+
+
+def seq_devices(mesh: Mesh, row: int = 0) -> List[List[torch.device]]:
+    """JAX's activation placement ``P(data, seq)`` for data row ``row``:
+    ``[s][m]``, the device of seq rank s and model rank m (one model rank
+    where the mesh has no ``model`` axis). Block s of the row's
+    activations lives on ``[s][0]``; seq rank s's copy of each parameter
+    on ``[s][m]``, as :func:`tp_leaf_sharding` places it there."""
+    if SEQ_AXIS not in mesh.axis_names:
+        return [mesh.axis_devices(MODEL_AXIS, **{DATA_AXIS: row})]
+    return [mesh.axis_devices(MODEL_AXIS, **{DATA_AXIS: row, SEQ_AXIS: s})
+            for s in range(mesh.shape[SEQ_AXIS])]
 
 
 def tp_leaf_sharding(mesh: Mesh, leaf: Any, name: str = "weight"

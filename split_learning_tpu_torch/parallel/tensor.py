@@ -43,12 +43,32 @@ gradient of each shard on its rank (:meth:`ShardedParam.leaves`), and
 the state keeps and updates the shards in place
 (``runtime/state.py`` :class:`~split_learning_tpu_torch.runtime.state.
 ShardedState`).
+
+The ``seq`` axis, as JAX lays it out (``P(data, seq)``): a step's
+activations are :class:`SeqBlocks`, one block of T/n tokens a seq rank,
+each on its rank's device, from the first stage (which takes a
+:class:`SeqInput` and each rank its slice of the input) to the loss.
+The models run every per-token op (Dense, LayerNorm, GELU, the residual
+adds, the embedding lookup) on each block where it lies, as that rank
+(:func:`on_block`), and only the attention exchanges blocks
+(``ops/ring_attention.py``; the striped ring through :func:`restripe`,
+a cross-rank permutation whose backward is its inverse). Each seq rank
+reads its own copy of the parameters: :func:`seq_view` broadcasts every
+leaf (or every model rank's shard) from seq rank 0 to the same model
+rank of the other seq ranks, and the broadcast's backward sums the seq
+ranks' gradients, JAX's psum over ``seq``. A column- or row-parallel op
+on a block runs on that seq rank's model ranks.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple, Optional, Sequence
+import contextlib
+import contextvars
+from typing import (
+    Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence,
+    Tuple)
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -175,7 +195,7 @@ class ShardedParam(torch.Tensor):
 
     @staticmethod
     def __new__(cls, grid: Sequence[Sequence[torch.Tensor]],
-                shard_dim: Optional[int]):
+                shard_dim: Optional[int], over_seq: bool = False):
         first = grid[0][0]
         shape = list(first.shape)
         if shard_dim is not None:
@@ -185,9 +205,11 @@ class ShardedParam(torch.Tensor):
         return torch.Tensor._make_subclass(cls, base, False)
 
     def __init__(self, grid: Sequence[Sequence[torch.Tensor]],
-                 shard_dim: Optional[int]) -> None:
+                 shard_dim: Optional[int], over_seq: bool = False) -> None:
         self.grid = [list(row) for row in grid]
         self.shard_dim = shard_dim
+        # rows are seq ranks (:func:`seq_view`), read one a block
+        self.over_seq = over_seq
 
     def leaves(self) -> List[torch.Tensor]:
         """The tensors autograd differentiates: every shard of a split
@@ -206,13 +228,13 @@ class ShardedParam(torch.Tensor):
     def _map(self, fn: Callable[[torch.Tensor], torch.Tensor]
              ) -> "ShardedParam":
         return ShardedParam([[fn(t) for t in row] for row in self.grid],
-                            self.shard_dim)
+                            self.shard_dim, self.over_seq)
 
     def _index(self, idx: Any) -> "ShardedParam":
         """``self[idx]`` for an index that leaves the split dim whole."""
         grid = [[t[idx] for t in row] for row in self.grid]
         if self.shard_dim is None:
-            return ShardedParam(grid, None)
+            return ShardedParam(grid, None, self.over_seq)
         with torch._C.DisableTorchFunctionSubclass():
             whole = torch.empty(tuple(self.shape), device="meta")[idx]
         first = grid[0][0]
@@ -222,7 +244,7 @@ class ShardedParam(torch.Tensor):
                 != whole.shape[diff[0]]:
             raise NotImplementedError(
                 "an index across the split dim of a sharded parameter")
-        return ShardedParam(grid, diff[0])
+        return ShardedParam(grid, diff[0], self.over_seq)
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
@@ -284,8 +306,16 @@ def _data_parallel(fn: Callable[..., torch.Tensor], x: torch.Tensor,
                    params: Sequence[Any], *rest: Any) -> torch.Tensor:
     """``fn(x_row, *param_rows, *rest)`` on each data row: the batch of
     ``x`` scattered over the rows' first ranks, the rows' results
-    gathered back onto ``x``'s device."""
+    gathered back onto ``x``'s device. Parameters whose rows are seq
+    ranks (:func:`seq_view`) run the row of the block being computed
+    (:func:`on_block`) on ``x`` as it is."""
     grid_of = next(p for p in params if isinstance(p, ShardedParam))
+    if grid_of.over_seq:
+        s = _BLOCK.get()
+        if s is None:
+            raise RuntimeError("a seq-replicated parameter read outside a "
+                               "seq block (parallel/tensor.py on_block)")
+        return fn(x, *[_row_view(p, s) for p in params], *rest)
     rows = len(grid_of.grid)
     if rows == 1:
         return fn(x, *[_row_view(p, 0) for p in params], *rest)
@@ -426,22 +456,208 @@ _OPS = {
 
 
 # --------------------------------------------------------------------- #
+# activations partitioned along T over the seq ranks
+# --------------------------------------------------------------------- #
+_BLOCK: contextvars.ContextVar = contextvars.ContextVar("slt_seq_block",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def on_block(s: int) -> Iterator[None]:
+    """Compute as seq rank ``s``: a parameter of :func:`seq_view` reads
+    its row ``s``, that rank's copies on its devices."""
+    token = _BLOCK.set(int(s))
+    try:
+        yield
+    finally:
+        _BLOCK.reset(token)
+
+
+class SeqInput:
+    """One data row's input ``[B, T, ...]`` (on the host) and its seq
+    ranks' devices (model rank 0 of each), before the first stage
+    partitions it along T: the token embedding takes rank s's slice of
+    the ids on rank s, the patch stem the image rows that hold rank s's
+    patch tokens. No rank holds the whole input."""
+
+    def __init__(self, x: torch.Tensor, devs: Sequence[torch.device]) -> None:
+        self.x, self.devs = x, [torch.device(d) for d in devs]
+
+    @property
+    def n(self) -> int:
+        return len(self.devs)
+
+
+class SeqBlocks:
+    """One data row's activations ``[B, T, ...]`` partitioned along T
+    (dim 1) over its seq ranks, JAX's ``P(data, seq)`` placement:
+    ``blocks[s]`` holds tokens ``[s T/n, (s+1) T/n)`` on ``devs[s]``.
+    Per-token ops run on each block where it lies (:meth:`map`); only
+    the attention exchanges blocks between ranks."""
+
+    def __init__(self, blocks: Sequence[torch.Tensor],
+                 devs: Optional[Sequence[torch.device]] = None) -> None:
+        self.blocks = list(blocks)
+        self.devs = ([torch.device(d) for d in devs] if devs is not None
+                     else [b.device for b in self.blocks])
+
+    @classmethod
+    def split(cls, x: torch.Tensor,
+              devs: Sequence[torch.device]) -> "SeqBlocks":
+        """``x``'s equal slices along dim 1, slice s on ``devs[s]``; a
+        length that does not divide raises ``ValueError``."""
+        n = len(devs)
+        if x.shape[1] % n:
+            raise ValueError(f"sequence length {x.shape[1]} does not divide "
+                             f"over the 'seq' axis ({n})")
+        return cls([c.to(d) for c, d in zip(x.chunk(n, 1), devs)], devs)
+
+    @property
+    def n(self) -> int:
+        return len(self.blocks)
+
+    @property
+    def t_local(self) -> int:
+        return int(self.blocks[0].shape[1])
+
+    @property
+    def t(self) -> int:
+        """The global sequence length."""
+        return self.n * self.t_local
+
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]
+            ) -> "SeqBlocks":
+        """``fn`` on every block, as its seq rank (:func:`on_block`)."""
+        out = []
+        for s, b in enumerate(self.blocks):
+            with on_block(s):
+                out.append(fn(b))
+        return SeqBlocks(out, self.devs)
+
+    def __add__(self, other: "SeqBlocks") -> "SeqBlocks":
+        return SeqBlocks([a + b for a, b in zip(self.blocks, other.blocks)],
+                         self.devs)
+
+    def __repr__(self) -> str:
+        return (f"SeqBlocks({[tuple(b.shape) for b in self.blocks]}, "
+                f"devs={[str(d) for d in self.devs]})")
+
+
+def seq_view(params: Sequence[Dict[str, Any]],
+             devices: Sequence[Sequence[torch.device]]
+             ) -> Tuple[Dict[str, ShardedParam], ...]:
+    """The parameters as the seq ranks of one data row read them, JAX's
+    replication over ``seq``: ``devices[s][m]`` is the device of seq rank
+    s and model rank m. Each leaf (a tensor on seq rank 0, or a
+    :class:`ShardedParam` of one data row over the model ranks there) is
+    broadcast to the same model rank of every seq rank; the broadcast's
+    backward sums the seq ranks' gradients (JAX's psum over ``seq``), so
+    the leaves the state holds take the whole step's gradient and the
+    optimizer runs once on them. Rank s reads its row under
+    :func:`on_block`. With virtual ranks on one card the copies are
+    aliases."""
+    n = len(devices)
+    out = []
+    for stage in params:
+        view = {}
+        for k, p in stage.items():
+            if isinstance(p, ShardedParam):
+                dim = p.shard_dim
+                home = p.grid[0] if dim is not None else p.grid[0][:1]
+            else:
+                dim, home = None, [p]
+            cols = [broadcast(t, [devices[s][m] for s in range(n)])
+                    for m, t in enumerate(home)]
+            view[k] = ShardedParam([[c[s] for c in cols] for s in range(n)],
+                                   dim, over_seq=True)
+        out.append(view)
+    return tuple(out)
+
+
+def _stripe_moves(n: int, t_local: int, to_striped: bool
+                  ) -> List[Tuple[List[np.ndarray], np.ndarray]]:
+    """Per destination rank: the source slots taken from each source rank
+    (in source order), and the order that puts their concatenation in
+    the destination's token order. Contiguous: token g on rank g // t_l
+    at slot g % t_l; striped: on rank g % n at slot g // n."""
+    moves = []
+    for dst in range(n):
+        slots = np.arange(t_local)
+        g = slots * n + dst if to_striped else dst * t_local + slots
+        src = g // t_local if to_striped else g % n
+        src_slot = g % t_local if to_striped else g // n
+        picks = [np.nonzero(src == r)[0] for r in range(n)]
+        order = np.argsort(np.concatenate(picks), kind="stable")
+        moves.append(([src_slot[p] for p in picks], order))
+    return moves
+
+
+def _restripe(blocks: Sequence[torch.Tensor], devs: Sequence[torch.device],
+              to_striped: bool) -> List[torch.Tensor]:
+    n, t_local = len(blocks), int(blocks[0].shape[1])
+    out = []
+    for dst, (slots, order) in enumerate(_stripe_moves(n, t_local,
+                                                       to_striped)):
+        dev = devs[dst]
+        parts = [b.index_select(1, torch.as_tensor(sl, device=b.device))
+                 .to(dev) for b, sl in zip(blocks, slots) if len(sl)]
+        out.append(torch.cat(parts, 1).index_select(
+            1, torch.as_tensor(order, device=dev)))
+    return out
+
+
+class _Restripe(torch.autograd.Function):
+    """T-partitioned blocks from the contiguous layout to the striped one
+    (token g on rank g % n, JAX's ``stripe_permutation``) or back, a
+    cross-rank exchange; the backward is the inverse exchange."""
+
+    @staticmethod
+    def forward(ctx, to_striped, devs, *blocks):
+        ctx.to_striped, ctx.devs = to_striped, devs
+        return tuple(_restripe(blocks, devs, to_striped))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None) + tuple(_restripe(gs, ctx.devs,
+                                              not ctx.to_striped))
+
+
+def restripe(x: SeqBlocks, to_striped: bool) -> SeqBlocks:
+    """:class:`SeqBlocks` in the striped layout (``to_striped``) or back
+    in the contiguous one; differentiable."""
+    return SeqBlocks(_Restripe.apply(to_striped, tuple(x.devs), *x.blocks),
+                     x.devs)
+
+
+# --------------------------------------------------------------------- #
 # attention on its heads
 # --------------------------------------------------------------------- #
-def head_parallel_attention(x: torch.Tensor, projections: Sequence[Any],
-                            num_heads: int,
-                            attend: Callable[..., torch.Tensor]
-                            ) -> torch.Tensor:
+def head_parallel_attention(x: Any, projections: Sequence[Any],
+                            num_heads: int, attend: Callable[..., Any],
+                            head_multiple: int = 1) -> Any:
     """Multi-head attention's core on a mesh: ``projections`` are the q,
     k and v dense modules (flax ``nn.Dense``: ``weight``, ``bias`` and
     ``compute_dtype``) whose leaves are :class:`ShardedParam`; ``attend``
     takes ``[B, T, h, d]`` q, k and v and returns the ``[B, T, h, d]``
     output. Per data row: when the three weights are split on their
-    output dim and the ranks divide ``num_heads``, each rank projects
-    and attends its own ``num_heads / model`` heads and the heads are
-    gathered; else the projections are gathered (column or row
-    parallel) and the attention runs whole on the row's first rank.
-    Returns ``[B, T, num_heads, d]`` on ``x``'s device."""
+    output dim and each rank's share of ``num_heads`` is a multiple of
+    ``head_multiple`` (Ulysses over a ``seq`` axis splits a rank's heads
+    over it), each rank projects and attends its own
+    ``num_heads / model`` heads and the heads are gathered; else the
+    projections are gathered (column or row parallel) and the attention
+    runs whole on the row's first rank. Returns ``[B, T, num_heads, d]``
+    on ``x``'s device.
+
+    ``x`` may be :class:`SeqBlocks` (parameters of :func:`seq_view`):
+    then each seq rank projects its block on its own model ranks (each
+    projection the module itself, called on the rank's shard, so its
+    hooks see the block), ``attend`` takes and returns the
+    :class:`SeqBlocks` of one model rank's heads on that rank's devices
+    over the seq ranks, and the result is the blocks' heads gathered on
+    each seq rank's first model rank."""
+    if isinstance(x, SeqBlocks):
+        return _head_parallel_blocks(x, projections, num_heads, attend,
+                                     head_multiple)
     qw = projections[0].weight
 
     def row(xr: torch.Tensor, *leaves: _Leaf) -> torch.Tensor:
@@ -450,7 +666,8 @@ def head_parallel_attention(x: torch.Tensor, projections: Sequence[Any],
         ws, bs = leaves[0::2], leaves[1::2]
         dts = [m.compute_dtype for m in projections]
         n = len(ws[0].shards)
-        if all(w.dim == 0 for w in ws) and num_heads % n == 0:
+        if all(w.dim == 0 for w in ws) \
+                and num_heads % (n * head_multiple) == 0:
             devs = ws[0].devs
             xs = broadcast(xr, devs)
             per_rank = []
@@ -473,3 +690,44 @@ def head_parallel_attention(x: torch.Tensor, projections: Sequence[Any],
     if not isinstance(qw, ShardedParam):
         raise ValueError("head_parallel_attention needs sharded weights")
     return _data_parallel(row, x, params)
+
+
+def _head_parallel_blocks(x: SeqBlocks, projections: Sequence[Any],
+                          num_heads: int, attend: Callable[..., SeqBlocks],
+                          head_multiple: int) -> SeqBlocks:
+    b, t_local, e = x.blocks[0].shape
+    d = e // num_heads
+    params = [p for m in projections for p in (m.weight, m.bias)]
+    views = [[_row_view(p, s if isinstance(p, ShardedParam) and p.over_seq
+                        else 0) for p in params] for s in range(x.n)]
+    ws = views[0][0::2]
+    n_model = len(ws[0].shards)
+    if not (n_model > 1 and all(w.dim == 0 for w in ws)
+            and num_heads % (n_model * head_multiple) == 0):
+        # each seq rank's projections whole on its first model rank
+        qkv = [x.map(lambda xs, m=m: m(xs).reshape(b, t_local, num_heads, d))
+               for m in projections]
+        return attend(*qkv)
+    h_rank = num_heads // n_model
+    # per[j][m][s]: projection j of model rank m's heads on seq rank s
+    per = [[[None] * x.n for _ in range(n_model)] for _ in projections]
+    for s, xs in enumerate(x.blocks):
+        with on_block(s):
+            leaves = views[s]
+            devs = leaves[0].devs
+            xb = broadcast(xs, devs)
+            for j, mod in enumerate(projections):
+                w, bias = leaves[2 * j], leaves[2 * j + 1]
+                b_parts = scatter(bias.copy(), 0, devs)
+                for m in range(n_model):
+                    y = torch.func.functional_call(
+                        mod, {"weight": w.shards[m], "bias": b_parts[m]},
+                        (xb[m],))
+                    per[j][m][s] = y.reshape(b, t_local, h_rank, d)
+    outs = []
+    for m in range(n_model):
+        devs_m = [views[s][0].devs[m] for s in range(x.n)]
+        outs.append(attend(*(SeqBlocks(per[j][m], devs_m)
+                             for j in range(len(projections)))))
+    return SeqBlocks([gather([o.blocks[s] for o in outs], 2, x.devs[s])
+                      for s in range(x.n)], x.devs)

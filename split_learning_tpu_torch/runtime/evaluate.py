@@ -6,8 +6,8 @@ of the split-party composition, the server's stages behind
 accounting: fixed order, the partial tail batch kept, every
 label element counted once (B for classifiers, B*T for the causal LM),
 perplexity exp(mean CE) nulled on overflow. Runs on the device the
-parameters lie on; the plan's own kernels (flash attention) run there
-too. Floating inputs are cast to float32; integer token ids pass as
+parameters lie on (a meshed trainer's: its first rank's); the plan's
+own kernels (flash attention) run there too. Floating inputs are cast to float32; integer token ids pass as
 they are, as JAX's ``evaluate`` passes ``x``.
 """
 
@@ -21,6 +21,7 @@ import torch
 from split_learning_tpu_torch.core.losses import cross_entropy
 from split_learning_tpu_torch.core.stage import Params, SplitPlan, Stage
 from split_learning_tpu_torch.data.datasets import Split, batches
+from split_learning_tpu_torch.parallel.tensor import ShardedParam
 
 
 def _accumulate_metrics(split: Split, batch_size: int,
@@ -51,7 +52,11 @@ def evaluate(plan: SplitPlan, params: Sequence[Params], split: Split,
              batch_size: int = 512) -> Dict[str, float]:
     """Accuracy and mean CE loss of ``plan.apply(params, .)`` on a split."""
     params = list(params)
-    device = next(iter(params[0].values())).device
+    first = next(iter(params[0].values()))
+    # a leaf on a mesh is a data-less stand-in; its ops run from the
+    # first rank
+    device = (first.grid[0][0] if isinstance(first, ShardedParam)
+              else first).device
 
     @torch.no_grad()
     def score(x, y):

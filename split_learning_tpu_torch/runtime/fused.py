@@ -55,20 +55,30 @@ across processes: :func:`~split_learning_tpu_torch.parallel.
 distributed.sum_over_rows`) and every row applies the same update, so
 the replicas stay bit-equal and the step is JAX's global-batch mean.
 K1 launches once per row and microbatch, K2 once per row (under SGD).
-The ``seq`` axis is the plan's: a transformer or ViT built with
-``attn="ring"|"ring_flash"|"ulysses"`` and the mesh shards each
-attention over the row's ``seq`` ranks (``ops/ring_attention.py``) and
-gathers its output; the rest of the step runs on the row's tensors
-whole (JAX also partitions that along T). The ``model`` axis is tensor
+The ``seq`` axis partitions the step along T, as JAX's ``P(data, seq)``
+inputs do: each row's input stays on the host until each seq rank takes
+its slice (``parallel/tensor.py`` ``SeqInput``), the activations are
+``SeqBlocks`` from the embedding to the logits (every op but the
+attention on a rank's T/n tokens, the attention exchanging blocks:
+``ops/ring_attention.py``), and the LM's K1 runs once per seq rank on
+its B*T/n rows, the loss the mean of the ranks' equal-count means (a
+classifier's pooled logits take K1 on the first rank). A plan whose
+first stage takes no sequence (the CNN, ResNet) leaves the ``seq`` axis
+unused, with a warning: each row runs whole, as the CLI's
+``--seq-parallel`` is dropped for it. Each seq rank
+reads its copy of the row's parameters (``seq_view``): the state lives
+on seq rank 0, the broadcast's backward sums the ranks' gradients, and
+clipping and the update run once on the state. The ``model`` axis is tensor
 parallelism (JAX's ``tp_leaf_sharding`` placement): each row's replica
 is a :class:`~split_learning_tpu_torch.runtime.state.ShardedState` over
 the row's model ranks, whose ops run per rank on each rank's shard
 (``parallel/tensor.py``); the logits are gathered to the row's first
 rank, where K1 runs once per row and microbatch, and K2 updates each
 rank's own leaves in one launch a rank (``data x model`` a step under
-SGD). A mesh with both a ``model`` and a ``seq`` axis raises
-``NotImplementedError`` (ROADMAP item 18.2). A checkpoint saves one
-replica's whole leaves and restores into every row, on any mesh.
+SGD). The two compose: on ``model x seq`` each seq rank's per-token ops
+run on its model ranks, K1 once a seq rank, K2 once a model rank of
+seq rank 0. A checkpoint saves one replica's whole leaves and restores
+into every row, on any mesh.
 
 Config values the port cannot run yet raise ``NotImplementedError``
 naming the ROADMAP item that brings them (:func:`check_supported`).
@@ -77,6 +87,7 @@ naming the ROADMAP item that brings them (:func:`check_supported`).
 from __future__ import annotations
 
 import contextlib
+import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -88,7 +99,9 @@ from split_learning_tpu_torch.ops.cross_entropy import fused_cross_entropy
 from split_learning_tpu_torch.parallel.distributed import (
     process_index, sum_over_rows)
 from split_learning_tpu_torch.parallel.mesh import (
-    DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh, data_row)
+    DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh, data_row, seq_devices)
+from split_learning_tpu_torch.parallel.tensor import (
+    SeqBlocks, SeqInput, reduce_sum, seq_view)
 from split_learning_tpu_torch.runtime.state import (
     ShardedState, TrainState, check_config, init_params, leaves_of,
     make_state, make_tx, restore_state, state_tree)
@@ -128,11 +141,19 @@ class FusedSplitTrainer:
                  mesh: Optional[Mesh] = None) -> None:
         check_supported(cfg)
         tp = mesh is not None and MODEL_AXIS in mesh.axis_names
-        if tp and SEQ_AXIS in mesh.axis_names:
-            raise NotImplementedError(
-                "not ported yet: a mesh with both a model and a seq axis "
-                "(tensor with context parallelism, ROADMAP item 18.2)")
         self.mesh = mesh
+        # per local data row: devices[s][m] of its seq and model ranks
+        self._seq: Dict[int, List[List[torch.device]]] = {}
+        if mesh is not None and SEQ_AXIS in mesh.axis_names:
+            if getattr(plan.stages[0].module, "takes_seq_input", False):
+                self._seq = {d: seq_devices(mesh, d)
+                             for d in mesh.local_rows(process_index())}
+            else:
+                warnings.warn(
+                    "the mesh's 'seq' axis is not used: the plan's first "
+                    "stage has no sequence axis (transformer and ViT "
+                    "only), so each data row runs whole on its first "
+                    "device", stacklevel=2)
         if mesh is None:
             self.rows: List[int] = [0]
             self._devs = {0: resolve_device(device)}
@@ -184,13 +205,32 @@ class FusedSplitTrainer:
         y = torch.as_tensor(y).to(dev, torch.int64)
         return x, y
 
+    def _seq_loss(self, params, devices, xb, yb) -> torch.Tensor:
+        """The step's loss with its activations partitioned along T over
+        the row's seq ranks: each rank runs its tokens on its copy of
+        the parameters (:func:`~split_learning_tpu_torch.parallel.tensor.
+        seq_view`); the LM's K1 runs once a rank on its rows, the mean
+        over the ranks' equal row counts; a classifier's logits (pooled
+        over T onto the first rank) take K1 there."""
+        out = self.plan.apply(seq_view(params, devices),
+                              SeqInput(xb, [row[0] for row in devices]))
+        if not isinstance(out, SeqBlocks):
+            return fused_cross_entropy(out, yb.to(out.device))
+        labels = SeqBlocks.split(yb, out.devs)
+        losses = [fused_cross_entropy(o, t)
+                  for o, t in zip(out.blocks, labels.blocks)]
+        return reduce_sum(losses, out.devs[0]) / out.n
+
     def _loss_and_grads(self, state: TrainState, x: torch.Tensor,
-                        y: torch.Tensor):
+                        y: torch.Tensor, row: int = 0):
         params = state.params
         leaves = leaves_of(params)
 
         def value_and_grad(xb, yb):
-            loss = fused_cross_entropy(self.plan.apply(params, xb), yb)
+            if row in self._seq:
+                loss = self._seq_loss(params, self._seq[row], xb, yb)
+            else:
+                loss = fused_cross_entropy(self.plan.apply(params, xb), yb)
             return loss.detach(), torch.autograd.grad(loss, leaves)
 
         mb = self.cfg.microbatches
@@ -201,11 +241,11 @@ class FusedSplitTrainer:
         xs = x.reshape((mb, x.shape[0] // mb) + tuple(x.shape[1:]))
         ys = y.reshape((mb, y.shape[0] // mb) + tuple(y.shape[1:]))
         g_sum = [torch.zeros_like(t) for t in leaves]
-        l_sum = torch.zeros((), device=x.device)
+        l_sum = None
         for i in range(mb):
             loss, grads = value_and_grad(xs[i], ys[i])
             g_sum = [a + g for a, g in zip(g_sum, grads)]
-            l_sum = l_sum + loss
+            l_sum = loss if l_sum is None else l_sum + loss
         return l_sum / mb, [g / mb for g in g_sum]
 
     def _step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -223,10 +263,12 @@ class FusedSplitTrainer:
         xs, ys = x.chunk(n, 0), y.chunk(n, 0)
         losses, grads = [], []
         for d in self.rows:
-            dev = self._devs[d]
+            # a seq row's input stays on the host until its ranks take
+            # their slices
+            dev = "cpu" if d in self._seq else self._devs[d]
             with data_row(self.mesh, d):
                 loss, g = self._loss_and_grads(
-                    self.states[d], xs[d].to(dev), ys[d].to(dev))
+                    self.states[d], xs[d].to(dev), ys[d].to(dev), d)
             losses.append([loss.reshape(1)])
             grads.append(list(g))
         # the mean over equal shards, computed once and copied to every

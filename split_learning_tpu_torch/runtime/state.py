@@ -361,7 +361,12 @@ class ShardedState:
     that order and updates each rank in place, one optimizer call (one
     K2 launch under SGD) a rank. :meth:`whole` and :meth:`load` carry the
     state through a checkpoint as whole leaves, so a save restores onto
-    any mesh."""
+    any mesh. Over a ``seq`` axis the fused trainer keeps the state (this
+    one, or a plain :class:`TrainState`) on seq coordinate 0 and each
+    step hands every seq rank its copy of the leaves through
+    ``parallel/tensor.py`` ``seq_view``, whose backward sums the seq
+    ranks' gradients into these leaves: JAX's replication over ``seq``,
+    updated once a rank here."""
 
     def __init__(self, params: Sequence[Params], tx: "_Optimizer",
                  mesh: Mesh, rows: Optional[Sequence[int]] = None) -> None:

@@ -31,7 +31,8 @@ parameter tree, dense both ways (weights are never compressed).
 Both sides are the standard library: :class:`SplitHTTPServer` on
 ``http.server.ThreadingHTTPServer`` (HTTP/1.0: one connection a
 request), :class:`HttpTransport` on ``http.client``, one connection per
-calling thread, reopened after each of the server's closes.
+calling thread, reopened after each of the server's closes; a handshake
+that stalls is retried on a fresh socket within the request's timeout.
 
 Where the arithmetic runs follows the tensors, as on the in-process
 wire: the server decodes a request on its runtime's device (a compressed
@@ -88,6 +89,10 @@ _OP_BY_PATH = {"/forward_pass": "split_step", "/u_forward": "u_forward",
 # composite hop_seq(step, mb) ordinal
 _HOP_PATHS = ("/hop_forward", "/hop_backward", "/hop_loss")
 _OCTETS = "application/octet-stream"
+# the most one TCP handshake may take before the client gives it up and
+# opens a fresh socket (a loopback handshake takes microseconds; one that
+# stalls has lost its SYN and would wait out the kernel's retransmits)
+CONNECT_ATTEMPT_S = 5.0
 
 
 def _as_leaf(x: Any) -> Any:
@@ -499,6 +504,8 @@ class HttpTransport(Transport):
         self._local = threading.local()
         self._conns: set = set()
         self._conns_lock = threading.Lock()
+        # handshakes given up and retried on a fresh socket (_connect)
+        self.connect_retries = 0
 
     # -- connections ------------------------------------------------------ #
     def _conn(self) -> http.client.HTTPConnection:
@@ -517,6 +524,29 @@ class HttpTransport(Transport):
         with self._conns_lock:
             self._conns.discard(conn)
 
+    def _connect(self, conn: http.client.HTTPConnection) -> None:
+        """Open ``conn``'s socket. A handshake that stalls past
+        ``CONNECT_ATTEMPT_S`` is given up and tried again on a fresh
+        socket until ``timeout`` has passed: nothing was sent, so a retry
+        cannot apply a request twice. A refused connection raises at
+        once."""
+        deadline = time.monotonic() + self.timeout
+        while True:
+            left = deadline - time.monotonic()
+            conn.timeout = max(min(CONNECT_ATTEMPT_S, left), 1e-3)
+            try:
+                conn.connect()
+                break
+            except TimeoutError:
+                conn.close()
+                if left <= CONNECT_ATTEMPT_S:
+                    raise
+                with self._conns_lock:
+                    self.connect_retries += 1
+            finally:
+                conn.timeout = self.timeout
+        conn.sock.settimeout(self.timeout)
+
     def _request(self, method: str, path: str, body: Optional[bytes] = None
                  ) -> Tuple[http.client.HTTPResponse, bytes]:
         """One request on this thread's connection; a socket error or a
@@ -529,6 +559,8 @@ class HttpTransport(Transport):
             headers = {"Content-Type": _OCTETS,
                        CRC_HEADER: str(codec.checksum(body))}
         try:
+            if conn.sock is None:
+                self._connect(conn)
             conn.request(method, self._prefix + path, body=body,
                          headers=headers)
             resp = conn.getresponse()

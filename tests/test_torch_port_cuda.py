@@ -289,6 +289,27 @@ def test_ce_kernels_match_plain(dev, n, c, dtype):
     _ce_check(x, y, g_scale=0.5)
 
 
+def test_kernels_launch_on_a_card_that_is_not_current():
+    """A mesh rank's tensors may lie on a card other than the calling
+    thread's current one: K5 and K1 on cuda:1 with cuda:0 current, each
+    against its plain version (a launch into another card's stream from
+    the wrong device gave wrong values, then NaN, on a four-card mesh)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    dev = torch.device("cuda", 1)
+    g = torch.Generator(device=dev).manual_seed(0)
+    with torch.cuda.device(0):
+        q, k, v = (torch.randn(2, 65, 3, 64, device=dev, generator=g)
+                   for _ in range(3))
+        with torch.no_grad():
+            o, lse = flash_attention_with_lse(q, k, v, True, False)
+        o_p, lse_p = flash_attention_with_lse_plain(q, k, v, True, False)
+        assert (o - o_p).abs().max().item() <= TOL[torch.float32][0]
+        assert (lse - lse_p).abs().max().item() <= TOL[torch.float32][1]
+        x = 3.0 * torch.randn(64, 256, device=dev, generator=g)
+        _ce_check(x, torch.randint(0, 256, (64,), device=dev, generator=g))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c", [256, 10, 7])
 def test_ce_kernels_read_unaligned_rows(dev, c, dtype):

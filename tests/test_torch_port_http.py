@@ -445,6 +445,47 @@ def test_wait_ready_blocks_until_the_server_is_up():
         started["server"].stop()
 
 
+@pytest.mark.parametrize("stalls, timeout, ok", [
+    (2, None, True),       # two lost handshakes, then a fresh socket
+    (10**6, 0.2, False),   # a timeout shorter than one attempt: no retry
+])
+def test_stalled_handshake_retries_on_a_fresh_socket(monkeypatch, stalls,
+                                                      timeout, ok):
+    """A connect that times out is given up after ``CONNECT_ATTEMPT_S``
+    and retried on a fresh socket within the transport's timeout (the
+    request was never sent); the connected socket keeps the full
+    timeout for the reply."""
+    from split_learning_tpu_torch.transport import http as port_http
+    real = http.client.HTTPConnection.connect
+    seen = []
+
+    def stalling_connect(conn):
+        seen.append(conn.timeout)
+        if len(seen) <= stalls:
+            raise TimeoutError("timed out")
+        real(conn)
+
+    monkeypatch.setattr(http.client.HTTPConnection, "connect",
+                        stalling_connect)
+    srv = SplitHTTPServer(_port_server(_data())).start()
+    t = HttpTransport(srv.url, timeout=timeout or TIMEOUT)
+    try:
+        if ok:
+            assert t.health()["status"] == "healthy"
+            assert t.connect_retries == stalls
+            assert seen == [port_http.CONNECT_ATTEMPT_S] * (stalls + 1)
+            (conn,) = t._conns
+            assert conn.timeout == TIMEOUT
+        else:
+            with pytest.raises(TransportError, match="timed out"):
+                t.health()
+            assert t.connect_retries == 0 and len(seen) == 1
+            assert seen[0] <= timeout
+    finally:
+        t.close()
+        srv.stop()
+
+
 def test_wait_ready_times_out():
     dead = HttpTransport("http://127.0.0.1:9", timeout=5)
     t0 = time.monotonic()

@@ -136,9 +136,9 @@ def test_get_model_matches_jax(role, mode):
 def test_unported_family_raises_not_implemented():
     """The ResNet-18 plans (2, 3 and 4 stages) and the ViT's, once
     refused (ROADMAP item 20), build in float32 and bfloat16 with JAX's
-    owners and stage names; what stays unported in them raises: the
-    ViT's ``auto`` attention (its context-parallel forms build since the
-    mesh slice)."""
+    owners and stage names. The ViT's ``auto`` attention, once refused
+    too, builds and gives JAX's logits (its context-parallel forms build
+    since the mesh slice)."""
     for model, mode in PLANS[3:]:
         jplan = jax_get_plan(model=model, mode=mode)
         for dtype in ("float32", "bfloat16"):
@@ -146,8 +146,13 @@ def test_unported_family_raises_not_implemented():
             assert plan.owners == jplan.owners
             assert [s.name for s in plan.stages] == \
                 [s.name for s in jplan.stages]
-    with pytest.raises(NotImplementedError, match="crossover"):
-        get_plan(model="vit", attn="auto")
+    jplan = jax_get_plan(model="vit", attn="auto")
+    jparams = jplan.init(jax.random.PRNGKey(0), jnp.asarray(_x(2)))
+    want = np.asarray(jplan.apply(jparams, jnp.asarray(_x(2, seed=1))))
+    with torch.no_grad():
+        got = get_plan(model="vit", attn="auto").apply(
+            params_from_jax(jparams), torch.from_numpy(_x(2, seed=1)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
     for attn in ("ring", "ulysses"):   # the mesh slice: they build
         assert get_plan(model="vit", attn=attn).num_stages == 2
 

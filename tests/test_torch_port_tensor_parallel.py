@@ -393,24 +393,26 @@ def test_a_sharded_parameter_refuses_what_no_rank_can_run():
         p.T
 
 
-def test_model_with_seq_axis_waits_for_its_item(tmp_path, capsys):
-    """A mesh with both a ``model`` and a ``seq`` axis, and a
-    sequence-parallel ``attn`` on a ``model`` axis, raise naming ROADMAP
-    item 18.2 (the trainer, the plan and the CLI, exit 2)."""
-    from split_learning_tpu_torch.launch.run import main
-    mesh = make_mesh(model_parallel=2, seq_parallel=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="18.2"):
-        FusedSplitTrainer(get_plan(), Config(transport="fused"),
-                          torch.Generator().manual_seed(0), None,
-                          device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="18.2"):
-        get_plan(model="transformer", attn="ring",
-                 mesh=make_mesh(model_parallel=2, device="cpu"))
-    assert main(["train", "--device", "cpu", "--model", "transformer_lm",
-                 "--dataset", "lm", "--seq-len", "16", "--d-model", "16",
-                 "--model-parallel", "2", "--seq-parallel", "2",
-                 "--steps", "1", "--data-dir", str(tmp_path)]) == 2
-    assert "18.2" in capsys.readouterr().err
+def test_model_with_seq_axis_waits_for_its_item(tmp_path):
+    """A mesh with both a ``model`` and a ``seq`` axis (ROADMAP item
+    18.2, refused until the seq slice): ``train --model-parallel 2
+    --seq-parallel 2`` trains the LM with a ring, its checkpoint seeded
+    with the init JAX's CLI draws, and its losses are within 1e-4 of
+    JAX's CLI with the same flags on its 4-device mesh."""
+    from split_learning_tpu.launch.run import main as jax_main
+    from test_torch_port_resume import (
+        LM_FLAGS, port, seed_from_jax, small_data, take_losses)
+    flags = ["--transport", "fused", *LM_FLAGS, "--attn", "ring",
+             "--model-parallel", "2", "--seq-parallel", "2"]
+    ck = tmp_path / "ck"
+    seed_from_jax(ck, flags, "fused")
+    losses = port(tmp_path / "p", flags, "--epochs", "1",
+                  "--checkpoint-dir", str(ck), "--resume")
+    assert jax_main(["train", "--data-dir", small_data(tmp_path / "j"),
+                     "--tracking", "jsonl", "--epochs", "1", *flags]) == 0
+    j_losses = take_losses(tmp_path / "j")
+    assert len(losses) == len(j_losses) == 8
+    np.testing.assert_allclose(losses, j_losses, rtol=0, atol=1e-4)
 
 
 def test_cuda_ranks_lay_virtual_ranks_over_the_cards(monkeypatch):

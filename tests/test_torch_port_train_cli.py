@@ -99,8 +99,7 @@ def test_cli_trains_transformer_on_cpu(model, dataset, tmp_path, capsys):
     (["--model", "transformer_lm", "--dataset", "lm", "--seq-len", "0"],
      "must be positive"),
     (["--dataset", "synthetic", "--d-model", "32"], "no size overrides"),
-    (["--model", "transformer_lm", "--dataset", "lm", "--attn", "auto"],
-     "crossover"),
+    (["--model", "transformer", "--dataset", "lm"], "needs --dataset tokens"),
 ])
 def test_cli_refuses_before_loading_data(argv, msg, tmp_path, capsys):
     assert _cli(*argv, "--steps", "1", "--data-dir", str(tmp_path)) == 2

@@ -193,17 +193,18 @@ def test_get_plan_dtypes():
 
 
 @pytest.mark.parametrize("attn,exc,match", [
-    ("auto", NotImplementedError, "crossover"),
+    ("auto", None, "full"),
     ("ring", None, "full"),
     ("ring_flash", None, "flash"),
     ("ulysses", None, "full"),
     ("bogus", ValueError, "Unknown attn"),
 ])
-def test_attention_choices(attn, exc, match):
-    """``auto`` and an unknown name raise; the sequence-parallel forms
+def test_attention_choices(jax_trees, attn, exc, match):
+    """An unknown name raises; ``auto`` and the sequence-parallel forms
     build, and with no ``seq`` axis run the single-device math ``match``
     names, as JAX's do (their meshed numbers are
-    tests/test_torch_port_ring_attention.py's)."""
+    tests/test_torch_port_ring_attention.py's). ``auto`` resolves per
+    shape (dense at this one on the CPU) and gives JAX's logits."""
     if exc is None:
         ref = get_plan(model="transformer_lm", attn=match, **SIZE)
         params = ref.init(torch.Generator().manual_seed(0), torch.zeros(1))
@@ -212,6 +213,15 @@ def test_attention_choices(attn, exc, match):
             got = get_plan(model="transformer_lm", attn=attn,
                            **SIZE).apply(params, tokens)
             assert torch.equal(got, ref.apply(params, tokens))
+        if attn == "auto":
+            jparams = jax_trees["transformer_lm", "split", "float32"]
+            want = np.asarray(jax_get_plan(
+                model="transformer_lm", attn="auto", **SIZE).apply(
+                    jparams, jnp.asarray(_tokens())))
+            with torch.no_grad():
+                got = get_plan(model="transformer_lm", attn="auto",
+                               **SIZE).apply(params_from_jax(jparams), tokens)
+            np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
         return
     with pytest.raises(exc, match=match):
         get_plan(model="transformer_lm", attn=attn)
